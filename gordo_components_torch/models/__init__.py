@@ -1,0 +1,11 @@
+"""Model factories and detectors of the port.
+
+Importing this package registers the feedforward factories under the
+``"AutoEncoder"`` registry type.
+"""
+
+from gordo_components_torch.models import factories  # noqa: F401  (registers factories)
+from gordo_components_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+from gordo_components_torch.models.register import lookup_factory, register_model_builder
+
+__all__ = ["DiffBasedAnomalyDetector", "lookup_factory", "register_model_builder"]

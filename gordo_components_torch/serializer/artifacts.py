@@ -1,0 +1,109 @@
+"""The port's artifact directory.
+
+Counterpart of ``gordo_components_tpu/serializer/artifacts.py``. A port
+artifact holds no pickle; it is three files:
+
+- ``params.npz``    — network weights under the flattened Flax keys
+                      ``params/Dense_i/kernel`` (in, out) and
+                      ``params/Dense_i/bias``, as the JAX package writes them;
+- ``detector.json`` — registry type, kind, factory kwargs, ``n_features``,
+                      tags and thresholds;
+- ``scalers.npz``   — ``in_shift``, ``in_scale``, ``err_shift``, ``err_scale``.
+"""
+
+import json
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from gordo_components_torch.convert import entry_from_numpy, feedforward_to_flax
+
+PARAMS_FILE = "params.npz"
+DETECTOR_FILE = "detector.json"
+SCALERS_FILE = "scalers.npz"
+FORMAT = "gordo-torch-artifact/v1"
+_SCALERS = ("in_shift", "in_scale", "err_shift", "err_scale")
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    if isinstance(tree, dict):
+        out: Dict[str, np.ndarray] = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        return out
+    return {prefix.rstrip("/"): np.asarray(tree)}
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def is_artifact_dir(path: str) -> bool:
+    return os.path.exists(os.path.join(path, DETECTOR_FILE))
+
+
+def dump(entry, dest_dir: str) -> None:
+    """Write ``entry`` (a ``server/bank._BankEntry``) as an artifact directory at ``dest_dir``."""
+    os.makedirs(dest_dir, exist_ok=True)
+    np.savez(os.path.join(dest_dir, PARAMS_FILE), **_flatten(feedforward_to_flax(entry.params)))
+    np.savez(
+        os.path.join(dest_dir, SCALERS_FILE),
+        **{k: np.asarray(getattr(entry, k), np.float32) for k in _SCALERS},
+    )
+    meta = {
+        "format": FORMAT,
+        "registry_type": entry.registry_type,
+        "kind": entry.kind,
+        "factory_kwargs": entry.factory_kwargs,
+        "n_features": entry.n_features,
+        "tags": list(entry.tags),
+        "thresholds": entry.thresholds,
+    }
+    with open(os.path.join(dest_dir, DETECTOR_FILE), "w") as f:
+        json.dump(meta, f, indent=2)
+
+
+def load_metadata(source_dir: str) -> Dict[str, Any]:
+    with open(os.path.join(source_dir, DETECTOR_FILE)) as f:
+        meta = json.load(f)
+    if meta.get("format") != FORMAT:
+        raise ValueError(f"{source_dir}: not a {FORMAT} artifact (format={meta.get('format')!r})")
+    return meta
+
+
+def load_entry(source_dir: str, name: Optional[str] = None):
+    """The artifact at ``source_dir`` as a bank entry (numpy, no device);
+    ``name`` defaults to the directory's basename."""
+    meta = load_metadata(source_dir)
+    with np.load(os.path.join(source_dir, PARAMS_FILE)) as npz:
+        params = _unflatten({k: npz[k] for k in npz.files})
+    with np.load(os.path.join(source_dir, SCALERS_FILE)) as npz:
+        scalers = {k: npz[k] for k in _SCALERS}
+    return entry_from_numpy(
+        name or os.path.basename(os.path.normpath(source_dir)),
+        meta["registry_type"],
+        meta["kind"],
+        meta.get("factory_kwargs") or {},
+        meta["n_features"],
+        params,
+        tags=meta.get("tags"),
+        thresholds=meta.get("thresholds"),
+        **scalers,
+    )
+
+
+def load(source_dir: str, device="cuda"):
+    """The artifact at ``source_dir`` as a
+    :class:`~gordo_components_torch.models.anomaly.diff.DiffBasedAnomalyDetector`
+    on ``device``."""
+    from gordo_components_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+
+    return DiffBasedAnomalyDetector.from_entry(load_entry(source_dir), device=device)
