@@ -7,28 +7,41 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 
 1. card     torch/CUDA versions and ``nvidia-smi`` name and power limit;
 2. build    compile the CUDA kernels (``gordo_components_torch/ops/csrc``)
-            with nvcc for sm_90a;
-3. parity   hold each kernel against its plain PyTorch version on the card,
-            at the serving shape (B=64, T=64, F=10, M=10000) and at ragged
-            shapes: diff/scaled bitwise, norms within rtol=atol=1e-6; time
-            kernel, plain version and a library expression with CUDA events;
-4. http     serve a two-bucket directory of port artifacts (64 detectors at
-            10 tags, 8 at 40) with ``run_server``; 64 concurrent
-            anomaly/prediction POSTs of 64 rows, each held against the
-            port's plain computation on the CPU at atol=1e-5; a bad body
-            (400), an unknown target (404); the detectors' ``anomaly()`` on
-            the card;
-5. bank     10,000 hourglass members at 10 tags scored by 64 clients x 4
-            requests x 64 rows through BatchingEngine(max_batch=64,
-            flush_ms=2.0): latency, rows/s, average batch;
-6. counts   both kernels' launch counters over phases 4-5 (the main path),
-            which must both be above 0.
+            with nvcc for sm_90a, one nvcc per source, all at once;
+3. parity   hold each kernel against its plain PyTorch version on the card.
+            Anomaly score (K1/K2): at the serving shape (B=64, T=64, F=10,
+            M=10000) and ragged shapes, diff/scaled bitwise, norms within
+            rtol=atol=1e-6. Fused LSTM step (K3): one step (S=1) within
+            rtol=atol=1e-6 and a 32-step layer within rtol=1e-5, atol=1e-6,
+            at the serving shape (B=97 windows, M=64 slots, H=8) and ragged
+            H, B and M. Each kernel, its plain version and a library
+            expression are timed with CUDA events;
+4. http     serve a four-bucket directory of port artifacts with
+            ``run_server``: 64 feedforward detectors at 10 tags, 8 at 40, and
+            8 ``LSTMAutoEncoder`` + 4 ``LSTMForecast`` detectors
+            (``lstm_hourglass``, 10 tags, lookback 32). Concurrent
+            anomaly/prediction POSTs (64 rows feedforward, 128 rows LSTM),
+            each held against the port's plain computation on the CPU, with
+            the LSTM responses' index trimmed by the warm-up offset; a bad
+            body (400), a request within the warm-up (400), an unknown target
+            (404); the detectors' ``anomaly()`` on the card;
+5. bank     10,000 feedforward hourglass members at 10 tags scored by 64
+            clients x 4 requests x 64 rows through BatchingEngine(max_batch=64,
+            flush_ms=2.0): latency, rows/s, average batch; then one full
+            batch of 64 requests alone: its host wall time against its
+            device time (profiler), and the costliest device operations;
+6. lstm     the same for 10,000 ``lstm_hourglass`` members (10 tags,
+            lookback 32) and 128-row requests (97 scored rows each), with the
+            fused-LSTM-step launches per batch;
+7. counts   the three main-path wrappers' launch counters over phases 4-6,
+            which must all be above 0.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
 CUDA. Weights and data are random, made from fixed seeds.
 """
 
+import functools
 import json
 import os
 import shutil
@@ -43,10 +56,11 @@ import urllib.request
 import numpy as np
 import torch
 
-from gordo_components_torch import serializer
-from gordo_components_torch.convert import entry_from_numpy
+from gordo_components_torch import resolve_device, serializer
+from gordo_components_torch.convert import entry_from_numpy, lstm_to_flax
+from gordo_components_torch.models import lookup_factory
 from gordo_components_torch.models.factories.feedforward import hourglass_calc_dims
-from gordo_components_torch.ops import _cuda, score
+from gordo_components_torch.ops import _cuda, score, seq_scan
 from gordo_components_torch.server import BatchingEngine, ModelBank, run_server
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -55,13 +69,26 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 NORM_RTOL = NORM_ATOL = 1e-6  # the JAX package's band for the two norms
 E2E_ATOL = 1e-5  # card vs CPU: matmul accumulation order and tanh differ in the last bits
+# LSTM card vs CPU: the JAX suite's band for the time-major scan against the
+# per-member layout (tests/test_seq_fastpath.py)
+LSTM_RTOL, LSTM_ATOL = 1e-4, 1e-5
+STEP_RTOL = STEP_ATOL = 1e-6  # one fused LSTM step (the JAX suite's band)
+LAYER_RTOL, LAYER_ATOL = 1e-5, 1e-6  # 32 chained steps (ditto)
 SERVE_SHAPE = (64, 64, 10, 10000)  # B, T, F, M of a full coalesced batch
 RAGGED = [(3, 261, 130, 5), (1, 7, 3, 1), (8, 16, 257, 16)]
+LOOKBACK = 32
+# (S, B, M, H) of the LSTM bank's full batch: 32 steps, 97 windows of a
+# 128-row request, 64 slots, the widest hourglass layer; then ragged shapes
+LSTM_SERVE = (LOOKBACK, 97, 64, 8)
+LSTM_RAGGED = [(LOOKBACK, 1, 1, 5), (LOOKBACK, 3, 7, 37), (LOOKBACK, 200, 1, 64),
+               (LOOKBACK, 3, 7, 130), (LOOKBACK, 1, 7, 512), (LOOKBACK, 200, 7, 512)]
 KERNELS = {
     "banked_anomaly_score": "gordo_components_tpu/ops/pallas_score.py:298",
     "fused_anomaly_score": "gordo_components_tpu/ops/pallas_score.py:84",
+    "lstm_layer": "gordo_components_tpu/ops/seq_scan.py:218",
 }
 SOURCE = "gordo_components_torch/ops/csrc/anomaly_score.cu"
+LSTM_SOURCE = "gordo_components_torch/ops/csrc/lstm_step.cu"
 
 
 def phase(name: str, **fields) -> None:
@@ -130,8 +157,8 @@ def time_ms(fn, args, warmup=20, runs=100) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def kernel_device_us(fn, args, runs=50):
-    """Average device time of the anomaly-score kernel itself, from the
+def kernel_device_us(fn, args, runs=50, kernel="anomaly_score_kernel"):
+    """Average device time of the named CUDA kernel itself, from the
     profiler's CUDA trace; None when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -140,7 +167,7 @@ def kernel_device_us(fn, args, runs=50):
             fn(*args)
         torch.cuda.synchronize()
     for evt in prof.key_averages():
-        if "anomaly_score_kernel" in evt.key:
+        if kernel in evt.key:
             us = getattr(evt, "device_time", None) or getattr(evt, "cuda_time", None)
             return round(us, 3) if us else None
     return None
@@ -159,7 +186,7 @@ def bound_ms(B, T, F, idx) -> float:
 def kernel_phase():
     results = {}
     B, T, F, M = SERVE_SHAPE
-    errs = {k: 0.0 for k in KERNELS}
+    errs = {"banked_anomaly_score": 0.0, "fused_anomaly_score": 0.0}
     for i, (b, t, f, m) in enumerate([SERVE_SHAPE, *RAGGED]):
         args = make_case(b, t, f, m, seed=i)
         got = score.banked_anomaly_score(*args)
@@ -201,8 +228,107 @@ def kernel_phase():
     return results
 
 
+def lstm_case(S, B, M, H, seed):
+    """Inputs of S LSTM steps at the scale of a fitted stack: xz (S, B, M,
+    4H), h, c (B, M, H), Wh (M, H, 4H) with columns of unit variance, b
+    (M, 4H)."""
+    g = torch.Generator().manual_seed(seed)
+    xz = torch.randn(S, B, M, 4 * H, generator=g)
+    h = torch.tanh(torch.randn(B, M, H, generator=g))
+    c = torch.randn(B, M, H, generator=g)
+    Wh = torch.randn(M, H, 4 * H, generator=g) / H ** 0.5
+    b = 0.1 * torch.randn(M, 4 * H, generator=g)
+    return [a.cuda() for a in (xz, h, c, Wh, b)]
+
+
+def library_step(xz_t, h, c, Wh, b):
+    """One step as one torch.baddbmm plus the gate expression (yardstick
+    only), in the (M, B, .) layout baddbmm wants."""
+    z = torch.baddbmm(xz_t.transpose(0, 1), h.transpose(0, 1), Wh) + b[:, None, :]
+    i, f, g, o = z.chunk(4, dim=-1)
+    c2 = torch.sigmoid(f) * c.transpose(0, 1) + torch.sigmoid(i) * torch.tanh(g)
+    return c2.transpose(0, 1), (torch.sigmoid(o) * torch.tanh(c2)).transpose(0, 1)
+
+
+def library_layer(xz, Wh, b):
+    """A layer as S library steps from a zero state (yardstick only)."""
+    S, B, M, H4 = xz.shape
+    h = c = xz.new_zeros((B, M, H4 // 4))
+    ys = []
+    for t in range(S):
+        c, h = library_step(xz[t], h, c, Wh, b)
+        ys.append(h)
+    return torch.stack(ys)
+
+
+def lstm_bound(S, B, M, H):
+    """Least time for S fused steps on this card, and what bounds it: xz, Wh
+    and b read once, every step's h and the final c written once; per
+    (step, window, member) 8H^2 operations for the product, 8H for the two
+    additions and about 24H for the gates and the carry update."""
+    moved = 4 * (S * B * M * 4 * H + M * H * 4 * H + M * 4 * H) + 4 * (S * B * M * H + B * M * H)
+    ops = S * B * M * (8 * H * H + 32 * H)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def close(got, want, rtol, atol, what) -> float:
+    if got.shape != want.shape or not torch.allclose(got, want, rtol=rtol, atol=atol):
+        err = float((got - want).abs().max()) if got.shape == want.shape else None
+        raise AssertionError(f"{what}: outside rtol={rtol}, atol={atol} (max err {err})")
+    return float((got - want).abs().max())
+
+
+def lstm_kernel_phase():
+    """K3 against its plain versions: one step (fused_lstm_step, S=1) and a
+    whole layer (lstm_layer, S=32) at every shape; times at the bank's."""
+    resolve_device("cuda")  # full float32 products for the plain versions
+    step_err = layer_err = 0.0
+    for i, (S, B, M, H) in enumerate([LSTM_SERVE, *LSTM_RAGGED]):
+        xz, h, c, Wh, b = lstm_case(S, B, M, H, seed=100 + i)
+        got = seq_scan.fused_lstm_step(xz[0], h, c, Wh, b)
+        torch.cuda.synchronize()
+        want = seq_scan.lstm_step_plain(xz[0], h, c, Wh, b)
+        for g, w, name in zip(got, want, ("c", "h")):
+            step_err = max(step_err, close(g, w, STEP_RTOL, STEP_ATOL,
+                                           f"fused_lstm_step {name} B={B} M={M} H={H}"))
+        got = seq_scan.lstm_layer(xz, Wh, b)
+        torch.cuda.synchronize()
+        layer_err = max(layer_err, close(got, seq_scan.lstm_layer_plain(xz, Wh, b), LAYER_RTOL,
+                                         LAYER_ATOL, f"lstm_layer S={S} B={B} M={M} H={H}"))
+    S, B, M, H = LSTM_SERVE
+    xz, h, c, Wh, b = lstm_case(S, B, M, H, seed=199)
+    step = (xz[0].contiguous(), h, c, Wh, b)
+    step_bound, _ = lstm_bound(1, B, M, H)
+    phase("parity", kernel="fused_lstm_step", steps=1, shapes=1 + len(LSTM_RAGGED),
+          band="rtol=atol=1e-6", max_err=step_err,
+          kernel_device_us=kernel_device_us(seq_scan.fused_lstm_step, step,
+                                            kernel="lstm_steps_kernel"),
+          ms=round(time_ms(seq_scan.fused_lstm_step, step), 5),
+          plain_ms=round(time_ms(seq_scan.lstm_step_plain, step), 5),
+          library_ms=round(time_ms(library_step, step), 5), bound_ms=round(step_bound, 6))
+    layer = (xz, Wh, b)
+    bound, bound_by = lstm_bound(S, B, M, H)
+    result = {
+        "name": "lstm_layer", "route": "cuda", "source": LSTM_SOURCE,
+        "replaces": KERNELS["lstm_layer"], "launches": None, "max_abs_err": layer_err,
+        "ms": time_ms(seq_scan.lstm_layer, layer),
+        "plain_ms": time_ms(seq_scan.lstm_layer_plain, layer, warmup=3, runs=20),
+        "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": time_ms(library_layer, layer, warmup=3, runs=20),
+    }
+    phase("parity", kernel="lstm_layer", steps=S, shapes=1 + len(LSTM_RAGGED),
+          band="rtol=1e-5,atol=1e-6", max_err=layer_err,
+          kernel_device_us=kernel_device_us(seq_scan.lstm_layer, layer,
+                                            kernel="lstm_steps_kernel"),
+          ms=round(result["ms"], 5), plain_ms=round(result["plain_ms"], 5),
+          library_ms=round(result["library_ms"], 5), bound_ms=round(bound, 6),
+          bound_by=bound_by)
+    return {"lstm_layer": result}
+
+
 # ------------------------------------------------------------------ #
-# phases 4-5: the served path
+# phases 4-6: the served path
 # ------------------------------------------------------------------ #
 
 
@@ -226,6 +352,32 @@ def random_entry(name: str, n_features: int, rng: np.random.Generator):
     )
 
 
+@functools.lru_cache(maxsize=None)
+def lstm_hourglass_shapes(F: int):
+    module = lookup_factory("LSTMAutoEncoder", "lstm_hourglass")(F)
+    return {k: tuple(v.shape) for k, v in module.state_dict().items()}
+
+
+def random_lstm_entry(name: str, registry_type: str, rng: np.random.Generator):
+    """An ``lstm_hourglass`` detector at 10 tags, lookback 32, with random
+    weights (columns of unit variance) and scalers; forecasters predict t+1."""
+    F = 10
+    state = {
+        k: ((0.1 if k.endswith(".b") or k == "head.bias" else 1.0 / np.sqrt(shape[0]))
+            * rng.standard_normal(shape)).astype(np.float32)
+        for k, shape in lstm_hourglass_shapes(F).items()
+    }
+    return entry_from_numpy(
+        name, registry_type, "lstm_hourglass", {}, F, lstm_to_flax(state),
+        in_shift=0.1 * rng.standard_normal(F),
+        in_scale=1.0 + rng.random(F),
+        err_shift=0.05 * rng.random(F),
+        err_scale=1.0 + rng.random(F),
+        tags=[f"tag-{i}" for i in range(F)],
+        lookback=LOOKBACK, target_offset=int(registry_type == "LSTMForecast"),
+    )
+
+
 def http_json(url: str, body=None, raw: bytes = None):
     data = raw if raw is not None else (None if body is None else json.dumps(body).encode())
     req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
@@ -236,14 +388,14 @@ def http_json(url: str, body=None, raw: bytes = None):
         return exc.code, json.loads(exc.read())
 
 
-def check_arrays(got: dict, want: dict, what: str) -> None:
+def check_arrays(got: dict, want: dict, what: str, rtol=0.0, atol=E2E_ATOL) -> None:
     for key, w in want.items():
         g = np.asarray(got[key], np.float32)
         if g.shape != w.shape or not np.all(np.isfinite(g)):
             raise AssertionError(f"{what}: {key} has shape {g.shape} or non-finite values")
-        err = float(np.abs(g - w).max())
-        if err > E2E_ATOL:
-            raise AssertionError(f"{what}: {key} off by {err} > {E2E_ATOL}")
+        if not np.allclose(g, w, rtol=rtol, atol=atol):
+            err = float(np.abs(g - w).max())
+            raise AssertionError(f"{what}: {key} off by {err} (rtol={rtol}, atol={atol})")
 
 
 def response_arrays(body: dict, tags) -> dict:
@@ -261,25 +413,31 @@ def http_phase():
     widths = {f"m{i:03d}": 10 for i in range(64)} | {f"w{i:03d}": 40 for i in range(8)}
     for name, f in widths.items():
         serializer.dump(random_entry(name, f, rng), os.path.join(MODEL_DIR, name))
+    lstm = {f"lae{i}": "LSTMAutoEncoder" for i in range(8)} | {f"lfc{i}": "LSTMForecast" for i in range(4)}
+    for name, registry_type in lstm.items():
+        serializer.dump(random_lstm_entry(name, registry_type, rng), os.path.join(MODEL_DIR, name))
+    widths |= {name: 10 for name in lstm}
+    offsets = {name: LOOKBACK - 1 + int(t == "LSTMForecast") for name, t in lstm.items()}
     server = run_server(MODEL_DIR, host="127.0.0.1", port=0, background=True)
     try:
         base = server.url + "/gordo/v0/smoke"
         status, models = http_json(base + "/models")
-        if status != 200 or models["models"] != sorted(widths) or models["bank"]["n_buckets"] != 2:
+        if status != 200 or models["models"] != sorted(widths) or models["bank"]["n_buckets"] != 4:
             raise AssertionError(f"/models answered {status}: {models}")
         status, body = http_json(base + "/m000/healthcheck")
         if status != 200 or "gordo-server-version" not in body:
             raise AssertionError(f"healthcheck answered {status}: {body}")
-        # 64 concurrent POSTs of 64 rows: 56 to the 10-tag bucket, 8 to the 40-tag one
-        targets = [f"m{i:03d}" for i in range(56)] + [f"w{i:03d}" for i in range(8)]
-        index = [f"2020-01-01T{m // 60:02d}:{m % 60:02d}:00Z" for m in range(0, 128, 2)]
-        want_index = [s.replace("Z", "+00:00") for s in index]
-        X = {t: rng.random((64, widths[t])).astype(np.float32) for t in targets}
+        # concurrent POSTs: 56 to the 10-tag dense bucket and 8 to the 40-tag
+        # one (64 rows each), and one to every LSTM detector (128 rows)
+        targets = [f"m{i:03d}" for i in range(56)] + [f"w{i:03d}" for i in range(8)] + list(lstm)
+        n_rows = {t: 128 if t in lstm else 64 for t in targets}
+        index = [f"2020-01-01T{m // 60:02d}:{m % 60:02d}:00Z" for m in range(128)]
+        X = {t: rng.random((n_rows[t], widths[t])).astype(np.float32) for t in targets}
         replies = {}
 
         def post(t):
             replies[t] = http_json(f"{base}/{t}/anomaly/prediction",
-                                   {"X": X[t].tolist(), "index": index})
+                                   {"X": X[t].tolist(), "index": index[:n_rows[t]]})
 
         t0 = time.perf_counter()
         threads = [threading.Thread(target=post, args=(t,)) for t in targets]
@@ -294,14 +452,30 @@ def http_phase():
             status, body = replies[t]
             if status != 200:
                 raise AssertionError(f"{t}: anomaly/prediction answered {status}: {body}")
+            off = offsets.get(t, 0)
+            want_index = [s.replace("Z", "+00:00") for s in index[off:n_rows[t]]]
             if body["index"] != want_index:
-                raise AssertionError(f"{t}: index {body['index'][:2]}...")
+                raise AssertionError(f"{t}: index {body['index'][:2]}... not trimmed by {off}")
+            band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if t in lstm else {}
             path = os.path.join(MODEL_DIR, t)
             plain = serializer.load(path, device="cpu").anomaly(X[t])
             check_arrays(response_arrays(body, [f"tag-{i}" for i in range(widths[t])]), plain,
-                         f"http {t}")
+                         f"http {t}", **band)
             # the detector's own anomaly() on the card: the per-model kernel
-            check_arrays(serializer.load(path).anomaly(X[t]), plain, f"detector {t}")
+            # (and, for an LSTM, the fused step)
+            check_arrays(serializer.load(path).anomaly(X[t]), plain, f"detector {t}", **band)
+        for t in ("lae0", "lfc0"):
+            status, body = http_json(f"{base}/{t}/prediction", {"X": X[t].tolist(), "index": index})
+            plain = serializer.load(os.path.join(MODEL_DIR, t), device="cpu").anomaly(X[t])
+            want_index = [s.replace("T", " ").replace("Z", "+00:00") for s in index[offsets[t]:]]
+            if status != 200 or body["index"] != want_index:
+                raise AssertionError(f"{t}: /prediction answered {status} or an untrimmed index")
+            check_arrays({"model-output": body["data"]}, {"model-output": plain["model-output"]},
+                         f"prediction {t}", rtol=LSTM_RTOL, atol=LSTM_ATOL)
+            short = X[t][: offsets[t]].tolist()
+            status, body = http_json(f"{base}/{t}/anomaly/prediction", {"X": short})
+            if status != 400:
+                raise AssertionError(f"{t}: a {offsets[t]}-row request answered {status}: {body}")
         status, body = http_json(base + "/m000/anomaly/prediction", raw=b"not json")
         if status != 400:
             raise AssertionError(f"bad body answered {status}: {body}")
@@ -312,18 +486,56 @@ def http_phase():
     finally:
         server.close()
         shutil.rmtree(MODEL_DIR, ignore_errors=True)
-    phase("http", models=len(widths), buckets=2, posts=len(targets), rows=64,
-          wall_s=round(wall, 4), engine_batches=batches, checked="all six arrays vs CPU plain",
-          status_400=True, status_404=True)
+    phase("http", models=len(widths), buckets=4, posts=len(targets), rows="64,128(lstm)",
+          wall_s=round(wall, 4), engine_batches=batches,
+          checked="all six arrays vs CPU plain", index_trimmed_by="31,32",
+          status_400="bad body,warm-up", status_404=True)
 
 
-def bank_phase(card: str):
-    rng = np.random.default_rng(2)
-    n_members, n_clients, n_requests, n_rows = 10_000, 64, 4, 64
+def profile_batch(bank, requests, runs=5):
+    """Where one full bank call of ``requests`` spends its time: the median
+    host wall time of ``runs`` calls, and from one call under the profiler
+    the device time of every kernel and copy, summed, and their count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(runs + 1):  # the first call warms the allocator
+        t0 = time.perf_counter()
+        bank.score_many(requests)  # ends in a device-to-host copy
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bank.score_many(requests)
+        torch.cuda.synchronize()
+    by_name = {}
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    wall_ms = statistics.median(walls[1:]) * 1e3
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return {
+        "batch_wall_ms": round(wall_ms, 4), "batch_device_ms": round(device_ms, 4),
+        "device_busy_share": round(device_ms / wall_ms, 4), "device_ops": len(events),
+        "top_device_ms": json.dumps({k[:40]: round(v, 4) for k, v in top}),
+    }
+
+
+def bank_phase(card: str, lstm: bool = False):
+    """A 10,000-member bank driven by 64 closed-loop clients through the
+    engine: dense hourglass members with 64-row requests, or LSTM hourglass
+    members (lookback 32) with 128-row requests."""
+    rng = np.random.default_rng(3 if lstm else 2)
+    n_members, n_clients, n_requests = 10_000, 64, 4
+    n_rows = 128 if lstm else 64
     t0 = time.perf_counter()
-    entries = [random_entry(f"m{i:05d}", 10, rng) for i in range(n_members)]
+    if lstm:
+        entries = [random_lstm_entry(f"l{i:05d}", "LSTMAutoEncoder", rng) for i in range(n_members)]
+    else:
+        entries = [random_entry(f"m{i:05d}", 10, rng) for i in range(n_members)]
     bank = ModelBank.from_entries(entries)
     build_s = time.perf_counter() - t0
+    off = entries[0].offset
     engine = BatchingEngine(bank, max_batch=64, flush_ms=2.0)
     engine.start()
     try:
@@ -332,7 +544,7 @@ def bank_phase(card: str):
                  for _ in range(n_clients)]
         engine.score_blocking(names[0][0], X[0, 0])  # first batch pays allocator warm-up
         before = dict(engine.stats)
-        launches_before = score.launch_counts["banked_anomaly_score"]
+        launches_before = dict(score.launch_counts, **seq_scan.launch_counts)
         lat, results, failures = [], {}, []
         barrier = threading.Barrier(n_clients)
 
@@ -357,31 +569,42 @@ def bank_phase(card: str):
             raise AssertionError(f"bank phase: {len(results)} results, failures {failures[:3]}")
         stats = {k: engine.stats[k] - before[k] for k in ("requests", "batches")}
         stats["max_batch_seen"] = engine.stats["max_batch_seen"]
-        stats["launches"] = score.launch_counts["banked_anomaly_score"] - launches_before
+        after = dict(score.launch_counts, **seq_scan.launch_counts)
+        launches = {k: after[k] - launches_before[k] for k in after}
     finally:
         engine.stop()
+    # one full batch alone, outside the engine: host wall vs device time
+    profiled = profile_batch(bank, [(names[c][0], X[c, 0], None) for c in range(n_clients)])
     from gordo_components_torch.models.anomaly.diff import DiffBasedAnomalyDetector
 
+    band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if lstm else {}
     by_name = {e.name: e for e in entries}
     for (c, r), res in results.items():
         arrays = res.to_arrays()
         if not all(np.all(np.isfinite(a)) for a in arrays.values()):
             raise AssertionError(f"bank phase: non-finite scores for {names[c][r]}")
+        if len(res.model_output) != n_rows - off:
+            raise AssertionError(f"bank phase: {len(res.model_output)} rows for {names[c][r]}")
         if c % 8 == 0:  # hold a sample against the CPU plain computation
             plain = DiffBasedAnomalyDetector.from_entry(by_name[names[c][r]], device="cpu")
-            check_arrays(arrays, plain.anomaly(X[c, r]), f"bank {names[c][r]}")
+            check_arrays(arrays, plain.anomaly(X[c, r]), f"bank {names[c][r]}", **band)
     lat_ms = np.asarray(lat) * 1e3
+    batches = max(stats["batches"], 1)
     summary = {
         "members": n_members, "clients": n_clients, "requests": len(results),
-        "rows_per_request": n_rows, "build_s": round(build_s, 3),
+        "rows_per_request": n_rows, "scored_rows_per_request": n_rows - off,
+        "build_s": round(build_s, 3),
         "p50_ms": round(float(np.percentile(lat_ms, 50)), 4),
         "p99_ms": round(float(np.percentile(lat_ms, 99)), 4),
-        "samples_per_s": round(len(results) * n_rows / wall, 1),
-        "avg_batch": round(stats["requests"] / max(stats["batches"], 1), 3),
+        "rows_per_s": round(len(results) * (n_rows - off) / wall, 1),
+        "avg_batch": round(stats["requests"] / batches, 3),
         "batches": stats["batches"], "max_batch_seen": stats["max_batch_seen"],
-        "banked_launches_per_batch": round(stats["launches"] / max(stats["batches"], 1), 3),
+        "banked_launches_per_batch": round(launches["banked_anomaly_score"] / batches, 3),
     }
-    phase("bank", **summary, card=json.dumps(card))
+    if lstm:
+        summary["lstm_layer_launches_per_batch"] = round(launches["lstm_layer"] / batches, 3)
+    summary.update(profiled)
+    phase("lstm" if lstm else "bank", **summary, card=json.dumps(card))
     return summary
 
 
@@ -399,15 +622,26 @@ def main() -> int:
           libraries=",".join(sorted(libs)), flags=json.dumps(" ".join(_cuda.NVCC_FLAGS)))
 
     kernels = kernel_phase()
+    kernels.update(lstm_kernel_phase())
 
+    # the main path: every launch counter from 0, read after phases 4-6
     score.reset_launch_counts()
+    seq_scan.reset_launch_counts()
+
+    def counts():
+        return dict(score.launch_counts, **seq_scan.launch_counts)
+
     http_phase()
-    after_http = dict(score.launch_counts)
+    after_http = counts()
     bank_phase(card)
-    counts = dict(score.launch_counts)
+    after_bank = counts()
+    bank_phase(card, lstm=True)
+    after_lstm = counts()
     phase("counts", **{f"{k}_http": v for k, v in after_http.items()},
-          **{f"{k}_bank": counts[k] - after_http[k] for k in counts})
-    for name, n in counts.items():
+          **{f"{k}_bank": after_bank[k] - after_http[k] for k in after_bank},
+          **{f"{k}_lstm": after_lstm[k] - after_bank[k] for k in after_lstm})
+    for name in kernels:
+        n = after_lstm[name]
         if n <= 0:
             raise AssertionError(f"{name}: the main path launched its kernel {n} times")
         kernels[name]["launches"] = n

@@ -1,10 +1,11 @@
 """PyTorch + CUDA port of gordo-components-tpu for NVIDIA Hopper.
 
-This slice serves banked feedforward anomaly detectors: port artifacts
+It serves banked feedforward and LSTM anomaly detectors: port artifacts
 (``serializer``) are stacked into a :class:`~.server.bank.ModelBank` on the
 card and scored through a batching engine behind the gordo HTTP routes
-(``server``). The anomaly-score epilogue runs as a hand-written CUDA
-kernel (``ops/csrc/anomaly_score.cu``).
+(``server``). The anomaly-score epilogue (``ops/csrc/anomaly_score.cu``)
+and the fused LSTM step (``ops/csrc/lstm_step.cu``) run as hand-written
+CUDA kernels.
 
 The package imports torch, numpy and the standard library only. Every entry
 point takes a ``device`` that defaults to ``"cuda"`` and raises when CUDA is

@@ -1,7 +1,8 @@
 """Model factories and detectors of the port.
 
 Importing this package registers the feedforward factories under the
-``"AutoEncoder"`` registry type.
+``"AutoEncoder"`` registry type and the LSTM factories under
+``"LSTMAutoEncoder"`` and ``"LSTMForecast"``.
 """
 
 from gordo_components_torch.models import factories  # noqa: F401  (registers factories)

@@ -7,6 +7,11 @@ input affine scaler, with a per-feature error scaler learned at fit time.
 epilogue (diff, scaled diff, both row norms) in one :func:`fused_anomaly_score`
 call — the CUDA kernel on the card.
 
+Sequence models score windows of ``lookback`` rows: output row i belongs to
+input row ``i + offset``, with ``offset = lookback - 1 + target_offset``
+(``target_offset`` 1 for a t+1 forecast), so the outputs, the target and
+``model-input`` are the rows from ``offset`` on, as in the reference.
+
 The detector is built from fitted weights and scalers (see ``convert.py`` and
 ``serializer/artifacts.py``); ``fit`` comes with the training slice.
 """
@@ -18,9 +23,11 @@ import torch
 from torch import nn
 
 from gordo_components_torch.device import resolve_device
+from gordo_components_torch.models.factories.lstm import LSTMStack
 from gordo_components_torch.models.register import lookup_factory
 from gordo_components_torch.ops.scaler import ScalerParams, scaler_transform
 from gordo_components_torch.ops.score import fused_anomaly_score
+from gordo_components_torch.ops.windows import sliding_windows
 
 ANOMALY_KEYS = (
     "model-input",
@@ -40,7 +47,8 @@ def _as_f32(X) -> np.ndarray:
 class DiffBasedAnomalyDetector:
     """Anomaly = norm of (per-feature scaled) |y - reconstruction|.
 
-    ``model`` maps input-scaled rows to their reconstruction;
+    ``model`` maps input-scaled rows (or, for an :class:`LSTMStack`,
+    windows of ``lookback`` rows) to their reconstruction;
     ``in_shift``/``in_scale`` compose every affine preprocessing step in
     front of it; ``err_shift``/``err_scale`` are the fitted error scaler.
     """
@@ -55,9 +63,13 @@ class DiffBasedAnomalyDetector:
         tags: Optional[Sequence[str]] = None,
         thresholds: Optional[Dict] = None,
         device="cuda",
+        lookback: int = 1,
+        target_offset: int = 0,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.lookback = int(lookback)
+        self.target_offset = int(target_offset)
 
         def vec(a):
             return torch.as_tensor(np.array(a, np.float32), device=self.device)
@@ -67,6 +79,12 @@ class DiffBasedAnomalyDetector:
         n = self.input_scaler.shift.shape[0]
         self.tags = list(tags) if tags else [f"feature-{i}" for i in range(n)]
         self.thresholds = thresholds
+
+    @property
+    def offset(self) -> int:
+        """Rows consumed by the sequence warm-up: output row i belongs to
+        input row ``i + offset`` (0 for feedforward)."""
+        return self.lookback - 1 + self.target_offset
 
     @classmethod
     def from_entry(cls, entry, device="cuda") -> "DiffBasedAnomalyDetector":
@@ -79,6 +97,7 @@ class DiffBasedAnomalyDetector:
         return cls(
             model, entry.in_shift, entry.in_scale, entry.err_shift, entry.err_scale,
             tags=entry.tags, thresholds=entry.thresholds, device=device,
+            lookback=entry.lookback, target_offset=entry.target_offset,
         )
 
     @torch.no_grad()
@@ -86,15 +105,25 @@ class DiffBasedAnomalyDetector:
         """The reference's anomaly columns as arrays keyed by group name:
         ``model-input`` and ``model-output`` (rows, F), the per-tag
         ``tag-anomaly-unscaled``/``-scaled`` (rows, F), and the
-        ``total-anomaly-unscaled``/``-scaled`` row norms (rows,)."""
+        ``total-anomaly-unscaled``/``-scaled`` row norms (rows,), for the
+        ``len(X) - offset`` output rows."""
         Xv = _as_f32(X)
+        off = self.offset
+        if len(Xv) <= off:
+            raise ValueError(f"need more than {off} rows (sequence warm-up), got {len(Xv)}")
         x = torch.as_tensor(Xv, device=self.device)
         yv = x if y is None else torch.as_tensor(_as_f32(y), device=self.device)
-        output = self.model(scaler_transform(self.input_scaler, x))
-        target = scaler_transform(self.input_scaler, yv)
+        xs = scaler_transform(self.input_scaler, x)
+        if isinstance(self.model, LSTMStack):
+            W = sliding_windows(xs, self.lookback)
+            output = self.model(W[: len(W) - self.target_offset])
+        else:
+            output = self.model(xs)
+        n_out = output.shape[0]
+        target = scaler_transform(self.input_scaler, yv)[off:][:n_out]
         scores = fused_anomaly_score(
             target.contiguous(), output.contiguous(),
             self.error_scaler.shift, self.error_scaler.scale,
         )
         arrays = [t.cpu().numpy() for t in (output, *scores)]
-        return dict(zip(ANOMALY_KEYS, [Xv, *arrays]))
+        return dict(zip(ANOMALY_KEYS, [Xv[off:][:n_out], *arrays]))

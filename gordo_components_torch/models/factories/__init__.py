@@ -7,3 +7,9 @@ from gordo_components_torch.models.factories.feedforward import (  # noqa: F401
     feedforward_symmetric,
     hourglass_calc_dims,
 )
+from gordo_components_torch.models.factories.lstm import (  # noqa: F401
+    LSTMStack,
+    lstm_hourglass,
+    lstm_model,
+    lstm_symmetric,
+)

@@ -6,29 +6,13 @@ model) shrinks the encoder dims by ``compression_factor`` over
 ``encoding_layers``. Layers are ``nn.Linear``; the port computes in float32.
 """
 
-from typing import Callable, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
-import torch.nn.functional as tF
 from torch import nn
 
 from gordo_components_torch.models.register import register_model_builder
-
-_ACTIVATIONS = {
-    "tanh": torch.tanh,
-    "relu": tF.relu,
-    "sigmoid": torch.sigmoid,
-    "elu": tF.elu,
-    "linear": lambda x: x,
-    "softplus": tF.softplus,
-}
-
-
-def resolve_activation(name: str) -> Callable:
-    try:
-        return _ACTIVATIONS[name]
-    except KeyError:
-        raise ValueError(f"Unknown activation {name!r}; known: {sorted(_ACTIVATIONS)}")
+from gordo_components_torch.ops.activations import resolve_activation
 
 
 class FeedForwardAutoEncoder(nn.Module):

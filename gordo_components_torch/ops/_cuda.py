@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -95,3 +95,35 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build_all([name])[name]))
         return lib
+
+
+class LaunchCounts(dict):
+    """wrapper name -> kernel launches since the last :meth:`reset`; each
+    wrapper calls :meth:`add` where it launches its kernel, and only there,
+    so a run can show that its main path went through the kernels."""
+
+    def __init__(self, *names: str):
+        super().__init__({n: 0 for n in names})
+        self._lock = threading.Lock()
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            for k in self:
+                self[k] = 0
+
+
+def check_tensor(name: str, t, dtype, shape: Sequence[int], device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's plain C interface takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

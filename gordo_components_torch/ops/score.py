@@ -23,23 +23,17 @@ its main path went through the kernel.
 """
 
 import ctypes
-import threading
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
+from gordo_components_torch.ops._cuda import LaunchCounts, check_tensor
+
 Scores = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
-# wrapper name -> kernel launches since the last reset
-launch_counts: Dict[str, int] = {"fused_anomaly_score": 0, "banked_anomaly_score": 0}
-_count_lock = threading.Lock()
+launch_counts = LaunchCounts("fused_anomaly_score", "banked_anomaly_score")
+reset_launch_counts = launch_counts.reset
 _kernel_fn = None
-
-
-def reset_launch_counts() -> None:
-    with _count_lock:
-        for k in launch_counts:
-            launch_counts[k] = 0
 
 
 def score_plain(target, output, shift, scale) -> Scores:
@@ -72,17 +66,6 @@ def _kernel():
     return _kernel_fn
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch(target, output, shift_bank, scale_bank, idx) -> Scores:
     """Validate and launch the CUDA kernel on the current stream."""
     dev = target.device
@@ -93,11 +76,11 @@ def _launch(target, output, shift_bank, scale_bank, idx) -> Scores:
     if not 1 <= B <= 65535:
         raise ValueError(f"batch B={B} outside the kernel's grid (1..65535)")
     f32 = torch.float32
-    _check("target", target, f32, (B, T, F), dev)
-    _check("output", output, f32, (B, T, F), dev)
-    _check("shift_bank", shift_bank, f32, (M, F), dev)
-    _check("scale_bank", scale_bank, f32, (M, F), dev)
-    _check("idx", idx, torch.int32, (B,), dev)
+    check_tensor("target", target, f32, (B, T, F), dev)
+    check_tensor("output", output, f32, (B, T, F), dev)
+    check_tensor("shift_bank", shift_bank, f32, (M, F), dev)
+    check_tensor("scale_bank", scale_bank, f32, (M, F), dev)
+    check_tensor("idx", idx, torch.int32, (B,), dev)
     diff = torch.empty_like(target)
     scaled = torch.empty_like(target)
     tot_u = torch.empty((B, T), dtype=f32, device=dev)
@@ -113,11 +96,6 @@ def _launch(target, output, shift_bank, scale_bank, idx) -> Scores:
     return diff, scaled, tot_u, tot_s
 
 
-def _count(name: str) -> None:
-    with _count_lock:
-        launch_counts[name] += 1
-
-
 def banked_anomaly_score(target, output, shift_bank, scale_bank, idx) -> Scores:
     """``(diff, scaled, total_unscaled, total_scaled)`` for (B, T, F)
     reconstructions against (M, F) error-scaler banks selected by ``idx``
@@ -128,7 +106,7 @@ def banked_anomaly_score(target, output, shift_bank, scale_bank, idx) -> Scores:
     if target.device.type != "cuda":
         raise ValueError(f"unsupported device {target.device}")
     out = _launch(target, output, shift_bank, scale_bank, idx)
-    _count("banked_anomaly_score")
+    launch_counts.add("banked_anomaly_score")
     return out
 
 
@@ -148,5 +126,5 @@ def fused_anomaly_score(target, output, shift, scale) -> Scores:
         target.view(1, rows, F), output.view(1, rows, F),
         shift.view(1, F), scale.view(1, F), idx,
     )
-    _count("fused_anomaly_score")
+    launch_counts.add("fused_anomaly_score")
     return diff.view(rows, F), scaled.view(rows, F), tot_u.view(rows), tot_s.view(rows)

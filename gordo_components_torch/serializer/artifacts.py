@@ -3,11 +3,16 @@
 Counterpart of ``gordo_components_tpu/serializer/artifacts.py``. A port
 artifact holds no pickle; it is three files:
 
-- ``params.npz``    — network weights under the flattened Flax keys
-                      ``params/Dense_i/kernel`` (in, out) and
-                      ``params/Dense_i/bias``, as the JAX package writes them;
+- ``params.npz``    — network weights under the flattened Flax keys, as the
+                      JAX package writes them: ``params/Dense_i/kernel``
+                      (in, out) and ``params/Dense_i/bias`` for a dense
+                      model, ``params/OptimizedLSTMCell_i/{ii,if,ig,io}/kernel``,
+                      ``params/OptimizedLSTMCell_i/{hi,hf,hg,ho}/{kernel,bias}``
+                      and ``params/Dense_0/...`` for an LSTM stack;
 - ``detector.json`` — registry type, kind, factory kwargs, ``n_features``,
-                      tags and thresholds;
+                      ``lookback`` and ``target_offset`` (absent in
+                      directories that predate sequence models, which read
+                      as 1 and 0), tags and thresholds;
 - ``scalers.npz``   — ``in_shift``, ``in_scale``, ``err_shift``, ``err_scale``.
 """
 
@@ -17,7 +22,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from gordo_components_torch.convert import entry_from_numpy, feedforward_to_flax
+from gordo_components_torch.convert import entry_from_numpy, params_to_flax
 
 PARAMS_FILE = "params.npz"
 DETECTOR_FILE = "detector.json"
@@ -53,7 +58,10 @@ def is_artifact_dir(path: str) -> bool:
 def dump(entry, dest_dir: str) -> None:
     """Write ``entry`` (a ``server/bank._BankEntry``) as an artifact directory at ``dest_dir``."""
     os.makedirs(dest_dir, exist_ok=True)
-    np.savez(os.path.join(dest_dir, PARAMS_FILE), **_flatten(feedforward_to_flax(entry.params)))
+    np.savez(
+        os.path.join(dest_dir, PARAMS_FILE),
+        **_flatten(params_to_flax(entry.registry_type, entry.params)),
+    )
     np.savez(
         os.path.join(dest_dir, SCALERS_FILE),
         **{k: np.asarray(getattr(entry, k), np.float32) for k in _SCALERS},
@@ -64,6 +72,8 @@ def dump(entry, dest_dir: str) -> None:
         "kind": entry.kind,
         "factory_kwargs": entry.factory_kwargs,
         "n_features": entry.n_features,
+        "lookback": entry.lookback,
+        "target_offset": entry.target_offset,
         "tags": list(entry.tags),
         "thresholds": entry.thresholds,
     }
@@ -96,6 +106,8 @@ def load_entry(source_dir: str, name: Optional[str] = None):
         params,
         tags=meta.get("tags"),
         thresholds=meta.get("thresholds"),
+        lookback=meta.get("lookback", 1),
+        target_offset=meta.get("target_offset", 0),
         **scalers,
     )
 

@@ -79,7 +79,8 @@ def _index_json(index: Sequence[Any]) -> List[Any]:
 def anomaly_body(tags: Sequence[str], arrays: Dict[str, np.ndarray], index: Sequence[Any]) -> Dict[str, Any]:
     """The JAX server's ``frame_to_dict(frame)`` body for an anomaly frame:
     per-tag dicts for the four per-tag groups, plain lists for the two
-    totals, and the index of the output rows."""
+    totals, and ``index``, which the caller has trimmed to the output rows
+    (``index[offset:][:n_out]`` for a sequence model)."""
     data: Dict[str, Any] = {}
     for group in ANOMALY_TAG_GROUPS:
         a = arrays[group]
@@ -91,5 +92,6 @@ def anomaly_body(tags: Sequence[str], arrays: Dict[str, np.ndarray], index: Sequ
 
 def prediction_body(output: np.ndarray, index: Sequence[Any]) -> Dict[str, Any]:
     """The JAX server's ``/prediction`` body: the reconstruction rows and
-    ``str()`` of each index value."""
+    ``str()`` of each index value, the index trimmed by the caller to the
+    last ``len(output)`` rows of the request."""
     return {"data": output.tolist(), "index": [str(i) for i in index]}

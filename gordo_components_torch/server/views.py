@@ -148,13 +148,20 @@ class GordoHandler(BaseHTTPRequestHandler):
             "env": {"model_collection_dir": self.app.collection.root},
         }
 
+    # a sequence model answers for the rows after its warm-up: the index
+    # is trimmed to the output rows, as the JAX server trims its frame
+
     def prediction(self, project: str, target: str):
         result, index = self._score(target)
-        return 200, prediction_body(result.model_output, index)
+        out = result.model_output
+        return 200, prediction_body(out, index[len(index) - len(out):])
 
     def anomaly_prediction(self, project: str, target: str):
         result, index = self._score(target)
-        return 200, anomaly_body(result.tags, result.to_arrays(), index)
+        n_out = len(result.model_output)
+        return 200, anomaly_body(
+            result.tags, result.to_arrays(), index[result.offset:][:n_out]
+        )
 
 
 class GordoServer(ThreadingHTTPServer):

@@ -65,7 +65,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     # every module of the slice was imported under the block
     for mod in ("ops.score", "ops._cuda", "server.bank", "server.engine",
                 "server.views", "convert", "serializer.artifacts",
-                "models.anomaly.diff", "models.factories.feedforward"):
+                "models.anomaly.diff", "models.factories.feedforward",
+                "ops.seq_scan", "ops.windows", "ops.activations",
+                "models.factories.lstm"):
         assert f"gordo_components_torch.{mod}" in report["modules"]
 
 
