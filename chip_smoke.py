@@ -7,15 +7,24 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 
 1. card     torch/CUDA versions and ``nvidia-smi`` name and power limit;
 2. build    compile the CUDA kernels (``gordo_components_torch/ops/csrc``)
-            with nvcc for sm_90a, one nvcc per source, all at once;
+            with nvcc for sm_90a, one nvcc per source, all at once; each
+            library's kernels, most registers and most local-memory
+            (spill) bytes a thread, by cuobjdump;
 3. parity   hold each kernel against its plain PyTorch version on the card.
             Anomaly score (K1/K2): at the serving shape (B=64, T=64, F=10,
             M=10000) and ragged shapes, diff/scaled bitwise, norms within
-            rtol=atol=1e-6. Fused LSTM step (K3): one step (S=1) within
-            rtol=atol=1e-6 and a 32-step layer within rtol=1e-5, atol=1e-6,
-            at the serving shape (B=97 windows, M=64 slots, H=8) and ragged
-            H, B and M. Each kernel, its plain version and a library
-            expression are timed with CUDA events;
+            rtol=atol=1e-6; K1's device operations per call (at most 1),
+            its time in turns against the same epilogue launched through
+            the banked entry point (a one-row bank and an idx per call),
+            and the host time of each piece of both wrappers. Fused LSTM step (K3): one step
+            (S=1) within rtol=atol=1e-6 and an S-step layer within
+            rtol=1e-5, atol=1e-6, at the serving shape (S=32, B=97 windows,
+            M=64 slots, H=8), ragged H, B and M, and the edges of its
+            design (H = 7, 16, 31, 32, 33 at S = 1, 5, 33, and 97 windows
+            of one member); its reciprocal bitwise against the IEEE
+            division over every float in [1, 2^126); each lstm_hourglass
+            layer's device time at the serving shape against its bound. Each kernel, its plain version
+            and a library expression are timed with CUDA events;
 4. http     serve a four-bucket directory of port artifacts with
             ``run_server``: 64 feedforward detectors at 10 tags, 8 at 40, and
             8 ``LSTMAutoEncoder`` + 4 ``LSTMForecast`` detectors
@@ -41,9 +50,11 @@ limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
 CUDA. Weights and data are random, made from fixed seeds.
 """
 
+import ctypes
 import functools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -82,6 +93,12 @@ LOOKBACK = 32
 LSTM_SERVE = (LOOKBACK, 97, 64, 8)
 LSTM_RAGGED = [(LOOKBACK, 1, 1, 5), (LOOKBACK, 3, 7, 37), (LOOKBACK, 200, 1, 64),
                (LOOKBACK, 3, 7, 130), (LOOKBACK, 1, 7, 512), (LOOKBACK, 200, 7, 512)]
+# the edges of K3's design: lane groups of next_pow2(H) up to H = 32 (warp
+# path), the block path from H = 33; S = 1, 5 and 33 steps (33 passes the
+# 8-slot ring several times); 97 windows of one member
+LSTM_EDGES = [(S, B, M, H) for H in (7, 16, 31, 32, 33)
+              for S, B, M in ((1, 3, 5), (5, 2, 3), (33, 97, 1))]
+HOURGLASS_WIDTHS = (8, 7, 5, 5, 7, 8)  # lstm_hourglass's layers at 10 tags
 KERNELS = {
     "banked_anomaly_score": "gordo_components_tpu/ops/pallas_score.py:298",
     "fused_anomaly_score": "gordo_components_tpu/ops/pallas_score.py:84",
@@ -93,6 +110,23 @@ LSTM_SOURCE = "gordo_components_torch/ops/csrc/lstm_step.cu"
 
 def phase(name: str, **fields) -> None:
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def resource_usage(libs) -> dict:
+    """library -> (kernels, most registers a thread, most local-memory
+    bytes a thread: spills) from ``cuobjdump --dump-resource-usage``, or
+    "not measured" where the tool or its output is missing."""
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    out = {name: "not measured" for name in libs}
+    if not os.path.exists(cuobjdump):
+        return out
+    for name, lib in sorted(libs.items()):
+        proc = subprocess.run([cuobjdump, "--dump-resource-usage", str(lib)],
+                              capture_output=True, text=True, timeout=120)
+        use = [(int(r), int(l)) for r, l in re.findall(r"REG:(\d+) .*?LOCAL:(\d+)", proc.stdout)]
+        out[name] = ((len(use), max(r for r, _ in use), max(l for _, l in use)) if use
+                     else "not measured")
+    return out
 
 
 def card_line() -> str:
@@ -142,6 +176,97 @@ def library_fused(target, output, shift, scale):
     return diff, scaled, torch.linalg.vector_norm(diff, dim=-1), torch.linalg.vector_norm(scaled, dim=-1)
 
 
+def fused_via_banked_entry(target, output, shift, scale):
+    """The per-model epilogue through the banked entry point (B=1, a
+    one-row bank and an idx allocated per call): the wrapper K1 had before
+    its own entry point, kept to time against it in the same run; it
+    counts no launch."""
+    rows, F = target.shape
+    idx = torch.zeros((1,), dtype=torch.int32, device=target.device)
+    diff, scaled, tot_u, tot_s = score._launch(
+        target.view(1, rows, F), output.view(1, rows, F), shift.view(1, F), scale.view(1, F), idx,
+    )
+    return diff.view(rows, F), scaled.view(rows, F), tot_u.view(rows), tot_s.view(rows)
+
+
+def host_us(fn, n=1000) -> float:
+    """Mean host time of one call, perf_counter_ns over n calls."""
+    for _ in range(50):
+        fn()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter_ns() - t0) / n / 1e3
+    torch.cuda.synchronize()
+    return round(us, 3)
+
+
+def k1_host_split(single):
+    """Where K1's host time goes: each piece of the banked-entry wrapper
+    and of the lean one, timed alone (perf_counter_ns over 1,000 calls
+    each)."""
+    tgt, out, sh, sc = single
+    rows, F = tgt.shape
+    dev, f32 = tgt.device, torch.float32
+    t3, o3, sh2, sc2 = tgt.view(1, rows, F), out.view(1, rows, F), sh.view(1, F), sc.view(1, F)
+    idx = torch.zeros((1,), dtype=torch.int32, device=dev)
+    res = [torch.empty_like(t3), torch.empty_like(t3), torch.empty((1, rows), dtype=f32, device=dev),
+           torch.empty((1, rows), dtype=f32, device=dev)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    banked, one = score._kernel(), score._one()
+    buf = torch.empty(2 * rows * (F + 1), dtype=f32, device=dev)
+    counts = _cuda.LaunchCounts("k")
+    old = {
+        "idx_zeros": lambda: torch.zeros((1,), dtype=torch.int32, device=dev),
+        "input_views_x4": lambda: (tgt.view(1, rows, F), out.view(1, rows, F), sh.view(1, F),
+                                   sc.view(1, F)),
+        "check_tensor_x5": lambda: [_cuda.check_tensor(n, t, d, s_, dev) for n, t, d, s_ in (
+            ("target", t3, f32, (1, rows, F)), ("output", o3, f32, (1, rows, F)),
+            ("shift_bank", sh2, f32, (1, F)), ("scale_bank", sc2, f32, (1, F)),
+            ("idx", idx, torch.int32, (1,)))],
+        "empty_x4": lambda: (torch.empty_like(t3), torch.empty_like(t3),
+                             torch.empty((1, rows), dtype=f32, device=dev),
+                             torch.empty((1, rows), dtype=f32, device=dev)),
+        "stream_of_device": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "ctypes_launch_13_args": lambda: banked(
+            t3.data_ptr(), o3.data_ptr(), sh2.data_ptr(), sc2.data_ptr(), idx.data_ptr(), 1, rows,
+            F, *(r.data_ptr() for r in res), stream),
+        "output_views_x4": lambda: (res[0].view(rows, F), res[1].view(rows, F), res[2].view(rows),
+                                    res[3].view(rows)),
+        "whole": lambda: fused_via_banked_entry(*single),
+    }
+    index = tgt.get_device()
+    new = {
+        "checks_x4": lambda: [t.shape != w or t.dtype != f32 or t.device != dev
+                              or not t.is_contiguous() for t, w in (
+                                  (tgt, tgt.shape), (out, tgt.shape), (sh, (F,)), (sc, (F,)))],
+        "empty_x1": lambda: torch.empty(2 * rows * (F + 1), dtype=f32, device=dev),
+        "stream_of_index": lambda: torch.cuda.current_stream(index).cuda_stream,
+        "ctypes_launch_8_args": lambda: one(tgt.data_ptr(), out.data_ptr(), sh.data_ptr(),
+                                            sc.data_ptr(), rows, F, buf.data_ptr(), stream),
+        "launch_counter": lambda: counts.add("k"),
+        "unpack_views": lambda: score.unpack_scores(buf, rows, F),
+        "whole": lambda: score.fused_anomaly_score(*single),
+    }
+    return ({k: host_us(f) for k, f in old.items()}, {k: host_us(f) for k, f in new.items()})
+
+
+def device_ops_per_call(fn, args, runs=50) -> float:
+    """Device operations (kernels, fills, copies) per call, from the
+    profiler's trace of ``runs`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn(*args)
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events()) / runs
+
+
 def time_ms(fn, args, warmup=20, runs=100) -> float:
     """Median over ``runs`` calls of CUDA-event time around one call."""
     for _ in range(warmup):
@@ -157,19 +282,23 @@ def time_ms(fn, args, warmup=20, runs=100) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def kernel_device_us(fn, args, runs=50, kernel="anomaly_score_kernel"):
+def kernel_device_us(fn, args, runs=50, kernel="anomaly_score_kernel", attempts=2):
     """Average device time of the named CUDA kernel itself, from the
-    profiler's CUDA trace; None when the trace holds no device time."""
+    profiler's CUDA trace; a trace that holds no device time for it (the
+    profiler can drop a trace's device events) is taken again, and None is
+    returned when every attempt's trace lacks it."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn(*args)
-        torch.cuda.synchronize()
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            us = getattr(evt, "device_time", None) or getattr(evt, "cuda_time", None)
-            return round(us, 3) if us else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn(*args)
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            if kernel in evt.key:
+                us = getattr(evt, "device_time", None) or getattr(evt, "cuda_time", None)
+                if us:
+                    return round(us, 3)
     return None
 
 
@@ -213,7 +342,9 @@ def kernel_phase():
                                 library_fused, single,
                                 bound_ms(1, T, F, ix[:1])),
     }
+    ops = {}
     for name, (kernel, plain, library, a, bound) in timed.items():
+        ops[name] = device_ops_per_call(kernel, a)
         results[name] = {
             "name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
             "launches": None, "max_abs_err": errs[name],
@@ -222,9 +353,25 @@ def kernel_phase():
         }
         phase("parity", kernel=name, shapes=1 + len(RAGGED), bitwise="diff,scaled",
               max_norm_err=errs[name], kernel_device_us=kernel_device_us(kernel, a),
-              ms=round(results[name]["ms"], 5),
+              device_ops_per_call=ops[name], ms=round(results[name]["ms"], 5),
               plain_ms=round(results[name]["plain_ms"], 5),
               library_ms=round(results[name]["library_ms"], 5), bound_ms=round(bound, 6))
+    # K1 against its banked-entry wrapper, in turns, and where its host time goes
+    k1 = results["fused_anomaly_score"]
+    # at most one device operation a call (the profiler may drop an event,
+    # never add one)
+    if ops["fused_anomaly_score"] > 1.0:
+        raise AssertionError(f"fused_anomaly_score makes {ops['fused_anomaly_score']} device "
+                             "operations a call, more than 1")
+    turns = [time_ms(f, single) for f in (fused_via_banked_entry, score.fused_anomaly_score,
+                                          score.fused_anomaly_score, fused_via_banked_entry)]
+    old_split, new_split = k1_host_split(single)
+    phase("k1", ms=round(k1["ms"], 5), library_ms=round(k1["library_ms"], 5),
+          below_library=k1["ms"] < k1["library_ms"],
+          device_ops_per_call=ops["fused_anomaly_score"],
+          banked_entry_device_ops_per_call=device_ops_per_call(fused_via_banked_entry, single),
+          ms_banked_lean_lean_banked=json.dumps([round(t, 5) for t in turns]),
+          host_us_banked_entry=json.dumps(old_split), host_us_lean=json.dumps(new_split))
     return results
 
 
@@ -284,7 +431,8 @@ def lstm_kernel_phase():
     whole layer (lstm_layer, S=32) at every shape; times at the bank's."""
     resolve_device("cuda")  # full float32 products for the plain versions
     step_err = layer_err = 0.0
-    for i, (S, B, M, H) in enumerate([LSTM_SERVE, *LSTM_RAGGED]):
+    shapes = [LSTM_SERVE, *LSTM_RAGGED, *LSTM_EDGES]
+    for i, (S, B, M, H) in enumerate(shapes):
         xz, h, c, Wh, b = lstm_case(S, B, M, H, seed=100 + i)
         got = seq_scan.fused_lstm_step(xz[0], h, c, Wh, b)
         torch.cuda.synchronize()
@@ -296,14 +444,23 @@ def lstm_kernel_phase():
         torch.cuda.synchronize()
         layer_err = max(layer_err, close(got, seq_scan.lstm_layer_plain(xz, Wh, b), LAYER_RTOL,
                                          LAYER_ATOL, f"lstm_layer S={S} B={B} M={M} H={H}"))
+    # the kernel's reciprocal against the IEEE division, every float it takes
+    check = _cuda.load("lstm_step").gordo_lstm_rcp_check
+    check.argtypes, check.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+    mismatches = torch.zeros(1, dtype=torch.int32, device="cuda")
+    if check(mismatches.data_ptr(), torch.cuda.current_stream().cuda_stream) != 0:
+        raise RuntimeError("lstm_step reciprocal self-test did not launch")
+    if int(mismatches) != 0:
+        raise AssertionError(f"rcp_in_range differs from 1.0f / y on {int(mismatches)} values")
     S, B, M, H = LSTM_SERVE
     xz, h, c, Wh, b = lstm_case(S, B, M, H, seed=199)
     step = (xz[0].contiguous(), h, c, Wh, b)
     step_bound, _ = lstm_bound(1, B, M, H)
-    phase("parity", kernel="fused_lstm_step", steps=1, shapes=1 + len(LSTM_RAGGED),
-          band="rtol=atol=1e-6", max_err=step_err,
+    phase("parity", kernel="fused_lstm_step", steps=1, shapes=len(shapes),
+          band="rtol=atol=1e-6", max_err=step_err, rcp_bitwise_over="[1,2^126)",
+          rcp_mismatches=int(mismatches),
           kernel_device_us=kernel_device_us(seq_scan.fused_lstm_step, step,
-                                            kernel="lstm_steps_kernel"),
+                                            kernel="lstm_steps"),
           ms=round(time_ms(seq_scan.fused_lstm_step, step), 5),
           plain_ms=round(time_ms(seq_scan.lstm_step_plain, step), 5),
           library_ms=round(time_ms(library_step, step), 5), bound_ms=round(step_bound, 6))
@@ -317,13 +474,31 @@ def lstm_kernel_phase():
         "bound_ms": bound, "bound_by": bound_by,
         "library_ms": time_ms(library_layer, layer, warmup=3, runs=20),
     }
-    phase("parity", kernel="lstm_layer", steps=S, shapes=1 + len(LSTM_RAGGED),
+    phase("parity", kernel="lstm_layer", steps=S, shapes=len(shapes),
           band="rtol=1e-5,atol=1e-6", max_err=layer_err,
           kernel_device_us=kernel_device_us(seq_scan.lstm_layer, layer,
-                                            kernel="lstm_steps_kernel"),
+                                            kernel="lstm_steps"),
           ms=round(result["ms"], 5), plain_ms=round(result["plain_ms"], 5),
           library_ms=round(result["library_ms"], 5), bound_ms=round(bound, 6),
           bound_by=bound_by)
+    # every layer of the LSTM bank's batch: device us against the bound
+    device_us, bound_us = {}, {}
+    for H in sorted(set(HOURGLASS_WIDTHS)):
+        xz, _, _, Wh, b = lstm_case(S, B, M, H, seed=300 + H)
+        device_us[H] = kernel_device_us(seq_scan.lstm_layer, (xz, Wh, b), kernel="lstm_steps")
+        bound_us[H] = lstm_bound(S, B, M, H)[0] * 1e3
+    # the same layer for one member: at most one warp an SM, so its time is
+    # the latency of the step chain alone
+    H = LSTM_SERVE[3]
+    xz, _, _, Wh, b = lstm_case(S, B, 1, H, seed=400)
+    one_member_us = kernel_device_us(seq_scan.lstm_layer, (xz, Wh, b), kernel="lstm_steps")
+    phase("lstm_layers", S=S, B=B, M=M, H=json.dumps(HOURGLASS_WIDTHS),
+          device_us=json.dumps([device_us[H] for H in HOURGLASS_WIDTHS]),
+          bound_us=json.dumps([round(bound_us[H], 3) for H in HOURGLASS_WIDTHS]),
+          bound_share=json.dumps([round(bound_us[H] / device_us[H], 4) if device_us[H] else None
+                                  for H in HOURGLASS_WIDTHS]),
+          sum_device_us=round(sum(device_us[H] or 0.0 for H in HOURGLASS_WIDTHS), 3),
+          one_member_device_us=one_member_us, one_member_H=H)
     return {"lstm_layer": result}
 
 
@@ -619,7 +794,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _cuda.build_all()
     phase("build", seconds=round(time.perf_counter() - t0, 3),
-          libraries=",".join(sorted(libs)), flags=json.dumps(" ".join(_cuda.NVCC_FLAGS)))
+          libraries=",".join(sorted(libs)), flags=json.dumps(" ".join(_cuda.NVCC_FLAGS)),
+          kernels_max_regs_max_local_bytes=json.dumps(resource_usage(libs)))
 
     kernels = kernel_phase()
     kernels.update(lstm_kernel_phase())

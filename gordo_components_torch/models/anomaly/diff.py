@@ -4,8 +4,9 @@ Counterpart of ``DiffBasedAnomalyDetector`` in
 ``gordo_components_tpu/models/anomaly/diff.py``: an autoencoder behind an
 input affine scaler, with a per-feature error scaler learned at fit time.
 ``anomaly(X)`` returns the reference's six column groups as arrays, with the
-epilogue (diff, scaled diff, both row norms) in one :func:`fused_anomaly_score`
-call — the CUDA kernel on the card.
+epilogue (diff, scaled diff, both row norms) in one
+:func:`fused_anomaly_score_packed` call — the CUDA kernel on the card — whose
+one buffer comes back to the host in one transfer.
 
 Sequence models score windows of ``lookback`` rows: output row i belongs to
 input row ``i + offset``, with ``offset = lookback - 1 + target_offset``
@@ -26,7 +27,7 @@ from gordo_components_torch.device import resolve_device
 from gordo_components_torch.models.factories.lstm import LSTMStack
 from gordo_components_torch.models.register import lookup_factory
 from gordo_components_torch.ops.scaler import ScalerParams, scaler_transform
-from gordo_components_torch.ops.score import fused_anomaly_score
+from gordo_components_torch.ops.score import fused_anomaly_score_packed, unpack_scores
 from gordo_components_torch.ops.windows import sliding_windows
 
 ANOMALY_KEYS = (
@@ -121,9 +122,13 @@ class DiffBasedAnomalyDetector:
             output = self.model(xs)
         n_out = output.shape[0]
         target = scaler_transform(self.input_scaler, yv)[off:][:n_out]
-        scores = fused_anomaly_score(
+        scores = fused_anomaly_score_packed(
             target.contiguous(), output.contiguous(),
             self.error_scaler.shift, self.error_scaler.scale,
         )
-        arrays = [t.cpu().numpy() for t in (output, *scores)]
+        # one device-to-host transfer per buffer, then one wait for both
+        output, scores = (t.to("cpu", non_blocking=True) for t in (output, scores))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        arrays = [t.numpy() for t in (output, *unpack_scores(scores, n_out, output.shape[1]))]
         return dict(zip(ANOMALY_KEYS, [Xv[off:][:n_out], *arrays]))

@@ -1,10 +1,11 @@
 """Fused anomaly-scoring epilogue: the CUDA kernel's wrappers and plain versions.
 
 Counterpart of ``gordo_components_tpu/ops/pallas_score.py``. Two entry points
-share one kernel (``csrc/anomaly_score.cu``):
+of one kernel (``csrc/anomaly_score.cu``):
 
 - :func:`fused_anomaly_score` — the per-model epilogue over one ``(rows, F)``
-  reconstruction (``DiffBasedAnomalyDetector.anomaly``);
+  reconstruction (``DiffBasedAnomalyDetector.anomaly``), with
+  :func:`fused_anomaly_score_packed` giving its four outputs as one buffer;
 - :func:`banked_anomaly_score` — the banked epilogue over a coalesced
   ``(B, T, F)`` batch, with each slot's error-scaler rows gathered from
   ``(M, F)`` banks by ``idx`` (every bucket of ``server/bank.py``).
@@ -34,6 +35,7 @@ Scores = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 launch_counts = LaunchCounts("fused_anomaly_score", "banked_anomaly_score")
 reset_launch_counts = launch_counts.reset
 _kernel_fn = None
+_one_fn = None
 
 
 def score_plain(target, output, shift, scale) -> Scores:
@@ -64,6 +66,19 @@ def _kernel():
         fn.restype = ctypes.c_int
         _kernel_fn = fn
     return _kernel_fn
+
+
+def _one():
+    global _one_fn
+    if _one_fn is None:
+        from gordo_components_torch.ops import _cuda
+
+        fn = _cuda.load("anomaly_score").gordo_anomaly_score_one
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, p, p]
+        fn.restype = ctypes.c_int
+        _one_fn = fn
+    return _one_fn
 
 
 def _launch(target, output, shift_bank, scale_bank, idx) -> Scores:
@@ -110,21 +125,49 @@ def banked_anomaly_score(target, output, shift_bank, scale_bank, idx) -> Scores:
     return out
 
 
-def fused_anomaly_score(target, output, shift, scale) -> Scores:
-    """``(diff, scaled, total_unscaled, total_scaled)`` for one (rows, F)
-    reconstruction: the same CUDA kernel with B=1, a one-row bank and
-    idx=[0] on the card, the plain version on the CPU."""
+def unpack_scores(buf: torch.Tensor, rows: int, F: int) -> Scores:
+    """Views of ``(diff, scaled, total_unscaled, total_scaled)`` in a buffer
+    of :func:`fused_anomaly_score_packed`'s layout."""
+    n = rows * F
+    diff, scaled, tot_u, tot_s = buf.split((n, n, rows, rows))
+    return diff.view(rows, F), scaled.view(rows, F), tot_u, tot_s
+
+
+def fused_anomaly_score_packed(target, output, shift, scale) -> torch.Tensor:
+    """The per-model epilogue of one (rows, F) reconstruction as one flat
+    float32 buffer of ``2 * rows * (F + 1)`` values: diff (rows, F), scaled
+    (rows, F), total_unscaled (rows,), total_scaled (rows,) back to back
+    (:func:`unpack_scores` views them). The CUDA kernel's per-model entry
+    point for tensors on the card, the plain version for tensors on the CPU."""
     if target.device.type == "cpu":
-        return score_plain(target, output, shift, scale)
+        return torch.cat([t.reshape(-1) for t in score_plain(target, output, shift, scale)])
     if target.device.type != "cuda":
         raise ValueError(f"unsupported device {target.device}")
-    if target.dim() != 2:
-        raise ValueError(f"target must be (rows, F), got {tuple(target.shape)}")
-    rows, F = target.shape
-    idx = torch.zeros((1,), dtype=torch.int32, device=target.device)
-    diff, scaled, tot_u, tot_s = _launch(
-        target.view(1, rows, F), output.view(1, rows, F),
-        shift.view(1, F), scale.view(1, F), idx,
+    shape = target.shape
+    if len(shape) != 2:
+        raise ValueError(f"target must be (rows, F), got {tuple(shape)}")
+    rows, F = shape
+    dev, f32 = target.device, torch.float32
+    for name, t, want in (("target", target, shape), ("output", output, shape),
+                          ("shift", shift, (F,)), ("scale", scale, (F,))):
+        if t.shape != want or t.dtype != f32 or t.device != dev or not t.is_contiguous():
+            check_tensor(name, t, f32, want, dev)  # raises, naming the fault
+    out = torch.empty(2 * rows * (F + 1), dtype=f32, device=dev)
+    err = _one()(
+        target.data_ptr(), output.data_ptr(), shift.data_ptr(), scale.data_ptr(),
+        rows, F, out.data_ptr(), torch.cuda.current_stream(target.get_device()).cuda_stream,
     )
+    if err != 0:
+        raise RuntimeError(f"anomaly_score kernel launch failed: cudaError {err}")
     launch_counts.add("fused_anomaly_score")
-    return diff.view(rows, F), scaled.view(rows, F), tot_u.view(rows), tot_s.view(rows)
+    return out
+
+
+def fused_anomaly_score(target, output, shift, scale) -> Scores:
+    """``(diff, scaled, total_unscaled, total_scaled)`` for one (rows, F)
+    reconstruction: views of :func:`fused_anomaly_score_packed`'s buffer on
+    the card, the plain version on the CPU."""
+    if target.device.type == "cpu":
+        return score_plain(target, output, shift, scale)
+    return unpack_scores(fused_anomaly_score_packed(target, output, shift, scale),
+                         *target.shape)

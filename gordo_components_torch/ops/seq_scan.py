@@ -33,7 +33,8 @@ kernel bounds-checks ragged H, B and M instead.
 """
 
 import ctypes
-from typing import List, Mapping, Optional, Sequence, Tuple
+import functools
+from typing import List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,6 +45,10 @@ LayerWeights = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # Wi, Wh, b
 Weights = Tuple[List[LayerWeights], Tuple[torch.Tensor, torch.Tensor]]
 
 MAX_HIDDEN = 1024  # one kernel thread per (window, hidden unit)
+WARP_MAX_HIDDEN = 32  # the warp path's widest pair: one lane per unit
+N_SM = 132  # streaming multiprocessors of an H100 SXM
+BLOCK_SMEM_BUDGET = 100 * 1024  # block path: two blocks still fit an SM
+WARP_STAGES = 8  # the warp path's ring slots (the kernel is built for 8)
 
 launch_counts = LaunchCounts("fused_lstm_step", "lstm_layer")
 reset_launch_counts = launch_counts.reset
@@ -87,6 +92,57 @@ def lstm_layer_plain(xz, Wh, b):
     return torch.stack(ys)
 
 
+class LaunchPlan(NamedTuple):
+    """How ``csrc/lstm_step.cu`` covers S steps of B windows x M members
+    at width H (see the note at the top of that file)."""
+
+    group: int  # warp path: lanes per (window, member) pair; 0: block path
+    tile: int  # pairs (warp path) or windows of one member (block path) a block
+    threads: int  # a block
+    stages: int  # slots of the shared-memory ring that streams xz ahead
+    stage_w: bool  # block path: Wh[m] staged in shared memory
+    smem_bytes: int  # dynamic shared memory a block
+    grid: Tuple[int, int]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plan(B: int, M: int, H: int) -> LaunchPlan:
+    """The kernel's launch plan for B windows, M members, width H.
+
+    Warp path (H <= 32): the B*M (window, member) pairs are flattened,
+    next_pow2(H) lanes a pair, 32 // that pairs a warp; blocks of up to 4
+    warps, fewer when the pairs would not give every SM a block; an 8-slot
+    ring of the warp's slice of a step (at most 512 bytes a slot).
+
+    Block path (H > 32): windows of one member a block, about 256 threads,
+    the tile balanced over the windows; a ring of 8 slots (4 where 8 do not
+    fit the budget) and ``Wh[m]`` in shared memory where it fits beside them.
+    """
+    f32 = 4
+    if H <= WARP_MAX_HIDDEN:
+        group = 1 << (H - 1).bit_length()
+        per_warp = 32 // group
+        pairs = B * M
+        warps = min(4, max(1, _cdiv(_cdiv(pairs, per_warp), N_SM)))
+        tile = warps * per_warp
+        smem = f32 * warps * WARP_STAGES * per_warp * 4 * H
+        return LaunchPlan(group, tile, 32 * warps, WARP_STAGES, False, smem,
+                          (_cdiv(pairs, tile), 1))
+    n_tiles = _cdiv(B, max(1, min(B, 256 // H)))
+    tile = _cdiv(B, n_tiles)
+    slot = f32 * tile * 4 * H
+    h_bytes = f32 * tile * H
+    w_bytes = f32 * H * 4 * H
+    stages = 8 if 8 * slot + h_bytes <= BLOCK_SMEM_BUDGET else 4
+    stage_w = stages * slot + h_bytes + w_bytes <= BLOCK_SMEM_BUDGET
+    smem = stages * slot + h_bytes + (w_bytes if stage_w else 0)
+    return LaunchPlan(0, tile, 32 * _cdiv(tile * H, 32), stages, stage_w, smem, (n_tiles, M))
+
+
 def _kernel():
     global _kernel_fn
     if _kernel_fn is None:
@@ -94,7 +150,7 @@ def _kernel():
 
         fn = _cuda.load("lstm_step").gordo_lstm_steps
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p]
+        fn.argtypes = [p, p, p, p, p, *[i] * 12, p, p, p]
         fn.restype = ctypes.c_int
         _kernel_fn = fn
     return _kernel_fn
@@ -117,13 +173,17 @@ def _launch(xz, h0: Optional[torch.Tensor], c0: Optional[torch.Tensor], Wh, b):
     for name, t in (("h", h0), ("c", c0)):
         if t is not None:
             check_tensor(name, t, f32, (B, M, H), dev)
+    if xz.data_ptr() % 16:
+        raise ValueError("xz must start on a 16-byte boundary (the kernel copies 16-byte pieces)")
+    plan = _launch_plan(B, M, H)
     ys = torch.empty((S, B, M, H), dtype=torch.float32, device=dev)
     c_out = torch.empty((B, M, H), dtype=torch.float32, device=dev)
     err = _kernel()(
         xz.data_ptr(), None if h0 is None else h0.data_ptr(),
         None if c0 is None else c0.data_ptr(), Wh.data_ptr(), b.data_ptr(),
-        S, B, M, H, ys.data_ptr(), c_out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        S, B, M, H, plan.group, plan.tile, plan.threads, plan.stages,
+        int(plan.stage_w), plan.smem_bytes, *plan.grid, ys.data_ptr(),
+        c_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"lstm_step kernel launch failed: cudaError {err}")
