@@ -8,13 +8,17 @@ stacks ``(M, F)`` live on the card. A coalesced batch of requests for any
 members of a bucket becomes one pass. For a dense bucket:
 
     gather by idx -> input affine -> one torch.bmm per Dense layer
-    -> banked_anomaly_score (the anomaly-score CUDA kernel)
+    -> banked_anomaly_score_packed (the anomaly-score CUDA kernel)
 
 and for an LSTM bucket, with the batch slots as the member axis:
 
     gather by idx -> input affine -> sliding windows
     -> lstm_time_major_forward (one fused-LSTM-step kernel launch per layer)
-    -> banked_anomaly_score on the targets from row ``offset`` on
+    -> banked_anomaly_score_packed on the targets from row ``offset`` on
+
+The kernel writes the batch's whole result (reconstruction, diff, scaled
+and the two norms of every slot) into one buffer, which goes to the host in
+one copy.
 
 Request shapes are padded to powers of two in batch (B) and rows (T), as in
 the JAX bank; long requests are chunked at ``max_rows_per_call``, and
@@ -40,7 +44,7 @@ import torch
 from gordo_components_torch.device import resolve_device
 from gordo_components_torch.models import lookup_factory
 from gordo_components_torch.models.factories.lstm import LSTMStack
-from gordo_components_torch.ops.score import banked_anomaly_score
+from gordo_components_torch.ops.score import banked_anomaly_score_packed
 from gordo_components_torch.ops.seq_scan import lstm_time_major_forward
 from gordo_components_torch.ops.windows import sliding_windows
 
@@ -128,14 +132,15 @@ class _Bucket:
     @torch.no_grad()
     def score_batch(self, idx: torch.Tensor, X: torch.Tensor, Y: torch.Tensor):
         """idx (B,) int32; X, Y (B, T, F) raw-space, on the bank's device.
-        Returns (recon, diff, scaled, tot_u, tot_s) for the T - offset output
-        rows of each slot."""
+        Returns the packed (B, 3*n*F + 2*n) result for the n = T - offset
+        output rows of each slot: recon, diff, scaled, tot_u, tot_s back to
+        back in each slot's row (``ops.score.unpack_banked`` views them)."""
         sh = self.in_shift.index_select(0, idx)[:, None, :]
         sc = self.in_scale.index_select(0, idx)[:, None, :]
         recon = self.forward(idx, (X - sh) * sc)
         off = self.offset
         target = ((Y[:, off:] - sh) * sc).contiguous()
-        return (recon,) + banked_anomaly_score(
+        return banked_anomaly_score_packed(
             target, recon.contiguous(), self.err_shift, self.err_scale, idx
         )
 
@@ -341,14 +346,13 @@ class ModelBank:
             Yb[ci, : len(xc)] = ys[pos][start:start + T]
             idx[ci] = member
         dev = self.device
-        outs = bucket.score_batch(
+        # one device-to-host copy of the packed result
+        flat = bucket.score_batch(
             torch.from_numpy(idx).to(dev),
             torch.from_numpy(Xb).to(dev),
             torch.from_numpy(Yb).to(dev),
-        )
-        # one device-to-host copy for all five outputs
+        ).cpu().numpy()
         n = T - off  # output rows per chunk
-        flat = torch.cat([o.reshape(B, -1) for o in outs], dim=1).cpu().numpy()
         shapes = [(B, n, F)] * 3 + [(B, n)] * 2
         widths = np.cumsum([0] + [int(np.prod(sh[1:])) for sh in shapes])
         recon, diff, scaled, tu, ts = (

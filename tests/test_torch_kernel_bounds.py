@@ -5,18 +5,24 @@
   held to on the card, in chip_smoke.py) is held to the JAX package's Pallas
   step in interpreter mode, chained over S steps from a zero state, at
   widths on both sides of those edges and at ragged B and M.
-- The per-model anomaly score picks lane groups of next_pow2(F) up to 32
-  lanes: its plain version and its one-buffer layout are held to JAX's
-  ``fused_anomaly_score(..., force="interpret")`` at F on both sides of
-  16 and 32.
-- The K3 launch plan (computed in Python, checked again in C) is replayed
-  thread by thread as the kernel maps threads to (window, member, unit), and
-  must cover every triple exactly once within the card's limits.
+- The anomaly-score kernel (both entry points) picks lane groups of
+  next_pow2(F) up to 32 lanes: the per-model plain version and its
+  one-buffer layout are held to JAX's ``fused_anomaly_score(...,
+  force="interpret")`` at F on both sides of 16 and 32; the banked packed
+  result to JAX's ``banked_anomaly_score(..., mode="interpret")`` at F on
+  both sides of every power of two up to 32 and past a warp, at one row and
+  at the LSTM bank's 97 scored rows.
+- The launch plans (computed in Python, checked again in C) are replayed
+  thread by thread as the kernels map threads to work: K3's must cover
+  every (window, member, unit) triple exactly once within the card's
+  limits, the anomaly score's every (slot row, feature) pair, for F = 1..1024
+  and T up to the bank's 8192 rows a call.
 
 Bands, as the JAX suite states them: chained steps within rtol=1e-5,
 atol=1e-6; diff and scaled bitwise, the two norms within rtol=atol=1e-6.
 """
 
+import functools
 import itertools
 
 import jax.numpy as jnp
@@ -26,7 +32,7 @@ import torch
 
 from gordo_components_torch.ops import score as port_score
 from gordo_components_torch.ops import seq_scan as port_seq
-from gordo_components_tpu.ops.pallas_score import fused_anomaly_score
+from gordo_components_tpu.ops.pallas_score import banked_anomaly_score, fused_anomaly_score
 from gordo_components_tpu.ops.seq_scan import fused_lstm_step
 
 FORWARD_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -72,6 +78,65 @@ def test_fused_score_matches_pallas_interpret_at_lane_group_edges(F, rows):
         for g, w, name in zip(got[2:], want[2:], ("tot_u", "tot_s")):
             assert g.shape == w.shape, name
             np.testing.assert_allclose(g.numpy(), w, err_msg=name, **NORM_TOL)
+
+
+@pytest.mark.parametrize(
+    "F,T", list(itertools.product((1, 2, 3, 5, 8, 9, 16, 17, 31, 32, 33, 130), (1, 97)))
+)
+def test_banked_packed_matches_pallas_interpret_at_lane_group_edges(F, T):
+    B, M = 3, 4
+    rng = np.random.RandomState(F * 1000 + T)
+    target = rng.randn(B, T, F).astype("float32")
+    output = (target + 0.1 * rng.randn(B, T, F)).astype("float32")
+    shift_bank = (0.01 * rng.randn(M, F)).astype("float32")
+    scale_bank = (1.0 + rng.rand(M, F)).astype("float32")
+    idx = np.asarray([3, 0, 3], np.int32)
+    args = (target, output, shift_bank, scale_bank, idx)
+    want = [np.asarray(a) for a in banked_anomaly_score(*args, mode="interpret")]
+    packed = port_score.banked_anomaly_score_packed(*map(torch.from_numpy, args))
+    assert packed.shape == (B, 3 * T * F + 2 * T)
+    copy, *got = port_score.unpack_banked(packed, T, F)
+    np.testing.assert_array_equal(copy.numpy(), output)
+    for g, w, name in zip(got[:2], want[:2], ("diff", "scaled")):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    for g, w, name in zip(got[2:], want[2:], ("tot_u", "tot_s")):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **NORM_TOL)
+
+
+SCORE_T = (1, 7, 64, 97, 129, 8192)  # 8192: the bank's max_rows_per_call
+
+
+@functools.lru_cache(maxsize=None)
+def _score_rows_covered(T, group, tile, grid_x):
+    """How many lane groups of the anomaly-score kernel own each of a slot's
+    T rows, replaying its mapping: warp w of block x owns rows from
+    (x * 8 + w) * (32 // group), one a lane group, and leaves whole when
+    its first row is past T."""
+    warps = port_score.THREADS // 32
+    tid = np.arange(port_score.THREADS)
+    t0 = (np.arange(grid_x)[:, None] * warps + tid // 32) * (32 // group)
+    t = t0 + (tid % 32) // group
+    owner = (t0 < T) & (t < T) & ((tid % 32) % group == 0)
+    return np.bincount(t[owner], minlength=T)
+
+
+@pytest.mark.parametrize("T", SCORE_T)
+def test_score_launch_plan_covers_every_row_and_feature(T):
+    """Every (row, feature) of a slot is owned by exactly one lane, for
+    F = 1..1024: rows by lane groups, features by a group's lanes striding
+    by the group; groups are powers of two within a warp, so the norms'
+    xor shuffles stay inside a row. The kernel takes no shared memory."""
+    for F in range(1, 1025):
+        plan = port_score._launch_plan(T, F)
+        group, tile, grid_x = plan
+        assert group & (group - 1) == 0 and min(F, 32) <= group <= 32, (F, plan)
+        assert tile == port_score.THREADS // group
+        assert grid_x * tile >= T > (grid_x - 1) * tile  # no empty block
+        lanes = np.arange(group)[:, None] + group * np.arange(-(-F // group))[None, :]
+        assert (np.bincount(lanes[lanes < F], minlength=F) == 1).all(), (F, plan)
+        rows = _score_rows_covered(T, *plan)
+        assert rows.size == T and (rows == 1).all(), (T, F, plan)
 
 
 def _covered(plan, B, M, H):

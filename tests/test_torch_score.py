@@ -89,10 +89,30 @@ def test_banked_gather_selects_the_right_member():
         np.testing.assert_allclose(got[1][b].numpy(), diff[b] * 10.0 ** idx[b], rtol=1e-5)
 
 
+@pytest.mark.parametrize("B,T,F,M", SHAPES)
+def test_packed_banked_layout_matches_plain_and_jax(B, T, F, M):
+    """One (B, 3*T*F + 2*T) buffer: each slot's row holds the output copy,
+    diff, scaled and the two norms back to back; its views are the plain
+    epilogue's outputs bitwise and the JAX reference's within its band."""
+    args = _case(B, T, F, M, seed=2)
+    targs = [torch.from_numpy(a) for a in args]
+    buf = port.banked_anomaly_score_packed(*targs)
+    assert buf.shape == (B, 3 * T * F + 2 * T) and buf.dtype == torch.float32
+    views = port.unpack_banked(buf, T, F)
+    for got, want in zip(views, (targs[1], *port.banked_score_plain(*targs))):
+        assert got.shape == want.shape
+        assert torch.equal(got, want)
+    storage = buf.untyped_storage().data_ptr()
+    assert all(v.untyped_storage().data_ptr() == storage for v in views)  # views, not copies
+    _assert_parity(views[1:], _jnp_banked_score(*args))
+    _assert_parity(views[1:], banked_anomaly_score(*args, mode="interpret"))
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     port.reset_launch_counts()
     args = [torch.from_numpy(a) for a in _case(2, 5, 3, 2)]
     port.banked_anomaly_score(*args)
+    port.banked_anomaly_score_packed(*args)
     port.fused_anomaly_score(args[0][0], args[1][0], args[2][0], args[3][0])
     assert port.launch_counts == {"fused_anomaly_score": 0, "banked_anomaly_score": 0}
 
@@ -101,6 +121,8 @@ def test_other_devices_raise():
     args = [torch.empty(0, device="meta") for _ in range(5)]
     with pytest.raises(ValueError, match="unsupported device"):
         port.banked_anomaly_score(*args)
+    with pytest.raises(ValueError, match="unsupported device"):
+        port.banked_anomaly_score_packed(*args)
     with pytest.raises(ValueError, match="unsupported device"):
         port.fused_anomaly_score(*args[:4])
 
@@ -125,4 +147,4 @@ def test_kernel_launch_validates_its_inputs(change, err):
     names = ("target", "output", "shift_bank", "scale_bank", "idx")
     args = change(dict(zip(names, (torch.from_numpy(a) for a in _case(3, 4, 5, 2)))))
     with pytest.raises(err):
-        port._launch(*(args[n] for n in names))
+        port._launch_banked(*(args[n] for n in names))
