@@ -29,7 +29,19 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             division over every float in [1, 2^126); each lstm_hourglass
             layer's device time at the serving shape against its bound. Each kernel, its plain version
             and a library expression are timed with CUDA events;
-4. http     serve a four-bucket directory of port artifacts with
+4. train    FleetTrainer at the reference bench's fleet width (1,024
+            members x 1,440 rows x 10 tags, feedforward_hourglass, 5 epochs,
+            batch 128, float32) on the card: a warm fit, then a timed fit of
+            the same shapes; models/hour, the fit's wall seconds, per-epoch
+            seconds; the device operations of one training step and the
+            device's busy share of one epoch (profiler); the share of members
+            whose loss fell from epoch 1 to epoch 5 (at least 0.99);
+5. train_parity  an 8-member fleet (256 rows, one batch an epoch, 3 epochs)
+            from the same initial parameters fitted on the card and on the
+            CPU: parameters, losses, error scalers and thresholds within
+            TRAIN_RTOL/TRAIN_ATOL (the band tests/test_torch_fleet.py holds
+            the port to against the JAX package);
+6. http     serve a four-bucket directory of port artifacts with
             ``run_server``: 64 feedforward detectors at 10 tags, 8 at 40, and
             8 ``LSTMAutoEncoder`` + 4 ``LSTMForecast`` detectors
             (``lstm_hourglass``, 10 tags, lookback 32). Concurrent
@@ -38,15 +50,24 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             the LSTM responses' index trimmed by the warm-up offset; a bad
             body (400), a request within the warm-up (400), an unknown target
             (404); the detectors' ``anomaly()`` on the card;
-5. bank     10,000 feedforward hourglass members at 10 tags scored by 64
+7. bank     10,000 feedforward hourglass members at 10 tags scored by 64
             clients x 4 requests x 64 rows through BatchingEngine(max_batch=64,
             flush_ms=2.0): latency, rows/s, average batch; then one full
             batch of 64 requests alone: its host wall time against its
             device time (profiler), and the costliest device operations;
-6. lstm     the same for 10,000 ``lstm_hourglass`` members (10 tags,
+8. lstm     the same for 10,000 ``lstm_hourglass`` members (10 tags,
             lookback 32) and 128-row requests (97 scored rows each), with the
             fused-LSTM-step launches per batch;
-7. counts   the three main-path wrappers' launch counters over phases 4-6,
+9. build    ``build_fleet`` on the card: 64 RandomDataset machines with the
+            default model config (10 tags, 7 days at 10 min) and one bespoke
+            machine (a bare AutoEncoder: the single-build path) into a
+            temporary directory, 65 built and none failed; the directory
+            served by a ModelBank and BatchingEngine, each machine's training
+            rows scored as one request (K2); 4 machines scored by
+            ``serializer.load(dir).anomaly`` (K1) and held against the bank
+            within the http phase's band; no scaled training error above its
+            threshold (q = 1) by more than E2E_ATOL;
+10. counts  the three main-path wrappers' launch counters over phases 6-9,
             which must all be above 0.
 
 Then one JSON line with every kernel's numbers, the card's name and power
@@ -73,14 +94,26 @@ import numpy as np
 import torch
 
 from gordo_components_torch import resolve_device, serializer
+from gordo_components_torch.builder import build_fleet
 from gordo_components_torch.convert import entry_from_numpy, lstm_to_flax
-from gordo_components_torch.models import lookup_factory
+from gordo_components_torch.dataset import get_dataset
+from gordo_components_torch.models import lookup_factory, train_core
 from gordo_components_torch.models.factories.feedforward import hourglass_calc_dims
 from gordo_components_torch.ops import _cuda, score, seq_scan
+from gordo_components_torch.parallel import FleetTrainer, quantize_batch_count
 from gordo_components_torch.server import BatchingEngine, ModelBank, run_server
+from gordo_components_torch.server.model_io import ModelCollection
+from gordo_components_torch.workflow import Machine
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MODEL_DIR = os.path.join(ROOT, "build", "chip_smoke_models")
+FLEET_DIR = os.path.join(ROOT, "build", "chip_smoke_fleet")
+# the reference bench's fleet (bench.py bench_fleet; BASELINE.json config 3)
+FLEET_SHAPE = dict(n_models=1024, rows=1440, n_features=10)
+FLEET_CONFIG = dict(kind="feedforward_hourglass", epochs=5, batch_size=128)
+# card vs CPU after three Adam steps from the same parameters: the band
+# tests/test_torch_fleet.py holds the port's FleetTrainer to against JAX's
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 NORM_RTOL = NORM_ATOL = 1e-6  # the JAX package's band for the two norms
@@ -826,6 +859,212 @@ def bank_phase(card: str, lstm: bool = False):
     return summary
 
 
+# ------------------------------------------------------------------ #
+# phases 4-5: training
+# ------------------------------------------------------------------ #
+
+
+def synth_fleet(n_models: int, rows: int, n_features: int, seed: int = 0):
+    """The reference bench's synthetic fleet (``bench.py`` ``_synth_fleet``):
+    per member, sine waves of random frequency and phase plus noise."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(rows)
+    out = {}
+    for i in range(n_models):
+        freqs = 0.01 + 0.002 * rng.rand(n_features)
+        phases = 2 * np.pi * rng.rand(n_features)
+        X = np.sin(np.outer(t, freqs) + phases) + rng.normal(scale=0.05, size=(rows, n_features))
+        out[f"machine-{i}"] = X.astype("float32")
+    return out
+
+
+def cuda_events(prof):
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def profile_training(members, batch_size: int):
+    """One training step and one epoch of the stacked train core at the
+    fleet's shape, under the profiler: device operations of the step, and
+    the epoch's device time against its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    arrays = np.stack(list(members.values()))
+    M, rows, F = arrays.shape
+    n_pad = quantize_batch_count(-(-rows // batch_size)) * batch_size
+    X = torch.zeros(M, n_pad, F, device=dev)
+    X[:, :rows] = torch.from_numpy(arrays).to(dev)
+    mask = (torch.arange(n_pad, device=dev) < rows).float().expand(M, n_pad).contiguous()
+    stack = train_core.StackedDense(lookup_factory("AutoEncoder", FLEET_CONFIG["kind"])(F))
+    opt = train_core.make_optimizer("adam", 1e-3)
+    init_fn, epoch_fn = train_core.make_train_fns(stack, opt, batch_size)
+    step = train_core.make_step_fn(stack, opt)
+    state = init_fn([train_core.member_generator(0, i) for i in range(M)], dev)
+    lr = torch.full((M,), 1e-3, device=dev)
+    n_real = [rows] * M
+    state, _ = epoch_fn(state, X, X, mask, lr, n_real=n_real)  # warm
+    xb, mb = X[:, :batch_size], mask[:, :batch_size]
+    step(state.params, state.opt_state, xb, xb, mb, lr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state.params, state.opt_state, xb, xb, mb, lr)
+        torch.cuda.synchronize()
+    step_ops = len(cuda_events(prof))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, losses = epoch_fn(state, X, X, mask, lr, n_real=n_real)
+        losses.cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = cuda_events(prof)
+    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    # host pieces of an epoch, each timed alone (median of 5): the shuffle
+    # (one randperm a member on the CPU, one copy, then a wait) and one
+    # step's launches (the wait after it untimed)
+    def median_ms(fn, wait_inside: bool) -> float:
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            if wait_inside:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        return statistics.median(times)
+
+    shuffle_ms = median_ms(lambda: train_core.shuffle_perm(state.generators, n_real, n_pad, dev), True)
+    launch_ms = median_ms(lambda: step(state.params, state.opt_state, xb, xb, mb, lr), False)
+    return {
+        "step_device_ops": step_ops, "step_launch_ms": round(launch_ms, 4),
+        "epoch_steps": n_pad // batch_size, "epoch_shuffle_ms": round(shuffle_ms, 3),
+        "epoch_device_ops": len(events), "profiled_epoch_wall_ms": round(wall_ms, 3),
+        "epoch_device_ms": round(device_ms, 4),
+        "profiled_epoch_busy_share": round(device_ms / wall_ms, 4),
+    }
+
+
+def train_phase(card: str):
+    """FleetTrainer at full width: a warm fit, then a timed fit."""
+    members = synth_fleet(**FLEET_SHAPE)
+    FleetTrainer(**FLEET_CONFIG).fit(members)
+    trainer = FleetTrainer(**FLEET_CONFIG)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    models = trainer.fit(members)
+    wall = time.perf_counter() - t0
+    epochs = trainer.last_stats["buckets"][0]["epoch_seconds"]
+    losses = np.array([m.history["loss"] for m in models.values()])
+    if losses.shape != (len(members), FLEET_CONFIG["epochs"]) or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train: loss histories of shape {losses.shape} or non-finite")
+    fell = float(np.mean(losses[:, -1] < losses[:, 0]))
+    if fell < 0.99:
+        raise AssertionError(f"train: the loss fell for a share of {fell} of the members, below 0.99")
+    steady = statistics.median(epochs[1:])
+    prof = profile_training(members, FLEET_CONFIG["batch_size"])
+    phase("train", members=len(members), rows=FLEET_SHAPE["rows"], tags=FLEET_SHAPE["n_features"],
+          epochs=FLEET_CONFIG["epochs"], batch=FLEET_CONFIG["batch_size"], dtype="float32",
+          padded=json.dumps({k: trainer.last_stats["buckets"][0][k]
+                             for k in ("padded_rows", "padded_members")}),
+          fit_wall_s=round(wall, 4), models_per_hour=round(len(members) / wall * 3600, 1),
+          epoch_s=json.dumps(epochs), steady_epoch_s=round(steady, 4),
+          loss_fell_share=fell, loss_epoch1_median=round(float(np.median(losses[:, 0])), 6),
+          loss_epoch5_median=round(float(np.median(losses[:, -1])), 6),
+          **prof, epoch_device_busy_share=round(prof["epoch_device_ms"] / 1e3 / steady, 4),
+          card=json.dumps(card))
+
+
+def train_parity_phase():
+    """The same small fleet from the same initial parameters on the card and
+    on the CPU: one batch an epoch, so both see the same rows in each step."""
+    members = synth_fleet(8, 256, 10, seed=5)
+    module = lookup_factory("AutoEncoder", FLEET_CONFIG["kind"])(10)
+    stack = train_core.StackedDense(module)
+    init = stack.state_dicts(stack.init([train_core.member_generator(7, i) for i in range(8)]))
+    initial = dict(zip(members, init))
+    config = dict(kind=FLEET_CONFIG["kind"], epochs=3, batch_size=256)
+    card = FleetTrainer(**config).fit(members, initial_params=initial)
+    cpu = FleetTrainer(device="cpu", **config).fit(members, initial_params=initial)
+    err = {"params": 0.0, "loss": 0.0, "error_scaler": 0.0, "thresholds": 0.0}
+
+    def hold(got, want, what, key):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        if got.shape != want.shape or not np.allclose(got, want, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+            raise AssertionError(f"train_parity: {what} outside rtol={TRAIN_RTOL}, atol={TRAIN_ATOL}")
+        err[key] = max(err[key], float(np.abs(got - want).max()))
+
+    for name in members:
+        a, b = card[name], cpu[name]
+        for k in b.params:
+            hold(a.params[k], b.params[k], f"{name} {k}", "params")
+        hold(a.history["loss"], b.history["loss"], f"{name} losses", "loss")
+        for x, y in zip(a.error_scaler, b.error_scaler):
+            hold(x, y, f"{name} error scaler", "error_scaler")
+        hold(a.feature_thresholds, b.feature_thresholds, f"{name} feature thresholds", "thresholds")
+        hold(a.total_threshold, b.total_threshold, f"{name} total threshold", "thresholds")
+    phase("train_parity", members=len(members), rows=256, epochs=3, batch=256,
+          band=f"rtol={TRAIN_RTOL},atol={TRAIN_ATOL}",
+          max_abs_err=json.dumps({k: float(f"{v:.3g}") for k, v in err.items()}))
+
+
+# ------------------------------------------------------------------ #
+# phase 9: build a fleet and serve what it built
+# ------------------------------------------------------------------ #
+
+
+def build_phase():
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    out_dir, reg_dir = os.path.join(FLEET_DIR, "models"), os.path.join(FLEET_DIR, "register")
+
+    def dataset(name):
+        return {"type": "RandomDataset", "train_start_date": "2020-01-01T00:00:00Z",
+                "train_end_date": "2020-01-08T00:00:00Z",
+                "tag_list": [f"{name}-tag-{j}" for j in range(10)]}
+
+    machines = [Machine(name=f"fleet-{i:03d}", dataset=dataset(f"fleet-{i:03d}")) for i in range(64)]
+    # a bare AutoEncoder (no scaler step) is not fleetable: the single-build path
+    machines.append(Machine(name="bespoke", dataset=dataset("bespoke"), model={
+        "gordo_components_torch.models.DiffBasedAnomalyDetector": {"base_estimator": {
+            "gordo_components_torch.models.AutoEncoder": {"kind": "feedforward_hourglass"}}}}))
+    engine = None
+    try:
+        t0 = time.perf_counter()
+        report = build_fleet(machines, out_dir, model_register_dir=reg_dir)
+        build_s = time.perf_counter() - t0
+        manifest = report.manifest()
+        if manifest["n_built"] != 65 or manifest["n_failed"] != 0:
+            raise AssertionError(f"build: {manifest['n_built']} built, failed {report.failed}")
+        collection = ModelCollection(out_dir)
+        bank = ModelBank.from_entries(list(collection.entries.values()))
+        engine = BatchingEngine(bank, max_batch=64, flush_ms=2.0)
+        engine.start()
+        data = {m.name: get_dataset(m.dataset).get_data()[0].values for m in machines}
+        results = {name: engine.score_blocking(name, X, timeout=120) for name, X in data.items()}
+        worst = 0.0
+        for name, res in results.items():
+            arrays = res.to_arrays()
+            if not all(np.all(np.isfinite(a)) for a in arrays.values()):
+                raise AssertionError(f"build: non-finite scores for {name}")
+            th = collection.metadata[name]["thresholds"]
+            feat = np.array([th["feature-thresholds"][t] for t in collection.entries[name].tags])
+            over = max(float((res.scaled - feat).max()),
+                       float(res.total_scaled.max() - th["total-anomaly-threshold"]))
+            worst = max(worst, over)
+            if over > E2E_ATOL:
+                raise AssertionError(f"build: {name}'s training error exceeds its threshold by {over}")
+        for name in ("fleet-000", "fleet-031", "fleet-063", "bespoke"):
+            got = serializer.load(os.path.join(out_dir, name)).anomaly(data[name])
+            check_arrays(got, results[name].to_arrays(), f"build {name}: anomaly() vs bank")
+    finally:
+        if engine is not None:
+            engine.stop()
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    phase("build", machines=len(machines), n_built=manifest["n_built"], n_failed=manifest["n_failed"],
+          build_s=round(build_s, 3), rows_per_machine=len(data["fleet-000"]),
+          bank_buckets=bank.n_buckets, scored="every machine (bank), 4 via anomaly()",
+          max_over_threshold=worst)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
@@ -842,8 +1081,10 @@ def main() -> int:
 
     kernels = kernel_phase()
     kernels.update(lstm_kernel_phase())
+    train_phase(card)
+    train_parity_phase()
 
-    # the main path: every launch counter from 0, read after phases 4-6
+    # the main path: every launch counter from 0, read after phases 6-9
     score.reset_launch_counts()
     seq_scan.reset_launch_counts()
 
@@ -856,11 +1097,17 @@ def main() -> int:
     after_bank = counts()
     bank_phase(card, lstm=True)
     after_lstm = counts()
+    build_phase()
+    after_build = counts()
+    for name in ("banked_anomaly_score", "fused_anomaly_score"):
+        if after_build[name] - after_lstm[name] <= 0:
+            raise AssertionError(f"build: serving the built fleet launched no {name}")
     phase("counts", **{f"{k}_http": v for k, v in after_http.items()},
           **{f"{k}_bank": after_bank[k] - after_http[k] for k in after_bank},
-          **{f"{k}_lstm": after_lstm[k] - after_bank[k] for k in after_lstm})
+          **{f"{k}_lstm": after_lstm[k] - after_bank[k] for k in after_lstm},
+          **{f"{k}_build": after_build[k] - after_lstm[k] for k in after_build})
     for name in kernels:
-        n = after_lstm[name]
+        n = after_build[name]
         if n <= 0:
             raise AssertionError(f"{name}: the main path launched its kernel {n} times")
         kernels[name]["launches"] = n

@@ -1,4 +1,4 @@
-"""Artifact persistence of the port."""
+"""Artifact persistence and the config-definition language of the port."""
 
 from gordo_components_torch.serializer.artifacts import (
     dump,
@@ -7,5 +7,14 @@ from gordo_components_torch.serializer.artifacts import (
     load_entry,
     load_metadata,
 )
+from gordo_components_torch.serializer.definitions import from_definition, import_locate
 
-__all__ = ["dump", "is_artifact_dir", "load", "load_entry", "load_metadata"]
+__all__ = [
+    "dump",
+    "from_definition",
+    "import_locate",
+    "is_artifact_dir",
+    "load",
+    "load_entry",
+    "load_metadata",
+]

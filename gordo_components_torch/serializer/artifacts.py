@@ -1,7 +1,7 @@
 """The port's artifact directory.
 
 Counterpart of ``gordo_components_tpu/serializer/artifacts.py``. A port
-artifact holds no pickle; it is three files:
+artifact holds no pickle; it is three files, and a fourth for a built model:
 
 - ``params.npz``    — network weights under the flattened Flax keys, as the
                       JAX package writes them: ``params/Dense_i/kernel``
@@ -13,7 +13,10 @@ artifact holds no pickle; it is three files:
                       ``lookback`` and ``target_offset`` (absent in
                       directories that predate sequence models, which read
                       as 1 and 0), tags and thresholds;
-- ``scalers.npz``   — ``in_shift``, ``in_scale``, ``err_shift``, ``err_scale``.
+- ``scalers.npz``   — ``in_shift``, ``in_scale``, ``err_shift``, ``err_scale``;
+- ``metadata.json`` — the build metadata the builders record (name,
+                      dataset, model config, training history, durations),
+                      when the artifact was built rather than converted.
 """
 
 import json
@@ -27,6 +30,7 @@ from gordo_components_torch.convert import entry_from_numpy, params_to_flax
 PARAMS_FILE = "params.npz"
 DETECTOR_FILE = "detector.json"
 SCALERS_FILE = "scalers.npz"
+METADATA_FILE = "metadata.json"
 FORMAT = "gordo-torch-artifact/v1"
 _SCALERS = ("in_shift", "in_scale", "err_shift", "err_scale")
 
@@ -55,8 +59,11 @@ def is_artifact_dir(path: str) -> bool:
     return os.path.exists(os.path.join(path, DETECTOR_FILE))
 
 
-def dump(entry, dest_dir: str) -> None:
-    """Write ``entry`` (a ``server/bank._BankEntry``) as an artifact directory at ``dest_dir``."""
+def dump(obj, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> None:
+    """Write ``obj`` as an artifact directory at ``dest_dir``: a bank entry
+    (``server/bank._BankEntry``) or a fitted detector (through its
+    ``to_entry()``), with the build ``metadata`` in ``metadata.json``."""
+    entry = obj.to_entry(os.path.basename(os.path.normpath(dest_dir))) if hasattr(obj, "to_entry") else obj
     os.makedirs(dest_dir, exist_ok=True)
     np.savez(
         os.path.join(dest_dir, PARAMS_FILE),
@@ -79,9 +86,12 @@ def dump(entry, dest_dir: str) -> None:
     }
     with open(os.path.join(dest_dir, DETECTOR_FILE), "w") as f:
         json.dump(meta, f, indent=2)
+    if metadata is not None:
+        with open(os.path.join(dest_dir, METADATA_FILE), "w") as f:
+            json.dump(metadata, f, default=str, indent=2)
 
 
-def load_metadata(source_dir: str) -> Dict[str, Any]:
+def _load_detector(source_dir: str) -> Dict[str, Any]:
     with open(os.path.join(source_dir, DETECTOR_FILE)) as f:
         meta = json.load(f)
     if meta.get("format") != FORMAT:
@@ -89,10 +99,21 @@ def load_metadata(source_dir: str) -> Dict[str, Any]:
     return meta
 
 
+def load_metadata(source_dir: str) -> Dict[str, Any]:
+    """The artifact's ``detector.json`` fields, with the build metadata of
+    ``metadata.json`` (when present) beside them."""
+    meta = _load_detector(source_dir)
+    path = os.path.join(source_dir, METADATA_FILE)
+    if os.path.exists(path):
+        with open(path) as f:
+            meta = {**json.load(f), **meta}
+    return meta
+
+
 def load_entry(source_dir: str, name: Optional[str] = None):
     """The artifact at ``source_dir`` as a bank entry (numpy, no device);
     ``name`` defaults to the directory's basename."""
-    meta = load_metadata(source_dir)
+    meta = _load_detector(source_dir)
     with np.load(os.path.join(source_dir, PARAMS_FILE)) as npz:
         params = _unflatten({k: npz[k] for k in npz.files})
     with np.load(os.path.join(source_dir, SCALERS_FILE)) as npz:

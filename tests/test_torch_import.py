@@ -3,7 +3,8 @@ package, and its entry points default to the card and refuse to run on the
 CPU unless asked to.
 
 The import check runs in a subprocess because this test process has already
-imported jax (tests/conftest.py).
+imported jax (tests/conftest.py). It blocks pandas, sklearn and PyYAML too:
+the card's machine has none of them.
 """
 
 import json
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "gordo_components_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "gordo_components_tpu",
+           "pandas", "sklearn", "yaml")
 
 _IMPORT_ALL = """
 import importlib, importlib.abc, importlib.util, json, pkgutil, sys
@@ -67,7 +69,12 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "server.views", "convert", "serializer.artifacts",
                 "models.anomaly.diff", "models.factories.feedforward",
                 "ops.seq_scan", "ops.windows", "ops.activations",
-                "models.factories.lstm"):
+                "models.factories.lstm", "ops.losses", "models.train_core",
+                "models.models", "models.transformers", "models.base",
+                "models.anomaly.base", "serializer.definitions", "dataset.datasets",
+                "dataset.resample", "dataset.data_provider.providers", "workflow.config",
+                "builder.build_model", "builder.fleet_build", "parallel.fleet",
+                "utils.staging"):
         assert f"gordo_components_torch.{mod}" in report["modules"]
 
 
@@ -111,11 +118,31 @@ def artifact_dir(tmp_path):
     return str(tmp_path)
 
 
+_DATASET = {"type": "RandomDataset", "train_start_date": "2020-01-01T00:00:00Z",
+            "train_end_date": "2020-01-01T06:00:00Z", "tag_list": ["a", "b", "c"]}
+_MODEL = {"gordo_components_torch.models.DiffBasedAnomalyDetector": {"base_estimator": {
+    "gordo_components_torch.models.AutoEncoder": {"kind": "feedforward_symmetric", "dims": [2],
+                                                  "epochs": 1}}}}
+
+
 def _entry_points(artifact_dir):
     from gordo_components_torch import resolve_device, serializer
+    from gordo_components_torch.builder import build_fleet, build_model, provide_saved_model
+    from gordo_components_torch.models import AutoEncoder
+    from gordo_components_torch.parallel import FleetTrainer
     from gordo_components_torch.server import ModelBank, build_app, run_server
 
+    X = np.random.RandomState(0).rand(20, 3).astype("f4")
+    out = os.path.join(artifact_dir, "built")
     return {
+        "AutoEncoder.fit": lambda **kw: AutoEncoder(
+            kind="feedforward_symmetric", dims=[2], epochs=1, **kw).fit(X),
+        "FleetTrainer.fit": lambda **kw: FleetTrainer(
+            kind="feedforward_symmetric", dims=[2], epochs=1, **kw).fit({"m": X}),
+        "build_model": lambda **kw: build_model("m", _MODEL, _DATASET, **kw),
+        "provide_saved_model": lambda **kw: provide_saved_model(
+            "m", _MODEL, _DATASET, output_dir=out, **kw),
+        "build_fleet": lambda **kw: build_fleet([{"name": "m", "dataset": _DATASET}], out, **kw),
         "resolve_device": lambda **kw: resolve_device(**kw),
         "ModelBank": lambda **kw: ModelBank(**kw),
         "serializer.load": lambda **kw: serializer.load(os.path.join(artifact_dir, "m"), **kw),
@@ -127,7 +154,9 @@ def _entry_points(artifact_dir):
 
 
 @pytest.mark.parametrize(
-    "name", ["resolve_device", "ModelBank", "serializer.load", "build_app", "run_server"]
+    "name", ["resolve_device", "ModelBank", "serializer.load", "build_app", "run_server",
+             "AutoEncoder.fit", "FleetTrainer.fit", "build_model", "provide_saved_model",
+             "build_fleet"]
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, artifact_dir, name):
     entry = _entry_points(artifact_dir)[name]
