@@ -8,7 +8,10 @@ build metadata -> a port artifact, with a config-hash build cache so a
 rerun skips machines whose artifact already exists.
 
 Cross-validation (``evaluation_config`` asking for folds, or
-``cv_mode="cross_val_only"``) is not ported yet and raises.
+``cv_mode="cross_val_only"``) is not ported yet and raises, and so does a
+model config that is not a ``DiffBasedAnomalyDetector``: its artifact has
+no port format yet (``serializer.check_artifact_model``), so the build
+refuses it before loading data.
 """
 
 import hashlib
@@ -69,16 +72,19 @@ def build_model(
     evaluation_config: Optional[Dict[str, Any]] = None,
     device="cuda",
 ) -> Tuple[Any, Dict[str, Any]]:
-    """Build and train one model on ``device``; returns ``(model, metadata)``."""
+    """Build and train one model on ``device``; returns ``(model, metadata)``.
+    Raises ``NotImplementedError`` before loading data for a model that is
+    not a detector (``serializer.check_artifact_model``)."""
     device = resolve_device(device)
     check_evaluation(evaluation_config)
+    model = serializer.from_definition(model_config)
+    serializer.check_artifact_model(model)
+    place(model, device)
     t0 = time.time()
     dataset = get_dataset(dict(data_config))
     X, y = dataset.get_data()
     data_elapsed = time.time() - t0
 
-    model = serializer.from_definition(model_config)
-    place(model, device)
     t1 = time.time()
     model.fit(X, y)
     fit_elapsed = time.time() - t1

@@ -3,8 +3,9 @@
 Counterpart of ``gordo_components_tpu/builder/fleet_build.py``. Machines
 whose model config is exactly the canonical anomaly pipeline
 (``extract_fleetable``) train together, one ``FleetTrainer`` stack per
-group of identical estimator kwargs; every other machine takes the
-single-model path (``provide_saved_model``). Both paths share the
+group of identical estimator kwargs (so dense and LSTM machines, and LSTM
+machines of different model types or lookbacks, train apart); every other
+machine takes the single-model path (``provide_saved_model``). Both paths share the
 config-hash build cache, and a failure stays with its machine or group: a
 bespoke build that raises, or a group that fails ``group_retries + 1``
 times (default 1 retry, env ``GORDO_BUILD_GROUP_RETRIES``), lands in the
@@ -12,9 +13,10 @@ report's ``failed`` while the rest ship. Groups train one after another on
 the one card.
 
 Not ported yet, and raising (or, for one machine, recorded in ``failed``
-with the error): sequence-family groups, cross-validation folds, checkpoint
-and resume, the distributed gang, heartbeats (``state_dir``), fault points
-(``GORDO_FAULTS``) and gang worker threads (``GORDO_GANG_WIDTH``). The build
+with the error): top-level configs that are not detectors, conv models,
+cross-validation folds, checkpoint and resume, the distributed gang,
+heartbeats (``state_dir``), fault points (``GORDO_FAULTS``) and gang worker
+threads (``GORDO_GANG_WIDTH``). The build
 trace and metrics registry of the JAX builder are not written.
 """
 

@@ -49,7 +49,10 @@ class _Dense(nn.Module):
 class LSTMStack(nn.Module):
     """Stacked LSTMs over windows (N, lookback, n_features) -> (N, n_features).
     ``layers[i]`` is Flax's ``OptimizedLSTMCell_i``, ``head`` its ``Dense_0``.
-    Weights start at zero: the port loads fitted weights, it does not train."""
+    Weights start at zero and stay frozen: the module scores fitted weights;
+    training runs on the stacked parameters of
+    ``models/train_core.StackedLSTM``, whose gradient step goes through
+    ``ops/seq_scan.lstm_train_forward``."""
 
     def __init__(
         self,

@@ -1,19 +1,22 @@
 """sklearn-style autoencoder estimators.
 
-Counterpart of ``BaseEstimator`` and ``AutoEncoder`` in
+Counterpart of ``BaseEstimator``, ``AutoEncoder``, ``SequenceBaseEstimator``,
+``LSTMAutoEncoder`` and ``LSTMForecast`` in
 ``gordo_components_tpu/models/models.py``: ``kind`` selects a registered
 factory, ``fit`` reconstructs X (the train core's epochs over one stacked
 member, on ``device``), ``score`` is explained variance, and the per-epoch
 history lands in the metadata. Fitted parameters are the factory module's
 state dict as numpy arrays, which the serializer writes.
 
-The sequence estimators (``LSTMAutoEncoder``, ``LSTMForecast``,
-``ConvAutoEncoder``) resolve from configurations but raise when fitted:
-sequence training is the next slice of the port.
+A sequence estimator trains on windows of ``lookback_window`` rows: item
+``i`` is the window ``[i, i + lookback_window)`` against row ``i +
+lookback_window - 1 + offset`` (offset 1 for ``LSTMForecast``), gathered
+from the rows batch by batch. ``ConvAutoEncoder`` is not ported: it raises.
 """
 
 import logging
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -23,6 +26,7 @@ from gordo_components_torch.models import train_core
 from gordo_components_torch.models.base import GordoBase
 from gordo_components_torch.models.register import lookup_factory
 from gordo_components_torch.ops.losses import explained_variance, regression_metrics
+from gordo_components_torch.ops.windows import sliding_windows
 from gordo_components_torch.utils import capture_args
 
 logger = logging.getLogger(__name__)
@@ -85,16 +89,13 @@ class BaseEstimator(GordoBase):
         self.params_: Optional[Dict[str, np.ndarray]] = None
         self.n_features_: Optional[int] = None
         self.history: Dict[str, list] = {}
+        self.epoch_seconds_: List[float] = []  # wall time of each epoch of the last fit
         self._module = None
         lookup_factory(self._registry_type, kind)  # fail fast on a bad kind
 
     def _build_module(self, n_features: int):
         factory = lookup_factory(self._registry_type, self.kind)
         return factory(n_features, compute_dtype=self.compute_dtype, **self.factory_kwargs)
-
-    def _make_xy(self, X: np.ndarray, y):
-        """(train inputs, train targets): reconstruct X unless y is given."""
-        return X, X if y is None else _as_float32(y)
 
     @property
     def module(self):
@@ -107,15 +108,25 @@ class BaseEstimator(GordoBase):
             self._module = module.to(resolve_device(self.device)).eval()
         return self._module
 
+    def _stack(self, module):
+        return train_core.StackedDense(module)
+
+    def _check_rows(self, n_rows: int) -> None:
+        if n_rows == 0:
+            raise ValueError("Cannot fit on empty data")
+
     def fit(self, X, y=None, **kwargs):
+        """Fit on the rows of X (targets y, default X): the last
+        ``int(items * validation_split)`` items are held out, early stopping
+        watches the validation loss (else the training loss) and restores
+        the best epoch's parameters."""
         device = resolve_device(self.device)
         X = _as_float32(X)
-        Xin, Yin = self._make_xy(X, y)
-        n = Xin.shape[0]
-        if n == 0:
-            raise ValueError("Cannot fit on empty data")
-        module = self._build_module(int(X.shape[-1]))
-        stack = train_core.StackedDense(module)
+        Y = X if y is None else _as_float32(y)
+        self._check_rows(len(X))
+        stack = self._stack(self._build_module(int(X.shape[-1])))
+        warmup = stack.warmup
+        n = X.shape[0] - warmup  # items: rows, or window starts
         bs = min(self.batch_size, n)
         if self.data_parallel:
             if device.type == "cuda" and torch.cuda.device_count() > 1:
@@ -124,37 +135,37 @@ class BaseEstimator(GordoBase):
                 )
             logger.info("data_parallel requested but one device is visible; single-device fit")
 
-        # host-side split: the last rows are the validation set
+        # host-side split: the last items are the validation set, each block
+        # with the warm-up rows its items need
         n_val = int(n * self.validation_split)
-        if n_val > 0:
-            Xtr, Ytr, Xva, Yva = Xin[:-n_val], Yin[:-n_val], Xin[-n_val:], Yin[-n_val:]
-        else:
-            Xtr, Ytr, Xva, Yva = Xin, Yin, None, None
+        n_train = n - n_val
 
         opt = train_core.make_optimizer(self.optimizer, self.learning_rate)
         loss = "mse" if self.loss == "auto" else self.loss
         init_fn, epoch_fn = train_core.make_train_fns(stack, opt, bs, loss=loss)
 
-        def on_device(*arrays):
-            return [torch.as_tensor(a, device=device)[None] for a in arrays]
+        def on_device(X, Y):
+            return [torch.as_tensor(a, device=device)[None]
+                    for a in train_core.pad_to_batches(X, Y, bs, warmup)[:3]]
 
-        Xp, Yp, mask, _ = train_core.pad_to_batches(Xtr, Ytr, bs)
-        Xp, Yp, mask = on_device(Xp, Yp, mask)
+        Xp, Yp, mask = on_device(X[:n_train + warmup], Y[:n_train + warmup])
         state = init_fn([train_core.member_generator(self.seed, 0)], device)
         lr = torch.full((1,), self.learning_rate, device=device)
 
         eval_fn = None
-        if Xva is not None:
+        if n_val > 0:
             eval_fn = train_core.make_eval_fn(stack, bs, loss=loss)
-            Xvp, Yvp, vmask = on_device(*train_core.pad_to_batches(Xva, Yva, bs)[:3])
+            Xvp, Yvp, vmask = on_device(X[n_train:], Y[n_train:])
 
         self.history = {"loss": []}
         if eval_fn is not None:
             self.history["val_loss"] = []
         best, patience_left = np.inf, self.early_stopping_patience
         best_params = None
+        self.epoch_seconds_ = []
         for epoch in range(self.epochs):
-            state, loss_val = epoch_fn(state, Xp, Yp, mask, lr, n_real=[len(Xtr)])
+            t0 = time.perf_counter()
+            state, loss_val = epoch_fn(state, Xp, Yp, mask, lr, n_real=[n_train])
             loss_f = float(loss_val[0])
             self.history["loss"].append(loss_f)
             monitored = loss_f
@@ -162,6 +173,7 @@ class BaseEstimator(GordoBase):
                 val = float(eval_fn(state.params, Xvp, Yvp, vmask)[0])
                 self.history["val_loss"].append(val)
                 monitored = val
+            self.epoch_seconds_.append(time.perf_counter() - t0)
             if self.early_stopping_patience is not None:
                 if monitored < best - self.early_stopping_min_delta:
                     best, patience_left = monitored, self.early_stopping_patience
@@ -217,8 +229,9 @@ class AutoEncoder(BaseEstimator):
 
 
 class _SequenceEstimator(BaseEstimator):
-    """A sequence estimator: configurations resolve, ``fit`` raises until
-    sequence training is ported (``ROADMAP.md``)."""
+    """Shared windowing of the sequence estimators (JAX
+    ``SequenceBaseEstimator``): output row i belongs to input row ``i +
+    lookback_window - 1 + offset``."""
 
     _target_offset = 0
 
@@ -228,14 +241,35 @@ class _SequenceEstimator(BaseEstimator):
         super().__init__(kind=kind, **kwargs)
         self._params = {"kind": kind, "lookback_window": lookback_window, **kwargs}
 
-    def fit(self, X, y=None, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__}.fit: sequence-family training is not ported yet"
-        )
+    def _stack(self, module):
+        return train_core.StackedLSTM(module, self.lookback_window, self._target_offset)
+
+    def _check_rows(self, n_rows: int) -> None:
+        need = self.lookback_window + self._target_offset
+        if n_rows < need:
+            raise ValueError(
+                f"Need at least lookback_window+{self._target_offset}={need} rows, got {n_rows}"
+            )
+
+    def predict(self, X) -> np.ndarray:
+        """One output row per window: row i is the model value for input
+        row ``i + lookback_window - 1 + offset``."""
+        X = _as_float32(X)
+        self._check_rows(len(X))
+        device = resolve_device(self.device)
+        W = sliding_windows(torch.as_tensor(X, device=device), self.lookback_window)
+        return train_core.batched_apply(self.module, W[: len(W) - self._target_offset], device)
+
+    def _scoring_pair(self, X, y):
+        X = _as_float32(X)
+        target = X if y is None else _as_float32(y)
+        pred = self.predict(X)  # the rows after the warm-up
+        return torch.from_numpy(target[len(X) - len(pred):]), torch.from_numpy(pred)
 
 
 class LSTMAutoEncoder(_SequenceEstimator):
-    """Windowed LSTM autoencoder (reference: ``KerasLSTMAutoEncoder``)."""
+    """Windowed LSTM autoencoder reconstructing the window's last row
+    (reference: ``KerasLSTMAutoEncoder``)."""
 
 
 class LSTMForecast(_SequenceEstimator):
@@ -245,8 +279,11 @@ class LSTMForecast(_SequenceEstimator):
 
 
 class ConvAutoEncoder(_SequenceEstimator):
-    """Conv1D window autoencoder; no conv factory is ported yet, so
+    """Conv1D window autoencoder: the conv family is not ported, so
     constructing one raises."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("ConvAutoEncoder: the conv family is not ported yet")
 
 
 def _jsonable(obj):

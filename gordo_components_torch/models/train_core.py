@@ -1,29 +1,36 @@
 """Training core: stacked members, explicit state, one forward layout.
 
-Counterpart of the dense half of ``gordo_components_tpu/models/train_core.py``.
-Every function here works on a stack of ``M`` members (``M = 1`` for a
-single estimator), so the single fit and the fleet run the same code:
+Counterpart of ``gordo_components_tpu/models/train_core.py``. Every function
+here works on a stack of ``M`` members (``M = 1`` for a single estimator),
+so the single fit and the fleet run the same code:
 
 - :class:`StackedDense` holds a dense autoencoder's parameters for all
   members in one flat ``(M, P)`` tensor and runs the forward in the bank's
   layout, one ``torch.baddbmm`` per layer over ``(M, B, .)`` with Flax's
   ``(in, out)`` kernels;
+- :class:`StackedLSTM` does the same for an LSTM stack in Flax's
+  ``OptimizedLSTMCell`` layout; its items are window starts, gathered from
+  the raw rows batch by batch (:func:`gather_window_batch`), and its
+  forward is the autograd forward where a gradient is wanted and the fused
+  step kernel elsewhere;
 - :func:`make_optimizer` is a stacked functional update with optax's
   formulas and defaults: per-member step counts and learning rates, and a
   per-member skip of the whole update;
-- :func:`make_train_fns` gives ``init_fn`` and ``epoch_fn``. Gradients come
-  from the sum of the per-member masked losses, which decouples exactly:
-  each member's loss depends on its own parameter row only.
+- :func:`make_train_fns` gives ``init_fn`` and ``epoch_fn`` over either
+  stack. Gradients come from the sum of the per-member masked losses, which
+  decouples exactly: each member's loss depends on its own parameter row
+  only.
 
-The epoch keeps the reference's semantics (``train_core.py:142-188``):
-padding rows sort to the end of every shuffle, a batch that is all padding
-is an exact no-op for its member (parameters, moments and step count
-unchanged), and the epoch loss is weighted by real rows. Nothing inside the
-batch loop reads a device value on the host.
+The epoch keeps the reference's semantics (``train_core.py:142-188`` and
+the sequence gang epoch ``:284-378``): padding items sort to the end of
+every shuffle, a batch that is all padding is an exact no-op for its member
+(parameters, moments and step count unchanged), and the epoch loss is
+weighted by real items. Nothing inside the batch loop reads a device value
+on the host.
 
 Random draws come from explicit ``torch.Generator`` objects on the CPU, one
 per member, seeded from ``(seed, member position)``: a member's
-initialization and shuffles do not depend on the gang's width or on its row
+initialization and shuffles do not depend on the gang's width or on its item
 padding, and the card and the CPU draw the same numbers.
 """
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from gordo_components_torch.ops.losses import mse_loss
+from gordo_components_torch.ops.seq_scan import lstm_time_major_forward, lstm_train_forward
 
 # Flax's Dense kernel init, lecun_normal: a normal truncated to two standard
 # deviations, rescaled so its variance is 1 / fan_in
@@ -47,6 +55,27 @@ def member_generator(seed: int, position: int) -> torch.Generator:
     return torch.Generator().manual_seed(int.from_bytes(digest[:8], "little"))
 
 
+def lecun_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Flax's ``lecun_normal`` for a kernel whose fan-in is ``shape[-2]``."""
+    std = (1.0 / shape[-2]) ** 0.5 / _TRUNC_STD
+    return torch.nn.init.trunc_normal_(torch.empty(shape), generator=generator) * std
+
+
+def gather_window_batch(X, item_idx, lookback: int, target_offset: int, Y=None):
+    """``(xb, yb)`` for a batch of window-start items over each member's raw
+    rows ``X`` (M, rows, F): ``xb`` (M, B, lookback, F) gathers rows ``[i,
+    i + lookback)`` of ``item_idx`` (M, B), ``yb`` (M, B, F) the target row
+    ``i + lookback - 1 + target_offset`` of ``Y`` (default ``X``). Indices
+    clip into range, so padded items gather rows the caller's item mask must
+    zero out (JAX ``gather_window_batch``, ``train_core.py:193-205``)."""
+    Y = X if Y is None else Y
+    rows = X.shape[1]
+    member = torch.arange(X.shape[0], device=X.device)[:, None]
+    widx = (item_idx[..., None] + torch.arange(lookback, device=X.device)).clamp(0, rows - 1)
+    tidx = (item_idx + (lookback - 1 + target_offset)).clamp(0, rows - 1)
+    return X[member[..., None], widx], Y[member, tidx]
+
+
 class StackedDense:
     """A dense autoencoder's parameters for ``M`` members, and its forward.
 
@@ -54,6 +83,8 @@ class StackedDense:
     layer the kernel ``(in, out)`` row-major, then the bias ``(out,)``.
     ``module`` is a :class:`~.factories.feedforward.FeedForwardAutoEncoder`
     giving the layer widths and activations."""
+
+    warmup = 0  # rows before an item's target row: an item is a row
 
     def __init__(self, module):
         self.dims = [module.layers[0].in_features] + [l.out_features for l in module.layers]
@@ -77,14 +108,19 @@ class StackedDense:
             x = act(torch.baddbmm(b.unsqueeze(1), x, W))
         return x
 
+    @staticmethod
+    def batch(X, Y, idx):
+        """The batch of items (rows) ``idx`` (M, B): ``(xb, yb)`` (M, B, F)."""
+        xb = torch.take_along_dim(X, idx[..., None], dim=1)
+        return xb, xb if Y is X else torch.take_along_dim(Y, idx[..., None], dim=1)
+
     def init(self, generators: Sequence[torch.Generator]) -> torch.Tensor:
         """Fresh ``(M, P)`` parameters on the CPU, one member per generator:
         Flax's Dense init (lecun_normal kernels, zero biases)."""
         flat = torch.zeros(len(generators), self.n_params)
         for m, g in enumerate(generators):
             for (W, _), (n_in, _) in zip(self.split(flat[m:m + 1]), self.layers):
-                std = (1.0 / n_in) ** 0.5 / _TRUNC_STD
-                W.copy_(torch.nn.init.trunc_normal_(torch.empty(W.shape), generator=g) * std)
+                W.copy_(lecun_normal(W.shape, g))
         return flat
 
     def state_dicts(self, flat: torch.Tensor) -> List[Dict[str, np.ndarray]]:
@@ -114,6 +150,100 @@ class StackedDense:
                 row += [W.T.reshape(-1), b]
             rows.append(np.concatenate(row))
         return torch.from_numpy(np.stack(rows).astype(np.float32))
+
+
+class StackedLSTM:
+    """An LSTM stack's parameters for ``M`` members, its windowed items and
+    its forward.
+
+    Member ``m``'s parameters are row ``m`` of one ``(M, P)`` tensor, piece
+    by piece in :class:`~.factories.lstm.LSTMStack`'s state-dict order and
+    shapes: per layer ``Wi`` (F_in, 4H), ``Wh`` (H, 4H), ``b`` (4H,), then
+    the head's ``kernel`` (H, F) and ``bias`` (F,), the gates concatenated
+    in Flax's order i, f, g, o. ``module`` is an ``LSTMStack`` giving the
+    widths and activations; an item is a window start, the window ``[i, i +
+    lookback)`` trained against row ``i + lookback - 1 + target_offset``."""
+
+    def __init__(self, module, lookback: int, target_offset: int = 0):
+        self.dims = tuple(module.dims)
+        self.funcs = tuple(module.funcs)
+        self.out_func = module.out_func
+        self.n_features = int(module.n_features)
+        self.lookback = int(lookback)
+        self.target_offset = int(target_offset)
+        # rows before an item's target row, which the rows must carry beyond
+        # the last item
+        self.warmup = self.lookback - 1 + self.target_offset
+        ins =(self.n_features, *self.dims[:-1])
+        self.shapes = {}
+        for i, (n_in, H) in enumerate(zip(ins, self.dims)):
+            self.shapes.update({f"layers.{i}.Wi": (n_in, 4 * H), f"layers.{i}.Wh": (H, 4 * H),
+                                f"layers.{i}.b": (4 * H,)})
+        self.shapes.update({"head.kernel": (self.dims[-1], self.n_features),
+                            "head.bias": (self.n_features,)})
+        self.sizes = [int(np.prod(s)) for s in self.shapes.values()]
+        self.n_params = sum(self.sizes)
+
+    def pieces(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Views ``(M, *shape)`` of every state-dict key."""
+        M = flat.shape[0]
+        return {k: p.view(M, *shape) for (k, shape), p in
+                zip(self.shapes.items(), flat.split(self.sizes, dim=-1))}
+
+    def split(self, flat: torch.Tensor):
+        """``(layers, (Wd, bd))`` as ``ops/seq_scan`` takes them: per layer
+        ``(Wi (M, F_in, 4H), Wh (M, H, 4H), b (M, 4H))``."""
+        p = self.pieces(flat)
+        layers = [tuple(p[f"layers.{i}.{k}"] for k in ("Wi", "Wh", "b")) for i in range(len(self.dims))]
+        return layers, (p["head.kernel"], p["head.bias"])
+
+    def forward(self, flat: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
+        """Windows ``xb`` (M, B, lookback, F) -> (M, B, F): through autograd
+        where ``flat`` asks for a gradient, else through the fused step
+        kernel (``lstm_time_major_forward``)."""
+        forward = (lstm_train_forward if torch.is_grad_enabled() and flat.requires_grad
+                   else lstm_time_major_forward)
+        return forward(self.split(flat), xb, self.funcs, self.out_func)
+
+    def batch(self, X, Y, idx):
+        """The windows of items ``idx`` (M, B) over the raw rows ``X`` (M,
+        rows, F), and their targets from ``Y``'s rows: ``(xb, yb)``."""
+        return gather_window_batch(X, idx, self.lookback, self.target_offset, Y)
+
+    def init(self, generators: Sequence[torch.Generator]) -> torch.Tensor:
+        """Fresh ``(M, P)`` parameters on the CPU, one member per generator,
+        drawn as Flax's ``OptimizedLSTMCell`` and ``Dense`` do, gate by gate:
+        ``lecun_normal`` input kernels (F_in, H), ``orthogonal`` hidden
+        kernels (H, H), zero biases, a ``lecun_normal`` head."""
+        flat = torch.zeros(len(generators), self.n_params)
+        for m, g in enumerate(generators):
+            layers, (Wd, _) = self.split(flat[m:m + 1])
+            for Wi, Wh, _ in layers:
+                H = Wh.shape[-2]
+                for k in range(4):  # ii, if, ig, io
+                    Wi[0, :, k * H:(k + 1) * H] = lecun_normal((Wi.shape[1], H), g)
+                for k in range(4):  # hi, hf, hg, ho
+                    Wh[0, :, k * H:(k + 1) * H] = torch.nn.init.orthogonal_(torch.empty(H, H), generator=g)
+            Wd[0] = lecun_normal(Wd.shape[1:], g)
+        return flat
+
+    def state_dicts(self, flat: torch.Tensor) -> List[Dict[str, np.ndarray]]:
+        """Each member's ``LSTMStack`` state dict, as numpy."""
+        pieces = {k: v.detach().cpu().numpy() for k, v in self.pieces(flat).items()}
+        return [{k: np.array(v[m]) for k, v in pieces.items()} for m in range(flat.shape[0])]
+
+    def from_state_dicts(self, states: Sequence[Dict[str, np.ndarray]]) -> torch.Tensor:
+        """Inverse of :meth:`state_dicts`: ``(M, P)`` on the CPU."""
+        rows = []
+        for sd in states:
+            row = []
+            for k, shape in self.shapes.items():
+                a = np.asarray(sd[k], np.float32)
+                if a.shape != shape:
+                    raise ValueError(f"{k}: shape {a.shape}; this architecture wants {shape}")
+                row.append(a.reshape(-1))
+            rows.append(np.concatenate(row))
+        return torch.from_numpy(np.stack(rows))
 
 
 # ---------------------------------------------------------------------- #
@@ -210,25 +340,27 @@ def make_optimizer(name: str = "adam", learning_rate: float = 1e-3, **kwargs) ->
 
 
 def pad_to_batches(
-    X: np.ndarray, Y: np.ndarray, batch_size: int
+    X: np.ndarray, Y: np.ndarray, batch_size: int, warmup: int = 0
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
-    """Pad (X, Y) with zero rows to a multiple of ``batch_size``.
-    Returns (X_pad, Y_pad, mask, n_batches); mask is 1.0 for real rows."""
-    n = X.shape[0]
-    if n == 0:
+    """Pad (X, Y) with zero rows so that their items (``len(X) - warmup``:
+    rows, or window starts after a ``warmup`` of ``lookback - 1 +
+    target_offset`` rows) fill a multiple of ``batch_size``. Returns (X_pad,
+    Y_pad, mask, n_batches); mask is 1.0 for real items."""
+    n = X.shape[0] - warmup
+    if n <= 0:
         raise ValueError("Cannot train on an empty dataset")
     n_batches = max(1, -(-n // batch_size))
     n_pad = n_batches * batch_size
     mask = np.zeros((n_pad,), dtype=np.float32)
     mask[:n] = 1.0
-    X_pad = np.zeros((n_pad,) + X.shape[1:], dtype=np.float32)
-    X_pad[:n] = X
-    Y_pad = np.zeros((n_pad,) + Y.shape[1:], dtype=np.float32)
-    Y_pad[:n] = Y
+    X_pad = np.zeros((n_pad + warmup,) + X.shape[1:], dtype=np.float32)
+    X_pad[:n + warmup] = X
+    Y_pad = np.zeros((n_pad + warmup,) + Y.shape[1:], dtype=np.float32)
+    Y_pad[:n + warmup] = Y
     return X_pad, Y_pad, mask, n_batches
 
 
-def make_loss_fn(stack: StackedDense, loss: str = "mse") -> Callable:
+def make_loss_fn(stack, loss: str = "mse") -> Callable:
     """``loss_fn(params, xb, yb, maskb) -> (M,)`` per-member masked losses.
     ``"mse"`` only: the variational ``"vae"`` loss is not ported yet."""
     if loss == "vae":
@@ -261,11 +393,11 @@ def shuffle_perm(generators, n_real, n_pad: int, device) -> torch.Tensor:
     return perm
 
 
-def make_step_fn(stack: StackedDense, optimizer: StackedOptimizer, loss: str = "mse"):
+def make_step_fn(stack, optimizer: StackedOptimizer, loss: str = "mse"):
     """``step(params, opt_state, xb, yb, mb, lr) -> (params, opt_state,
-    losses, counts)``: one batch ``xb``, ``yb`` (M, B, F) with row mask
-    ``mb`` (M, B) for every member; a member whose batch is all padding
-    keeps its parameters and optimizer state."""
+    losses, counts)``: one batch ``xb`` (M, B, .) and targets ``yb`` (M, B,
+    F) with item mask ``mb`` (M, B) for every member; a member whose batch
+    is all padding keeps its parameters and optimizer state."""
     loss_fn = make_loss_fn(stack, loss)
 
     def step(params, opt_state, xb, yb, mb, lr):
@@ -280,20 +412,21 @@ def make_step_fn(stack: StackedDense, optimizer: StackedOptimizer, loss: str = "
     return step
 
 
-def make_train_fns(stack: StackedDense, optimizer: StackedOptimizer, batch_size: int,
-                   loss: str = "mse"):
-    """Returns ``(init_fn, epoch_fn)``.
+def make_train_fns(stack, optimizer: StackedOptimizer, batch_size: int, loss: str = "mse"):
+    """Returns ``(init_fn, epoch_fn)`` over a :class:`StackedDense` or a
+    :class:`StackedLSTM`.
 
     - ``init_fn(generators, device, params=None) -> TrainState``: fresh
       parameters drawn from the generators (one per member), or the given
       ``(M, P)`` ``params`` (a warm start); fresh optimizer state.
     - ``epoch_fn(state, X, Y, mask, lr, n_real=None, perm=None) ->
-      (state, losses)`` over ``X``, ``Y`` (M, n_pad, F) and ``mask``
-      (M, n_pad) on the device, ``n_pad`` a multiple of ``batch_size``,
-      with learning rates ``lr`` (M,). The row order is ``perm`` (M, n_pad)
-      when given, else drawn by :func:`shuffle_perm` from the state's
-      generators and the real-row counts ``n_real``. ``losses`` (M,) stays
-      on the device.
+      (state, losses)`` over the rows ``X``, ``Y`` (M, rows, F) and the item
+      mask ``mask`` (M, n_pad) on the device, ``n_pad`` a multiple of
+      ``batch_size``, with learning rates ``lr`` (M,). The item order is
+      ``perm`` (M, n_pad) when given, else drawn by :func:`shuffle_perm`
+      from the state's generators and the real-item counts ``n_real``; each
+      batch's inputs and targets come from ``stack.batch``. ``losses`` (M,)
+      stays on the device.
     """
     step = make_step_fn(stack, optimizer, loss)
 
@@ -306,16 +439,14 @@ def make_train_fns(stack: StackedDense, optimizer: StackedOptimizer, batch_size:
         M, n_pad = mask.shape
         if perm is None:
             perm = shuffle_perm(state.generators, n_real, n_pad, X.device)
-        Xs = torch.take_along_dim(X, perm[..., None], dim=1)
-        Ys = Xs if Y is X else torch.take_along_dim(Y, perm[..., None], dim=1)
         Ms = torch.take_along_dim(mask, perm, dim=1)
         params, opt_state = state.params, state.opt_state
         loss_sum = torch.zeros(M, device=X.device)
         count_sum = torch.zeros(M, device=X.device)
         for s in range(0, n_pad, batch_size):
+            xb, yb = stack.batch(X, Y, perm[:, s:s + batch_size])
             params, opt_state, losses, counts = step(
-                params, opt_state, Xs[:, s:s + batch_size], Ys[:, s:s + batch_size],
-                Ms[:, s:s + batch_size], lr,
+                params, opt_state, xb, yb, Ms[:, s:s + batch_size], lr,
             )
             loss_sum = loss_sum + losses * counts
             count_sum = count_sum + counts
@@ -325,19 +456,23 @@ def make_train_fns(stack: StackedDense, optimizer: StackedOptimizer, batch_size:
     return init_fn, epoch_fn
 
 
-def make_eval_fn(stack: StackedDense, batch_size: int, loss: str = "mse"):
-    """``eval_fn(params, X, Y, mask) -> (M,)`` mean loss over padded data,
-    batch by batch, weighted by real rows, no update (validation loss)."""
+def make_eval_fn(stack, batch_size: int, loss: str = "mse"):
+    """``eval_fn(params, X, Y, mask) -> (M,)`` mean loss over the items of
+    ``mask`` (M, n_pad), batch by batch in order, weighted by real items, no
+    update (validation loss). It needs no gradient, so an LSTM stack's
+    forward runs the fused step kernel on the card."""
     loss_fn = make_loss_fn(stack, loss)
 
     @torch.no_grad()
     def eval_fn(params, X, Y, mask):
-        total = torch.zeros(mask.shape[0], device=X.device)
+        M, n_pad = mask.shape
+        total = torch.zeros(M, device=X.device)
         count = torch.zeros_like(total)
-        for s in range(0, mask.shape[1], batch_size):
+        items = torch.arange(n_pad, device=X.device).expand(M, n_pad)
+        for s in range(0, n_pad, batch_size):
             mb = mask[:, s:s + batch_size]
             c = mb.sum(dim=1)
-            total = total + loss_fn(params, X[:, s:s + batch_size], Y[:, s:s + batch_size], mb) * c
+            total = total + loss_fn(params, *stack.batch(X, Y, items[:, s:s + batch_size]), mb) * c
             count = count + c
         return total / torch.clamp(count, min=1.0)
 
@@ -345,10 +480,11 @@ def make_eval_fn(stack: StackedDense, batch_size: int, loss: str = "mse"):
 
 
 @torch.no_grad()
-def batched_apply(module: torch.nn.Module, X: np.ndarray, device, batch_size: int = 4096) -> np.ndarray:
-    """``module`` over the rows of ``X`` in chunks of ``batch_size`` on
-    ``device``; the result as a float32 numpy array."""
+def batched_apply(module: torch.nn.Module, X, device, batch_size: int = 4096) -> np.ndarray:
+    """``module`` over the leading axis of ``X`` (rows, or windows; an
+    array or a tensor) in chunks of ``batch_size`` on ``device``; the result
+    as a float32 numpy array."""
     if X.shape[0] == 0:
         raise ValueError("empty input")
-    x = torch.as_tensor(np.asarray(X, np.float32), device=device)
+    x = torch.as_tensor(X, dtype=torch.float32, device=device)
     return torch.cat([module(x[s:s + batch_size]) for s in range(0, len(x), batch_size)]).cpu().numpy()

@@ -22,7 +22,10 @@ Two wrappers launch the one kernel, which runs S consecutive steps:
 On the card a wrapper launches the kernel or raises; on the CPU it runs the
 plain version (:func:`lstm_step_plain`, a Python loop over steps for the
 layer), which is also the reference the kernel is held to. The kernel is
-forward-only, as on the TPU: it serves scoring.
+forward-only, as on the TPU: it serves every forward that needs no
+gradient (scoring, validation losses, error scalers), and a wrapper raises
+for a CUDA input that would need one. Training differentiates
+:func:`lstm_train_forward`, PyTorch ops under autograd.
 
 Not ported: the layout and kernel-mode knobs (``GORDO_SEQ_LAYOUT``,
 ``GORDO_SEQ_KERNEL``) — the port has one layout and the kernel-or-raise
@@ -190,6 +193,16 @@ def _launch(xz, h0: Optional[torch.Tensor], c0: Optional[torch.Tensor], Wh, b):
     return ys, c_out
 
 
+def _refuse_grad(*tensors) -> None:
+    """The kernel has no backward: a CUDA input that autograd would
+    differentiate through it is an error, never a silent detach."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "the fused LSTM step kernel is forward-only: call it under torch.no_grad(), "
+            "or train through lstm_train_forward"
+        )
+
+
 def fused_lstm_step(xz_t, h, c, Wh, b):
     """One LSTM step for every (window, member), with ``lstm_step_jnp``'s
     signature and layout: xz_t (B, M, 4H), h/c (B, M, H), Wh (M, H, 4H),
@@ -201,6 +214,7 @@ def fused_lstm_step(xz_t, h, c, Wh, b):
         raise ValueError(f"unsupported device {xz_t.device}")
     if xz_t.dim() != 3:
         raise ValueError(f"xz_t must be (B, M, 4H), got {tuple(xz_t.shape)}")
+    _refuse_grad(xz_t, h, c, Wh, b)
     ys, c2 = _launch(xz_t[None], h, c, Wh, b)
     launch_counts.add("fused_lstm_step")
     return c2, ys[0]
@@ -215,6 +229,7 @@ def lstm_layer(xz, Wh, b):
         return lstm_layer_plain(xz, Wh, b)
     if xz.device.type != "cuda":
         raise ValueError(f"unsupported device {xz.device}")
+    _refuse_grad(xz, Wh, b)
     ys, _ = _launch(xz, None, None, Wh, b)
     launch_counts.add("lstm_layer")
     return ys
@@ -240,3 +255,42 @@ def lstm_time_major_forward(
         x = resolve_activation(func)(lstm_layer(xz, Wh.contiguous(), b.contiguous()))
     out = torch.bmm(x[-1].transpose(0, 1), Wd) + bd[:, None, :]  # (M, B, F)
     return resolve_activation(out_func)(out)
+
+
+def _train_step(xz_t, h, c, Wh):
+    """One recurrent step for autograd, member-major: ``lstm_step_jnp``'s
+    math with the bias already in ``xz_t`` (M, B, 4H); h, c (M, B, H), Wh
+    (M, H, 4H). Returns (c', h')."""
+    i, f, g, o = torch.baddbmm(xz_t, h, Wh).chunk(4, dim=-1)
+    c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return c2, torch.sigmoid(o) * torch.tanh(c2)
+
+
+def lstm_train_forward(
+    weights: Weights, xb: torch.Tensor, funcs: Sequence[str], out_func: str = "linear"
+) -> torch.Tensor:
+    """The training forward: :func:`lstm_time_major_forward`'s function in
+    PyTorch ops that autograd differentiates, never the kernel. The JAX
+    package trains the same way: its fused step is forward-only and
+    "training keeps the jnp step" (``gordo_components_tpu/ops/seq_scan.py:43-46``),
+    ``lstm_time_major_forward(..., kernel="jnp")`` inside the gang epoch.
+
+    ``xb`` (M, B, T, F) -> (M, B, F). Per layer one ``torch.baddbmm`` for
+    every step's input projection and bias, then a loop over time whose
+    step is one ``torch.baddbmm`` over (M, B, .) and the gates; the
+    activation on the layer's outputs; the head on the last hidden state."""
+    layers, (Wd, bd) = weights
+    if len(funcs) != len(layers):
+        raise ValueError(f"{len(layers)} layers but {len(funcs)} activations")
+    M, B, T, _ = xb.shape
+    x = xb.transpose(1, 2)  # (M, T, B, F)
+    for (Wi, Wh, b), func in zip(layers, funcs):
+        H = Wh.shape[-2]
+        xz = torch.baddbmm(b[:, None, :], x.reshape(M, T * B, -1), Wi).view(M, T, B, 4 * H)
+        h = c = xz.new_zeros((M, B, H))
+        ys = []
+        for t in range(T):
+            c, h = _train_step(xz[:, t], h, c, Wh)
+            ys.append(h)
+        x = resolve_activation(func)(torch.stack(ys, dim=1))
+    return resolve_activation(out_func)(torch.baddbmm(bd[:, None, :], x[:, -1], Wd))

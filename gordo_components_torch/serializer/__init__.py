@@ -1,6 +1,7 @@
 """Artifact persistence and the config-definition language of the port."""
 
 from gordo_components_torch.serializer.artifacts import (
+    check_artifact_model,
     dump,
     is_artifact_dir,
     load,
@@ -10,6 +11,7 @@ from gordo_components_torch.serializer.artifacts import (
 from gordo_components_torch.serializer.definitions import from_definition, import_locate
 
 __all__ = [
+    "check_artifact_model",
     "dump",
     "from_definition",
     "import_locate",

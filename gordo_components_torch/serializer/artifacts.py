@@ -59,11 +59,28 @@ def is_artifact_dir(path: str) -> bool:
     return os.path.exists(os.path.join(path, DETECTOR_FILE))
 
 
+def check_artifact_model(model) -> None:
+    """Raise for a model the port cannot write as an artifact: anything
+    but a detector with ``to_entry`` (a ``DiffBasedAnomalyDetector``)."""
+    if not hasattr(model, "to_entry"):
+        raise NotImplementedError(
+            f"{type(model).__name__}: artifacts for a top-level model that is not a "
+            "DiffBasedAnomalyDetector (a bare Pipeline or estimator) are not ported yet"
+        )
+
+
 def dump(obj, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> None:
     """Write ``obj`` as an artifact directory at ``dest_dir``: a bank entry
     (``server/bank._BankEntry``) or a fitted detector (through its
-    ``to_entry()``), with the build ``metadata`` in ``metadata.json``."""
-    entry = obj.to_entry(os.path.basename(os.path.normpath(dest_dir))) if hasattr(obj, "to_entry") else obj
+    ``to_entry()``), with the build ``metadata`` in ``metadata.json``.
+    Anything else raises ``NotImplementedError`` before a file is written."""
+    from gordo_components_torch.server.bank import _BankEntry
+
+    if isinstance(obj, _BankEntry):
+        entry = obj
+    else:
+        check_artifact_model(obj)
+        entry = obj.to_entry(os.path.basename(os.path.normpath(dest_dir)))
     os.makedirs(dest_dir, exist_ok=True)
     np.savez(
         os.path.join(dest_dir, PARAMS_FILE),

@@ -118,14 +118,21 @@ def test_build_fleet_serve_and_rerun(tmp_path, monkeypatch):
         {"gordo_components_tpu.models.LSTMAutoEncoder": {"kind": "lstm_hourglass", "lookback_window": 4}}])})
     machines.append(Machine(name="cv", dataset=_dataset("cv"), model=FLEET_MODEL,
                             evaluation={"cross_validation": True, "n_splits": 2}))
+    # a top-level config that is not a detector: no port artifact yet
+    machines.append(Machine(name="c1", dataset=_dataset("c1"), model={"sklearn.pipeline.Pipeline": {
+        "steps": ["sklearn.preprocessing.MinMaxScaler", _AE]}}))
     out, reg = str(tmp_path / "out"), str(tmp_path / "reg")
     report = build_fleet(machines, out, model_register_dir=reg, group_retries=0, device="cpu")
-    assert sorted(report) == ["bespoke", "m0", "m1", "m2"]
-    assert sorted(report.failed) == ["cv", "lstm"]
-    assert "NotImplementedError" in report.failed["lstm"] and "sequence" in report.failed["lstm"]
+    assert sorted(report) == ["bespoke", "lstm", "m0", "m1", "m2"]
+    assert sorted(report.failed) == ["c1", "cv"]
+    assert report.failed["c1"].startswith("NotImplementedError") and "Pipeline" in report.failed["c1"]
+    assert not os.path.exists(os.path.join(out, "c1"))
     assert "cross-validation" in report.failed["cv"]
     manifest = report.manifest()
-    assert (manifest["n_built"], manifest["n_failed"]) == (4, 2)
+    assert (manifest["n_built"], manifest["n_failed"]) == (5, 2)
+    lstm_meta = serializer.load_metadata(os.path.join(out, "lstm"))
+    assert lstm_meta["registry_type"] == "LSTMAutoEncoder" and lstm_meta["lookback"] == 4
+    assert lstm_meta["model"]["fleet_trained"]
 
     meta = serializer.load_metadata(os.path.join(out, "m0"))
     assert meta["model"]["fleet_trained"] and meta["name"] == "m0"
@@ -137,7 +144,7 @@ def test_build_fleet_serve_and_rerun(tmp_path, monkeypatch):
     server = run_server(out, host="127.0.0.1", port=0, device="cpu", background=True)
     try:
         rng = np.random.RandomState(0)
-        for name in ("m0", "m2", "bespoke"):
+        for name in ("m0", "m2", "bespoke", "lstm"):
             X = rng.rand(20, 3).astype("f4")
             status, body = _post(f"{server.url}/gordo/v0/p/{name}/anomaly/prediction", {"X": X.tolist()})
             assert status == 200
@@ -154,7 +161,7 @@ def test_build_fleet_serve_and_rerun(tmp_path, monkeypatch):
     monkeypatch.setattr(FleetTrainer, "fit", no_training)
     monkeypatch.setattr(importlib.import_module("gordo_components_torch.builder.build_model"),
                         "build_model", no_training)
-    again = build_fleet(machines[:4], out, model_register_dir=reg, device="cpu")
+    again = build_fleet(machines[:5], out, model_register_dir=reg, device="cpu")
     assert dict(again) == {k: v for k, v in report.items()} and not again.failed
 
 
@@ -232,3 +239,48 @@ def test_build_model_and_provide_saved_model(tmp_path):
     with pytest.raises(NotImplementedError, match="cross-validation"):
         build_model("one", FLEET_MODEL, ds, evaluation_config={"cv_mode": "cross_val_only"}, device="cpu")
     assert calculate_model_key("one", FLEET_MODEL, ds) != calculate_model_key("two", FLEET_MODEL, ds)
+
+
+C1_CONFIGS = {
+    "pipeline": {"sklearn.pipeline.Pipeline": {"steps": ["sklearn.preprocessing.MinMaxScaler", _AE]}},
+    "estimator": {_AE: {"epochs": 1}},
+}
+
+
+@pytest.mark.parametrize("which", sorted(C1_CONFIGS))
+def test_non_detector_configs_raise_before_fit_or_write(tmp_path, monkeypatch, which):
+    """A top-level config that is not a detector (legal in the JAX package)
+    has no port artifact yet: NotImplementedError before any fit or write,
+    single and through build_fleet."""
+    from gordo_components_torch.models import AutoEncoder
+
+    model = C1_CONFIGS[which]
+    fits = []
+    monkeypatch.setattr(AutoEncoder, "fit", lambda self, *a, **k: fits.append(1))
+    ds = _dataset("c1", hours=4)
+    out, reg = str(tmp_path / "out"), str(tmp_path / "reg")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        provide_saved_model("c1", model, ds, output_dir=out, model_register_dir=reg, device="cpu")
+    report = build_fleet([Machine(name="c1", dataset=ds, model=model)], str(tmp_path / "fleet"),
+                         model_register_dir=reg, device="cpu")
+    assert not report and report.failed["c1"].startswith("NotImplementedError")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serializer.dump(serializer.from_definition(model), str(tmp_path / "dump"))
+    assert fits == []
+    assert not any(os.path.exists(p) for p in (out, reg, str(tmp_path / "fleet"), str(tmp_path / "dump")))
+
+
+def test_single_build_of_an_lstm_detector(tmp_path):
+    model = _pipe(["sklearn.preprocessing.MinMaxScaler", {
+        "gordo_components_tpu.models.LSTMForecast": {
+            "kind": "lstm_symmetric", "dims": [3], "lookback_window": 6, "epochs": 2, "batch_size": 16}}],
+        threshold_quantile=0.95)
+    ds = _dataset("seq", hours=8)
+    path = provide_saved_model("seq", model, ds, output_dir=str(tmp_path / "out"), device="cpu")
+    meta = serializer.load_metadata(path)
+    assert (meta["registry_type"], meta["lookback"], meta["target_offset"]) == ("LSTMForecast", 6, 1)
+    assert meta["model"]["trained"] and meta["model"]["model_config"] == model
+    assert meta["thresholds"]["threshold-method"] == "exact"
+    X = np.random.RandomState(1).rand(30, 3).astype("f4")
+    scored = serializer.load(path, device="cpu").anomaly(X)
+    assert scored["total-anomaly-scaled"].shape == (30 - 6,)

@@ -173,8 +173,8 @@ def test_members_serve_as_bank_entries():
 
 
 def test_unported_fleet_features_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="sequence"):
-        FleetTrainer(model_type="LSTMAutoEncoder")
+    with pytest.raises(NotImplementedError, match="conv"):
+        FleetTrainer(model_type="ConvAutoEncoder")
     with pytest.raises(NotImplementedError, match="mesh"):
         FleetTrainer(mesh=object())
     with pytest.raises(NotImplementedError, match="checkpoint"):

@@ -19,8 +19,8 @@ from sklearn.preprocessing import StandardScaler as SkStandard
 from gordo_components_torch.convert import feedforward_from_flax
 from gordo_components_torch.models import (
     AutoEncoder,
+    ConvAutoEncoder,
     DiffBasedAnomalyDetector,
-    LSTMAutoEncoder,
 )
 from gordo_components_torch.models.transformers import MinMaxScaler, Pipeline, StandardScaler
 from gordo_components_torch.serializer import from_definition, import_locate
@@ -118,11 +118,11 @@ def test_autoencoder_fit_history_and_early_stopping(frame):
 
 
 def test_unported_estimator_features_raise(frame):
-    with pytest.raises(NotImplementedError, match="sequence"):
-        LSTMAutoEncoder(kind="lstm_hourglass", lookback_window=8, device="cpu").fit(frame)
+    with pytest.raises(NotImplementedError, match="conv"):
+        ConvAutoEncoder(kind="conv1d_autoencoder", lookback_window=16, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         AutoEncoder(compute_dtype="bfloat16", device="cpu").fit(frame)
-    with pytest.raises(ValueError, match="No factories"):
+    with pytest.raises(NotImplementedError, match="conv"):
         import_locate("gordo_components_tpu.models.ConvAutoEncoder")()
     with pytest.raises(NotImplementedError, match="vae"):
         AutoEncoder(loss="vae", device="cpu").fit(frame)
