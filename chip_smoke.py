@@ -28,8 +28,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             of one member), and the shapes training and building give it
             (128 windows of 1,024 members at H = 8, 7, 5; one member's 128
             and 1,409 windows; the build's lookbacks 10, 12, 16 at its gang
-            widths and H down to 1); its reciprocal bitwise against the IEEE
-            division over every float in [1, 2^126); each lstm_hourglass
+            widths and H down to 1; the cv phase's 8-member gang at batch
+            100, and 221, 473 and 725 windows of one member); its reciprocal
+            bitwise against the IEEE division over every float in
+            [1, 2^126); each lstm_hourglass
             layer's device time at the serving shape against its bound; both
             K3 wrappers refuse a CUDA input that requires grad (the kernel has
             no backward). Each kernel, its plain version
@@ -104,10 +106,46 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             and by ``serializer.load(dir).anomaly`` (K1, and K3), the two held
             together within the http phase's band; no scaled training error
             above its threshold (q = 1) beyond that band;
-10. counts  the three main-path wrappers' launch counters of every path
-            (train, seq_train, seq_fleet, http, bank, lstm, build), each reset
-            just before its path and read just after; each kernel's total
-            must be above 0.
+10. cli     the port's CLI as subprocesses on the card, each within
+            CLI_TIMEOUT_S: ``build-fleet`` of examples/fleet.yaml (3 of 3
+            built), ``run-server`` on the result on a free port (its model
+            list; one anomaly POST a machine with its training rows, held
+            against ``serializer.load(dir).anomaly`` here within the http
+            phase's bands; SIGTERM, then exit 0), ``build`` with
+            ``EVALUATION_CONFIG`` of 3 folds and ``--print-cv-scores`` (3
+            finite folds), ``build`` of a config that does not parse (exit
+            81) and ``build-fleet`` of a payload whose second machine names an
+            unknown model (exit 84, that machine under ``failed``). Each run
+            is ``python -m gordo_components_torch.cli`` in a fresh interpreter
+            that writes its launch counts and K3 shapes as it exits: the path's
+            counts are theirs, summed (build-fleet's LSTM error passes launch
+            K3; run-server's buckets launch K2 for every POST, and K3), not
+            this process's ``anomaly()`` checks;
+11. cv      ``build_fleet`` of 64 dense machines (the default model config)
+            and 8 ``LSTMAutoEncoder`` machines (``lstm_hourglass``, lookback
+            32), each 10 tags x 1,008 rows with 3 cross-validation folds, and
+            one ``cross_val_only`` machine: every gang machine carries 3 finite
+            folds of all four metrics and ``fleet_cv``; ``cv_fold_members`` is
+            192 and 24; the cross_val_only machine is untrained, unregistered
+            and not served; K3 launches in the fold scoring; the first machine
+            of each family cross-validated alone (``cross_val_only``: the same
+            folds): every fold's four metrics within TRAIN_RTOL/TRAIN_ATOL
+            (dense) and LSTM_RTOL/LSTM_ATOL (LSTM) of the gang's, since the
+            gang's first member shares the single build's initial parameters
+            and shuffles; models/hour and wall seconds;
+    cv_parity  8 dense and 4 LSTM machines of the cv phase: the fold plan,
+            the fold members' training from the same initial parameters (one
+            batch an epoch, 3 epochs) and their scores on the card and on the
+            CPU: fold indices equal, scores within TRAIN_RTOL/TRAIN_ATOL
+            (dense) and LSTM_RTOL/LSTM_ATOL (LSTM);
+    k3_path_parity  lstm_layer against its plain version, in the parity
+            phase's layer band, at every (S, B, M, H) that a call on the card
+            gave it from the train phase on (this process's and the CLI
+            runs') and that the parity phase did not hold;
+12. counts  the three main-path wrappers' launch counters of every path
+            (train, seq_train, seq_fleet, http, bank, lstm, build, cli, cv),
+            each reset just before its path and read just after; each
+            kernel's total must be above 0.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -121,6 +159,8 @@ import json
 import os
 import re
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -133,7 +173,7 @@ import numpy as np
 import torch
 
 from gordo_components_torch import resolve_device, serializer
-from gordo_components_torch.builder import build_fleet
+from gordo_components_torch.builder import build_fleet, calculate_model_key, fleet_build, provide_saved_model
 from gordo_components_torch.convert import entry_from_numpy, lstm_to_flax
 from gordo_components_torch.dataset import get_dataset
 from gordo_components_torch.models import (
@@ -148,11 +188,21 @@ from gordo_components_torch.ops import _cuda, score, seq_scan
 from gordo_components_torch.parallel import FleetTrainer, quantize_batch_count
 from gordo_components_torch.server import BatchingEngine, ModelBank, run_server
 from gordo_components_torch.server.model_io import ModelCollection
-from gordo_components_torch.workflow import Machine
+from gordo_components_torch.utils.yaml_subset import safe_load
+from gordo_components_torch.workflow import DEFAULT_MODEL_CONFIG, Machine
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MODEL_DIR = os.path.join(ROOT, "build", "chip_smoke_models")
 FLEET_DIR = os.path.join(ROOT, "build", "chip_smoke_fleet")
+CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
+CV_DIR = os.path.join(ROOT, "build", "chip_smoke_cv")
+FLEET_YAML = os.path.join(ROOT, "examples", "fleet.yaml")
+CLI_TIMEOUT_S = 600  # the deadline of each CLI subprocess
+CLI_DEVICE = "cuda"
+# the cv phase: dense and LSTM machines of the reference's widths, each
+# cross-validated over 3 folds in its gang
+CV_MEMBERS = dict(dense=64, lstm=8)
+CV_EVALUATION = {"cross_validation": True, "n_splits": 3}
 # the reference bench's fleet (bench.py bench_fleet; BASELINE.json config 3)
 FLEET_SHAPE = dict(n_models=1024, rows=1440, n_features=10)
 FLEET_CONFIG = dict(kind="feedforward_hourglass", epochs=5, batch_size=128)
@@ -200,10 +250,18 @@ LSTM_EDGES = [(S, B, M, H) for H in (7, 16, 31, 32, 33)
 # validation batches and its detector's predict (128 and 1,409 windows of
 # one member), and the build's gangs and single builds (lookbacks 10, 12 and
 # 16, batch 100, 4 and 2 members; turbine-lstm's widths 2 and 1 at 2 tags; a
-# bespoke detector's predict over 992 windows)
+# bespoke detector's predict over 992 windows), and the cv phase's: the LSTM
+# gang's error passes (batch 100, 8 members), its fold scoring and the single
+# build's (221 windows of a 252-row test block), and the single build's fold
+# error passes (473 and 725 windows)
 LSTM_TRAIN = ([(LOOKBACK, 128, 1024, H) for H in (8, 7, 5)]
               + [(LOOKBACK, 128, 1, 8), (LOOKBACK, 1409, 1, 8), (10, 100, 4, 8), (10, 100, 2, 7),
-                 (12, 100, 4, 8), (12, 100, 1, 2), (12, 100, 1, 1), (16, 992, 1, 5)])
+                 (12, 100, 4, 8), (12, 100, 1, 2), (12, 100, 1, 1), (16, 992, 1, 5)]
+              + [(LOOKBACK, B, M, H) for B, M in ((100, 8), (221, 1), (473, 1), (725, 1))
+                 for H in (8, 7, 5)])
+# (S, B, M, H) of every lstm_layer call on the card from the main paths on,
+# this process's and the CLI's; held against the plain version afterwards
+K3_SHAPES = set()
 HOURGLASS_WIDTHS = (8, 7, 5, 5, 7, 8)  # lstm_hourglass's layers at 10 tags
 KERNELS = {
     "banked_anomaly_score": "gordo_components_tpu/ops/pallas_score.py:298",
@@ -655,6 +713,37 @@ def lstm_kernel_phase():
           sum_device_us=round(sum(device_us[H] or 0.0 for H in HOURGLASS_WIDTHS), 3),
           one_member_device_us=one_member_us, one_member_H=H)
     return {"lstm_layer": result}
+
+
+def record_k3_shapes():
+    """From here on, add the (S, B, M, H) of every ``seq_scan.lstm_layer``
+    call on the card to K3_SHAPES; the kernel and its count are untouched."""
+    layer = seq_scan.lstm_layer
+
+    def recording(xz, Wh, b):
+        if xz.is_cuda:
+            K3_SHAPES.add((*xz.shape[:3], xz.shape[3] // 4))
+        return layer(xz, Wh, b)
+
+    seq_scan.lstm_layer = recording
+
+
+def k3_path_parity_phase(result):
+    """lstm_layer against its plain version at every shape the main paths
+    gave it that the parity phase did not hold; its max_abs_err covers both."""
+    held = {LSTM_SERVE, *LSTM_RAGGED, *LSTM_EDGES, *LSTM_TRAIN}
+    new = sorted(K3_SHAPES - held)
+    err = 0.0
+    for i, (S, B, M, H) in enumerate(new):
+        xz, _, _, Wh, b = lstm_case(S, B, M, H, seed=500 + i)
+        got = seq_scan.lstm_layer(xz, Wh, b)
+        torch.cuda.synchronize()
+        err = max(err, close(got, seq_scan.lstm_layer_plain(xz, Wh, b), LAYER_RTOL, LAYER_ATOL,
+                             f"lstm_layer at the main path's S={S} B={B} M={M} H={H}"))
+    result["max_abs_err"] = max(result["max_abs_err"], err)
+    phase("k3_path_parity", path_shapes=len(K3_SHAPES), held_before=len(K3_SHAPES) - len(new),
+          held_now=len(new), band=f"rtol={LAYER_RTOL},atol={LAYER_ATOL}", max_err=err,
+          shapes=json.dumps(new[:40]))
 
 
 # ------------------------------------------------------------------ #
@@ -1307,14 +1396,16 @@ def lstm_pipeline(model_type: str, **kwargs):
             {f"gordo_components_torch.models.{model_type}": kwargs}]}}}}
 
 
+def dataset(name, tags=10):
+    """A RandomDataset of 7 days at 10 min (1,008 rows)."""
+    return {"type": "RandomDataset", "train_start_date": "2020-01-01T00:00:00Z",
+            "train_end_date": "2020-01-08T00:00:00Z",
+            "tag_list": [f"{name}-tag-{j}" for j in range(tags)]}
+
+
 def build_phase():
     shutil.rmtree(FLEET_DIR, ignore_errors=True)
     out_dir, reg_dir = os.path.join(FLEET_DIR, "models"), os.path.join(FLEET_DIR, "register")
-
-    def dataset(name, tags=10):
-        return {"type": "RandomDataset", "train_start_date": "2020-01-01T00:00:00Z",
-                "train_end_date": "2020-01-08T00:00:00Z",
-                "tag_list": [f"{name}-tag-{j}" for j in range(tags)]}
 
     machines = [Machine(name=f"fleet-{i:03d}", dataset=dataset(f"fleet-{i:03d}")) for i in range(64)]
     # a bare AutoEncoder (no scaler step) is not fleetable: the single-build path
@@ -1395,6 +1486,304 @@ def build_phase():
           max_over_threshold=worst)
 
 
+# ------------------------------------------------------------------ #
+# phase 10: the port's own CLI, as subprocesses on the card
+# ------------------------------------------------------------------ #
+
+
+# ``python -m gordo_components_torch.cli ARGS`` run in a fresh interpreter,
+# which writes, as it exits, its kernel launch counts (from 0 at its start)
+# and the (S, B, M, H) of each lstm_layer call on the card to the file named
+# first in its arguments
+COUNTED_CLI = r"""
+import json, runpy, sys
+from gordo_components_torch.ops import score, seq_scan
+out, shapes, layer = sys.argv.pop(1), set(), seq_scan.lstm_layer
+def recording(xz, Wh, b):
+    if xz.is_cuda:
+        shapes.add((*xz.shape[:3], xz.shape[3] // 4))
+    return layer(xz, Wh, b)
+seq_scan.lstm_layer = recording
+try:
+    runpy.run_module("gordo_components_torch.cli", run_name="__main__", alter_sys=True)
+finally:
+    with open(out, "w") as f:
+        json.dump({"counts": dict(score.launch_counts, **seq_scan.launch_counts),
+                   "k3_shapes": sorted(shapes)}, f)
+"""
+
+
+def cli_command(run: str, args):
+    """The command line of one counted CLI run named ``run``."""
+    return [sys.executable, "-c", COUNTED_CLI, os.path.join(CLI_DIR, f"{run}.counts.json"),
+            "--device", CLI_DEVICE, *args]
+
+
+def cli(run: str, args, env=None):
+    """One counted CLI run within the deadline; its CompletedProcess."""
+    return subprocess.run(cli_command(run, args), cwd=ROOT, env=dict(os.environ, **(env or {})),
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+
+
+def cli_counts(run: str) -> dict:
+    """A finished CLI run's launch counts; its K3 shapes join K3_SHAPES."""
+    with open(os.path.join(CLI_DIR, f"{run}.counts.json")) as f:
+        read = json.load(f)
+    K3_SHAPES.update(tuple(shape) for shape in read["k3_shapes"])
+    return read["counts"]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_phase():
+    """examples/fleet.yaml through ``build-fleet`` and ``run-server``, one
+    anomaly POST a machine held against its detector's ``anomaly()`` here;
+    ``build`` with cross-validation; the exit codes 81 and 84. Returns the
+    launch counts of the CLI runs, summed: this process's launches (the
+    ``anomaly()`` checks) are not the CLI's."""
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    out_dir = os.path.join(CLI_DIR, "fleet")
+    with open(FLEET_YAML) as f:
+        fleet = {m["name"]: m for m in safe_load(f)["machines"]}
+    runs = {}
+    t0 = time.perf_counter()
+    proc = cli("build_fleet", ["build-fleet", "--machines-file", FLEET_YAML, "--output-dir", out_dir])
+    build_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli build-fleet exited {proc.returncode}: {proc.stderr[-2000:]}")
+    manifest = json.loads(proc.stdout)
+    if sorted(manifest["built"]) != sorted(fleet) or manifest["failed"]:
+        raise AssertionError(f"cli build-fleet: {manifest}")
+    runs["build_fleet"] = cli_counts("build_fleet")
+
+    port = free_port()
+    log = open(os.path.join(CLI_DIR, "server.log"), "w")
+    t1 = time.perf_counter()
+    server = subprocess.Popen(
+        cli_command("run_server", ["run-server", "--model-dir", out_dir, "--host", "127.0.0.1",
+                                   "--port", str(port)]),
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+    )
+    try:
+        base = f"http://127.0.0.1:{port}/gordo/v0/smoke"
+        while True:
+            try:
+                status, models = http_json(base + "/models")
+                break
+            except OSError:
+                if server.poll() is not None or time.perf_counter() - t1 > CLI_TIMEOUT_S:
+                    raise AssertionError(f"cli run-server did not answer (exit {server.poll()})") from None
+                time.sleep(0.5)
+        serve_s = time.perf_counter() - t1
+        if status != 200 or models["models"] != sorted(fleet):
+            raise AssertionError(f"cli run-server /models answered {status}: {models}")
+        for name, machine in fleet.items():
+            X = get_dataset(machine["dataset"]).get_data()[0].values
+            status, body = http_json(f"{base}/{name}/anomaly/prediction", {"X": X.tolist()})
+            if status != 200:
+                raise AssertionError(f"cli run-server: {name} answered {status}: {body}")
+            want = serializer.load(os.path.join(out_dir, name)).anomaly(X)
+            band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if "model" in machine else {}
+            check_arrays(response_arrays(body, machine["dataset"]["tag_list"]), want, f"cli {name}", **band)
+    finally:
+        if server.poll() is None:
+            server.send_signal(signal.SIGTERM)
+            try:
+                server.wait(60)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait()
+        log.close()
+    if server.returncode != 0:
+        raise AssertionError(f"cli run-server exited {server.returncode} on SIGTERM")
+    runs["run_server"] = cli_counts("run_server")
+
+    data_config = json.dumps(fleet["compressor-a"]["dataset"])
+    env = {"MACHINE_NAME": "compressor-a", "MODEL_CONFIG": json.dumps(DEFAULT_MODEL_CONFIG),
+           "DATA_CONFIG": data_config, "OUTPUT_DIR": os.path.join(CLI_DIR, "single"),
+           "EVALUATION_CONFIG": '{"cross_validation": true, "n_splits": 3}'}
+    proc = cli("build_cv", ["build", "--print-cv-scores"], env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli build exited {proc.returncode}: {proc.stderr[-2000:]}")
+    folds = json.loads(proc.stdout.splitlines()[0])["per-fold"]
+    if len(folds) != 3 or not np.all(np.isfinite(folds)):
+        raise AssertionError(f"cli build --print-cv-scores printed {folds}")
+    runs["build_cv"] = cli_counts("build_cv")
+    proc = cli("build_unparsable", ["build"], env=dict(env, MODEL_CONFIG="{unclosed: [1, 2"))
+    if proc.returncode != 81:
+        raise AssertionError(f"cli build of a config that does not parse exited {proc.returncode}, not 81")
+    runs["build_unparsable"] = cli_counts("build_unparsable")
+    payload = os.path.join(CLI_DIR, "partial.json")
+    with open(payload, "w") as f:
+        json.dump({"machines": [fleet["compressor-a"],
+                                {"name": "ghost", "dataset": fleet["compressor-a"]["dataset"],
+                                 "model": {"no.such.Model": {}}}]}, f)
+    proc = cli("build_partial", ["build-fleet", "--machines-file", payload,
+                                 "--output-dir", os.path.join(CLI_DIR, "partial")])
+    partial = json.loads(proc.stdout) if proc.stdout.strip() else {}
+    if proc.returncode != 84 or sorted(partial.get("failed", {})) != ["ghost"]:
+        raise AssertionError(f"cli build-fleet of a partial payload exited {proc.returncode}: {partial}")
+    runs["build_partial"] = cli_counts("build_partial")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    # turbine-lstm's error passes in build-fleet, and every POST scored by
+    # its bucket behind run-server (the LSTM bucket's layers too)
+    if runs["build_fleet"]["lstm_layer"] <= 0 or runs["run_server"]["lstm_layer"] <= 0:
+        raise AssertionError(f"cli: an LSTM path launched no lstm_layer: {runs}")
+    if runs["run_server"]["banked_anomaly_score"] < len(fleet):
+        raise AssertionError(f"cli run-server: {len(fleet)} POSTs, banked launches {runs}")
+    phase("cli", built=json.dumps(sorted(manifest["built"])), build_fleet_s=round(build_s, 3),
+          server_ready_s=round(serve_s, 3), posts=len(fleet), checked="all six arrays vs anomaly() here",
+          server_exit_on_sigterm=server.returncode, cv_folds=json.dumps(folds), exit_unparsable=81,
+          exit_partial=84, partial_failed=json.dumps(sorted(partial["failed"])),
+          launches_by_run=json.dumps(runs))
+    return {k: sum(c[k] for c in runs.values()) for k in runs["build_fleet"]}
+
+
+# ------------------------------------------------------------------ #
+# phase 11: cross-validation in the fleet build
+# ------------------------------------------------------------------ #
+
+
+def cv_machines():
+    ev = dict(CV_EVALUATION)
+    dense = [Machine(name=f"cvd-{i:03d}", dataset=dataset(f"cvd-{i:03d}"), evaluation=dict(ev))
+             for i in range(CV_MEMBERS["dense"])]
+    lstm_model = lstm_pipeline("LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=LOOKBACK)
+    lstm = [Machine(name=f"cvl-{i}", dataset=dataset(f"cvl-{i}"), model=lstm_model, evaluation=dict(ev))
+            for i in range(CV_MEMBERS["lstm"])]
+    return dense, lstm
+
+
+def cv_phase(card: str):
+    """``build_fleet`` of 64 dense and 8 LSTM machines, each cross-validated
+    in its gang, and one ``cross_val_only`` machine; then the first machine
+    of each family single-built, its folds against the gang's."""
+    shutil.rmtree(CV_DIR, ignore_errors=True)
+    out_dir, reg_dir = os.path.join(CV_DIR, "models"), os.path.join(CV_DIR, "register")
+    dense, lstm = cv_machines()
+    only = Machine(name="cv-only", dataset=dataset("cv-only"),
+                   evaluation={"cv_mode": "cross_val_only", "n_splits": 3})
+    machines = dense + lstm + [only]
+    scoring = {"k3": 0, "seconds": 0.0}
+    real_score = fleet_build._score_cv_folds
+
+    def counted(plan, models):  # K3's launches while the folds score
+        before, t = lstm_launches(), time.perf_counter()
+        try:
+            return real_score(plan, models)
+        finally:
+            scoring["k3"] += lstm_launches() - before
+            scoring["seconds"] += time.perf_counter() - t
+
+    fleet_build._score_cv_folds = counted
+    try:
+        t0 = time.perf_counter()
+        report = build_fleet(machines, out_dir, model_register_dir=reg_dir)
+        wall = time.perf_counter() - t0
+    finally:
+        fleet_build._score_cv_folds = real_score
+    try:
+        if sorted(report) != sorted(m.name for m in machines) or report.failed:
+            raise AssertionError(f"cv: built {len(report)}, failed {report.failed}")
+        fold_members = {}
+        for m in dense + lstm:
+            md = serializer.load_metadata(report[m.name])["model"]
+            cv = md["cross-validation"]
+            for metric in ("explained-variance", "r2-score", "mean-squared-error", "mean-absolute-error"):
+                folds = cv[metric]["per-fold"]
+                if len(folds) != 3 or not np.all(np.isfinite(folds)):
+                    raise AssertionError(f"cv: {m.name} {metric} folds {folds}")
+            if cv.get("fleet_cv") is not True:
+                raise AssertionError(f"cv: {m.name} was not cross-validated in its gang")
+            fold_members[m.name[:3]] = md["fleet_stats"].get("cv_fold_members")
+        want = {"cvd": 3 * len(dense), "cvl": 3 * len(lstm)}
+        if fold_members != want:
+            raise AssertionError(f"cv: fold members {fold_members}, expected {want}")
+        md = serializer.load_metadata(report["cv-only"])["model"]
+        key = calculate_model_key(only.name, only.model, only.dataset, only.metadata)
+        served = ModelCollection(out_dir).names()
+        if (md["trained"] or len(md["cross-validation"]["explained-variance"]["per-fold"]) != 3
+                or os.path.exists(os.path.join(reg_dir, key)) or "cv-only" in served
+                or len(served) != len(dense) + len(lstm)):
+            raise AssertionError("cv: the cross_val_only machine was trained, registered or served")
+        if scoring["k3"] <= 0:
+            raise AssertionError("cv: the LSTM folds scored without the fused step")
+        # gang vs single build: the first machine of each family, its folds
+        # cross-validated alone (cross_val_only: the same folds, no final
+        # fit). Its first gang member starts from the single build's initial
+        # parameters and shuffles, so every fold's four metrics are held
+        # within the training bands
+        gaps = {}
+        for m, rtol, atol in ((dense[0], TRAIN_RTOL, TRAIN_ATOL), (lstm[0], LSTM_RTOL, LSTM_ATOL)):
+            single = provide_saved_model(
+                m.name, m.model, m.dataset, m.metadata, output_dir=os.path.join(CV_DIR, "single", m.name),
+                evaluation_config={"cv_mode": "cross_val_only", "n_splits": 3})
+            cv_single, cv_gang = (serializer.load_metadata(path)["model"]["cross-validation"]
+                                  for path in (single, report[m.name]))
+            gaps[m.name] = {}
+            for metric in ("explained-variance", "r2-score", "mean-squared-error", "mean-absolute-error"):
+                a, b = (np.asarray(cv[metric]["per-fold"]) for cv in (cv_single, cv_gang))
+                if a.shape != (3,) or not np.allclose(b, a, rtol=rtol, atol=atol):
+                    raise AssertionError(f"cv: {m.name}'s gang folds {b} and single folds {a} ({metric}) "
+                                         f"part beyond rtol={rtol}, atol={atol}")
+                gaps[m.name][metric] = float(np.abs(a - b).max())
+    finally:
+        shutil.rmtree(CV_DIR, ignore_errors=True)
+    phase("cv", machines=len(machines), gang_dense=len(dense), gang_lstm=len(lstm), n_splits=3,
+          rows=1008, tags=10, lookback=LOOKBACK, fold_members=json.dumps(fold_members),
+          build_s=round(wall, 3), models_per_hour=round(len(machines) / wall * 3600, 1),
+          fold_scoring_s=round(scoring["seconds"], 3), k3_launches_fold_scoring=scoring["k3"],
+          cross_val_only="untrained,unregistered,unserved", gang_vs_single_max_gap=json.dumps(gaps),
+          gap_band_dense=f"rtol={TRAIN_RTOL},atol={TRAIN_ATOL}",
+          gap_band_lstm=f"rtol={LSTM_RTOL},atol={LSTM_ATOL}", card=json.dumps(card))
+
+
+def cv_parity_phase():
+    """8 dense and 4 LSTM machines of the cv phase: the fold plan, the fold
+    members' training from the same initial parameters (one batch an
+    epoch, 3 epochs) and their scores, on the card and on the CPU."""
+    dense, lstm = cv_machines()
+    err = {}
+    for family, machines, kwargs, rtol, atol in (
+            ("dense", dense[:8], {"kind": "feedforward_hourglass"}, TRAIN_RTOL, TRAIN_ATOL),
+            ("lstm", lstm[:4], {"kind": "lstm_hourglass", "lookback_window": LOOKBACK,
+                                "model_type": "LSTMAutoEncoder"}, LSTM_RTOL, LSTM_ATOL)):
+        data = {m.name: get_dataset(m.dataset).get_data()[0] for m in machines}
+        module = lookup_factory(kwargs.get("model_type", "AutoEncoder"), kwargs["kind"])(10)
+        stack = (train_core.StackedLSTM(module, LOOKBACK) if family == "lstm"
+                 else train_core.StackedDense(module))
+        plans, scores = {}, {}
+        for device in ("cuda", "cpu"):
+            plan, fold_data, infeasible = fleet_build._plan_cv_folds(machines, data, kwargs)
+            if infeasible:
+                raise AssertionError(f"cv_parity: infeasible {[m.name for m in infeasible]}")
+            initial = dict(zip(fold_data, stack.state_dicts(stack.init(
+                [train_core.member_generator(7, i) for i in range(len(fold_data))]))))
+            models = FleetTrainer(device=device, epochs=3, batch_size=1024, **kwargs).fit(
+                fold_data, initial_params=initial)
+            plans[device] = {n: [(tr.tolist(), te.tolist()) for tr, te in sp] for n, (sp, _X) in plan.items()}
+            scores[device] = fleet_build._score_cv_folds(plan, models)
+        if plans["cuda"] != plans["cpu"]:
+            raise AssertionError(f"cv_parity: {family} fold indices differ between the card and the CPU")
+        worst = 0.0
+        for name, got in scores["cuda"].items():
+            for metric in ("explained-variance", "r2-score", "mean-squared-error", "mean-absolute-error"):
+                a = np.asarray(got[metric]["per-fold"])
+                b = np.asarray(scores["cpu"][name][metric]["per-fold"])
+                if not np.allclose(a, b, rtol=rtol, atol=atol):
+                    raise AssertionError(f"cv_parity: {name} {metric} {a} (card) vs {b} (CPU)")
+                worst = max(worst, float(np.abs(a - b).max()))
+        err[family] = float(f"{worst:.3g}")
+    phase("cv_parity", dense=8, lstm=4, folds=3, epochs=3, batch=1024,
+          band_dense=f"rtol={TRAIN_RTOL},atol={TRAIN_ATOL}", band_lstm=f"rtol={LSTM_RTOL},atol={LSTM_ATOL}",
+          fold_indices="equal", max_abs_err=json.dumps(err))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
@@ -1415,11 +1804,14 @@ def main() -> int:
     # every path: the launch counters from 0 just before it, read just after
     paths = {}
 
-    def drive(name, fn, *args):
+    # (a path run in subprocesses returns theirs, each from 0 at its start)
+    def drive(name, fn, *args, in_subprocesses=False):
         score.reset_launch_counts()
         seq_scan.reset_launch_counts()
-        fn(*args)
-        paths[name] = dict(score.launch_counts, **seq_scan.launch_counts)
+        result = fn(*args)
+        paths[name] = result if in_subprocesses else dict(score.launch_counts, **seq_scan.launch_counts)
+
+    record_k3_shapes()
 
     drive("train", train_phase, card)
     train_parity_phase()
@@ -1430,9 +1822,14 @@ def main() -> int:
     drive("bank", bank_phase, card)
     drive("lstm", bank_phase, card, True)
     drive("build", build_phase)
+    drive("cli", cli_phase, in_subprocesses=True)
+    drive("cv", cv_phase, card)
+    cv_parity_phase()
+    k3_path_parity_phase(kernels["lstm_layer"])
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("build", "banked_anomaly_score"), ("build", "fused_anomaly_score"),
-                         ("build", "lstm_layer")):
+                         ("build", "lstm_layer"), ("cli", "banked_anomaly_score"), ("cli", "lstm_layer"),
+                         ("cv", "lstm_layer")):
         if paths[path][kernel] <= 0:
             raise AssertionError(f"{path}: launched no {kernel}")
     phase("counts", **{f"{k}_{path}": v for path, c in paths.items() for k, v in c.items()})

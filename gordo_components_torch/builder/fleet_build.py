@@ -12,12 +12,21 @@ times (default 1 retry, env ``GORDO_BUILD_GROUP_RETRIES``), lands in the
 report's ``failed`` while the rest ship. Groups train one after another on
 the one card.
 
+Cross-validation in a gang: each machine that asks for it adds its
+``TimeSeriesSplit`` folds' training rows as extra members of its gang's
+``FleetTrainer.fit`` (named with a NUL separator no machine name can hold,
+trained with the machine's own learning rate and patience); each fold
+member then scores its test rows, and its scores land in the machine's
+metadata with ``fleet_cv: True``. Fold members are never written,
+registered or reported. A ``cross_val_only`` machine, and a machine whose
+folds are too short for its family, take the single-build path.
+
 Not ported yet, and raising (or, for one machine, recorded in ``failed``
 with the error): top-level configs that are not detectors, conv models,
-cross-validation folds, checkpoint and resume, the distributed gang,
-heartbeats (``state_dir``), fault points (``GORDO_FAULTS``) and gang worker
-threads (``GORDO_GANG_WIDTH``). The build
-trace and metrics registry of the JAX builder are not written.
+checkpoint and resume, the distributed gang, heartbeats (``state_dir``),
+fault points (``GORDO_FAULTS``) and gang worker threads
+(``GORDO_GANG_WIDTH``). The build trace and metrics registry of the JAX
+builder are not written.
 """
 
 import copy
@@ -26,16 +35,22 @@ import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
+
 from gordo_components_torch import serializer
 from gordo_components_torch.builder.build_model import (
     _mirror_artifact,
+    _normalize_evaluation,
+    _wants_cv,
     cached_artifact,
+    cached_cv_satisfied,
     calculate_model_key,
-    check_evaluation,
     provide_saved_model,
+    summarize_cv_folds,
 )
+from gordo_components_torch.builder.splits import TimeSeriesSplit
 from gordo_components_torch.device import resolve_device
-from gordo_components_torch.parallel.fleet import DEFAULT_LEARNING_RATE, FleetTrainer
+from gordo_components_torch.parallel.fleet import DEFAULT_LEARNING_RATE, FleetTrainer, _family_defaults
 from gordo_components_torch.utils import metadata_timestamp
 from gordo_components_torch.utils.staging import stage_members
 from gordo_components_torch.workflow.config import Machine
@@ -222,6 +237,76 @@ def _member_hparams_of(ae_kwargs: Dict[str, Any]) -> Dict[str, Any]:
     return hp
 
 
+# the separator of a fold member's name: NUL, which no machine name holds
+_CV_SEP = "\x00cv\x00"
+
+
+def _cv_key(name: str, fold: int) -> str:
+    return f"{_CV_SEP}{fold}{_CV_SEP}{name}"
+
+
+def _plan_cv_folds(
+    pending: List[Machine],
+    member_data: Dict[str, Any],
+    ae_kwargs: Dict[str, Any],
+) -> Tuple[Dict[str, Tuple[List, np.ndarray]], Dict[str, np.ndarray], List[Machine]]:
+    """The TimeSeriesSplit folds of every machine of a gang that asks for
+    cross-validation: ``(plan, fold_data, infeasible)``. ``plan`` maps a
+    name to (its splits, its rows as float32), ``fold_data`` a fold
+    member's key to its training rows. A machine whose folds cannot be cut,
+    or whose training or test rows are fewer than its family needs (a
+    sequence model's ``lookback + target_offset``), is infeasible: it takes
+    the single-build path."""
+    from gordo_components_torch import models as _models
+
+    model_type = ae_kwargs.get("model_type", "AutoEncoder")
+    if model_type == "AutoEncoder":
+        min_rows = 1
+    else:
+        lookback = ae_kwargs.get("lookback_window")
+        if lookback is None:
+            _, lookback = _family_defaults(model_type)
+        min_rows = int(lookback) + int(getattr(_models, model_type)._target_offset)
+
+    plan: Dict[str, Tuple[List, np.ndarray]] = {}
+    fold_data: Dict[str, np.ndarray] = {}
+    infeasible: List[Machine] = []
+    for machine in pending:
+        ev = _normalize_evaluation(machine.evaluation or None)
+        if not _wants_cv(ev):
+            continue
+        X = member_data[machine.name]
+        Xv = np.asarray(X.values if hasattr(X, "values") else X, np.float32)
+        try:
+            splits = list(TimeSeriesSplit(n_splits=int(ev.get("n_splits", 3))).split(Xv))
+        except ValueError:
+            splits = None
+        if splits is None or any(len(tr) < min_rows or len(te) < min_rows for tr, te in splits):
+            infeasible.append(machine)
+            continue
+        plan[machine.name] = (splits, Xv)
+        for fold, (tr, _te) in enumerate(splits):
+            fold_data[_cv_key(machine.name, fold)] = Xv[tr]
+    return plan, fold_data, infeasible
+
+
+def _score_cv_folds(
+    plan: Dict[str, Tuple[List, np.ndarray]],
+    fleet_models: Dict[str, Any],
+) -> Dict[str, Dict[str, Any]]:
+    """Each planned machine's cross-validation metadata: every fold member,
+    as the detector pipeline the single build scores, scored on its test
+    rows (the metadata keys of ``build_model._cross_validate``, with
+    ``fleet_cv``; ``cv_duration_sec`` covers the scoring alone)."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for name, (splits, Xv) in plan.items():
+        t0 = time.time()
+        folds = [fleet_models[_cv_key(name, fold)].to_estimator().score_metrics(Xv[te])
+                 for fold, (_tr, te) in enumerate(splits)]
+        out[name] = {"cv_duration_sec": time.time() - t0, "fleet_cv": True, **summarize_cv_folds(folds)}
+    return out
+
+
 def _refuse_unported(checkpoint_dir, distributed, state_dir) -> None:
     if checkpoint_dir is not None:
         raise NotImplementedError("checkpoint_dir: fleet checkpoint and resume is not ported yet")
@@ -247,7 +332,8 @@ def build_fleet(
     device="cuda",
 ) -> FleetBuildReport:
     """Build every machine (a ``Machine`` or its dict) on ``device``;
-    returns a :class:`FleetBuildReport`."""
+    returns a :class:`FleetBuildReport`. ``checkpoint_dir``,
+    ``distributed`` and ``state_dir`` are not ported and raise."""
     device = resolve_device(device)
     _refuse_unported(checkpoint_dir, distributed, state_dir)
     if group_retries is None:
@@ -278,11 +364,6 @@ def build_fleet(
                 logger.error("Machine %s: single build FAILED (%s); the others continue",
                              machine.name, exc, exc_info=True)
             continue
-        try:
-            check_evaluation(machine.evaluation or None)
-        except NotImplementedError as exc:
-            results.failed[machine.name] = f"{type(exc).__name__}: {exc}"
-            continue
         groups.setdefault(_group_key(ae_kwargs), []).append((machine, ae_kwargs))
 
     for group in groups.values():
@@ -299,6 +380,8 @@ def build_fleet(
                     continue
                 error = f"{type(exc).__name__}: {exc}"
                 for m, _kw in group:
+                    # members already shipped (cache hits, single builds of
+                    # infeasible folds) are built, not failed
                     if m.name not in results:
                         results.failed[m.name] = error
                 logger.error("Fleet group of %d member(s) FAILED after %d attempt(s): %s",
@@ -320,7 +403,8 @@ def _build_fleet_group(
     for machine, kw in group:
         key = calculate_model_key(machine.name, machine.model, machine.dataset, machine.metadata)
         cached = None if replace_cache else cached_artifact(model_register_dir, key)
-        if cached is not None:
+        evaluation = _normalize_evaluation(machine.evaluation or None)
+        if cached is not None and cached_cv_satisfied(cached, evaluation):
             logger.info("Machine %s: cache hit", machine.name)
             _mirror_artifact(cached, os.path.join(output_dir, machine.name))
             results[machine.name] = cached
@@ -338,9 +422,33 @@ def _build_fleet_group(
     datasets_meta = {m.name: meta for m, (_X, meta) in zip(pending, loaded)}
     load_elapsed = time.time() - t0
 
+    # fold training rows join the gang as members; a machine whose folds
+    # the gang cannot train builds alone (reloading its data)
+    cv_plan, fold_data, infeasible = _plan_cv_folds(pending, member_data, ae_kwargs)
+    for machine in infeasible:
+        logger.info("Machine %s: CV folds infeasible for the gang, single-build path", machine.name)
+        pending = [m for m in pending if m.name != machine.name]
+        for d in (member_data, datasets_meta, member_hparams):
+            d.pop(machine.name, None)
+        results[machine.name] = provide_saved_model(
+            machine.name, machine.model, machine.dataset, machine.metadata,
+            output_dir=os.path.join(output_dir, machine.name),
+            model_register_dir=model_register_dir, replace_cache=replace_cache,
+            evaluation_config=machine.evaluation or None, device=device,
+        )
+    if not pending:
+        return
+
+    # fold members train with their machine's learning rate and patience
+    for name, (splits, _Xv) in cv_plan.items():
+        for fold in range(len(splits)):
+            member_hparams[_cv_key(name, fold)] = member_hparams[name]
     t1 = time.time()
-    fleet_models = trainer.fit(member_data, member_hparams=member_hparams)
+    fleet_models = trainer.fit({**member_data, **fold_data}, member_hparams=member_hparams)
     train_elapsed = time.time() - t1
+    if fold_data:
+        trainer.last_stats["cv_fold_members"] = len(fold_data)
+    cv_meta = _score_cv_folds(cv_plan, fleet_models)
 
     for machine in pending:
         name = machine.name
@@ -364,6 +472,8 @@ def _build_fleet_group(
             },
             "user-defined": machine.metadata,
         }
+        if name in cv_meta:
+            metadata["model"]["cross-validation"] = cv_meta[name]
         dest = os.path.join(model_register_dir, key) if model_register_dir else os.path.join(output_dir, name)
         serializer.dump(det, dest, metadata=metadata)
         _mirror_artifact(dest, os.path.join(output_dir, name))

@@ -1,0 +1,258 @@
+"""``gordo-components-torch`` command-line interface.
+
+Counterpart of ``gordo_components_tpu/cli/cli.py``, on argparse, with the
+same options, environment variables and exit codes:
+
+- ``build``: one model (``provide_saved_model``); 81 when a config does
+  not parse (JSON first, then the port's YAML reader), 82 on
+  ``ValueError``, ``ImportError`` or ``FileNotFoundError``, 83 on any other
+  error;
+- ``build-fleet``: a machines file (a list of machines, or
+  ``{machines: [...]}``) built by ``build_fleet``, its manifest written to
+  ``build_manifest.json`` and printed; 0 when every machine built, 84 when
+  some failed, 83 when none built or the build raised, 81 for an empty
+  payload;
+- ``run-server``: serve a model directory until SIGINT or SIGTERM.
+
+``--device`` (default ``cuda``) is the counterpart of the JAX ``--platform``:
+the commands run on the card, and without CUDA they fail through
+``resolve_device`` unless ``--device cpu`` asks for the CPU. Not ported
+yet, and refused with exit code 2: ``--profile-dir``, ``--compile-cache-dir``,
+a set ``GORDO_FAULTS``, and ``run-server --devices`` above 1. The JAX
+package's ``client``, ``workflow``, ``run-watchman`` and
+``checkpoint-prune`` commands are not ported.
+"""
+
+import argparse
+import json
+import logging
+import os
+import signal
+import sys
+from typing import List, Optional
+
+from gordo_components_torch.utils.yaml_subset import YAMLSubsetError, safe_load
+
+logger = logging.getLogger(__name__)
+
+EXIT_OK = 0
+EXIT_CONFIG_ERROR = 81
+EXIT_DATA_ERROR = 82
+EXIT_BUILD_ERROR = 83
+# a partial fleet build: some machines shipped, the failed ones are in the
+# manifest (a retry reruns those alone)
+EXIT_PARTIAL_BUILD = 84
+
+_TRUE = ("1", "true", "t", "yes", "y", "on")
+_FALSE = ("0", "false", "f", "no", "n", "off", "")
+
+
+def _env(name: str, default=None):
+    return os.environ.get(name, default)
+
+
+def _env_flag(name: str) -> bool:
+    value = os.environ.get(name, "").strip().lower()
+    if value not in _TRUE + _FALSE:
+        raise SystemExit(f"{name}={os.environ[name]!r} is not a boolean")
+    return value in _TRUE
+
+
+def _env_int(name: str, default: Optional[int]) -> Optional[int]:
+    value = os.environ.get(name)
+    try:
+        return default if value is None else int(value)
+    except ValueError:
+        raise SystemExit(f"{name}={value!r} is not an integer") from None
+
+
+def _parser() -> argparse.ArgumentParser:
+    """The parser; option defaults read the environment when it is built."""
+    p = argparse.ArgumentParser(
+        prog="gordo-components-torch",
+        description="Build, serve and score fleets of anomaly detectors on an NVIDIA card.")
+    p.add_argument("--log-level", default=_env("LOG_LEVEL", "INFO"))
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (the default) or 'cpu'; never chosen on its own")
+    p.add_argument("--profile-dir", default=_env("GORDO_PROFILE_DIR"), help="not ported")
+    p.add_argument("--compile-cache-dir", default=_env("GORDO_COMPILE_CACHE_DIR"), help="not ported")
+    sub = p.add_subparsers(dest="command", metavar="COMMAND")
+    sub.required = True
+
+    b = sub.add_parser("build", help="Build one model (the builder pod's entry point).")
+    b.add_argument("--name", default=_env("MACHINE_NAME"))
+    b.add_argument("--model-config", default=_env("MODEL_CONFIG"), help="JSON/YAML model definition")
+    b.add_argument("--data-config", default=_env("DATA_CONFIG"), help="JSON/YAML dataset config")
+    b.add_argument("--metadata", default=_env("METADATA", "{}"))
+    b.add_argument("--output-dir", default=_env("OUTPUT_DIR", "./model-output"))
+    b.add_argument("--model-register-dir", default=_env("MODEL_REGISTER_DIR"))
+    b.add_argument("--evaluation-config", default=_env("EVALUATION_CONFIG", "{}"),
+                   help='JSON/YAML evaluation block: {"cv_mode": "full_build"|"cross_val_only", '
+                        '"cross_validation": true, "n_splits": 3}')
+    b.add_argument("--print-cv-scores", action="store_true")
+
+    f = sub.add_parser("build-fleet", help="Build a gang of machines in one process.")
+    f.add_argument("--machines-file", default=_env("MACHINES_FILE"),
+                   help="JSON/YAML file: a list of machines or {machines: [...]}")
+    f.add_argument("--output-dir", default=_env("OUTPUT_DIR", "./model-output"))
+    f.add_argument("--model-register-dir", default=_env("MODEL_REGISTER_DIR"))
+    f.add_argument("--checkpoint-dir", default=_env("CHECKPOINT_DIR"), help="not ported")
+    # --checkpoint-every and --gang-id keep the JAX CLI's environment; they
+    # qualify checkpoints and heartbeats, which are not ported, and are not
+    # passed on
+    f.add_argument("--checkpoint-every", type=int, default=_env_int("CHECKPOINT_EVERY", 1))
+    f.add_argument("--distributed", action="store_true", default=_env_flag("GORDO_DISTRIBUTED"),
+                   help="not ported")
+    f.add_argument("--state-dir", default=_env("GANG_STATE_DIR"), help="not ported")
+    f.add_argument("--gang-id", default=_env("GANG_ID"))
+
+    s = sub.add_parser("run-server", help="Serve the model collection under a directory.")
+    s.add_argument("--model-dir", default=_env("MODEL_COLLECTION_DIR"))
+    s.add_argument("--host", default=_env("SERVER_HOST", "0.0.0.0"))
+    s.add_argument("--port", type=int, default=_env_int("SERVER_PORT", 5555))
+    s.add_argument("--devices", type=int, default=_env_int("GORDO_SERVER_DEVICES", None),
+                   help="cards to shard the bank over: only 1 is ported")
+    return p
+
+
+_REQUIRED = {
+    "build": (("name", "MACHINE_NAME"), ("model_config", "MODEL_CONFIG"), ("data_config", "DATA_CONFIG")),
+    "build-fleet": (("machines_file", "MACHINES_FILE"),),
+    "run-server": (("model_dir", "MODEL_COLLECTION_DIR"),),
+}
+
+
+def _load_json_or_yaml(value: str):
+    try:
+        return json.loads(value)
+    except json.JSONDecodeError:
+        return safe_load(value)
+
+
+def _build(args) -> int:
+    from gordo_components_torch import serializer
+    from gordo_components_torch.builder import provide_saved_model
+
+    try:
+        model_config = _load_json_or_yaml(args.model_config)
+        data_config = _load_json_or_yaml(args.data_config)
+        metadata = _load_json_or_yaml(args.metadata) or {}
+        evaluation_config = _load_json_or_yaml(args.evaluation_config) or {}
+    except YAMLSubsetError as exc:
+        print(f"Config parse error: {exc}", file=sys.stderr)
+        return EXIT_CONFIG_ERROR
+    try:
+        path = provide_saved_model(
+            args.name, model_config, data_config, metadata,
+            output_dir=args.output_dir, model_register_dir=args.model_register_dir,
+            evaluation_config=evaluation_config, device=args.device,
+        )
+    except (ValueError, ImportError, FileNotFoundError) as exc:
+        print(f"Build failed (config/data): {exc}", file=sys.stderr)
+        return EXIT_DATA_ERROR
+    except Exception as exc:
+        print(f"Build failed: {exc}", file=sys.stderr)
+        return EXIT_BUILD_ERROR
+    if args.print_cv_scores:
+        cv = serializer.load_metadata(path).get("model", {}).get("cross-validation", {})
+        print(json.dumps(cv.get("explained-variance", {})))
+    print(path)
+    return EXIT_OK
+
+
+def _build_fleet(args) -> int:
+    from gordo_components_torch.builder import build_fleet
+    from gordo_components_torch.workflow import Machine
+
+    # globals are not merged here: the entries are machines as they stand
+    with open(args.machines_file) as f:
+        payload = safe_load(f.read())
+    if isinstance(payload, dict):
+        entries = payload.get("machines", [])
+    elif isinstance(payload, list):
+        entries = payload
+    else:
+        entries = []
+    machines = []
+    for e in entries:
+        kwargs = dict(
+            name=e["name"],
+            dataset=e.get("dataset", {}),
+            metadata=e.get("metadata", {}) or {},
+            evaluation=e.get("evaluation", {}) or {},
+        )
+        if e.get("model"):  # absent: the default model config
+            kwargs["model"] = e["model"]
+        machines.append(Machine(**kwargs))
+    if not machines:
+        print("No machines in payload", file=sys.stderr)
+        return EXIT_CONFIG_ERROR
+    try:
+        results = build_fleet(
+            machines, args.output_dir, model_register_dir=args.model_register_dir,
+            checkpoint_dir=args.checkpoint_dir, distributed=args.distributed, state_dir=args.state_dir,
+            device=args.device,
+        )
+    except Exception as exc:
+        print(f"Fleet build failed: {exc}", file=sys.stderr)
+        return EXIT_BUILD_ERROR
+    # the manifest lists built and failed machines, beside the artifacts
+    manifest = results.manifest()
+    try:
+        os.makedirs(args.output_dir, exist_ok=True)
+        with open(os.path.join(args.output_dir, "build_manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=2)
+    except OSError as exc:
+        print(f"warning: could not write build_manifest.json: {exc}", file=sys.stderr)
+    print(json.dumps(manifest, indent=2))
+    if results.failed and not results:
+        return EXIT_BUILD_ERROR
+    if results.failed:
+        return EXIT_PARTIAL_BUILD
+    return EXIT_OK
+
+
+def _run_server(args) -> int:
+    from gordo_components_torch.server import run_server
+
+    def stop(signum, frame):
+        raise KeyboardInterrupt
+
+    previous = signal.signal(signal.SIGTERM, stop)
+    try:
+        run_server(args.model_dir, host=args.host, port=args.port, device=args.device)
+    except KeyboardInterrupt:
+        logger.info("Server stopped")
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    return EXIT_OK
+
+
+_COMMANDS = {"build": _build, "build-fleet": _build_fleet, "run-server": _run_server}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """Run one command; returns its exit code."""
+    parser = _parser()
+    args = parser.parse_args(argv)
+    for attr, env in _REQUIRED[args.command]:
+        if getattr(args, attr) is None:
+            parser.error(f"{args.command}: --{attr.replace('_', '-')} (or {env}) is required")
+    if args.profile_dir:
+        parser.error("--profile-dir (GORDO_PROFILE_DIR): profiling is not ported yet")
+    if args.compile_cache_dir:
+        parser.error("--compile-cache-dir (GORDO_COMPILE_CACHE_DIR): the XLA compile cache has "
+                     "no counterpart in the port")
+    if os.environ.get("GORDO_FAULTS"):
+        parser.error("GORDO_FAULTS: fault points are not ported yet")
+    if args.command == "run-server" and args.devices is not None and args.devices > 1:
+        parser.error(f"--devices {args.devices}: the bank sharded over several cards is not ported yet")
+    logging.basicConfig(
+        level=getattr(logging, args.log_level.upper(), logging.INFO),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
+    return _COMMANDS[args.command](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

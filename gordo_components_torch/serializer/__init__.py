@@ -3,6 +3,7 @@
 from gordo_components_torch.serializer.artifacts import (
     check_artifact_model,
     dump,
+    dump_metadata,
     is_artifact_dir,
     load,
     load_entry,
@@ -13,6 +14,7 @@ from gordo_components_torch.serializer.definitions import from_definition, impor
 __all__ = [
     "check_artifact_model",
     "dump",
+    "dump_metadata",
     "from_definition",
     "import_locate",
     "is_artifact_dir",

@@ -17,6 +17,13 @@ artifact holds no pickle; it is three files, and a fourth for a built model:
 - ``metadata.json`` — the build metadata the builders record (name,
                       dataset, model config, training history, durations),
                       when the artifact was built rather than converted.
+
+The format has no untrained detector. A ``cv_mode: cross_val_only`` build
+(cross-validation without the final fit) writes ``metadata.json`` alone
+(:func:`dump_metadata`), so its directory is no artifact:
+``is_artifact_dir`` is false for it, the server's ``scan_artifacts`` skips
+it and the build cache (``builder.build_model.cached_artifact``) never
+returns it. :func:`load_metadata` reads it.
 """
 
 import json
@@ -108,6 +115,18 @@ def dump(obj, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> None:
             json.dump(metadata, f, default=str, indent=2)
 
 
+def dump_metadata(dest_dir: str, metadata: Dict[str, Any]) -> None:
+    """Write the build ``metadata`` of a build that trained no model to
+    ``dest_dir``, and remove an earlier artifact's files there, so the
+    directory is no artifact."""
+    os.makedirs(dest_dir, exist_ok=True)
+    for fname in (PARAMS_FILE, SCALERS_FILE, DETECTOR_FILE):
+        if os.path.exists(os.path.join(dest_dir, fname)):
+            os.remove(os.path.join(dest_dir, fname))
+    with open(os.path.join(dest_dir, METADATA_FILE), "w") as f:
+        json.dump(metadata, f, default=str, indent=2)
+
+
 def _load_detector(source_dir: str) -> Dict[str, Any]:
     with open(os.path.join(source_dir, DETECTOR_FILE)) as f:
         meta = json.load(f)
@@ -118,9 +137,10 @@ def _load_detector(source_dir: str) -> Dict[str, Any]:
 
 def load_metadata(source_dir: str) -> Dict[str, Any]:
     """The artifact's ``detector.json`` fields, with the build metadata of
-    ``metadata.json`` (when present) beside them."""
-    meta = _load_detector(source_dir)
+    ``metadata.json`` (when present) beside them; for a directory that
+    holds ``metadata.json`` alone (a build that trained no model), that."""
     path = os.path.join(source_dir, METADATA_FILE)
+    meta = {} if os.path.exists(path) and not is_artifact_dir(source_dir) else _load_detector(source_dir)
     if os.path.exists(path):
         with open(path) as f:
             meta = {**json.load(f), **meta}

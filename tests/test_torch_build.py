@@ -123,13 +123,15 @@ def test_build_fleet_serve_and_rerun(tmp_path, monkeypatch):
         "steps": ["sklearn.preprocessing.MinMaxScaler", _AE]}}))
     out, reg = str(tmp_path / "out"), str(tmp_path / "reg")
     report = build_fleet(machines, out, model_register_dir=reg, group_retries=0, device="cpu")
-    assert sorted(report) == ["bespoke", "lstm", "m0", "m1", "m2"]
-    assert sorted(report.failed) == ["c1", "cv"]
+    assert sorted(report) == ["bespoke", "cv", "lstm", "m0", "m1", "m2"]
+    assert sorted(report.failed) == ["c1"]
     assert report.failed["c1"].startswith("NotImplementedError") and "Pipeline" in report.failed["c1"]
     assert not os.path.exists(os.path.join(out, "c1"))
-    assert "cross-validation" in report.failed["cv"]
+    cv = serializer.load_metadata(os.path.join(out, "cv"))["model"]
+    assert cv["fleet_trained"] and cv["cross-validation"]["fleet_cv"] is True
+    assert len(cv["cross-validation"]["explained-variance"]["per-fold"]) == 2
     manifest = report.manifest()
-    assert (manifest["n_built"], manifest["n_failed"]) == (5, 2)
+    assert (manifest["n_built"], manifest["n_failed"]) == (6, 1)
     lstm_meta = serializer.load_metadata(os.path.join(out, "lstm"))
     assert lstm_meta["registry_type"] == "LSTMAutoEncoder" and lstm_meta["lookback"] == 4
     assert lstm_meta["model"]["fleet_trained"]
@@ -161,8 +163,8 @@ def test_build_fleet_serve_and_rerun(tmp_path, monkeypatch):
     monkeypatch.setattr(FleetTrainer, "fit", no_training)
     monkeypatch.setattr(importlib.import_module("gordo_components_torch.builder.build_model"),
                         "build_model", no_training)
-    again = build_fleet(machines[:5], out, model_register_dir=reg, device="cpu")
-    assert dict(again) == {k: v for k, v in report.items()} and not again.failed
+    again = build_fleet(machines[:6], out, model_register_dir=reg, device="cpu")
+    assert dict(again) == dict(report) and not again.failed
 
 
 def test_fleet_built_artifact_matches_jax_fleet_trainer(tmp_path, monkeypatch):
@@ -236,8 +238,10 @@ def test_build_model_and_provide_saved_model(tmp_path):
     assert provide_saved_model("one", FLEET_MODEL, ds, output_dir=out, model_register_dir=reg,
                                device="cpu") == path
     assert os.path.getmtime(os.path.join(path, "params.npz")) == stamp
-    with pytest.raises(NotImplementedError, match="cross-validation"):
-        build_model("one", FLEET_MODEL, ds, evaluation_config={"cv_mode": "cross_val_only"}, device="cpu")
+    _, cv_meta = build_model("one", FLEET_MODEL, ds, evaluation_config={"cv_mode": "cross_val_only"},
+                             device="cpu")
+    assert not cv_meta["model"]["trained"]
+    assert len(cv_meta["model"]["cross-validation"]["explained-variance"]["per-fold"]) == 3
     assert calculate_model_key("one", FLEET_MODEL, ds) != calculate_model_key("two", FLEET_MODEL, ds)
 
 

@@ -74,8 +74,51 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "models.anomaly.base", "serializer.definitions", "dataset.datasets",
                 "dataset.resample", "dataset.data_provider.providers", "workflow.config",
                 "builder.build_model", "builder.fleet_build", "parallel.fleet",
-                "utils.staging"):
+                "utils.staging", "utils.yaml_subset", "builder.splits", "cli", "cli.cli",
+                "cli.__main__"):
         assert f"gordo_components_torch.{mod}" in report["modules"]
+
+
+_CLI_UNDER_BLOCK = """
+import importlib.abc, json, sys
+
+BLOCKED = set({blocked!r})
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+
+sys.meta_path.insert(0, Block())
+from gordo_components_torch.cli import main
+
+rc = main(["--device", "cpu", "build-fleet", "--machines-file", {fleet!r}, "--output-dir", {out!r}])
+print(json.dumps({{"rc": rc, "leaked": sorted(
+    n for n in sys.modules if n.split(".")[0] in BLOCKED)}}))
+"""
+
+
+def test_cli_imports_no_yaml_click_sklearn_pandas_or_jax():
+    """Where all of them are installed, the CLI loads none of them."""
+    code = ("import json, sys, gordo_components_torch.cli; print(json.dumps(sorted("
+            f"n for n in sys.modules if n.split('.')[0] in {BLOCKED!r})))")
+    proc = _run(["-c", code], cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_cli_builds_fleet_yaml_with_yaml_click_sklearn_pandas_and_jax_blocked(tmp_path):
+    code = _CLI_UNDER_BLOCK.format(blocked=BLOCKED, fleet=os.path.join(REPO, "examples", "fleet.yaml"),
+                                   out=str(tmp_path / "out"))
+    proc = _run(["-c", code], cwd=REPO, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report == {"rc": 0, "leaked": []}
+    assert sorted(os.listdir(tmp_path / "out")) == [
+        "build_manifest.json", "compressor-a", "compressor-b", "turbine-lstm"]
 
 
 def test_chip_smoke_fails_without_cuda():
