@@ -75,15 +75,39 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             parameters (restored ones), losses, validation losses, input and
             error scalers and q = 1 thresholds within LSTM_RTOL/LSTM_ATOL,
             q = 0.99 histogram thresholds within two bins;
-6. http     serve a four-bucket directory of port artifacts with
-            ``run_server``: 64 feedforward detectors at 10 tags, 8 at 40, and
+   zoo_train  the reference bench's config 4 as one fit a model:
+            ``ConvAutoEncoder`` (default channels (32, 16), lookback 32) and
+            ``AutoEncoder(kind="feedforward_variational")`` (default widths,
+            the ELBO), one member of the bench's fleet (1,440 rows x 10
+            tags), 5 epochs, batch 128, float32: a warm 1-epoch fit, then the
+            timed fit (models/hour, fit and epoch seconds, the loss falling);
+            each one's detector fit and its ``anomaly()`` (one K1 launch, no
+            training row above its threshold); one step's device operations
+            and host launch time, and an epoch's busy share (profiler);
+   zoo_fleet  FleetTrainer of config 4 at the bench's zoo-fleet shape (256
+            members x 720 rows x 10 tags, 3 epochs, batch 128,
+            host_sync_every=3): the conv family at channels (16, 8), lookback
+            32, and the variational one at (64,) -> 8; a warm fit, then the
+            timed fit (models/hour; the loss fell for at least 0.99 of the
+            members); a bank of what each trained scores every member's
+            training rows (K2): no scaled error above its threshold;
+   zoo_parity  8 conv and 8 variational members from the same initial
+            parameters on the card and on the CPU (256 rows, one batch an
+            epoch, 3 epochs, a validation split of 0.2; the variational noise
+            from the port's generators, the same on both): parameters,
+            losses, validation losses, scalers, error scalers and thresholds
+            within TRAIN_RTOL/TRAIN_ATOL;
+6. http     serve a six-bucket directory of port artifacts with
+            ``run_server``: 64 feedforward detectors at 10 tags, 8 at 40,
             8 ``LSTMAutoEncoder`` + 4 ``LSTMForecast`` detectors
-            (``lstm_hourglass``, 10 tags, lookback 32). Concurrent
-            anomaly/prediction POSTs (64 rows feedforward, 128 rows LSTM),
+            (``lstm_hourglass``, 10 tags, lookback 32), 4 conv (lookback 32)
+            and 4 variational detectors. Concurrent anomaly/prediction POSTs
+            (64 rows feedforward and variational, 128 rows LSTM and conv),
             each held against the port's plain computation on the CPU, with
-            the LSTM responses' index trimmed by the warm-up offset; a bad
-            body (400), a request within the warm-up (400), an unknown target
-            (404); the detectors' ``anomaly()`` on the card;
+            the windowed responses' index trimmed by the warm-up offset; a
+            bad body (400), a request within the warm-up (400), an unknown
+            target (404); the detectors' ``anomaly()`` on the card; the conv
+            and variational buckets' K2 and K1 launches counted apart;
 7. bank     10,000 feedforward hourglass members at 10 tags scored by 64
             clients x 4 requests x 64 rows through BatchingEngine(max_batch=64,
             flush_ms=2.0): latency, rows/s, average batch; then one full
@@ -92,15 +116,20 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 8. lstm     the same for 10,000 ``lstm_hourglass`` members (10 tags,
             lookback 32) and 128-row requests (97 scored rows each), with the
             fused-LSTM-step launches per batch;
+   zoo_bank the same for 10,000 config-4 conv members (default channels,
+            10 tags, lookback 32: 235 MB of float32 weights), 128-row
+            requests, in the LSTM band;
 9. build    ``build_fleet`` on the card: 64 RandomDataset machines with the
             default model config (10 tags, 7 days at 10 min), one bespoke
             machine (a bare AutoEncoder: the single-build path), the
             ``turbine-lstm`` machine of examples/fleet.yaml (2 tags, lookback
             12, 5 epochs), 4 LSTMAutoEncoder and 2 LSTMForecast machines at
-            the default estimator config (three LSTM gangs), one bespoke LSTM
-            detector (single build) and two configs that are not detectors (a
-            bare Pipeline, a bare AutoEncoder) into a temporary directory: 73
-            built, the two others failed with NotImplementedError; the
+            the default estimator config (three LSTM gangs), 2 conv and 2
+            variational machines at their default estimator configs (two
+            more gangs), one bespoke LSTM detector (single build) and two
+            configs that are not detectors (a bare Pipeline, a bare
+            AutoEncoder) into a temporary directory: 77 built, the two others
+            failed with NotImplementedError; the
             directory served by a ModelBank and BatchingEngine, each machine's
             training rows scored as one request (K2, and K3 for LSTM buckets)
             and by ``serializer.load(dir).anomaly`` (K1, and K3), the two held
@@ -138,14 +167,17 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             batch an epoch, 3 epochs) and their scores on the card and on the
             CPU: fold indices equal, scores within TRAIN_RTOL/TRAIN_ATOL
             (dense) and LSTM_RTOL/LSTM_ATOL (LSTM);
-    k3_path_parity  lstm_layer against its plain version, in the parity
-            phase's layer band, at every (S, B, M, H) that a call on the card
-            gave it from the train phase on (this process's and the CLI
-            runs') and that the parity phase did not hold;
+    path_parity  each kernel against its plain version, in the parity
+            phase's band, at every shape that a call on the card gave it
+            from the train phase on (this process's and the CLI runs') and
+            that the parity phase did not hold: K1 at every (rows, F) of an
+            ``anomaly()``, K2 at every (B, T, F, M) of a bank batch or a
+            fleet's scoring, K3 at every (S, B, M, H);
 12. counts  the three main-path wrappers' launch counters of every path
-            (train, seq_train, seq_fleet, http, bank, lstm, build, cli, cv),
-            each reset just before its path and read just after; each
-            kernel's total must be above 0.
+            (train, seq_train, seq_fleet, zoo_train, zoo_fleet, http, bank,
+            lstm, zoo_bank, build, cli, cv), each reset just before its path
+            and read just after; each kernel's total must be above 0, and K1
+            and K2 above 0 on the config-4 paths.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -174,9 +206,11 @@ import torch
 
 from gordo_components_torch import resolve_device, serializer
 from gordo_components_torch.builder import build_fleet, calculate_model_key, fleet_build, provide_saved_model
-from gordo_components_torch.convert import entry_from_numpy, lstm_to_flax
+from gordo_components_torch.convert import entry_from_numpy, lstm_to_flax, params_to_flax
 from gordo_components_torch.dataset import get_dataset
 from gordo_components_torch.models import (
+    AutoEncoder,
+    ConvAutoEncoder,
     DiffBasedAnomalyDetector,
     LSTMAutoEncoder,
     lookup_factory,
@@ -259,16 +293,31 @@ LSTM_TRAIN = ([(LOOKBACK, 128, 1024, H) for H in (8, 7, 5)]
                  (12, 100, 4, 8), (12, 100, 1, 2), (12, 100, 1, 1), (16, 992, 1, 5)]
               + [(LOOKBACK, B, M, H) for B, M in ((100, 8), (221, 1), (473, 1), (725, 1))
                  for H in (8, 7, 5)])
-# (S, B, M, H) of every lstm_layer call on the card from the main paths on,
-# this process's and the CLI's; held against the plain version afterwards
-K3_SHAPES = set()
 HOURGLASS_WIDTHS = (8, 7, 5, 5, 7, 8)  # lstm_hourglass's layers at 10 tags
+# the reference bench's config 4 (bench.py bench_sequence_models) in float32:
+# the conv autoencoder at lookback 32 and the variational one, default widths
+ZOO_MODELS = {
+    "conv": (ConvAutoEncoder, dict(lookback_window=LOOKBACK)),
+    "vae": (AutoEncoder, dict(kind="feedforward_variational")),
+}
+ZOO_EPOCHS = 5
+# config 4 as a fleet (bench.py _FLEET_FAMILIES, _family_fleet_metric)
+ZOO_FLEET = dict(n_models=256, rows=720, n_features=10)
+ZOO_FLEET_MODELS = {
+    "conv": dict(model_type="ConvAutoEncoder", channels=(16, 8), lookback_window=LOOKBACK),
+    "vae": dict(kind="feedforward_variational", dims=(64,), latent_dim=8),
+}
+ZOO_FLEET_CONFIG = dict(epochs=3, batch_size=128, host_sync_every=3)
 KERNELS = {
     "banked_anomaly_score": "gordo_components_tpu/ops/pallas_score.py:298",
     "fused_anomaly_score": "gordo_components_tpu/ops/pallas_score.py:84",
     "lstm_layer": "gordo_components_tpu/ops/seq_scan.py:218",
 }
 SOURCE = "gordo_components_torch/ops/csrc/anomaly_score.cu"
+# the shapes every call on the card gave each kernel from the main paths on,
+# this process's and the CLI runs': K1's (rows, F), K2's (B, T, F, M), K3's
+# (S, B, M, H); held against the plain versions afterwards
+PATH_SHAPES = {name: set() for name in KERNELS}
 LSTM_SOURCE = "gordo_components_torch/ops/csrc/lstm_step.cu"
 
 
@@ -715,35 +764,75 @@ def lstm_kernel_phase():
     return {"lstm_layer": result}
 
 
-def record_k3_shapes():
-    """From here on, add the (S, B, M, H) of every ``seq_scan.lstm_layer``
-    call on the card to K3_SHAPES; the kernel and its count are untouched."""
-    layer = seq_scan.lstm_layer
+def record_path_shapes():
+    """From here on, add the shape of every kernel call on the card to
+    PATH_SHAPES (through the wrappers' launch functions and
+    ``seq_scan.lstm_layer``); the kernels and their counts are untouched."""
+    one, banked, layer = score._launch_one, score._launch_banked, seq_scan.lstm_layer
 
-    def recording(xz, Wh, b):
+    def k1(target, output, shift, scale):
+        PATH_SHAPES["fused_anomaly_score"].add(tuple(target.shape))
+        return one(target, output, shift, scale)
+
+    def k2(target, output, shift_bank, scale_bank, idx):
+        PATH_SHAPES["banked_anomaly_score"].add((*target.shape, shift_bank.shape[0]))
+        return banked(target, output, shift_bank, scale_bank, idx)
+
+    def k3(xz, Wh, b):
         if xz.is_cuda:
-            K3_SHAPES.add((*xz.shape[:3], xz.shape[3] // 4))
+            PATH_SHAPES["lstm_layer"].add((*xz.shape[:3], xz.shape[3] // 4))
         return layer(xz, Wh, b)
 
-    seq_scan.lstm_layer = recording
+    score._launch_one, score._launch_banked, seq_scan.lstm_layer = k1, k2, k3
 
 
-def k3_path_parity_phase(result):
-    """lstm_layer against its plain version at every shape the main paths
-    gave it that the parity phase did not hold; its max_abs_err covers both."""
-    held = {LSTM_SERVE, *LSTM_RAGGED, *LSTM_EDGES, *LSTM_TRAIN}
-    new = sorted(K3_SHAPES - held)
-    err = 0.0
-    for i, (S, B, M, H) in enumerate(new):
-        xz, _, _, Wh, b = lstm_case(S, B, M, H, seed=500 + i)
-        got = seq_scan.lstm_layer(xz, Wh, b)
-        torch.cuda.synchronize()
-        err = max(err, close(got, seq_scan.lstm_layer_plain(xz, Wh, b), LAYER_RTOL, LAYER_ATOL,
-                             f"lstm_layer at the main path's S={S} B={B} M={M} H={H}"))
-    result["max_abs_err"] = max(result["max_abs_err"], err)
-    phase("k3_path_parity", path_shapes=len(K3_SHAPES), held_before=len(K3_SHAPES) - len(new),
-          held_now=len(new), band=f"rtol={LAYER_RTOL},atol={LAYER_ATOL}", max_err=err,
-          shapes=json.dumps(new[:40]))
+def k1_case(rows, F, seed):
+    """One detector's (rows, F) reconstruction and scaler row pair."""
+    tgt, out, sh, sc, _ = make_case(1, rows, F, 1, seed)
+    return tgt[0], out[0], sh[0], sc[0]
+
+
+def hold_k1(shape, seed):
+    single = k1_case(*shape, seed)
+    got = score.fused_anomaly_score(*single)
+    torch.cuda.synchronize()
+    return compare(got, score.score_plain(*single), "fused at the main path's rows={} F={}".format(*shape))
+
+
+def hold_k2(shape, seed):
+    args = make_case(*shape, seed=seed)
+    buf = score.banked_anomaly_score_packed(*args)
+    torch.cuda.synchronize()
+    return compare_packed(buf, args, "banked at the main path's B={} T={} F={} M={}".format(*shape))
+
+
+def hold_k3(shape, seed):
+    xz, _, _, Wh, b = lstm_case(*shape, seed=seed)
+    got = seq_scan.lstm_layer(xz, Wh, b)
+    torch.cuda.synchronize()
+    return close(got, seq_scan.lstm_layer_plain(xz, Wh, b), LAYER_RTOL, LAYER_ATOL,
+                 "lstm_layer at the main path's S={} B={} M={} H={}".format(*shape))
+
+
+def path_parity_phase(kernels):
+    """Each kernel against its plain version, in the parity phase's band, at
+    every shape the main paths gave it that the parity phase did not hold;
+    each kernel's max_abs_err covers both."""
+    checks = {
+        "fused_anomaly_score": (hold_k1, {(t, f) for _, t, f, _ in (SERVE_SHAPE, *RAGGED)},
+                                f"bitwise diff,scaled; norms rtol=atol={NORM_RTOL}"),
+        "banked_anomaly_score": (hold_k2, set(K2_SHAPES),
+                                 f"bitwise output_copy,diff,scaled; norms rtol=atol={NORM_RTOL}"),
+        "lstm_layer": (hold_k3, {LSTM_SERVE, *LSTM_RAGGED, *LSTM_EDGES, *LSTM_TRAIN},
+                       f"rtol={LAYER_RTOL},atol={LAYER_ATOL}"),
+    }
+    for name, (hold, held, band) in checks.items():
+        shapes = PATH_SHAPES[name]
+        new = sorted(shapes - held)
+        err = max([hold(shape, 500 + i) for i, shape in enumerate(new)], default=0.0)
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+        phase("path_parity", kernel=name, path_shapes=len(shapes), held_before=len(shapes) - len(new),
+              held_now=len(new), band=json.dumps(band), max_err=err, shapes=json.dumps(new[:40]))
 
 
 # ------------------------------------------------------------------ #
@@ -772,9 +861,32 @@ def random_entry(name: str, n_features: int, rng: np.random.Generator):
 
 
 @functools.lru_cache(maxsize=None)
-def lstm_hourglass_shapes(F: int):
-    module = lookup_factory("LSTMAutoEncoder", "lstm_hourglass")(F)
+def state_shapes(registry_type: str, kind: str, F: int):
+    module = lookup_factory(registry_type, kind)(F)
     return {k: tuple(v.shape) for k, v in module.state_dict().items()}
+
+
+def random_zoo_entry(name: str, family: str, rng: np.random.Generator):
+    """A config-4 detector at 10 tags with random weights (kernels scaled by
+    their fan-in, small biases) and scalers: the conv autoencoder (default
+    channels, lookback 32) or the variational one (default widths)."""
+    F = 10
+    registry_type, kind = {"conv": ("ConvAutoEncoder", "conv1d_autoencoder"),
+                           "vae": ("AutoEncoder", "feedforward_variational")}[family]
+    state = {
+        k: ((0.1 if k.endswith(".bias") else 1.0 / np.sqrt(np.prod(shape[:-1])))
+            * rng.standard_normal(shape)).astype(np.float32)
+        for k, shape in state_shapes(registry_type, kind, F).items()
+    }
+    return entry_from_numpy(
+        name, registry_type, kind, {}, F, params_to_flax(state),
+        in_shift=0.1 * rng.standard_normal(F),
+        in_scale=1.0 + rng.random(F),
+        err_shift=0.05 * rng.random(F),
+        err_scale=1.0 + rng.random(F),
+        tags=[f"tag-{i}" for i in range(F)],
+        lookback=LOOKBACK if family == "conv" else 1,
+    )
 
 
 def random_lstm_entry(name: str, registry_type: str, rng: np.random.Generator):
@@ -784,7 +896,7 @@ def random_lstm_entry(name: str, registry_type: str, rng: np.random.Generator):
     state = {
         k: ((0.1 if k.endswith(".b") or k == "head.bias" else 1.0 / np.sqrt(shape[0]))
             * rng.standard_normal(shape)).astype(np.float32)
-        for k, shape in lstm_hourglass_shapes(F).items()
+        for k, shape in state_shapes("LSTMAutoEncoder", "lstm_hourglass", F).items()
     }
     return entry_from_numpy(
         name, registry_type, "lstm_hourglass", {}, F, lstm_to_flax(state),
@@ -835,21 +947,28 @@ def http_phase():
     lstm = {f"lae{i}": "LSTMAutoEncoder" for i in range(8)} | {f"lfc{i}": "LSTMForecast" for i in range(4)}
     for name, registry_type in lstm.items():
         serializer.dump(random_lstm_entry(name, registry_type, rng), os.path.join(MODEL_DIR, name))
-    widths |= {name: 10 for name in lstm}
+    # config 4: a conv bucket (lookback 32) and a variational one
+    zoo = {f"cae{i}": "conv" for i in range(4)} | {f"vae{i}": "vae" for i in range(4)}
+    for name, family in zoo.items():
+        serializer.dump(random_zoo_entry(name, family, rng), os.path.join(MODEL_DIR, name))
+    widths |= {name: 10 for name in (*lstm, *zoo)}
     offsets = {name: LOOKBACK - 1 + int(t == "LSTMForecast") for name, t in lstm.items()}
+    offsets |= {name: LOOKBACK - 1 for name, family in zoo.items() if family == "conv"}
+    banded = {*lstm, *zoo}  # held in the LSTM band: deeper sums than the hourglass's
     server = run_server(MODEL_DIR, host="127.0.0.1", port=0, background=True)
     try:
         base = server.url + "/gordo/v0/smoke"
         status, models = http_json(base + "/models")
-        if status != 200 or models["models"] != sorted(widths) or models["bank"]["n_buckets"] != 4:
+        if status != 200 or models["models"] != sorted(widths) or models["bank"]["n_buckets"] != 6:
             raise AssertionError(f"/models answered {status}: {models}")
         status, body = http_json(base + "/m000/healthcheck")
         if status != 200 or "gordo-server-version" not in body:
             raise AssertionError(f"healthcheck answered {status}: {body}")
         # concurrent POSTs: 56 to the 10-tag dense bucket and 8 to the 40-tag
-        # one (64 rows each), and one to every LSTM detector (128 rows)
-        targets = [f"m{i:03d}" for i in range(56)] + [f"w{i:03d}" for i in range(8)] + list(lstm)
-        n_rows = {t: 128 if t in lstm else 64 for t in targets}
+        # one (64 rows each), and one to every LSTM and config-4 detector
+        # (128 rows a windowed one, 64 a variational one)
+        targets = [f"m{i:03d}" for i in range(56)] + [f"w{i:03d}" for i in range(8)] + [*lstm, *zoo]
+        n_rows = {t: 128 if t in offsets else 64 for t in targets}
         index = [f"2020-01-01T{m // 60:02d}:{m % 60:02d}:00Z" for m in range(128)]
         X = {t: rng.random((n_rows[t], widths[t])).astype(np.float32) for t in targets}
         replies = {}
@@ -867,6 +986,13 @@ def http_phase():
             if th.is_alive():
                 raise AssertionError("an HTTP client did not finish")
         wall = time.perf_counter() - t0
+        # the config-4 buckets alone, one request each: K2 once a bucket
+        k2_before = score.launch_counts["banked_anomaly_score"]
+        server.app.bank.score_many([(t, X[t], None) for t in zoo])
+        zoo_k2 = score.launch_counts["banked_anomaly_score"] - k2_before
+        if zoo_k2 != 2:
+            raise AssertionError(f"http: the conv and variational buckets launched K2 {zoo_k2} times, not 2")
+        zoo_k1 = 0
         for t in targets:
             status, body = replies[t]
             if status != 200:
@@ -875,14 +1001,17 @@ def http_phase():
             want_index = [s.replace("Z", "+00:00") for s in index[off:n_rows[t]]]
             if body["index"] != want_index:
                 raise AssertionError(f"{t}: index {body['index'][:2]}... not trimmed by {off}")
-            band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if t in lstm else {}
+            band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if t in banded else {}
             path = os.path.join(MODEL_DIR, t)
             plain = serializer.load(path, device="cpu").anomaly(X[t])
             check_arrays(response_arrays(body, [f"tag-{i}" for i in range(widths[t])]), plain,
                          f"http {t}", **band)
             # the detector's own anomaly() on the card: the per-model kernel
             # (and, for an LSTM, the fused step)
+            k1_before = score.launch_counts["fused_anomaly_score"]
             check_arrays(serializer.load(path).anomaly(X[t]), plain, f"detector {t}", **band)
+            if t in zoo:
+                zoo_k1 += score.launch_counts["fused_anomaly_score"] - k1_before
         for t in ("lae0", "lfc0"):
             status, body = http_json(f"{base}/{t}/prediction", {"X": X[t].tolist(), "index": index})
             plain = serializer.load(os.path.join(MODEL_DIR, t), device="cpu").anomaly(X[t])
@@ -905,10 +1034,13 @@ def http_phase():
     finally:
         server.close()
         shutil.rmtree(MODEL_DIR, ignore_errors=True)
-    phase("http", models=len(widths), buckets=4, posts=len(targets), rows="64,128(lstm)",
+    if zoo_k1 != len(zoo):
+        raise AssertionError(f"http: the config-4 detectors' anomaly() launched K1 {zoo_k1} times")
+    phase("http", models=len(widths), buckets=6, posts=len(targets), rows="64,128(lstm,conv)",
           wall_s=round(wall, 4), engine_batches=batches,
           checked="all six arrays vs CPU plain", index_trimmed_by="31,32",
-          status_400="bad body,warm-up", status_404=True)
+          status_400="bad body,warm-up", status_404=True,
+          zoo_detectors=json.dumps({"conv": 4, "vae": 4}), zoo_k2_launches=zoo_k2, zoo_k1_launches=zoo_k1)
 
 
 def profile_batch(bank, requests, runs=5):
@@ -940,16 +1072,20 @@ def profile_batch(bank, requests, runs=5):
     }
 
 
-def bank_phase(card: str, lstm: bool = False):
+def bank_phase(card: str, family: str = "dense"):
     """A 10,000-member bank driven by 64 closed-loop clients through the
     engine: dense hourglass members with 64-row requests, or LSTM hourglass
-    members (lookback 32) with 128-row requests."""
-    rng = np.random.default_rng(3 if lstm else 2)
+    (``family="lstm"``) or config-4 conv members (``"conv"``), lookback 32,
+    with 128-row requests."""
+    rng = np.random.default_rng({"dense": 2, "lstm": 3, "conv": 4}[family])
     n_members, n_clients, n_requests = 10_000, 64, 4
-    n_rows = 128 if lstm else 64
+    windowed = family != "dense"
+    n_rows = 128 if windowed else 64
     t0 = time.perf_counter()
-    if lstm:
+    if family == "lstm":
         entries = [random_lstm_entry(f"l{i:05d}", "LSTMAutoEncoder", rng) for i in range(n_members)]
+    elif family == "conv":
+        entries = [random_zoo_entry(f"c{i:05d}", "conv", rng) for i in range(n_members)]
     else:
         entries = [random_entry(f"m{i:05d}", 10, rng) for i in range(n_members)]
     bank = ModelBank.from_entries(entries)
@@ -1000,7 +1136,7 @@ def bank_phase(card: str, lstm: bool = False):
     profiled = profile_batch(bank, [(names[c][0], X[c, 0], None) for c in range(n_clients)])
     from gordo_components_torch.models.anomaly.diff import DiffBasedAnomalyDetector
 
-    band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if lstm else {}
+    band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if windowed else {}
     by_name = {e.name: e for e in entries}
     for (c, r), res in results.items():
         arrays = res.to_arrays()
@@ -1017,6 +1153,7 @@ def bank_phase(card: str, lstm: bool = False):
         "members": n_members, "clients": n_clients, "requests": len(results),
         "rows_per_request": n_rows, "scored_rows_per_request": n_rows - off,
         "build_s": round(build_s, 3),
+        "bank_weight_mib": round(sum(v.nbytes for e in entries for v in e.params.values()) / 2**20, 1),
         "p50_ms": round(float(np.percentile(lat_ms, 50)), 4),
         "p99_ms": round(float(np.percentile(lat_ms, 99)), 4),
         "rows_per_s": round(len(results) * (n_rows - off) / wall, 1),
@@ -1024,10 +1161,10 @@ def bank_phase(card: str, lstm: bool = False):
         "batches": stats["batches"], "max_batch_seen": stats["max_batch_seen"],
         "banked_launches_per_batch": round(launches["banked_anomaly_score"] / batches, 3),
     }
-    if lstm:
+    if family == "lstm":
         summary["lstm_layer_launches_per_batch"] = round(launches["lstm_layer"] / batches, 3)
     summary.update(profiled)
-    phase("lstm" if lstm else "bank", **summary, card=json.dumps(card))
+    phase({"dense": "bank", "lstm": "lstm", "conv": "zoo_bank"}[family], **summary, card=json.dumps(card))
     return summary
 
 
@@ -1071,27 +1208,29 @@ def stacked_block(members, batch_size: int, warmup: int = 0):
     return X, mask, [n_items] * M
 
 
-def profile_training(stack, X, mask, n_real, batch_size: int):
+def profile_training(stack, X, mask, n_real, batch_size: int, loss: str = "mse"):
     """One training step and one epoch of the stacked train core over the
     rows ``X`` and item masks ``mask`` on the card, under the profiler:
     device operations of the step, and the epoch's device time against its
-    wall time."""
+    wall time (``loss="vae"``: the ELBO, with noise drawn as the fit draws
+    it)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = X.device
     M, n_pad = mask.shape
     opt = train_core.make_optimizer("adam", 1e-3)
-    init_fn, epoch_fn = train_core.make_train_fns(stack, opt, batch_size)
-    step = train_core.make_step_fn(stack, opt)
+    init_fn, epoch_fn = train_core.make_train_fns(stack, opt, batch_size, loss=loss)
+    step = train_core.make_step_fn(stack, opt, loss)
     state = init_fn([train_core.member_generator(0, i) for i in range(M)], dev)
     lr = torch.full((M,), 1e-3, device=dev)
     state, _ = epoch_fn(state, X, X, mask, lr, n_real=n_real)  # warm
     xb, yb = stack.batch(X, X, torch.arange(batch_size, device=dev).expand(M, batch_size))
     mb = mask[:, :batch_size]
-    step(state.params, state.opt_state, xb, yb, mb, lr)
+    nb = torch.randn(M, batch_size, stack.latent_dim, device=dev) if loss == "vae" else None
+    step(state.params, state.opt_state, xb, yb, mb, lr, nb)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state.params, state.opt_state, xb, yb, mb, lr)
+        step(state.params, state.opt_state, xb, yb, mb, lr, nb)
         torch.cuda.synchronize()
     step_ops = len(cuda_events(prof))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1122,10 +1261,14 @@ def profile_training(stack, X, mask, n_real, batch_size: int):
         return statistics.median(times)
 
     shuffle_ms = median_ms(lambda: train_core.shuffle_perm(state.generators, n_real, n_pad, dev), True)
-    launch_ms = median_ms(lambda: step(state.params, state.opt_state, xb, yb, mb, lr), False)
+    launch_ms = median_ms(lambda: step(state.params, state.opt_state, xb, yb, mb, lr, nb), False)
+    noise = {}
+    if loss == "vae":  # the epoch's noise: drawn on the host, one copy
+        noise["epoch_noise_ms"] = round(median_ms(lambda: train_core.draw_noise(
+            state.generators, n_real, n_pad, batch_size, stack.latent_dim, dev), True), 3)
     return {
         "step_device_ops": step_ops, "step_launch_ms": round(launch_ms, 4),
-        "epoch_steps": n_pad // batch_size, "epoch_shuffle_ms": round(shuffle_ms, 3),
+        "epoch_steps": n_pad // batch_size, "epoch_shuffle_ms": round(shuffle_ms, 3), **noise,
         "epoch_device_ops": len(events), "profiled_epoch_wall_ms": round(wall_ms, 3),
         "epoch_device_ms": round(device_ms, 4),
         "profiled_epoch_busy_share": round(device_ms / wall_ms, 4),
@@ -1384,12 +1527,148 @@ def seq_train_parity_phase():
           q099_band="2 bins", max_abs_err=json.dumps({k: float(f"{v:.3g}") for k, v in err.items()}))
 
 
+def zoo_train_phase(card: str):
+    """The reference bench's config 4 as one fit a model: the conv
+    autoencoder (lookback 32) and the variational one, 1,440 rows x 10
+    tags, 5 epochs, batch 128: a warm 1-epoch fit, then the timed fit; then
+    each one's detector fit and its anomaly() (K1), one training step's
+    device operations and host launch time, and an epoch's busy share."""
+    X = synth_fleet(1, FLEET_SHAPE["rows"], FLEET_SHAPE["n_features"])["machine-0"]
+    bs = 128
+    for family, (cls, arch) in ZOO_MODELS.items():
+        cls(epochs=1, batch_size=bs, **arch).fit(X)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = cls(epochs=ZOO_EPOCHS, batch_size=bs, **arch).fit(X)
+        wall = time.perf_counter() - t0
+        loss = est.history["loss"]
+        if len(loss) != ZOO_EPOCHS or not np.all(np.isfinite(loss)) or not loss[-1] < loss[0]:
+            raise AssertionError(f"zoo_train {family}: losses {loss} are not finite or did not fall")
+        det = DiffBasedAnomalyDetector(base_estimator=Pipeline([
+            ("scale", MinMaxScaler()), ("model", cls(epochs=ZOO_EPOCHS, batch_size=bs, **arch))])).fit(X)
+        k1_before = score.launch_counts["fused_anomaly_score"]
+        scored = det.anomaly(X)
+        k1 = score.launch_counts["fused_anomaly_score"] - k1_before
+        total = scored["total-anomaly-scaled"]
+        n_out = len(X) - det.offset
+        if k1 != 1 or total.shape != (n_out,) or not np.all(np.isfinite(total)):
+            raise AssertionError(f"zoo_train {family}: anomaly() gave {total.shape}, K1 launched {k1} times")
+        over = float(total.max() - det.total_threshold_)
+        if over > LSTM_ATOL + LSTM_RTOL * det.total_threshold_:
+            raise AssertionError(f"zoo_train {family}: a training row's score exceeds the threshold by {over}")
+        stack = est._stack(est._build_module(X.shape[1]))
+        block = stacked_block({"machine-0": X}, bs, stack.warmup)
+        prof = profile_training(stack, *block, bs, loss=est._resolved_loss(stack))
+        steady = statistics.median(est.epoch_seconds_[1:])
+        phase("zoo_train", family=family, model=cls.__name__, kind=est.kind,
+              lookback=getattr(est, "lookback_window", 1), rows=len(X), tags=X.shape[1],
+              epochs=ZOO_EPOCHS, batch=bs, dtype="float32", loss=est._resolved_loss(stack),
+              params_per_member=stack.n_params, items=len(X) - stack.warmup,
+              fit_wall_s=round(wall, 4), models_per_hour=round(3600 / wall, 1),
+              epoch_s=json.dumps([round(e, 4) for e in est.epoch_seconds_]), steady_epoch_s=round(steady, 4),
+              loss_epoch1=round(loss[0], 6), loss_epoch5=round(loss[-1], 6), k1_launches_anomaly=k1,
+              max_over_threshold=over, **prof,
+              epoch_device_busy_share=round(prof["epoch_device_ms"] / 1e3 / steady, 4),
+              card=json.dumps(card))
+
+
+def zoo_fleet_phase(card: str):
+    """Config 4 as a fleet at the reference bench's zoo-fleet shape (256
+    members x 720 rows x 10 tags, 3 epochs, batch 128, host_sync_every=3):
+    a warm fit, then the timed fit, of the conv and the variational family;
+    then a bank of what each trained scores every member's training rows
+    (K2): no scaled training error above its threshold (q = 1)."""
+    members = synth_fleet(**ZOO_FLEET)
+    names = list(members)
+    for family, arch in ZOO_FLEET_MODELS.items():
+        config = dict(ZOO_FLEET_CONFIG, **arch)
+        FleetTrainer(**config).fit(members)  # warm
+        torch.cuda.synchronize()
+        trainer = FleetTrainer(**config)
+        t0 = time.perf_counter()
+        models = trainer.fit(members)
+        wall = time.perf_counter() - t0
+        losses = np.array([m.history["loss"] for m in models.values()])
+        if losses.shape != (len(members), config["epochs"]) or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"zoo_fleet {family}: loss histories of shape {losses.shape} or non-finite")
+        fell = float(np.mean(losses[:, -1] < losses[:, 0]))
+        if fell < 0.99:
+            raise AssertionError(f"zoo_fleet {family}: the loss fell for a share of {fell}, below 0.99")
+        bucket = trainer.last_stats["buckets"][0]
+        bank = ModelBank.from_entries([m.to_entry() for m in models.values()])
+        k2_before = score.launch_counts["banked_anomaly_score"]
+        worst = 0.0
+        for i in range(0, len(names), 64):
+            chunk = names[i:i + 64]
+            for name, res in zip(chunk, bank.score_many([(n, members[n], None) for n in chunk])):
+                m = models[name]
+                if not np.all(np.isfinite(res.total_scaled)):
+                    raise AssertionError(f"zoo_fleet {family}: non-finite scores for {name}")
+                over = max(float((res.scaled - m.feature_thresholds).max()),
+                           float(res.total_scaled.max() - m.total_threshold))
+                worst = max(worst, over)
+                if over > LSTM_ATOL + LSTM_RTOL * max(m.feature_thresholds.max(), m.total_threshold):
+                    raise AssertionError(f"zoo_fleet {family}: {name}'s training error exceeds its "
+                                         f"threshold by {over}")
+        k2 = score.launch_counts["banked_anomaly_score"] - k2_before
+        phase("zoo_fleet", family=family, members=len(members), rows=ZOO_FLEET["rows"],
+              tags=ZOO_FLEET["n_features"], arch=json.dumps({k: v for k, v in arch.items() if k != "model_type"}),
+              params_per_member=int(sum(v.size for v in models[names[0]].params.values())),
+              dtype="float32", **ZOO_FLEET_CONFIG, loss=models[names[0]].loss,
+              padded=json.dumps({k: bucket[k] for k in ("padded_items", "padded_rows", "padded_members")}),
+              fit_wall_s=round(wall, 4), models_per_hour=round(len(members) / wall * 3600, 1),
+              epoch_s=json.dumps(bucket["epoch_seconds"]), loss_fell_share=fell,
+              loss_epoch1_median=round(float(np.median(losses[:, 0])), 6),
+              loss_epoch3_median=round(float(np.median(losses[:, -1])), 6),
+              threshold_method=models[names[0]].threshold_method, k2_launches_serving=k2,
+              max_over_threshold=worst, card=json.dumps(card))
+
+
+def zoo_parity_phase():
+    """8 conv and 8 variational members from the same initial parameters on
+    the card and on the CPU, one batch an epoch, 3 epochs, a validation
+    split of 0.2: the variational noise comes from the port's generators,
+    the same numbers on both."""
+    err = {}
+    for family, (cls, arch) in ZOO_MODELS.items():
+        members = synth_fleet(8, 256, 10, seed=8)
+        est = cls(**arch)
+        stack = est._stack(est._build_module(10))
+        initial = dict(zip(members, stack.state_dicts(stack.init(
+            [train_core.member_generator(7, i) for i in range(len(members))]))))
+        fleet_arch = dict(arch, model_type=cls.__name__)
+        config = dict(epochs=3, batch_size=256, validation_split=0.2, **fleet_arch)
+        card = FleetTrainer(**config).fit(members, initial_params=initial)
+        cpu = FleetTrainer(device="cpu", **config).fit(members, initial_params=initial)
+        worst = {"params": 0.0, "loss": 0.0, "val_loss": 0.0, "scalers": 0.0, "thresholds": 0.0}
+
+        def hold(got, want, what, key):
+            got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+            if got.shape != want.shape or not np.allclose(got, want, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+                raise AssertionError(f"zoo_parity {family}: {what} outside rtol={TRAIN_RTOL}, atol={TRAIN_ATOL}")
+            worst[key] = max(worst[key], float(np.abs(got - want).max()))
+
+        for name in members:
+            a, b = card[name], cpu[name]
+            for k in b.params:
+                hold(a.params[k], b.params[k], f"{name} {k}", "params")
+            for k in ("loss", "val_loss"):
+                hold(a.history[k], b.history[k], f"{name} {k}", k)
+            for x, y in (*zip(a.scaler, b.scaler), *zip(a.error_scaler, b.error_scaler)):
+                hold(x, y, f"{name} scalers", "scalers")
+            hold(a.feature_thresholds, b.feature_thresholds, f"{name} thresholds", "thresholds")
+            hold(a.total_threshold, b.total_threshold, f"{name} total threshold", "thresholds")
+        err[family] = {k: float(f"{v:.3g}") for k, v in worst.items()}
+    phase("zoo_parity", members="8+8", rows=256, epochs=3, batch=256, validation_split=0.2,
+          band=f"rtol={TRAIN_RTOL},atol={TRAIN_ATOL}", max_abs_err=json.dumps(err))
+
+
 # ------------------------------------------------------------------ #
 # phase 9: build a fleet and serve what it built
 # ------------------------------------------------------------------ #
 
 
-def lstm_pipeline(model_type: str, **kwargs):
+def detector_pipeline(model_type: str, **kwargs):
     return {"gordo_components_torch.models.DiffBasedAnomalyDetector": {"base_estimator": {
         "sklearn.pipeline.Pipeline": {"steps": [
             "sklearn.preprocessing.MinMaxScaler",
@@ -1424,8 +1703,14 @@ def build_phase():
                     "kind": "lstm_hourglass", "lookback_window": 12, "epochs": 5}}]}}}},
     }))
     lstm_types = {f"lae-{i}": "LSTMAutoEncoder" for i in range(4)} | {f"lfc-{i}": "LSTMForecast" for i in range(2)}
-    machines += [Machine(name=n, dataset=dataset(n), model=lstm_pipeline(t, kind="lstm_hourglass"))
+    machines += [Machine(name=n, dataset=dataset(n), model=detector_pipeline(t, kind="lstm_hourglass"))
                  for n, t in lstm_types.items()]
+    # config 4 at the default estimator configs: two conv machines and two
+    # variational ones (two more gangs)
+    zoo_models = {"conv-0": detector_pipeline("ConvAutoEncoder"), "conv-1": detector_pipeline("ConvAutoEncoder"),
+                  "vae-0": detector_pipeline("AutoEncoder", kind="feedforward_variational"),
+                  "vae-1": detector_pipeline("AutoEncoder", kind="feedforward_variational")}
+    machines += [Machine(name=n, dataset=dataset(n), model=m) for n, m in zoo_models.items()]
     # an LSTM detector without a scaler step: the single-build path
     machines.append(Machine(name="bespoke-lstm", dataset=dataset("bespoke-lstm"), model={
         "gordo_components_torch.models.DiffBasedAnomalyDetector": {"base_estimator": {
@@ -1439,6 +1724,7 @@ def build_phase():
     }
     machines += [Machine(name=n, dataset=dataset(n), model=m) for n, m in not_detectors.items()]
     lstm_names = {"turbine-lstm", "bespoke-lstm", *lstm_types}
+    banded = lstm_names | set(zoo_models)  # held in the LSTM band
     engine = None
     try:
         t0 = time.perf_counter()
@@ -1468,19 +1754,31 @@ def build_phase():
                        float(res.total_scaled.max() - th["total-anomaly-threshold"]))
             worst = max(worst, over)
             band = LSTM_ATOL + LSTM_RTOL * max(feat.max(), th["total-anomaly-threshold"]) \
-                if name in lstm_names else E2E_ATOL
+                if name in banded else E2E_ATOL
             if over > band:
                 raise AssertionError(f"build: {name}'s training error exceeds its threshold by {over}")
+        zoo_k1 = 0
         for name in results:
+            k1_before = score.launch_counts["fused_anomaly_score"]
             got = serializer.load(os.path.join(out_dir, name)).anomaly(data[name])
-            band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if name in lstm_names else {}
+            if name in zoo_models:
+                zoo_k1 += score.launch_counts["fused_anomaly_score"] - k1_before
+            band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if name in banded else {}
             check_arrays(got, results[name].to_arrays(), f"build {name}: anomaly() vs bank", **band)
+        # the config-4 machines alone through the bank: K2 once a bucket
+        k2_before = score.launch_counts["banked_anomaly_score"]
+        bank.score_many([(n, data[n], None) for n in zoo_models])
+        zoo_k2 = score.launch_counts["banked_anomaly_score"] - k2_before
+        if zoo_k1 != len(zoo_models) or zoo_k2 != 2:
+            raise AssertionError(f"build: config-4 machines launched K1 {zoo_k1} and K2 {zoo_k2} times")
+        zoo_types = {n: collection.entries[n].registry_type for n in zoo_models}
     finally:
         if engine is not None:
             engine.stop()
         shutil.rmtree(FLEET_DIR, ignore_errors=True)
     phase("build", machines=len(machines), n_built=manifest["n_built"], n_failed=manifest["n_failed"],
           failed=json.dumps(sorted(report.failed)), lstm_machines=len(lstm_names),
+          zoo_machines=json.dumps(zoo_types), zoo_k1_launches=zoo_k1, zoo_k2_launches=zoo_k2,
           build_s=round(build_s, 3), rows_per_machine=len(data["fleet-000"]),
           bank_buckets=bank.n_buckets, scored="every machine, by the bank and by anomaly()",
           max_over_threshold=worst)
@@ -1491,25 +1789,23 @@ def build_phase():
 # ------------------------------------------------------------------ #
 
 
-# ``python -m gordo_components_torch.cli ARGS`` run in a fresh interpreter,
-# which writes, as it exits, its kernel launch counts (from 0 at its start)
-# and the (S, B, M, H) of each lstm_layer call on the card to the file named
-# first in its arguments
+# ``python -m gordo_components_torch.cli ARGS`` run in a fresh interpreter
+# (from the repo's root, so this script imports), which writes, as it exits,
+# its kernel launch counts (from 0 at its start) and the shapes of its kernel
+# calls on the card (record_path_shapes) to the file named first in its
+# arguments
 COUNTED_CLI = r"""
 import json, runpy, sys
+import chip_smoke
 from gordo_components_torch.ops import score, seq_scan
-out, shapes, layer = sys.argv.pop(1), set(), seq_scan.lstm_layer
-def recording(xz, Wh, b):
-    if xz.is_cuda:
-        shapes.add((*xz.shape[:3], xz.shape[3] // 4))
-    return layer(xz, Wh, b)
-seq_scan.lstm_layer = recording
+out = sys.argv.pop(1)
+chip_smoke.record_path_shapes()
 try:
     runpy.run_module("gordo_components_torch.cli", run_name="__main__", alter_sys=True)
 finally:
     with open(out, "w") as f:
         json.dump({"counts": dict(score.launch_counts, **seq_scan.launch_counts),
-                   "k3_shapes": sorted(shapes)}, f)
+                   "shapes": {k: sorted(v) for k, v in chip_smoke.PATH_SHAPES.items()}}, f)
 """
 
 
@@ -1526,10 +1822,11 @@ def cli(run: str, args, env=None):
 
 
 def cli_counts(run: str) -> dict:
-    """A finished CLI run's launch counts; its K3 shapes join K3_SHAPES."""
+    """A finished CLI run's launch counts; its kernel shapes join PATH_SHAPES."""
     with open(os.path.join(CLI_DIR, f"{run}.counts.json")) as f:
         read = json.load(f)
-    K3_SHAPES.update(tuple(shape) for shape in read["k3_shapes"])
+    for name, shapes in read["shapes"].items():
+        PATH_SHAPES[name].update(tuple(shape) for shape in shapes)
     return read["counts"]
 
 
@@ -1653,7 +1950,7 @@ def cv_machines():
     ev = dict(CV_EVALUATION)
     dense = [Machine(name=f"cvd-{i:03d}", dataset=dataset(f"cvd-{i:03d}"), evaluation=dict(ev))
              for i in range(CV_MEMBERS["dense"])]
-    lstm_model = lstm_pipeline("LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=LOOKBACK)
+    lstm_model = detector_pipeline("LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=LOOKBACK)
     lstm = [Machine(name=f"cvl-{i}", dataset=dataset(f"cvl-{i}"), model=lstm_model, evaluation=dict(ev))
             for i in range(CV_MEMBERS["lstm"])]
     return dense, lstm
@@ -1811,22 +2108,29 @@ def main() -> int:
         result = fn(*args)
         paths[name] = result if in_subprocesses else dict(score.launch_counts, **seq_scan.launch_counts)
 
-    record_k3_shapes()
+    record_path_shapes()
 
     drive("train", train_phase, card)
     train_parity_phase()
     drive("seq_train", seq_train_phase, card)
     drive("seq_fleet", seq_fleet_phase, card)
     seq_train_parity_phase()
+    drive("zoo_train", zoo_train_phase, card)
+    drive("zoo_fleet", zoo_fleet_phase, card)
+    zoo_parity_phase()
     drive("http", http_phase)
     drive("bank", bank_phase, card)
-    drive("lstm", bank_phase, card, True)
+    drive("lstm", bank_phase, card, "lstm")
+    drive("zoo_bank", bank_phase, card, "conv")
     drive("build", build_phase)
     drive("cli", cli_phase, in_subprocesses=True)
     drive("cv", cv_phase, card)
     cv_parity_phase()
-    k3_path_parity_phase(kernels["lstm_layer"])
+    path_parity_phase(kernels)
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
+                         ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
+                         ("zoo_bank", "banked_anomaly_score"),
+                         ("http", "banked_anomaly_score"), ("http", "fused_anomaly_score"),
                          ("build", "banked_anomaly_score"), ("build", "fused_anomaly_score"),
                          ("build", "lstm_layer"), ("cli", "banked_anomaly_score"), ("cli", "lstm_layer"),
                          ("cv", "lstm_layer")):

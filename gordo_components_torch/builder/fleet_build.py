@@ -3,14 +3,14 @@
 Counterpart of ``gordo_components_tpu/builder/fleet_build.py``. Machines
 whose model config is exactly the canonical anomaly pipeline
 (``extract_fleetable``) train together, one ``FleetTrainer`` stack per
-group of identical estimator kwargs (so dense and LSTM machines, and LSTM
-machines of different model types or lookbacks, train apart); every other
-machine takes the single-model path (``provide_saved_model``). Both paths share the
-config-hash build cache, and a failure stays with its machine or group: a
-bespoke build that raises, or a group that fails ``group_retries + 1``
-times (default 1 retry, env ``GORDO_BUILD_GROUP_RETRIES``), lands in the
-report's ``failed`` while the rest ship. Groups train one after another on
-the one card.
+group of identical estimator kwargs (so dense, variational, LSTM and conv
+machines, and sequence machines of different model types or lookbacks,
+train apart); every other machine takes the single-model path
+(``provide_saved_model``). Both paths share the config-hash build cache,
+and a failure stays with its machine or group: a bespoke build that raises,
+or a group that fails ``group_retries + 1`` times (default 1 retry, env
+``GORDO_BUILD_GROUP_RETRIES``), lands in the report's ``failed`` while the
+rest ship. Groups train one after another on the one card.
 
 Cross-validation in a gang: each machine that asks for it adds its
 ``TimeSeriesSplit`` folds' training rows as extra members of its gang's
@@ -22,10 +22,9 @@ registered or reported. A ``cross_val_only`` machine, and a machine whose
 folds are too short for its family, take the single-build path.
 
 Not ported yet, and raising (or, for one machine, recorded in ``failed``
-with the error): top-level configs that are not detectors, conv models,
-checkpoint and resume, the distributed gang, heartbeats (``state_dir``),
-fault points (``GORDO_FAULTS``) and gang worker threads
-(``GORDO_GANG_WIDTH``). The build trace and metrics registry of the JAX
+with the error): top-level configs that are not detectors, checkpoint and
+resume, the distributed gang, heartbeats (``state_dir``), fault points
+(``GORDO_FAULTS``) and gang worker threads (``GORDO_GANG_WIDTH``). The build trace and metrics registry of the JAX
 builder are not written.
 """
 

@@ -5,8 +5,12 @@ Flax names a module's dense layers ``Dense_0``, ``Dense_1``, ... with
 ``(out, in)``. An LSTM stack's layers are ``OptimizedLSTMCell_0``, ... with
 per-gate input kernels ``ii/if/ig/io`` ``(in, H)`` and hidden kernels and
 biases ``hi/hf/hg/ho`` ``(H, H)``, ``(H,)``; the port concatenates the gates
-in that order i, f, g, o. The functions here take numpy arrays only, so the
-port needs neither JAX nor the JAX package to use them.
+in that order i, f, g, o. The conv autoencoder (``Conv_i``,
+``ConvTranspose_j``) and the variational one (``enc_i``, ``mu``, ``logvar``,
+``dec_j``, ``out``) keep Flax's names and layout in their state dicts
+(``Conv_0.kernel`` (K, F_in, C), ``mu.kernel`` (in, out)). The functions
+here take numpy arrays only, so the port needs neither JAX nor the JAX
+package to use them.
 """
 
 import re
@@ -17,7 +21,7 @@ import numpy as np
 _DENSE = re.compile(r"^Dense_(\d+)$")
 _CELL = re.compile(r"^OptimizedLSTMCell_(\d+)$")
 _GATES = ("i", "f", "g", "o")  # Flax OptimizedLSTMCell split order
-SEQUENCE_TYPES = ("LSTMAutoEncoder", "LSTMForecast")
+SEQUENCE_TYPES = ("LSTMAutoEncoder", "LSTMForecast", "ConvAutoEncoder")
 
 
 def _numbered(params: Mapping[str, Any], pattern: "re.Pattern", what: str):
@@ -103,22 +107,83 @@ def lstm_to_flax(state_dict: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     return {"params": tree}
 
 
-def params_from_flax(registry_type: str, params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """The port state dict for a registry type's Flax param tree."""
-    if registry_type in SEQUENCE_TYPES:
-        return lstm_from_flax(params)
-    if registry_type == "AutoEncoder":
-        return feedforward_from_flax(params)
-    raise ValueError(f"unsupported registry type {registry_type!r}")
+_CONV = re.compile(r"^(Conv|ConvTranspose)_(\d+)$")
+_VAE = re.compile(r"^(enc_\d+|mu|logvar|dec_\d+|out)$")
 
 
-def params_to_flax(registry_type: str, state_dict: Mapping[str, np.ndarray]) -> Dict[str, Any]:
-    """Inverse of :func:`params_from_flax`."""
-    if registry_type in SEQUENCE_TYPES:
-        return lstm_to_flax(state_dict)
-    if registry_type == "AutoEncoder":
-        return feedforward_to_flax(state_dict)
-    raise ValueError(f"unsupported registry type {registry_type!r}")
+def _named_from_flax(params: Mapping[str, Any], pattern: "re.Pattern", what: str):
+    """``{layer: {"kernel", "bias"}}`` -> ``{"layer.kernel", "layer.bias"}``,
+    the Flax layout kept, every layer name matching ``pattern``."""
+    tree = params.get("params", params)
+    if not tree or any(not pattern.match(k) for k in tree):
+        raise ValueError(f"expected the layers of a {what}, got {sorted(tree)}")
+    return {f"{name}.{leaf}": _f32(layer[leaf]) for name, layer in tree.items() for leaf in ("kernel", "bias")}
+
+
+def _named_to_flax(state_dict: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        name, leaf = key.rsplit(".", 1)
+        tree.setdefault(name, {})[leaf] = np.asarray(value)
+    return {"params": tree}
+
+
+def conv_from_flax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Flax ``Conv1DAutoEncoder`` param tree (``Conv_i``, ``ConvTranspose_j``,
+    each ``kernel`` (K, F_in, C) and ``bias`` (C,)) -> the state dict of
+    :class:`~.models.factories.conv.Conv1DAutoEncoder`, which keeps that
+    layout: ``Conv_i.kernel``, ``Conv_i.bias``, ..."""
+    return _named_from_flax(params, _CONV, "Conv1DAutoEncoder")
+
+
+def conv_to_flax(state_dict: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """Inverse of :func:`conv_from_flax`, with the ``"params"`` level."""
+    return _named_to_flax(state_dict)
+
+
+def vae_from_flax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Flax ``VariationalAutoEncoder`` param tree (``enc_i``, ``mu``,
+    ``logvar``, ``dec_j``, ``out``, each ``kernel`` (in, out) and ``bias``)
+    -> the state dict of
+    :class:`~.models.factories.variational.VariationalAutoEncoder`, which
+    keeps that layout: ``enc_0.kernel``, ``enc_0.bias``, ..."""
+    return _named_from_flax(params, _VAE, "VariationalAutoEncoder")
+
+
+def vae_to_flax(state_dict: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """Inverse of :func:`vae_from_flax`, with the ``"params"`` level."""
+    return _named_to_flax(state_dict)
+
+
+# each model family's converters (``models.register.by_family``'s names),
+# with a layer name that only its trees hold: Flax's and the port's. The
+# LSTM comes before the dense family, whose Dense_0 an LSTM's head shares.
+_CONVERTERS = {
+    "lstm": ("OptimizedLSTMCell_0", "layers.0.Wi", lstm_from_flax, lstm_to_flax),
+    "conv": ("Conv_0", "Conv_0.kernel", conv_from_flax, conv_to_flax),
+    "vae": ("mu", "mu.kernel", vae_from_flax, vae_to_flax),
+    "dense": ("Dense_0", "layers.0.weight", feedforward_from_flax, feedforward_to_flax),
+}
+
+
+def params_from_flax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port state dict of a Flax param tree of any ported family, told
+    apart by the tree's layer names (never by the registry type: an
+    ``LSTMAutoEncoder`` may be a conv model)."""
+    tree = params.get("params", params)
+    for flax_name, _port_key, from_flax, _to_flax in _CONVERTERS.values():
+        if flax_name in tree:
+            return from_flax(params)
+    raise ValueError(f"no ported model family has the layers {sorted(tree)}")
+
+
+def params_to_flax(state_dict: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """Inverse of :func:`params_from_flax`, told apart by the state dict's
+    keys."""
+    for _flax_name, port_key, _from_flax, to_flax in _CONVERTERS.values():
+        if port_key in state_dict:
+            return to_flax(state_dict)
+    raise ValueError(f"no ported model family has the parameters {sorted(state_dict)}")
 
 
 def entry_from_numpy(
@@ -139,7 +204,7 @@ def entry_from_numpy(
 ):
     """A bank entry (``server/bank._BankEntry``) from numpy pieces;
     ``params`` is a Flax param tree of the registry type's model. Sequence
-    models (``LSTMAutoEncoder``, ``LSTMForecast``) score windows of
+    models (``LSTMAutoEncoder``, ``LSTMForecast``, ``ConvAutoEncoder``) score windows of
     ``lookback`` rows; ``target_offset`` is 0 for reconstruction and 1 for
     a t+1 forecast. Feedforward models keep the defaults."""
     from gordo_components_torch.server.bank import _BankEntry
@@ -161,7 +226,7 @@ def entry_from_numpy(
         kind=kind,
         factory_kwargs=dict(factory_kwargs),
         n_features=int(n_features),
-        params=params_from_flax(registry_type, params),
+        params=params_from_flax(params),
         in_shift=vec(in_shift, "in_shift"),
         in_scale=vec(in_scale, "in_scale"),
         err_shift=vec(err_shift, "err_shift"),

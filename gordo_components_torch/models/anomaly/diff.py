@@ -15,10 +15,11 @@ detector's bank entry (:meth:`to_entry`): the input affine composed from the
 pipeline's scaler steps, the model's weights and the error scaler, which is
 also what the serializer writes and the bank stacks.
 
-Sequence models score windows of ``lookback`` rows: output row i belongs to
-input row ``i + offset``, with ``offset = lookback - 1 + target_offset``
-(``target_offset`` 1 for a t+1 forecast), so the outputs, the target and
-``model-input`` are the rows from ``offset`` on, as in the reference.
+Sequence models (LSTM and conv) score windows of ``lookback`` rows: output
+row i belongs to input row ``i + offset``, with ``offset = lookback - 1 +
+target_offset`` (``target_offset`` 1 for a t+1 forecast), so the outputs,
+the target and ``model-input`` are the rows from ``offset`` on, as in the
+reference.
 """
 
 import dataclasses
@@ -31,7 +32,6 @@ from torch import nn
 from gordo_components_torch.device import resolve_device
 from gordo_components_torch.models.anomaly.base import AnomalyDetectorBase
 from gordo_components_torch.models.base import GordoBase, score_metrics_of, transform_through_steps
-from gordo_components_torch.models.factories.lstm import LSTMStack
 from gordo_components_torch.models.register import lookup_factory
 from gordo_components_torch.ops.scaler import ScalerParams, fit_minmax, scaler_transform
 from gordo_components_torch.ops.score import fused_anomaly_score_packed, unpack_scores
@@ -273,7 +273,7 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
         x = torch.as_tensor(Xv, device=device)
         yv = x if y is None else torch.as_tensor(_as_f32(y), device=device)
         xs = scaler_transform(s.input_scaler, x)
-        if isinstance(s.model, LSTMStack):
+        if s.model.windowed:  # an LSTM or conv model reads windows of rows
             W = sliding_windows(xs, s.lookback)
             output = s.model(W[: len(W) - s.target_offset])
         else:

@@ -19,6 +19,9 @@ class FeedForwardAutoEncoder(nn.Module):
     """Dense autoencoder: encoder dims, then decoder dims, then an output
     layer back to ``n_features``. ``layers[i]`` is Flax's ``Dense_i``."""
 
+    family = "dense"  # keys the port's per-family tables (models.register.by_family)
+    windowed = False  # the model reads rows
+
     def __init__(
         self,
         n_features: int,
@@ -41,6 +44,12 @@ class FeedForwardAutoEncoder(nn.Module):
         for layer, act in zip(self.layers, self.activations):
             x = act(layer(x))
         return x
+
+    def serving_chain(self, state) -> list:
+        """The forward as ``(kernel (in, out), bias, activation)`` layers
+        from a state dict (the bank's dense chain)."""
+        return [(state[f"layers.{i}.weight"].T, state[f"layers.{i}.bias"], act)
+                for i, act in enumerate(self.activations)]
 
 
 def _norm_funcs(funcs, n, default):

@@ -54,6 +54,9 @@ class LSTMStack(nn.Module):
     ``models/train_core.StackedLSTM``, whose gradient step goes through
     ``ops/seq_scan.lstm_train_forward``."""
 
+    family = "lstm"  # keys the port's per-family tables (models.register.by_family)
+    windowed = True  # the model reads windows of rows
+
     def __init__(
         self,
         n_features: int,

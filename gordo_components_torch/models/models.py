@@ -11,7 +11,11 @@ state dict as numpy arrays, which the serializer writes.
 A sequence estimator trains on windows of ``lookback_window`` rows: item
 ``i`` is the window ``[i, i + lookback_window)`` against row ``i +
 lookback_window - 1 + offset`` (offset 1 for ``LSTMForecast``), gathered
-from the rows batch by batch. ``ConvAutoEncoder`` is not ported: it raises.
+from the rows batch by batch. ``ConvAutoEncoder`` is such an estimator over
+the conv family; ``LSTMAutoEncoder(kind="conv1d_autoencoder")`` trains the
+same model. The stack that trains a fit is chosen by the factory's module,
+and ``loss="auto"`` trains a variational module with the ELBO (``"vae"``),
+every other with ``"mse"``.
 """
 
 import logging
@@ -109,7 +113,16 @@ class BaseEstimator(GordoBase):
         return self._module
 
     def _stack(self, module):
-        return train_core.StackedDense(module)
+        """The stack that trains ``module``, chosen by the module: a
+        windowed one reads windows of ``lookback_window`` rows."""
+        return train_core.make_stack(module, getattr(self, "lookback_window", 1), self._target_offset)
+
+    _target_offset = 0
+
+    def _resolved_loss(self, stack) -> str:
+        """``loss``, with ``"auto"`` resolved by the module: ``"vae"`` for a
+        variational one, else ``"mse"`` (JAX ``_resolved_loss``)."""
+        return train_core.resolve_loss(self.loss, stack)
 
     def _check_rows(self, n_rows: int) -> None:
         if n_rows == 0:
@@ -141,8 +154,8 @@ class BaseEstimator(GordoBase):
         n_train = n - n_val
 
         opt = train_core.make_optimizer(self.optimizer, self.learning_rate)
-        loss = "mse" if self.loss == "auto" else self.loss
-        init_fn, epoch_fn = train_core.make_train_fns(stack, opt, bs, loss=loss)
+        loss = self._resolved_loss(stack)
+        init_fn, epoch_fn = train_core.make_train_fns(stack, opt, bs, loss=loss, kl_weight=self.kl_weight)
 
         def on_device(X, Y):
             return [torch.as_tensor(a, device=device)[None]
@@ -154,7 +167,7 @@ class BaseEstimator(GordoBase):
 
         eval_fn = None
         if n_val > 0:
-            eval_fn = train_core.make_eval_fn(stack, bs, loss=loss)
+            eval_fn = train_core.make_eval_fn(stack, bs, loss=loss, kl_weight=self.kl_weight)
             Xvp, Yvp, vmask = on_device(X[n_train:], Y[n_train:])
 
         self.history = {"loss": []}
@@ -233,16 +246,11 @@ class _SequenceEstimator(BaseEstimator):
     ``SequenceBaseEstimator``): output row i belongs to input row ``i +
     lookback_window - 1 + offset``."""
 
-    _target_offset = 0
-
     @capture_args
     def __init__(self, kind: str = "lstm_hourglass", lookback_window: int = 10, **kwargs):
         self.lookback_window = int(lookback_window)
         super().__init__(kind=kind, **kwargs)
         self._params = {"kind": kind, "lookback_window": lookback_window, **kwargs}
-
-    def _stack(self, module):
-        return train_core.StackedLSTM(module, self.lookback_window, self._target_offset)
 
     def _check_rows(self, n_rows: int) -> None:
         need = self.lookback_window + self._target_offset
@@ -279,11 +287,16 @@ class LSTMForecast(_SequenceEstimator):
 
 
 class ConvAutoEncoder(_SequenceEstimator):
-    """Conv1D window autoencoder: the conv family is not ported, so
-    constructing one raises."""
+    """Conv1D window autoencoder reconstructing the window's last row
+    (JAX ``ConvAutoEncoder``, ``BASELINE.json`` config 4). ``conv_impl`` is
+    pinned to ``"matmul"`` in the factory kwargs unless given, so that
+    ``get_params`` and the metadata name it as the JAX package's do."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("ConvAutoEncoder: the conv family is not ported yet")
+    @capture_args
+    def __init__(self, kind: str = "conv1d_autoencoder", lookback_window: int = 16, **kwargs):
+        kwargs.setdefault("conv_impl", "matmul")
+        super().__init__(kind=kind, lookback_window=lookback_window, **kwargs)
+        self._params = {"kind": kind, "lookback_window": lookback_window, **kwargs}
 
 
 def _jsonable(obj):

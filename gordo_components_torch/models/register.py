@@ -6,7 +6,7 @@ estimator type name to ``{factory name: factory}``, so a configuration's
 port's factories return ``torch.nn.Module``s.
 """
 
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, Mapping
 
 # estimator-class-name -> factory-name -> factory callable
 FACTORY_REGISTRY: Dict[str, Dict[str, Callable]] = {}
@@ -21,6 +21,19 @@ def register_model_builder(type: str) -> Callable:
         return factory
 
     return decorator
+
+
+def by_family(table: Mapping[str, Any], module, what: str) -> Any:
+    """``table[module.family]``. Each module class a factory builds names
+    its family once (``family``: ``"dense"``, ``"vae"``, ``"lstm"``,
+    ``"conv"``), and the port's per-family tables are keyed on that name:
+    the training stacks (``train_core``), the bank's buckets
+    (``server.bank``) and the weight converters (``convert``). A module
+    without a family, or one that ``table`` lacks, raises here."""
+    family = getattr(module, "family", None)
+    if family not in table:
+        raise TypeError(f"no {what} for a {type(module).__name__} (family {family!r})")
+    return table[family]
 
 
 def lookup_factory(type: str, kind: str) -> Callable:

@@ -188,6 +188,12 @@ def fused_anomaly_score_packed(target, output, shift, scale) -> torch.Tensor:
         return torch.cat([t.reshape(-1) for t in score_plain(target, output, shift, scale)])
     if target.device.type != "cuda":
         raise ValueError(f"unsupported device {target.device}")
+    return _launch_one(target, output, shift, scale)
+
+
+def _launch_one(target, output, shift, scale) -> torch.Tensor:
+    """Validate and launch the per-model kernel on the current stream;
+    returns the flat ``2 * rows * (F + 1)`` result."""
     shape = target.shape
     if len(shape) != 2:
         raise ValueError(f"target must be (rows, F), got {tuple(shape)}")

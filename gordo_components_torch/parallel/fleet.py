@@ -1,8 +1,10 @@
 """FleetTrainer: train many per-machine autoencoders as one stack.
 
 Counterpart of ``gordo_components_tpu/parallel/fleet.py`` for the dense
-family (``AutoEncoder``) and the LSTM families (``LSTMAutoEncoder``,
-``LSTMForecast``). The fleet is the tensor:
+family (``AutoEncoder``: feedforward and variational kinds) and the
+sequence families (``LSTMAutoEncoder``, ``LSTMForecast`` and
+``ConvAutoEncoder``; an ``LSTMAutoEncoder`` may hold the conv kind). The
+fleet is the tensor:
 
 - an item is a training unit: a row for the dense family, a window start
   for a sequence family, whose rows carry ``lookback - 1 + offset`` warm-up
@@ -15,22 +17,26 @@ family (``AutoEncoder``) and the LSTM families (``LSTMAutoEncoder``,
   (padding is NaN to the fit);
 - all members train in one stack (``train_core``): gradients from the sum
   of the per-member masked losses, per-member learning rates, early
-  stopping per member with its best parameters restored. An LSTM stack's
-  windows are gathered from the rows batch by batch, and its training
-  forward is PyTorch ops under autograd, as the JAX package trains without
-  its fused step kernel; the validation loss runs that kernel;
+  stopping per member with its best parameters restored. A sequence
+  stack's windows are gathered from the rows batch by batch; an LSTM
+  stack's training forward is PyTorch ops under autograd, as the JAX
+  package trains without its fused step kernel, and the validation loss
+  runs that kernel. ``loss="auto"`` resolves by the module: a variational
+  kind trains and validates with the ELBO (its validation with one fixed
+  noise block, ``train_core.validation_noise``), every other with MSE;
 - the error scalers and thresholds of the anomaly contract come from the
   training items: for the dense family one stacked pass (max at q = 1,
   exact quantiles below); for a sequence family two streamed passes batch
-  by batch through the fused step kernel (min and max of the errors, then
-  the max at q = 1, or 8192-bin histograms below, ``histogram-8192``).
+  by batch (through the fused step kernel for an LSTM): min and max of the
+  errors, then the max at q = 1, or 8192-bin histograms below,
+  ``histogram-8192``.
 
 Early-stopping state and losses stay on the device; the host reads them
 once every ``host_sync_every`` epochs (the JAX package's host loop at 1, its
 on-device chunks above). Buckets train one after another on the one card.
 
-Not ported yet, and raising: ``ConvAutoEncoder``, ``mesh``, checkpoints
-(``checkpoint_dir``) and the ``GORDO_FLEET_WIDTH`` member-width cap.
+Not ported yet, and raising: ``mesh``, checkpoints (``checkpoint_dir``) and
+the ``GORDO_FLEET_WIDTH`` member-width cap.
 """
 
 import inspect
@@ -45,8 +51,6 @@ import torch
 
 from gordo_components_torch.device import resolve_device
 from gordo_components_torch.models import train_core
-from gordo_components_torch.models.factories.feedforward import FeedForwardAutoEncoder
-from gordo_components_torch.models.factories.lstm import LSTMStack
 from gordo_components_torch.models.register import lookup_factory
 from gordo_components_torch.ops.scaler import ScalerParams, fit_minmax, fit_standard
 from gordo_components_torch.utils import capture_args
@@ -221,7 +225,8 @@ def _seq_error_scalers_chunk(stack, params, X, mask, q: float, batch_size: int):
 def _seq_error_scalers(stack, params, X, mask, q: float, batch_size: int):
     """Each sequence member's error scaler and thresholds over its training
     items (item mask ``mask`` over the rows ``X``), in two passes batch by
-    batch under ``no_grad`` (so through the fused step kernel on the card):
+    batch under ``no_grad`` (so an LSTM's through the fused step kernel on
+    the card):
     the min and max of ``|target - output|`` give the min-max error scaler;
     then the max scaled error per feature and of the row norms at q = 1, or
     their q-quantiles from 8192-bin histograms below (JAX
@@ -238,10 +243,11 @@ def _seq_error_scalers(stack, params, X, mask, q: float, batch_size: int):
     return es, torch.cat([o[1] for o in outs]), torch.cat([o[2] for o in outs])
 
 
-def _threshold_method(model_type: str, q: float) -> str:
-    """Provenance of the thresholds the trainer computes (JAX
-    ``threshold_method``, ``fleet.py:250-258``)."""
-    return "exact" if model_type == "AutoEncoder" or q >= 1.0 else f"histogram-{_QUANTILE_BINS}"
+def _threshold_method(stack, q: float) -> str:
+    """Provenance of the thresholds the trainer computes, from the predicate
+    that picks the error pass (JAX ``threshold_method``,
+    ``fleet.py:250-258``)."""
+    return "exact" if not stack.windowed or q >= 1.0 else f"histogram-{_QUANTILE_BINS}"
 
 
 @dataclass
@@ -313,9 +319,9 @@ class FleetMemberModel:
 
 class FleetTrainer:
     """Train one architecture (``model_type``: ``AutoEncoder``,
-    ``LSTMAutoEncoder`` or ``LSTMForecast``) across many machines' datasets
-    on one device. Members may differ in feature and row counts; they are
-    bucketed by feature count and padded item count."""
+    ``LSTMAutoEncoder``, ``LSTMForecast`` or ``ConvAutoEncoder``) across
+    many machines' datasets on one device. Members may differ in feature and
+    row counts; they are bucketed by feature count and padded item count."""
 
     @capture_args
     def __init__(
@@ -346,8 +352,6 @@ class FleetTrainer:
     ):
         if model_type not in _MODEL_TYPES:
             raise ValueError(f"model_type must be one of {sorted(_MODEL_TYPES)}, got {model_type!r}")
-        if model_type == "ConvAutoEncoder":
-            raise NotImplementedError("model_type='ConvAutoEncoder': the conv family is not ported yet")
         if mesh is not None:
             raise NotImplementedError("mesh: multi-device fleet training is not ported yet")
         if checkpoint_dir is not None:
@@ -465,20 +469,17 @@ class FleetTrainer:
         return out
 
     def _stack(self, n_features: int):
-        """The stack that trains this model at ``n_features``: dense, or an
-        LSTM stack over windows of ``lookback_window`` rows and the
-        estimator class's target offset."""
+        """The stack that trains this model at ``n_features``, chosen by the
+        factory's module (``train_core.make_stack``): a windowed one over
+        windows of ``lookback_window`` rows and the estimator class's target
+        offset."""
+        from gordo_components_torch import models as _models
+
         module = lookup_factory(self.model_type, self.kind)(
             n_features, compute_dtype=self.compute_dtype, **self.factory_kwargs
         )
-        if isinstance(module, FeedForwardAutoEncoder):
-            return train_core.StackedDense(module)
-        if isinstance(module, LSTMStack):
-            from gordo_components_torch import models as _models
-
-            offset = getattr(_models, self.model_type)._target_offset
-            return train_core.StackedLSTM(module, self.lookback_window, offset)
-        raise NotImplementedError(f"kind {self.kind!r}: the port's fleet trains dense and LSTM stacks only")
+        offset = getattr(_models, self.model_type)._target_offset
+        return train_core.make_stack(module, self.lookback_window, offset)
 
     def _fit_bucket(self, stack, n_features, padded_items, names, arrays, device):
         M_real = len(names)
@@ -517,12 +518,14 @@ class FleetTrainer:
         scalers = _fit_scalers(X, mask, self.input_scaler)
         Xd = torch.where(mask[..., None] > 0, _transform_all(scalers, X), 0.0)
 
-        loss = "mse" if self.loss == "auto" else self.loss
+        # "auto" per module: never a variational kind with plain MSE
+        loss = train_core.resolve_loss(self.loss, stack)
         bs = min(self.batch_size, padded_items)
         init_fn, epoch_fn = train_core.make_train_fns(
-            stack, train_core.make_optimizer(self.optimizer, self.learning_rate), bs, loss=loss
+            stack, train_core.make_optimizer(self.optimizer, self.learning_rate), bs, loss=loss,
+            kl_weight=self.kl_weight,
         )
-        eval_fn = train_core.make_eval_fn(stack, bs, loss=loss) if use_val else None
+        eval_fn = train_core.make_eval_fn(stack, bs, loss=loss, kl_weight=self.kl_weight) if use_val else None
         val_maskd = dev(val_mask) if use_val else None
 
         # ---- stacked init (a member's draws depend on its position among
@@ -615,7 +618,7 @@ class FleetTrainer:
                     break
 
         final = best_params if es_enabled else state.params
-        if isinstance(stack, train_core.StackedLSTM):
+        if stack.windowed:
             err, feat, tot = _seq_error_scalers(stack, final, Xd, dev(item_mask),
                                                 self.threshold_quantile, bs)
         else:
@@ -640,7 +643,7 @@ class FleetTrainer:
                 lookback_window=self.lookback_window, loss=self.loss,
                 kl_weight=self.kl_weight, threshold_quantile=self.threshold_quantile,
                 require_thresholds=self.require_thresholds,
-                threshold_method=_threshold_method(self.model_type, self.threshold_quantile),
+                threshold_method=_threshold_method(stack, self.threshold_quantile),
                 device=self.device,
             )
         return out, [round(t, 4) for t in epoch_times], M

@@ -8,7 +8,11 @@ artifact holds no pickle; it is three files, and a fourth for a built model:
                       (in, out) and ``params/Dense_i/bias`` for a dense
                       model, ``params/OptimizedLSTMCell_i/{ii,if,ig,io}/kernel``,
                       ``params/OptimizedLSTMCell_i/{hi,hf,hg,ho}/{kernel,bias}``
-                      and ``params/Dense_0/...`` for an LSTM stack;
+                      and ``params/Dense_0/...`` for an LSTM stack,
+                      ``params/Conv_i/kernel`` (K, F_in, C), ``.../bias`` and
+                      ``params/ConvTranspose_j/...`` for a conv
+                      autoencoder, ``params/{enc_i,mu,logvar,dec_j,out}/...``
+                      for a variational one;
 - ``detector.json`` — registry type, kind, factory kwargs, ``n_features``,
                       ``lookback`` and ``target_offset`` (absent in
                       directories that predate sequence models, which read
@@ -91,7 +95,7 @@ def dump(obj, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> None:
     os.makedirs(dest_dir, exist_ok=True)
     np.savez(
         os.path.join(dest_dir, PARAMS_FILE),
-        **_flatten(params_to_flax(entry.registry_type, entry.params)),
+        **_flatten(params_to_flax(entry.params)),
     )
     np.savez(
         os.path.join(dest_dir, SCALERS_FILE),

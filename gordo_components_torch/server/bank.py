@@ -5,16 +5,22 @@ detector in the collection is stacked into a bucket keyed by (registry type,
 kind, n_features, lookback, target offset, factory kwargs): per-layer
 weights with a leading member axis (the Flax layout) and the four scaler
 stacks ``(M, F)`` live on the card. A coalesced batch of requests for any
-members of a bucket becomes one pass. For a dense bucket:
+members of a bucket becomes one pass. For a dense bucket (a feedforward
+autoencoder, or a variational one's mean decode ``enc_i -> mu -> dec_j ->
+out``):
 
     gather by idx -> input affine -> one torch.bmm per Dense layer
     -> banked_anomaly_score_packed (the anomaly-score CUDA kernel)
 
-and for an LSTM bucket, with the batch slots as the member axis:
+for an LSTM bucket, with the batch slots as the member axis:
 
     gather by idx -> input affine -> sliding windows
     -> lstm_time_major_forward (one fused-LSTM-step kernel launch per layer)
     -> banked_anomaly_score_packed on the targets from row ``offset`` on
+
+and for a conv bucket the same with the conv autoencoder's layers (one
+``torch.baddbmm`` a layer over the taps of every window) in place of the
+LSTM.
 
 The kernel writes the batch's whole result (reconstruction, diff, scaled
 and the two norms of every slot) into one buffer, which goes to the host in
@@ -43,7 +49,9 @@ import torch
 
 from gordo_components_torch.device import resolve_device
 from gordo_components_torch.models import lookup_factory
-from gordo_components_torch.models.factories.lstm import LSTMStack
+from gordo_components_torch.models.factories.conv import conv_autoencoder_forward
+from gordo_components_torch.models.register import by_family
+from gordo_components_torch.ops.dense import dense_chain
 from gordo_components_torch.ops.score import banked_anomaly_score_packed
 from gordo_components_torch.ops.seq_scan import lstm_time_major_forward
 from gordo_components_torch.ops.windows import sliding_windows
@@ -57,7 +65,7 @@ class _BankEntry:
 
     ``params`` is the ``nn.Module`` state dict of the registry's factory
     (dense: ``layers.{i}.weight`` (out, in), ``layers.{i}.bias`` (out,);
-    LSTM: see ``convert.lstm_from_flax``); ``in_shift``/``in_scale`` compose
+    LSTM, conv, variational: see ``convert``); ``in_shift``/``in_scale`` compose
     the input affine scalers, ``err_shift``/``err_scale`` are the error
     scaler. Sequence models score windows of ``lookback`` rows, and
     ``target_offset`` is 1 for a t+1 forecast."""
@@ -146,26 +154,23 @@ class _Bucket:
 
 
 class _DenseBucket(_Bucket):
-    """Dense autoencoders: one ``torch.bmm`` per layer over the stacked
-    ``(M, in, out)`` weights (the Flax layout)."""
+    """Dense chains over the stacked ``(M, in, out)`` kernels (the Flax
+    layout), the layers and activations from the module's
+    ``serving_chain`` (a feedforward autoencoder's layers, or a variational
+    one's mean decode); a batch gathers its slots' layers and runs
+    ``ops.dense.dense_chain`` with the slots as the member axis."""
 
     def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device):
         super().__init__(entries, module, device)
-        self.activations = module.activations
-        n_layers = len(module.layers)
-        self.weights = [
-            _stack([e.params[f"layers.{i}.weight"].T for e in entries], device)
-            for i in range(n_layers)
-        ]
-        self.biases = [
-            _stack([e.params[f"layers.{i}.bias"] for e in entries], device)
-            for i in range(n_layers)
+        chains = [module.serving_chain(e.params) for e in entries]
+        self.layers = [
+            (_stack([c[i][0] for c in chains], device), _stack([c[i][1] for c in chains], device), act)
+            for i, (_W, _b, act) in enumerate(chains[0])
         ]
 
     def forward(self, idx, h):
-        for W, b, act in zip(self.weights, self.biases, self.activations):
-            h = act(torch.bmm(h, W.index_select(0, idx)) + b.index_select(0, idx)[:, None, :])
-        return h
+        return dense_chain(h, [(W.index_select(0, idx), b.index_select(0, idx), act)
+                               for W, b, act in self.layers])
 
 
 class _LSTMBucket(_Bucket):
@@ -195,13 +200,37 @@ class _LSTMBucket(_Bucket):
         return lstm_time_major_forward(weights, W, self.funcs, self.out_func)
 
 
+class _ConvBucket(_Bucket):
+    """Conv autoencoders: each layer's kernel ``(M, K, F_in, C)`` and bias
+    stacked; a batch gathers its slots' members and runs every window of
+    every slot through ``conv_autoencoder_forward`` with the slots as the
+    member axis."""
+
+    def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device):
+        super().__init__(entries, module, device)
+        self.n_encoder, self.activation = len(module.channels), module.activation
+        self.layers = [
+            tuple(_stack([e.params[f"{name}.{p}"] for e in entries], device) for p in ("kernel", "bias"))
+            for name in module.layer_names()
+        ]
+
+    def forward(self, idx, xs):
+        W = sliding_windows(xs, self.lookback)  # (B, T - lookback + 1, L, F), a view
+        W = W[:, : W.shape[1] - self.target_offset]
+        weights = [tuple(a.index_select(0, idx) for a in layer) for layer in self.layers]
+        return conv_autoencoder_forward(weights, W, self.n_encoder, self.activation)
+
+
+# the bucket of each model family (``models.register.by_family``)
+_BUCKETS = {"dense": _DenseBucket, "vae": _DenseBucket, "lstm": _LSTMBucket, "conv": _ConvBucket}
+
+
 def _make_bucket(entries: Sequence[_BankEntry], device: torch.device) -> _Bucket:
     first = entries[0]
     module = lookup_factory(first.registry_type, first.kind)(
         first.n_features, **first.factory_kwargs
     )
-    cls = _LSTMBucket if isinstance(module, LSTMStack) else _DenseBucket
-    return cls(entries, module, device)
+    return by_family(_BUCKETS, module, "bank bucket")(entries, module, device)
 
 
 @dataclass

@@ -173,8 +173,11 @@ def test_members_serve_as_bank_entries():
 
 
 def test_unported_fleet_features_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="conv"):
-        FleetTrainer(model_type="ConvAutoEncoder")
+    # the conv family trains; bfloat16 and loss names outside mse/vae do not
+    with pytest.raises(ValueError, match="float32"):
+        FleetTrainer(model_type="ConvAutoEncoder", compute_dtype="bfloat16", device="cpu").fit(_members(1, 20))
+    with pytest.raises(ValueError, match="known: mse, vae"):
+        FleetTrainer(model_type="ConvAutoEncoder", loss="huber", device="cpu").fit(_members(1, 20))
     with pytest.raises(NotImplementedError, match="mesh"):
         FleetTrainer(mesh=object())
     with pytest.raises(NotImplementedError, match="checkpoint"):

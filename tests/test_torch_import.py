@@ -75,7 +75,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "dataset.resample", "dataset.data_provider.providers", "workflow.config",
                 "builder.build_model", "builder.fleet_build", "parallel.fleet",
                 "utils.staging", "utils.yaml_subset", "builder.splits", "cli", "cli.cli",
-                "cli.__main__"):
+                "cli.__main__", "models.factories.conv", "models.factories.variational",
+                "ops.dense", "models.register"):
         assert f"gordo_components_torch.{mod}" in report["modules"]
 
 

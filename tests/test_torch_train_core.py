@@ -158,7 +158,7 @@ def test_stacked_forward_matches_module_and_round_trips():
         module.load_state_dict({k: torch.as_tensor(v) for k, v in states[m].items()})
         np.testing.assert_allclose(out[m].detach().numpy(), module(x[m]).detach().numpy(), **EPOCH)
     assert all(np.all(states[m][f"layers.{i}.bias"] == 0) for m in range(3) for i in range(3))
-    with pytest.raises(ValueError, match="layer 0"):
+    with pytest.raises(ValueError, match="layers.0.kernel"):
         stack.from_state_dicts([{**states[0], "layers.0.weight": np.zeros((5, 5), "f4")}])
 
 
@@ -244,5 +244,8 @@ def test_eval_and_vae_loss():
     got = port.make_eval_fn(stack, 8)(flat, X, X, mask)
     want = plosses.mse_loss(stack.forward(flat, X[:, :20]), X[:, :20])
     np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), **TIGHT)
-    with pytest.raises(NotImplementedError, match="vae"):
+    # the ELBO needs a variational model; other loss names do not exist
+    with pytest.raises(ValueError, match="variational"):
         port.make_loss_fn(stack, "vae")
+    with pytest.raises(ValueError, match="known: mse, vae"):
+        port.make_loss_fn(stack, "huber")
