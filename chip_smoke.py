@@ -36,6 +36,16 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             K3 wrappers refuse a CUDA input that requires grad (the kernel has
             no backward). Each kernel, its plain version
             and a library expression are timed with CUDA events;
+   bf16_kernel  K3's bfloat16 instance (bf16 xz, Wh and b; f32 h, c and
+            results) against its bfloat16 plain version, one step and a
+            layer, at the serving shape, the ragged and edge shapes above and
+            H = 5 and 7 for one member's 97 windows (odd B*M*H: every other
+            step starts 8 bytes off a 16-byte line): each within its least
+            share of values bitwise equal and its most error in bf16 ulps
+            (K3_BF16_*), while the fp32 instance on the same inputs cast up
+            (a kernel that skips the bf16 roundings) must fall outside
+            them at every shape; its device time beside
+            the fp32 instance's, ms, plain_ms, library_ms and the bound;
 4. train    FleetTrainer at the reference bench's fleet width (1,024
             members x 1,440 rows x 10 tags, feedforward_hourglass, 5 epochs,
             batch 128, float32) on the card: a warm fit, then a timed fit of
@@ -97,6 +107,20 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             from the port's generators, the same on both): parameters,
             losses, validation losses, scalers, error scalers and thresholds
             within TRAIN_RTOL/TRAIN_ATOL;
+   bf16_train  the reference bench's bfloat16 legs at their own shapes:
+            the dense fleet (1,024 x 1,440 x 10, 5 epochs, batch 128),
+            config 2's LSTMAutoEncoder (lookback 32) with a validated fit
+            whose K3 launches must all be the bf16 instance's (epochs run x
+            validation batches x layers), config 4's conv and variational
+            fits and their detectors' ``anomaly()`` (K1): models/hour, fit
+            and epoch seconds, step device operations and launch ms, epoch
+            busy share, each beside the same run's fp32 phase;
+   bf16_parity  one bf16 detector a family (dense, variational, LSTM,
+            conv; 256 rows, one batch an epoch, 3 epochs) on the card and on
+            the CPU: losses within rtol 1e-3, 98% of the parameters within
+            1e-4 and all within 2 * lr a step (tests/test_torch_bf16.py's
+            band against JAX); the card detectors in a bank, its scores
+            against their ``anomaly()`` within TRAIN_RTOL/TRAIN_ATOL;
 6. http     serve a six-bucket directory of port artifacts with
             ``run_server``: 64 feedforward detectors at 10 tags, 8 at 40,
             8 ``LSTMAutoEncoder`` + 4 ``LSTMForecast`` detectors
@@ -119,6 +143,13 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    zoo_bank the same for 10,000 config-4 conv members (default channels,
             10 tags, lookback 32: 235 MB of float32 weights), 128-row
             requests, in the LSTM band;
+   bf16_bank  the lstm phase with bf16 members (bench.py:1286-1295's
+            serving bank), then the bank phase with bf16 members (both held
+            to the CPU within the JAX suite's bf16 band, BF16_ATOL x max(1,
+            |x|), and the model output within BF16_BANK_VS_CPU); then a bank of 16 dense and 8 LSTM detectors each beside
+            its bf16 twin: four buckets, every bf16 twin's scores equal to
+            its ``anomaly()`` on the card within TRAIN_RTOL/TRAIN_ATOL and
+            apart from its fp32 twin's;
 9. build    ``build_fleet`` on the card: 64 RandomDataset machines with the
             default model config (10 tags, 7 days at 10 min), one bespoke
             machine (a bare AutoEncoder: the single-build path), the
@@ -173,11 +204,13 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             that the parity phase did not hold: K1 at every (rows, F) of an
             ``anomaly()``, K2 at every (B, T, F, M) of a bank batch or a
             fleet's scoring, K3 at every (S, B, M, H);
-12. counts  the three main-path wrappers' launch counters of every path
-            (train, seq_train, seq_fleet, zoo_train, zoo_fleet, http, bank,
-            lstm, zoo_bank, build, cli, cv), each reset just before its path
-            and read just after; each kernel's total must be above 0, and K1
-            and K2 above 0 on the config-4 paths.
+12. counts  the main-path wrappers' launch counters of every path (train,
+            seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
+            bank, lstm, zoo_bank, bf16_bank, build, cli, cv), each reset just
+            before its path and read just after; each kernel's total must be
+            above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
+            above 0 on the config-4 paths, K3-bf16 on bf16_train and
+            bf16_bank, K1 on bf16_train and K2 on bf16_bank.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -185,6 +218,7 @@ CUDA. Weights and data are random, made from fixed seeds.
 """
 
 import ctypes
+import dataclasses
 import functools
 import gc
 import json
@@ -312,7 +346,41 @@ KERNELS = {
     "banked_anomaly_score": "gordo_components_tpu/ops/pallas_score.py:298",
     "fused_anomaly_score": "gordo_components_tpu/ops/pallas_score.py:84",
     "lstm_layer": "gordo_components_tpu/ops/seq_scan.py:218",
+    "lstm_layer_bf16": "gordo_components_tpu/ops/seq_scan.py:218",
 }
+BF16 = "bfloat16"
+# a bfloat16 model's arrays on the card against the CPU's: the JAX suite's
+# bfloat16 band (tests/test_conv_impl.py:38-57), 2e-2 * max(1, |x|)
+BF16_ATOL = 2e-2
+# K3's bfloat16 instance against its bfloat16 plain version on the card:
+# (least share of values bitwise equal, most error in bfloat16 ulps of the
+# plain result's largest |value|). h and c are float32, but every gate is
+# rounded to bfloat16, so a rounding that falls the other way moves a value
+# by about one such ulp. The kernel sums a gate's H products in another
+# order than cuBLAS does, so now and then a rounding falls the other way,
+# and within a layer the recurrence carries it on through the window. From
+# readings on an NVIDIA H100 80GB HBM3 at 700.00 W with the seeds below
+# (PERF.md, section 6): a step kept at least 0.99972 bitwise and 0.853 ulps
+# at every shape; a layer at least 0.99991 and 0.021 ulps at every shape
+# but three wide ones (0.9975, 0.9446 and 0.9095 there, 1.836 ulps at most).
+# The control, the fp32 instance on the same inputs cast up to float32 (a
+# kernel that skips every bfloat16 rounding), kept at most 3.3e-4 bitwise at
+# 0.27-2.9 ulps: the shares tell the two apart, the errors alone do not
+K3_BF16_STEP = (0.999, 1.0)
+K3_BF16_LAYER = (0.999, 2.0)
+K3_BF16_LAYER_WIDE = {(LOOKBACK, 200, 1, 64): 0.99, (LOOKBACK, 1, 7, 512): 0.9,
+                      (LOOKBACK, 200, 7, 512): 0.85}
+# a bf16 bank's model output on the card against the CPU's, each held
+# request: (least share bitwise, most error in bf16 ulps of its largest
+# |value|). On an NVIDIA H100 80GB HBM3 at 700.00 W the smoke read the
+# dense bank bitwise and the LSTM bank at least 0.9876 bitwise, 1 ulp off
+# at most (K3's flips, above, carried through the head)
+BF16_BANK_VS_CPU = {"dense": (0.999, 1.0), "lstm": (0.98, 2.0)}
+# odd B*M*H: every other bfloat16 step starts 8 bytes off a 16-byte line
+# (lstm_hourglass's H = 5 and 7 for one member's 97 windows)
+BF16_MISALIGNED = [(LOOKBACK, 97, 1, 5), (LOOKBACK, 97, 1, 7)]
+# the float32 phases' numbers, printed beside the bfloat16 phases'
+F32_RUNS = {}
 SOURCE = "gordo_components_torch/ops/csrc/anomaly_score.cu"
 # the shapes every call on the card gave each kernel from the main paths on,
 # this process's and the CLI runs': K1's (rows, F), K2's (B, T, F, M), K3's
@@ -493,17 +561,14 @@ def k2_pieces(args):
 def device_ops_per_call(fn, args, runs=50) -> float:
     """Device operations (kernels, fills, copies) per call, from the
     profiler's trace of ``runs`` calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     for _ in range(3):
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn(*args)
-        torch.cuda.synchronize()
-    return sum(e.device_type == DeviceType.CUDA for e in prof.events()) / runs
+    events, _, _ = device_trace(lambda: [fn(*args) for _ in range(runs)],
+                                [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    return len(events) / runs
 
 
 def time_ms(fn, args, warmup=20, runs=100) -> float:
@@ -637,8 +702,9 @@ def lstm_case(S, B, M, H, seed):
 
 def library_step(xz_t, h, c, Wh, b):
     """One step as one torch.baddbmm plus the gate expression (yardstick
-    only), in the (M, B, .) layout baddbmm wants."""
-    z = torch.baddbmm(xz_t.transpose(0, 1), h.transpose(0, 1), Wh) + b[:, None, :]
+    only), in the (M, B, .) layout baddbmm wants, in the dtype of xz, Wh
+    and b (h and c float32)."""
+    z = torch.baddbmm(xz_t.transpose(0, 1), h.transpose(0, 1).to(Wh.dtype), Wh) + b[:, None, :]
     i, f, g, o = z.chunk(4, dim=-1)
     c2 = torch.sigmoid(f) * c.transpose(0, 1) + torch.sigmoid(i) * torch.tanh(g)
     return c2.transpose(0, 1), (torch.sigmoid(o) * torch.tanh(c2)).transpose(0, 1)
@@ -647,7 +713,7 @@ def library_step(xz_t, h, c, Wh, b):
 def library_layer(xz, Wh, b):
     """A layer as S library steps from a zero state (yardstick only)."""
     S, B, M, H4 = xz.shape
-    h = c = xz.new_zeros((B, M, H4 // 4))
+    h = c = torch.zeros((B, M, H4 // 4), device=xz.device)
     ys = []
     for t in range(S):
         c, h = library_step(xz[t], h, c, Wh, b)
@@ -655,12 +721,15 @@ def library_layer(xz, Wh, b):
     return torch.stack(ys)
 
 
-def lstm_bound(S, B, M, H):
+def lstm_bound(S, B, M, H, elem_bytes=4):
     """Least time for S fused steps on this card, and what bounds it: xz, Wh
-    and b read once, every step's h and the final c written once; per
-    (step, window, member) 8H^2 operations for the product, 8H for the two
-    additions and about 24H for the gates and the carry update."""
-    moved = 4 * (S * B * M * 4 * H + M * H * 4 * H + M * 4 * H) + 4 * (S * B * M * H + B * M * H)
+    and b (``elem_bytes`` an element: 4 float32, 2 bfloat16) read once,
+    every step's h and the final c (float32) written once; per (step,
+    window, member) 8H^2 operations for the product, 8H for the two
+    additions and about 24H for the gates and the carry update, all float32
+    arithmetic in both instances."""
+    moved = (elem_bytes * (S * B * M * 4 * H + M * H * 4 * H + M * 4 * H)
+             + 4 * (S * B * M * H + B * M * H))
     ops = S * B * M * (8 * H * H + 32 * H)
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -764,6 +833,122 @@ def lstm_kernel_phase():
     return {"lstm_layer": result}
 
 
+def bf16_case(S, B, M, H, seed):
+    """:func:`lstm_case` with xz, Wh and b in bfloat16 (h, c float32)."""
+    xz, h, c, Wh, b = lstm_case(S, B, M, H, seed)
+    return xz.bfloat16(), h, c, Wh.bfloat16(), b.bfloat16()
+
+
+def bf16_reading(got, want, what):
+    """(max abs error, that error in bfloat16 ulps of max |want|, share of
+    values bitwise equal) of a bfloat16 K3 result against its plain
+    version."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)}, expected {tuple(want.shape)}")
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    ulp = float(2.0 ** (np.floor(np.log2(top)) - 7)) if top > 0 else 2.0 ** -133
+    return err, err / ulp, float((got == want).float().mean())
+
+
+def within(reading, limits) -> bool:
+    _, ulps, share = reading
+    return share >= limits[0] and ulps <= limits[1]
+
+
+def k3_bf16_layer_limits(shape):
+    return K3_BF16_LAYER_WIDE.get(tuple(shape), K3_BF16_LAYER[0]), K3_BF16_LAYER[1]
+
+
+def hold_bf16(got, want, limits, what):
+    """The bfloat16 reading of ``got``; raises outside ``limits``."""
+    reading = bf16_reading(got, want, what)
+    if not within(reading, limits):
+        raise AssertionError(f"{what}: max err {reading[0]} ({reading[1]:.3f} ulps), bitwise share "
+                             f"{reading[2]}, outside (share >= {limits[0]}, ulps <= {limits[1]})")
+    return reading
+
+
+def bf16_kernel_phase():
+    """K3's bfloat16 instance against its bfloat16 plain versions, one step
+    and a layer, at the serving shape, the ragged and edge shapes of the
+    float32 phase and the misaligned steps, each within its limits; the
+    control (the fp32 instance on the inputs cast up to float32) must fall
+    outside them at every shape. Times at the serving shape."""
+    resolve_device("cuda")  # bfloat16 products reduced in float32 for the plain versions
+    shapes = [LSTM_SERVE, *LSTM_RAGGED, *LSTM_EDGES, *BF16_MISALIGNED]
+    worst = {k: {"err": 0.0, "ulps": 0.0, "share": 1.0, "control_share": 0.0,
+                 "control_ulps": float("inf")} for k in ("fused_lstm_step", "lstm_layer")}
+
+    def hold(name, got, control, want, limits, what):
+        e, u, q = hold_bf16(got, want, limits, what)
+        ctl = bf16_reading(control, want, f"{what} control")
+        if within(ctl, limits):
+            raise AssertionError(f"{what}: the float32 control passes the limits {limits} "
+                                 f"(share {ctl[2]}, {ctl[1]:.3f} ulps)")
+        w = worst[name]
+        w.update(err=max(w["err"], e), ulps=max(w["ulps"], u), share=min(w["share"], q),
+                 control_share=max(w["control_share"], ctl[2]),
+                 control_ulps=min(w["control_ulps"], ctl[1]))
+        return q
+
+    for i, (S, B, M, H) in enumerate(shapes):
+        xz, h, c, Wh, b = bf16_case(S, B, M, H, seed=600 + i)
+        up = (xz.float(), Wh.float(), b.float())
+        got = seq_scan.fused_lstm_step(xz[0], h, c, Wh, b)
+        control = seq_scan.fused_lstm_step(up[0][0], h, c, up[1], up[2])
+        torch.cuda.synchronize()
+        for g, k, w, name in zip(got, control, seq_scan.lstm_step_plain(xz[0], h, c, Wh, b), ("c", "h")):
+            hold("fused_lstm_step", g, k, w, K3_BF16_STEP, f"fused_lstm_step bf16 {name} B={B} M={M} H={H}")
+        got, control = seq_scan.lstm_layer(xz, Wh, b), seq_scan.lstm_layer(*up)
+        torch.cuda.synchronize()
+        q = hold("lstm_layer", got, control, seq_scan.lstm_layer_plain(xz, Wh, b),
+                 k3_bf16_layer_limits((S, B, M, H)), f"lstm_layer bf16 S={S} B={B} M={M} H={H}")
+        serve_share = q if i == 0 else serve_share
+
+    def held(name):
+        w = worst[name]
+        return dict(max_err=w["err"], max_ulps=round(w["ulps"], 4), bitwise_share=w["share"],
+                    control_max_bitwise_share=w["control_share"],
+                    control_min_ulps=round(w["control_ulps"], 4))
+
+    S, B, M, H = LSTM_SERVE
+    xz, h, c, Wh, b = bf16_case(S, B, M, H, seed=699)
+    step = (xz[0], h, c, Wh, b)
+    phase("bf16_kernel", kernel="fused_lstm_step_bf16", steps=1, shapes=len(shapes),
+          limits=json.dumps(f"bitwise share >= {K3_BF16_STEP[0]}, <= {K3_BF16_STEP[1]} ulps; "
+                            "the fp32 control outside"),
+          **held("fused_lstm_step"), misaligned=json.dumps(BF16_MISALIGNED),
+          kernel_device_us=kernel_device_us(seq_scan.fused_lstm_step, step, kernel="lstm_steps"),
+          ms=round(time_ms(seq_scan.fused_lstm_step, step), 5),
+          plain_ms=round(time_ms(seq_scan.lstm_step_plain, step), 5),
+          library_ms=round(time_ms(library_step, step), 5),
+          bound_ms=round(lstm_bound(1, B, M, H, elem_bytes=2)[0], 6))
+    layer = (xz, Wh, b)
+    bound, bound_by = lstm_bound(S, B, M, H, elem_bytes=2)
+    result = {
+        "name": "lstm_layer_bf16", "route": "cuda", "source": LSTM_SOURCE,
+        "replaces": KERNELS["lstm_layer_bf16"], "launches": None, "max_abs_err": worst["lstm_layer"]["err"],
+        "ms": time_ms(seq_scan.lstm_layer, layer),
+        "plain_ms": time_ms(seq_scan.lstm_layer_plain, layer, warmup=3, runs=20),
+        "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": time_ms(library_layer, layer, warmup=3, runs=20),
+    }
+    f32 = lstm_case(S, B, M, H, seed=699)
+    phase("bf16_kernel", kernel="lstm_layer_bf16", steps=S, shapes=len(shapes),
+          limits=json.dumps(f"bitwise share >= {K3_BF16_LAYER[0]} (wide shapes "
+                            f"{sorted(K3_BF16_LAYER_WIDE.values())}), <= {K3_BF16_LAYER[1]} ulps; "
+                            "the fp32 control outside"),
+          **held("lstm_layer"), serving_bitwise_share=serve_share,
+          kernel_device_us=kernel_device_us(seq_scan.lstm_layer, layer, kernel="lstm_steps"),
+          f32_kernel_device_us=kernel_device_us(seq_scan.lstm_layer, (f32[0], f32[3], f32[4]),
+                                                kernel="lstm_steps"),
+          ms=round(result["ms"], 5), plain_ms=round(result["plain_ms"], 5),
+          library_ms=round(result["library_ms"], 5), bound_ms=round(bound, 6), bound_by=bound_by,
+          f32_bound_ms=round(lstm_bound(S, B, M, H)[0], 6))
+    return {"lstm_layer_bf16": result}
+
+
 def record_path_shapes():
     """From here on, add the shape of every kernel call on the card to
     PATH_SHAPES (through the wrappers' launch functions and
@@ -780,7 +965,8 @@ def record_path_shapes():
 
     def k3(xz, Wh, b):
         if xz.is_cuda:
-            PATH_SHAPES["lstm_layer"].add((*xz.shape[:3], xz.shape[3] // 4))
+            name = "lstm_layer_bf16" if xz.dtype == torch.bfloat16 else "lstm_layer"
+            PATH_SHAPES[name].add((*xz.shape[:3], xz.shape[3] // 4))
         return layer(xz, Wh, b)
 
     score._launch_one, score._launch_banked, seq_scan.lstm_layer = k1, k2, k3
@@ -814,6 +1000,14 @@ def hold_k3(shape, seed):
                  "lstm_layer at the main path's S={} B={} M={} H={}".format(*shape))
 
 
+def hold_k3_bf16(shape, seed):
+    xz, _, _, Wh, b = bf16_case(*shape, seed=seed)
+    got = seq_scan.lstm_layer(xz, Wh, b)
+    torch.cuda.synchronize()
+    return hold_bf16(got, seq_scan.lstm_layer_plain(xz, Wh, b), k3_bf16_layer_limits(shape),
+                     "lstm_layer_bf16 at the main path's S={} B={} M={} H={}".format(*shape))[0]
+
+
 def path_parity_phase(kernels):
     """Each kernel against its plain version, in the parity phase's band, at
     every shape the main paths gave it that the parity phase did not hold;
@@ -825,6 +1019,8 @@ def path_parity_phase(kernels):
                                  f"bitwise output_copy,diff,scaled; norms rtol=atol={NORM_RTOL}"),
         "lstm_layer": (hold_k3, {LSTM_SERVE, *LSTM_RAGGED, *LSTM_EDGES, *LSTM_TRAIN},
                        f"rtol={LAYER_RTOL},atol={LAYER_ATOL}"),
+        "lstm_layer_bf16": (hold_k3_bf16, {LSTM_SERVE, *LSTM_RAGGED, *LSTM_EDGES, *BF16_MISALIGNED},
+                            f"bitwise share >= {K3_BF16_LAYER[0]}, <= {K3_BF16_LAYER[1]} bf16 ulps"),
     }
     for name, (hold, held, band) in checks.items():
         shapes = PATH_SHAPES[name]
@@ -927,6 +1123,27 @@ def check_arrays(got: dict, want: dict, what: str, rtol=0.0, atol=E2E_ATOL) -> N
         if not np.allclose(g, w, rtol=rtol, atol=atol):
             err = float(np.abs(g - w).max())
             raise AssertionError(f"{what}: {key} off by {err} (rtol={rtol}, atol={atol})")
+
+
+def check_bf16_arrays(got: dict, want: dict, what: str, limits) -> tuple:
+    """A bfloat16 model's arrays on the card against the CPU's: each within
+    BF16_ATOL * max(1, its largest value), the JAX suite's bfloat16 band (a
+    rounding that falls the other way on one side moves a value by a
+    bfloat16 ulp), and the model output (bfloat16 cast up, so an ulp is its
+    grain) within ``limits`` (least share bitwise, most bf16 ulps); the
+    largest error, the output's ulps and its share bitwise."""
+    worst = 0.0
+    for key, w in want.items():
+        g = np.asarray(got[key], np.float32)
+        if g.shape != w.shape or not np.all(np.isfinite(g)):
+            raise AssertionError(f"{what}: {key} has shape {g.shape} or non-finite values")
+        err = float(np.abs(g - w).max()) if g.size else 0.0
+        if err > BF16_ATOL * max(1.0, float(np.abs(w).max()) if w.size else 0.0):
+            raise AssertionError(f"{what}: {key} off by {err} (bfloat16 band {BF16_ATOL} x max(1, |x|))")
+        worst = max(worst, err)
+    _, ulps, share = hold_bf16(*(torch.from_numpy(np.array(a["model-output"], np.float32))
+                                 for a in (got, want)), limits, f"{what} model-output")
+    return worst, ulps, share
 
 
 def response_arrays(body: dict, tags) -> dict:
@@ -1047,19 +1264,16 @@ def profile_batch(bank, requests, runs=5):
     """Where one full bank call of ``requests`` spends its time: the median
     host wall time of ``runs`` calls, and from one call under the profiler
     the device time of every kernel and copy, summed, and their count."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     walls = []
     for _ in range(runs + 1):  # the first call warms the allocator
         t0 = time.perf_counter()
         bank.score_many(requests)  # ends in a device-to-host copy
         walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        bank.score_many(requests)
-        torch.cuda.synchronize()
+    events, _, empty = device_trace(lambda: (bank.score_many(requests), torch.cuda.synchronize()),
+                                    [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     by_name = {}
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     wall_ms = statistics.median(walls[1:]) * 1e3
@@ -1068,15 +1282,15 @@ def profile_batch(bank, requests, runs=5):
     return {
         "batch_wall_ms": round(wall_ms, 4), "batch_device_ms": round(device_ms, 4),
         "device_busy_share": round(device_ms / wall_ms, 4), "device_ops": len(events),
-        "top_device_ms": json.dumps({k[:40]: round(v, 4) for k, v in top}),
+        "top_device_ms": json.dumps({k[:40]: round(v, 4) for k, v in top}), **empty,
     }
 
 
-def bank_phase(card: str, family: str = "dense"):
+def bank_phase(card: str, family: str = "dense", dtype: str = "float32"):
     """A 10,000-member bank driven by 64 closed-loop clients through the
     engine: dense hourglass members with 64-row requests, or LSTM hourglass
     (``family="lstm"``) or config-4 conv members (``"conv"``), lookback 32,
-    with 128-row requests."""
+    with 128-row requests; the members compute in ``dtype``."""
     rng = np.random.default_rng({"dense": 2, "lstm": 3, "conv": 4}[family])
     n_members, n_clients, n_requests = 10_000, 64, 4
     windowed = family != "dense"
@@ -1088,6 +1302,8 @@ def bank_phase(card: str, family: str = "dense"):
         entries = [random_zoo_entry(f"c{i:05d}", "conv", rng) for i in range(n_members)]
     else:
         entries = [random_entry(f"m{i:05d}", 10, rng) for i in range(n_members)]
+    if dtype != "float32":
+        entries = [dataclasses.replace(e, compute_dtype=dtype) for e in entries]
     bank = ModelBank.from_entries(entries)
     build_s = time.perf_counter() - t0
     off = entries[0].offset
@@ -1138,6 +1354,7 @@ def bank_phase(card: str, family: str = "dense"):
 
     band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if windowed else {}
     by_name = {e.name: e for e in entries}
+    readings = []  # bfloat16: (max err, model output's ulps, its bitwise share) of each held request
     for (c, r), res in results.items():
         arrays = res.to_arrays()
         if not all(np.all(np.isfinite(a)) for a in arrays.values()):
@@ -1146,7 +1363,11 @@ def bank_phase(card: str, family: str = "dense"):
             raise AssertionError(f"bank phase: {len(res.model_output)} rows for {names[c][r]}")
         if c % 8 == 0:  # hold a sample against the CPU plain computation
             plain = DiffBasedAnomalyDetector.from_entry(by_name[names[c][r]], device="cpu")
-            check_arrays(arrays, plain.anomaly(X[c, r]), f"bank {names[c][r]}", **band)
+            if dtype == BF16:
+                readings.append(check_bf16_arrays(arrays, plain.anomaly(X[c, r]), f"bank {names[c][r]}",
+                                                  BF16_BANK_VS_CPU[family]))
+            else:
+                check_arrays(arrays, plain.anomaly(X[c, r]), f"bank {names[c][r]}", **band)
     lat_ms = np.asarray(lat) * 1e3
     batches = max(stats["batches"], 1)
     summary = {
@@ -1162,9 +1383,17 @@ def bank_phase(card: str, family: str = "dense"):
         "banked_launches_per_batch": round(launches["banked_anomaly_score"] / batches, 3),
     }
     if family == "lstm":
-        summary["lstm_layer_launches_per_batch"] = round(launches["lstm_layer"] / batches, 3)
+        k3 = "lstm_layer_bf16" if dtype == BF16 else "lstm_layer"
+        summary[f"{k3}_launches_per_batch"] = round(launches[k3] / batches, 3)
+    if readings:
+        summary.update(vs_cpu_limits=json.dumps(BF16_BANK_VS_CPU[family]),
+                       vs_cpu_max_err=max(x[0] for x in readings),
+                       vs_cpu_output_max_ulps=round(max(x[1] for x in readings), 4),
+                       vs_cpu_output_min_bitwise_share=min(x[2] for x in readings),
+                       vs_cpu_output_bitwise_share=float(np.mean([x[2] for x in readings])))
     summary.update(profiled)
-    phase({"dense": "bank", "lstm": "lstm", "conv": "zoo_bank"}[family], **summary, card=json.dumps(card))
+    name = {"dense": "bank", "lstm": "lstm", "conv": "zoo_bank"}[family]
+    phase(name if dtype == "float32" else f"bf16_{name}", dtype=dtype, **summary, card=json.dumps(card))
     return summary
 
 
@@ -1187,10 +1416,29 @@ def synth_fleet(n_models: int, rows: int, n_features: int, seed: int = 0):
     return out
 
 
-def cuda_events(prof):
+def device_trace(fn, activities, attempts=3):
+    """``fn()`` under the profiler: the trace's device events, what ``fn``
+    returned, and ``{"empty_traces": n}`` with the host operations each
+    empty trace held. A trace that holds no device event is taken again:
+    now and then one of a bank batch comes back so on an H100, while the
+    same batch traced again holds all its events (PERF.md, section 6).
+    Raises when ``attempts`` traces in a row hold none."""
     from torch.autograd import DeviceType
+    from torch.profiler import profile
 
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    empty = []
+    for _ in range(attempts):
+        with profile(activities=activities) as prof:
+            result = fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        if device:
+            return device, result, {"empty_traces": len(empty),
+                                    "empty_trace_host_ops": json.dumps(empty)}
+        empty.append(len(events))
+    raise AssertionError(f"{attempts} traces in a row held no device events "
+                         f"(host operations {empty})")
 
 
 def stacked_block(members, batch_size: int, warmup: int = 0):
@@ -1213,8 +1461,10 @@ def profile_training(stack, X, mask, n_real, batch_size: int, loss: str = "mse")
     rows ``X`` and item masks ``mask`` on the card, under the profiler:
     device operations of the step, and the epoch's device time against its
     wall time (``loss="vae"``: the ELBO, with noise drawn as the fit draws
-    it)."""
-    from torch.profiler import ProfilerActivity, profile
+    it). The profiler traces the device alone: tracing every host operation
+    of an LSTM epoch (160,000 of them in bf16) cost tens of seconds and
+    slowed the epoch it measured."""
+    from torch.profiler import ProfilerActivity
 
     dev = X.device
     M, n_pad = mask.shape
@@ -1229,17 +1479,18 @@ def profile_training(stack, X, mask, n_real, batch_size: int, loss: str = "mse")
     nb = torch.randn(M, batch_size, stack.latent_dim, device=dev) if loss == "vae" else None
     step(state.params, state.opt_state, xb, yb, mb, lr, nb)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state.params, state.opt_state, xb, yb, mb, lr, nb)
-        torch.cuda.synchronize()
-    step_ops = len(cuda_events(prof))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    step_events, _, step_empty = device_trace(
+        lambda: step(state.params, state.opt_state, xb, yb, mb, lr, nb), [ProfilerActivity.CUDA])
+    step_ops = len(step_events)
+
+    def epoch():
         t0 = time.perf_counter()
-        state, losses = epoch_fn(state, X, X, mask, lr, n_real=n_real)
+        out, losses = epoch_fn(state, X, X, mask, lr, n_real=n_real)
         losses.cpu()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        return out, (time.perf_counter() - t0) * 1e3
+
+    events, (state, wall_ms), epoch_empty = device_trace(epoch, [ProfilerActivity.CUDA])
     clocks = card_clocks()
-    events = cuda_events(prof)
     by_kernel = {}  # device ms by kernel, template arguments dropped
     for e in events:
         kernel = e.name.removeprefix("void ").split("<")[0][:60]
@@ -1274,6 +1525,7 @@ def profile_training(stack, X, mask, n_real, batch_size: int, loss: str = "mse")
         "profiled_epoch_busy_share": round(device_ms / wall_ms, 4),
         "epoch_top_device_ms": json.dumps({k: round(v, 3) for k, v in top}),
         "card_after_epoch": json.dumps(clocks),
+        "empty_traces": step_empty["empty_traces"] + epoch_empty["empty_traces"],
     }
 
 
@@ -1298,6 +1550,7 @@ def train_phase(card: str):
     X, mask, n_real = stacked_block(members, bs)
     stack = train_core.StackedDense(lookup_factory("AutoEncoder", FLEET_CONFIG["kind"])(X.shape[-1]))
     prof = profile_training(stack, X, mask, n_real, bs)
+    F32_RUNS["dense_fleet"] = run_summary(len(members), wall, epochs, prof)
     phase("train", members=len(members), rows=FLEET_SHAPE["rows"], tags=FLEET_SHAPE["n_features"],
           epochs=FLEET_CONFIG["epochs"], batch=FLEET_CONFIG["batch_size"], dtype="float32",
           padded=json.dumps({k: trainer.last_stats["buckets"][0][k]
@@ -1308,6 +1561,15 @@ def train_phase(card: str):
           loss_epoch5_median=round(float(np.median(losses[:, -1])), 6),
           **prof, epoch_device_busy_share=round(prof["epoch_device_ms"] / 1e3 / steady, 4),
           card=json.dumps(card))
+
+
+def run_summary(models: int, wall: float, epoch_s, prof) -> dict:
+    """The numbers a training phase reports beside its other dtype's."""
+    steady = statistics.median(epoch_s[1:])
+    return {"models_per_hour": round(models / wall * 3600, 1), "fit_wall_s": round(wall, 4),
+            "steady_epoch_s": round(steady, 4), "step_device_ops": prof["step_device_ops"],
+            "step_launch_ms": prof["step_launch_ms"],
+            "epoch_device_busy_share": round(prof["epoch_device_ms"] / 1e3 / steady, 4)}
 
 
 def train_parity_phase():
@@ -1396,6 +1658,7 @@ def seq_train_phase(card: str):
     block = stacked_block({"machine-0": X}, bs, LOOKBACK - 1)
     prof = profile_training(train_core.StackedLSTM(module, LOOKBACK), *block, bs)
     steady = statistics.median(est.epoch_seconds_[1:])
+    F32_RUNS["lstm"] = run_summary(1, wall, est.epoch_seconds_, prof)
     phase("seq_train", model="LSTMAutoEncoder", kind=SEQ_CONFIG["kind"], lookback=LOOKBACK,
           rows=len(X), tags=X.shape[1], epochs=SEQ_EPOCHS, batch=bs, dtype="float32",
           items=n_out, fit_wall_s=round(wall, 4), models_per_hour=round(3600 / wall, 1),
@@ -1560,6 +1823,7 @@ def zoo_train_phase(card: str):
         block = stacked_block({"machine-0": X}, bs, stack.warmup)
         prof = profile_training(stack, *block, bs, loss=est._resolved_loss(stack))
         steady = statistics.median(est.epoch_seconds_[1:])
+        F32_RUNS[family] = run_summary(1, wall, est.epoch_seconds_, prof)
         phase("zoo_train", family=family, model=cls.__name__, kind=est.kind,
               lookback=getattr(est, "lookback_window", 1), rows=len(X), tags=X.shape[1],
               epochs=ZOO_EPOCHS, batch=bs, dtype="float32", loss=est._resolved_loss(stack),
@@ -1666,6 +1930,200 @@ def zoo_parity_phase():
 # ------------------------------------------------------------------ #
 # phase 9: build a fleet and serve what it built
 # ------------------------------------------------------------------ #
+
+
+# ------------------------------------------------------------------ #
+# bfloat16: the reference bench's bf16 legs
+# ------------------------------------------------------------------ #
+
+
+def bf16_launches() -> int:
+    return seq_scan.launch_counts["lstm_layer_bf16"] + seq_scan.launch_counts["fused_lstm_step_bf16"]
+
+
+def bf16_train_phase(card: str):
+    """The reference bench's bfloat16 training legs at their own shapes
+    (``bench.py:272-281``, ``:449-462``): the dense fleet, config 2's
+    LSTMAutoEncoder (with a validated fit, whose forwards without a gradient
+    launch K3's bfloat16 instance and nothing else), config 4's conv and
+    variational autoencoders (each detector's ``anomaly()``, K1); each leg's
+    numbers beside the same run's float32 phase."""
+    bs = FLEET_CONFIG["batch_size"]
+    members = synth_fleet(**FLEET_SHAPE)
+    config = dict(FLEET_CONFIG, compute_dtype=BF16)
+    FleetTrainer(**config).fit(members)  # warm
+    trainer = FleetTrainer(**config)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    models = trainer.fit(members)
+    wall = time.perf_counter() - t0
+    losses = np.array([m.history["loss"] for m in models.values()])
+    fell = float(np.mean(losses[:, -1] < losses[:, 0]))
+    if not np.all(np.isfinite(losses)) or fell < 0.99:
+        raise AssertionError(f"bf16_train fleet: the loss fell for a share of {fell} of the members")
+    if {m.factory_kwargs.get("compute_dtype") for m in models.values()} != {BF16}:
+        raise AssertionError("bf16_train fleet: members do not carry compute_dtype=bfloat16")
+    X, mask, n_real = stacked_block(members, bs)
+    stack = train_core.StackedDense(lookup_factory("AutoEncoder", FLEET_CONFIG["kind"])(
+        X.shape[-1], compute_dtype=BF16))
+    prof = profile_training(stack, X, mask, n_real, bs)
+    epochs = trainer.last_stats["buckets"][0]["epoch_seconds"]
+    phase("bf16_train", leg="dense_fleet", members=len(members), rows=FLEET_SHAPE["rows"],
+          tags=FLEET_SHAPE["n_features"], epochs=FLEET_CONFIG["epochs"], batch=bs, dtype=BF16,
+          **run_summary(len(members), wall, epochs, prof), loss_fell_share=fell,
+          epoch_device_ms=prof["epoch_device_ms"], epoch_top_device_ms=prof["epoch_top_device_ms"],
+          float32=json.dumps(F32_RUNS.get("dense_fleet")), card=json.dumps(card))
+
+    X1 = synth_fleet(1, FLEET_SHAPE["rows"], FLEET_SHAPE["n_features"])["machine-0"]
+    bs = SEQ_CONFIG["batch_size"]
+    LSTMAutoEncoder(epochs=1, compute_dtype=BF16, **SEQ_CONFIG).fit(X1)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = LSTMAutoEncoder(epochs=SEQ_EPOCHS, compute_dtype=BF16, **SEQ_CONFIG).fit(X1)
+    wall = time.perf_counter() - t0
+    loss = est.history["loss"]
+    if not np.all(np.isfinite(loss)) or not loss[-1] < loss[0]:
+        raise AssertionError(f"bf16_train lstm: losses {loss} are not finite or did not fall")
+    module = est._build_module(X1.shape[1])
+    k3_bf16, k3_f32 = bf16_launches(), lstm_launches()
+    val_est = LSTMAutoEncoder(epochs=2, validation_split=0.2, compute_dtype=BF16, **SEQ_CONFIG).fit(X1)
+    k3_bf16, k3_f32 = bf16_launches() - k3_bf16, lstm_launches() - k3_f32
+    n_val = int((len(X1) - (LOOKBACK - 1)) * 0.2)
+    want = len(val_est.history["val_loss"]) * -(-n_val // bs) * len(module.dims)
+    if k3_bf16 != want or k3_f32 != 0:
+        raise AssertionError(f"bf16_train lstm: {k3_bf16} bf16 and {k3_f32} fp32 K3 launches in the "
+                             f"validated fit, expected {want} and 0")
+    block = stacked_block({"machine-0": X1}, bs, LOOKBACK - 1)
+    prof = profile_training(train_core.StackedLSTM(module, LOOKBACK), *block, bs)
+    phase("bf16_train", leg="lstm", model="LSTMAutoEncoder", kind=SEQ_CONFIG["kind"], lookback=LOOKBACK,
+          rows=len(X1), epochs=SEQ_EPOCHS, batch=bs, dtype=BF16,
+          **run_summary(1, wall, est.epoch_seconds_, prof),
+          loss_epoch1=round(loss[0], 6), loss_epoch5=round(loss[-1], 6),
+          k3_bf16_launches_validation=k3_bf16, epoch_device_ms=prof["epoch_device_ms"],
+          epoch_top_device_ms=prof["epoch_top_device_ms"],
+          float32=json.dumps(F32_RUNS.get("lstm")), card=json.dumps(card))
+
+    for family, (cls, arch) in ZOO_MODELS.items():
+        cls(epochs=1, batch_size=bs, compute_dtype=BF16, **arch).fit(X1)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = cls(epochs=ZOO_EPOCHS, batch_size=bs, compute_dtype=BF16, **arch).fit(X1)
+        wall = time.perf_counter() - t0
+        loss = est.history["loss"]
+        if not np.all(np.isfinite(loss)) or not loss[-1] < loss[0]:
+            raise AssertionError(f"bf16_train {family}: losses {loss} are not finite or did not fall")
+        det = detector(cls(epochs=ZOO_EPOCHS, batch_size=bs, compute_dtype=BF16, **arch)).fit(X1)
+        k1 = score.launch_counts["fused_anomaly_score"]
+        total = det.anomaly(X1)["total-anomaly-scaled"]
+        k1 = score.launch_counts["fused_anomaly_score"] - k1
+        if k1 != 1 or not np.all(np.isfinite(total)):
+            raise AssertionError(f"bf16_train {family}: anomaly() launched K1 {k1} times")
+        stack = est._stack(est._build_module(X1.shape[1]))
+        prof = profile_training(stack, *stacked_block({"machine-0": X1}, bs, stack.warmup), bs,
+                                loss=est._resolved_loss(stack))
+        phase("bf16_train", leg=family, model=cls.__name__, kind=est.kind, epochs=ZOO_EPOCHS, batch=bs,
+              dtype=BF16, **run_summary(1, wall, est.epoch_seconds_, prof),
+              loss_epoch1=round(loss[0], 6), loss_epoch5=round(loss[-1], 6), k1_launches_anomaly=k1,
+              float32=json.dumps(F32_RUNS.get(family)), card=json.dumps(card))
+
+
+def detector(model):
+    """A min-max scaled detector around ``model`` (the reference's default
+    pipeline)."""
+    return DiffBasedAnomalyDetector(base_estimator=Pipeline([("scale", MinMaxScaler()), ("model", model)]))
+
+
+# one bf16 fit a family, card against CPU: (estimator class, architecture)
+BF16_PARITY_MODELS = {
+    "dense": (AutoEncoder, dict(kind="feedforward_hourglass")),
+    "vae": (AutoEncoder, dict(kind="feedforward_variational")),
+    "lstm": (LSTMAutoEncoder, dict(kind="lstm_hourglass", lookback_window=LOOKBACK)),
+    "conv": (ConvAutoEncoder, dict(lookback_window=LOOKBACK)),
+}
+# bf16 card vs CPU after three Adam steps from the same parameters, as
+# tests/test_torch_bf16.py holds the port to JAX's bf16 epoch: the loss
+# within rtol 1e-3; 98% of the parameters within 1e-4, every one within
+# 2 * lr a step (a gradient that rounds the other way moves an Adam step by
+# about its learning rate)
+BF16_LOSS_RTOL = 1e-3
+BF16_PARAM_ATOL, BF16_PARAM_SHARE = 1e-4, 0.98
+
+
+def bf16_parity_phase():
+    """One bf16 detector fit of each family on the card and on the CPU (256
+    rows x 10 tags, one batch an epoch, 3 epochs, the same seed), then the
+    card detectors served from a bank: its scores against each detector's
+    ``anomaly()`` within TRAIN_RTOL/TRAIN_ATOL."""
+    X = synth_fleet(1, 256, 10, seed=11)["machine-0"]
+    lr, epochs = 1e-3, 3
+    err, share, dets = {}, {}, {}
+    for family, (cls, arch) in BF16_PARITY_MODELS.items():
+        cfg = dict(epochs=epochs, batch_size=256, learning_rate=lr, compute_dtype=BF16, **arch)
+        card = detector(cls(**cfg)).fit(X)
+        cpu = detector(cls(device="cpu", **cfg)).fit(X)
+        a, b = card._final_estimator, cpu._final_estimator
+        if not np.allclose(a.history["loss"], b.history["loss"], rtol=BF16_LOSS_RTOL, atol=0):
+            raise AssertionError(f"bf16_parity {family}: losses {a.history['loss']} vs {b.history['loss']}")
+        diff = np.concatenate([np.abs(a.params_[k] - b.params_[k]).ravel() for k in b.params_])
+        share[family] = float(np.mean(diff <= BF16_PARAM_ATOL))
+        err[family] = float(diff.max())
+        if share[family] < BF16_PARAM_SHARE or err[family] > 2 * lr * epochs:
+            raise AssertionError(f"bf16_parity {family}: {share[family]} of the parameters within "
+                                 f"{BF16_PARAM_ATOL}, largest error {err[family]}")
+        dets[family] = card
+    bank = ModelBank.from_entries([d.to_entry(f) for f, d in dets.items()])
+    if {e.compute_dtype for e in (d.to_entry() for d in dets.values())} != {BF16}:
+        raise AssertionError("bf16_parity: a detector's entry lost compute_dtype")
+    bank_err = 0.0
+    for family, det in dets.items():
+        got = bank.score(family, X).to_arrays()
+        want = det.anomaly(X)
+        check_arrays(got, want, f"bf16_parity bank {family}", rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+        bank_err = max(bank_err, max(float(np.abs(got[k] - want[k]).max()) for k in want))
+    phase("bf16_parity", families=",".join(dets), rows=256, epochs=epochs, batch=256, lr=lr,
+          band=json.dumps(f"loss rtol={BF16_LOSS_RTOL}; params {BF16_PARAM_SHARE} within "
+                          f"{BF16_PARAM_ATOL}, all within 2*lr*steps"),
+          params_share_within=json.dumps(share), params_max_err=json.dumps(err),
+          bank_vs_anomaly_band=f"rtol={TRAIN_RTOL},atol={TRAIN_ATOL}", bank_vs_anomaly_max_err=bank_err)
+
+
+def bf16_bank_phase(card: str):
+    """The LSTM bank of ``bench.py:1286-1295``'s model in bf16 (10,000
+    ``lstm_hourglass`` members, lookback 32, 128-row requests) and a dense
+    bf16 bank, each through the closed loop and one profiled batch; then a
+    bank of bf16 and fp32 twins of equal kwargs: two buckets a family, each
+    bf16 member's scores equal to its ``anomaly()`` on the card within
+    TRAIN_RTOL/TRAIN_ATOL, and apart from its fp32 twin's."""
+    bank_phase(card, "lstm", BF16)
+    bank_phase(card, "dense", BF16)
+    rng = np.random.default_rng(12)
+    entries = []
+    for i in range(16):
+        e = random_entry(f"d{i}", 10, rng)
+        entries += [e, dataclasses.replace(e, name=f"d{i}-bf16", compute_dtype=BF16)]
+    for i in range(8):
+        e = random_lstm_entry(f"l{i}", "LSTMAutoEncoder", rng)
+        entries += [e, dataclasses.replace(e, name=f"l{i}-bf16", compute_dtype=BF16)]
+    bank = ModelBank.from_entries(entries)
+    if bank.n_buckets != 4:
+        raise AssertionError(f"bf16_mixed_bank: {bank.n_buckets} buckets for 2 families x 2 dtypes")
+    X = rng.random((128, 10)).astype(np.float32)
+    err = apart = 0.0
+    for e in entries:
+        if e.compute_dtype != BF16:
+            continue
+        got = bank.score(e.name, X).to_arrays()
+        want = DiffBasedAnomalyDetector.from_entry(e).anomaly(X)
+        check_arrays(got, want, f"bf16_mixed_bank {e.name}", rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+        err = max(err, max(float(np.abs(got[k] - want[k]).max()) for k in want))
+        twin = bank.score(e.name.removesuffix("-bf16"), X).to_arrays()["model-output"]
+        apart = max(apart, float(np.abs(twin - got["model-output"]).max()))
+    if apart <= 0:
+        raise AssertionError("bf16_mixed_bank: bf16 members score as their fp32 twins")
+    phase("bf16_mixed_bank", members=len(entries), buckets=bank.n_buckets,
+          labels=json.dumps(sorted(b.label for b in bank._buckets.values())),
+          band=f"rtol={TRAIN_RTOL},atol={TRAIN_ATOL}", bank_vs_anomaly_max_err=err,
+          bf16_vs_fp32_twin_max_diff=apart)
 
 
 def detector_pipeline(model_type: str, **kwargs):
@@ -2097,46 +2555,61 @@ def main() -> int:
 
     kernels = kernel_phase()
     kernels.update(lstm_kernel_phase())
+    kernels.update(bf16_kernel_phase())
 
     # every path: the launch counters from 0 just before it, read just after
     paths = {}
+    walls = {"kernels": round(time.perf_counter() - t0, 1)}  # each phase's wall seconds
 
     # (a path run in subprocesses returns theirs, each from 0 at its start)
     def drive(name, fn, *args, in_subprocesses=False):
         score.reset_launch_counts()
         seq_scan.reset_launch_counts()
+        t = time.perf_counter()
         result = fn(*args)
+        walls[name] = round(time.perf_counter() - t, 1)
         paths[name] = result if in_subprocesses else dict(score.launch_counts, **seq_scan.launch_counts)
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        fn()
+        walls[name] = round(time.perf_counter() - t, 1)
 
     record_path_shapes()
 
     drive("train", train_phase, card)
-    train_parity_phase()
+    timed("train_parity", train_parity_phase)
     drive("seq_train", seq_train_phase, card)
     drive("seq_fleet", seq_fleet_phase, card)
-    seq_train_parity_phase()
+    timed("seq_train_parity", seq_train_parity_phase)
     drive("zoo_train", zoo_train_phase, card)
     drive("zoo_fleet", zoo_fleet_phase, card)
-    zoo_parity_phase()
+    timed("zoo_parity", zoo_parity_phase)
+    drive("bf16_train", bf16_train_phase, card)
+    timed("bf16_parity", bf16_parity_phase)
     drive("http", http_phase)
     drive("bank", bank_phase, card)
     drive("lstm", bank_phase, card, "lstm")
     drive("zoo_bank", bank_phase, card, "conv")
+    drive("bf16_bank", bf16_bank_phase, card)
     drive("build", build_phase)
     drive("cli", cli_phase, in_subprocesses=True)
     drive("cv", cv_phase, card)
-    cv_parity_phase()
-    path_parity_phase(kernels)
+    timed("cv_parity", cv_parity_phase)
+    timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
                          ("zoo_bank", "banked_anomaly_score"),
                          ("http", "banked_anomaly_score"), ("http", "fused_anomaly_score"),
                          ("build", "banked_anomaly_score"), ("build", "fused_anomaly_score"),
                          ("build", "lstm_layer"), ("cli", "banked_anomaly_score"), ("cli", "lstm_layer"),
-                         ("cv", "lstm_layer")):
+                         ("cv", "lstm_layer"), ("bf16_train", "lstm_layer_bf16"),
+                         ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
+                         ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):
         if paths[path][kernel] <= 0:
             raise AssertionError(f"{path}: launched no {kernel}")
-    phase("counts", **{f"{k}_{path}": v for path, c in paths.items() for k, v in c.items()})
+    phase("counts", **{f"{path}.{k}": v for path, c in paths.items() for k, v in c.items()})
+    phase("walls", total_s=round(time.perf_counter() - t0, 1), **walls)
     for name in kernels:
         n = sum(c[name] for c in paths.values())
         if n <= 0:

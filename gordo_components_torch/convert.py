@@ -18,6 +18,8 @@ from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
+from gordo_components_torch.device import resolve_compute_dtype
+
 _DENSE = re.compile(r"^Dense_(\d+)$")
 _CELL = re.compile(r"^OptimizedLSTMCell_(\d+)$")
 _GATES = ("i", "f", "g", "o")  # Flax OptimizedLSTMCell split order
@@ -201,12 +203,14 @@ def entry_from_numpy(
     thresholds: Optional[Dict[str, Any]] = None,
     lookback: int = 1,
     target_offset: int = 0,
+    compute_dtype: str = "float32",
 ):
     """A bank entry (``server/bank._BankEntry``) from numpy pieces;
     ``params`` is a Flax param tree of the registry type's model. Sequence
     models (``LSTMAutoEncoder``, ``LSTMForecast``, ``ConvAutoEncoder``) score windows of
     ``lookback`` rows; ``target_offset`` is 0 for reconstruction and 1 for
-    a t+1 forecast. Feedforward models keep the defaults."""
+    a t+1 forecast. Feedforward models keep the defaults. ``compute_dtype``
+    is the model's, ``"float32"`` or ``"bfloat16"``."""
     from gordo_components_torch.server.bank import _BankEntry
 
     def vec(a, what):
@@ -215,6 +219,7 @@ def entry_from_numpy(
             raise ValueError(f"{name}: {what} has shape {a.shape}, expected ({n_features},)")
         return a
 
+    resolve_compute_dtype(compute_dtype)  # raises for a dtype the port does not compute in
     lookback, target_offset = int(lookback), int(target_offset)
     if lookback < 1 or target_offset < 0:
         raise ValueError(f"{name}: lookback={lookback}, target_offset={target_offset}")
@@ -235,4 +240,5 @@ def entry_from_numpy(
         thresholds=thresholds,
         lookback=lookback,
         target_offset=target_offset,
+        compute_dtype=str(compute_dtype),
     )

@@ -1,6 +1,18 @@
-"""Where the port runs: the card unless the caller asks for the CPU."""
+"""Where the port runs, and in which precision it computes."""
 
 import torch
+
+# compute_dtype names the port accepts, as the JAX package spells them
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def full_precision_products() -> None:
+    """Matrix products as the JAX reference computes them: TF32 off for
+    matmul and cuDNN, so float32 stays full float32, and bfloat16 products
+    reduced in float32 (no reduced-precision reduction), as XLA's are."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -10,8 +22,8 @@ def resolve_device(device="cuda") -> torch.device:
     available: the port never moves to the CPU on its own. Only an
     explicit ``"cpu"`` runs there, which is how the CPU tests run it.
 
-    On the card, TF32 is switched off for matrix products and cuDNN, so
-    float32 stays full float32 like the JAX reference.
+    On the card, products run in full precision
+    (:func:`full_precision_products`), like the JAX reference.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -20,8 +32,19 @@ def resolve_device(device="cuda") -> torch.device:
                 f"device={str(device)!r} but CUDA is not available; pass "
                 "device='cpu' to run the port on the CPU"
             )
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        full_precision_products()
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r} (cuda or cpu)")
     return dev
+
+
+def resolve_compute_dtype(name) -> torch.dtype:
+    """The torch dtype a model computes in, from its ``compute_dtype``:
+    ``"float32"`` or ``"bfloat16"`` (Flax's ``dtype=bfloat16`` with float32
+    parameters). Any other value raises ``NotImplementedError``."""
+    try:
+        return COMPUTE_DTYPES[name]
+    except (KeyError, TypeError):
+        raise NotImplementedError(
+            f"compute_dtype={name!r}: the port computes in 'float32' or 'bfloat16'"
+        ) from None

@@ -235,13 +235,14 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
             thresholds=self._thresholds(),
             lookback=int(getattr(est, "lookback_window", 1)),
             target_offset=int(getattr(est, "_target_offset", 0)),
+            compute_dtype=str(getattr(est, "compute_dtype", "float32")),
         )
 
     def _scoring(self) -> _Scorer:
         if self._scorer is None:
             entry, device = self.to_entry(), self.device
             model = lookup_factory(entry.registry_type, entry.kind)(
-                entry.n_features, **entry.factory_kwargs
+                entry.n_features, compute_dtype=entry.compute_dtype, **entry.factory_kwargs
             )
             model.load_state_dict({k: torch.as_tensor(v) for k, v in entry.params.items()})
 

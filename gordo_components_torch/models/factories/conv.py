@@ -21,6 +21,13 @@ it against Flax; other strides raise, as there.
 Parameters keep Flax's names and layout: ``Conv_i.kernel`` (K, F_in, C),
 ``Conv_i.bias`` (C,), ``ConvTranspose_j.kernel``/``.bias``, the final
 convolution last (``Conv_{len(channels)}``).
+
+In bfloat16 (``compute_dtype``) the windows, kernels and biases are cast
+to bfloat16 and each (transposed) convolution is one ``torch.bmm`` over
+the taps, accumulated in float32 and rounded once, with the bias then added
+in bfloat16, as ``nn.Conv(dtype=bfloat16)`` rounds (JAX ``conv.py:126-174``;
+the JAX package's ``"matmul"`` formulation rounds after every tap, within
+the bfloat16 band of ``tests/test_conv_impl.py``); the output is float32.
 """
 
 import os
@@ -30,9 +37,10 @@ import torch
 import torch.nn.functional as tF
 from torch import nn
 
-from gordo_components_torch.models.factories.feedforward import _check_dtype
+from gordo_components_torch.device import resolve_compute_dtype
 from gordo_components_torch.models.register import register_model_builder
 from gordo_components_torch.ops.activations import resolve_activation
+from gordo_components_torch.ops.dense import dense
 
 # names the default conv_impl, as in the JAX package; the value is resolved
 # and validated as there (a bad one raises), then ignored: both names compute
@@ -74,20 +82,23 @@ def conv_transpose1d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 def _taps(xp, kernel, bias, stride: int, out_len: int) -> torch.Tensor:
     """``y[:, :, o] = bias + sum_k xp[:, :, o * stride + k] @ kernel[:, k]``
-    as one batched product over the taps' strided view."""
+    as one batched product over the taps' strided view, in ``xp``'s dtype."""
     M, N, _, F = xp.shape
     K, C = kernel.shape[1], kernel.shape[-1]
     taps = xp.unfold(2, K, stride)[:, :, :out_len]  # (M, N, out_len, F, K), a view
     W = kernel.transpose(1, 2).reshape(M, F * K, C)  # row f * K + k is kernel[k, f]
-    y = torch.baddbmm(bias.unsqueeze(1), taps.reshape(M, N * out_len, F * K), W)
+    y = dense(taps.reshape(M, N * out_len, F * K), W, bias)
     return y.view(M, N, out_len, C)
 
 
-def conv_autoencoder_forward(weights: ConvWeights, x: torch.Tensor, n_encoder: int, act) -> torch.Tensor:
-    """The conv autoencoder for ``M`` members at once: windows ``x`` (M, N,
-    lookback, F) -> (M, N, F), the last step of the reconstruction.
-    ``weights`` are the layers in parameter order: ``n_encoder`` strided
-    convolutions, as many transposed ones, then the final convolution."""
+def conv_autoencoder_forward(weights: ConvWeights, x: torch.Tensor, n_encoder: int, act,
+                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The conv autoencoder for ``M`` members at once, computed in
+    ``dtype``: windows ``x`` (M, N, lookback, F) -> float32 (M, N, F), the
+    last step of the reconstruction. ``weights`` are the layers in parameter
+    order: ``n_encoder`` strided convolutions, as many transposed ones, then
+    the final convolution."""
+    x = x.to(dtype)
     for kernel, bias in weights[:n_encoder]:
         x = act(conv1d(x, kernel, bias, 2))
     for kernel, bias in weights[n_encoder:-1]:
@@ -98,7 +109,7 @@ def conv_autoencoder_forward(weights: ConvWeights, x: torch.Tensor, n_encoder: i
     K = kernel.shape[1]
     lo = (K - 1) // 2
     xp = tF.pad(x, (0, 0, lo, K - 1 - lo))[:, :, -K:]
-    return _taps(xp, kernel, bias, 1, 1)[:, :, 0]
+    return _taps(xp, kernel, bias, 1, 1)[:, :, 0].float()
 
 
 class _ConvLayer(nn.Module):
@@ -116,9 +127,11 @@ class Conv1DAutoEncoder(nn.Module):
     family = "conv"  # keys the port's per-family tables (models.register.by_family)
     windowed = True  # the model reads windows of rows
 
-    def __init__(self, n_features: int, channels: Tuple[int, ...], kernel_size: int, func: str):
+    def __init__(self, n_features: int, channels: Tuple[int, ...], kernel_size: int, func: str,
+                 compute_dtype: str = "float32"):
         super().__init__()
         self.n_features = n_features
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.channels = tuple(channels)
         self.kernel_size = int(kernel_size)
         self.func = func
@@ -138,7 +151,8 @@ class Conv1DAutoEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weights = [(getattr(self, n).kernel[None], getattr(self, n).bias[None]) for n in self.layer_names()]
-        return conv_autoencoder_forward(weights, x[None], len(self.channels), self.activation)[0]
+        return conv_autoencoder_forward(weights, x[None], len(self.channels), self.activation,
+                                        self.compute_dtype)[0]
 
 
 @register_model_builder(type="ConvAutoEncoder")
@@ -156,7 +170,6 @@ def conv1d_autoencoder(
     ``conv_impl`` is ``"matmul"`` or ``"lax"`` (default: ``GORDO_CONV_IMPL``,
     else ``"matmul"``), accepted so that the JAX package's configurations
     load; it is validated and ignored, both naming the same convolution."""
-    _check_dtype(compute_dtype)
     if conv_impl is None:
         conv_impl = os.environ.get(CONV_IMPL_ENV, "").strip().lower() or "matmul"
     if conv_impl not in _CONV_IMPLS:
@@ -164,4 +177,4 @@ def conv1d_autoencoder(
     channels = tuple(channels)
     if not channels:
         raise ValueError("channels must be non-empty")
-    return Conv1DAutoEncoder(n_features, channels, kernel_size, func)
+    return Conv1DAutoEncoder(n_features, channels, kernel_size, func, compute_dtype)

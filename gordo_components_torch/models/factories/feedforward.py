@@ -3,7 +3,9 @@
 Counterpart of ``gordo_components_tpu/models/factories/feedforward.py``:
 dense encoder/decoder stacks, where ``feedforward_hourglass`` (the default
 model) shrinks the encoder dims by ``compression_factor`` over
-``encoding_layers``. Layers are ``nn.Linear``; the port computes in float32.
+``encoding_layers``. Layers are ``nn.Linear`` with float32 parameters; the
+module computes in ``compute_dtype`` (float32, or bfloat16 as Flax's
+``Dense(dtype=bfloat16)`` rounds, ``ops/dense.py``) and returns float32.
 """
 
 from typing import List, Sequence, Tuple
@@ -11,8 +13,10 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from gordo_components_torch.device import resolve_compute_dtype
 from gordo_components_torch.models.register import register_model_builder
 from gordo_components_torch.ops.activations import resolve_activation
+from gordo_components_torch.ops.dense import dense_chain
 
 
 class FeedForwardAutoEncoder(nn.Module):
@@ -30,9 +34,11 @@ class FeedForwardAutoEncoder(nn.Module):
         encoding_func: Tuple[str, ...],
         decoding_func: Tuple[str, ...],
         out_func: str = "linear",
+        compute_dtype: str = "float32",
     ):
         super().__init__()
         self.n_features = n_features
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         dims = [n_features, *encoding_dim, *decoding_dim, n_features]
         self.funcs: List[str] = [*encoding_func, *decoding_func, out_func]
         self.activations = [resolve_activation(f) for f in self.funcs]
@@ -41,9 +47,11 @@ class FeedForwardAutoEncoder(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer, act in zip(self.layers, self.activations):
-            x = act(layer(x))
-        return x
+        # the bank's dense chain with one member, so that a detector and
+        # its bank bucket compute alike
+        chain = [(layer.weight.T[None], layer.bias[None], act)
+                 for layer, act in zip(self.layers, self.activations)]
+        return dense_chain(x[None], chain, self.compute_dtype)[0].float()
 
     def serving_chain(self, state) -> list:
         """The forward as ``(kernel (in, out), bias, activation)`` layers
@@ -61,13 +69,6 @@ def _norm_funcs(funcs, n, default):
     return funcs
 
 
-def _check_dtype(compute_dtype: str) -> None:
-    if compute_dtype != "float32":
-        raise ValueError(
-            f"compute_dtype={compute_dtype!r}: the port computes in float32 only"
-        )
-
-
 @register_model_builder(type="AutoEncoder")
 def feedforward_model(
     n_features: int,
@@ -80,7 +81,6 @@ def feedforward_model(
     **_ignored,
 ) -> FeedForwardAutoEncoder:
     """Fully specified dense autoencoder (reference: ``feedforward_model``)."""
-    _check_dtype(compute_dtype)
     return FeedForwardAutoEncoder(
         n_features=n_features,
         encoding_dim=tuple(encoding_dim),
@@ -88,6 +88,7 @@ def feedforward_model(
         encoding_func=_norm_funcs(encoding_func, len(encoding_dim), "tanh"),
         decoding_func=_norm_funcs(decoding_func, len(decoding_dim), "tanh"),
         out_func=out_func,
+        compute_dtype=compute_dtype,
     )
 
 

@@ -10,6 +10,11 @@ through :func:`~gordo_components_torch.ops.seq_scan.lstm_time_major_forward`
 Parameters keep Flax ``OptimizedLSTMCell``'s layout: per layer ``Wi``
 (in, 4H), ``Wh`` (H, 4H) and ``b`` (4H,) in gate order i, f, g, o, with the
 bias on the hidden half only; the head is ``kernel`` (H, F), ``bias`` (F,).
+
+In bfloat16 (``compute_dtype``) the stack computes as Flax's
+``OptimizedLSTMCell(dtype=bfloat16)`` under ``nn.RNN`` does: bfloat16
+products, biases and gates, float32 carries and layer outputs, a bfloat16
+head, a float32 result (``ops/seq_scan.py``).
 """
 
 from typing import Sequence, Tuple
@@ -17,11 +22,8 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from gordo_components_torch.models.factories.feedforward import (
-    _check_dtype,
-    _norm_funcs,
-    hourglass_calc_dims,
-)
+from gordo_components_torch.device import resolve_compute_dtype
+from gordo_components_torch.models.factories.feedforward import _norm_funcs, hourglass_calc_dims
 from gordo_components_torch.models.register import register_model_builder
 from gordo_components_torch.ops.seq_scan import Weights, lstm_time_major_forward
 
@@ -63,9 +65,11 @@ class LSTMStack(nn.Module):
         dims: Tuple[int, ...],
         funcs: Tuple[str, ...],
         out_func: str = "linear",
+        compute_dtype: str = "float32",
     ):
         super().__init__()
         self.n_features = n_features
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.dims = tuple(dims)
         self.funcs = tuple(funcs)
         self.out_func = out_func
@@ -82,7 +86,7 @@ class LSTMStack(nn.Module):
 
     def forward(self, windows: torch.Tensor) -> torch.Tensor:
         return lstm_time_major_forward(
-            self.weights(), windows[None], self.funcs, self.out_func
+            self.weights(), windows[None], self.funcs, self.out_func, self.compute_dtype
         )[0]
 
 
@@ -97,11 +101,10 @@ def lstm_model(
     **_ignored,
 ) -> LSTMStack:
     """Fully specified LSTM stack (reference: ``lstm_model``)."""
-    _check_dtype(compute_dtype)
     dims = tuple(dims)
     if not dims:
         raise ValueError("dims must be non-empty")
-    return LSTMStack(n_features, dims, _norm_funcs(funcs, len(dims), "tanh"), out_func)
+    return LSTMStack(n_features, dims, _norm_funcs(funcs, len(dims), "tanh"), out_func, compute_dtype)
 
 
 @register_model_builder(type="LSTMAutoEncoder")

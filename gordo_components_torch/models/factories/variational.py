@@ -6,7 +6,10 @@ log-variance ``logvar``, a dense decoder back to ``n_features``. The
 forward decodes ``mu`` (the deterministic reconstruction that scores);
 training adds the KL term through :meth:`VariationalAutoEncoder.elbo_terms`,
 whose reparameterization noise is an explicit argument (the train core
-draws it from each member's own generator).
+draws it from each member's own generator). The module computes in
+``compute_dtype`` (JAX ``variational.py:29-60``): in bfloat16 every layer,
+``mu``, ``logvar``, the latent sample and the KL term round as Flax's do,
+and the reconstruction and KL come back in float32.
 
 Parameters keep Flax's names and layout: ``enc_i``, ``mu``, ``logvar``,
 ``dec_j`` and ``out``, each a ``kernel`` (in, out) and a ``bias`` (out,).
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from gordo_components_torch.models.factories.feedforward import _check_dtype
+from gordo_components_torch.device import resolve_compute_dtype
 from gordo_components_torch.models.register import register_model_builder
 from gordo_components_torch.ops.activations import resolve_activation
 from gordo_components_torch.ops.dense import dense_chain
@@ -39,9 +42,11 @@ class VariationalAutoEncoder(nn.Module):
     family = "vae"  # keys the port's per-family tables (models.register.by_family)
     windowed = False  # the model reads rows
 
-    def __init__(self, n_features: int, dims: Tuple[int, ...], latent_dim: int, func: str):
+    def __init__(self, n_features: int, dims: Tuple[int, ...], latent_dim: int, func: str,
+                 compute_dtype: str = "float32"):
         super().__init__()
         self.n_features = n_features
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.dims = tuple(dims)
         self.latent_dim = int(latent_dim)
         self.func = func
@@ -83,26 +88,28 @@ class VariationalAutoEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         enc, mu, _logvar, dec = self._member_chains()
-        return dense_chain(x[None], [*enc, mu, *dec])[0]
+        return dense_chain(x[None], [*enc, mu, *dec], self.compute_dtype)[0].float()
 
     def elbo_terms(self, x: torch.Tensor, noise: torch.Tensor):
         """``(recon, kl)`` of rows ``x`` (N, n_features) with the latent
         ``mu + exp(0.5 * logvar) * noise``, ``noise`` (N, latent_dim)."""
-        recon, kl = vae_elbo_terms(self._member_chains(), x[None], noise[None])
+        recon, kl = vae_elbo_terms(self._member_chains(), x[None], noise[None], self.compute_dtype)
         return recon[0], kl[0]
 
 
-def vae_elbo_terms(chains, x: torch.Tensor, noise: torch.Tensor):
-    """Stacked ELBO terms: ``x`` (M, B, F) and ``noise`` (M, B, latent) ->
-    ``recon`` (M, B, F) decoded from ``z = mu + exp(0.5 * logvar) * noise``
-    and ``kl`` (M, B) ``= -0.5 * sum(1 + logvar - mu^2 - exp(logvar))``."""
+def vae_elbo_terms(chains, x: torch.Tensor, noise: torch.Tensor, dtype: torch.dtype = torch.float32):
+    """Stacked ELBO terms computed in ``dtype``: ``x`` (M, B, F) and
+    ``noise`` (M, B, latent, cast to ``dtype`` as JAX draws it in
+    ``mu.dtype``) -> float32 ``recon`` (M, B, F) decoded from ``z = mu +
+    exp(0.5 * logvar) * noise`` and ``kl`` (M, B) ``= -0.5 * sum(1 + logvar
+    - mu^2 - exp(logvar))``."""
     enc, mu_layer, logvar_layer, dec = chains
-    h = dense_chain(x, enc)
-    mu = dense_chain(h, [mu_layer])
-    logvar = dense_chain(h, [logvar_layer])
-    recon = dense_chain(mu + torch.exp(0.5 * logvar) * noise, dec)
+    h = dense_chain(x, enc, dtype)
+    mu = dense_chain(h, [mu_layer], dtype)
+    logvar = dense_chain(h, [logvar_layer], dtype)
+    recon = dense_chain(mu + torch.exp(0.5 * logvar) * noise.to(dtype), dec, dtype)
     kl = -0.5 * torch.sum(1 + logvar - mu**2 - torch.exp(logvar), dim=-1)
-    return recon, kl
+    return recon.float(), kl.float()
 
 
 @register_model_builder(type="AutoEncoder")
@@ -115,5 +122,4 @@ def feedforward_variational(
     **_ignored,
 ) -> VariationalAutoEncoder:
     """Variational dense autoencoder (reference: ``feedforward_variational``)."""
-    _check_dtype(compute_dtype)
-    return VariationalAutoEncoder(n_features, tuple(dims), latent_dim, func)
+    return VariationalAutoEncoder(n_features, tuple(dims), latent_dim, func, compute_dtype)

@@ -32,6 +32,11 @@ every shuffle, a batch that is all padding is an exact no-op for its member
 weighted by real items. Nothing inside the batch loop reads a device value
 on the host.
 
+Every stack computes in its module's ``compute_dtype`` (float32 or
+bfloat16, as the JAX modules do) and returns float32 outputs; the ``(M,
+P)`` parameters, their gradients, the stacked optimizer state and the loss
+stay float32, as Flax keeps float32 parameters under ``dtype=bfloat16``.
+
 Random draws come from explicit ``torch.Generator`` objects on the CPU, one
 per member, seeded from ``(seed, member position)``: a member's
 initialization, shuffles and variational noise do not depend on the gang's
@@ -162,6 +167,7 @@ class StackedDense(_NamedStack):
 
     def __init__(self, module):
         self.activations = list(module.activations)
+        self.dtype = module.compute_dtype
         self._set_shapes({key: shape for i, l in enumerate(module.layers) for key, shape in (
             (f"layers.{i}.kernel", (l.in_features, l.out_features)),
             (f"layers.{i}.bias", (l.out_features,)),
@@ -173,8 +179,9 @@ class StackedDense(_NamedStack):
         return [(p[f"layers.{i}.kernel"], p[f"layers.{i}.bias"]) for i in range(len(self.activations))]
 
     def forward(self, flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """``x`` (M, B, n_features) -> (M, B, n_features)."""
-        return dense_chain(x, [(W, b, act) for (W, b), act in zip(self.split(flat), self.activations)])
+        """``x`` (M, B, n_features) -> (M, B, n_features) float32."""
+        layers = [(W, b, act) for (W, b), act in zip(self.split(flat), self.activations)]
+        return dense_chain(x, layers, self.dtype).float()
 
     def state_dicts(self, flat: torch.Tensor) -> List[Dict[str, np.ndarray]]:
         """Each member's ``FeedForwardAutoEncoder`` state dict, as numpy."""
@@ -206,6 +213,7 @@ class StackedLSTM(_NamedStack):
         self.dims = tuple(module.dims)
         self.funcs = tuple(module.funcs)
         self.out_func = module.out_func
+        self.dtype = module.compute_dtype
         self.n_features = int(module.n_features)
         self.lookback = int(lookback)
         self.target_offset = int(target_offset)
@@ -234,7 +242,7 @@ class StackedLSTM(_NamedStack):
         kernel (``lstm_time_major_forward``)."""
         forward = (lstm_train_forward if torch.is_grad_enabled() and flat.requires_grad
                    else lstm_time_major_forward)
-        return forward(self.split(flat), xb, self.funcs, self.out_func)
+        return forward(self.split(flat), xb, self.funcs, self.out_func, self.dtype)
 
     def batch(self, X, Y, idx):
         """The windows of items ``idx`` (M, B) over the raw rows ``X`` (M,
@@ -275,6 +283,7 @@ class StackedConv(_NamedStack):
         self.layer_names = module.layer_names()
         self.n_encoder = len(module.channels)
         self.activation = module.activation
+        self.dtype = module.compute_dtype
         self.n_features = int(module.n_features)
         self.lookback = int(lookback)
         self.target_offset = int(target_offset)
@@ -289,7 +298,7 @@ class StackedConv(_NamedStack):
 
     def forward(self, flat: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
         """Windows ``xb`` (M, B, lookback, F) -> (M, B, F)."""
-        return conv_autoencoder_forward(self.split(flat), xb, self.n_encoder, self.activation)
+        return conv_autoencoder_forward(self.split(flat), xb, self.n_encoder, self.activation, self.dtype)
 
     def batch(self, X, Y, idx):
         """As :meth:`StackedLSTM.batch`."""
@@ -311,6 +320,7 @@ class StackedVAE(_NamedStack):
 
     def __init__(self, module: VariationalAutoEncoder):
         self.module = module
+        self.dtype = module.compute_dtype
         self.latent_dim = module.latent_dim
         self._set_shapes({k: tuple(v.shape) for k, v in module.state_dict().items()})
 
@@ -321,11 +331,11 @@ class StackedVAE(_NamedStack):
     def forward(self, flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """Rows ``x`` (M, B, F) -> the mean decode (M, B, F)."""
         enc, mu, _logvar, dec = self.chains(flat)
-        return dense_chain(x, [*enc, mu, *dec])
+        return dense_chain(x, [*enc, mu, *dec], self.dtype).float()
 
     def elbo_terms(self, flat: torch.Tensor, x: torch.Tensor, noise: torch.Tensor):
         """``(recon (M, B, F), kl (M, B))`` with ``noise`` (M, B, latent)."""
-        return vae_elbo_terms(self.chains(flat), x, noise)
+        return vae_elbo_terms(self.chains(flat), x, noise, self.dtype)
 
 
 # the stack of each model family (``models.register.by_family``)

@@ -12,6 +12,21 @@ only)::
     c' = sigmoid(f) * c + sigmoid(i) * tanh(g)
     h' = sigmoid(o) * tanh(c')
 
+In bfloat16 (the models' ``compute_dtype``) the step is Flax's
+``OptimizedLSTMCell(dtype=bfloat16)``, with ``r()`` the rounding to
+bfloat16 and ``xz = r(bf16(x) @ Wi)`` (bfloat16 ``xz``, ``Wh`` and ``b``)::
+
+    z = r(xz + r(r(bf16(h) @ Wh) + b))    # products accumulate in float32
+    i, f, o = s(.), g = r(tanh(.))        # s(z) = r(1 / r(1 + r(exp(-z))))
+    c' = f * c + r(i * g)                 # c, c' float32
+    h' = o * tanh(c')                     # float32, as every layer's output
+
+The JAX package's Pallas step cannot run this (its stores are typed by
+``xz``, so bfloat16 inputs fail to trace); the contract is the cell, which
+``tests/test_torch_bf16.py`` holds the plain version to. The kernel has a
+bfloat16 instance for it, and each wrapper picks the instance by
+``xz.dtype``.
+
 Two wrappers launch the one kernel, which runs S consecutive steps:
 
 - :func:`fused_lstm_step` — one step, the exact counterpart of the TPU
@@ -32,7 +47,8 @@ Not ported: the layout and kernel-mode knobs (``GORDO_SEQ_LAYOUT``,
 rule — and ``pad_gate_lanes``, which pads H to the TPU's 128 lanes; the CUDA
 kernel bounds-checks ragged H, B and M instead.
 
-``launch_counts`` counts kernel launches per wrapper.
+``launch_counts`` counts kernel launches per wrapper, the bfloat16
+instance's under ``fused_lstm_step_bf16`` and ``lstm_layer_bf16``.
 """
 
 import ctypes
@@ -42,7 +58,7 @@ from typing import List, Mapping, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from gordo_components_torch.ops._cuda import LaunchCounts, check_tensor
-from gordo_components_torch.ops.activations import resolve_activation
+from gordo_components_torch.ops.activations import resolve_activation, sigmoid
 
 LayerWeights = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # Wi, Wh, b
 Weights = Tuple[List[LayerWeights], Tuple[torch.Tensor, torch.Tensor]]
@@ -53,9 +69,11 @@ N_SM = 132  # streaming multiprocessors of an H100 SXM
 BLOCK_SMEM_BUDGET = 100 * 1024  # block path: two blocks still fit an SM
 WARP_STAGES = 8  # the warp path's ring slots (the kernel is built for 8)
 
-launch_counts = LaunchCounts("fused_lstm_step", "lstm_layer")
+launch_counts = LaunchCounts("fused_lstm_step", "lstm_layer", "fused_lstm_step_bf16", "lstm_layer_bf16")
+# the kernel's instances by the dtype of xz, Wh and b: (C entry, launch-count suffix)
+_INSTANCES = {torch.float32: ("gordo_lstm_steps", ""), torch.bfloat16: ("gordo_lstm_steps_bf16", "_bf16")}
 reset_launch_counts = launch_counts.reset
-_kernel_fn = None
+_kernel_fns = {}
 
 
 def extract_lstm_weights(params: Mapping) -> Weights:
@@ -72,22 +90,35 @@ def extract_lstm_weights(params: Mapping) -> Weights:
     return layers, (sd["head.kernel"], sd["head.bias"])
 
 
-def lstm_step_plain(xz_t, h, c, Wh, b):
-    """One recurrent step in plain PyTorch (the math of ``lstm_step_jnp``):
-    xz_t (B, M, 4H) precomputed input projection; h, c (B, M, H); Wh
-    (M, H, 4H); b (M, 4H). Returns (c', h')."""
-    z = xz_t + torch.bmm(h.transpose(0, 1), Wh).transpose(0, 1) + b[None]
+def _gates(z, c):
+    """``(c', h')`` from the pre-activations ``z`` (..., 4H) in the compute
+    dtype and the float32 carry ``c``. In bfloat16 the gates round to
+    bfloat16 (the sigmoid as XLA expands it, ``ops/activations.sigmoid``),
+    ``i * g`` too, and the products with the float32 ``c`` and ``tanh(c')``
+    promote to float32: the cell's rounding points."""
     i, f, g, o = z.chunk(4, dim=-1)
-    c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    h2 = torch.sigmoid(o) * torch.tanh(c2)
-    return c2, h2
+    c2 = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
+    return c2, sigmoid(o) * torch.tanh(c2)
+
+
+def lstm_step_plain(xz_t, h, c, Wh, b):
+    """One recurrent step in plain PyTorch (the math of ``lstm_step_jnp``,
+    or of the bfloat16 cell for bfloat16 ``xz_t``, ``Wh`` and ``b``): xz_t
+    (B, M, 4H) precomputed input projection; h, c (B, M, H) float32; Wh
+    (M, H, 4H); b (M, 4H). Returns float32 (c', h')."""
+    hW = torch.bmm(h.to(Wh.dtype).transpose(0, 1), Wh).transpose(0, 1)
+    if xz_t.dtype == torch.float32:
+        z = xz_t + hW + b[None]
+    else:
+        z = xz_t + (hW + b[None])
+    return _gates(z, c)
 
 
 def lstm_layer_plain(xz, Wh, b):
     """A layer's steps from a zero state in plain PyTorch: xz (S, B, M, 4H)
-    -> every step's h, (S, B, M, H)."""
+    -> every step's h, (S, B, M, H) float32."""
     _, B, M, _ = xz.shape
-    h = c = xz.new_zeros((B, M, Wh.shape[-2]))
+    h = c = torch.zeros((B, M, Wh.shape[-2]), device=xz.device)
     ys = []
     for xz_t in xz:
         c, h = lstm_step_plain(xz_t, h, c, Wh, b)
@@ -113,8 +144,10 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def _launch_plan(B: int, M: int, H: int) -> LaunchPlan:
-    """The kernel's launch plan for B windows, M members, width H.
+def _launch_plan(B: int, M: int, H: int, elem_bytes: int = 4) -> LaunchPlan:
+    """The kernel's launch plan for B windows, M members, width H, with
+    ``xz``, ``Wh`` and ``b`` of ``elem_bytes`` bytes an element (4 for
+    float32, 2 for bfloat16; ``h`` is float32 in both).
 
     Warp path (H <= 32): the B*M (window, member) pairs are flattened,
     next_pow2(H) lanes a pair, 32 // that pairs a warp; blocks of up to 4
@@ -132,35 +165,37 @@ def _launch_plan(B: int, M: int, H: int) -> LaunchPlan:
         pairs = B * M
         warps = min(4, max(1, _cdiv(_cdiv(pairs, per_warp), N_SM)))
         tile = warps * per_warp
-        smem = f32 * warps * WARP_STAGES * per_warp * 4 * H
+        smem = elem_bytes * warps * WARP_STAGES * per_warp * 4 * H
         return LaunchPlan(group, tile, 32 * warps, WARP_STAGES, False, smem,
                           (_cdiv(pairs, tile), 1))
     n_tiles = _cdiv(B, max(1, min(B, 256 // H)))
     tile = _cdiv(B, n_tiles)
-    slot = f32 * tile * 4 * H
+    slot = elem_bytes * tile * 4 * H
     h_bytes = f32 * tile * H
-    w_bytes = f32 * H * 4 * H
+    w_bytes = elem_bytes * H * 4 * H
     stages = 8 if 8 * slot + h_bytes <= BLOCK_SMEM_BUDGET else 4
     stage_w = stages * slot + h_bytes + w_bytes <= BLOCK_SMEM_BUDGET
     smem = stages * slot + h_bytes + (w_bytes if stage_w else 0)
     return LaunchPlan(0, tile, 32 * _cdiv(tile * H, 32), stages, stage_w, smem, (n_tiles, M))
 
 
-def _kernel():
-    global _kernel_fn
-    if _kernel_fn is None:
+def _kernel(entry: str):
+    fn = _kernel_fns.get(entry)
+    if fn is None:
         from gordo_components_torch.ops import _cuda
 
-        fn = _cuda.load("lstm_step").gordo_lstm_steps
+        fn = getattr(_cuda.load("lstm_step"), entry)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, *[i] * 12, p, p, p]
         fn.restype = ctypes.c_int
-        _kernel_fn = fn
-    return _kernel_fn
+        _kernel_fns[entry] = fn
+    return fn
 
 
 def _launch(xz, h0: Optional[torch.Tensor], c0: Optional[torch.Tensor], Wh, b):
-    """Validate and launch S steps on the current stream; returns (ys, c)."""
+    """Validate and launch S steps on the current stream with the kernel's
+    instance for ``xz.dtype`` (float32 or bfloat16, which ``Wh`` and ``b``
+    share; ``h0``, ``c0`` and the results are float32); returns (ys, c)."""
     if xz.dim() != 4:
         raise ValueError(f"xz must be (S, B, M, 4H), got {tuple(xz.shape)}")
     S, B, M, H4 = xz.shape
@@ -169,19 +204,22 @@ def _launch(xz, h0: Optional[torch.Tensor], c0: Optional[torch.Tensor], Wh, b):
         raise ValueError(f"gate width 4H={H4} needs 1 <= H <= {MAX_HIDDEN}")
     if not 1 <= M <= 65535:
         raise ValueError(f"members M={M} outside the kernel's grid (1..65535)")
-    dev, f32 = xz.device, torch.float32
-    check_tensor("xz", xz, f32, (S, B, M, H4), dev)
-    check_tensor("Wh", Wh, f32, (M, H, H4), dev)
-    check_tensor("b", b, f32, (M, H4), dev)
+    dev, f32, dt = xz.device, torch.float32, xz.dtype
+    if dt not in _INSTANCES:
+        raise TypeError(f"xz has dtype {dt}; the kernel has float32 and bfloat16 instances")
+    check_tensor("xz", xz, dt, (S, B, M, H4), dev)
+    check_tensor("Wh", Wh, dt, (M, H, H4), dev)
+    check_tensor("b", b, dt, (M, H4), dev)
     for name, t in (("h", h0), ("c", c0)):
         if t is not None:
             check_tensor(name, t, f32, (B, M, H), dev)
-    if xz.data_ptr() % 16:
-        raise ValueError("xz must start on a 16-byte boundary (the kernel copies 16-byte pieces)")
-    plan = _launch_plan(B, M, H)
+    piece = 4 * xz.element_size()  # the kernel copies xz four elements at a time
+    if xz.data_ptr() % piece:
+        raise ValueError(f"xz must start on a {piece}-byte boundary (the kernel copies {piece}-byte pieces)")
+    plan = _launch_plan(B, M, H, xz.element_size())
     ys = torch.empty((S, B, M, H), dtype=torch.float32, device=dev)
     c_out = torch.empty((B, M, H), dtype=torch.float32, device=dev)
-    err = _kernel()(
+    err = _kernel(_INSTANCES[dt][0])(
         xz.data_ptr(), None if h0 is None else h0.data_ptr(),
         None if c0 is None else c0.data_ptr(), Wh.data_ptr(), b.data_ptr(),
         S, B, M, H, plan.group, plan.tile, plan.threads, plan.stages,
@@ -216,7 +254,7 @@ def fused_lstm_step(xz_t, h, c, Wh, b):
         raise ValueError(f"xz_t must be (B, M, 4H), got {tuple(xz_t.shape)}")
     _refuse_grad(xz_t, h, c, Wh, b)
     ys, c2 = _launch(xz_t[None], h, c, Wh, b)
-    launch_counts.add("fused_lstm_step")
+    launch_counts.add("fused_lstm_step" + _INSTANCES[xz_t.dtype][1])
     return c2, ys[0]
 
 
@@ -231,43 +269,49 @@ def lstm_layer(xz, Wh, b):
         raise ValueError(f"unsupported device {xz.device}")
     _refuse_grad(xz, Wh, b)
     ys, _ = _launch(xz, None, None, Wh, b)
-    launch_counts.add("lstm_layer")
+    launch_counts.add("lstm_layer" + _INSTANCES[xz.dtype][1])
     return ys
 
 
 def lstm_time_major_forward(
-    weights: Weights, xb: torch.Tensor, funcs: Sequence[str], out_func: str = "linear"
+    weights: Weights, xb: torch.Tensor, funcs: Sequence[str], out_func: str = "linear",
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """LSTM-stack forward over member-stacked weights.
+    """LSTM-stack forward over member-stacked weights, computed in
+    ``dtype`` (the input projection, the kernel's instance and the head;
+    the layer outputs and their activations are float32).
 
     ``weights`` is ``(layers, (Wd, bd))`` as :func:`extract_lstm_weights`
     gives it, every tensor with a leading member axis M; ``funcs`` are the
     per-layer activations and ``out_func`` the head's. ``xb``: (M, B, T, F),
     each member's batch of windows (the bank passes (slots, windows,
-    lookback, F)). Returns (M, B, F): the head over the last layer's final
-    hidden state."""
+    lookback, F)). Returns float32 (M, B, F): the head over the last
+    layer's final hidden state."""
     layers, (Wd, bd) = weights
     if len(funcs) != len(layers):
         raise ValueError(f"{len(layers)} layers but {len(funcs)} activations")
     x = xb.permute(2, 1, 0, 3)  # (T, B, M, F), a view
     for (Wi, Wh, b), func in zip(layers, funcs):
-        xz = torch.einsum("tbmf,mfg->tbmg", x, Wi).contiguous()
-        x = resolve_activation(func)(lstm_layer(xz, Wh.contiguous(), b.contiguous()))
-    out = torch.bmm(x[-1].transpose(0, 1), Wd) + bd[:, None, :]  # (M, B, F)
-    return resolve_activation(out_func)(out)
+        xz = torch.einsum("tbmf,mfg->tbmg", x.to(dtype), Wi.to(dtype)).contiguous()
+        ys = lstm_layer(xz, Wh.to(dtype).contiguous(), b.to(dtype).contiguous())
+        x = resolve_activation(func)(ys)
+    out = torch.bmm(x[-1].transpose(0, 1).to(dtype), Wd.to(dtype)) + bd.to(dtype)[:, None, :]  # (M, B, F)
+    return resolve_activation(out_func)(out).float()
 
 
-def _train_step(xz_t, h, c, Wh):
+def _train_step(xz_t, h, c, Wh, b=None):
     """One recurrent step for autograd, member-major: ``lstm_step_jnp``'s
-    math with the bias already in ``xz_t`` (M, B, 4H); h, c (M, B, H), Wh
-    (M, H, 4H). Returns (c', h')."""
-    i, f, g, o = torch.baddbmm(xz_t, h, Wh).chunk(4, dim=-1)
-    c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    return c2, torch.sigmoid(o) * torch.tanh(c2)
+    math with the bias already in ``xz_t`` (M, B, 4H) in float32; in
+    bfloat16 the cell's, with ``b`` (M, 4H) added to the rounded hidden
+    product. h, c (M, B, H) float32, Wh (M, H, 4H). Returns (c', h')."""
+    if b is None:
+        return _gates(torch.baddbmm(xz_t, h, Wh), c)
+    return _gates(xz_t + (torch.bmm(h.to(Wh.dtype), Wh) + b[:, None]), c)
 
 
 def lstm_train_forward(
-    weights: Weights, xb: torch.Tensor, funcs: Sequence[str], out_func: str = "linear"
+    weights: Weights, xb: torch.Tensor, funcs: Sequence[str], out_func: str = "linear",
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The training forward: :func:`lstm_time_major_forward`'s function in
     PyTorch ops that autograd differentiates, never the kernel. The JAX
@@ -278,7 +322,9 @@ def lstm_train_forward(
     ``xb`` (M, B, T, F) -> (M, B, F). Per layer one ``torch.baddbmm`` for
     every step's input projection and bias, then a loop over time whose
     step is one ``torch.baddbmm`` over (M, B, .) and the gates; the
-    activation on the layer's outputs; the head on the last hidden state."""
+    activation on the layer's outputs; the head on the last hidden state.
+    In bfloat16 the input projection is a bare product and the bias joins
+    the hidden product, at the cell's rounding points."""
     layers, (Wd, bd) = weights
     if len(funcs) != len(layers):
         raise ValueError(f"{len(layers)} layers but {len(funcs)} activations")
@@ -286,11 +332,19 @@ def lstm_train_forward(
     x = xb.transpose(1, 2)  # (M, T, B, F)
     for (Wi, Wh, b), func in zip(layers, funcs):
         H = Wh.shape[-2]
-        xz = torch.baddbmm(b[:, None, :], x.reshape(M, T * B, -1), Wi).view(M, T, B, 4 * H)
-        h = c = xz.new_zeros((M, B, H))
+        rows = x.reshape(M, T * B, -1)
+        if dtype == torch.float32:
+            xz, b = torch.baddbmm(b[:, None, :], rows, Wi), None
+        else:
+            xz, Wh, b = torch.bmm(rows.to(dtype), Wi.to(dtype)), Wh.to(dtype), b.to(dtype)
+        xz = xz.view(M, T, B, 4 * H)
+        h = c = torch.zeros((M, B, H), device=xz.device)
         ys = []
         for t in range(T):
-            c, h = _train_step(xz[:, t], h, c, Wh)
+            c, h = _train_step(xz[:, t], h, c, Wh, b)
             ys.append(h)
         x = resolve_activation(func)(torch.stack(ys, dim=1))
-    return resolve_activation(out_func)(torch.baddbmm(bd[:, None, :], x[:, -1], Wd))
+    if dtype == torch.float32:
+        return resolve_activation(out_func)(torch.baddbmm(bd[:, None, :], x[:, -1], Wd))
+    out = torch.bmm(x[:, -1].to(dtype), Wd.to(dtype)) + bd.to(dtype)[:, None, :]
+    return resolve_activation(out_func)(out).float()

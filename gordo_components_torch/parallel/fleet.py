@@ -633,7 +633,8 @@ class FleetTrainer:
             if use_val and has_val[i]:
                 history["val_loss"] = histories_val[i]
             out[name] = FleetMemberModel(
-                name=name, kind=self.kind, factory_kwargs=dict(self.factory_kwargs),
+                name=name, kind=self.kind,
+                factory_kwargs=dict(self.factory_kwargs, compute_dtype=self.compute_dtype),
                 n_features=n_features, params=states[i],
                 scaler=ScalerParams(scalers_np[0][i], scalers_np[1][i]),
                 error_scaler=ScalerParams(err_np[0][i], err_np[1][i]),

@@ -109,6 +109,7 @@ def dump(obj, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> None:
         "n_features": entry.n_features,
         "lookback": entry.lookback,
         "target_offset": entry.target_offset,
+        "compute_dtype": entry.compute_dtype,
         "tags": list(entry.tags),
         "thresholds": entry.thresholds,
     }
@@ -170,6 +171,7 @@ def load_entry(source_dir: str, name: Optional[str] = None):
         thresholds=meta.get("thresholds"),
         lookback=meta.get("lookback", 1),
         target_offset=meta.get("target_offset", 0),
+        compute_dtype=meta.get("compute_dtype", "float32"),
         **scalers,
     )
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``gordo_components_tpu/server/bank.py`` (single device). Every
 detector in the collection is stacked into a bucket keyed by (registry type,
-kind, n_features, lookback, target offset, factory kwargs): per-layer
+kind, n_features, lookback, target offset, factory kwargs, compute
+dtype): per-layer
 weights with a leading member axis (the Flax layout) and the four scaler
 stacks ``(M, F)`` live on the card. A coalesced batch of requests for any
 members of a bucket becomes one pass. For a dense bucket (a feedforward
@@ -30,15 +31,21 @@ Request shapes are padded to powers of two in batch (B) and rows (T), as in
 the JAX bank; long requests are chunked at ``max_rows_per_call``, and
 sequence chunks overlap by the warm-up ``offset`` so no output row is lost.
 
-Precision: on the card the bank computes in full float32 like the JAX
-reference — :func:`~gordo_components_torch.device.resolve_device` sets
-``torch.backends.cuda.matmul.allow_tf32 = False`` and
-``torch.backends.cudnn.allow_tf32 = False``.
+Precision: a bucket computes in its entries' ``compute_dtype``. A float32
+bucket computes in full float32 like the JAX reference —
+:func:`~gordo_components_torch.device.resolve_device` turns TF32 off for
+matmul and cuDNN on the card — and a bfloat16 bucket as Flax's
+``dtype=bfloat16`` does, its products reduced in float32 (the same call
+turns off cuBLAS's reduced-precision bfloat16 reduction). A bfloat16 bucket
+casts its stacked weights to bfloat16 once, at build: the values Flax's
+cast gives on every forward, at half the bytes a batch gathers. The
+network's output is float32 in both, and so is the score.
 
 Not in this slice: the device mesh, quantized banks, the goodput ledger,
 access heat, the buffer arena and the in-flight pipeline.
 """
 
+import hashlib
 import json
 import logging
 from dataclasses import dataclass, field
@@ -68,7 +75,8 @@ class _BankEntry:
     LSTM, conv, variational: see ``convert``); ``in_shift``/``in_scale`` compose
     the input affine scalers, ``err_shift``/``err_scale`` are the error
     scaler. Sequence models score windows of ``lookback`` rows, and
-    ``target_offset`` is 1 for a t+1 forecast."""
+    ``target_offset`` is 1 for a t+1 forecast. ``compute_dtype`` is the
+    model's (float32 or bfloat16); it keys the bucket."""
 
     name: str
     registry_type: str
@@ -84,6 +92,7 @@ class _BankEntry:
     thresholds: Optional[Dict[str, Any]] = None
     lookback: int = 1
     target_offset: int = 0
+    compute_dtype: str = "float32"
 
     @property
     def offset(self) -> int:
@@ -93,7 +102,7 @@ class _BankEntry:
     def bucket_key(self) -> str:
         return json.dumps(
             [self.registry_type, self.kind, self.n_features, self.lookback,
-             self.target_offset, sorted(self.factory_kwargs.items())],
+             self.target_offset, sorted(self.factory_kwargs.items()), self.compute_dtype],
             default=str,
         )
 
@@ -106,15 +115,15 @@ def _prev_pow2(n: int) -> int:
     return 1 << (int(n).bit_length() - 1)
 
 
-def _stack(arrays, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.stack(arrays), np.float32)).to(device)
+def _stack(arrays, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.stack(arrays), np.float32)).to(device, dtype)
 
 
 class _Bucket:
     """All members sharing (type, kind, n_features, lookback, target offset,
-    factory kwargs): the stacked weights and scalers on the card, and the
-    batched forward. This base holds the scalers and the epilogue; the
-    subclasses the network."""
+    factory kwargs, compute dtype): the stacked weights (in the compute
+    dtype) and scalers (float32) on the card, and the batched forward. This
+    base holds the scalers and the epilogue; the subclasses the network."""
 
     def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device):
         first = entries[0]
@@ -124,6 +133,12 @@ class _Bucket:
         self.label = f"{first.registry_type}:{first.kind}:f{first.n_features}:l{first.lookback}"
         if first.target_offset:
             self.label += f":o{first.target_offset}"
+        if first.compute_dtype != "float32":
+            # JAX bank.py:293-298: a bfloat16 bucket is another program and
+            # another metric series than a float32 one of the same kwargs
+            extra = json.dumps([sorted(first.factory_kwargs.items()), first.compute_dtype], default=str)
+            self.label += ":" + hashlib.sha1(extra.encode()).hexdigest()[:6]
+        self.dtype = module.compute_dtype
         self.in_shift, self.in_scale, self.err_shift, self.err_scale = (
             _stack([getattr(e, f) for e in entries], device)
             for f in ("in_shift", "in_scale", "err_shift", "err_scale")
@@ -163,14 +178,15 @@ class _DenseBucket(_Bucket):
     def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device):
         super().__init__(entries, module, device)
         chains = [module.serving_chain(e.params) for e in entries]
+        dt = self.dtype
         self.layers = [
-            (_stack([c[i][0] for c in chains], device), _stack([c[i][1] for c in chains], device), act)
+            (_stack([c[i][0] for c in chains], device, dt), _stack([c[i][1] for c in chains], device, dt), act)
             for i, (_W, _b, act) in enumerate(chains[0])
         ]
 
     def forward(self, idx, h):
         return dense_chain(h, [(W.index_select(0, idx), b.index_select(0, idx), act)
-                               for W, b, act in self.layers])
+                               for W, b, act in self.layers], self.dtype).float()
 
 
 class _LSTMBucket(_Bucket):
@@ -182,12 +198,12 @@ class _LSTMBucket(_Bucket):
         super().__init__(entries, module, device)
         self.funcs, self.out_func = module.funcs, module.out_func
         self.layers = [
-            tuple(_stack([e.params[f"layers.{i}.{p}"] for e in entries], device)
+            tuple(_stack([e.params[f"layers.{i}.{p}"] for e in entries], device, self.dtype)
                   for p in ("Wi", "Wh", "b"))
             for i in range(len(module.layers))
         ]
         self.head = tuple(
-            _stack([e.params[f"head.{p}"] for e in entries], device) for p in ("kernel", "bias")
+            _stack([e.params[f"head.{p}"] for e in entries], device, self.dtype) for p in ("kernel", "bias")
         )
 
     def forward(self, idx, xs):
@@ -197,7 +213,7 @@ class _LSTMBucket(_Bucket):
             [tuple(a.index_select(0, idx) for a in layer) for layer in self.layers],
             tuple(a.index_select(0, idx) for a in self.head),
         )
-        return lstm_time_major_forward(weights, W, self.funcs, self.out_func)
+        return lstm_time_major_forward(weights, W, self.funcs, self.out_func, self.dtype)
 
 
 class _ConvBucket(_Bucket):
@@ -210,7 +226,8 @@ class _ConvBucket(_Bucket):
         super().__init__(entries, module, device)
         self.n_encoder, self.activation = len(module.channels), module.activation
         self.layers = [
-            tuple(_stack([e.params[f"{name}.{p}"] for e in entries], device) for p in ("kernel", "bias"))
+            tuple(_stack([e.params[f"{name}.{p}"] for e in entries], device, self.dtype)
+                  for p in ("kernel", "bias"))
             for name in module.layer_names()
         ]
 
@@ -218,7 +235,7 @@ class _ConvBucket(_Bucket):
         W = sliding_windows(xs, self.lookback)  # (B, T - lookback + 1, L, F), a view
         W = W[:, : W.shape[1] - self.target_offset]
         weights = [tuple(a.index_select(0, idx) for a in layer) for layer in self.layers]
-        return conv_autoencoder_forward(weights, W, self.n_encoder, self.activation)
+        return conv_autoencoder_forward(weights, W, self.n_encoder, self.activation, self.dtype)
 
 
 # the bucket of each model family (``models.register.by_family``)
@@ -228,7 +245,7 @@ _BUCKETS = {"dense": _DenseBucket, "vae": _DenseBucket, "lstm": _LSTMBucket, "co
 def _make_bucket(entries: Sequence[_BankEntry], device: torch.device) -> _Bucket:
     first = entries[0]
     module = lookup_factory(first.registry_type, first.kind)(
-        first.n_features, **first.factory_kwargs
+        first.n_features, compute_dtype=first.compute_dtype, **first.factory_kwargs
     )
     return by_family(_BUCKETS, module, "bank bucket")(entries, module, device)
 

@@ -128,8 +128,8 @@ def test_registration_defaults_and_refusals(monkeypatch):
     x = torch.rand(1, 2, 4, 3)
     with pytest.raises(NotImplementedError, match="stride 2"):
         pconv.conv_transpose1d(x, torch.rand(1, 3, 3, 2), torch.zeros(1, 2), stride=3)
-    with pytest.raises(ValueError, match="float32"):
-        _port_module((4,), 3, compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="'float32' or 'bfloat16'"):
+        _port_module((4,), 3, compute_dtype="float16")
     # the estimator pins conv_impl, as the JAX one does
     est = ConvAutoEncoder(device="cpu")
     assert est.get_params()["conv_impl"] == JaxConvAE().get_params()["conv_impl"] == "matmul"

@@ -67,5 +67,17 @@ def test_unknown_activation_and_kind_raise():
         port_ff.feedforward_symmetric(4, dims=(2,), funcs=("swish",))
     with pytest.raises(ValueError, match="Unknown kind"):
         port_lookup("AutoEncoder", "lstm_hourglass")
-    with pytest.raises(ValueError, match="float32 only"):
-        port_ff.feedforward_hourglass(4, compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="'float32' or 'bfloat16'"):
+        port_ff.feedforward_hourglass(4, compute_dtype="float16")
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_forward_differentiates_its_parameters(compute_dtype):
+    """The module's forward runs on its parameters, not on detached copies:
+    a loss through it gives every weight and bias a nonzero gradient."""
+    model = port_ff.feedforward_hourglass(6, compute_dtype=compute_dtype)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((8, 6)).astype(np.float32))
+    model(x).square().sum().backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+        assert float(p.grad.abs().max()) > 0, name

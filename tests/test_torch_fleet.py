@@ -173,17 +173,17 @@ def test_members_serve_as_bank_entries():
 
 
 def test_unported_fleet_features_raise(monkeypatch):
-    # the conv family trains; bfloat16 and loss names outside mse/vae do not
-    with pytest.raises(ValueError, match="float32"):
-        FleetTrainer(model_type="ConvAutoEncoder", compute_dtype="bfloat16", device="cpu").fit(_members(1, 20))
+    # the conv family trains; float16 and loss names outside mse/vae do not
+    with pytest.raises(NotImplementedError, match="'float32' or 'bfloat16'"):
+        FleetTrainer(model_type="ConvAutoEncoder", compute_dtype="float16", device="cpu").fit(_members(1, 20))
     with pytest.raises(ValueError, match="known: mse, vae"):
         FleetTrainer(model_type="ConvAutoEncoder", loss="huber", device="cpu").fit(_members(1, 20))
     with pytest.raises(NotImplementedError, match="mesh"):
         FleetTrainer(mesh=object())
     with pytest.raises(NotImplementedError, match="checkpoint"):
         FleetTrainer(checkpoint_dir="/nonexistent")
-    with pytest.raises(ValueError, match="float32"):
-        FleetTrainer(compute_dtype="bfloat16", device="cpu", **ARCH).fit(_members(1, 10))
+    with pytest.raises(NotImplementedError, match="'float32' or 'bfloat16'"):
+        FleetTrainer(compute_dtype="float16", device="cpu", **ARCH).fit(_members(1, 10))
     monkeypatch.setenv("GORDO_FLEET_WIDTH", "64")
     with pytest.raises(NotImplementedError, match="GORDO_FLEET_WIDTH"):
         FleetTrainer()

@@ -15,8 +15,12 @@
 - The launch plans (computed in Python, checked again in C) are replayed
   thread by thread as the kernels map threads to work: K3's must cover
   every (window, member, unit) triple exactly once within the card's
-  limits, the anomaly score's every (slot row, feature) pair, for F = 1..1024
-  and T up to the bank's 8192 rows a call.
+  limits, for its float32 and its bfloat16 instance, the anomaly score's
+  every (slot row, feature) pair, for F = 1..1024 and T up to the bank's
+  8192 rows a call. K3's copies of xz (pieces of four elements: 16 bytes
+  in float32, 8 in bfloat16) are replayed too: every element of a step
+  exactly once, every piece aligned to its size, also where an odd B*M*H
+  starts a bfloat16 step 8 bytes off a 16-byte line.
 
 Bands, as the JAX suite states them: chained steps within rtol=1e-5,
 atol=1e-6; diff and scaled bitwise, the two norms within rtol=atol=1e-6.
@@ -163,12 +167,12 @@ def _covered(plan, B, M, H):
     return np.bincount((pair * H + u)[active], minlength=P * H)
 
 
-def _check_plan(B, M, H):
-    plan = port_seq._launch_plan(B, M, H)
+def _check_plan(B, M, H, elem_bytes=4):
+    plan = port_seq._launch_plan(B, M, H, elem_bytes)
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= MAX_THREADS
     assert plan.smem_bytes <= MAX_SMEM and plan.grid[1] <= MAX_GRID_Y
     assert plan.stages in (4, 8)
-    ring = 4 * plan.stages * plan.tile * 4 * H  # the ring's bytes a block
+    ring = elem_bytes * plan.stages * plan.tile * 4 * H  # the ring's bytes a block
     if plan.group:
         assert H <= plan.group <= 32 and plan.group & (plan.group - 1) == 0
         assert plan.threads <= 128 and plan.grid[1] == 1 and plan.stages == 8
@@ -177,9 +181,11 @@ def _check_plan(B, M, H):
     else:
         assert H > port_seq.WARP_MAX_HIDDEN
         assert plan.tile * H <= plan.threads and plan.grid[1] == M
-        assert plan.smem_bytes >= ring + 4 * plan.tile * H + (16 * H * H if plan.stage_w else 0)
+        w_bytes = elem_bytes * 4 * H * H if plan.stage_w else 0
+        assert plan.smem_bytes >= ring + 4 * plan.tile * H + w_bytes
     counts = _covered(plan, B, M, H)
     assert counts.size == B * M * H and (counts == 1).all(), (B, M, H, plan)
+    return plan
 
 
 @pytest.mark.parametrize("B,M", [(1, 1), (3, 7), (97, 1), (2, 3)])
@@ -196,6 +202,62 @@ def test_launch_plan_covers_the_bank_shape(H):
     _check_plan(1, 64, H)
 
 
+@pytest.mark.parametrize("B,M", [(1, 1), (3, 7), (97, 1), (2, 3)])
+def test_bf16_launch_plan_covers_every_width(B, M):
+    for H in range(1, port_seq.MAX_HIDDEN + 1):
+        _check_plan(B, M, H, elem_bytes=2)
+
+
+@pytest.mark.parametrize("H", [1, 5, 7, 8, 16, 31, 32, 33, 64, 130, 512])
+def test_bf16_launch_plan_covers_the_bank_shape(H):
+    _check_plan(97, 64, H, elem_bytes=2)
+    _check_plan(1, 64, H, elem_bytes=2)
+
+
+def _copies(plan, B, M, H):
+    """Element offsets (in xz, one step) of every four-element piece the
+    plan's threads copy, replaying the kernels' mapping: a warp's copier
+    lanes the lane-th piece of its pairs' run, a block-path thread (window,
+    unit) the unit-th piece of its window's row."""
+    P, H4 = B * M, 4 * H
+    gx, gy = plan.grid
+    tid = np.arange(plan.threads)[None, :]
+    if plan.group:
+        per_warp = 32 // plan.group
+        p0 = (np.arange(gx)[:, None] * (plan.threads // 32) + tid // 32) * per_warp
+        lane = tid % 32
+        n_pairs = np.clip(P - p0, 0, per_warp)
+        return (p0 * H4 + 4 * lane)[(p0 < P) & (lane < n_pairs * H)]
+    bx, by = np.arange(gx)[:, None, None], np.arange(gy)[None, :, None]
+    wl, u = tid[None] // H, tid[None] % H
+    win = bx * plan.tile + wl
+    offs = (win * M + by) * H4 + 4 * u
+    return np.broadcast_to(offs, np.broadcast(offs, win).shape)[
+        np.broadcast_to((wl < plan.tile) & (win < B), np.broadcast(offs, win).shape)]
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("B,M", [(97, 1), (3, 7), (97, 64), (1, 5)])
+def test_xz_pieces_cover_a_step_aligned(B, M, elem_bytes):
+    """Each step's xz elements exactly once, in pieces aligned to their
+    size at every step start: steps are B*M*4H elements apart, so every
+    piece starts at a multiple of four elements. In bfloat16 an odd B*M*H
+    starts every other step 8 bytes off a 16-byte line, which 8-byte pieces
+    do not mind; in float32 a step is always a multiple of 16 bytes."""
+    piece = 4 * elem_bytes
+    for H in (1, 5, 7, 8, 17, 31, 33, 64, 97):
+        plan = port_seq._launch_plan(B, M, H, elem_bytes)
+        offs = _copies(plan, B, M, H)
+        step = B * M * 4 * H
+        assert np.array_equal(np.sort(offs), np.arange(0, step, 4)), (B, M, H)
+        for s in range(3):
+            assert ((s * step + offs) * elem_bytes % piece == 0).all()
+        if elem_bytes == 2 and (B * M * H) % 2:
+            assert (step * elem_bytes) % 16 == 8  # the misaligned step, handled
+        if elem_bytes == 4:
+            assert (step * elem_bytes) % 16 == 0
+
+
 def test_bank_shape_plan_fills_the_card():
     """At (B, M, H) = (97, 64, 8): 8 lanes a pair, 16 pairs a block, 388
     blocks (about 3 for each of 132 SMs) and at most 3 idle pairs."""
@@ -210,3 +272,10 @@ def test_layer_refuses_misaligned_xz():
     xz = flat[1:].view(S, B, M, 4 * H)  # 4 bytes past a 16-byte boundary
     with pytest.raises(ValueError, match="16-byte"):
         port_seq._launch(xz, None, None, torch.zeros(M, H, 4 * H), torch.zeros(M, 4 * H))
+    bf = torch.zeros(S * B * M * 4 * H + 1, dtype=torch.bfloat16)[1:].view(S, B, M, 4 * H)
+    with pytest.raises(ValueError, match="8-byte"):  # 2 bytes past an 8-byte boundary
+        port_seq._launch(bf, None, None, torch.zeros(M, H, 4 * H, dtype=torch.bfloat16),
+                         torch.zeros(M, 4 * H, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="Wh has dtype"):  # one instance: xz, Wh, b of one dtype
+        port_seq._launch(xz.contiguous(), None, None, torch.zeros(M, H, 4 * H, dtype=torch.bfloat16),
+                         torch.zeros(M, 4 * H))

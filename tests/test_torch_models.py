@@ -118,16 +118,17 @@ def test_autoencoder_fit_history_and_early_stopping(frame):
 
 
 def test_unported_estimator_features_raise(frame):
-    """bfloat16 (every family, conv and variational included) is not
-    ported; a loss outside mse/vae does not exist, and the ELBO needs a
-    variational model. The JAX spelling of ConvAutoEncoder is the port's."""
-    with pytest.raises(ValueError, match="float32"):
-        ConvAutoEncoder(kind="conv1d_autoencoder", lookback_window=16, compute_dtype="bfloat16",
+    """A compute dtype other than float32 and bfloat16 (every family, conv
+    and variational included) is not ported; a loss outside mse/vae does not
+    exist, and the ELBO needs a variational model. The JAX spelling of
+    ConvAutoEncoder is the port's."""
+    with pytest.raises(NotImplementedError, match="'float32' or 'bfloat16'"):
+        ConvAutoEncoder(kind="conv1d_autoencoder", lookback_window=16, compute_dtype="float16",
                         device="cpu").fit(frame)
-    with pytest.raises(ValueError, match="float32"):
-        AutoEncoder(compute_dtype="bfloat16", device="cpu").fit(frame)
-    with pytest.raises(ValueError, match="float32"):
-        AutoEncoder(kind="feedforward_variational", compute_dtype="bfloat16", device="cpu").fit(frame)
+    with pytest.raises(NotImplementedError, match="'float32' or 'bfloat16'"):
+        AutoEncoder(compute_dtype="float16", device="cpu").fit(frame)
+    with pytest.raises(NotImplementedError, match="'float32' or 'bfloat16'"):
+        AutoEncoder(kind="feedforward_variational", compute_dtype="float16", device="cpu").fit(frame)
     assert import_locate("gordo_components_tpu.models.ConvAutoEncoder") is ConvAutoEncoder
     with pytest.raises(ValueError, match="known: mse, vae"):
         ConvAutoEncoder(loss="huber", epochs=1, device="cpu").fit(frame)

@@ -145,8 +145,8 @@ def test_registration_defaults_and_converters():
     # a module's stack is chosen by the module, not the estimator class
     est = AutoEncoder(device="cpu", **ARCH)
     assert isinstance(est._stack(est._build_module(F)), train_core.StackedVAE)
-    with pytest.raises(ValueError, match="float32"):
-        lookup_factory("AutoEncoder", "feedforward_variational")(F, compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="'float32' or 'bfloat16'"):
+        lookup_factory("AutoEncoder", "feedforward_variational")(F, compute_dtype="float16")
 
 
 def _jax_perm(perm_rng, mask):
