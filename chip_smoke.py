@@ -159,9 +159,11 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             variational machines at their default estimator configs (two
             more gangs), one bespoke LSTM detector (single build) and two
             configs that are not detectors (a bare Pipeline, a bare
-            AutoEncoder) into a temporary directory: 77 built, the two others
-            failed with NotImplementedError; the
-            directory served by a ModelBank and BatchingEngine, each machine's
+            AutoEncoder: single builds) into a temporary directory: all 79
+            built; the directory loaded by a ModelCollection, its detectors
+            served by ``ModelBank.from_models`` (the two others left out
+            with their reasons, and scored by their own ``predict``) and a
+            BatchingEngine, each detector's
             training rows scored as one request (K2, and K3 for LSTM buckets)
             and by ``serializer.load(dir).anomaly`` (K1, and K3), the two held
             together within the http phase's band; no scaled training error
@@ -204,9 +206,31 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             that the parity phase did not hold: K1 at every (rows, F) of an
             ``anomaly()``, K2 at every (B, T, F, M) of a bank batch or a
             fleet's scoring, K3 at every (S, B, M, H);
-12. counts  the main-path wrappers' launch counters of every path (train,
+12. collection  a mixed collection built on the card with
+            ``provide_saved_model`` (10 tags, 1,008 rows, 3 epochs): a dense
+            detector (``feedforward_hourglass``), an LSTM detector
+            (``lstm_hourglass``, lookback 10), a bare ``AutoEncoder`` and a
+            bare ``Pipeline(MinMaxScaler, LSTMAutoEncoder)``, served over
+            HTTP with the bank on: ``/models`` banks the two detectors and
+            gives the two others their reasons; ``prediction`` of every model
+            (128 rows) against the model's own ``predict`` (the detectors in
+            the http and LSTM bands, the bare models bitwise);
+            ``anomaly/prediction`` of the detectors through K2 (held against
+            their ``anomaly()``), 422 for the others; ``/healthz`` ok,
+            ``/ready``, ``metadata-all?digest=1``; ``download-model`` of each,
+            loaded, predicting bitwise as the served model. Then a thread
+            POSTs without pause to the targets that stay while a new
+            detector is built into the directory and a bare model removed,
+            each followed by ``POST /reload``: no answer other than 200,
+            generation 2, the new target scored through K2. Then the same
+            directory served with ``GORDO_SERVER_BANK=0``: each detector's
+            anomaly POST launches K1 (and no K2) and answers the banked body
+            within the JAX suite's bank-vs-per-model band (rtol 1e-4, atol
+            1e-5); the bare Pipeline's prediction launches K3. The phase's
+            walls, each step's K1/K2/K3 launches and the swaps' pause_ms;
+13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
-            bank, lstm, zoo_bank, bf16_bank, build, cli, cv), each reset just
+            bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -2174,7 +2198,8 @@ def build_phase():
         "gordo_components_torch.models.DiffBasedAnomalyDetector": {"base_estimator": {
             "gordo_components_torch.models.LSTMForecast": {
                 "kind": "lstm_hourglass", "lookback_window": 16, "epochs": 3}}}}))
-    # top-level configs that are not detectors: no port artifact yet
+    # top-level configs that are not detectors: single builds, written as
+    # model.json, served on the per-model path
     not_detectors = {
         "c1-pipeline": {"sklearn.pipeline.Pipeline": {"steps": [
             "sklearn.preprocessing.MinMaxScaler", "gordo_components_torch.models.AutoEncoder"]}},
@@ -2189,25 +2214,28 @@ def build_phase():
         report = build_fleet(machines, out_dir, model_register_dir=reg_dir)
         build_s = time.perf_counter() - t0
         manifest = report.manifest()
-        if manifest["n_built"] != len(machines) - 2 or sorted(report.failed) != sorted(not_detectors):
+        if manifest["n_built"] != len(machines) or report.failed:
             raise AssertionError(f"build: {manifest['n_built']} built, failed {report.failed}")
-        for name, error in report.failed.items():
-            if not error.startswith("NotImplementedError"):
-                raise AssertionError(f"build: {name} failed with {error}")
         collection = ModelCollection(out_dir)
-        bank = ModelBank.from_entries(list(collection.entries.values()))
+        bank = ModelBank.from_models(collection.models)
+        if sorted(bank.fallback) != sorted(not_detectors) or bank.finalize_failures:
+            raise AssertionError(f"build: the bank left out {bank.fallback} {bank.finalize_failures}")
         engine = BatchingEngine(bank, max_batch=64, flush_ms=2.0)
         engine.start()
-        built = [m for m in machines if m.name in report]
-        data = {m.name: get_dataset(m.dataset).get_data()[0].values for m in built}
-        results = {name: engine.score_blocking(name, X, timeout=120) for name, X in data.items()}
+        data = {m.name: get_dataset(m.dataset).get_data()[0].values for m in machines}
+        for name in not_detectors:
+            out = collection.models[name].predict(data[name])
+            if out.shape != data[name].shape or not np.all(np.isfinite(out)):
+                raise AssertionError(f"build: {name} predicted {out.shape} or non-finite values")
+        results = {name: engine.score_blocking(name, X, timeout=120) for name, X in data.items()
+                   if name not in not_detectors}
         worst = 0.0
         for name, res in results.items():
             arrays = res.to_arrays()
             if not all(np.all(np.isfinite(a)) for a in arrays.values()):
                 raise AssertionError(f"build: non-finite scores for {name}")
             th = collection.metadata[name]["thresholds"]
-            feat = np.array([th["feature-thresholds"][t] for t in collection.entries[name].tags])
+            feat = np.array([th["feature-thresholds"][t] for t in collection.models[name].tags_])
             over = max(float((res.scaled - feat).max()),
                        float(res.total_scaled.max() - th["total-anomaly-threshold"]))
             worst = max(worst, over)
@@ -2229,16 +2257,16 @@ def build_phase():
         zoo_k2 = score.launch_counts["banked_anomaly_score"] - k2_before
         if zoo_k1 != len(zoo_models) or zoo_k2 != 2:
             raise AssertionError(f"build: config-4 machines launched K1 {zoo_k1} and K2 {zoo_k2} times")
-        zoo_types = {n: collection.entries[n].registry_type for n in zoo_models}
+        zoo_types = {n: collection.metadata[n]["registry_type"] for n in zoo_models}
     finally:
         if engine is not None:
             engine.stop()
         shutil.rmtree(FLEET_DIR, ignore_errors=True)
     phase("build", machines=len(machines), n_built=manifest["n_built"], n_failed=manifest["n_failed"],
-          failed=json.dumps(sorted(report.failed)), lstm_machines=len(lstm_names),
+          per_model=json.dumps(sorted(not_detectors)), lstm_machines=len(lstm_names),
           zoo_machines=json.dumps(zoo_types), zoo_k1_launches=zoo_k1, zoo_k2_launches=zoo_k2,
           build_s=round(build_s, 3), rows_per_machine=len(data["fleet-000"]),
-          bank_buckets=bank.n_buckets, scored="every machine, by the bank and by anomaly()",
+          bank_buckets=bank.n_buckets, scored="every detector by the bank and by anomaly(), the rest by predict()",
           max_over_threshold=worst)
 
 
@@ -2539,6 +2567,201 @@ def cv_parity_phase():
           fold_indices="equal", max_abs_err=json.dumps(err))
 
 
+# ------------------------------------------------------------------ #
+# phase 12: a mixed collection: detectors in the bank, bare models on the
+# per-model path, the collection routes and a reload under load
+# ------------------------------------------------------------------ #
+
+
+COLLECTION_DIR = os.path.join(ROOT, "build", "chip_smoke_collection")
+COLLECTION_LOOKBACK = 10
+COLLECTION_EPOCHS = 3
+_EST = "gordo_components_torch.models"
+COLLECTION_MODELS = {
+    "dense-det": detector_pipeline("AutoEncoder", kind="feedforward_hourglass", epochs=COLLECTION_EPOCHS),
+    "lstm-det": detector_pipeline("LSTMAutoEncoder", kind="lstm_hourglass",
+                                  lookback_window=COLLECTION_LOOKBACK, epochs=COLLECTION_EPOCHS),
+    "bare-ae": {f"{_EST}.AutoEncoder": {"kind": "feedforward_hourglass", "epochs": COLLECTION_EPOCHS}},
+    "bare-pipe": {"sklearn.pipeline.Pipeline": {"steps": [
+        "sklearn.preprocessing.MinMaxScaler",
+        {f"{_EST}.LSTMAutoEncoder": {"kind": "lstm_hourglass", "lookback_window": COLLECTION_LOOKBACK,
+                                     "epochs": COLLECTION_EPOCHS}}]}},
+}
+COLLECTION_FALLBACK = {"bare-ae": "not a DiffBasedAnomalyDetector (AutoEncoder)",
+                       "bare-pipe": "not a DiffBasedAnomalyDetector (Pipeline)"}
+COLLECTION_ROWS = 128  # rows a request
+
+
+def launches() -> dict:
+    return {"K1": score.launch_counts["fused_anomaly_score"], "K2": score.launch_counts["banked_anomaly_score"],
+            "K3": seq_scan.launch_counts["lstm_layer"]}
+
+
+def launched(before: dict) -> dict:
+    return {k: v - before[k] for k, v in launches().items()}
+
+
+def serve_collection(out_dir: str, use_bank):
+    server = run_server(out_dir, host="127.0.0.1", port=0, background=True, use_bank=use_bank)
+    return server, server.url + "/gordo/v0/smoke"
+
+
+def get_bytes(url: str) -> bytes:
+    with urllib.request.urlopen(url, timeout=120) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"{url} answered {resp.status}")
+        return resp.read()
+
+
+def collection_phase(card: str):
+    """Build two detectors and two models the bank cannot hold on the card,
+    serve them from one directory (bank on), drive every collection route,
+    reload under load, then serve them with the bank off."""
+    shutil.rmtree(COLLECTION_DIR, ignore_errors=True)
+    out_dir = os.path.join(COLLECTION_DIR, "models")
+    walls, counts = {}, {}
+    t0 = time.perf_counter()
+    for name, config in COLLECTION_MODELS.items():
+        provide_saved_model(name, config, dataset(name), output_dir=os.path.join(out_dir, name))
+    walls["build_s"] = time.perf_counter() - t0
+    data = {name: get_dataset(dataset(name)).get_data()[0].values[:COLLECTION_ROWS].astype(np.float32)
+            for name in COLLECTION_MODELS}
+    own = {name: serializer.load(os.path.join(out_dir, name)) for name in COLLECTION_MODELS}
+    detectors = [n for n in COLLECTION_MODELS if n.endswith("-det")]
+    banded = {"dense-det": {}, "lstm-det": {"rtol": LSTM_RTOL, "atol": LSTM_ATOL}}
+    server = None
+    try:
+        t0 = time.perf_counter()
+        server, base = serve_collection(out_dir, use_bank=True)
+        walls["serve_s"] = time.perf_counter() - t0
+        status, body = http_json(base + "/models")
+        if (status != 200 or body["bank"]["banked"] != sorted(detectors)
+                or body["bank"]["fallback"] != COLLECTION_FALLBACK or body["accepts"] != ["application/json"]):
+            raise AssertionError(f"collection /models answered {status}: {body}")
+        served = {}
+        worst = {}
+        before = launches()
+        for name in COLLECTION_MODELS:
+            X = data[name]
+            status, body = http_json(f"{base}/{name}/prediction", {"X": X.tolist()})
+            if status != 200:
+                raise AssertionError(f"collection: {name} prediction answered {status}: {body}")
+            got, want = np.asarray(body["data"], np.float32), np.asarray(own[name].predict(X), np.float32)
+            band = banded.get(name, {"rtol": 0.0, "atol": 0.0})  # bare models: the same computation
+            check_arrays({"prediction": got}, {"prediction": want}, f"collection {name} prediction", **band)
+            worst[name] = float(np.abs(got - want).max())
+        counts["predictions"] = launched(before)
+        before = launches()
+        for name in COLLECTION_MODELS:
+            k2 = score.launch_counts["banked_anomaly_score"]
+            status, body = http_json(f"{base}/{name}/anomaly/prediction", {"X": data[name].tolist()})
+            if name in detectors:
+                if status != 200 or score.launch_counts["banked_anomaly_score"] <= k2:
+                    raise AssertionError(f"collection: {name} anomaly answered {status} without K2: {body}")
+                served[name] = body
+                check_arrays(response_arrays(body, own[name].tags_), own[name].anomaly(data[name]),
+                             f"collection {name} anomaly vs anomaly()", **banded[name])
+            elif status != 422 or body != {"error": "Model does not support anomaly scoring"}:
+                raise AssertionError(f"collection: {name} anomaly answered {status}, not 422: {body}")
+        counts["anomaly_banked"] = launched(before)
+        status, health = http_json(server.url + "/healthz")
+        ready = http_json(base + "/ready")
+        status_md, md = http_json(base + "/metadata-all?digest=1")
+        if (status, health["status"]) != (200, "ok") or ready != (200, {"ready": True, "models": 4}):
+            raise AssertionError(f"collection /healthz {status} {health}, /ready {ready}")
+        if status_md != 200 or {n: t["digest"]["name"] for n, t in md["targets"].items()} != {
+                n: n for n in COLLECTION_MODELS}:
+            raise AssertionError(f"collection metadata-all?digest=1 answered {status_md}: {md}")
+        for name in COLLECTION_MODELS:
+            back = serializer.loads(get_bytes(f"{base}/{name}/download-model"))
+            model, _ = server.app.collection.entry(name)
+            if type(back) is not type(model) or not np.array_equal(back.predict(data[name]),
+                                                                   model.predict(data[name])):
+                raise AssertionError(f"collection: {name}'s download-model does not predict as the served one")
+
+        # reload under load: one thread POSTs without pause to the targets
+        # that stay while a new detector is written, one bare model removed
+        statuses, stop = [], threading.Event()
+        stay = {"dense-det": "anomaly/prediction", "lstm-det": "anomaly/prediction", "bare-pipe": "prediction"}
+
+        def load():
+            while not stop.is_set():
+                for name, route in stay.items():
+                    statuses.append(http_json(f"{base}/{name}/{route}", {"X": data[name].tolist()})[0])
+
+        loader = threading.Thread(target=load)
+        t0 = time.perf_counter()
+        before = launches()
+        loader.start()
+        try:
+            provide_saved_model("dense-det-2", COLLECTION_MODELS["dense-det"], dataset("dense-det-2"),
+                                output_dir=os.path.join(out_dir, "dense-det-2"))
+            reloads = [http_json(base + "/reload", {})]
+            shutil.rmtree(os.path.join(out_dir, "bare-ae"))
+            reloads.append(http_json(base + "/reload", {}))
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            loader.join()
+        walls["reload_s"] = time.perf_counter() - t0
+        (s1, r1), (s2, r2) = reloads
+        if (s1, s2) != (200, 200) or r1["changes"]["added"] != ["dense-det-2"] \
+                or r2["changes"]["removed"] != ["bare-ae"] or r2["swap"]["generation"] != 2 \
+                or r2["bank_models"] != 3:
+            raise AssertionError(f"collection reloads answered {reloads}")
+        if not statuses or set(statuses) != {200}:
+            raise AssertionError(f"collection: {len(statuses)} requests under reload answered {sorted(set(statuses))}")
+        X2 = get_dataset(dataset("dense-det-2")).get_data()[0].values[:COLLECTION_ROWS].astype(np.float32)
+        k2 = score.launch_counts["banked_anomaly_score"]
+        status, body = http_json(f"{base}/dense-det-2/anomaly/prediction", {"X": X2.tolist()})
+        if status != 200 or score.launch_counts["banked_anomaly_score"] <= k2:
+            raise AssertionError(f"collection: the new target answered {status} without K2: {body}")
+        new = serializer.load(os.path.join(out_dir, "dense-det-2"))
+        check_arrays(response_arrays(body, new.tags_), new.anomaly(X2), "collection dense-det-2 after reload")
+        counts["reload"] = launched(before)
+        pause_ms = [r["swap"]["pause_ms"] for _, r in reloads]
+        server.close()
+        server = None
+
+        # the bank off: every model on the per-model path
+        os.environ["GORDO_SERVER_BANK"] = "0"
+        try:
+            server, base = serve_collection(out_dir, use_bank=None)
+        finally:
+            del os.environ["GORDO_SERVER_BANK"]
+        if server.app.bank is not None or "bank" in http_json(base + "/models")[1]:
+            raise AssertionError("collection: GORDO_SERVER_BANK=0 served a bank")
+        before = launches()
+        per_post = {}
+        for name in detectors:
+            k = launches()
+            status, body = http_json(f"{base}/{name}/anomaly/prediction", {"X": data[name].tolist()})
+            per_post[name] = launched(k)
+            if status != 200 or per_post[name]["K1"] < 1 or per_post[name]["K2"]:
+                raise AssertionError(f"collection bank off: {name} answered {status}, launches {per_post[name]}")
+            want = response_arrays(served[name], own[name].tags_)
+            check_arrays(response_arrays(body, own[name].tags_), want, f"collection {name} per-model vs bank",
+                         rtol=1e-4, atol=1e-5)
+        k = launches()
+        status, body = http_json(f"{base}/bare-pipe/prediction", {"X": data["bare-pipe"].tolist()})
+        per_post["bare-pipe"] = launched(k)
+        if status != 200 or per_post["bare-pipe"]["K3"] < 1:
+            raise AssertionError(f"collection bank off: bare-pipe answered {status}, launches {per_post['bare-pipe']}")
+        counts["bank_off"] = launched(before)
+    finally:
+        if server is not None:
+            server.close()
+        shutil.rmtree(COLLECTION_DIR, ignore_errors=True)
+    phase("collection", models=json.dumps(sorted(COLLECTION_MODELS)), rows=COLLECTION_ROWS, tags=10,
+          lookback=COLLECTION_LOOKBACK, epochs=COLLECTION_EPOCHS,
+          banked=json.dumps(sorted(detectors)), fallback=json.dumps(COLLECTION_FALLBACK),
+          prediction_max_err=json.dumps(worst), requests_under_reload=len(statuses),
+          non_200_under_reload=sum(s != 200 for s in statuses), generation=2,
+          pause_ms=json.dumps(pause_ms), bank_off_launches_per_post=json.dumps(per_post),
+          launches=json.dumps(counts), walls_s=json.dumps({k: round(v, 3) for k, v in walls.items()}),
+          card=json.dumps(card))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
@@ -2596,6 +2819,7 @@ def main() -> int:
     drive("cli", cli_phase, in_subprocesses=True)
     drive("cv", cv_phase, card)
     timed("cv_parity", cv_parity_phase)
+    drive("collection", collection_phase, card)
     timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
@@ -2603,7 +2827,9 @@ def main() -> int:
                          ("http", "banked_anomaly_score"), ("http", "fused_anomaly_score"),
                          ("build", "banked_anomaly_score"), ("build", "fused_anomaly_score"),
                          ("build", "lstm_layer"), ("cli", "banked_anomaly_score"), ("cli", "lstm_layer"),
-                         ("cv", "lstm_layer"), ("bf16_train", "lstm_layer_bf16"),
+                         ("cv", "lstm_layer"), ("collection", "fused_anomaly_score"),
+                         ("collection", "banked_anomaly_score"), ("collection", "lstm_layer"),
+                         ("bf16_train", "lstm_layer_bf16"),
                          ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
                          ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):
         if paths[path][kernel] <= 0:

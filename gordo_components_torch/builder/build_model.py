@@ -11,8 +11,10 @@ records the reference's four metrics per fold under ``cross-validation``.
 ``cv_mode: cross_val_only`` evaluates without the final fit: the port's
 artifact format has no untrained detector, so such a build writes
 ``metadata.json`` alone, is never registered and never served. A model
-config that is not a ``DiffBasedAnomalyDetector`` raises before loading
-data: its artifact has no port format yet (``serializer.check_artifact_model``).
+config that is not a ``DiffBasedAnomalyDetector`` (a bare ``Pipeline`` or
+estimator) builds the same way and is written as ``model.json``
+(``serializer/artifacts.py``); its metadata records a Pipeline's final
+estimator under ``final_step``, as the JAX builder's does.
 """
 
 import hashlib
@@ -73,12 +75,10 @@ def build_model(
     ``evaluation_config``: ``{"cv_mode": "full_build" | "cross_val_only",
     "cross_validation": true, "n_splits": 3}``: TimeSeriesSplit
     cross-validation scores in the metadata; ``cross_val_only`` leaves the
-    model untrained. Raises ``NotImplementedError`` before loading data for
-    a model that is not a detector (``serializer.check_artifact_model``)."""
+    model untrained."""
     device = resolve_device(device)
     evaluation_config = _normalize_evaluation(evaluation_config)
     model = serializer.from_definition(model_config)
-    serializer.check_artifact_model(model)
     place(model, device)
     t0 = time.time()
     dataset = get_dataset(dict(data_config))

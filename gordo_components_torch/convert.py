@@ -13,6 +13,7 @@ here take numpy arrays only, so the port needs neither JAX nor the JAX
 package to use them.
 """
 
+import json
 import re
 from typing import Any, Dict, Mapping, Optional, Sequence
 
@@ -242,3 +243,63 @@ def entry_from_numpy(
         target_offset=target_offset,
         compute_dtype=str(compute_dtype),
     )
+
+
+def estimator_from_numpy(
+    registry_type: str,
+    kind: str,
+    factory_kwargs: Mapping[str, Any],
+    n_features: int,
+    params: Mapping[str, Any],
+    lookback: int = 1,
+    target_offset: int = 0,
+    compute_dtype: str = "float32",
+    estimator_params: Optional[Mapping[str, Any]] = None,
+    device="cuda",
+):
+    """A fitted port estimator (``AutoEncoder``, ``LSTMAutoEncoder``,
+    ``LSTMForecast`` or ``ConvAutoEncoder``) from numpy pieces: ``params``
+    is a Flax param tree of its model, ``estimator_params`` the
+    constructor's arguments (its ``get_params()``; ``kind``, the factory
+    kwargs, ``compute_dtype`` and ``lookback`` when absent). The weights are
+    checked against the factory's module; the module itself is built on
+    ``device`` at the first ``predict``."""
+    from gordo_components_torch.models import models
+
+    cls = getattr(models, registry_type, None)
+    if not (isinstance(cls, type) and issubclass(cls, models.BaseEstimator)) or cls is models.BaseEstimator:
+        raise ValueError(f"{registry_type!r} is not an estimator of the port")
+    kwargs = dict(estimator_params if estimator_params is not None else
+                  {"kind": kind, "compute_dtype": compute_dtype, **factory_kwargs})
+    kwargs.pop("device", None)
+    if registry_type in SEQUENCE_TYPES:
+        kwargs.setdefault("lookback_window", int(lookback))
+    est = cls(**kwargs, device=device)
+    got = (est.kind, dict(est.factory_kwargs), str(est.compute_dtype),
+           int(getattr(est, "lookback_window", 1)), est._target_offset)
+    want = (kind, dict(factory_kwargs), str(compute_dtype), int(lookback), int(target_offset))
+    if json.dumps(got) != json.dumps(want, default=list):
+        raise ValueError(f"{registry_type}: its arguments give {got}, the artifact says {want}")
+    state = params_from_flax(params)
+    shapes = {k: tuple(v.shape) for k, v in est._build_module(int(n_features)).state_dict().items()}
+    if {k: tuple(np.shape(v)) for k, v in state.items()} != shapes:
+        raise ValueError(f"{registry_type}({kind!r}) at {n_features} features wants {shapes}")
+    est.params_ = state
+    est.n_features_ = int(n_features)
+    return est
+
+
+def scaler_from_numpy(class_name: str, shift, scale, kwargs: Optional[Mapping[str, Any]] = None):
+    """A fitted port scaler (``MinMaxScaler`` or ``StandardScaler``) that
+    computes ``(x - shift) * scale``."""
+    from gordo_components_torch.models import transformers
+    from gordo_components_torch.ops.scaler import ScalerParams
+
+    cls = {"MinMaxScaler": transformers.MinMaxScaler,
+           "StandardScaler": transformers.StandardScaler}.get(class_name)
+    if cls is None:
+        raise ValueError(f"{class_name!r} is not a scaler of the port")
+    shift, scale = np.asarray(shift, np.float32), np.asarray(scale, np.float32)
+    if shift.ndim != 1 or shift.shape != scale.shape:
+        raise ValueError(f"{class_name}: shift {shift.shape} and scale {scale.shape}")
+    return cls(**dict(kwargs or {})).set_fitted(ScalerParams(shift, scale), len(shift))

@@ -170,6 +170,10 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
         return self
 
     def predict(self, X):
+        """The base estimator's output in model space; a loaded detector
+        (one without a base estimator) computes it from its bank entry."""
+        if self.base_estimator is None:
+            return self._forward(_as_f32(X))[2].cpu().numpy()
         return self.base_estimator.predict(X)
 
     def score(self, X, y=None) -> float:
@@ -258,27 +262,32 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
         return self._scorer
 
     @torch.no_grad()
+    def _forward(self, Xv: np.ndarray):
+        """(the scorer, Xv on its device, the model's output there)."""
+        self._check_fitted()
+        s = self._scoring()
+        off = s.lookback - 1 + s.target_offset
+        if len(Xv) <= off:
+            raise ValueError(f"need more than {off} rows (sequence warm-up), got {len(Xv)}")
+        x = torch.as_tensor(Xv, device=s.input_scaler.shift.device)
+        xs = scaler_transform(s.input_scaler, x)
+        if s.model.windowed:  # an LSTM or conv model reads windows of rows
+            W = sliding_windows(xs, s.lookback)
+            return s, x, s.model(W[: len(W) - s.target_offset])
+        return s, x, s.model(xs)
+
+    @torch.no_grad()
     def anomaly(self, X, y=None) -> Dict[str, np.ndarray]:
         """The reference's anomaly columns as arrays keyed by group name:
         ``model-input`` and ``model-output`` (rows, F), the per-tag
         ``tag-anomaly-unscaled``/``-scaled`` (rows, F), and the
         ``total-anomaly-unscaled``/``-scaled`` row norms (rows,), for the
         ``len(X) - offset`` output rows."""
-        self._check_fitted()
-        s = self._scoring()
-        device = s.input_scaler.shift.device
         Xv = _as_f32(X)
+        s, x, output = self._forward(Xv)
+        device = x.device
         off = s.lookback - 1 + s.target_offset
-        if len(Xv) <= off:
-            raise ValueError(f"need more than {off} rows (sequence warm-up), got {len(Xv)}")
-        x = torch.as_tensor(Xv, device=device)
         yv = x if y is None else torch.as_tensor(_as_f32(y), device=device)
-        xs = scaler_transform(s.input_scaler, x)
-        if s.model.windowed:  # an LSTM or conv model reads windows of rows
-            W = sliding_windows(xs, s.lookback)
-            output = s.model(W[: len(W) - s.target_offset])
-        else:
-            output = s.model(xs)
         n_out = output.shape[0]
         target = scaler_transform(s.input_scaler, yv)[off:][:n_out]
         scores = fused_anomaly_score_packed(

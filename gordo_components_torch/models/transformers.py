@@ -129,5 +129,11 @@ class Pipeline:
     def score(self, X, y=None) -> float:
         return self.steps[-1][1].score(self._transform(X), y)
 
+    def get_metadata(self):
+        """The final estimator's metadata under ``final_step``, as the JAX
+        builder records a Pipeline's (``build_model._pipeline_metadata``)."""
+        final = self.steps[-1][1]
+        return {"final_step": final.get_metadata()} if hasattr(final, "get_metadata") else {}
+
     def get_params(self, deep=True):
         return dict(getattr(self, "_params", {}))

@@ -1,7 +1,8 @@
 """The port's artifact directory.
 
 Counterpart of ``gordo_components_tpu/serializer/artifacts.py``. A port
-artifact holds no pickle; it is three files, and a fourth for a built model:
+artifact holds no pickle. A detector's is three files, and a fourth for a
+built model:
 
 - ``params.npz``    — network weights under the flattened Flax keys, as the
                       JAX package writes them: ``params/Dense_i/kernel``
@@ -22,6 +23,26 @@ artifact holds no pickle; it is three files, and a fourth for a built model:
                       dataset, model config, training history, durations),
                       when the artifact was built rather than converted.
 
+A top-level model that is not a detector (a bare estimator, or a bare
+``Pipeline`` of scalers and an estimator, both legal model configs) writes
+``model.json`` in place of ``detector.json``: the same ``format``, its
+``model_type`` (``"estimator"`` or ``"Pipeline"``), the estimator's registry
+type, kind, factory kwargs, ``n_features``, ``lookback``, ``target_offset``,
+``compute_dtype`` and constructor arguments (``estimator_params``), and for
+a Pipeline its ``steps`` (each scaler's name, class and kwargs) and the
+estimator step's name. Its weights are in ``params.npz`` as above, and each
+scaler step's fitted ``shift``/``scale`` (``(x - shift) * scale``) in
+``scalers.npz`` under ``steps/<i>/shift`` and ``steps/<i>/scale``.
+:func:`load` returns the class that was dumped: a detector, a ``Pipeline``
+or an estimator.
+
+:func:`dumps` and :func:`loads` carry a model as bytes (the server's
+``download-model``). The JAX package pickles the object there; the port
+writes no pickle, so its bytes are the artifact directory as a gzipped tar
+(:func:`pack_artifact_dir`, :func:`unpack_artifact_dir`, the JAX server's
+shipping format with its checks of member names), and only the port's
+:func:`loads` reads them.
+
 The format has no untrained detector. A ``cv_mode: cross_val_only`` build
 (cross-validation without the final fit) writes ``metadata.json`` alone
 (:func:`dump_metadata`), so its directory is no artifact:
@@ -30,18 +51,28 @@ it and the build cache (``builder.build_model.cached_artifact``) never
 returns it. :func:`load_metadata` reads it.
 """
 
+import io
 import json
 import os
+import tarfile
+import tempfile
 from typing import Any, Dict, Optional
 
 import numpy as np
 
-from gordo_components_torch.convert import entry_from_numpy, params_to_flax
+from gordo_components_torch.convert import (
+    entry_from_numpy,
+    estimator_from_numpy,
+    params_to_flax,
+    scaler_from_numpy,
+)
 
 PARAMS_FILE = "params.npz"
 DETECTOR_FILE = "detector.json"
+MODEL_FILE = "model.json"
 SCALERS_FILE = "scalers.npz"
 METADATA_FILE = "metadata.json"
+ARTIFACT_FILES = (PARAMS_FILE, SCALERS_FILE, DETECTOR_FILE, MODEL_FILE)
 FORMAT = "gordo-torch-artifact/v1"
 _SCALERS = ("in_shift", "in_scale", "err_shift", "err_scale")
 
@@ -67,99 +98,175 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
 
 
 def is_artifact_dir(path: str) -> bool:
-    return os.path.exists(os.path.join(path, DETECTOR_FILE))
+    return any(os.path.exists(os.path.join(path, f)) for f in (DETECTOR_FILE, MODEL_FILE))
 
 
-def check_artifact_model(model) -> None:
-    """Raise for a model the port cannot write as an artifact: anything
-    but a detector with ``to_entry`` (a ``DiffBasedAnomalyDetector``)."""
-    if not hasattr(model, "to_entry"):
-        raise NotImplementedError(
-            f"{type(model).__name__}: artifacts for a top-level model that is not a "
-            "DiffBasedAnomalyDetector (a bare Pipeline or estimator) are not ported yet"
-        )
+def artifact_mtime(path: str) -> float:
+    """The newest modification time of the artifact's files (a rewrite of
+    any of them is a new version); OSError when none is there."""
+    times = [os.path.getmtime(os.path.join(path, f)) for f in (*ARTIFACT_FILES, METADATA_FILE)
+             if os.path.exists(os.path.join(path, f))]
+    if not times:
+        raise FileNotFoundError(f"no artifact files under {path!r}")
+    return max(times)
+
+
+def _write_json(path: str, obj: Dict[str, Any]) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, default=str, indent=2)
+
+
+def _start_artifact(dest_dir: str) -> None:
+    """Make ``dest_dir`` and remove an earlier artifact's files there."""
+    os.makedirs(dest_dir, exist_ok=True)
+    for fname in ARTIFACT_FILES:
+        if os.path.exists(os.path.join(dest_dir, fname)):
+            os.remove(os.path.join(dest_dir, fname))
+
+
+def _estimator_fields(est) -> Dict[str, Any]:
+    from gordo_components_torch.models.models import BaseEstimator, _jsonable
+
+    if not isinstance(est, BaseEstimator):
+        raise TypeError(f"{type(est).__name__} is not an estimator of the port")
+    if est.params_ is None:
+        raise RuntimeError(f"{type(est).__name__} has not been fitted")
+    params = {k: v for k, v in est.get_params().items() if k != "device"}
+    return {
+        "registry_type": type(est).__name__,
+        "kind": est.kind,
+        "factory_kwargs": _jsonable(est.factory_kwargs),
+        "n_features": int(est.n_features_),
+        "lookback": int(getattr(est, "lookback_window", 1)),
+        "target_offset": int(est._target_offset),
+        "compute_dtype": str(est.compute_dtype),
+        "estimator_params": _jsonable(params),
+    }
+
+
+def _dump_model(model, dest_dir: str) -> None:
+    """A bare Pipeline or estimator as ``model.json``, ``params.npz`` and,
+    for a Pipeline, ``scalers.npz``."""
+    from gordo_components_torch.models.transformers import Pipeline, _AffineScaler
+
+    meta: Dict[str, Any] = {"format": FORMAT}
+    scalers: Dict[str, np.ndarray] = {}
+    if isinstance(model, Pipeline):
+        *pre, (est_name, est) = model.steps
+        steps = []
+        for i, (step_name, step) in enumerate(pre):
+            if not isinstance(step, _AffineScaler) or step.scaler_params_ is None:
+                raise TypeError(f"Pipeline step {step_name!r} ({type(step).__name__}) is not a fitted "
+                                "scaler of the port")
+            steps.append({"name": step_name, "class": type(step).__name__, "kwargs": step.get_params()})
+            scalers[f"steps/{i}/shift"] = np.asarray(step.scaler_params_.shift, np.float32)
+            scalers[f"steps/{i}/scale"] = np.asarray(step.scaler_params_.scale, np.float32)
+        meta.update(model_type="Pipeline", steps=steps, estimator_step=est_name)
+    else:
+        est = model
+        meta["model_type"] = "estimator"
+    meta.update(_estimator_fields(est))
+    _start_artifact(dest_dir)
+    np.savez(os.path.join(dest_dir, PARAMS_FILE), **_flatten(params_to_flax(est.params_)))
+    if scalers:
+        np.savez(os.path.join(dest_dir, SCALERS_FILE), **scalers)
+    _write_json(os.path.join(dest_dir, MODEL_FILE), meta)
 
 
 def dump(obj, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> None:
-    """Write ``obj`` as an artifact directory at ``dest_dir``: a bank entry
+    """Write ``obj`` as an artifact directory at ``dest_dir``, with the
+    build ``metadata`` in ``metadata.json``: a bank entry
     (``server/bank._BankEntry``) or a fitted detector (through its
-    ``to_entry()``), with the build ``metadata`` in ``metadata.json``.
-    Anything else raises ``NotImplementedError`` before a file is written."""
+    ``to_entry()``) as ``detector.json``; a fitted bare estimator or
+    ``Pipeline`` of the port's scalers and an estimator as ``model.json``.
+    Anything else raises before a file is written."""
     from gordo_components_torch.server.bank import _BankEntry
 
-    if isinstance(obj, _BankEntry):
-        entry = obj
+    if isinstance(obj, _BankEntry) or hasattr(obj, "to_entry"):
+        entry = obj if isinstance(obj, _BankEntry) else obj.to_entry(
+            os.path.basename(os.path.normpath(dest_dir)))
+        _start_artifact(dest_dir)
+        np.savez(os.path.join(dest_dir, PARAMS_FILE), **_flatten(params_to_flax(entry.params)))
+        np.savez(
+            os.path.join(dest_dir, SCALERS_FILE),
+            **{k: np.asarray(getattr(entry, k), np.float32) for k in _SCALERS},
+        )
+        _write_json(os.path.join(dest_dir, DETECTOR_FILE), {
+            "format": FORMAT,
+            "registry_type": entry.registry_type,
+            "kind": entry.kind,
+            "factory_kwargs": entry.factory_kwargs,
+            "n_features": entry.n_features,
+            "lookback": entry.lookback,
+            "target_offset": entry.target_offset,
+            "compute_dtype": entry.compute_dtype,
+            "tags": list(entry.tags),
+            "thresholds": entry.thresholds,
+        })
     else:
-        check_artifact_model(obj)
-        entry = obj.to_entry(os.path.basename(os.path.normpath(dest_dir)))
-    os.makedirs(dest_dir, exist_ok=True)
-    np.savez(
-        os.path.join(dest_dir, PARAMS_FILE),
-        **_flatten(params_to_flax(entry.params)),
-    )
-    np.savez(
-        os.path.join(dest_dir, SCALERS_FILE),
-        **{k: np.asarray(getattr(entry, k), np.float32) for k in _SCALERS},
-    )
-    meta = {
-        "format": FORMAT,
-        "registry_type": entry.registry_type,
-        "kind": entry.kind,
-        "factory_kwargs": entry.factory_kwargs,
-        "n_features": entry.n_features,
-        "lookback": entry.lookback,
-        "target_offset": entry.target_offset,
-        "compute_dtype": entry.compute_dtype,
-        "tags": list(entry.tags),
-        "thresholds": entry.thresholds,
-    }
-    with open(os.path.join(dest_dir, DETECTOR_FILE), "w") as f:
-        json.dump(meta, f, indent=2)
+        _dump_model(obj, dest_dir)
     if metadata is not None:
-        with open(os.path.join(dest_dir, METADATA_FILE), "w") as f:
-            json.dump(metadata, f, default=str, indent=2)
+        _write_json(os.path.join(dest_dir, METADATA_FILE), metadata)
 
 
 def dump_metadata(dest_dir: str, metadata: Dict[str, Any]) -> None:
     """Write the build ``metadata`` of a build that trained no model to
     ``dest_dir``, and remove an earlier artifact's files there, so the
     directory is no artifact."""
-    os.makedirs(dest_dir, exist_ok=True)
-    for fname in (PARAMS_FILE, SCALERS_FILE, DETECTOR_FILE):
-        if os.path.exists(os.path.join(dest_dir, fname)):
-            os.remove(os.path.join(dest_dir, fname))
-    with open(os.path.join(dest_dir, METADATA_FILE), "w") as f:
-        json.dump(metadata, f, default=str, indent=2)
+    _start_artifact(dest_dir)
+    _write_json(os.path.join(dest_dir, METADATA_FILE), metadata)
 
 
-def _load_detector(source_dir: str) -> Dict[str, Any]:
-    with open(os.path.join(source_dir, DETECTOR_FILE)) as f:
+def _read_format(path: str) -> Dict[str, Any]:
+    with open(path) as f:
         meta = json.load(f)
     if meta.get("format") != FORMAT:
-        raise ValueError(f"{source_dir}: not a {FORMAT} artifact (format={meta.get('format')!r})")
+        raise ValueError(f"{path}: not a {FORMAT} artifact (format={meta.get('format')!r})")
     return meta
 
 
+def _load_detector(source_dir: str) -> Dict[str, Any]:
+    return _read_format(os.path.join(source_dir, DETECTOR_FILE))
+
+
+def _is_detector(source_dir: str) -> bool:
+    return os.path.exists(os.path.join(source_dir, DETECTOR_FILE))
+
+
 def load_metadata(source_dir: str) -> Dict[str, Any]:
-    """The artifact's ``detector.json`` fields, with the build metadata of
-    ``metadata.json`` (when present) beside them; for a directory that
-    holds ``metadata.json`` alone (a build that trained no model), that."""
+    """The artifact's ``detector.json`` or ``model.json`` fields, with the
+    build metadata of ``metadata.json`` (when present) beside them; for a
+    directory that holds ``metadata.json`` alone (a build that trained no
+    model), that."""
     path = os.path.join(source_dir, METADATA_FILE)
-    meta = {} if os.path.exists(path) and not is_artifact_dir(source_dir) else _load_detector(source_dir)
+    if not is_artifact_dir(source_dir):
+        meta = {} if os.path.exists(path) else _load_detector(source_dir)
+    elif _is_detector(source_dir):
+        meta = _load_detector(source_dir)
+    else:
+        meta = _read_format(os.path.join(source_dir, MODEL_FILE))
     if os.path.exists(path):
         with open(path) as f:
             meta = {**json.load(f), **meta}
     return meta
 
 
+def _load_npz(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+def _load_params(source_dir: str) -> Dict[str, Any]:
+    return _unflatten(_load_npz(os.path.join(source_dir, PARAMS_FILE)))
+
+
 def load_entry(source_dir: str, name: Optional[str] = None):
-    """The artifact at ``source_dir`` as a bank entry (numpy, no device);
-    ``name`` defaults to the directory's basename."""
+    """The detector artifact at ``source_dir`` as a bank entry (numpy, no
+    device); ``name`` defaults to the directory's basename."""
     meta = _load_detector(source_dir)
-    with np.load(os.path.join(source_dir, PARAMS_FILE)) as npz:
-        params = _unflatten({k: npz[k] for k in npz.files})
-    with np.load(os.path.join(source_dir, SCALERS_FILE)) as npz:
-        scalers = {k: npz[k] for k in _SCALERS}
+    params = _load_params(source_dir)
+    npz = _load_npz(os.path.join(source_dir, SCALERS_FILE))
+    scalers = {k: npz[k] for k in _SCALERS}
     return entry_from_numpy(
         name or os.path.basename(os.path.normpath(source_dir)),
         meta["registry_type"],
@@ -176,10 +283,79 @@ def load_entry(source_dir: str, name: Optional[str] = None):
     )
 
 
+def _load_model(source_dir: str, device):
+    meta = _read_format(os.path.join(source_dir, MODEL_FILE))
+    est = estimator_from_numpy(
+        meta["registry_type"], meta["kind"], meta.get("factory_kwargs") or {}, meta["n_features"],
+        _load_params(source_dir), lookback=meta.get("lookback", 1),
+        target_offset=meta.get("target_offset", 0), compute_dtype=meta.get("compute_dtype", "float32"),
+        estimator_params=meta.get("estimator_params"), device=device,
+    )
+    if meta.get("model_type") == "estimator":
+        return est
+    if meta.get("model_type") != "Pipeline":
+        raise ValueError(f"{source_dir}: unknown model_type {meta.get('model_type')!r}")
+    from gordo_components_torch.models.transformers import Pipeline
+
+    npz = _load_npz(os.path.join(source_dir, SCALERS_FILE)) if meta["steps"] else {}
+    steps = [
+        (step["name"], scaler_from_numpy(step["class"], npz[f"steps/{i}/shift"],
+                                         npz[f"steps/{i}/scale"], step.get("kwargs")))
+        for i, step in enumerate(meta["steps"])
+    ]
+    return Pipeline(steps + [(meta["estimator_step"], est)])
+
+
 def load(source_dir: str, device="cuda"):
-    """The artifact at ``source_dir`` as a
+    """The artifact at ``source_dir`` on ``device``, as the class that was
+    dumped: a
     :class:`~gordo_components_torch.models.anomaly.diff.DiffBasedAnomalyDetector`
-    on ``device``."""
+    for ``detector.json``, a ``Pipeline`` or a bare estimator for
+    ``model.json``."""
+    from gordo_components_torch.device import resolve_device
     from gordo_components_torch.models.anomaly.diff import DiffBasedAnomalyDetector
 
-    return DiffBasedAnomalyDetector.from_entry(load_entry(source_dir), device=device)
+    device = resolve_device(device)
+    if _is_detector(source_dir):
+        return DiffBasedAnomalyDetector.from_entry(load_entry(source_dir), device=device)
+    return _load_model(source_dir, device)
+
+
+def pack_artifact_dir(path: str) -> bytes:
+    """An artifact directory as a gzipped tar, its member names relative to
+    the directory (JAX ``server/model_io.pack_artifact_dir``)."""
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz") as tar:
+        for entry in sorted(os.listdir(path)):
+            tar.add(os.path.join(path, entry), arcname=entry)
+    return buf.getvalue()
+
+
+def unpack_artifact_dir(raw: bytes, dest: str) -> None:
+    """Extract an artifact archive under ``dest``. Every member name is
+    checked first: an absolute path, a ``..`` part, a link or a device
+    refuses the whole archive (JAX ``server/model_io.unpack_artifact_dir``)."""
+    os.makedirs(dest, exist_ok=True)
+    with tarfile.open(fileobj=io.BytesIO(raw), mode="r:gz") as tar:
+        members = tar.getmembers()
+        for member in members:
+            name = member.name
+            if os.path.isabs(name) or ".." in name.split("/") or not (member.isfile() or member.isdir()):
+                raise ValueError(f"refusing artifact archive member {name!r} (unsafe path or non-file entry)")
+        for member in members:
+            tar.extract(member, dest, set_attrs=False, filter="data")
+
+
+def dumps(model) -> bytes:
+    """``model`` (anything :func:`dump` writes) as the bytes of its artifact
+    directory, a gzipped tar."""
+    with tempfile.TemporaryDirectory() as tmp:
+        dump(model, tmp)
+        return pack_artifact_dir(tmp)
+
+
+def loads(data: bytes, device="cuda"):
+    """Inverse of :func:`dumps`: the model on ``device``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        unpack_artifact_dir(data, tmp)
+        return load(tmp, device=device)

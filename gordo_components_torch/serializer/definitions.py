@@ -6,8 +6,16 @@ Counterpart of ``import_locate``/``from_definition`` in
 - a dotted path string -> the class, instantiated with defaults;
 - a one-key dict ``{dotted.path: {kwargs}}`` -> instantiated with kwargs,
   resolving kwarg values that are themselves definitions;
-- a list -> each element resolved (``Pipeline(steps=...)``), bare pipeline
-  steps auto-named ``step_0..``.
+- a list -> each element resolved (``Pipeline(steps=...)``), bare
+  ``steps`` and ``transformer_list`` entries auto-named ``step_0..``.
+
+:func:`into_definition` is the inverse (JAX ``into_definition``): an
+object's captured constructor arguments (``_params``) as a definition. The
+port's stand-ins for the sklearn classes write the sklearn path with their
+non-default arguments, as the JAX package writes the sklearn objects
+themselves, and ``device`` (where a model runs, not what it is) is left
+out, so the port writes the JAX package's definition with its own package
+name.
 
 The port's alias table makes one configuration resolve to port classes:
 the JAX package's paths (``gordo_components_tpu.models.*``), the
@@ -17,6 +25,7 @@ own stand-ins (it imports no sklearn).
 """
 
 import importlib
+import inspect
 from typing import Any, Dict, List, Union
 
 _M = "gordo_components_torch.models"
@@ -31,6 +40,9 @@ _PATH_ALIASES = {
     "sklearn.pipeline.Pipeline": f"{_M}.transformers.Pipeline",
     "sklearn.preprocessing.MinMaxScaler": f"{_M}.transformers.MinMaxScaler",
     "sklearn.preprocessing.StandardScaler": f"{_M}.transformers.StandardScaler",
+    # the module sklearn defines its scalers in, as an object's path names it
+    "sklearn.preprocessing._data.MinMaxScaler": f"{_M}.transformers.MinMaxScaler",
+    "sklearn.preprocessing._data.StandardScaler": f"{_M}.transformers.StandardScaler",
 }
 # any other path under these prefixes maps onto the port's package
 _PREFIXES = ("gordo_components_tpu.", "gordo_components.")
@@ -105,7 +117,7 @@ def _resolve_value(key: str, value: Any) -> Any:
     # steps may be bare definitions or (name, definition) pairs; bare
     # entries are auto-named. A step that does not resolve raises here
     # (ImportError naming it), not later inside the pipeline.
-    if key == "steps" and isinstance(value, list):
+    if key in ("steps", "transformer_list") and isinstance(value, list):
         out = []
         for i, entry in enumerate(value):
             if (isinstance(entry, (list, tuple)) and len(entry) == 2
@@ -119,3 +131,58 @@ def _resolve_value(key: str, value: Any) -> Any:
     if isinstance(value, list):
         return [from_definition(v) if _is_definition(v) else v for v in value]
     return value
+
+
+# ---------------------------------------------------------------------- #
+# inverse: object -> definition
+# ---------------------------------------------------------------------- #
+
+# the port's stand-ins for the sklearn classes, under the sklearn paths
+_STAND_IN_PATHS = {
+    resolve_path(sk): sk for sk in _PATH_ALIASES if sk.startswith("sklearn.") and "._" not in sk
+}
+
+
+def _dotted_path(obj: Any) -> str:
+    cls = type(obj)
+    return f"{cls.__module__}.{cls.__qualname__}"
+
+
+def _ctor_defaults(obj: Any) -> Dict[str, Any]:
+    sig = inspect.signature(type(obj).__init__)
+    return {k: p.default for k, p in sig.parameters.items() if p.default is not inspect.Parameter.empty}
+
+
+def into_definition(obj: Any) -> Union[str, Dict]:
+    """Serialize an object back into the definition language:
+    ``{dotted.path: {kwargs}}``, or the bare path when there are none."""
+    path = _dotted_path(obj)
+    params = {k: v for k, v in getattr(obj, "_params", {}).items() if k != "device"}
+    if path in _STAND_IN_PATHS:
+        path = _STAND_IN_PATHS[path]
+        defaults = _ctor_defaults(obj)
+        params = {k: v for k, v in params.items() if not (k in defaults and _same(defaults[k], v))}
+    params = {k: _encode_value(v) for k, v in params.items()}
+    return {path: params} if params else path
+
+
+def _same(a: Any, b: Any) -> bool:
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return list(a) == list(b)
+    return a == b
+
+
+def _encode_value(v: Any) -> Any:
+    # (name, object) pairs of Pipeline.steps
+    if isinstance(v, tuple) and len(v) == 2 and isinstance(v[0], str) and hasattr(v[1], "_params"):
+        return [v[0], into_definition(v[1])]
+    if isinstance(v, (list, tuple)):
+        return [_encode_value(x) for x in v]
+    if hasattr(v, "_params"):
+        return into_definition(v)
+    return v
+
+
+# the reference's function names
+pipeline_from_definition = from_definition
+pipeline_into_definition = into_definition

@@ -23,6 +23,14 @@ and for a conv bucket the same with the conv autoencoder's layers (one
 ``torch.baddbmm`` a layer over the taps of every window) in place of the
 LSTM.
 
+Models the bank cannot hold (anything but a fitted
+``DiffBasedAnomalyDetector`` over one of the bankable estimator classes
+with affine scaler steps) are left out of :meth:`ModelBank.from_models`
+with a reason in ``bank.fallback``, and the server scores them through
+their own ``predict``/``anomaly`` (the per-model path). A bucket whose
+build fails is left out the same way, its members under ``fallback`` and
+its error under ``finalize_failures``.
+
 The kernel writes the batch's whole result (reconstruction, diff, scaled
 and the two norms of every slot) into one buffer, which goes to the host in
 one copy.
@@ -42,14 +50,15 @@ cast gives on every forward, at half the bytes a batch gathers. The
 network's output is float32 in both, and so is the score.
 
 Not in this slice: the device mesh, quantized banks, the goodput ledger,
-access heat, the buffer arena and the in-flight pipeline.
+access heat, the buffer arena, the in-flight pipeline and the placement
+planner's per-model row counts.
 """
 
 import hashlib
 import json
 import logging
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,6 +115,18 @@ class _BankEntry:
             default=str,
         )
 
+    def bucket_label(self) -> str:
+        """The bucket's name in logs and ``finalize_failures``."""
+        label = f"{self.registry_type}:{self.kind}:f{self.n_features}:l{self.lookback}"
+        if self.target_offset:
+            label += f":o{self.target_offset}"
+        if self.compute_dtype != "float32":
+            # JAX bank.py:293-298: a bfloat16 bucket is another program and
+            # another metric series than a float32 one of the same kwargs
+            extra = json.dumps([sorted(self.factory_kwargs.items()), self.compute_dtype], default=str)
+            label += ":" + hashlib.sha1(extra.encode()).hexdigest()[:6]
+        return label
+
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
@@ -130,14 +151,7 @@ class _Bucket:
         self.n_features = first.n_features
         self.lookback, self.target_offset = first.lookback, first.target_offset
         self.offset = first.offset
-        self.label = f"{first.registry_type}:{first.kind}:f{first.n_features}:l{first.lookback}"
-        if first.target_offset:
-            self.label += f":o{first.target_offset}"
-        if first.compute_dtype != "float32":
-            # JAX bank.py:293-298: a bfloat16 bucket is another program and
-            # another metric series than a float32 one of the same kwargs
-            extra = json.dumps([sorted(first.factory_kwargs.items()), first.compute_dtype], default=str)
-            self.label += ":" + hashlib.sha1(extra.encode()).hexdigest()[:6]
+        self.label = first.bucket_label()
         self.dtype = module.compute_dtype
         self.in_shift, self.in_scale, self.err_shift, self.err_scale = (
             _stack([getattr(e, f) for e in entries], device)
@@ -283,6 +297,37 @@ class ScoreResult:
 Request = Tuple[str, np.ndarray, Optional[np.ndarray]]
 
 
+# estimator classes whose scoring the bank reproduces (JAX bank.py
+# _BANKABLE_TYPES); the registry type is also the factory namespace
+_BANKABLE_TYPES = {"AutoEncoder", "LSTMAutoEncoder", "LSTMForecast", "ConvAutoEncoder"}
+
+
+def _extract_entry(name: str, model) -> Tuple[Optional[_BankEntry], Optional[str]]:
+    """``(entry, None)`` for a model the bank can hold, else ``(None,
+    reason)``, the reason worded as the JAX bank's ``_extract_entry``
+    words it; :meth:`ModelBank.coverage` reports it."""
+    from gordo_components_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+
+    if not isinstance(model, DiffBasedAnomalyDetector):
+        return None, f"not a DiffBasedAnomalyDetector ({type(model).__name__})"
+    if model.error_scaler_ is None:
+        return None, "detector is unfitted (no error scaler)"
+    if model.base_estimator is not None:  # a fitted detector, not a loaded one
+        base = model.base_estimator
+        pre_steps, est = (base.steps[:-1], base.steps[-1][1]) if hasattr(base, "steps") else ([], base)
+        if type(est).__name__ not in _BANKABLE_TYPES:
+            return None, f"unsupported estimator class {type(est).__name__}"
+        if getattr(est, "params_", None) is None:
+            return None, "estimator is unfitted"
+        for step_name, step in pre_steps:
+            if getattr(step, "scaler_params_", None) is None:
+                return None, f"non-affine preprocessing step {step_name!r}"
+    entry = model.to_entry(name)
+    if entry.registry_type not in _BANKABLE_TYPES:
+        return None, f"unsupported estimator class {entry.registry_type}"
+    return entry, None
+
+
 class ModelBank:
     """Stacked scoring bank over a collection of detectors, on one device.
 
@@ -296,37 +341,99 @@ class ModelBank:
         self._buckets: Dict[str, _Bucket] = {}
         self._index: Dict[str, Tuple[str, int]] = {}  # name -> (bucket key, i)
         self._tags: Dict[str, List[str]] = {}
+        # name -> why the model is scored on the per-model path
+        self.fallback: Dict[str, str] = {}
+        # bucket label -> error, for buckets whose build failed: their
+        # members serve on the per-model path, and /healthz is "degraded"
+        self.finalize_failures: Dict[str, str] = {}
+        # 0 for the bank a server starts with; server/swap.py gives each
+        # bank it swaps in the generation after the one it replaces
+        self.generation = 0
 
     @classmethod
     def from_entries(cls, entries: Sequence[_BankEntry], **kwargs) -> "ModelBank":
+        """A bank of bank entries; raises if a bucket cannot be built."""
         bank = cls(**kwargs)
+        for key, group in bank._group(entries).items():
+            bank._buckets[key] = _make_bucket(group, bank.device)
+        logger.info("Model bank: %d models in %d bucket(s) on %s", len(bank), bank.n_buckets, bank.device)
+        return bank
+
+    @classmethod
+    def from_models(cls, models: Mapping[str, Any], **kwargs) -> "ModelBank":
+        """A bank of every model in ``models`` (name -> model) that it can
+        hold; the others land in ``fallback`` with the reason. A bucket
+        whose build fails is left out, its members under ``fallback`` and
+        its error under ``finalize_failures``: every other bucket serves."""
+        bank = cls(**kwargs)
+        entries = []
+        for name, model in models.items():
+            try:
+                entry, reason = _extract_entry(name, model)
+            except Exception as exc:
+                # one malformed model must not stop the bank's build
+                logger.warning("Model %r: bank extraction failed; per-model path", name, exc_info=True)
+                bank.fallback[name] = f"extraction error: {type(exc).__name__}: {exc}"
+                continue
+            if entry is None:
+                bank.fallback[name] = reason or "not bankable"
+            else:
+                entries.append(entry)
+        for key, group in bank._group(entries).items():
+            try:
+                bank._buckets[key] = _make_bucket(group, bank.device)
+            except Exception as exc:
+                label = group[0].bucket_label()
+                logger.error("Bucket %s build FAILED (%d member(s) fall back to the per-model "
+                             "path): %s", label, len(group), exc, exc_info=True)
+                reason = f"bucket finalize failed: {type(exc).__name__}: {exc}"
+                bank.finalize_failures[label] = reason
+                for e in group:
+                    del bank._index[e.name]
+                    del bank._tags[e.name]
+                    bank.fallback[e.name] = reason
+        logger.info("Model bank: %d models in %d bucket(s) on %s", len(bank), bank.n_buckets, bank.device)
+        if bank.fallback:
+            logger.warning(
+                "Model bank: %d/%d model(s) NOT banked (per-model path): %s",
+                len(bank.fallback), len(bank.fallback) + len(bank._index),
+                ", ".join(f"{n} ({r})" for n, r in sorted(bank.fallback.items())[:10])
+                + (" ..." if len(bank.fallback) > 10 else ""),
+            )
+        return bank
+
+    def _group(self, entries: Sequence[_BankEntry]) -> Dict[str, List[_BankEntry]]:
+        """Index ``entries`` by name and group them by bucket key."""
         grouped: Dict[str, List[_BankEntry]] = {}
         for e in entries:
-            if e.name in bank._index:
+            if e.name in self._index:
                 raise ValueError(f"duplicate model name {e.name!r}")
             group = grouped.setdefault(e.bucket_key(), [])
-            bank._index[e.name] = (e.bucket_key(), len(group))
-            bank._tags[e.name] = (
+            self._index[e.name] = (e.bucket_key(), len(group))
+            self._tags[e.name] = (
                 list(e.tags) if e.tags else [f"feature-{i}" for i in range(e.n_features)]
             )
             group.append(e)
-        for key, group in grouped.items():
-            bank._buckets[key] = _make_bucket(group, bank.device)
-        logger.info("Model bank: %d models in %d bucket(s) on %s",
-                    len(bank._index), len(bank._buckets), bank.device)
-        return bank
+        return grouped
 
     def __contains__(self, name: str) -> bool:
         return name in self._index
+
+    def __len__(self) -> int:
+        return len(self._index)
 
     @property
     def n_buckets(self) -> int:
         return len(self._buckets)
 
     def coverage(self) -> Dict[str, Any]:
+        """The JAX bank's coverage keys (``banked`` a count here, as there),
+        and the device the bank is on."""
         return {
             "banked": len(self._index),
+            "fallback": dict(self.fallback),
             "n_buckets": len(self._buckets),
+            "devices": 1,
             "device": str(self.device),
         }
 

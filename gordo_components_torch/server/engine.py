@@ -9,7 +9,9 @@ The worker takes the oldest waiting request, then gathers more until it
 holds ``max_batch`` or ``flush_ms`` have passed since that request arrived,
 and scores them all in one ``ModelBank.score_many`` call. If that call
 raises, each request of the batch is scored alone, so one bad request
-fails only itself. The queue is bounded: when it holds ``max_queue``
+fails only itself. A batch reads ``self.bank`` once, so a bank swap
+(``server/swap.py``) flips the engine between batches and a batch in
+flight drains on the bank it started on. The queue is bounded: when it holds ``max_queue``
 requests a new one raises :class:`EngineOverloaded` at once (HTTP 429).
 """
 
@@ -136,13 +138,16 @@ class BatchingEngine:
             if not batch:
                 continue
             t0 = time.monotonic()
+            # one read of the bank a batch: a swap (server/swap.py) that
+            # flips self.bank meanwhile leaves this batch on the old bank
+            bank = self.bank
             try:
-                results = self.bank.score_many([(p.name, p.X, p.y) for p in batch])
+                results = bank.score_many([(p.name, p.X, p.y) for p in batch])
             except Exception:
                 # one bad request must not fail its neighbours: score alone
                 for p in batch:
                     try:
-                        p.future.set_result(self.bank.score(p.name, p.X, p.y))
+                        p.future.set_result(bank.score(p.name, p.X, p.y))
                     except Exception as exc:
                         p.future.set_exception(exc)
             else:

@@ -2,17 +2,26 @@
 
 Counterpart of ``scan_artifacts`` and ``ModelCollection`` in
 ``gordo_components_tpu/server/model_io.py``, over the port's artifact format
-(``serializer/artifacts.py``): no pickle is ever loaded.
+(``serializer/artifacts.py``): no pickle is ever loaded. A collection holds
+every model under its root, whatever its class (a detector, a bare
+``Pipeline``, a bare estimator), loaded on the server's device.
+
+Not in this slice: the mesh's ownership set (``acquire``/``release``) and
+the adaptation plane's ``publish``/``restore``.
 """
 
+import logging
 import os
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from gordo_components_torch.serializer.artifacts import (
+    artifact_mtime,
     is_artifact_dir,
-    load_entry,
+    load,
     load_metadata,
 )
+
+logger = logging.getLogger(__name__)
 
 
 def scan_artifacts(root: str, target_name: Optional[str] = None) -> Dict[str, str]:
@@ -31,21 +40,96 @@ def scan_artifacts(root: str, target_name: Optional[str] = None) -> Dict[str, st
 
 
 class ModelCollection:
-    """name -> (bank entry, metadata) for every artifact under ``root``."""
+    """name -> (model, metadata) for every artifact under ``root``, loaded
+    on ``device``.
 
-    def __init__(self, root: str, target_name: Optional[str] = None):
+    The models and their metadata are published together as one tuple:
+    :meth:`refresh` builds new dicts to the side and swaps them in with one
+    assignment, and a published dict is never changed afterwards, so a
+    reader on another thread sees one whole state (:meth:`snapshot`,
+    :meth:`entry`).
+
+    :meth:`refresh` loads new and changed artifacts (by the newest mtime of
+    their files) and drops removed ones. A corrupt artifact is reported
+    under ``failed`` and in ``load_failures``, and skipped: a previous good
+    version keeps serving, and the next refresh tries it again."""
+
+    def __init__(self, root: str, target_name: Optional[str] = None, device="cuda"):
         self.root = root
-        self.entries = {}
-        self.metadata = {}
-        for name, path in scan_artifacts(root, target_name).items():
-            self.entries[name] = load_entry(path, name)
-            self.metadata[name] = load_metadata(path)
-        if not self.entries:
-            raise FileNotFoundError(f"No model artifacts found under {root!r}")
+        self.target_name = target_name
+        self.device = device
+        self._state: Tuple[Dict[str, Any], Dict[str, Dict]] = ({}, {})
+        self._mtimes: Dict[str, float] = {}
+        self.load_failures: Dict[str, str] = {}  # the latest scan's failed loads
+        changes = self.refresh()
+        if not self.models:
+            detail = f"; all artifact loads failed: {changes['failed']}" if changes["failed"] else ""
+            raise FileNotFoundError(f"No model artifacts found under {root!r}{detail}")
+        if changes["failed"]:
+            logger.error("Startup loaded %d models but %d artifacts FAILED: %s",
+                         len(self.models), len(changes["failed"]), changes["failed"])
 
-    def names(self) -> List[str]:
-        return sorted(self.entries)
+    @property
+    def models(self) -> Dict[str, Any]:
+        return self._state[0]
+
+    @property
+    def metadata(self) -> Dict[str, Dict]:
+        return self._state[1]
+
+    def snapshot(self) -> Tuple[Dict[str, Any], Dict[str, Dict]]:
+        """One consistent (models, metadata) pair."""
+        return self._state
 
     def entry(self, name: str):
-        """(entry, metadata); KeyError for an unknown name."""
-        return self.entries[name], self.metadata[name]
+        """(model, metadata) from one state; KeyError for an unknown name."""
+        models, metadata = self._state
+        return models[name], metadata.get(name, {})
+
+    def names(self) -> List[str]:
+        return sorted(self.models)
+
+    def refresh(self) -> Dict[str, Any]:
+        """Rescan ``root``: ``{"added": [...], "updated": [...], "removed":
+        [...], "failed": {name: error}}``. A failed load keeps the name's
+        earlier model (if any) and leaves its mtime unrecorded, so the next
+        refresh retries it."""
+        on_disk = scan_artifacts(self.root, self.target_name)
+        models, metadata = dict(self.models), dict(self.metadata)
+        mtimes = dict(self._mtimes)
+        added, updated, removed = [], [], []
+        failed: Dict[str, str] = {}
+        for name in list(models):
+            if name not in on_disk:
+                removed.append(name)
+                del models[name]
+                metadata.pop(name, None)
+                mtimes.pop(name, None)
+        for name, path in on_disk.items():
+            try:
+                mtime = artifact_mtime(path)
+            except OSError as exc:  # removed between the scan and here
+                failed[name] = f"{type(exc).__name__}: {exc}"
+                continue
+            is_new = name not in models
+            if not is_new and mtime == mtimes.get(name):
+                continue
+            try:
+                logger.info("Loading model %r from %s", name, path)
+                model = load(path, device=self.device)
+                meta = load_metadata(path)
+            except Exception as exc:
+                logger.warning("Failed to load %r from %s: %s", name, path, exc)
+                failed[name] = f"{type(exc).__name__}: {exc}"
+                continue
+            meta.setdefault("name", name)
+            models[name], metadata[name] = model, meta
+            mtimes[name] = mtime
+            (added if is_new else updated).append(name)
+        self._state = (models, metadata)  # one assignment publishes both
+        self._mtimes = mtimes
+        self.load_failures = dict(failed)
+        if added or updated or removed or failed:
+            logger.info("Collection refresh: +%d ~%d -%d !%d (now %d models)",
+                        len(added), len(updated), len(removed), len(failed), len(models))
+        return {"added": added, "updated": updated, "removed": removed, "failed": failed}

@@ -118,20 +118,21 @@ def test_build_fleet_serve_and_rerun(tmp_path, monkeypatch):
         {"gordo_components_tpu.models.LSTMAutoEncoder": {"kind": "lstm_hourglass", "lookback_window": 4}}])})
     machines.append(Machine(name="cv", dataset=_dataset("cv"), model=FLEET_MODEL,
                             evaluation={"cross_validation": True, "n_splits": 2}))
-    # a top-level config that is not a detector: no port artifact yet
+    # a top-level config that is not a detector: the single-build path,
+    # written as model.json and served on the per-model path
     machines.append(Machine(name="c1", dataset=_dataset("c1"), model={"sklearn.pipeline.Pipeline": {
         "steps": ["sklearn.preprocessing.MinMaxScaler", _AE]}}))
     out, reg = str(tmp_path / "out"), str(tmp_path / "reg")
     report = build_fleet(machines, out, model_register_dir=reg, group_retries=0, device="cpu")
-    assert sorted(report) == ["bespoke", "cv", "lstm", "m0", "m1", "m2"]
-    assert sorted(report.failed) == ["c1"]
-    assert report.failed["c1"].startswith("NotImplementedError") and "Pipeline" in report.failed["c1"]
-    assert not os.path.exists(os.path.join(out, "c1"))
+    assert sorted(report) == ["bespoke", "c1", "cv", "lstm", "m0", "m1", "m2"]
+    assert not report.failed
+    assert sorted(os.listdir(os.path.join(out, "c1"))) == ["metadata.json", "model.json", "params.npz",
+                                                           "scalers.npz"]
     cv = serializer.load_metadata(os.path.join(out, "cv"))["model"]
     assert cv["fleet_trained"] and cv["cross-validation"]["fleet_cv"] is True
     assert len(cv["cross-validation"]["explained-variance"]["per-fold"]) == 2
     manifest = report.manifest()
-    assert (manifest["n_built"], manifest["n_failed"]) == (6, 1)
+    assert (manifest["n_built"], manifest["n_failed"]) == (7, 0)
     lstm_meta = serializer.load_metadata(os.path.join(out, "lstm"))
     assert lstm_meta["registry_type"] == "LSTMAutoEncoder" and lstm_meta["lookback"] == 4
     assert lstm_meta["model"]["fleet_trained"]
@@ -153,6 +154,10 @@ def test_build_fleet_serve_and_rerun(tmp_path, monkeypatch):
             want = serializer.load(os.path.join(out, name), device="cpu").anomaly(X)
             np.testing.assert_allclose(body["data"]["total-anomaly-scaled"],
                                        want["total-anomaly-scaled"], rtol=0, atol=1e-5)
+        X = rng.rand(20, 3).astype("f4")
+        status, body = _post(f"{server.url}/gordo/v0/p/c1/prediction", {"X": X.tolist()})
+        want = serializer.load(os.path.join(out, "c1"), device="cpu").predict(X)
+        assert status == 200 and np.array_equal(np.asarray(body["data"], "f4"), want)
     finally:
         server.close()
 
@@ -163,7 +168,7 @@ def test_build_fleet_serve_and_rerun(tmp_path, monkeypatch):
     monkeypatch.setattr(FleetTrainer, "fit", no_training)
     monkeypatch.setattr(importlib.import_module("gordo_components_torch.builder.build_model"),
                         "build_model", no_training)
-    again = build_fleet(machines[:6], out, model_register_dir=reg, device="cpu")
+    again = build_fleet(machines, out, model_register_dir=reg, device="cpu")
     assert dict(again) == dict(report) and not again.failed
 
 
@@ -243,35 +248,6 @@ def test_build_model_and_provide_saved_model(tmp_path):
     assert not cv_meta["model"]["trained"]
     assert len(cv_meta["model"]["cross-validation"]["explained-variance"]["per-fold"]) == 3
     assert calculate_model_key("one", FLEET_MODEL, ds) != calculate_model_key("two", FLEET_MODEL, ds)
-
-
-C1_CONFIGS = {
-    "pipeline": {"sklearn.pipeline.Pipeline": {"steps": ["sklearn.preprocessing.MinMaxScaler", _AE]}},
-    "estimator": {_AE: {"epochs": 1}},
-}
-
-
-@pytest.mark.parametrize("which", sorted(C1_CONFIGS))
-def test_non_detector_configs_raise_before_fit_or_write(tmp_path, monkeypatch, which):
-    """A top-level config that is not a detector (legal in the JAX package)
-    has no port artifact yet: NotImplementedError before any fit or write,
-    single and through build_fleet."""
-    from gordo_components_torch.models import AutoEncoder
-
-    model = C1_CONFIGS[which]
-    fits = []
-    monkeypatch.setattr(AutoEncoder, "fit", lambda self, *a, **k: fits.append(1))
-    ds = _dataset("c1", hours=4)
-    out, reg = str(tmp_path / "out"), str(tmp_path / "reg")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        provide_saved_model("c1", model, ds, output_dir=out, model_register_dir=reg, device="cpu")
-    report = build_fleet([Machine(name="c1", dataset=ds, model=model)], str(tmp_path / "fleet"),
-                         model_register_dir=reg, device="cpu")
-    assert not report and report.failed["c1"].startswith("NotImplementedError")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serializer.dump(serializer.from_definition(model), str(tmp_path / "dump"))
-    assert fits == []
-    assert not any(os.path.exists(p) for p in (out, reg, str(tmp_path / "fleet"), str(tmp_path / "dump")))
 
 
 def test_single_build_of_an_lstm_detector(tmp_path):

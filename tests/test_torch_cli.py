@@ -242,13 +242,19 @@ def test_build_fleet_refuses_unported_options_with_83(extra, tmp_path, capsys):
     assert "not ported" in capsys.readouterr().err
 
 
-def test_not_implemented_is_a_build_error_not_a_config_error(tmp_path, capsys):
-    """A top-level config that is not a detector has no port artifact: the
-    build raises NotImplementedError, a RuntimeError, so exit 83 (not 82)."""
-    bare = json.dumps({"gordo_components_torch.models.AutoEncoder": {"epochs": 1}})
-    rc, _ = run_port(["build", "--name", "m", "--model-config", bare, "--data-config", json.dumps(DATA),
-                      "--output-dir", str(tmp_path)], capsys)
-    assert rc == 83
+@pytest.mark.parametrize("config", [
+    {"{p}.models.AutoEncoder": {"epochs": 1}},
+    {"sklearn.pipeline.Pipeline": {"steps": ["sklearn.preprocessing.MinMaxScaler", "{p}.models.AutoEncoder"]}},
+], ids=["estimator", "pipeline"])
+def test_non_detector_config_builds_like_jax(config, tmp_path, capsys):
+    """A top-level config that is not a detector builds in both CLIs
+    (exit 0); the port writes it as model.json."""
+    jax_model, port_model = _both(lambda p: json.dumps(config).replace("{p}", p))
+    common = ["build", "--name", "m", "--data-config", json.dumps(DATA)]
+    jax_rc, _ = run_jax([*common, "--model-config", jax_model, "--output-dir", str(tmp_path / "j")])
+    rc, out = run_port([*common, "--model-config", port_model, "--output-dir", str(tmp_path / "p")], capsys)
+    assert rc == jax_rc == 0
+    assert os.path.exists(os.path.join(out.strip(), "model.json"))
 
 
 def test_default_device_is_the_card(tmp_path, capsys, monkeypatch):

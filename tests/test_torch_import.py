@@ -76,7 +76,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "builder.build_model", "builder.fleet_build", "parallel.fleet",
                 "utils.staging", "utils.yaml_subset", "builder.splits", "cli", "cli.cli",
                 "cli.__main__", "models.factories.conv", "models.factories.variational",
-                "ops.dense", "models.register"):
+                "ops.dense", "models.register", "server.model_io", "server.swap",
+                "utils.digest"):
         assert f"gordo_components_torch.{mod}" in report["modules"]
 
 
@@ -190,6 +191,8 @@ def _entry_points(artifact_dir):
         "resolve_device": lambda **kw: resolve_device(**kw),
         "ModelBank": lambda **kw: ModelBank(**kw),
         "serializer.load": lambda **kw: serializer.load(os.path.join(artifact_dir, "m"), **kw),
+        "serializer.loads": lambda **kw: serializer.loads(
+            serializer.dumps(serializer.load(os.path.join(artifact_dir, "m"), device="cpu")), **kw),
         "build_app": lambda **kw: build_app(artifact_dir, **kw).close(),
         "run_server": lambda **kw: run_server(
             artifact_dir, host="127.0.0.1", port=0, background=True, **kw
@@ -198,7 +201,7 @@ def _entry_points(artifact_dir):
 
 
 @pytest.mark.parametrize(
-    "name", ["resolve_device", "ModelBank", "serializer.load", "build_app", "run_server",
+    "name", ["resolve_device", "ModelBank", "serializer.load", "serializer.loads", "build_app", "run_server",
              "AutoEncoder.fit", "FleetTrainer.fit", "build_model", "provide_saved_model",
              "build_fleet"]
 )

@@ -115,7 +115,10 @@ def test_models_healthcheck_and_metadata(served):
     status, _, body = call(server, "/gordo/v0/proj/models")
     assert status == 200
     assert body["project"] == "proj" and body["models"] == ["machine-1"]
-    assert body["bank"] == {"banked": 1, "n_buckets": 1, "device": "cpu"}
+    # the JAX server's /models shape (views._bank_coverage); the port
+    # parses JSON bodies only
+    assert body["accepts"] == ["application/json"]
+    assert body["bank"] == {"banked": ["machine-1"], "fallback": {}, "n_buckets": 1, "devices": 1}
     status, _, body = call(server, "/gordo/v0/proj/machine-1/healthcheck")
     assert (status, body) == (200, {"gordo-server-version": __version__})
     status, _, body = call(server, "/gordo/v0/proj/machine-1/metadata")
