@@ -21,7 +21,6 @@ import hashlib
 import json
 import logging
 import os
-import shutil
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -250,9 +249,9 @@ def provide_saved_model(
 
 def _mirror_artifact(src_dir: str, output_dir: str) -> None:
     """Copy a (possibly cached) registry artifact to the requested output
-    location: reruns must still populate the serving directory."""
+    location: reruns must still populate the serving directory. A server
+    reading ``output_dir`` meanwhile keeps the artifact that was there
+    (``serializer.copy_artifact``)."""
     if os.path.abspath(src_dir) == os.path.abspath(output_dir):
         return
-    os.makedirs(output_dir, exist_ok=True)
-    for fname in os.listdir(src_dir):
-        shutil.copy2(os.path.join(src_dir, fname), os.path.join(output_dir, fname))
+    serializer.copy_artifact(src_dir, output_dir)

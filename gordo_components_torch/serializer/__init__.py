@@ -1,6 +1,7 @@
 """Artifact persistence and the config-definition language of the port."""
 
 from gordo_components_torch.serializer.artifacts import (
+    copy_artifact,
     dump,
     dump_metadata,
     dumps,
@@ -19,6 +20,7 @@ from gordo_components_torch.serializer.definitions import (
 )
 
 __all__ = [
+    "copy_artifact",
     "dump",
     "dump_metadata",
     "dumps",

@@ -49,14 +49,30 @@ The format has no untrained detector. A ``cv_mode: cross_val_only`` build
 ``is_artifact_dir`` is false for it, the server's ``scan_artifacts`` skips
 it and the build cache (``builder.build_model.cached_artifact``) never
 returns it. :func:`load_metadata` reads it.
+
+A directory that is being served is rewritten in place, so a rewrite never
+leaves it without a whole artifact (:func:`dump`, :func:`copy_artifact`).
+Each data file (``params.npz``, ``scalers.npz``, ``metadata.json``) is
+written under a temporary name in the directory and renamed over the old
+one; the descriptor (``detector.json`` or ``model.json``) comes last, the
+same way, with a build ``stamp`` and the sha256 of each data file
+(``digests``). The old descriptor stays until the new one replaces it; a
+descriptor of the other kind is removed after. :func:`load` checks each
+data file against the descriptor's digests and raises on a mismatch, so a
+reader that comes in the middle of a rewrite gets an error, never a mix of
+two builds. A descriptor without a stamp (written before the port stamped
+them) loads unchecked.
 """
 
+import hashlib
 import io
 import json
 import os
+import shutil
 import tarfile
 import tempfile
-from typing import Any, Dict, Optional
+import uuid
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
@@ -72,6 +88,7 @@ DETECTOR_FILE = "detector.json"
 MODEL_FILE = "model.json"
 SCALERS_FILE = "scalers.npz"
 METADATA_FILE = "metadata.json"
+DESCRIPTOR_FILES = (DETECTOR_FILE, MODEL_FILE)
 ARTIFACT_FILES = (PARAMS_FILE, SCALERS_FILE, DETECTOR_FILE, MODEL_FILE)
 FORMAT = "gordo-torch-artifact/v1"
 _SCALERS = ("in_shift", "in_scale", "err_shift", "err_scale")
@@ -98,30 +115,100 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
 
 
 def is_artifact_dir(path: str) -> bool:
-    return any(os.path.exists(os.path.join(path, f)) for f in (DETECTOR_FILE, MODEL_FILE))
+    return any(os.path.exists(os.path.join(path, f)) for f in DESCRIPTOR_FILES)
 
 
-def artifact_mtime(path: str) -> float:
-    """The newest modification time of the artifact's files (a rewrite of
-    any of them is a new version); OSError when none is there."""
+def _descriptor_path(path: str) -> str:
+    detector = os.path.join(path, DETECTOR_FILE)
+    return detector if os.path.exists(detector) else os.path.join(path, MODEL_FILE)
+
+
+def artifact_version(path: str):
+    """What tells one version of the artifact at ``path`` from another: the
+    descriptor's build ``stamp`` (None before stamps) and the newest
+    modification time of the artifact's files (a data file rewritten under
+    the same descriptor is read again, and fails its digest); OSError when
+    no artifact file is there or the descriptor cannot be read."""
     times = [os.path.getmtime(os.path.join(path, f)) for f in (*ARTIFACT_FILES, METADATA_FILE)
              if os.path.exists(os.path.join(path, f))]
     if not times:
         raise FileNotFoundError(f"no artifact files under {path!r}")
-    return max(times)
+    with open(_descriptor_path(path)) as f:
+        try:
+            stamp = json.load(f).get("stamp")
+        except ValueError:
+            stamp = None  # load reports the broken descriptor
+    return stamp, max(times)
 
 
-def _write_json(path: str, obj: Dict[str, Any]) -> None:
-    with open(path, "w") as f:
-        json.dump(obj, f, default=str, indent=2)
+def _sha256(path: str) -> str:
+    digest = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            digest.update(block)
+    return digest.hexdigest()
 
 
-def _start_artifact(dest_dir: str) -> None:
-    """Make ``dest_dir`` and remove an earlier artifact's files there."""
-    os.makedirs(dest_dir, exist_ok=True)
-    for fname in ARTIFACT_FILES:
+def _replace_into(dest_dir: str, fname: str, write: Callable[[str], None]) -> str:
+    """``write`` a temporary file in ``dest_dir``, then rename it to
+    ``fname`` there; the sha256 of what was written."""
+    fd, tmp = tempfile.mkstemp(prefix=f".{fname}.", suffix=".tmp", dir=dest_dir)
+    os.close(fd)
+    try:
+        write(tmp)
+        digest = _sha256(tmp)
+        os.replace(tmp, os.path.join(dest_dir, fname))
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+    return digest
+
+
+def _npz_writer(arrays: Dict[str, np.ndarray]) -> Callable[[str], None]:
+    def write(tmp: str) -> None:
+        with open(tmp, "wb") as f:  # a path would get ".npz" appended
+            np.savez(f, **arrays)
+    return write
+
+
+def _json_writer(obj: Dict[str, Any]) -> Callable[[str], None]:
+    def write(tmp: str) -> None:
+        with open(tmp, "w") as f:
+            json.dump(obj, f, default=str, indent=2)
+    return write
+
+
+def _remove(dest_dir: str, fnames) -> None:
+    for fname in fnames:
         if os.path.exists(os.path.join(dest_dir, fname)):
             os.remove(os.path.join(dest_dir, fname))
+
+
+def _commit(dest_dir: str, data: Dict[str, Callable[[str], None]], descriptor_file: str,
+            descriptor: Dict[str, Any]) -> None:
+    """Write the ``data`` files, then the descriptor with a new stamp and
+    their digests, each renamed into ``dest_dir`` whole; then remove what
+    the new artifact does not hold (the other descriptor, a data file it
+    did not write)."""
+    os.makedirs(dest_dir, exist_ok=True)
+    digests = {fname: _replace_into(dest_dir, fname, write) for fname, write in data.items()}
+    _replace_into(dest_dir, descriptor_file,
+                  _json_writer({**descriptor, "stamp": uuid.uuid4().hex, "digests": digests}))
+    _remove(dest_dir, [f for f in ARTIFACT_FILES if f != descriptor_file and f not in data])
+
+
+def copy_artifact(src_dir: str, dest_dir: str) -> None:
+    """Copy the artifact at ``src_dir`` over the one at ``dest_dir`` (file
+    times kept): every file renamed in whole, the descriptor last, then the
+    files ``src_dir`` does not hold removed."""
+    os.makedirs(dest_dir, exist_ok=True)
+    names = [f for f in os.listdir(src_dir)
+             if not f.startswith(".") and os.path.isfile(os.path.join(src_dir, f))]
+    for fname in sorted(names, key=lambda f: f in DESCRIPTOR_FILES):
+        src = os.path.join(src_dir, fname)
+        _replace_into(dest_dir, fname, lambda tmp, src=src: shutil.copy2(src, tmp))
+    _remove(dest_dir, [f for f in (*ARTIFACT_FILES, METADATA_FILE) if f not in names])
 
 
 def _estimator_fields(est) -> Dict[str, Any]:
@@ -144,9 +231,9 @@ def _estimator_fields(est) -> Dict[str, Any]:
     }
 
 
-def _dump_model(model, dest_dir: str) -> None:
-    """A bare Pipeline or estimator as ``model.json``, ``params.npz`` and,
-    for a Pipeline, ``scalers.npz``."""
+def _model_files(model):
+    """A bare Pipeline or estimator's data files (``params.npz`` and, for a
+    Pipeline, ``scalers.npz``) and its ``model.json``."""
     from gordo_components_torch.models.transformers import Pipeline, _AffineScaler
 
     meta: Dict[str, Any] = {"format": FORMAT}
@@ -166,11 +253,10 @@ def _dump_model(model, dest_dir: str) -> None:
         est = model
         meta["model_type"] = "estimator"
     meta.update(_estimator_fields(est))
-    _start_artifact(dest_dir)
-    np.savez(os.path.join(dest_dir, PARAMS_FILE), **_flatten(params_to_flax(est.params_)))
+    data = {PARAMS_FILE: _npz_writer(_flatten(params_to_flax(est.params_)))}
     if scalers:
-        np.savez(os.path.join(dest_dir, SCALERS_FILE), **scalers)
-    _write_json(os.path.join(dest_dir, MODEL_FILE), meta)
+        data[SCALERS_FILE] = _npz_writer(scalers)
+    return data, meta
 
 
 def dump(obj, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> None:
@@ -179,19 +265,18 @@ def dump(obj, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> None:
     (``server/bank._BankEntry``) or a fitted detector (through its
     ``to_entry()``) as ``detector.json``; a fitted bare estimator or
     ``Pipeline`` of the port's scalers and an estimator as ``model.json``.
-    Anything else raises before a file is written."""
+    Anything else raises before a file is written. The artifact that was
+    at ``dest_dir`` stays whole until the new descriptor replaces it."""
     from gordo_components_torch.server.bank import _BankEntry
 
     if isinstance(obj, _BankEntry) or hasattr(obj, "to_entry"):
         entry = obj if isinstance(obj, _BankEntry) else obj.to_entry(
             os.path.basename(os.path.normpath(dest_dir)))
-        _start_artifact(dest_dir)
-        np.savez(os.path.join(dest_dir, PARAMS_FILE), **_flatten(params_to_flax(entry.params)))
-        np.savez(
-            os.path.join(dest_dir, SCALERS_FILE),
-            **{k: np.asarray(getattr(entry, k), np.float32) for k in _SCALERS},
-        )
-        _write_json(os.path.join(dest_dir, DETECTOR_FILE), {
+        data = {
+            PARAMS_FILE: _npz_writer(_flatten(params_to_flax(entry.params))),
+            SCALERS_FILE: _npz_writer({k: np.asarray(getattr(entry, k), np.float32) for k in _SCALERS}),
+        }
+        descriptor_file, descriptor = DETECTOR_FILE, {
             "format": FORMAT,
             "registry_type": entry.registry_type,
             "kind": entry.kind,
@@ -202,19 +287,22 @@ def dump(obj, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> None:
             "compute_dtype": entry.compute_dtype,
             "tags": list(entry.tags),
             "thresholds": entry.thresholds,
-        })
+        }
     else:
-        _dump_model(obj, dest_dir)
+        data, descriptor = _model_files(obj)
+        descriptor_file = MODEL_FILE
     if metadata is not None:
-        _write_json(os.path.join(dest_dir, METADATA_FILE), metadata)
+        data[METADATA_FILE] = _json_writer(metadata)
+    _commit(dest_dir, data, descriptor_file, descriptor)
 
 
 def dump_metadata(dest_dir: str, metadata: Dict[str, Any]) -> None:
     """Write the build ``metadata`` of a build that trained no model to
     ``dest_dir``, and remove an earlier artifact's files there, so the
     directory is no artifact."""
-    _start_artifact(dest_dir)
-    _write_json(os.path.join(dest_dir, METADATA_FILE), metadata)
+    os.makedirs(dest_dir, exist_ok=True)
+    _remove(dest_dir, (*DESCRIPTOR_FILES, *ARTIFACT_FILES))
+    _replace_into(dest_dir, METADATA_FILE, _json_writer(metadata))
 
 
 def _read_format(path: str) -> Dict[str, Any]:
@@ -233,6 +321,19 @@ def _is_detector(source_dir: str) -> bool:
     return os.path.exists(os.path.join(source_dir, DETECTOR_FILE))
 
 
+def _read_checked(source_dir: str, fname: str, meta: Dict[str, Any]) -> bytes:
+    """The bytes of ``fname``, checked against the digest the descriptor
+    ``meta`` records for it (when it records one)."""
+    path = os.path.join(source_dir, fname)
+    with open(path, "rb") as f:
+        raw = f.read()
+    want = (meta.get("digests") or {}).get(fname)
+    if want is not None and hashlib.sha256(raw).hexdigest() != want:
+        raise ValueError(f"{path}: its sha256 is not the one the descriptor records for build "
+                         f"{meta.get('stamp')} (the artifact is being rewritten, or is corrupt)")
+    return raw
+
+
 def load_metadata(source_dir: str) -> Dict[str, Any]:
     """The artifact's ``detector.json`` or ``model.json`` fields, with the
     build metadata of ``metadata.json`` (when present) beside them; for a
@@ -246,26 +347,27 @@ def load_metadata(source_dir: str) -> Dict[str, Any]:
     else:
         meta = _read_format(os.path.join(source_dir, MODEL_FILE))
     if os.path.exists(path):
-        with open(path) as f:
-            meta = {**json.load(f), **meta}
+        meta = {**json.loads(_read_checked(source_dir, METADATA_FILE, meta)), **meta}
+    meta.pop("digests", None)
+    meta.pop("stamp", None)
     return meta
 
 
-def _load_npz(path: str) -> Dict[str, np.ndarray]:
-    with np.load(path) as npz:
+def _load_npz(source_dir: str, fname: str, meta: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    with np.load(io.BytesIO(_read_checked(source_dir, fname, meta))) as npz:
         return {k: npz[k] for k in npz.files}
 
 
-def _load_params(source_dir: str) -> Dict[str, Any]:
-    return _unflatten(_load_npz(os.path.join(source_dir, PARAMS_FILE)))
+def _load_params(source_dir: str, meta: Dict[str, Any]) -> Dict[str, Any]:
+    return _unflatten(_load_npz(source_dir, PARAMS_FILE, meta))
 
 
 def load_entry(source_dir: str, name: Optional[str] = None):
     """The detector artifact at ``source_dir`` as a bank entry (numpy, no
     device); ``name`` defaults to the directory's basename."""
     meta = _load_detector(source_dir)
-    params = _load_params(source_dir)
-    npz = _load_npz(os.path.join(source_dir, SCALERS_FILE))
+    params = _load_params(source_dir, meta)
+    npz = _load_npz(source_dir, SCALERS_FILE, meta)
     scalers = {k: npz[k] for k in _SCALERS}
     return entry_from_numpy(
         name or os.path.basename(os.path.normpath(source_dir)),
@@ -287,7 +389,7 @@ def _load_model(source_dir: str, device):
     meta = _read_format(os.path.join(source_dir, MODEL_FILE))
     est = estimator_from_numpy(
         meta["registry_type"], meta["kind"], meta.get("factory_kwargs") or {}, meta["n_features"],
-        _load_params(source_dir), lookback=meta.get("lookback", 1),
+        _load_params(source_dir, meta), lookback=meta.get("lookback", 1),
         target_offset=meta.get("target_offset", 0), compute_dtype=meta.get("compute_dtype", "float32"),
         estimator_params=meta.get("estimator_params"), device=device,
     )
@@ -297,7 +399,7 @@ def _load_model(source_dir: str, device):
         raise ValueError(f"{source_dir}: unknown model_type {meta.get('model_type')!r}")
     from gordo_components_torch.models.transformers import Pipeline
 
-    npz = _load_npz(os.path.join(source_dir, SCALERS_FILE)) if meta["steps"] else {}
+    npz = _load_npz(source_dir, SCALERS_FILE, meta) if meta["steps"] else {}
     steps = [
         (step["name"], scaler_from_numpy(step["class"], npz[f"steps/{i}/shift"],
                                          npz[f"steps/{i}/scale"], step.get("kwargs")))
@@ -311,7 +413,8 @@ def load(source_dir: str, device="cuda"):
     dumped: a
     :class:`~gordo_components_torch.models.anomaly.diff.DiffBasedAnomalyDetector`
     for ``detector.json``, a ``Pipeline`` or a bare estimator for
-    ``model.json``."""
+    ``model.json``. A data file that does not match the descriptor's digest
+    raises ``ValueError``."""
     from gordo_components_torch.device import resolve_device
     from gordo_components_torch.models.anomaly.diff import DiffBasedAnomalyDetector
 

@@ -15,7 +15,7 @@ import os
 from typing import Any, Dict, List, Optional, Tuple
 
 from gordo_components_torch.serializer.artifacts import (
-    artifact_mtime,
+    artifact_version,
     is_artifact_dir,
     load,
     load_metadata,
@@ -49,17 +49,20 @@ class ModelCollection:
     reader on another thread sees one whole state (:meth:`snapshot`,
     :meth:`entry`).
 
-    :meth:`refresh` loads new and changed artifacts (by the newest mtime of
-    their files) and drops removed ones. A corrupt artifact is reported
-    under ``failed`` and in ``load_failures``, and skipped: a previous good
-    version keeps serving, and the next refresh tries it again."""
+    :meth:`refresh` loads new and changed artifacts and drops removed ones.
+    A version is the descriptor's build stamp with the newest mtime of the
+    artifact's files (``serializer.artifacts.artifact_version``). A corrupt
+    artifact, or one caught in the middle of a rewrite (its data files do
+    not match the descriptor's digests), is reported under ``failed`` and in
+    ``load_failures``, and skipped: a previous good version keeps serving,
+    and the next refresh tries it again."""
 
     def __init__(self, root: str, target_name: Optional[str] = None, device="cuda"):
         self.root = root
         self.target_name = target_name
         self.device = device
         self._state: Tuple[Dict[str, Any], Dict[str, Dict]] = ({}, {})
-        self._mtimes: Dict[str, float] = {}
+        self._versions: Dict[str, Any] = {}
         self.load_failures: Dict[str, str] = {}  # the latest scan's failed loads
         changes = self.refresh()
         if not self.models:
@@ -92,11 +95,12 @@ class ModelCollection:
     def refresh(self) -> Dict[str, Any]:
         """Rescan ``root``: ``{"added": [...], "updated": [...], "removed":
         [...], "failed": {name: error}}``. A failed load keeps the name's
-        earlier model (if any) and leaves its mtime unrecorded, so the next
-        refresh retries it."""
+        earlier model (if any) and leaves its version unrecorded, so the
+        next refresh retries it. So does an artifact whose version changed
+        while it was read."""
         on_disk = scan_artifacts(self.root, self.target_name)
         models, metadata = dict(self.models), dict(self.metadata)
-        mtimes = dict(self._mtimes)
+        versions = dict(self._versions)
         added, updated, removed = [], [], []
         failed: Dict[str, str] = {}
         for name in list(models):
@@ -104,30 +108,32 @@ class ModelCollection:
                 removed.append(name)
                 del models[name]
                 metadata.pop(name, None)
-                mtimes.pop(name, None)
+                versions.pop(name, None)
         for name, path in on_disk.items():
             try:
-                mtime = artifact_mtime(path)
+                version = artifact_version(path)
             except OSError as exc:  # removed between the scan and here
                 failed[name] = f"{type(exc).__name__}: {exc}"
                 continue
             is_new = name not in models
-            if not is_new and mtime == mtimes.get(name):
+            if not is_new and version == versions.get(name):
                 continue
             try:
                 logger.info("Loading model %r from %s", name, path)
                 model = load(path, device=self.device)
                 meta = load_metadata(path)
+                if artifact_version(path) != version:
+                    raise RuntimeError("the artifact was rewritten while it was read")
             except Exception as exc:
                 logger.warning("Failed to load %r from %s: %s", name, path, exc)
                 failed[name] = f"{type(exc).__name__}: {exc}"
                 continue
             meta.setdefault("name", name)
             models[name], metadata[name] = model, meta
-            mtimes[name] = mtime
+            versions[name] = version
             (added if is_new else updated).append(name)
         self._state = (models, metadata)  # one assignment publishes both
-        self._mtimes = mtimes
+        self._versions = versions
         self.load_failures = dict(failed)
         if added or updated or removed or failed:
             logger.info("Collection refresh: +%d ~%d -%d !%d (now %d models)",
