@@ -226,11 +226,33 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             directory served with ``GORDO_SERVER_BANK=0``: each detector's
             anomaly POST launches K1 (and no K2) and answers the banked body
             within the JAX suite's bank-vs-per-model band (rtol 1e-4, atol
-            1e-5); the bare Pipeline's prediction launches K3. The phase's
-            walls, each step's K1/K2/K3 launches and the swaps' pause_ms;
+            1e-5); the bare Pipeline's prediction launches K3. Before that,
+            the new detector is rebuilt into its served directory twice,
+            once through ``serializer.dump`` and once through the build
+            cache's mirror (``provide_saved_model`` with a register), while a
+            thread POSTs to it and calls ``/reload`` in a loop: every answer
+            200, no reload reports it removed, and the last answers equal the
+            mirrored build's ``anomaly()``. The phase's walls, each step's
+            K1/K2/K3 launches and the swaps' pause_ms;
+    lake    real data through the port's CLI in subprocesses, as ``cli``: a
+            fleet file in its own directory with three machines, built by
+            ``build-fleet`` and served by ``run-server``: ``lake-dense``, the
+            examples/README.md lake machine (GRA-T1 on asset-a, NCS CSV;
+            IROC-A on asset-b, the IROC dump; 2020-01-01..10; the default
+            detector), ``lake-lstm`` (every 2020 tag of the lake,
+            2020-01-01..17, an ``lstm_hourglass`` detector at lookback 32,
+            and a ``row_filter`` that drops some rows: rows_after_filter
+            below rows_after_dropna) and ``influx-machine`` (GRA-T1 and
+            GRA-T2 through ``InfluxDataProvider`` from a stub on loopback that
+            answers the Influx 1.x ``/query`` dialect with the lake's CSV
+            values and RFC3339 times; its rows equal the lake's bitwise).
+            One anomaly POST a machine held against ``anomaly()`` here in the
+            cli phase's bands; K2 at least once a POST and K3 in the server
+            run, K3 in the build run. Each dataset's rows, ``tag_loading`` and
+            seconds;
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
-            bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection), each reset just
+            bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -243,8 +265,10 @@ CUDA. Weights and data are random, made from fixed seeds.
 
 import ctypes
 import dataclasses
+import datetime
 import functools
 import gc
+import http.server
 import json
 import os
 import re
@@ -258,12 +282,19 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
 
 from gordo_components_torch import resolve_device, serializer
-from gordo_components_torch.builder import build_fleet, calculate_model_key, fleet_build, provide_saved_model
+from gordo_components_torch.builder import (
+    build_fleet,
+    build_model,
+    calculate_model_key,
+    fleet_build,
+    provide_saved_model,
+)
 from gordo_components_torch.convert import entry_from_numpy, lstm_to_flax, params_to_flax
 from gordo_components_torch.dataset import get_dataset
 from gordo_components_torch.models import (
@@ -2295,21 +2326,21 @@ finally:
 """
 
 
-def cli_command(run: str, args):
+def cli_command(run: str, args, counts_dir: str = CLI_DIR):
     """The command line of one counted CLI run named ``run``."""
-    return [sys.executable, "-c", COUNTED_CLI, os.path.join(CLI_DIR, f"{run}.counts.json"),
+    return [sys.executable, "-c", COUNTED_CLI, os.path.join(counts_dir, f"{run}.counts.json"),
             "--device", CLI_DEVICE, *args]
 
 
-def cli(run: str, args, env=None):
+def cli(run: str, args, env=None, counts_dir: str = CLI_DIR):
     """One counted CLI run within the deadline; its CompletedProcess."""
-    return subprocess.run(cli_command(run, args), cwd=ROOT, env=dict(os.environ, **(env or {})),
+    return subprocess.run(cli_command(run, args, counts_dir), cwd=ROOT, env=dict(os.environ, **(env or {})),
                           capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
 
 
-def cli_counts(run: str) -> dict:
+def cli_counts(run: str, counts_dir: str = CLI_DIR) -> dict:
     """A finished CLI run's launch counts; its kernel shapes join PATH_SHAPES."""
-    with open(os.path.join(CLI_DIR, f"{run}.counts.json")) as f:
+    with open(os.path.join(counts_dir, f"{run}.counts.json")) as f:
         read = json.load(f)
     for name, shapes in read["shapes"].items():
         PATH_SHAPES[name].update(tuple(shape) for shape in shapes)
@@ -2320,6 +2351,28 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def stop_server(server) -> None:
+    """SIGTERM a CLI ``run-server``; kill it if it does not stop in a minute."""
+    if server.poll() is None:
+        server.send_signal(signal.SIGTERM)
+        try:
+            server.wait(60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+
+
+def wait_for_models(base: str, server, t0: float):
+    """The first answer of a CLI server's ``/models``."""
+    while True:
+        try:
+            return http_json(base + "/models")
+        except OSError:
+            if server.poll() is not None or time.perf_counter() - t0 > CLI_TIMEOUT_S:
+                raise AssertionError(f"cli run-server did not answer (exit {server.poll()})") from None
+            time.sleep(0.5)
 
 
 def cli_phase():
@@ -2354,14 +2407,7 @@ def cli_phase():
     )
     try:
         base = f"http://127.0.0.1:{port}/gordo/v0/smoke"
-        while True:
-            try:
-                status, models = http_json(base + "/models")
-                break
-            except OSError:
-                if server.poll() is not None or time.perf_counter() - t1 > CLI_TIMEOUT_S:
-                    raise AssertionError(f"cli run-server did not answer (exit {server.poll()})") from None
-                time.sleep(0.5)
+        status, models = wait_for_models(base, server, t1)
         serve_s = time.perf_counter() - t1
         if status != 200 or models["models"] != sorted(fleet):
             raise AssertionError(f"cli run-server /models answered {status}: {models}")
@@ -2374,13 +2420,7 @@ def cli_phase():
             band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if "model" in machine else {}
             check_arrays(response_arrays(body, machine["dataset"]["tag_list"]), want, f"cli {name}", **band)
     finally:
-        if server.poll() is None:
-            server.send_signal(signal.SIGTERM)
-            try:
-                server.wait(60)
-            except subprocess.TimeoutExpired:
-                server.kill()
-                server.wait()
+        stop_server(server)
         log.close()
     if server.returncode != 0:
         raise AssertionError(f"cli run-server exited {server.returncode} on SIGTERM")
@@ -2613,6 +2653,51 @@ def get_bytes(url: str) -> bytes:
         return resp.read()
 
 
+def rewrite_under_reload(base: str, out_dir: str, name: str, X) -> dict:
+    """Rebuild the served detector ``name`` into its directory twice, once
+    through ``serializer.dump`` and once through the build cache's mirror,
+    while a thread POSTs to it and calls ``/reload`` without pause: every
+    answer 200, no reload reports it removed, and once both are done its
+    answers equal the mirrored build's ``anomaly()``."""
+    served = os.path.join(out_dir, name)
+    register = os.path.join(COLLECTION_DIR, "register")
+    statuses, reloads, stop = [], [], threading.Event()
+
+    def churn():
+        while not stop.is_set():
+            statuses.append(http_json(f"{base}/{name}/anomaly/prediction", {"X": X.tolist()})[0])
+            status, body = http_json(base + "/reload", {})
+            statuses.append(status)
+            reloads.append(body.get("changes", {}))
+
+    thread = threading.Thread(target=churn)
+    thread.start()
+    try:
+        model, metadata = build_model(name, COLLECTION_MODELS["dense-det"], dataset("rewrite-a"))
+        serializer.dump(model, served, metadata=metadata)
+        time.sleep(0.2)
+        provide_saved_model(name, COLLECTION_MODELS["dense-det"], dataset("rewrite-b"),
+                            output_dir=served, model_register_dir=register)
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        thread.join()
+    status, last = http_json(base + "/reload", {})
+    removed = [c for c in reloads + [last.get("changes", {})] if name in c.get("removed", [])]
+    if not statuses or set(statuses) != {200} or status != 200 or removed:
+        raise AssertionError(f"collection rewrite: answers {sorted(set(statuses))}, reloads that removed "
+                             f"{name}: {removed}")
+    status, body = http_json(f"{base}/{name}/anomaly/prediction", {"X": X.tolist()})
+    built = serializer.load(os.path.join(register, calculate_model_key(
+        name, COLLECTION_MODELS["dense-det"], dataset("rewrite-b"))))
+    if status != 200:
+        raise AssertionError(f"collection rewrite: the last answer was {status}: {body}")
+    check_arrays(response_arrays(body, built.tags_), built.anomaly(X), f"collection {name} after the rewrites")
+    return {"requests_and_reloads": len(statuses), "reloads": len(reloads) + 1,
+            "reloads_that_caught_a_rewrite": sum(name in c.get("failed", {}) for c in reloads),
+            "reloads_that_updated": sum(name in c.get("updated", []) for c in reloads + [last["changes"]])}
+
+
 def collection_phase(card: str):
     """Build two detectors and two models the bank cannot hold on the card,
     serve them from one directory (bank on), drive every collection route,
@@ -2720,6 +2805,9 @@ def collection_phase(card: str):
         check_arrays(response_arrays(body, new.tags_), new.anomaly(X2), "collection dense-det-2 after reload")
         counts["reload"] = launched(before)
         pause_ms = [r["swap"]["pause_ms"] for _, r in reloads]
+        before = launches()
+        rewrite = rewrite_under_reload(base, out_dir, "dense-det-2", X2)
+        counts["rewrite"] = launched(before)
         server.close()
         server = None
 
@@ -2757,9 +2845,192 @@ def collection_phase(card: str):
           banked=json.dumps(sorted(detectors)), fallback=json.dumps(COLLECTION_FALLBACK),
           prediction_max_err=json.dumps(worst), requests_under_reload=len(statuses),
           non_200_under_reload=sum(s != 200 for s in statuses), generation=2,
-          pause_ms=json.dumps(pause_ms), bank_off_launches_per_post=json.dumps(per_post),
+          pause_ms=json.dumps(pause_ms), rewrite_under_reload=json.dumps(rewrite),
+          bank_off_launches_per_post=json.dumps(per_post),
           launches=json.dumps(counts), walls_s=json.dumps({k: round(v, 3) for k, v in walls.items()}),
           card=json.dumps(card))
+
+
+# ------------------------------------------------------------------ #
+# phase: real data, from the in-repo lake and from an InfluxDB stub
+# ------------------------------------------------------------------ #
+
+LAKE_DIR = os.path.join(ROOT, "build", "chip_smoke_lake")
+LAKE_STORE = os.path.join(ROOT, "examples", "datalake")
+LAKE_ROW_FILTER = "`GRA-T1` > -0.5 & `IROC-B` < 1.5"
+LAKE_LSTM_MODEL = detector_pipeline("LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=LOOKBACK, epochs=5)
+
+
+def lake_machines(influx_port: int) -> list:
+    """The lake phase's fleet: the README's lake machine, an LSTM machine
+    over every 2020 tag of the lake with a row filter, and an InfluxDB
+    machine over the stub at ``influx_port``."""
+    lake = {"type": "DataLakeProvider", "store_path": LAKE_STORE}
+    return [
+        {"name": "lake-dense",
+         "dataset": {"type": "TimeSeriesDataset", "train_start_date": "2020-01-01T00:00:00Z",
+                     "train_end_date": "2020-01-10T00:00:00Z",
+                     "tag_list": [["GRA-T1", "asset-a"], ["IROC-A", "asset-b"]], "data_provider": lake},
+         "model": {"gordo_components_tpu.models.DiffBasedAnomalyDetector": {}}},
+        {"name": "lake-lstm",
+         "dataset": {"type": "TimeSeriesDataset", "train_start_date": "2020-01-01T00:00:00Z",
+                     "train_end_date": "2020-01-17T00:00:00Z",
+                     "tag_list": [["GRA-T1", "asset-a"], ["GRA-T2", "asset-a"], ["GRA-P1", "asset-a"],
+                                  ["IROC-A", "asset-b"], ["IROC-B", "asset-b"]],
+                     "row_filter": LAKE_ROW_FILTER, "data_provider": lake},
+         "model": LAKE_LSTM_MODEL},
+        {"name": "influx-machine",
+         "dataset": {"type": "TimeSeriesDataset", "train_start_date": "2020-01-01T00:00:00Z",
+                     "train_end_date": "2020-01-10T00:00:00Z", "tag_list": ["GRA-T1", "GRA-T2"],
+                     "data_provider": {"type": "InfluxDataProvider", "measurement": "sensors",
+                                       "value_name": "Value", "uri": f"http://127.0.0.1:{influx_port}/db"}}},
+    ]
+
+
+class InfluxStub:
+    """A loopback HTTP server answering the InfluxDB 1.x ``/query``
+    dialect for ``tags`` of the lake's asset-a, read from their 2020 CSV
+    files with the standard library: the values as written, the times as
+    RFC3339 with nanoseconds. It parses the tag literal and the time range
+    out of each query."""
+
+    QUERY = re.compile(r"FROM \"([^\"]*)\" WHERE \(\"tag\" = '((?:\\.|[^'\\])*)'\) "
+                       r"AND time >= '([^']*)' AND time < '([^']*)'")
+
+    def __init__(self, tags):
+        rows = {}
+        for tag in tags:
+            with open(os.path.join(LAKE_STORE, "asset-a", tag, f"{tag}_2020.csv")) as f:
+                rows[tag] = [(datetime.datetime.fromisoformat(t.strip()), float(v))
+                             for _, v, t in (line.split(";") for line in f if line.strip())]
+        self.queries = []
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                q = parse_qs(urlparse(self.path).query).get("q", [""])[0]
+                outer.queries.append(q)
+                m = outer.QUERY.search(q)
+                result = {"statement_id": 0}
+                if m:
+                    tag = re.sub(r"\\(.)", r"\1", m.group(2))
+                    lo, hi = (datetime.datetime.fromisoformat(t) for t in m.group(3, 4))
+                    values = [[t.strftime("%Y-%m-%dT%H:%M:%S.%f") + "000Z", v]
+                              for t, v in rows.get(tag, []) if lo <= t < hi]
+                    if values:
+                        result["series"] = [{"name": m.group(1), "columns": ["time", "Value"],
+                                             "values": values}]
+                payload = json.dumps({"results": [result]}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+
+def lake_phase(card: str):
+    """Build and serve the lake phase's three machines through the CLI in
+    subprocesses; one anomaly POST a machine held against ``anomaly()``
+    here. Returns the CLI runs' launch counts, summed."""
+    shutil.rmtree(LAKE_DIR, ignore_errors=True)
+    os.makedirs(LAKE_DIR)
+    out_dir = os.path.join(LAKE_DIR, "models")
+    stub = InfluxStub(["GRA-T1", "GRA-T2"])
+    runs, loaded, server = {}, {}, None
+    try:
+        machines = lake_machines(stub.port)
+        fleet_file = os.path.join(LAKE_DIR, "fleet.json")
+        with open(fleet_file, "w") as f:
+            json.dump({"machines": machines}, f, indent=2)
+        t0 = time.perf_counter()
+        proc = cli("lake_build_fleet", ["build-fleet", "--machines-file", fleet_file, "--output-dir", out_dir],
+                   counts_dir=LAKE_DIR)
+        build_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"lake build-fleet exited {proc.returncode}: {proc.stderr[-2000:]}")
+        manifest = json.loads(proc.stdout)
+        names = sorted(m["name"] for m in machines)
+        if sorted(manifest["built"]) != names or manifest["failed"]:
+            raise AssertionError(f"lake build-fleet: {manifest}")
+        runs["build_fleet"] = cli_counts("lake_build_fleet", counts_dir=LAKE_DIR)
+        build_queries = len(stub.queries)
+
+        data = {}
+        for machine in machines:
+            t = time.perf_counter()
+            ds = get_dataset(machine["dataset"])
+            data[machine["name"]] = ds.get_data()[0]
+            md = ds.get_metadata()
+            built = serializer.load_metadata(os.path.join(out_dir, machine["name"]))["dataset"]
+            loaded[machine["name"]] = {
+                "rows": data[machine["name"]].values.shape[0], "load_s": round(time.perf_counter() - t, 4),
+                "build_rows": built["rows_after_filter"], "rows_joined": md["rows_joined"],
+                "rows_after_dropna": md["rows_after_dropna"], "rows_after_filter": md["rows_after_filter"],
+                "tag_loading": md["tag_loading"]}
+            if built["rows_after_filter"] != md["rows_after_filter"] or built["tag_loading"] != md["tag_loading"]:
+                raise AssertionError(f"lake {machine['name']}: the build loaded {built}, here {md}")
+        lstm = loaded["lake-lstm"]
+        if not 0 < lstm["rows_after_filter"] < lstm["rows_after_dropna"]:
+            raise AssertionError(f"lake-lstm: the row filter kept {lstm['rows_after_filter']} of "
+                                 f"{lstm['rows_after_dropna']} rows")
+        # the InfluxDB machine's rows are the lake's, over the wire
+        same = get_dataset(dict(machines[2]["dataset"], tag_list=[["GRA-T1", "asset-a"], ["GRA-T2", "asset-a"]],
+                                data_provider={"type": "DataLakeProvider", "store_path": LAKE_STORE}))
+        if not np.array_equal(same.get_data()[0].values, data["influx-machine"].values):
+            raise AssertionError("influx-machine: its rows over the wire are not the lake's")
+
+        port = free_port()
+        log = open(os.path.join(LAKE_DIR, "server.log"), "w")
+        t1 = time.perf_counter()
+        server = subprocess.Popen(
+            cli_command("lake_run_server", ["run-server", "--model-dir", out_dir, "--host", "127.0.0.1",
+                                            "--port", str(port)], counts_dir=LAKE_DIR),
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+        )
+        try:
+            base = f"http://127.0.0.1:{port}/gordo/v0/smoke"
+            status, models = wait_for_models(base, server, t1)
+            serve_s = time.perf_counter() - t1
+            if status != 200 or models["models"] != names:
+                raise AssertionError(f"lake run-server /models answered {status}: {models}")
+            for machine in machines:
+                name, X = machine["name"], data[machine["name"]]
+                status, body = http_json(f"{base}/{name}/anomaly/prediction", {"X": X.values.tolist()})
+                if status != 200:
+                    raise AssertionError(f"lake run-server: {name} answered {status}: {body}")
+                want = serializer.load(os.path.join(out_dir, name)).anomaly(X.values)
+                band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if name == "lake-lstm" else {}
+                check_arrays(response_arrays(body, X.columns), want, f"lake {name}", **band)
+        finally:
+            stop_server(server)
+            log.close()
+        if server.returncode != 0:
+            raise AssertionError(f"lake run-server exited {server.returncode} on SIGTERM")
+        runs["run_server"] = cli_counts("lake_run_server", counts_dir=LAKE_DIR)
+    finally:
+        stub.close()
+        shutil.rmtree(LAKE_DIR, ignore_errors=True)
+    if runs["build_fleet"]["lstm_layer"] <= 0 or runs["run_server"]["lstm_layer"] <= 0 \
+            or runs["run_server"]["banked_anomaly_score"] < len(machines):
+        raise AssertionError(f"lake: K3 in the build and server runs, K2 for every POST: {runs}")
+    phase("lake", built=json.dumps(names), build_fleet_s=round(build_s, 3), server_ready_s=round(serve_s, 3),
+          influx_queries_in_build=build_queries, posts=len(machines), checked="all six arrays vs anomaly() here",
+          row_filter=json.dumps(LAKE_ROW_FILTER), datasets=json.dumps(loaded),
+          launches_by_run=json.dumps(runs), card=json.dumps(card))
+    return {k: sum(c[k] for c in runs.values()) for k in runs["build_fleet"]}
 
 
 def main() -> int:
@@ -2820,6 +3091,7 @@ def main() -> int:
     drive("cv", cv_phase, card)
     timed("cv_parity", cv_parity_phase)
     drive("collection", collection_phase, card)
+    drive("lake", lake_phase, card, in_subprocesses=True)
     timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
@@ -2829,6 +3101,7 @@ def main() -> int:
                          ("build", "lstm_layer"), ("cli", "banked_anomaly_score"), ("cli", "lstm_layer"),
                          ("cv", "lstm_layer"), ("collection", "fused_anomaly_score"),
                          ("collection", "banked_anomaly_score"), ("collection", "lstm_layer"),
+                         ("lake", "banked_anomaly_score"), ("lake", "lstm_layer"),
                          ("bf16_train", "lstm_layer_bf16"),
                          ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
                          ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):

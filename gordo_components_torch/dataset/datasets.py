@@ -1,12 +1,15 @@
 """Concrete datasets (counterpart of ``TimeSeriesDataset``/``RandomDataset``
 in ``gordo_components_tpu/dataset/datasets.py``): pull each tag's series
 from a provider, resample them to ``resolution`` and outer-join them
-(:func:`~.resample.fused_agg_join`), drop rows with any missing value;
-X holds the tags, y the ``target_tag_list`` tags when given.
+(:func:`~.resample.fused_agg_join`), drop rows with any missing value,
+then keep the rows ``row_filter`` (a pandas expression, read by
+:mod:`~.filter_rows`) selects; X holds the tags, y the ``target_tag_list``
+tags when given.
 
 ``get_data()`` returns ``(X, y)`` as :class:`TagFrame` objects: float32
-values, a UTC ``datetime64[ns]`` index and the tag names. A ``row_filter``
-(a pandas query in the JAX package) is not ported and raises.
+values, a UTC ``datetime64[ns]`` index and the tag names. Two tags of one
+name (on two assets) raise ``ValueError``, where the JAX package joins
+them through pandas into two columns of one name.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -16,6 +19,7 @@ import numpy as np
 from gordo_components_torch.dataset.base import GordoBaseDataset, TagFrame
 from gordo_components_torch.dataset.data_provider.base import GordoBaseDataProvider
 from gordo_components_torch.dataset.data_provider.providers import RandomDataProvider
+from gordo_components_torch.dataset.filter_rows import filter_mask
 from gordo_components_torch.dataset.resample import fused_agg_join
 from gordo_components_torch.dataset.sensor_tag import normalize_sensor_tags
 from gordo_components_torch.dataset.times import (
@@ -47,8 +51,6 @@ class TimeSeriesDataset(GordoBaseDataset):
         self.end_ns = to_ns(train_end_date)
         if self.start_ns >= self.end_ns:
             raise ValueError("train_start_date must precede train_end_date")
-        if row_filter:
-            raise NotImplementedError("row_filter (a pandas query) is not ported")
         self.tag_list = normalize_sensor_tags(tag_list, asset)
         self.target_tag_list = normalize_sensor_tags(target_tag_list, asset) if target_tag_list else []
         if data_provider is None:
@@ -75,11 +77,15 @@ class TimeSeriesDataset(GordoBaseDataset):
         keep = np.ones(index.size, bool)
         for col in columns.values():
             keep &= ~np.isnan(col)
+        rows_dropna = int(keep.sum())
+        if self.row_filter:
+            kept = filter_mask({n: c[keep] for n, c in columns.items()}, self.row_filter, rows_dropna)
+            keep[np.flatnonzero(keep)[~kept]] = False
         index = index[keep]
         self._last_metadata = {
             "tag_loading": tag_meta,
             "rows_joined": int(rows_joined),
-            "rows_after_dropna": int(index.size),
+            "rows_after_dropna": rows_dropna,
             "rows_after_filter": int(index.size),
         }
 

@@ -3,7 +3,12 @@
 Configurations give dates as ISO-8601 strings (``"2020-01-01T00:00:00Z"``,
 ``"2017-12-25 06:00:00Z"``, an offset such as ``+01:00``, or naive, which
 reads as UTC) and resolutions as pandas-style offsets (``"10min"``, the
-reference-era ``"10T"``, ``"1h"``, ``"30s"``, ``"1d"``).
+reference-era ``"10T"``, ``"1h"``, ``"30s"``, ``"1d"``). Data files and
+InfluxDB answer with columns of such strings, which :func:`parse_times`
+reads to int64 ns as ``pd.to_datetime(col, utc=True)`` does: a date, or a
+date with ``HH:MM``, ``HH:MM:SS`` or ``HH:MM:SS.f`` (1 to 9 fractional
+digits) after a ``T`` or a space, then ``Z``, ``±HH:MM``, ``±HHMM`` or
+nothing (naive reads as UTC). Anything else raises ``ValueError``.
 """
 
 import datetime
@@ -18,28 +23,108 @@ _UNITS_NS = {
     "d": 86_400_000_000_000, "D": 86_400_000_000_000,
 }
 _OFFSET = re.compile(r"^(\d*)\s*([A-Za-z]+)$")
+_ISO = re.compile(
+    r"(?P<date>\d{4}-\d{2}-\d{2})"
+    r"(?:[T ](?P<time>\d{2}:\d{2}(?::\d{2}(?:\.\d{1,9})?)?))?"
+    r"(?P<tz>Z|(?P<sign>[+-])(?P<oh>\d{2}):?(?P<om>\d{2}))?"
+)
+_MINUTE_NS = 60_000_000_000
 
 
-def to_datetime(value) -> datetime.datetime:
-    """An aware UTC datetime from an ISO string, a datetime or a
-    ``datetime64`` (naive values read as UTC)."""
-    if isinstance(value, np.datetime64):
-        value = value.astype("datetime64[us]").item()
-    if isinstance(value, str):
-        value = datetime.datetime.fromisoformat(value.strip())
-    if not isinstance(value, datetime.datetime):
-        raise TypeError(f"not a timestamp: {value!r}")
-    if value.tzinfo is None:
-        return value.replace(tzinfo=datetime.timezone.utc)
-    return value.astimezone(datetime.timezone.utc)
+def _offset_ns(m) -> int:
+    if not m.group("sign"):
+        return 0
+    minutes = int(m.group("oh")) * 60 + int(m.group("om"))
+    return (minutes if m.group("sign") == "+" else -minutes) * _MINUTE_NS
+
+
+def _local(m) -> str:
+    return m.group("date") + "T" + m.group("time") if m.group("time") else m.group("date")
+
+
+def _match(text: str):
+    m = _ISO.fullmatch(text)
+    if m is None:
+        raise ValueError(f"not an ISO 8601 timestamp: {text!r}")
+    return m
+
+
+def _local_ns(local: np.ndarray) -> np.ndarray:
+    try:
+        return local.astype("datetime64[ns]").astype(np.int64)
+    except ValueError as exc:  # the shape matched, a field is out of range
+        raise ValueError(f"not a valid timestamp: {exc}") from None
+
+
+def _uniform_ns(raw: np.ndarray, first) -> np.ndarray:
+    """:func:`parse_times` for strings of one length that have the first
+    string's shape (digits where it has digits, its other characters
+    elsewhere): checked and parsed column by column; None when some
+    string's shape differs."""
+    width = raw.dtype.itemsize
+    mat = raw.view(np.uint8).reshape(raw.size, width)
+    template = np.frombuffer(raw[0], np.uint8)
+    digit = (template >= 48) & (template <= 57)
+    if not (((mat[:, digit] >= 48) & (mat[:, digit] <= 57)).all()
+            and (mat[:, ~digit] == template[~digit]).all()):
+        return None
+    cut = first.end("time") if first.group("time") else first.end("date")
+    local = np.ascontiguousarray(mat[:, :cut]).view(f"S{cut}").ravel()
+    ns = _local_ns(local)
+    if first.group("sign"):
+        oh, om = first.start("oh"), first.start("om")
+        d = mat[:, [oh, oh + 1, om, om + 1]].astype(np.int64) - 48
+        minutes = (d[:, 0] * 10 + d[:, 1]) * 60 + d[:, 2] * 10 + d[:, 3]
+        ns -= (minutes if first.group("sign") == "+" else -minutes) * _MINUTE_NS
+    return ns
+
+
+def parse_times(values) -> np.ndarray:
+    """int64 ns since the epoch (UTC) of a column of ISO 8601 strings, as
+    ``pd.to_datetime(values, utc=True)`` gives them, to the nanosecond.
+    A column whose strings all share one shape (a data file's, an
+    InfluxDB answer's) is parsed without a loop over its strings."""
+    values = list(values)
+    if not values:
+        return np.empty(0, np.int64)
+    first = _match(values[0])
+    try:
+        raw = np.array(values, dtype="S")
+    except UnicodeEncodeError:
+        raw = None
+    if raw is not None and not (raw.view(np.uint8).reshape(raw.size, -1)[:, -1] == 0).any():
+        ns = _uniform_ns(raw, first)
+        if ns is not None:
+            return ns
+    matches = [_match(v) for v in values]
+    local = np.array([_local(m) for m in matches])
+    return _local_ns(local) - np.array([_offset_ns(m) for m in matches], np.int64)
+
+
+_EPOCH = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+
+
+def _epoch_plus(ns: int) -> datetime.datetime:
+    """The aware UTC datetime of ``ns``, to the microsecond."""
+    return _EPOCH + datetime.timedelta(microseconds=ns // 1000)
 
 
 def to_ns(value) -> int:
-    """Nanoseconds since the epoch (UTC) of a timestamp."""
-    dt = to_datetime(value)
-    epoch = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
-    delta = dt - epoch
-    return (delta.days * 86_400 + delta.seconds) * 1_000_000_000 + delta.microseconds * 1_000
+    """Nanoseconds since the epoch (UTC) of a timestamp: an ISO 8601
+    string (:func:`parse_times`' forms), a ``datetime64``, or a datetime
+    (its ``nanosecond``, where it has one, as a pandas Timestamp does)."""
+    if isinstance(value, str):
+        m = _match(value.strip())
+        return int(_local_ns(np.array([_local(m)]))[0]) - _offset_ns(m)
+    if isinstance(value, np.datetime64):
+        return int(value.astype("datetime64[ns]").astype(np.int64))
+    if not isinstance(value, datetime.datetime):
+        raise TypeError(f"not a timestamp: {value!r}")
+    if value.tzinfo is None:
+        value = value.replace(tzinfo=datetime.timezone.utc)
+    delta = value - _EPOCH
+    return ((delta.days * 86_400 + delta.seconds) * 1_000_000_000 + delta.microseconds * 1_000
+            + int(getattr(value, "nanosecond", 0)))
 
 
 def resolution_ns(resolution: str) -> int:
@@ -58,6 +143,12 @@ def normalize_resolution(resolution: str) -> str:
 
 
 def isoformat(ns: int) -> str:
-    """``2020-01-01T00:00:00+00:00`` for a UTC ns timestamp (what pandas'
-    ``Timestamp.isoformat`` writes for whole seconds)."""
-    return to_datetime(np.datetime64(int(ns), "ns")).isoformat()
+    """``2020-01-01T00:00:00+00:00`` for a UTC ns timestamp, with the
+    fraction pandas' ``Timestamp.isoformat`` writes (6 digits, or 9 where
+    the nanoseconds are not whole microseconds)."""
+    text = _epoch_plus(int(ns)).isoformat()
+    if ns % 1000:
+        head, _, tz = text.rpartition("+")
+        head = head.split(".")[0] + f".{(int(ns) % 1_000_000_000):09d}"
+        text = f"{head}+{tz}"
+    return text

@@ -301,7 +301,7 @@ def dump_metadata(dest_dir: str, metadata: Dict[str, Any]) -> None:
     ``dest_dir``, and remove an earlier artifact's files there, so the
     directory is no artifact."""
     os.makedirs(dest_dir, exist_ok=True)
-    _remove(dest_dir, (*DESCRIPTOR_FILES, *ARTIFACT_FILES))
+    _remove(dest_dir, (*DESCRIPTOR_FILES, PARAMS_FILE, SCALERS_FILE))  # the descriptor first
     _replace_into(dest_dir, METADATA_FILE, _json_writer(metadata))
 
 

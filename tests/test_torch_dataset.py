@@ -62,8 +62,12 @@ def test_targets_seed_and_dates():
     assert not np.array_equal(X.values, RandomDataset(**dict(kw, seed=4)).get_data()[0].values)
     assert to_ns("2020-01-01T01:00:00+01:00") == to_ns("2020-01-01T00:00:00Z") == to_ns("2020-01-01")
     assert resolution_ns("10T") == resolution_ns("10min") == 600 * 10**9
-    with pytest.raises(NotImplementedError, match="row_filter"):
-        RandomDataset(row_filter="`a` > 0")
+    # a row_filter selects rows after the NaN drop, as the JAX package's does
+    filtered = dict(kw, row_filter="`a` > 0")
+    X, _ = RandomDataset(**filtered).get_data()
+    JX, _ = JaxRandomDataset(**filtered).get_data()
+    np.testing.assert_array_equal(X.values, JX.values)
+    assert (X.values[:, 0] > 0).all() and 0 < len(X) < len(y)
     with pytest.raises(ValueError, match="precede"):
         RandomDataset(train_start_date="2020-01-02", train_end_date="2020-01-01")
 
