@@ -234,8 +234,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             200, no reload reports it removed, and the last answers equal the
             mirrored build's ``anomaly()``. The phase's walls, each step's
             K1/K2/K3 launches and the swaps' pause_ms;
-    lake    real data through the port's CLI in subprocesses, as ``cli``: a
-            fleet file in its own directory with three machines, built by
+    lake    real data through the port's CLI in subprocesses, as ``cli``
+            (``import pyarrow`` blocked in each, and asserted blocked): a
+            fleet file in its own directory with four machines, built by
             ``build-fleet`` and served by ``run-server``: ``lake-dense``, the
             examples/README.md lake machine (GRA-T1 on asset-a, NCS CSV;
             IROC-A on asset-b, the IROC dump; 2020-01-01..10; the default
@@ -245,14 +246,36 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             below rows_after_dropna) and ``influx-machine`` (GRA-T1 and
             GRA-T2 through ``InfluxDataProvider`` from a stub on loopback that
             answers the Influx 1.x ``/query`` dialect with the lake's CSV
-            values and RFC3339 times; its rows equal the lake's bitwise).
+            values and RFC3339 times; its rows equal the lake's bitwise)
+            and ``lake-parquet`` (GRA-T1, GRA-T2 and GRA-P1, 2020-01-01 to
+            2021-01-18: each tag's 2020 CSV and its 2021 parquet, read by the
+            port's own parquet reader; LAKE_PARQUET_2021_ROWS rows of 2021,
+            as the JAX package's get_data() gives them on the CPU).
             One anomaly POST a machine held against ``anomaly()`` here in the
-            cli phase's bands; K2 at least once a POST and K3 in the server
+            cli phase's bands; then examples/parquet/post_body.parquet and
+            post_body_y.parquet (the JAX client's encoding of 48 rows of
+            2021, the second with ``__y__`` targets) POSTed to lake-parquet as
+            ``application/x-parquet`` and as JSON of the same rows: the two
+            answers equal. K2 at least once a POST and K3 in the server
             run, K3 in the build run. Each dataset's rows, ``tag_loading`` and
             seconds;
+    definitions  one fleet file through the CLI (``build-fleet``, then
+            ``run-server``) at BASELINE config 1's width
+            (``feedforward_hourglass``, 10 tags, a week of RandomDataset at
+            10 min) with one machine per preprocessing definition the JAX
+            package builds: RobustScaler(), RobustScaler(with_centering=
+            False), MaxAbsScaler() and StandardScaler(with_std=False) in the
+            bank (K2 on every POST), PCA(n_components=3) and FeatureUnion(
+            [MinMaxScaler, PCA(2)]) on the per-model path (``/models``
+            coverage names each under ``fallback`` as non-affine; K1 in
+            their ``anomaly()``), and a bare TransformedTargetRegressor over
+            an AutoEncoder served by its ``predict``. Each answer held to
+            the same artifact's CPU answer in check_arrays' bands; build
+            seconds, server-ready seconds and the launches of each run;
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
-            bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake), each reset just
+            bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
+            definitions), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -297,6 +320,8 @@ from gordo_components_torch.builder import (
 )
 from gordo_components_torch.convert import entry_from_numpy, lstm_to_flax, params_to_flax
 from gordo_components_torch.dataset import get_dataset
+from gordo_components_torch.dataset.data_provider._parquet import read_parquet_bytes
+from gordo_components_torch.dataset.times import isoformat
 from gordo_components_torch.models import (
     AutoEncoder,
     ConvAutoEncoder,
@@ -1160,9 +1185,9 @@ def random_lstm_entry(name: str, registry_type: str, rng: np.random.Generator):
     )
 
 
-def http_json(url: str, body=None, raw: bytes = None):
+def http_json(url: str, body=None, raw: bytes = None, content_type: str = "application/json"):
     data = raw if raw is not None else (None if body is None else json.dumps(body).encode())
-    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": content_type})
     try:
         with urllib.request.urlopen(req, timeout=120) as resp:
             return resp.status, json.load(resp)
@@ -1201,9 +1226,13 @@ def check_bf16_arrays(got: dict, want: dict, what: str, limits) -> tuple:
     return worst, ulps, share
 
 
-def response_arrays(body: dict, tags) -> dict:
+def response_arrays(body: dict, tags, output_tags=None) -> dict:
+    """An anomaly body's six groups as arrays: ``model-input`` by ``tags``,
+    the model-space groups by ``output_tags`` (a pipeline that is not
+    affine names its transformed columns so), else by ``tags``."""
     data = body["data"]
-    out = {k: np.asarray([data[k][t] for t in tags], np.float32).T
+    out = {k: np.asarray([data[k][t] for t in (tags if k == "model-input" or output_tags is None
+                                                else output_tags)], np.float32).T
            for k in ("model-input", "model-output", "tag-anomaly-unscaled", "tag-anomaly-scaled")}
     out.update({k: np.asarray(data[k], np.float32)
                 for k in ("total-anomaly-unscaled", "total-anomaly-scaled")})
@@ -2307,12 +2336,22 @@ def build_phase():
 
 
 # ``python -m gordo_components_torch.cli ARGS`` run in a fresh interpreter
-# (from the repo's root, so this script imports), which writes, as it exits,
-# its kernel launch counts (from 0 at its start) and the shapes of its kernel
-# calls on the card (record_path_shapes) to the file named first in its
-# arguments
+# (from the repo's root, so this script imports) with ``import pyarrow``
+# blocked, which writes, as it exits, its kernel launch counts (from 0 at its
+# start), the shapes of its kernel calls on the card (record_path_shapes) and
+# whether pyarrow stayed out (``pyarrow_blocked``) to the file named first in
+# its arguments
 COUNTED_CLI = r"""
-import json, runpy, sys
+import importlib.abc, json, runpy, sys
+
+
+class NoPyarrow(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] == "pyarrow":
+            raise ImportError("blocked: " + name)
+
+
+sys.meta_path.insert(0, NoPyarrow())
 import chip_smoke
 from gordo_components_torch.ops import score, seq_scan
 out = sys.argv.pop(1)
@@ -2320,9 +2359,15 @@ chip_smoke.record_path_shapes()
 try:
     runpy.run_module("gordo_components_torch.cli", run_name="__main__", alter_sys=True)
 finally:
+    try:
+        import pyarrow  # noqa: F401
+        blocked = False
+    except ImportError:
+        blocked = not any(n.split(".")[0] == "pyarrow" for n in sys.modules)
     with open(out, "w") as f:
         json.dump({"counts": dict(score.launch_counts, **seq_scan.launch_counts),
-                   "shapes": {k: sorted(v) for k, v in chip_smoke.PATH_SHAPES.items()}}, f)
+                   "shapes": {k: sorted(v) for k, v in chip_smoke.PATH_SHAPES.items()},
+                   "pyarrow_blocked": blocked}, f)
 """
 
 
@@ -2339,9 +2384,12 @@ def cli(run: str, args, env=None, counts_dir: str = CLI_DIR):
 
 
 def cli_counts(run: str, counts_dir: str = CLI_DIR) -> dict:
-    """A finished CLI run's launch counts; its kernel shapes join PATH_SHAPES."""
+    """A finished CLI run's launch counts; its kernel shapes join PATH_SHAPES.
+    Raises if pyarrow imported in it."""
     with open(os.path.join(counts_dir, f"{run}.counts.json")) as f:
         read = json.load(f)
+    if not read["pyarrow_blocked"]:
+        raise AssertionError(f"cli run {run}: pyarrow imported, though blocked")
     for name, shapes in read["shapes"].items():
         PATH_SHAPES[name].update(tuple(shape) for shape in shapes)
     return read["counts"]
@@ -2721,7 +2769,8 @@ def collection_phase(card: str):
         walls["serve_s"] = time.perf_counter() - t0
         status, body = http_json(base + "/models")
         if (status != 200 or body["bank"]["banked"] != sorted(detectors)
-                or body["bank"]["fallback"] != COLLECTION_FALLBACK or body["accepts"] != ["application/json"]):
+                or body["bank"]["fallback"] != COLLECTION_FALLBACK
+                or body["accepts"] != ["application/json", "application/x-parquet"]):
             raise AssertionError(f"collection /models answered {status}: {body}")
         served = {}
         worst = {}
@@ -2859,12 +2908,19 @@ LAKE_DIR = os.path.join(ROOT, "build", "chip_smoke_lake")
 LAKE_STORE = os.path.join(ROOT, "examples", "datalake")
 LAKE_ROW_FILTER = "`GRA-T1` > -0.5 & `IROC-B` < 1.5"
 LAKE_LSTM_MODEL = detector_pipeline("LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=LOOKBACK, epochs=5)
+# lake-parquet's rows of 2021 in get_data(), as the JAX package gives them on
+# the CPU (tests/test_torch_parquet.py holds both packages to this number)
+LAKE_PARQUET_2021_ROWS = 400
+# the JAX client's parquet bodies of lake-parquet's first 48 rows of 2021
+# (tools/make_parquet_fixtures.py); the second carries ``__y__`` targets
+PARQUET_BODIES = [os.path.join(ROOT, "examples", "parquet", f) for f in ("post_body.parquet", "post_body_y.parquet")]
 
 
 def lake_machines(influx_port: int) -> list:
     """The lake phase's fleet: the README's lake machine, an LSTM machine
-    over every 2020 tag of the lake with a row filter, and an InfluxDB
-    machine over the stub at ``influx_port``."""
+    over every 2020 tag of the lake with a row filter, an InfluxDB machine
+    over the stub at ``influx_port``, and a machine whose range reaches
+    into the lake's 2021 parquet files."""
     lake = {"type": "DataLakeProvider", "store_path": LAKE_STORE}
     return [
         {"name": "lake-dense",
@@ -2884,7 +2940,42 @@ def lake_machines(influx_port: int) -> list:
                      "train_end_date": "2020-01-10T00:00:00Z", "tag_list": ["GRA-T1", "GRA-T2"],
                      "data_provider": {"type": "InfluxDataProvider", "measurement": "sensors",
                                        "value_name": "Value", "uri": f"http://127.0.0.1:{influx_port}/db"}}},
+        {"name": "lake-parquet",
+         "dataset": {"type": "TimeSeriesDataset", "train_start_date": "2020-01-01T00:00:00Z",
+                     "train_end_date": "2021-01-18T00:00:00Z",
+                     "tag_list": [["GRA-T1", "asset-a"], ["GRA-T2", "asset-a"], ["GRA-P1", "asset-a"]],
+                     "data_provider": lake},
+         "model": {"gordo_components_tpu.models.DiffBasedAnomalyDetector": {}}},
     ]
+
+
+def parquet_posts(base: str, rows) -> dict:
+    """POST each of PARQUET_BODIES to lake-parquet as parquet and as JSON of
+    the same rows: the two answers must be equal. The bodies' rows must be
+    lake-parquet's first 48 of 2021. Returns what was posted."""
+    first_2021 = rows.values[rows.index >= np.datetime64("2021-01-01")]
+    posted = {}
+    for path in PARQUET_BODIES:
+        with open(path, "rb") as f:
+            raw = f.read()
+        index, names, columns = read_parquet_bytes(raw, path)
+        x_names = [n for n in names if not n.startswith("__y__")]
+        y_names = [n for n in names if n.startswith("__y__")]
+        X = np.stack([columns[n] for n in x_names], axis=1)
+        if x_names != list(rows.columns) or not np.array_equal(X.astype(np.float32), first_2021[:len(X)]):
+            raise AssertionError(f"{path}: its rows are not lake-parquet's first {len(X)} of 2021")
+        body = {"X": X.tolist(), "index": [isoformat(t) for t in index]}
+        if y_names:
+            body["y"] = np.stack([columns[n] for n in y_names], axis=1).tolist()
+        for route in ("anomaly/prediction", "prediction"):
+            url = f"{base}/lake-parquet/{route}"
+            status, by_parquet = http_json(url, raw=raw, content_type="application/x-parquet")
+            if status != 200:
+                raise AssertionError(f"lake-parquet: the parquet body {path} answered {status}: {by_parquet}")
+            if http_json(url, body) != (status, by_parquet):
+                raise AssertionError(f"lake-parquet {route}: {path} answered otherwise as parquet than as JSON")
+        posted[os.path.basename(path)] = {"rows": len(X), "bytes": len(raw), "y": bool(y_names)}
+    return posted
 
 
 class InfluxStub:
@@ -2942,9 +3033,10 @@ class InfluxStub:
 
 
 def lake_phase(card: str):
-    """Build and serve the lake phase's three machines through the CLI in
+    """Build and serve the lake phase's four machines through the CLI in
     subprocesses; one anomaly POST a machine held against ``anomaly()``
-    here. Returns the CLI runs' launch counts, summed."""
+    here, and lake-parquet's parquet and JSON POSTs held equal. Returns the
+    CLI runs' launch counts, summed."""
     shutil.rmtree(LAKE_DIR, ignore_errors=True)
     os.makedirs(LAKE_DIR)
     out_dir = os.path.join(LAKE_DIR, "models")
@@ -2982,6 +3074,10 @@ def lake_phase(card: str):
                 "tag_loading": md["tag_loading"]}
             if built["rows_after_filter"] != md["rows_after_filter"] or built["tag_loading"] != md["tag_loading"]:
                 raise AssertionError(f"lake {machine['name']}: the build loaded {built}, here {md}")
+        rows_2021 = int((data["lake-parquet"].index >= np.datetime64("2021-01-01")).sum())
+        if rows_2021 != LAKE_PARQUET_2021_ROWS:
+            raise AssertionError(f"lake-parquet: {rows_2021} rows of 2021, the JAX package's get_data() "
+                                 f"{LAKE_PARQUET_2021_ROWS}")
         lstm = loaded["lake-lstm"]
         if not 0 < lstm["rows_after_filter"] < lstm["rows_after_dropna"]:
             raise AssertionError(f"lake-lstm: the row filter kept {lstm['rows_after_filter']} of "
@@ -3014,6 +3110,7 @@ def lake_phase(card: str):
                 want = serializer.load(os.path.join(out_dir, name)).anomaly(X.values)
                 band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if name == "lake-lstm" else {}
                 check_arrays(response_arrays(body, X.columns), want, f"lake {name}", **band)
+            posted = parquet_posts(base, data["lake-parquet"])
         finally:
             stop_server(server)
             log.close()
@@ -3028,8 +3125,130 @@ def lake_phase(card: str):
         raise AssertionError(f"lake: K3 in the build and server runs, K2 for every POST: {runs}")
     phase("lake", built=json.dumps(names), build_fleet_s=round(build_s, 3), server_ready_s=round(serve_s, 3),
           influx_queries_in_build=build_queries, posts=len(machines), checked="all six arrays vs anomaly() here",
+          pyarrow="blocked in every CLI run", rows_2021=rows_2021,
+          parquet_posts=json.dumps(posted), parquet_vs_json="equal",
           row_filter=json.dumps(LAKE_ROW_FILTER), datasets=json.dumps(loaded),
           launches_by_run=json.dumps(runs), card=json.dumps(card))
+    return {k: sum(c[k] for c in runs.values()) for k in runs["build_fleet"]}
+
+
+# ------------------------------------------------------------------ #
+# phase: every preprocessing definition the JAX package builds, through
+# the CLI at config 1's width
+# ------------------------------------------------------------------ #
+
+DEFINITIONS_DIR = os.path.join(ROOT, "build", "chip_smoke_definitions")
+_HOURGLASS = {"gordo_components_tpu.models.AutoEncoder": {"kind": "feedforward_hourglass"}}
+DEFINITION_STEPS = {  # machine -> its named preprocessing step, and whether the bank holds it
+    "def-robust": (["robust", "sklearn.preprocessing.RobustScaler"], True),
+    "def-robust-uncentered": (["robust", {"sklearn.preprocessing.RobustScaler": {"with_centering": False}}], True),
+    "def-maxabs": (["maxabs", "sklearn.preprocessing.MaxAbsScaler"], True),
+    "def-standard-unscaled": (["standard", {"sklearn.preprocessing.StandardScaler": {"with_std": False}}], True),
+    "def-pca": (["pca", {"sklearn.decomposition.PCA": {"n_components": 3}}], False),
+    "def-union": (["union", {"sklearn.pipeline.FeatureUnion": {"transformer_list": [
+        ["minmax", "sklearn.preprocessing.MinMaxScaler"],
+        ["pca", {"sklearn.decomposition.PCA": {"n_components": 2}}]]}}], False),
+}
+DEFINITION_TTR = "def-ttr"
+
+
+def definition_machines() -> list:
+    """The definitions phase's fleet: a detector over each step of
+    DEFINITION_STEPS and a bare TransformedTargetRegressor (its target the
+    tags themselves), each on its own week of 10 tags."""
+    machines = [{"name": name, "dataset": dataset(name), "model": {
+        "gordo_components_tpu.models.DiffBasedAnomalyDetector": {"base_estimator": {
+            "sklearn.pipeline.Pipeline": {"steps": [step, ["model", _HOURGLASS]]}}}}}
+        for name, (step, _) in DEFINITION_STEPS.items()]
+    data = dataset(DEFINITION_TTR)
+    machines.append({"name": DEFINITION_TTR, "dataset": dict(data, target_tag_list=data["tag_list"]), "model": {
+        "sklearn.compose.TransformedTargetRegressor": {
+            "regressor": _HOURGLASS, "transformer": "sklearn.preprocessing.MinMaxScaler"}}})
+    return machines
+
+
+def definitions_phase(card: str):
+    """Build DEFINITION_STEPS' detectors and the transformed-target
+    regressor with ``build-fleet`` and serve them with ``run-server``, CLI
+    subprocesses on the card; each POST's answer against the same
+    artifact's answer on the CPU here. Returns the CLI runs' launch counts,
+    summed."""
+    shutil.rmtree(DEFINITIONS_DIR, ignore_errors=True)
+    os.makedirs(DEFINITIONS_DIR)
+    out_dir = os.path.join(DEFINITIONS_DIR, "models")
+    machines = definition_machines()
+    names = sorted(m["name"] for m in machines)
+    fleet_file = os.path.join(DEFINITIONS_DIR, "fleet.json")
+    with open(fleet_file, "w") as f:
+        json.dump({"machines": machines}, f, indent=2)
+    runs, server = {}, None
+    try:
+        t0 = time.perf_counter()
+        proc = cli("definitions_build_fleet", ["build-fleet", "--machines-file", fleet_file, "--output-dir", out_dir],
+                   counts_dir=DEFINITIONS_DIR)
+        build_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"definitions build-fleet exited {proc.returncode}: {proc.stderr[-2000:]}")
+        manifest = json.loads(proc.stdout)
+        if sorted(manifest["built"]) != names or manifest["failed"]:
+            raise AssertionError(f"definitions build-fleet: {manifest}")
+        runs["build_fleet"] = cli_counts("definitions_build_fleet", counts_dir=DEFINITIONS_DIR)
+
+        port = free_port()
+        log = open(os.path.join(DEFINITIONS_DIR, "server.log"), "w")
+        t1 = time.perf_counter()
+        server = subprocess.Popen(
+            cli_command("definitions_run_server", ["run-server", "--model-dir", out_dir, "--host", "127.0.0.1",
+                                                   "--port", str(port)], counts_dir=DEFINITIONS_DIR),
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+        )
+        checked = {}
+        try:
+            base = f"http://127.0.0.1:{port}/gordo/v0/smoke"
+            status, models = wait_for_models(base, server, t1)
+            serve_s = time.perf_counter() - t1
+            banked = sorted(n for n, (_, b) in DEFINITION_STEPS.items() if b)
+            fallback = models.get("bank", {}).get("fallback", {})
+            if status != 200 or models["models"] != names or models["bank"]["banked"] != banked:
+                raise AssertionError(f"definitions run-server /models answered {status}: {models}")
+            for name in ("def-pca", "def-union"):
+                step = DEFINITION_STEPS[name][0][0]
+                if fallback.get(name) != f"non-affine preprocessing step {step!r}":
+                    raise AssertionError(f"definitions: {name} is not under fallback as non-affine: {fallback}")
+            for machine in machines:
+                name = machine["name"]
+                X = get_dataset(machine["dataset"]).get_data()[0].values
+                want_model = serializer.load(os.path.join(out_dir, name), device="cpu")
+                if name == DEFINITION_TTR:
+                    status, body = http_json(f"{base}/{name}/prediction", {"X": X.tolist()})
+                    if status != 200:
+                        raise AssertionError(f"definitions: {name} answered {status}: {body}")
+                    check_arrays({"prediction": body["data"]}, {"prediction": want_model.predict(X)},
+                                 f"definitions {name}")
+                    checked[name] = "prediction"
+                    continue
+                status, body = http_json(f"{base}/{name}/anomaly/prediction", {"X": X.tolist()})
+                if status != 200:
+                    raise AssertionError(f"definitions: {name} answered {status}: {body}")
+                want = want_model.anomaly(X)
+                check_arrays(response_arrays(body, want_model.tags_, want_model.output_tags), want,
+                             f"definitions {name}")
+                checked[name] = f"anomaly, {want['model-output'].shape[1]} model-space columns"
+        finally:
+            stop_server(server)
+            log.close()
+        if server.returncode != 0:
+            raise AssertionError(f"definitions run-server exited {server.returncode} on SIGTERM")
+        runs["run_server"] = cli_counts("definitions_run_server", counts_dir=DEFINITIONS_DIR)
+    finally:
+        shutil.rmtree(DEFINITIONS_DIR, ignore_errors=True)
+    served = runs["run_server"]
+    n_banked = sum(b for _, b in DEFINITION_STEPS.values())
+    if served["banked_anomaly_score"] < n_banked or served["fused_anomaly_score"] < len(DEFINITION_STEPS) - n_banked:
+        raise AssertionError(f"definitions: K2 for every banked POST, K1 in each per-model anomaly(): {runs}")
+    phase("definitions", built=json.dumps(names), build_fleet_s=round(build_s, 3), server_ready_s=round(serve_s, 3),
+          banked=json.dumps(banked), fallback=json.dumps(fallback), checked=json.dumps(checked),
+          band=f"rtol=0,atol={E2E_ATOL} vs the CPU", launches_by_run=json.dumps(runs), card=json.dumps(card))
     return {k: sum(c[k] for c in runs.values()) for k in runs["build_fleet"]}
 
 
@@ -3092,6 +3311,7 @@ def main() -> int:
     timed("cv_parity", cv_parity_phase)
     drive("collection", collection_phase, card)
     drive("lake", lake_phase, card, in_subprocesses=True)
+    drive("definitions", definitions_phase, card, in_subprocesses=True)
     timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
@@ -3102,6 +3322,7 @@ def main() -> int:
                          ("cv", "lstm_layer"), ("collection", "fused_anomaly_score"),
                          ("collection", "banked_anomaly_score"), ("collection", "lstm_layer"),
                          ("lake", "banked_anomaly_score"), ("lake", "lstm_layer"),
+                         ("definitions", "banked_anomaly_score"), ("definitions", "fused_anomaly_score"),
                          ("bf16_train", "lstm_layer_bf16"),
                          ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
                          ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):

@@ -39,13 +39,16 @@ logger = logging.getLogger(__name__)
 
 def place(model, device) -> None:
     """Point the estimator at the end of ``model`` (a detector's base
-    estimator, a pipeline's last step) at ``device``."""
+    estimator, a pipeline's last step, a transformed-target regressor's
+    regressor) at ``device``."""
     est = model
     while True:
         if hasattr(est, "base_estimator") and est.base_estimator is not None:
             est = est.base_estimator
         elif hasattr(est, "steps"):
             est = est.steps[-1][1]
+        elif hasattr(est, "regressor"):
+            est = est.regressor
         else:
             break
     if hasattr(est, "device"):

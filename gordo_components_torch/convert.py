@@ -287,19 +287,3 @@ def estimator_from_numpy(
     est.params_ = state
     est.n_features_ = int(n_features)
     return est
-
-
-def scaler_from_numpy(class_name: str, shift, scale, kwargs: Optional[Mapping[str, Any]] = None):
-    """A fitted port scaler (``MinMaxScaler`` or ``StandardScaler``) that
-    computes ``(x - shift) * scale``."""
-    from gordo_components_torch.models import transformers
-    from gordo_components_torch.ops.scaler import ScalerParams
-
-    cls = {"MinMaxScaler": transformers.MinMaxScaler,
-           "StandardScaler": transformers.StandardScaler}.get(class_name)
-    if cls is None:
-        raise ValueError(f"{class_name!r} is not a scaler of the port")
-    shift, scale = np.asarray(shift, np.float32), np.asarray(scale, np.float32)
-    if shift.ndim != 1 or shift.shape != scale.shape:
-        raise ValueError(f"{class_name}: shift {shift.shape} and scale {scale.shape}")
-    return cls(**dict(kwargs or {})).set_fitted(ScalerParams(shift, scale), len(shift))

@@ -8,20 +8,21 @@ these helpers give the same columns as numpy arrays:
   a column as float64 with pandas' default missing-value strings as NaN
   and :func:`~gordo_components_torch.dataset.times.parse_times` reads a
   timestamp column.
-- Parquet through ``pyarrow.parquet``, imported only when a parquet file
-  is read: the columns go to numpy without a DataFrame, and the index is
-  the column the ``pandas`` schema metadata names in ``index_columns``
+- Parquet through the port's own reader (``_parquet.py``: the subset
+  pandas and pyarrow write by default, with numpy and the standard
+  library): the columns as numpy arrays, and the index the column the
+  ``pandas`` schema metadata names in ``index_columns``
   (``__index_level_0__`` for a frame pandas wrote), as ``pd.read_parquet``
-  takes it. Where pyarrow does not import, reading parquet raises
-  ``ImportError``.
+  takes it. A file outside that subset raises ``NotImplementedError``
+  naming what it holds.
 """
 
 import csv
-import json
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from gordo_components_torch.dataset.data_provider._parquet import read_parquet  # noqa: F401 (the providers' import)
 from gordo_components_torch.dataset.times import parse_times
 
 # pandas' default ``na_values`` (``pandas._libs.parsers.STR_NA_VALUES``)
@@ -58,26 +59,6 @@ def float_column(strings: Sequence[str], where: str = "") -> np.ndarray:
         return np.asarray(cleaned, dtype=str).astype(np.float64)
     except ValueError as exc:
         raise ValueError(f"{where}: a value is not a number ({exc})") from None
-
-
-def read_parquet(path: str) -> Tuple[Optional[np.ndarray], List[str], Dict[str, np.ndarray]]:
-    """(index as int64 ns or None, column names, name -> values) of a
-    parquet file; the index is the column the pandas metadata names, not
-    among the columns."""
-    try:
-        import pyarrow.parquet as pq
-    except ImportError as exc:
-        raise ImportError(
-            f"{path}: reading parquet needs pyarrow, which does not import here ({exc}); "
-            "without it the port reads CSV files only"
-        ) from exc
-    table = pq.read_table(path)
-    meta = (table.schema.metadata or {}).get(b"pandas")
-    index_names = [c for c in json.loads(meta).get("index_columns", [])
-                   if isinstance(c, str)] if meta else []
-    index = time_column(table.column(index_names[0]).to_numpy(), path) if index_names else None
-    names = [n for n in table.column_names if n not in index_names]
-    return index, names, {n: table.column(n).to_numpy() for n in names}
 
 
 def time_column(values, where: str) -> np.ndarray:

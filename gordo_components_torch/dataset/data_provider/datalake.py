@@ -10,8 +10,8 @@ lake, or a copy of one):
 
 - NCS yearly CSV: semicolon-separated, headerless rows ``tag;value;timestamp``.
 - NCS yearly parquet: a pandas frame with a DatetimeIndex and a value
-  column (``value_name``, else the first). It needs pyarrow
-  (``_files.read_parquet``).
+  column (``value_name``, else the first), read by the port's own parquet
+  reader (``_files.read_parquet``).
 - IROC facility CSV: comma-separated with a header naming ``tag``,
   ``timestamp`` and ``value``; one file holds many tags.
 

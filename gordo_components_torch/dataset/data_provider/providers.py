@@ -7,7 +7,7 @@
   the range's start. It draws exactly the numbers the JAX package's
   provider draws, so both packages train on the same data.
 - ``FileSystemProvider`` reads per-tag CSV or parquet files under a base
-  directory (``_files``: parquet needs pyarrow).
+  directory (``_files``; parquet through the port's own reader).
 - ``InfluxDataProvider`` sends one InfluxQL query per tag, the JAX
   package's text byte for byte, through an injected client or the port's
   stdlib HTTP client (``influx_http.SimpleInfluxClient``). There is no

@@ -15,6 +15,17 @@ detector's bank entry (:meth:`to_entry`): the input affine composed from the
 pipeline's scaler steps, the model's weights and the error scaler, which is
 also what the serializer writes and the bank stacks.
 
+A pipeline with a step that is not affine (``PCA``, ``FeatureUnion``, a
+clipping scaler) has no input affine and no bank entry. Such a detector
+scores in model space, as the JAX detector's ``_model_space`` and
+``_predict_model_space`` do: its pipeline's steps transform the input and
+the target on the host, the final estimator predicts, and the same
+:func:`fused_anomaly_score_packed` call (K1 on the card) scores the
+transformed columns, which ``output_tags`` names as sklearn's
+``get_feature_names_out`` does (``pca0``, ...; ``name__column`` in a
+``FeatureUnion``). ``to_entry`` raises for it, the bank reports it as
+non-affine and the server scores it on the per-model path.
+
 Sequence models (LSTM and conv) score windows of ``lookback`` rows: output
 row i belongs to input row ``i + offset``, with ``offset = lookback - 1 +
 target_offset`` (``target_offset`` 1 for a t+1 forecast), so the outputs,
@@ -23,7 +34,7 @@ reference.
 """
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -33,6 +44,7 @@ from gordo_components_torch.device import resolve_device
 from gordo_components_torch.models.anomaly.base import AnomalyDetectorBase
 from gordo_components_torch.models.base import GordoBase, score_metrics_of, transform_through_steps
 from gordo_components_torch.models.register import lookup_factory
+from gordo_components_torch.models.transformers import affine_params
 from gordo_components_torch.ops.scaler import ScalerParams, fit_minmax, scaler_transform
 from gordo_components_torch.ops.score import fused_anomaly_score_packed, unpack_scores
 from gordo_components_torch.ops.windows import sliding_windows
@@ -100,14 +112,15 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
         det._entry = entry
         det.error_scaler_ = ScalerParams(entry.err_shift, entry.err_scale)
         det.tags_ = list(entry.tags)
-        th = entry.thresholds or {}
-        if "total-anomaly-threshold" in th:
-            det.feature_thresholds_ = np.array(
-                [th["feature-thresholds"][t] for t in det.tags_], np.float64
-            )
-            det.total_threshold_ = float(th["total-anomaly-threshold"])
-            det.threshold_method_ = th.get("threshold-method", "exact")
+        det._set_thresholds(entry.thresholds)
         return det
+
+    def _set_thresholds(self, th: Optional[Dict[str, Any]]) -> None:
+        """Adopt thresholds as :meth:`_thresholds` writes them."""
+        if th and "total-anomaly-threshold" in th:
+            self.feature_thresholds_ = np.array([th["feature-thresholds"][t] for t in self.output_tags], np.float64)
+            self.total_threshold_ = float(th["total-anomaly-threshold"])
+            self.threshold_method_ = th.get("threshold-method", "exact")
 
     # ------------------------------------------------------------------ #
 
@@ -130,6 +143,26 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
             return self._entry.offset
         est = self._final_estimator
         return getattr(est, "lookback_window", 1) - 1 + getattr(est, "_target_offset", 0)
+
+    @property
+    def non_affine_step(self) -> Optional[str]:
+        """The name of the first preprocessing step that is not affine, or
+        None (every step affine, or a loaded bank entry)."""
+        for step_name, step in getattr(self.base_estimator, "steps", [])[:-1]:
+            if affine_params(step) is None:
+                return step_name
+        return None
+
+    @property
+    def output_tags(self) -> List[str]:
+        """Names of the model-space columns (``model-output`` and the
+        per-tag anomalies): the tags through each step's
+        ``get_feature_names_out``, the tags themselves for an affine
+        pipeline."""
+        names = list(self.tags_ or [])
+        for _, step in getattr(self.base_estimator, "steps", [])[:-1]:
+            names = step.get_feature_names_out(names)
+        return names
 
     def _model_space(self, X: np.ndarray) -> np.ndarray:
         """Raw values through the pipeline's pre-model transformers, so the
@@ -192,9 +225,7 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
         if self.feature_thresholds_ is None:
             return None
         return {
-            "feature-thresholds": {
-                t: float(v) for t, v in zip(self.tags_ or [], self.feature_thresholds_)
-            },
+            "feature-thresholds": {t: float(v) for t, v in zip(self.output_tags, self.feature_thresholds_)},
             "total-anomaly-threshold": self.total_threshold_,
             "threshold-method": self.threshold_method_ or "exact",
         }
@@ -218,7 +249,7 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
         in_shift = np.zeros(F, np.float32)
         in_scale = np.ones(F, np.float32)
         for step_name, step in getattr(self.base_estimator, "steps", [])[:-1]:
-            params = getattr(step, "scaler_params_", None)
+            params = affine_params(step)
             if params is None:
                 raise ValueError(f"non-affine preprocessing step {step_name!r}")
             safe = np.where(in_scale == 0, np.float32(1.0), in_scale)
@@ -282,17 +313,26 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
         ``model-input`` and ``model-output`` (rows, F), the per-tag
         ``tag-anomaly-unscaled``/``-scaled`` (rows, F), and the
         ``total-anomaly-unscaled``/``-scaled`` row norms (rows,), for the
-        ``len(X) - offset`` output rows."""
+        ``len(X) - offset`` output rows. A pipeline that is not affine
+        scores in model space (the module docstring)."""
         Xv = _as_f32(X)
-        s, x, output = self._forward(Xv)
-        device = x.device
-        off = s.lookback - 1 + s.target_offset
-        yv = x if y is None else torch.as_tensor(_as_f32(y), device=device)
-        n_out = output.shape[0]
-        target = scaler_transform(s.input_scaler, yv)[off:][:n_out]
-        scores = fused_anomaly_score_packed(
-            target.contiguous(), output.contiguous(), s.error_scaler.shift, s.error_scaler.scale,
-        )
+        if self._entry is None and self.non_affine_step is not None:
+            self._check_fitted()
+            off, device = self.offset, self.device
+            output = torch.as_tensor(self._predict_model_space(Xv), device=device)
+            n_out = output.shape[0]
+            target = torch.as_tensor(self._model_space(Xv if y is None else _as_f32(y))[off:][:n_out],
+                                     device=device)
+            shift, scale = (torch.as_tensor(np.array(a, np.float32), device=device) for a in self.error_scaler_)
+        else:
+            s, x, output = self._forward(Xv)
+            device = x.device
+            off = s.lookback - 1 + s.target_offset
+            yv = x if y is None else torch.as_tensor(_as_f32(y), device=device)
+            n_out = output.shape[0]
+            target = scaler_transform(s.input_scaler, yv)[off:][:n_out]
+            shift, scale = s.error_scaler
+        scores = fused_anomaly_score_packed(target.contiguous(), output.contiguous(), shift, scale)
         # one device-to-host transfer per buffer, then one wait for both
         output, scores = (t.to("cpu", non_blocking=True) for t in (output, scores))
         if device.type == "cuda":

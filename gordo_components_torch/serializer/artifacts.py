@@ -23,18 +23,38 @@ built model:
                       dataset, model config, training history, durations),
                       when the artifact was built rather than converted.
 
-A top-level model that is not a detector (a bare estimator, or a bare
-``Pipeline`` of scalers and an estimator, both legal model configs) writes
+A top-level model that is not a detector (a bare estimator, a bare
+``Pipeline`` of transformers and an estimator, or a
+``TransformedTargetRegressor`` over either, all legal model configs) writes
 ``model.json`` in place of ``detector.json``: the same ``format``, its
-``model_type`` (``"estimator"`` or ``"Pipeline"``), the estimator's registry
-type, kind, factory kwargs, ``n_features``, ``lookback``, ``target_offset``,
+``model_type`` (``"estimator"``, ``"Pipeline"`` or
+``"TransformedTargetRegressor"``), the estimator's registry type, kind,
+factory kwargs, ``n_features``, ``lookback``, ``target_offset``,
 ``compute_dtype`` and constructor arguments (``estimator_params``), and for
-a Pipeline its ``steps`` (each scaler's name, class and kwargs) and the
-estimator step's name. Its weights are in ``params.npz`` as above, and each
-scaler step's fitted ``shift``/``scale`` (``(x - shift) * scale``) in
-``scalers.npz`` under ``steps/<i>/shift`` and ``steps/<i>/scale``.
-:func:`load` returns the class that was dumped: a detector, a ``Pipeline``
-or an estimator.
+a Pipeline its ``steps`` and the estimator step's name. A regressor's
+``transformer`` and its own arguments (``ttr``) go beside them, and
+``regressor_type`` says whether the regressor is an estimator or a
+Pipeline. Its weights are in ``params.npz`` as above.
+
+Each transformer step is described by its ``name``, ``class`` and
+constructor ``kwargs`` (a ``FeatureUnion`` also by its
+``transformer_list``, each child described the same way, ``"drop"`` by
+its ``class``), and its fitted state goes into
+``scalers.npz`` keyed by its path: ``steps/<i>/<attr>``,
+``steps/<i>/transformer_list/<j>/<attr>``, ``transformer/<attr>``. A
+scaler's state is ``shift`` and ``scale`` (``(x - shift) * scale``) and
+sklearn's fitted attributes it keeps (``center_``, ``scale_``,
+``max_abs_``); PCA's ``components_``, ``mean_``, ``explained_variance_``,
+``n_components_`` and the rest of sklearn's.
+
+A detector whose pipeline has a step that is not affine (``PCA``,
+``FeatureUnion``, a clipping scaler) has no bank entry. Its
+``detector.json`` holds the estimator's fields, its ``preprocessing``
+steps, ``estimator_step``, tags and thresholds, and its ``scalers.npz``
+``err_shift``, ``err_scale`` and the steps' state; it loads as a detector
+over the rebuilt pipeline, which scores in model space.
+:func:`load` returns the class that was dumped: a detector, a
+``Pipeline``, a ``TransformedTargetRegressor`` or an estimator.
 
 :func:`dumps` and :func:`loads` carry a model as bytes (the server's
 ``download-model``). The JAX package pickles the object there; the port
@@ -76,12 +96,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
-from gordo_components_torch.convert import (
-    entry_from_numpy,
-    estimator_from_numpy,
-    params_to_flax,
-    scaler_from_numpy,
-)
+from gordo_components_torch.convert import entry_from_numpy, estimator_from_numpy, params_to_flax
 
 PARAMS_FILE = "params.npz"
 DETECTOR_FILE = "detector.json"
@@ -231,27 +246,82 @@ def _estimator_fields(est) -> Dict[str, Any]:
     }
 
 
+def _step_classes():
+    from gordo_components_torch.models import compose, transformers
+
+    return {c.__name__: c for c in (transformers.MinMaxScaler, transformers.StandardScaler,
+                                    transformers.RobustScaler, transformers.MaxAbsScaler, transformers.PCA,
+                                    compose.FeatureUnion)}
+
+
+def _step_entry(name: str, step, prefix: str, arrays: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """A transformer step's description; its fitted state goes into
+    ``arrays`` under ``prefix``. Anything but a fitted transformer of the
+    port raises ``TypeError``."""
+    if step == "drop":
+        return {"name": name, "class": step}
+    cls = type(step).__name__
+    if _step_classes().get(cls) is not type(step):
+        raise TypeError(f"Pipeline step {name!r} ({cls}) is not a fitted scaler or transformer of the port")
+    if cls == "FeatureUnion":
+        return {"name": name, "class": cls,
+                "kwargs": {k: v for k, v in step.get_params().items() if k != "transformer_list"},
+                "transformer_list": [_step_entry(n, t, f"{prefix}transformer_list/{j}/", arrays)
+                                     for j, (n, t) in enumerate(step.transformer_list)]}
+    try:
+        state = step.fitted_state()
+    except RuntimeError:
+        raise TypeError(f"Pipeline step {name!r} ({cls}) is not a fitted scaler or transformer of the port") from None
+    arrays.update({prefix + k: np.asarray(v) for k, v in state.items()})
+    return {"name": name, "class": cls, "kwargs": step.get_params()}
+
+
+def _step_from_entry(entry: Dict[str, Any], prefix: str, arrays: Dict[str, np.ndarray]):
+    """Inverse of :func:`_step_entry`."""
+    cls = entry["class"]
+    if cls == "drop":
+        return cls
+    if cls == "FeatureUnion":
+        children = [(c["name"], _step_from_entry(c, f"{prefix}transformer_list/{j}/", arrays))
+                    for j, c in enumerate(entry["transformer_list"])]
+        return _step_classes()[cls](children, **entry.get("kwargs", {}))
+    if cls not in _step_classes():
+        raise ValueError(f"{cls!r} is not a transformer of the port")
+    state = {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix) and "/" not in k[len(prefix):]}
+    return _step_classes()[cls](**(entry.get("kwargs") or {})).set_fitted_state(state)
+
+
+def _pipeline_fields(pipeline, arrays: Dict[str, np.ndarray], key: str = "steps"):
+    """(``{key: step descriptions, "estimator_step": name}``, the
+    pipeline's estimator)."""
+    *pre, (est_name, est) = pipeline.steps
+    steps = [_step_entry(n, step, f"steps/{i}/", arrays) for i, (n, step) in enumerate(pre)]
+    return {key: steps, "estimator_step": est_name}, est
+
+
 def _model_files(model):
-    """A bare Pipeline or estimator's data files (``params.npz`` and, for a
-    Pipeline, ``scalers.npz``) and its ``model.json``."""
-    from gordo_components_torch.models.transformers import Pipeline, _AffineScaler
+    """A bare Pipeline, transformed-target regressor or estimator's data
+    files (``params.npz`` and, with transformers, ``scalers.npz``) and its
+    ``model.json``."""
+    from gordo_components_torch.models.compose import TransformedTargetRegressor
+    from gordo_components_torch.models.transformers import Pipeline
 
     meta: Dict[str, Any] = {"format": FORMAT}
     scalers: Dict[str, np.ndarray] = {}
+    if isinstance(model, TransformedTargetRegressor):
+        meta.update(model_type="TransformedTargetRegressor",
+                    ttr={"check_inverse": model.check_inverse, "training_dim": model._training_dim},
+                    transformer=None if model.transformer is None
+                    else _step_entry("transformer", model.transformer, "transformer/", scalers))
+        model = model.regressor
+        meta["regressor_type"] = "Pipeline" if isinstance(model, Pipeline) else "estimator"
     if isinstance(model, Pipeline):
-        *pre, (est_name, est) = model.steps
-        steps = []
-        for i, (step_name, step) in enumerate(pre):
-            if not isinstance(step, _AffineScaler) or step.scaler_params_ is None:
-                raise TypeError(f"Pipeline step {step_name!r} ({type(step).__name__}) is not a fitted "
-                                "scaler of the port")
-            steps.append({"name": step_name, "class": type(step).__name__, "kwargs": step.get_params()})
-            scalers[f"steps/{i}/shift"] = np.asarray(step.scaler_params_.shift, np.float32)
-            scalers[f"steps/{i}/scale"] = np.asarray(step.scaler_params_.scale, np.float32)
-        meta.update(model_type="Pipeline", steps=steps, estimator_step=est_name)
+        fields, est = _pipeline_fields(model, scalers)
+        meta.update(fields)
+        meta.setdefault("model_type", "Pipeline")
     else:
         est = model
-        meta["model_type"] = "estimator"
+        meta.setdefault("model_type", "estimator")
     meta.update(_estimator_fields(est))
     data = {PARAMS_FILE: _npz_writer(_flatten(params_to_flax(est.params_)))}
     if scalers:
@@ -259,17 +329,35 @@ def _model_files(model):
     return data, meta
 
 
+def _model_space_detector_files(det):
+    """A detector over a pipeline that is not affine: its data files and
+    its ``detector.json``."""
+    det._check_fitted()
+    scalers = {"err_shift": np.asarray(det.error_scaler_.shift, np.float32),
+               "err_scale": np.asarray(det.error_scaler_.scale, np.float32)}
+    fields, est = _pipeline_fields(det.base_estimator, scalers, key="preprocessing")
+    descriptor = {"format": FORMAT, **fields, **_estimator_fields(est), "tags": list(det.tags_ or []),
+                  "thresholds": det._thresholds()}
+    data = {PARAMS_FILE: _npz_writer(_flatten(params_to_flax(est.params_))), SCALERS_FILE: _npz_writer(scalers)}
+    return data, descriptor
+
+
 def dump(obj, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> None:
     """Write ``obj`` as an artifact directory at ``dest_dir``, with the
     build ``metadata`` in ``metadata.json``: a bank entry
     (``server/bank._BankEntry``) or a fitted detector (through its
-    ``to_entry()``) as ``detector.json``; a fitted bare estimator or
-    ``Pipeline`` of the port's scalers and an estimator as ``model.json``.
-    Anything else raises before a file is written. The artifact that was
-    at ``dest_dir`` stays whole until the new descriptor replaces it."""
+    ``to_entry()``, or its pipeline where a step is not affine) as
+    ``detector.json``; a fitted bare estimator, ``Pipeline`` of the port's
+    transformers and an estimator, or ``TransformedTargetRegressor`` as
+    ``model.json``. Anything else raises before a file is written. The
+    artifact that was at ``dest_dir`` stays whole until the new descriptor
+    replaces it."""
     from gordo_components_torch.server.bank import _BankEntry
 
-    if isinstance(obj, _BankEntry) or hasattr(obj, "to_entry"):
+    if getattr(obj, "non_affine_step", None) is not None:
+        data, descriptor = _model_space_detector_files(obj)
+        descriptor_file = DETECTOR_FILE
+    elif isinstance(obj, _BankEntry) or hasattr(obj, "to_entry"):
         entry = obj if isinstance(obj, _BankEntry) else obj.to_entry(
             os.path.basename(os.path.normpath(dest_dir)))
         data = {
@@ -364,8 +452,11 @@ def _load_params(source_dir: str, meta: Dict[str, Any]) -> Dict[str, Any]:
 
 def load_entry(source_dir: str, name: Optional[str] = None):
     """The detector artifact at ``source_dir`` as a bank entry (numpy, no
-    device); ``name`` defaults to the directory's basename."""
+    device); ``name`` defaults to the directory's basename. A detector
+    over a pipeline that is not affine has none: ``ValueError``."""
     meta = _load_detector(source_dir)
+    if "preprocessing" in meta:
+        raise ValueError(f"{source_dir}: a detector over a pipeline that is not affine has no bank entry")
     params = _load_params(source_dir, meta)
     npz = _load_npz(source_dir, SCALERS_FILE, meta)
     scalers = {k: npz[k] for k in _SCALERS}
@@ -385,41 +476,73 @@ def load_entry(source_dir: str, name: Optional[str] = None):
     )
 
 
-def _load_model(source_dir: str, device):
-    meta = _read_format(os.path.join(source_dir, MODEL_FILE))
-    est = estimator_from_numpy(
+def _load_estimator(source_dir: str, meta: Dict[str, Any], device):
+    return estimator_from_numpy(
         meta["registry_type"], meta["kind"], meta.get("factory_kwargs") or {}, meta["n_features"],
         _load_params(source_dir, meta), lookback=meta.get("lookback", 1),
         target_offset=meta.get("target_offset", 0), compute_dtype=meta.get("compute_dtype", "float32"),
         estimator_params=meta.get("estimator_params"), device=device,
     )
-    if meta.get("model_type") == "estimator":
-        return est
-    if meta.get("model_type") != "Pipeline":
-        raise ValueError(f"{source_dir}: unknown model_type {meta.get('model_type')!r}")
+
+
+def _load_pipeline(source_dir: str, meta: Dict[str, Any], est, key: str = "steps"):
     from gordo_components_torch.models.transformers import Pipeline
 
-    npz = _load_npz(source_dir, SCALERS_FILE, meta) if meta["steps"] else {}
-    steps = [
-        (step["name"], scaler_from_numpy(step["class"], npz[f"steps/{i}/shift"],
-                                         npz[f"steps/{i}/scale"], step.get("kwargs")))
-        for i, step in enumerate(meta["steps"])
-    ]
+    arrays = _load_npz(source_dir, SCALERS_FILE, meta) if meta[key] else {}
+    steps = [(step["name"], _step_from_entry(step, f"steps/{i}/", arrays)) for i, step in enumerate(meta[key])]
     return Pipeline(steps + [(meta["estimator_step"], est)])
+
+
+def _load_model(source_dir: str, device):
+    meta = _read_format(os.path.join(source_dir, MODEL_FILE))
+    est = _load_estimator(source_dir, meta, device)
+    model_type = meta.get("model_type")
+    if model_type == "estimator":
+        return est
+    if model_type == "Pipeline":
+        return _load_pipeline(source_dir, meta, est)
+    if model_type != "TransformedTargetRegressor":
+        raise ValueError(f"{source_dir}: unknown model_type {model_type!r}")
+    from gordo_components_torch.models.compose import TransformedTargetRegressor
+
+    regressor = _load_pipeline(source_dir, meta, est) if meta["regressor_type"] == "Pipeline" else est
+    transformer = None
+    if meta.get("transformer") is not None:
+        transformer = _step_from_entry(meta["transformer"], "transformer/", _load_npz(source_dir, SCALERS_FILE, meta))
+    ttr = TransformedTargetRegressor(regressor=regressor, transformer=transformer,
+                                     check_inverse=meta["ttr"]["check_inverse"])
+    ttr._training_dim = meta["ttr"]["training_dim"]
+    return ttr
+
+
+def _load_model_space_detector(source_dir: str, meta: Dict[str, Any], device):
+    from gordo_components_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+    from gordo_components_torch.ops.scaler import ScalerParams
+
+    det = DiffBasedAnomalyDetector(
+        base_estimator=_load_pipeline(source_dir, meta, _load_estimator(source_dir, meta, device), "preprocessing"))
+    npz = _load_npz(source_dir, SCALERS_FILE, meta)
+    det.error_scaler_ = ScalerParams(npz["err_shift"], npz["err_scale"])
+    det.tags_ = list(meta["tags"])
+    det._set_thresholds(meta.get("thresholds"))
+    return det
 
 
 def load(source_dir: str, device="cuda"):
     """The artifact at ``source_dir`` on ``device``, as the class that was
     dumped: a
     :class:`~gordo_components_torch.models.anomaly.diff.DiffBasedAnomalyDetector`
-    for ``detector.json``, a ``Pipeline`` or a bare estimator for
-    ``model.json``. A data file that does not match the descriptor's digest
+    for ``detector.json``, a ``Pipeline``, a ``TransformedTargetRegressor``
+    or a bare estimator for ``model.json``. A data file that does not match the descriptor's digest
     raises ``ValueError``."""
     from gordo_components_torch.device import resolve_device
     from gordo_components_torch.models.anomaly.diff import DiffBasedAnomalyDetector
 
     device = resolve_device(device)
     if _is_detector(source_dir):
+        meta = _load_detector(source_dir)
+        if "preprocessing" in meta:
+            return _load_model_space_detector(source_dir, meta, device)
         return DiffBasedAnomalyDetector.from_entry(load_entry(source_dir), device=device)
     return _load_model(source_dir, device)
 

@@ -19,9 +19,14 @@ name.
 
 The port's alias table makes one configuration resolve to port classes:
 the JAX package's paths (``gordo_components_tpu.models.*``), the
-reference-era ``gordo_components.model.*`` paths, and the three sklearn
-classes the reference's configurations name, for which the port has its
-own stand-ins (it imports no sklearn).
+reference-era ``gordo_components.model.*`` paths, and the sklearn classes
+the port has stand-ins for (it imports no sklearn), under their public
+paths and the private module paths an object's class names
+(``sklearn.preprocessing._data``, ``sklearn.decomposition._pca``,
+``sklearn.compose._target``): ``Pipeline``, ``FeatureUnion``,
+``MinMaxScaler``, ``StandardScaler``, ``RobustScaler``, ``MaxAbsScaler``,
+``PCA`` and ``TransformedTargetRegressor``. Any other sklearn path raises
+``ImportError`` listing these.
 """
 
 import importlib
@@ -37,13 +42,23 @@ _PATH_ALIASES = {
     "gordo_components.model.anomaly.diff.DiffBasedAnomalyDetector": f"{_M}.DiffBasedAnomalyDetector",
     "gordo_components_tpu.models.transformers.JaxMinMaxScaler": f"{_M}.transformers.MinMaxScaler",
     "gordo_components_tpu.models.transformers.JaxStandardScaler": f"{_M}.transformers.StandardScaler",
-    "sklearn.pipeline.Pipeline": f"{_M}.transformers.Pipeline",
-    "sklearn.preprocessing.MinMaxScaler": f"{_M}.transformers.MinMaxScaler",
-    "sklearn.preprocessing.StandardScaler": f"{_M}.transformers.StandardScaler",
-    # the module sklearn defines its scalers in, as an object's path names it
-    "sklearn.preprocessing._data.MinMaxScaler": f"{_M}.transformers.MinMaxScaler",
-    "sklearn.preprocessing._data.StandardScaler": f"{_M}.transformers.StandardScaler",
 }
+# the sklearn classes the port has stand-ins for: public path -> (private
+# module, the port's class)
+_SKLEARN = {
+    "sklearn.pipeline.Pipeline": (None, f"{_M}.transformers.Pipeline"),
+    "sklearn.pipeline.FeatureUnion": (None, f"{_M}.compose.FeatureUnion"),
+    "sklearn.preprocessing.MinMaxScaler": ("sklearn.preprocessing._data", f"{_M}.transformers.MinMaxScaler"),
+    "sklearn.preprocessing.StandardScaler": ("sklearn.preprocessing._data", f"{_M}.transformers.StandardScaler"),
+    "sklearn.preprocessing.RobustScaler": ("sklearn.preprocessing._data", f"{_M}.transformers.RobustScaler"),
+    "sklearn.preprocessing.MaxAbsScaler": ("sklearn.preprocessing._data", f"{_M}.transformers.MaxAbsScaler"),
+    "sklearn.decomposition.PCA": ("sklearn.decomposition._pca", f"{_M}.transformers.PCA"),
+    "sklearn.compose.TransformedTargetRegressor": ("sklearn.compose._target",
+                                                   f"{_M}.compose.TransformedTargetRegressor"),
+}
+_PATH_ALIASES.update({public: port for public, (_, port) in _SKLEARN.items()})
+_PATH_ALIASES.update({f"{module}.{public.rpartition('.')[2]}": port
+                      for public, (module, port) in _SKLEARN.items() if module is not None})
 # any other path under these prefixes maps onto the port's package
 _PREFIXES = ("gordo_components_tpu.", "gordo_components.")
 
@@ -55,10 +70,7 @@ def resolve_path(path: str) -> str:
         if path.startswith(prefix):
             return "gordo_components_torch." + path[len(prefix):]
     if path.startswith("sklearn."):
-        raise ImportError(
-            f"{path}: the port resolves only sklearn.pipeline.Pipeline, "
-            "sklearn.preprocessing.MinMaxScaler and sklearn.preprocessing.StandardScaler"
-        )
+        raise ImportError(f"{path}: the port resolves only {', '.join(sorted(_SKLEARN))}")
     return path
 
 
@@ -138,9 +150,7 @@ def _resolve_value(key: str, value: Any) -> Any:
 # ---------------------------------------------------------------------- #
 
 # the port's stand-ins for the sklearn classes, under the sklearn paths
-_STAND_IN_PATHS = {
-    resolve_path(sk): sk for sk in _PATH_ALIASES if sk.startswith("sklearn.") and "._" not in sk
-}
+_STAND_IN_PATHS = {port: sk for sk, (_, port) in _SKLEARN.items()}
 
 
 def _dotted_path(obj: Any) -> str:

@@ -313,15 +313,14 @@ def _extract_entry(name: str, model) -> Tuple[Optional[_BankEntry], Optional[str
     if model.error_scaler_ is None:
         return None, "detector is unfitted (no error scaler)"
     if model.base_estimator is not None:  # a fitted detector, not a loaded one
-        base = model.base_estimator
-        pre_steps, est = (base.steps[:-1], base.steps[-1][1]) if hasattr(base, "steps") else ([], base)
+        est = model._final_estimator
         if type(est).__name__ not in _BANKABLE_TYPES:
             return None, f"unsupported estimator class {type(est).__name__}"
         if getattr(est, "params_", None) is None:
             return None, "estimator is unfitted"
-        for step_name, step in pre_steps:
-            if getattr(step, "scaler_params_", None) is None:
-                return None, f"non-affine preprocessing step {step_name!r}"
+        step_name = model.non_affine_step
+        if step_name is not None:
+            return None, f"non-affine preprocessing step {step_name!r}"
     entry = model.to_entry(name)
     if entry.registry_type not in _BANKABLE_TYPES:
         return None, f"unsupported estimator class {entry.registry_type}"

@@ -13,8 +13,10 @@ Counterpart of these routes of ``gordo_components_tpu/server/views.py``:
 - ``POST /gordo/v0/<project>/<target>/prediction``
 - ``POST /gordo/v0/<project>/<target>/anomaly/prediction``
 
-Bodies match the JAX server's JSON; ``/models`` lists in ``accepts`` only
-the request encoding the port parses (JSON). A model the bank holds is
+Bodies match the JAX server's JSON. A scoring POST is JSON, or parquet
+when its content type contains ``parquet`` (the JAX server's rule; read by
+the port's own reader, ``server/utils.extract_x_y_parquet``), and
+``/models`` lists both in ``accepts``. A model the bank holds is
 scored through the batching engine; any other (a bare ``Pipeline`` or
 estimator, or every model when the bank is off) through its own
 ``predict``/``anomaly``: the per-model path. ``download-model`` answers the
@@ -40,7 +42,12 @@ from gordo_components_torch import __version__, serializer
 from gordo_components_torch.server.bank import ModelBank
 from gordo_components_torch.server.engine import EngineOverloaded
 from gordo_components_torch.server.swap import swap_bank
-from gordo_components_torch.server.utils import anomaly_body, extract_x_y, prediction_body
+from gordo_components_torch.server.utils import (
+    anomaly_body,
+    extract_x_y,
+    extract_x_y_parquet,
+    prediction_body,
+)
 from gordo_components_torch.utils.digest import metadata_digest
 
 logger = logging.getLogger(__name__)
@@ -61,6 +68,7 @@ _ROUTES = [
     ("POST", re.compile(_T + r"/anomaly/prediction$"), "anomaly_prediction"),
 ]
 _TRUE = ("1", "true", "yes")
+ACCEPTS = ["application/json", "application/x-parquet"]
 
 
 class HTTPError(Exception):
@@ -131,16 +139,24 @@ class GordoHandler(BaseHTTPRequestHandler):
         except KeyError:
             raise HTTPError(404, f"No such model: {target}") from None
 
-    def _read_json(self):
-        length = int(self.headers.get("Content-Length") or 0)
-        try:
-            return json.loads(self.rfile.read(length))
-        except ValueError:
-            raise HTTPError(400, "Expected JSON body with an X entry") from None
+    def _read_body(self) -> bytes:
+        return self.rfile.read(int(self.headers.get("Content-Length") or 0))
 
     def _parse(self):
+        """(X, y, index) of a JSON or parquet POST body; 400 for one that
+        does not parse."""
+        raw = self._read_body()
+        if "parquet" in (self.headers.get("Content-Type") or ""):
+            try:
+                return extract_x_y_parquet(raw)
+            except (ValueError, NotImplementedError) as exc:
+                raise HTTPError(400, f"{type(exc).__name__}: {exc}") from None
         try:
-            return extract_x_y(self._read_json())
+            body = json.loads(raw)
+        except ValueError:
+            raise HTTPError(400, "Expected JSON body with an X entry") from None
+        try:
+            return extract_x_y(body)
         except ValueError as exc:
             raise HTTPError(400, str(exc)) from None
 
@@ -221,7 +237,7 @@ class GordoHandler(BaseHTTPRequestHandler):
         body = {
             "project": project,
             "models": self.app.collection.names(),
-            "accepts": ["application/json"],
+            "accepts": list(ACCEPTS),
         }
         bank = self._coverage(body["models"])
         if bank is not None:
@@ -305,14 +321,16 @@ class GordoHandler(BaseHTTPRequestHandler):
             raise HTTPError(422, "Model does not support anomaly scoring")
         X, y, index = self._parse()
         engine = self._engine(target)
+        output_tags = None
         if engine is not None:
             result = self._bank_score(engine, target, X, y)
             tags, arrays, offset = result.tags, result.to_arrays(), result.offset
         else:
             arrays = self._per_model(model.anomaly, X, y)
             tags, offset = model.tags_, len(X) - len(arrays["model-output"])
+            output_tags = getattr(model, "output_tags", None)
         n_out = len(arrays["model-output"])
-        return 200, anomaly_body(tags, arrays, index[offset:][:n_out])
+        return 200, anomaly_body(tags, arrays, index[offset:][:n_out], output_tags)
 
 
 class GordoServer(ThreadingHTTPServer):

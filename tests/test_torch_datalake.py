@@ -2,8 +2,8 @@
 
 The cases of ``tests/test_datalake.py`` run against
 ``gordo_components_torch.dataset.data_provider`` over the in-repo lake
-(``examples/datalake``: 2020 as CSV, 2021 as parquet, which pyarrow reads
-here), and wherever both packages read the same files the numbers must be
+(``examples/datalake``: 2020 as CSV, 2021 as parquet, which the port reads
+with its own reader), and wherever both packages read the same files the numbers must be
 the same: each series' index in ns equal to pandas', its values bitwise in
 float64, and ``TimeSeriesDataset.get_data()`` bitwise in float32 with the
 same index, tag names and ``rows_*`` metadata. The timestamp parser the
@@ -247,8 +247,16 @@ def test_csv_missing_values_read_as_pandas_does(tmp_path):
 
 
 def test_parquet_without_pyarrow_names_the_file(monkeypatch):
+    """With pyarrow's import blocked, the lake's 2021 parquet file reads
+    through the port's own reader, to the bits pyarrow reads from it."""
     import builtins
 
+    import pyarrow.parquet as pq
+
+    path = os.path.join(LAKE, "asset-a", "GRA-T1", "GRA-T1_2021.parquet")
+    table = pq.read_table(path)
+    want_index = table.column("__index_level_0__").to_numpy().astype("datetime64[ns]").astype(np.int64)
+    want_values = table.column("Value").to_numpy()
     real_import = builtins.__import__
 
     def no_pyarrow(name, *args, **kwargs):
@@ -257,10 +265,11 @@ def test_parquet_without_pyarrow_names_the_file(monkeypatch):
         return real_import(name, *args, **kwargs)
 
     monkeypatch.setattr(builtins, "__import__", no_pyarrow)
-    with pytest.raises(ImportError, match=r"GRA-T1_2021\.parquet.*CSV files only"):
-        list(NcsReader(LAKE).load_series(to_ns("2021-01-01"), to_ns("2021-02-01"),
-                                         [SensorTag("GRA-T1", "asset-a")]))
-    # the 2020 CSV still reads without it
+    (s,) = NcsReader(LAKE).load_series(to_ns("2021-01-01"), to_ns("2021-02-01"), [SensorTag("GRA-T1", "asset-a")])
+    np.testing.assert_array_equal(s.index, want_index)
+    assert s.values.dtype == want_values.dtype == np.float64
+    np.testing.assert_array_equal(s.values.view(np.uint64), want_values.view(np.uint64))
+    # the 2020 CSV still reads
     (s,) = NcsReader(LAKE).load_series(to_ns("2020-01-01"), to_ns("2020-02-01"), [SensorTag("GRA-T1", "asset-a")])
     assert s.index.size > 0
 

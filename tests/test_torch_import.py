@@ -4,8 +4,9 @@ CPU unless asked to.
 
 The import check runs in a subprocess because this test process has already
 imported jax (tests/conftest.py). It blocks pandas, sklearn, PyYAML and
-pyarrow too: the card's machine has none of them (the port reads parquet
-through pyarrow only when it is asked to read a parquet file).
+pyarrow too: the card's machine has none of them. The port reads parquet
+with its own reader, so under the block it still reads the lake's 2021
+parquet file.
 """
 
 import json
@@ -44,7 +45,13 @@ for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-print(json.dumps({{"modules": names, "leaked": sorted(
+from gordo_components_torch.dataset.data_provider import NcsReader
+from gordo_components_torch.dataset.sensor_tag import SensorTag
+from gordo_components_torch.dataset.times import to_ns
+
+(series,) = NcsReader({lake!r}).load_series(to_ns("2021-01-01"), to_ns("2022-01-01"),
+                                           [SensorTag("GRA-T1", "asset-a")])
+print(json.dumps({{"modules": names, "rows_2021": int(series.index.size), "leaked": sorted(
     n for n in sys.modules if n.split(".")[0] in BLOCKED)}}))
 """
 
@@ -59,12 +66,14 @@ def _run(args, cwd, timeout=120):
 
 def test_port_imports_without_jax_or_the_jax_package():
     code = _IMPORT_ALL.format(
-        blocked=BLOCKED, smoke=os.path.join(REPO, "chip_smoke.py")
+        blocked=BLOCKED, smoke=os.path.join(REPO, "chip_smoke.py"),
+        lake=os.path.join(REPO, "examples", "datalake"),
     )
     proc = _run(["-c", code], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["leaked"] == []
+    assert report["rows_2021"] == 400  # GRA-T1_2021.parquet, read with pyarrow blocked
     # every module of the slice was imported under the block
     for mod in ("ops.score", "ops._cuda", "server.bank", "server.engine",
                 "server.views", "convert", "serializer.artifacts",
@@ -80,7 +89,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "ops.dense", "models.register", "server.model_io", "server.swap",
                 "utils.digest", "dataset.times", "dataset.filter_rows",
                 "dataset.data_provider.datalake", "dataset.data_provider.auth",
-                "dataset.data_provider.influx_http", "dataset.data_provider._files"):
+                "dataset.data_provider.influx_http", "dataset.data_provider._files",
+                "dataset.data_provider._parquet", "dataset.data_provider._snappy",
+                "dataset.data_provider._thrift", "models.compose"):
         assert f"gordo_components_torch.{mod}" in report["modules"]
 
 

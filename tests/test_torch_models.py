@@ -158,9 +158,9 @@ def test_definitions_resolve_to_port_classes():
     assert type(old.base_estimator) is AutoEncoder and old.base_estimator.epochs == 3
     assert import_locate("gordo_components_tpu.models.transformers.JaxStandardScaler") is StandardScaler
     assert import_locate("sklearn.preprocessing.StandardScaler") is StandardScaler
-    with pytest.raises(ImportError, match="RobustScaler"):
+    with pytest.raises(ImportError, match="QuantileTransformer: the port resolves only .*RobustScaler"):
         from_definition({"sklearn.pipeline.Pipeline": {"steps": [
-            "sklearn.preprocessing.RobustScaler", "gordo_components_tpu.models.AutoEncoder"]}})
+            "sklearn.preprocessing.QuantileTransformer", "gordo_components_tpu.models.AutoEncoder"]}})
     named = from_definition({"sklearn.pipeline.Pipeline": {"steps": [
         ["scale", "sklearn.preprocessing.MinMaxScaler"], "gordo_components_tpu.models.AutoEncoder"]}})
     assert [n for n, _ in named.steps] == ["scale", "step_1"]
