@@ -18,7 +18,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             copy, diff and scaled bitwise, norms within rtol=atol=1e-6; its
             device time at both serving shapes and at B=T=1 (floor_us).
             Per-model anomaly score (K1): the serving shape's one request
-            and ragged shapes, same bands. For both, device operations per
+            and ragged shapes, same bands. K1 and K2 again with NaN, +inf
+            and -inf in the output, the target and one member's scale row,
+            at the serving shapes: NaN and infinities where the plain
+            version has them, the finite elements in the same bands. For both, device operations per
             call (at most 1, asserted) and the host time of each piece of
             the wrapper. Fused LSTM step (K3): one step
             (S=1) within rtol=atol=1e-6 and an S-step layer within
@@ -272,10 +275,46 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             an AutoEncoder served by its ``predict``. Each answer held to
             the same artifact's CPU answer in check_arrays' bands; build
             seconds, server-ready seconds and the launches of each run;
+    observe  ``run_server`` on the card over four models at config 1's
+            width: a dense ``feedforward_hourglass`` detector and an
+            ``lstm_hourglass`` one (lookback 32) in the bank, a PCA(3)
+            detector on the per-model path (K1), and a copy of the dense one
+            whose first weight matrix is NaN. 8 JSON and 4 parquet anomaly
+            POSTs to each sound model (examples/parquet/
+            post_body_10tags.parquet) from 12 threads and 3 unknown routes:
+            ``/stats`` and the port's parse of ``/metrics`` give the same
+            integers (requests by kind, errors, the engine's requests and
+            batches, each bucket's calls, the wire by encoding), and
+            ``gordo_device_hbm_bytes_in_use`` lies between the bank's tensor
+            bytes and ``bytes_limit``. The NaN member's three POSTs (at once
+            with the sound members', whose bodies stay within the http
+            band of their answers alone) answer 200 with non-finite totals;
+            in one bank batch its slots leave the neighbours' results
+            bitwise those of the same batch with a sound member there; the
+            fourth POST answers 410 and launches no kernel, ``/healthz`` is
+            degraded and names it, ``gordo_quarantined_models`` is 1, the
+            sound members still answer; ``quarantine/clear`` re-admits it
+            (three more NaN answers, then 410), and a rewrite with sound
+            weights and ``/reload`` drop the verdict (finite answers). POSTs
+            with ``X-Gordo-Deadline-Ms: 0.001`` to the bank and the per-model
+            path answer 504 with the request id echoed, launch nothing, add
+            2 to the engine's ``deadline_expired`` and nothing to the
+            breaker. Behind admission, on a bank of the dense and LSTM
+            members: a request whose 20 ms budget runs out while a 200 ms
+            flush holds its batch is dropped before dispatch and launches
+            nothing, and a batch deadline that passes after the dense
+            group launches no K3 and leaves the dense result bitwise its
+            answer alone. ``metadata-all?digest=1`` gzipped equals the plain body.
+            Then the bank phase's closed loop (64 clients x 4 requests of 64
+            rows, 10,000 dense members) through an engine and bank with a
+            registry and with ``registry=False``: one untimed loop each, then
+            5 rounds in the order with, without, without, with: p50, p99 and
+            rows/s of each run and each side's medians (findings, not a
+            claim);
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
             bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
-            definitions), each reset just
+            definitions, observe), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -291,6 +330,7 @@ import dataclasses
 import datetime
 import functools
 import gc
+import gzip
 import http.server
 import json
 import os
@@ -332,8 +372,10 @@ from gordo_components_torch.models import (
 )
 from gordo_components_torch.models.factories.feedforward import hourglass_calc_dims
 from gordo_components_torch.models.transformers import MinMaxScaler, Pipeline
+from gordo_components_torch.observability.metrics import MetricsRegistry, parse_prometheus_text
 from gordo_components_torch.ops import _cuda, score, seq_scan
 from gordo_components_torch.parallel import FleetTrainer, quantize_batch_count
+from gordo_components_torch.resilience.deadline import Deadline, DeadlineExceeded
 from gordo_components_torch.server import BatchingEngine, ModelBank, run_server
 from gordo_components_torch.server.model_io import ModelCollection
 from gordo_components_torch.utils.yaml_subset import safe_load
@@ -764,7 +806,79 @@ def kernel_phase():
           device_ops_per_call=ops, ms=round(k1["ms"], 5), plain_ms=round(k1["plain_ms"], 5),
           library_ms=round(k1["library_ms"], 5), below_library=k1["ms"] < k1["library_ms"],
           bound_ms=round(bound, 7), host_us=json.dumps(host_split(k1_pieces(single))))
+    seen = nonfinite_parity()
+    phase("parity", kernels="banked_anomaly_score,fused_anomaly_score", nonfinite="nan,+inf,-inf",
+          placed_in="output,target,one member's scale row", shapes="K2 64x64x10 M=10000, K1 64x10",
+          held="NaN and +-inf elementwise, finite copy/diff/scaled bitwise, finite norms rtol=atol=1e-6",
+          nonfinite_totals=json.dumps(seen))
     return results
+
+
+NONFINITE = {"nan": float("nan"), "+inf": float("inf"), "-inf": float("-inf")}
+
+
+def nonfinite_case(where: str, value: float, seed: int):
+    """make_case at the serving shape with ``value`` in 64 random elements
+    of ``output`` or ``target``, or in the whole scale row of the member
+    the first slot reads."""
+    args = make_case(*SERVE_SHAPE, seed=seed)
+    if where == "scale":
+        args[3][int(args[4][0])] = value
+    else:
+        arr = args[0 if where == "target" else 1].view(-1)
+        g = torch.Generator().manual_seed(seed)
+        arr[torch.randperm(arr.numel(), generator=g)[:64].cuda()] = value
+    return args
+
+
+def same_nonfinite(got, want, what: str, exact: bool) -> None:
+    """NaN where the plain version has NaN, the same infinities by sign,
+    and the finite elements bitwise (``exact``) or within the norms' band."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)}, not {tuple(want.shape)}")
+    for mask, name in ((torch.isnan, "NaN"), (torch.isposinf, "+inf"), (torch.isneginf, "-inf")):
+        if not torch.equal(mask(got), mask(want)):
+            raise AssertionError(f"{what}: its {name} elements are not the plain version's")
+    fin = torch.isfinite(want)
+    if exact and not torch.equal(got[fin], want[fin]):
+        raise AssertionError(f"{what}: a finite element is not bitwise equal to the plain version")
+    if not exact and not torch.allclose(got[fin], want[fin], rtol=NORM_RTOL, atol=NORM_ATOL):
+        raise AssertionError(f"{what}: a finite norm outside rtol=atol=1e-6")
+
+
+def nonfinite_parity() -> dict:
+    """K2's packed result and K1's four outputs against their plain
+    versions with NaN, +inf and -inf in ``output``, in ``target`` and in one
+    member's scale row, at the serving shapes (K2 (64, 64, 10, 10000), K1 a
+    64x10 request): the breaker reads the kernel's totals, so a kernel that
+    dropped a NaN would hide a poisoned model. Returns how many of each
+    kernel's totals came out non-finite."""
+    B, T, F, M = SERVE_SHAPE
+    seen = {"banked_anomaly_score": 0, "fused_anomaly_score": 0}
+    for i, (where, (label, value)) in enumerate(
+            (w, v) for w in ("output", "target", "scale") for v in NONFINITE.items()):
+        args = nonfinite_case(where, value, seed=200 + i)
+        what = f"non-finite {label} in {where}"
+        buf = score.banked_anomaly_score_packed(*args)
+        torch.cuda.synchronize()
+        want = packed_plain(*args)
+        got_parts, want_parts = score.unpack_banked(buf, T, F), score.unpack_banked(want, T, F)
+        for g, w, name, exact in zip(got_parts, want_parts, ("copy", "diff", "scaled", "tot_u", "tot_s"),
+                                     (True, True, True, False, False)):
+            same_nonfinite(g, w, f"banked {what}: {name}", exact)
+        seen["banked_anomaly_score"] += int((~torch.isfinite(got_parts[4])).sum())
+        tgt, out, sh, sc, ix = args
+        m0 = int(ix[0])
+        single = (tgt[0].contiguous(), out[0].contiguous(), sh[m0].contiguous(), sc[m0].contiguous())
+        got = score.fused_anomaly_score(*single)
+        torch.cuda.synchronize()
+        for g, w, name, exact in zip(got, score.score_plain(*single), ("diff", "scaled", "tot_u", "tot_s"),
+                                     (True, True, False, False)):
+            same_nonfinite(g, w, f"fused {what}: {name}", exact)
+        seen["fused_anomaly_score"] += int((~torch.isfinite(got[3])).sum())
+    if min(seen.values()) <= 0:
+        raise AssertionError(f"non-finite parity: no non-finite total came out: {seen}")
+    return seen
 
 
 def lstm_case(S, B, M, H, seed):
@@ -1185,14 +1299,20 @@ def random_lstm_entry(name: str, registry_type: str, rng: np.random.Generator):
     )
 
 
-def http_json(url: str, body=None, raw: bytes = None, content_type: str = "application/json"):
-    data = raw if raw is not None else (None if body is None else json.dumps(body).encode())
-    req = urllib.request.Request(url, data=data, headers={"Content-Type": content_type})
+def http_raw(url: str, raw: bytes = None, headers=None):
+    """(status, headers, body bytes) of one request."""
+    req = urllib.request.Request(url, data=raw, headers=headers or {})
     try:
         with urllib.request.urlopen(req, timeout=120) as resp:
-            return resp.status, json.load(resp)
+            return resp.status, dict(resp.headers), resp.read()
     except urllib.error.HTTPError as exc:
-        return exc.code, json.loads(exc.read())
+        return exc.code, dict(exc.headers), exc.read()
+
+
+def http_json(url: str, body=None, raw: bytes = None, content_type: str = "application/json"):
+    data = raw if raw is not None else (None if body is None else json.dumps(body).encode())
+    status, _, out = http_raw(url, data, {"Content-Type": content_type})
+    return status, json.loads(out)
 
 
 def check_arrays(got: dict, want: dict, what: str, rtol=0.0, atol=E2E_ATOL) -> None:
@@ -1370,6 +1490,36 @@ def profile_batch(bank, requests, runs=5):
     }
 
 
+def closed_loop(engine, names, X, what: str):
+    """Closed-loop clients, one thread each: client c scores ``names[c][r]``
+    on ``X[c, r]`` for r in order through ``engine``, all starting at once.
+    Returns (latencies s, {(c, r): result}, wall s); any failure raises."""
+    n_clients, n_requests = len(names), len(names[0])
+    lat, results, failures = [], {}, []
+    barrier = threading.Barrier(n_clients)
+
+    def client(c):
+        try:
+            barrier.wait(60)
+            for r in range(n_requests):
+                t = time.perf_counter()
+                results[(c, r)] = engine.score_blocking(names[c][r], X[c, r], timeout=120)
+                lat.append(time.perf_counter() - t)
+        except Exception as exc:  # reported below: the phase fails
+            failures.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    wall = time.perf_counter() - t0
+    if failures or len(results) != n_clients * n_requests:
+        raise AssertionError(f"{what}: {len(results)} results, failures {failures[:3]}")
+    return lat, results, wall
+
+
 def bank_phase(card: str, family: str = "dense", dtype: str = "float32"):
     """A 10,000-member bank driven by 64 closed-loop clients through the
     engine: dense hourglass members with 64-row requests, or LSTM hourglass
@@ -1388,7 +1538,9 @@ def bank_phase(card: str, family: str = "dense", dtype: str = "float32"):
         entries = [random_entry(f"m{i:05d}", 10, rng) for i in range(n_members)]
     if dtype != "float32":
         entries = [dataclasses.replace(e, compute_dtype=dtype) for e in entries]
-    bank = ModelBank.from_entries(entries)
+    # uninstrumented, as every in-process bank of the phases before observe:
+    # their loops measure what they measured before the metrics registry
+    bank = ModelBank.from_entries(entries, registry=False)
     build_s = time.perf_counter() - t0
     off = entries[0].offset
     # the cyclic collector's pass over the 10,000 freshly built entries
@@ -1404,28 +1556,7 @@ def bank_phase(card: str, family: str = "dense", dtype: str = "float32"):
         engine.score_blocking(names[0][0], X[0, 0])  # first batch pays allocator warm-up
         before = dict(engine.stats)
         launches_before = dict(score.launch_counts, **seq_scan.launch_counts)
-        lat, results, failures = [], {}, []
-        barrier = threading.Barrier(n_clients)
-
-        def client(c):
-            try:
-                barrier.wait(60)
-                for r in range(n_requests):
-                    t = time.perf_counter()
-                    results[(c, r)] = engine.score_blocking(names[c][r], X[c, r], timeout=120)
-                    lat.append(time.perf_counter() - t)
-            except Exception as exc:  # reported below: the phase fails
-                failures.append(repr(exc))
-
-        threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(300)
-        wall = time.perf_counter() - t0
-        if failures or len(results) != n_clients * n_requests:
-            raise AssertionError(f"bank phase: {len(results)} results, failures {failures[:3]}")
+        lat, results, wall = closed_loop(engine, names, X, "bank phase")
         stats = {k: engine.stats[k] - before[k] for k in ("requests", "batches")}
         stats["max_batch_seen"] = engine.stats["max_batch_seen"]
         after = dict(score.launch_counts, **seq_scan.launch_counts)
@@ -1943,7 +2074,7 @@ def zoo_fleet_phase(card: str):
         if fell < 0.99:
             raise AssertionError(f"zoo_fleet {family}: the loss fell for a share of {fell}, below 0.99")
         bucket = trainer.last_stats["buckets"][0]
-        bank = ModelBank.from_entries([m.to_entry() for m in models.values()])
+        bank = ModelBank.from_entries([m.to_entry() for m in models.values()], registry=False)
         k2_before = score.launch_counts["banked_anomaly_score"]
         worst = 0.0
         for i in range(0, len(names), 64):
@@ -2155,7 +2286,7 @@ def bf16_parity_phase():
             raise AssertionError(f"bf16_parity {family}: {share[family]} of the parameters within "
                                  f"{BF16_PARAM_ATOL}, largest error {err[family]}")
         dets[family] = card
-    bank = ModelBank.from_entries([d.to_entry(f) for f, d in dets.items()])
+    bank = ModelBank.from_entries([d.to_entry(f) for f, d in dets.items()], registry=False)
     if {e.compute_dtype for e in (d.to_entry() for d in dets.values())} != {BF16}:
         raise AssertionError("bf16_parity: a detector's entry lost compute_dtype")
     bank_err = 0.0
@@ -2188,7 +2319,7 @@ def bf16_bank_phase(card: str):
     for i in range(8):
         e = random_lstm_entry(f"l{i}", "LSTMAutoEncoder", rng)
         entries += [e, dataclasses.replace(e, name=f"l{i}-bf16", compute_dtype=BF16)]
-    bank = ModelBank.from_entries(entries)
+    bank = ModelBank.from_entries(entries, registry=False)
     if bank.n_buckets != 4:
         raise AssertionError(f"bf16_mixed_bank: {bank.n_buckets} buckets for 2 families x 2 dtypes")
     X = rng.random((128, 10)).astype(np.float32)
@@ -2277,7 +2408,7 @@ def build_phase():
         if manifest["n_built"] != len(machines) or report.failed:
             raise AssertionError(f"build: {manifest['n_built']} built, failed {report.failed}")
         collection = ModelCollection(out_dir)
-        bank = ModelBank.from_models(collection.models)
+        bank = ModelBank.from_models(collection.models, registry=False)
         if sorted(bank.fallback) != sorted(not_detectors) or bank.finalize_failures:
             raise AssertionError(f"build: the bank left out {bank.fallback} {bank.finalize_failures}")
         engine = BatchingEngine(bank, max_batch=64, flush_ms=2.0)
@@ -3252,6 +3383,390 @@ def definitions_phase(card: str):
     return {k: sum(c[k] for c in runs.values()) for k in runs["build_fleet"]}
 
 
+OBSERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_observe")
+# 64 rows of 10 tags, the JAX client's parquet encoding (tools/make_parquet_fixtures.py)
+OBSERVE_PARQUET = os.path.join(ROOT, "examples", "parquet", "post_body_10tags.parquet")
+OBSERVE_SOUND = ("obs-dense", "obs-lstm", "obs-pca")
+OBSERVE_POSTS = dict(json=8, parquet=4)  # anomaly POSTs to each sound model
+OBSERVE_404S = 3
+OBSERVE_MEMBERS = 10_000  # the instrumentation loops' dense bank
+OBSERVE_PCA = {"gordo_components_tpu.models.DiffBasedAnomalyDetector": {"base_estimator": {
+    "sklearn.pipeline.Pipeline": {"steps": [
+        ["pca", {"sklearn.decomposition.PCA": {"n_components": 3}}],
+        ["model", {"gordo_components_tpu.models.AutoEncoder": {"kind": "feedforward_hourglass", "epochs": 3}}]]}}}}
+DEADLINE_HEADERS = {"X-Gordo-Deadline-Ms": "0.001"}
+
+
+def post_anomaly(base: str, target: str, X, headers=None):
+    """(status, headers, JSON body) of an anomaly POST of ``X``."""
+    status, hdrs, raw = http_raw(f"{base}/{target}/anomaly/prediction", json.dumps({"X": X.tolist()}).encode(),
+                                 {"Content-Type": "application/json", **(headers or {})})
+    return status, hdrs, json.loads(raw)
+
+
+def tensor_bytes(obj) -> int:
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(o) for o in obj)
+    return 0
+
+
+def bank_bytes(bank) -> int:
+    """The bytes of every tensor the bank's buckets hold on the card."""
+    return sum(tensor_bytes(v) for b in bank._buckets.values() for v in vars(b).values())
+
+
+def scrape(base: str) -> dict:
+    """``/metrics`` parsed by the port's parser: (name, sorted labels) -> value."""
+    status, hdrs, text = http_raw(base + "/metrics")
+    if status != 200 or hdrs["Content-Type"] != "text/plain; version=0.0.4; charset=utf-8":
+        raise AssertionError(f"/metrics answered {status} as {hdrs.get('Content-Type')}")
+    _, samples = parse_prometheus_text(text.decode())
+    return {(n, tuple(sorted(lb.items()))): v for n, lb, v in samples}
+
+
+def totals_finite(body) -> np.ndarray:
+    return np.isfinite(np.asarray(body["data"]["total-anomaly-scaled"], np.float64))
+
+
+def observe_counters(server, base: str, rng) -> dict:
+    """8 JSON and 4 parquet anomaly POSTs to each sound model from 12
+    threads, and OBSERVE_404S unknown routes; then ``/metrics`` and
+    ``/stats`` must give the same integers."""
+    with open(OBSERVE_PARQUET, "rb") as f:
+        pq = f.read()
+    X = rng.random((len(OBSERVE_SOUND), OBSERVE_POSTS["json"], 64, 10)).astype(np.float32)
+    jobs = [(t, X[i, j]) for i, t in enumerate(OBSERVE_SOUND) for j in range(OBSERVE_POSTS["json"])]
+    jobs += [(t, None) for t in OBSERVE_SOUND for _ in range(OBSERVE_POSTS["parquet"])]
+    replies = []
+
+    def post(job):
+        t, x = job
+        if x is None:
+            status, _, raw = http_raw(f"{base}/{t}/anomaly/prediction", pq, {"Content-Type": "application/x-parquet"})
+        else:
+            status, _, raw = http_raw(f"{base}/{t}/anomaly/prediction", json.dumps({"X": x.tolist()}).encode(),
+                                      {"Content-Type": "application/json"})
+        replies.append((t, status, json.loads(raw)))
+
+    threads = [threading.Thread(target=lambda chunk=jobs[i::12]: [post(j) for j in chunk]) for i in range(12)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    for t, status, body in replies:
+        if status != 200 or not totals_finite(body).all():
+            raise AssertionError(f"observe: {t} answered {status} or non-finite totals")
+    for _ in range(OBSERVE_404S):
+        if http_raw(base + "/nowhere/at/all")[0] != 404:
+            raise AssertionError("observe: an unknown route did not answer 404")
+    values = scrape(base)
+    status, _, raw = http_raw(base + "/stats")
+    stats = json.loads(raw)
+    if status != 200 or len(replies) != len(jobs):
+        raise AssertionError(f"observe: /stats answered {status}; {len(replies)} of {len(jobs)} POSTs answered")
+
+    def metric(name, **labels):
+        return values.get((name, tuple(sorted(labels.items()))))
+
+    # /metrics was read just before /stats, whose own request is its first
+    requests = {k: n for k, n in stats["requests"].items() if k != "stats"}
+    if requests.get("anomaly") != len(jobs) or requests.get("other") != OBSERVE_404S:
+        raise AssertionError(f"observe: /stats counts {requests}, not {len(jobs)} anomaly, {OBSERVE_404S} other")
+    pairs = {f"requests[{k}]": (n, metric("gordo_server_requests_total", kind=k)) for k, n in requests.items()}
+    pairs["errors"] = (stats["errors"], metric("gordo_server_errors_total"))
+    engine = stats["bank_engine"]
+    pairs["engine.requests"] = (engine["requests"], metric("gordo_engine_requests_total"))
+    pairs["engine.batches"] = (engine["batches"], metric("gordo_engine_batches_total"))
+    for enc in ("json", "parquet"):
+        pairs[f"wire.requests[{enc}]"] = (stats["wire"]["requests"].get(enc),
+                                          metric("gordo_server_requests_total", encoding=enc))
+        pairs[f"wire.bytes[{enc}]"] = (stats["wire"]["bytes"].get(enc),
+                                       metric("gordo_server_request_bytes_total", encoding=enc))
+    calls = {v["labels"]["bucket"]: v["value"] for v in stats["metrics"]["gordo_bank_bucket_calls_total"]["values"]}
+    for bucket, n in calls.items():
+        pairs[f"bucket_calls[{bucket}]"] = (n, metric("gordo_bank_bucket_calls_total", bucket=bucket))
+    apart = {k: v for k, v in pairs.items() if v[0] is None or v[0] != v[1]}
+    if apart or len(calls) != 2 or stats["errors"] != OBSERVE_404S:
+        raise AssertionError(f"observe: /stats and /metrics disagree: {apart}; bucket calls {calls}")
+    wire = {enc: stats["wire"]["requests"][enc] for enc in ("json", "parquet")}
+    if wire != {enc: n * len(OBSERVE_SOUND) for enc, n in OBSERVE_POSTS.items()}:
+        raise AssertionError(f"observe: wire {wire}")
+    device = f"cuda:{torch.cuda.current_device()}"
+    hbm = {k: metric(f"gordo_device_hbm_{k}", device=device) for k in ("bytes_in_use", "bytes_limit",
+                                                                        "peak_bytes_in_use")}
+    weights = bank_bytes(server.app.bank)
+    if None in hbm.values() or not weights <= hbm["bytes_in_use"] <= hbm["bytes_limit"]:
+        raise AssertionError(f"observe: HBM gauges {hbm} against the bank's {weights} bytes")
+    return {"posts": len(jobs), "counters_equal": len(pairs), "requests": json.dumps(requests),
+            "engine_requests": engine["requests"], "engine_batches": engine["batches"],
+            "bucket_calls": json.dumps(calls), "wire": json.dumps(stats["wire"]),
+            "hbm": json.dumps(hbm), "bank_tensor_bytes": weights}
+
+
+def observe_quarantine(server, base: str, dense, rng) -> dict:
+    """The poisoned member's three NaN answers (at once with the sound
+    members' POSTs), the 410 that launches nothing, /healthz and the gauge,
+    a batch that holds it beside sound members, clear, and a rewrite with
+    sound weights that /reload re-admits."""
+    probe = rng.random((64, 10)).astype(np.float32)
+    alone = {t: post_anomaly(base, t, probe) for t in ("obs-dense", "obs-lstm")}
+    targets = ["obs-nan"] * 3 + ["obs-dense", "obs-lstm"]
+    replies, barrier = {}, threading.Barrier(len(targets))
+
+    def post(i, t):
+        barrier.wait(60)
+        replies[i] = post_anomaly(base, t, probe)
+
+    threads = [threading.Thread(target=post, args=(i, t)) for i, t in enumerate(targets)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    for i, t in enumerate(targets):
+        status, _, body = replies[i]
+        if status != 200:
+            raise AssertionError(f"observe: {t} answered {status} before the quarantine: {body}")
+        if t == "obs-nan" and totals_finite(body).any():
+            raise AssertionError("observe: the poisoned member answered a finite total")
+        if t != "obs-nan":
+            band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if t == "obs-lstm" else {}
+            tags = [f"tag-{j}" for j in range(10)]
+            check_arrays(response_arrays(body, tags), response_arrays(alone[t][2], tags),
+                         f"observe {t} beside the poisoned member", **band)
+    # one batch with the poisoned member in two slots against the same batch
+    # with a sound member there: the neighbours' results bitwise
+    bank = server.app.bank
+    batch = [("obs-nan", probe, None), ("obs-dense", probe, None), ("obs-nan", probe[:40], None),
+             ("obs-lstm", probe, None)]
+    mixed = bank.score_many(batch)
+    twin = bank.score_many([("obs-dense", x, y) if n == "obs-nan" else (n, x, y) for n, x, y in batch])
+    for i in (1, 3):
+        for key, want in twin[i].to_arrays().items():
+            if not np.array_equal(mixed[i].to_arrays()[key], want):
+                raise AssertionError(f"observe: {batch[i][0]}'s {key} moved beside the poisoned member")
+    if np.isfinite(mixed[0].total_scaled).any() or np.isfinite(mixed[2].total_scaled).any():
+        raise AssertionError("observe: the poisoned member's batched totals are finite")
+    before = launches()
+    status, _, gone = post_anomaly(base, "obs-nan", probe)
+    moved = launched(before)
+    if status != 410 or gone.get("reason") != "non-finite scores in model output" or gone.get("failures") != 3:
+        raise AssertionError(f"observe: the fourth POST answered {status}: {gone}")
+    if any(moved.values()):
+        raise AssertionError(f"observe: the 410 launched {moved}")
+    status, _, raw = http_raw(base.replace("/gordo/v0/smoke", "") + "/healthz")
+    health = json.loads(raw)
+    if status != 200 or health["status"] != "degraded" or list(health["quarantined"]) != ["obs-nan"]:
+        raise AssertionError(f"observe: /healthz answered {status}: {health}")
+    gauge = scrape(base)[("gordo_quarantined_models", ())]
+    if gauge != 1:
+        raise AssertionError(f"observe: gordo_quarantined_models is {gauge}")
+    for t in ("obs-dense", "obs-lstm", "obs-pca"):
+        status, _, body = post_anomaly(base, t, probe)
+        if status != 200 or not totals_finite(body).all():
+            raise AssertionError(f"observe: {t} answered {status} while obs-nan was quarantined")
+    clear = json.dumps({"targets": ["obs-nan"]}).encode()
+    status, _, raw = http_raw(base + "/quarantine/clear", clear, {"Content-Type": "application/json"})
+    if status != 200 or json.loads(raw) != {"enabled": True, "cleared": ["obs-nan"]}:
+        raise AssertionError(f"observe: quarantine/clear answered {status}: {raw[:200]}")
+    # re-admitted: three more NaN answers quarantine it again
+    statuses = [post_anomaly(base, "obs-nan", probe)[0] for _ in range(4)]
+    if statuses != [200, 200, 200, 410]:
+        raise AssertionError(f"observe: after clear the poisoned member answered {statuses}")
+    serializer.dump(dataclasses.replace(dense, name="obs-nan"), os.path.join(OBSERVE_DIR, "obs-nan"))
+    status, _, raw = http_raw(base + "/reload", b"{}", {"Content-Type": "application/json"})
+    reload = json.loads(raw)
+    if status != 200 or reload["changes"]["updated"] != ["obs-nan"]:
+        raise AssertionError(f"observe: /reload answered {status}: {reload}")
+    status, _, raw = http_raw(base + "/quarantine")
+    if json.loads(raw)["quarantined"]:
+        raise AssertionError(f"observe: /reload left the verdict: {raw[:300]}")
+    status, _, body = post_anomaly(base, "obs-nan", probe)
+    if status != 200 or not totals_finite(body).all():
+        raise AssertionError(f"observe: the rewritten member answered {status} or non-finite totals")
+    check_arrays(response_arrays(body, dense.tags), response_arrays(alone["obs-dense"][2], dense.tags),
+                 "observe: the rewritten member against obs-dense")
+    return {"quarantined_after": 3, "gone_launches": json.dumps(moved), "healthz": health["status"],
+            "after_clear": json.dumps(statuses), "reload_generation": reload["swap"]["generation"]}
+
+
+def observe_deadlines(server, base: str, rng) -> dict:
+    """A POST whose deadline has passed answers 504 on the bank path and on
+    the per-model path, echoes the request id, launches nothing, counts in
+    the engine's deadline_expired and not in the breaker."""
+    X = rng.random((64, 10)).astype(np.float32)
+    engine, quarantine = server.app.engine, server.app.quarantine
+    expired = engine.stats_snapshot()["deadline_expired"]
+    breaker = quarantine.snapshot()
+    before = launches()
+    sent = {"obs-dense": "obs-504-bank", "obs-pca": "obs-504-per-model"}
+    for t, rid in sent.items():
+        status, hdrs, body = post_anomaly(base, t, X, {**DEADLINE_HEADERS, "X-Gordo-Request-Id": rid})
+        if (status != 504 or body.get("request_id") != rid or hdrs.get("X-Gordo-Request-Id") != rid
+                or "Retry-After" in hdrs):
+            raise AssertionError(f"observe: the expired POST to {t} answered {status} {hdrs}: {body}")
+    moved = launched(before)
+    counted = engine.stats_snapshot()["deadline_expired"] - expired
+    if any(moved.values()) or counted != len(sent) or quarantine.snapshot() != breaker:
+        raise AssertionError(f"observe: the 504s launched {moved}, counted {counted}, breaker "
+                             f"{quarantine.snapshot()}")
+    return {"deadline_504s": len(sent), "deadline_launches": json.dumps(moved), "deadline_expired": counted}
+
+
+class _AfterFirstGroup(Deadline):
+    """A deadline that passes once the first bucket group has dispatched:
+    the bank's check between groups, without a race against the clock."""
+
+    checks = 0
+
+    def expired(self, now=None) -> bool:
+        self.checks += 1
+        return self.checks > 1
+
+
+def observe_held_deadlines(server, rng) -> dict:
+    """The deadline checks behind admission, on the card, over a bank of
+    the served dense and LSTM members built with ``registry=False`` (the
+    app's series stay the server's): a request whose 20 ms budget runs out
+    while a 200 ms flush holds its batch is dropped before dispatch and
+    launches nothing; a batch deadline that passes after the dense group
+    leaves the LSTM group undispatched (no K3 launch) and the dense result
+    bitwise its answer alone."""
+    models = server.app.collection.models
+    bank = ModelBank.from_models({n: models[n] for n in ("obs-dense", "obs-lstm")}, registry=False)
+    X = rng.random((64, 10)).astype(np.float32)
+    alone = bank.score_many([("obs-dense", X, None)])[0]
+    engine = BatchingEngine(bank, max_batch=64, flush_ms=200.0)
+    engine.start()
+    try:
+        before = launches()
+        try:
+            engine.submit("obs-dense", X, deadline=Deadline.after_ms(20.0)).result(timeout=30)
+            raise AssertionError("observe: a request held past its deadline was scored")
+        except DeadlineExceeded:
+            pass
+        held = launched(before)
+        if any(held.values()) or engine.stats_snapshot()["deadline_expired"] != 1:
+            raise AssertionError(f"observe: the held request launched {held}, engine {engine.stats_snapshot()}")
+    finally:
+        engine.stop()
+    before = launches()
+    got = bank.score_many([("obs-dense", X, None), ("obs-lstm", X, None)], deadline=_AfterFirstGroup(60.0),
+                          return_exceptions=True)
+    cut = launched(before)
+    if not isinstance(got[1], DeadlineExceeded) or cut["K3"] != 0 or cut["K2"] < 1:
+        raise AssertionError(f"observe: the cut batch gave {type(got[1]).__name__}, launched {cut}")
+    for key, want in alone.to_arrays().items():
+        if not np.array_equal(got[0].to_arrays()[key], want):
+            raise AssertionError(f"observe: the dense group's {key} moved when the LSTM group was cut")
+    return {"held_drop_launches": json.dumps(held), "cut_batch_launches": json.dumps(cut)}
+
+
+def observe_gzip(base: str) -> dict:
+    plain = http_raw(base + "/metadata-all?digest=1")
+    packed = http_raw(base + "/metadata-all?digest=1", headers={"Accept-Encoding": "gzip"})
+    if (plain[0], packed[0]) != (200, 200) or packed[1].get("Content-Encoding") != "gzip" \
+            or json.loads(gzip.decompress(packed[2])) != json.loads(plain[2]):
+        raise AssertionError(f"observe: the gzipped digest ({packed[0]}, {packed[1]}) is not the plain body")
+    return {"digest_bytes": len(plain[2]), "digest_gzip_bytes": len(packed[2])}
+
+
+OBSERVE_COST_ROUNDS = 5  # rounds of (with, without, without, with)
+
+
+def instrumentation_cost(rng) -> dict:
+    """The bank phase's closed loop (64 clients x 4 requests of 64 rows to
+    random members of a dense bank of OBSERVE_MEMBERS) through an engine and
+    bank that record into a registry, and through ones built with
+    ``registry=False``: one untimed loop on each, then OBSERVE_COST_ROUNDS
+    rounds in the order with, without, without, with. The median of each
+    side's p50, p99 and rows/s, and every run's; findings, not a claim."""
+    n_clients, n_requests, n_rows = 64, 4, 64
+    entries = [random_entry(f"i{i:05d}", 10, rng) for i in range(OBSERVE_MEMBERS)]
+    X = rng.random((n_clients, n_requests, n_rows, 10)).astype(np.float32)
+    names = [[entries[int(j)].name for j in rng.integers(0, OBSERVE_MEMBERS, n_requests)]
+             for _ in range(n_clients)]
+    registry = MetricsRegistry()
+    banks = {"instrumented": ModelBank.from_entries(entries, registry=registry),
+             "uninstrumented": ModelBank.from_entries(entries, registry=False)}
+    del entries
+    gc.collect()
+    order = ["instrumented", "uninstrumented"] + ["instrumented", "uninstrumented", "uninstrumented",
+                                                  "instrumented"] * OBSERVE_COST_ROUNDS
+    runs = {label: [] for label in banks}
+    for i, label in enumerate(order):
+        engine = BatchingEngine(banks[label], max_batch=64, flush_ms=2.0)
+        if (engine.registry is registry) != (label == "instrumented"):
+            raise AssertionError(f"observe: the {label} engine's registry is {engine.registry}")
+        engine.start()
+        try:
+            engine.score_blocking(names[0][0], X[0, 0])
+            lat, results, wall = closed_loop(engine, names, X, f"observe {label} loop")
+        finally:
+            engine.stop()
+        if not all(np.isfinite(r.total_scaled).all() for r in results.values()):
+            raise AssertionError(f"observe: the {label} loop scored non-finite totals")
+        if i < len(banks):
+            continue  # the untimed first loop of each
+        lat_ms = np.asarray(lat) * 1e3
+        runs[label].append({
+            "p50_ms": round(float(np.percentile(lat_ms, 50)), 4),
+            "p99_ms": round(float(np.percentile(lat_ms, 99)), 4),
+            "rows_per_s": round(len(results) * n_rows / wall, 1),
+        })
+    # the registry renders the last instrumented engine's counters (a new
+    # engine replaces its collector) and every instrumented engine's histograms
+    counted = {(n, tuple(lb.items())): v for n, lb, v in parse_prometheus_text(registry.render())[1]}
+    per_loop = 1 + n_clients * n_requests
+    want = {"gordo_engine_requests_total": per_loop,
+            "gordo_engine_queue_wait_seconds_count": per_loop * order.count("instrumented")}
+    if any(counted[(k, ())] != v for k, v in want.items()):
+        raise AssertionError(f"observe: the instrumented registry counted "
+                             f"{ {k: counted[(k, ())] for k in want} }, not {want}")
+    medians = {f"{label}_median_{k}": round(float(np.median([r[k] for r in rs])), 4)
+               for label, rs in runs.items() for k in ("p50_ms", "p99_ms", "rows_per_s")}
+    return {"cost_members": OBSERVE_MEMBERS, "cost_rounds": OBSERVE_COST_ROUNDS, **medians,
+            "cost_runs": json.dumps(runs)}
+
+
+def observe_phase(card: str):
+    """Serve four models at config 1's width on the card and hold /stats,
+    /metrics, the quarantine breaker, deadlines and the gzipped digest to
+    their contracts; then the instrumentation's cost on the closed loop."""
+    shutil.rmtree(OBSERVE_DIR, ignore_errors=True)
+    rng = np.random.default_rng(14)
+    t0 = time.perf_counter()
+    dense = random_entry("obs-dense", 10, rng)
+    lstm = random_lstm_entry("obs-lstm", "LSTMAutoEncoder", rng)
+    first = "layers.0.weight"
+    poisoned = dataclasses.replace(dense, name="obs-nan", params={
+        **dense.params, first: np.full_like(dense.params[first], np.nan)})
+    for entry in (dense, lstm, poisoned):
+        serializer.dump(entry, os.path.join(OBSERVE_DIR, entry.name))
+    pca, metadata = build_model("obs-pca", OBSERVE_PCA, dataset("obs-pca"))
+    serializer.dump(pca, os.path.join(OBSERVE_DIR, "obs-pca"), metadata=metadata)
+    summary = {"build_s": round(time.perf_counter() - t0, 3)}
+    server = run_server(OBSERVE_DIR, host="127.0.0.1", port=0, background=True)
+    try:
+        base = server.url + "/gordo/v0/smoke"
+        fallback = server.app.bank.coverage()["fallback"]
+        if sorted(server.app.bank._index) != ["obs-dense", "obs-lstm", "obs-nan"] or list(fallback) != ["obs-pca"]:
+            raise AssertionError(f"observe: banked {sorted(server.app.bank._index)}, per model {fallback}")
+        summary.update(observe_counters(server, base, rng))
+        summary.update(observe_quarantine(server, base, dense, rng))
+        summary.update(observe_deadlines(server, base, rng))
+        summary.update(observe_held_deadlines(server, rng))
+        summary.update(observe_gzip(base))
+    finally:
+        server.close()
+        shutil.rmtree(OBSERVE_DIR, ignore_errors=True)
+    summary["serve_s"] = round(time.perf_counter() - t0, 3)
+    summary.update(instrumentation_cost(rng))
+    phase("observe", **summary, card=json.dumps(card))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
@@ -3312,6 +3827,7 @@ def main() -> int:
     drive("collection", collection_phase, card)
     drive("lake", lake_phase, card, in_subprocesses=True)
     drive("definitions", definitions_phase, card, in_subprocesses=True)
+    drive("observe", observe_phase, card)
     timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
@@ -3323,6 +3839,8 @@ def main() -> int:
                          ("collection", "banked_anomaly_score"), ("collection", "lstm_layer"),
                          ("lake", "banked_anomaly_score"), ("lake", "lstm_layer"),
                          ("definitions", "banked_anomaly_score"), ("definitions", "fused_anomaly_score"),
+                         ("observe", "banked_anomaly_score"), ("observe", "fused_anomaly_score"),
+                         ("observe", "lstm_layer"),
                          ("bf16_train", "lstm_layer_bf16"),
                          ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
                          ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):

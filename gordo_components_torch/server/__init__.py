@@ -13,14 +13,28 @@ standard library's ``ThreadingHTTPServer``. ``POST .../reload`` rescans
 the directory and swaps in a rebuilt bank without a pause in serving
 (``swap.py``).
 
-Not in this slice: the tensor wire format, QoS, deadlines, quarantine,
-tracing, metrics, the placement planner and the shared-memory transports.
+Each app keeps its request counters and latency histograms (``stats``,
+mutated under ``stats_lock``: the server answers each connection on its
+own thread), a metrics registry (``metrics``: the bank's, the engine's
+and the server's series, rendered by ``GET .../metrics``), the
+quarantine breaker (``quarantine``, ``GORDO_QUARANTINE_THRESHOLD``) and
+the default request deadline (``GORDO_DEFAULT_DEADLINE_MS``).
+
+Not in this slice: the tensor wire format, QoS, tracing, goodput and
+SLOs, the placement planner, the worker pool and the shared-memory
+transports.
 """
 
 import os
 import threading
+import time
 from typing import Optional
 
+import torch
+
+from gordo_components_torch.observability.metrics import MetricsRegistry
+from gordo_components_torch.resilience.deadline import default_deadline_ms
+from gordo_components_torch.resilience.quarantine import DEFAULT_THRESHOLD, QuarantineSet
 from gordo_components_torch.server.bank import ModelBank, ScoreResult
 from gordo_components_torch.server.engine import BatchingEngine, EngineOverloaded
 from gordo_components_torch.server.model_io import ModelCollection, scan_artifacts
@@ -30,17 +44,33 @@ from gordo_components_torch.server.views import GordoServer
 class App:
     """What a server serves: the collection, its bank and the bank's
     engine (``bank`` and ``engine`` are None when the bank is off; the
-    engine is None while the bank holds no model). ``reload_lock``
-    serializes reloads, each of which may swap the bank."""
+    engine is None while the bank holds no model), and what it observes.
+    ``reload_lock`` serializes reloads, each of which may swap the bank;
+    ``stats_lock`` guards ``stats``."""
 
     def __init__(self, collection: ModelCollection, bank: Optional[ModelBank],
-                 bank_config: dict, engine_config: dict):
+                 bank_config: dict, engine_config: dict, metrics: MetricsRegistry,
+                 quarantine: QuarantineSet, default_deadline_ms: Optional[float]):
         self.collection = collection
         self.bank = bank
         self.bank_config = bank_config
         self.engine_config = engine_config
         self.engine: Optional[BatchingEngine] = None
         self.reload_lock = threading.Lock()
+        self.stats_lock = threading.Lock()
+        self.stats = {
+            "started_at": time.time(),
+            "requests": {},  # kind -> count
+            "errors": 0,
+            "latency": {},  # kind -> LatencyHistogram
+            "wire": {"requests": {}, "bytes": {}},  # scoring POSTs by encoding
+        }
+        self.metrics = metrics
+        self.quarantine = quarantine
+        self.default_deadline_ms = default_deadline_ms
+        self.device = torch.device(collection.device)
+        self.metrics.collector(_server_collector(self), key="server")
+        self.metrics.collector(_hbm_collector(self.device), key="hbm")
         if bank is not None and len(bank):
             self.engine = BatchingEngine(bank, **engine_config)
             self.engine.start()
@@ -48,6 +78,72 @@ class App:
     def close(self) -> None:
         if self.engine is not None:
             self.engine.stop()
+
+
+def _server_collector(app: App):
+    """The app's counters as series, read at render time from the same
+    cells ``/stats`` reports (JAX ``_server_collector``, without the worker
+    and shared-memory series)."""
+
+    def collect():
+        with app.stats_lock:
+            stats = app.stats
+            started = stats["started_at"]
+            requests = dict(stats["requests"])
+            errors = stats["errors"]
+            wire_requests = dict(stats["wire"]["requests"])
+            wire_bytes = dict(stats["wire"]["bytes"])
+            latency = dict(stats["latency"])
+        yield ("gordo_server_uptime_seconds", "gauge", "Seconds since server start", {},
+               time.time() - started)
+        for kind, n in requests.items():
+            yield ("gordo_server_requests_total", "counter", "HTTP requests by endpoint kind",
+                   {"kind": kind}, n)
+        yield ("gordo_server_errors_total", "counter", "HTTP responses with status >= 400", {}, errors)
+        # a scoring POST counts under {kind} and under {encoding}: sum by one
+        # label, never over the whole family
+        for enc, n in wire_requests.items():
+            yield ("gordo_server_requests_total", "counter",
+                   "Scoring/ingest POSTs by wire encoding (second label dimension of requests_total)",
+                   {"encoding": enc}, n)
+        for enc, n in wire_bytes.items():
+            yield ("gordo_server_request_bytes_total", "counter",
+                   "Scoring/ingest request body bytes by wire encoding", {"encoding": enc}, n)
+        for kind, hist in latency.items():
+            yield ("gordo_server_request_seconds", "histogram", "Service time by endpoint kind",
+                   {"kind": kind}, hist)
+        collection = app.collection
+        yield ("gordo_server_models", "gauge", "Models loaded in the collection", {},
+               len(collection.models))
+        yield ("gordo_models_load_failed_total", "counter",
+               "Artifact load attempts that failed (corrupt/mid-write)", {}, collection.load_failed_total)
+        yield ("gordo_models_load_failed", "gauge", "Artifacts failing to load as of the latest scan", {},
+               len(collection.load_failures))
+        yield ("gordo_quarantined_models", "gauge",
+               "Models evicted from routing by the scoring-failure breaker (410 until cleared)", {},
+               len(app.quarantine))
+
+    return collect
+
+
+def _hbm_collector(device):
+    """The card's memory as gauges, read at each scrape:
+    ``torch.cuda.memory_allocated``, the total of ``torch.cuda.mem_get_info``
+    and ``torch.cuda.max_memory_allocated`` of the app's device. An app on
+    the CPU gives no samples, as the JAX package's CPU devices report none."""
+
+    def collect():
+        if device.type != "cuda":
+            return
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        label = {"device": f"cuda:{index}"}
+        help = "Per-device HBM memory (bytes)"
+        yield ("gordo_device_hbm_bytes_in_use", "gauge", help, label, torch.cuda.memory_allocated(index))
+        yield ("gordo_device_hbm_bytes_limit", "gauge", help, label, torch.cuda.mem_get_info(index)[1])
+        yield ("gordo_device_hbm_peak_bytes_in_use", "gauge", help, label,
+               torch.cuda.max_memory_allocated(index))
+
+    return collect
 
 
 def build_app(
@@ -59,21 +155,36 @@ def build_app(
     max_rows_per_call: int = 8192,
     use_bank: Optional[bool] = None,
     device="cuda",
+    quarantine_threshold: Optional[int] = None,
 ) -> App:
     """Load every artifact under ``model_dir`` on ``device`` (default the
     card; raises without CUDA unless ``"cpu"``), stack the models the bank
     can hold and start its batching engine. ``use_bank`` defaults to the
-    environment's ``GORDO_SERVER_BANK`` != ``"0"``."""
+    environment's ``GORDO_SERVER_BANK`` != ``"0"``, ``quarantine_threshold``
+    to ``GORDO_QUARANTINE_THRESHOLD`` (3; 0 or less disables the breaker),
+    and the requests' default deadline is ``GORDO_DEFAULT_DEADLINE_MS``."""
     from gordo_components_torch.device import resolve_device
 
     device = resolve_device(device)
     if use_bank is None:
         use_bank = os.environ.get("GORDO_SERVER_BANK", "1") != "0"
+    if quarantine_threshold is None:
+        raw = os.environ.get("GORDO_QUARANTINE_THRESHOLD", str(DEFAULT_THRESHOLD))
+        try:
+            quarantine_threshold = int(raw)
+        except ValueError:
+            raise ValueError(f"GORDO_QUARANTINE_THRESHOLD must be an integer, got {raw!r} "
+                             "(consecutive scoring failures before eviction; <=0 disables)") from None
+    deadline_ms = default_deadline_ms()
     collection = ModelCollection(model_dir, target_name, device=device)
-    bank_config = {"max_rows_per_call": max_rows_per_call, "device": device}
+    registry = MetricsRegistry()
+    # the registry rides in the bank's settings, so a /reload's bank
+    # records into the same series
+    bank_config = {"max_rows_per_call": max_rows_per_call, "device": device, "registry": registry}
     bank = ModelBank.from_models(collection.models, **bank_config) if use_bank else None
     engine_config = {"max_batch": bank_max_batch, "flush_ms": bank_flush_ms, "max_queue": bank_max_queue}
-    return App(collection, bank, bank_config, engine_config)
+    return App(collection, bank, bank_config, engine_config, registry, QuarantineSet(quarantine_threshold),
+               deadline_ms)
 
 
 def run_server(

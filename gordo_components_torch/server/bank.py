@@ -49,14 +49,22 @@ casts its stacked weights to bfloat16 once, at build: the values Flax's
 cast gives on every forward, at half the bytes a batch gathers. The
 network's output is float32 in both, and so is the score.
 
+Metrics (``observability/metrics.py``, the app's registry): per bucket
+its calls, requests and coalesced batch sizes, and the gauges of members
+and buckets, as the JAX bank names them. :meth:`ModelBank.score_many`
+checks a batch's deadline between bucket groups and, for the batching
+engine, returns a failed group's errors in place of its results.
+
 Not in this slice: the device mesh, quantized banks, the goodput ledger,
 access heat, the buffer arena, the in-flight pipeline and the placement
-planner's per-model row counts.
+planner's per-model row counts, and with them the JAX bank's shard,
+arena, in-flight, quantize, weight-bytes and generation series.
 """
 
 import hashlib
 import json
 import logging
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -67,10 +75,12 @@ from gordo_components_torch.device import resolve_device
 from gordo_components_torch.models import lookup_factory
 from gordo_components_torch.models.factories.conv import conv_autoencoder_forward
 from gordo_components_torch.models.register import by_family
+from gordo_components_torch.observability.metrics import get_registry
 from gordo_components_torch.ops.dense import dense_chain
 from gordo_components_torch.ops.score import banked_anomaly_score_packed
 from gordo_components_torch.ops.seq_scan import lstm_time_major_forward
 from gordo_components_torch.ops.windows import sliding_windows
+from gordo_components_torch.resilience.deadline import Deadline, DeadlineExceeded
 
 logger = logging.getLogger(__name__)
 
@@ -334,7 +344,7 @@ class ModelBank:
     ``"cpu"`` is passed. On the card, float32 matrix products run in full
     float32 (TF32 off for matmul and cuDNN), like the JAX reference."""
 
-    def __init__(self, max_rows_per_call: int = 8192, device="cuda"):
+    def __init__(self, max_rows_per_call: int = 8192, device="cuda", registry=None):
         self.device = resolve_device(device)
         self.max_rows = int(max_rows_per_call)
         self._buckets: Dict[str, _Bucket] = {}
@@ -348,6 +358,30 @@ class ModelBank:
         # 0 for the bank a server starts with; server/swap.py gives each
         # bank it swaps in the generation after the one it replaces
         self.generation = 0
+        # metrics registry: None = the process default, False = none (the
+        # uninstrumented control); a /reload's bank gets the app's, so the
+        # counters go on across the swap
+        if registry is None:
+            registry = get_registry()
+        elif registry is False:
+            registry = None
+        self.registry = registry
+        self._m_bucket_calls = self._m_bucket_reqs = self._m_bucket_batch = None
+        if registry is not None:
+            self._m_bucket_calls = registry.counter(
+                "gordo_bank_bucket_calls_total", "Batched XLA scoring dispatches per bucket", ("bucket",))
+            self._m_bucket_reqs = registry.counter(
+                "gordo_bank_bucket_requests_total", "Requests scored per bucket", ("bucket",))
+            self._m_bucket_batch = registry.histogram(
+                "gordo_bank_bucket_batch_size", "Coalesced chunks per batched XLA call, per bucket",
+                ("bucket",), lo=1.0, hi=1e5)
+            # through a weak reference: the registry outlives a swapped-out
+            # bank, and must not pin its stacked weights on the card
+            ref = weakref.ref(self)
+            registry.gauge("gordo_bank_models", "Models resident in the HBM bank").labels().set_function(
+                lambda: len(b._index) if (b := ref()) is not None else 0)
+            registry.gauge("gordo_bank_buckets", "Compiled bucket programs in the bank").labels().set_function(
+                lambda: len(b._buckets) if (b := ref()) is not None else 0)
 
     @classmethod
     def from_entries(cls, entries: Sequence[_BankEntry], **kwargs) -> "ModelBank":
@@ -439,19 +473,52 @@ class ModelBank:
     def score(self, name: str, X: np.ndarray, y: Optional[np.ndarray] = None) -> ScoreResult:
         return self.score_many([(name, X, y)])[0]
 
-    def score_many(self, requests: Sequence[Request]) -> List[ScoreResult]:
+    def score_many(self, requests: Sequence[Request], deadline: Optional[Deadline] = None,
+                   return_exceptions: bool = False) -> List[Any]:
         """Score a heterogeneous batch of (name, X, y) requests: one batched
-        pass per bucket. Raises on the first invalid request (unknown
-        model, wrong width, empty input, y of another shape)."""
+        pass per bucket group. Raises on the first invalid request (unknown
+        model, wrong width, empty input, y of another shape).
+
+        ``deadline`` (the batch's earliest) is checked between bucket
+        groups: once it has passed, no further group runs and
+        :class:`DeadlineExceeded` is raised. With ``return_exceptions`` a
+        failed group's requests (and those of the groups a deadline cut
+        off) get their exception as their entry, while every other group's
+        results stand."""
+        results: List[Any] = [None] * len(requests)
+        errors: Dict[int, Exception] = {}
         by_bucket: Dict[str, List[int]] = {}
         for ri, (name, _X, _y) in enumerate(requests):
             entry = self._index.get(name)
             if entry is None:
-                raise KeyError(f"Model {name!r} not in bank")
+                exc = KeyError(f"Model {name!r} not in bank")
+                if not return_exceptions:
+                    raise exc
+                errors[ri] = exc
+                continue
             by_bucket.setdefault(entry[0], []).append(ri)
-        results: List[Any] = [None] * len(requests)
-        for key, req_ids in by_bucket.items():
-            self._score_group(self._buckets[key], req_ids, requests, results)
+        groups = list(by_bucket.items())
+        for gi, (key, req_ids) in enumerate(groups):
+            if deadline is not None and deadline.expired():
+                # the next group's device work would answer nobody
+                exc = DeadlineExceeded(
+                    f"batch deadline expired before all {len(groups)} bucket group(s) dispatched "
+                    f"(budget {deadline.budget_s * 1e3:.0f}ms)")
+                if not return_exceptions:
+                    raise exc
+                for _key, rids in groups[gi:]:
+                    for ri in rids:
+                        errors[ri] = exc
+                break
+            try:
+                self._score_group(self._buckets[key], req_ids, requests, results)
+            except Exception as exc:
+                if not return_exceptions:
+                    raise
+                for ri in req_ids:
+                    errors[ri] = exc
+        for ri, exc in errors.items():
+            results[ri] = exc
         return results
 
     def _score_group(self, bucket: _Bucket, req_ids, requests, results) -> None:
@@ -497,6 +564,10 @@ class ModelBank:
             Xb[ci, : len(xc)] = xc
             Yb[ci, : len(xc)] = ys[pos][start:start + T]
             idx[ci] = member
+        if self._m_bucket_calls is not None:
+            self._m_bucket_calls.labels(bucket.label).inc()
+            self._m_bucket_reqs.labels(bucket.label).inc(len(req_ids))
+            self._m_bucket_batch.labels(bucket.label).record(float(len(chunks)))
         dev = self.device
         # one device-to-host copy of the packed result
         flat = bucket.score_batch(

@@ -7,24 +7,42 @@ the HTTP server answers each request on its own thread, which blocks in
 
 The worker takes the oldest waiting request, then gathers more until it
 holds ``max_batch`` or ``flush_ms`` have passed since that request arrived,
-and scores them all in one ``ModelBank.score_many`` call. If that call
-raises, each request of the batch is scored alone, so one bad request
-fails only itself. A batch reads ``self.bank`` once, so a bank swap
-(``server/swap.py``) flips the engine between batches and a batch in
-flight drains on the bank it started on. The queue is bounded: when it holds ``max_queue``
-requests a new one raises :class:`EngineOverloaded` at once (HTTP 429).
+and scores them all in one ``ModelBank.score_many`` call. A failed bucket
+group comes back as its requests' errors, and those requests are scored
+again alone, so one bad request fails only itself. A batch reads
+``self.bank`` once, so a bank swap (``server/swap.py``) flips the engine
+between batches and a batch in flight drains on the bank it started on.
+The queue is bounded: when it holds ``max_queue`` requests a new one
+raises :class:`EngineOverloaded` at once (HTTP 429).
+
+Deadlines (``resilience/deadline.py``), as in the JAX engine: ``submit``
+refuses an expired deadline at admission; after a batch is collected one
+clock read drops its expired entries before any device work, with
+:class:`DeadlineExceeded`; the batch's earliest deadline goes to the bank,
+which stops between bucket groups once it passes; and a request scored
+again after a failure is first judged against its own deadline.
+
+Metrics: ``stats`` (requests, batches, max_batch_seen, shed,
+deadline_expired) is mutated under the engine's lock and rendered through
+a collector of the bank's registry as ``gordo_engine_*``, with the
+``queue_wait`` (submit to dispatch) and ``service`` (submit to result)
+histograms. The JAX engine's per-class series belong to QoS and are not
+ported yet.
 """
 
 import queue
 import threading
 import time
+import weakref
 from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from gordo_components_torch.resilience.deadline import Deadline, DeadlineExceeded
 from gordo_components_torch.server.bank import ModelBank, ScoreResult
+from gordo_components_torch.server.stats import LatencyHistogram
 
 
 @dataclass
@@ -34,6 +52,8 @@ class _Pending:
     y: Optional[np.ndarray]
     future: Future
     enqueued: float  # monotonic seconds at submission
+    deadline: Optional[Deadline] = None
+    request_id: Optional[str] = None
 
 
 class EngineOverloaded(Exception):
@@ -47,7 +67,11 @@ class EngineOverloaded(Exception):
 
 
 class BatchingEngine:
-    """Coalesce scoring requests from many threads into batched bank calls."""
+    """Coalesce scoring requests from many threads into batched bank calls.
+
+    The engine records into the bank's registry; a bank built with
+    ``registry=False`` makes it uninstrumented too (its histograms are
+    kept, but nothing renders them)."""
 
     def __init__(
         self,
@@ -67,7 +91,61 @@ class BatchingEngine:
         self._thread: Optional[threading.Thread] = None
         self._batch_s = 0.0  # the last batch's scoring seconds
         self._stats_lock = threading.Lock()
-        self.stats = {"requests": 0, "batches": 0, "max_batch_seen": 0, "shed": 0}
+        self.stats = {"requests": 0, "batches": 0, "max_batch_seen": 0, "shed": 0, "deadline_expired": 0}
+        self.registry = registry = getattr(bank, "registry", None)
+        if registry is not None:
+            self.queue_wait = registry.histogram(
+                "gordo_engine_queue_wait_seconds",
+                "Submit -> batch-dispatch wait (what flush_ms coalescing costs)",
+            ).labels()
+            self.service = registry.histogram(
+                "gordo_engine_service_seconds",
+                "Submit -> result service time through the batching engine",
+            ).labels()
+            # through a weak reference: the registry must not pin a stopped
+            # engine, nor through it a bank on the card
+            ref = weakref.ref(self)
+
+            def collect():
+                engine = ref()
+                return engine._collect_metrics() if engine is not None else ()
+
+            registry.collector(collect, key="bank_engine")
+        else:
+            self.queue_wait = LatencyHistogram()
+            self.service = LatencyHistogram()
+
+    def stats_snapshot(self) -> Dict[str, int]:
+        """A copy of ``stats`` from one state."""
+        with self._stats_lock:
+            return dict(self.stats)
+
+    def _bump(self, key: str, n: int = 1) -> None:
+        with self._stats_lock:
+            self.stats[key] += n
+
+    def note_deadline_expired(self) -> None:
+        """Count a request whose deadline ran out on a path beside the
+        engine (the server's per-model path), as the engine counts its own."""
+        self._bump("deadline_expired")
+
+    def _collect_metrics(self):
+        """The engine's counters and queue state, read at render time."""
+        s = self.stats_snapshot()
+        return [
+            ("gordo_engine_requests_total", "counter",
+             "Requests accepted by the batching engine", {}, s["requests"]),
+            ("gordo_engine_batches_total", "counter", "Coalesced batches dispatched", {}, s["batches"]),
+            ("gordo_engine_shed_total", "counter",
+             "Requests shed with 429 because the queue was full", {}, s["shed"]),
+            ("gordo_engine_deadline_expired_total", "counter",
+             "Requests whose deadline expired before device dispatch "
+             "(dropped from the batch and answered 504)", {}, s["deadline_expired"]),
+            ("gordo_engine_max_batch_seen", "gauge", "Largest coalesced batch observed", {},
+             s["max_batch_seen"]),
+            ("gordo_engine_queue_depth", "gauge", "Live scoring-queue depth", {}, self._queue.qsize()),
+            ("gordo_engine_max_queue", "gauge", "Queue bound before requests shed", {}, self.max_queue),
+        ]
 
     def start(self) -> None:
         if self._thread is None:
@@ -95,27 +173,34 @@ class BatchingEngine:
         """Seconds to drain ``depth`` queued requests at the last batch's pace."""
         return max(self.flush_s, depth / self.max_batch * max(self._batch_s, 1e-3))
 
-    def submit(self, name: str, X: np.ndarray, y: Optional[np.ndarray] = None) -> Future:
-        """Queue one request; its future resolves to a :class:`ScoreResult`."""
+    def submit(self, name: str, X: np.ndarray, y: Optional[np.ndarray] = None,
+               deadline: Optional[Deadline] = None, request_id: Optional[str] = None) -> Future:
+        """Queue one request; its future resolves to a :class:`ScoreResult`.
+        An expired ``deadline`` raises :class:`DeadlineExceeded` here."""
         if self._thread is None:
             raise RuntimeError("engine is not running (call start() first)")
+        if deadline is not None and deadline.expired():
+            # queueing it would only grow the backlog by known waste
+            self._bump("deadline_expired")
+            raise DeadlineExceeded(f"deadline expired before admission (rid={request_id}, "
+                                   f"budget {deadline.budget_s * 1e3:.0f}ms)")
         fut: Future = Future()
         try:
-            self._queue.put_nowait(_Pending(name, X, y, fut, time.monotonic()))
+            self._queue.put_nowait(_Pending(name, X, y, fut, time.monotonic(), deadline, request_id))
         except queue.Full:
-            with self._stats_lock:
-                self.stats["shed"] += 1
+            self._bump("shed")
             depth = self._queue.qsize()
             raise EngineOverloaded(depth, self.drain_estimate(depth)) from None
         return fut
 
     def score_blocking(
         self, name: str, X: np.ndarray, y: Optional[np.ndarray] = None,
-        timeout: Optional[float] = None,
+        timeout: Optional[float] = None, deadline: Optional[Deadline] = None,
+        request_id: Optional[str] = None,
     ) -> ScoreResult:
         """Score one request from a plain thread, blocking until its batch
         is done."""
-        return self.submit(name, X, y).result(timeout)
+        return self.submit(name, X, y, deadline, request_id).result(timeout)
 
     def _collect(self, first: _Pending):
         batch = [first]
@@ -137,24 +222,67 @@ class BatchingEngine:
             batch = [p for p in self._collect(first) if p.future.set_running_or_notify_cancel()]
             if not batch:
                 continue
-            t0 = time.monotonic()
-            # one read of the bank a batch: a swap (server/swap.py) that
-            # flips self.bank meanwhile leaves this batch on the old bank
-            bank = self.bank
-            try:
-                results = bank.score_many([(p.name, p.X, p.y) for p in batch])
-            except Exception:
-                # one bad request must not fail its neighbours: score alone
-                for p in batch:
-                    try:
-                        p.future.set_result(bank.score(p.name, p.X, p.y))
-                    except Exception as exc:
-                        p.future.set_exception(exc)
-            else:
-                for p, r in zip(batch, results):
-                    p.future.set_result(r)
-            self._batch_s = time.monotonic() - t0
             with self._stats_lock:
                 self.stats["requests"] += len(batch)
                 self.stats["batches"] += 1
                 self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"], len(batch))
+            # one clock read drops the expired entries before device work
+            dispatch = time.monotonic()
+            live: List[_Pending] = []
+            batch_deadline: Optional[Deadline] = None
+            for p in batch:
+                self.queue_wait.record(dispatch - p.enqueued)
+                if p.deadline is None:
+                    live.append(p)
+                elif p.deadline.expired(dispatch):
+                    self._bump("deadline_expired")
+                    p.future.set_exception(DeadlineExceeded(
+                        f"deadline expired in scoring queue after {(dispatch - p.enqueued) * 1e3:.0f}ms "
+                        f"wait (rid={p.request_id}, budget {p.deadline.budget_s * 1e3:.0f}ms)"))
+                    self.service.record(dispatch - p.enqueued)
+                else:
+                    live.append(p)
+                    # the earliest deadline bounds the whole batch
+                    if batch_deadline is None or p.deadline.expires_at < batch_deadline.expires_at:
+                        batch_deadline = p.deadline
+            if not live:
+                continue
+            # one read of the bank a batch: a swap (server/swap.py) that
+            # flips self.bank meanwhile leaves this batch on the old bank
+            bank = self.bank
+            requests = [(p.name, p.X, p.y) for p in live]
+            failed: List[_Pending] = []
+            try:
+                results: List[Any] = bank.score_many(requests, deadline=batch_deadline,
+                                                     return_exceptions=True)
+            except Exception:
+                failed = live
+            else:
+                done = time.monotonic()
+                for p, r in zip(live, results):
+                    if isinstance(r, Exception):
+                        failed.append(p)
+                        continue
+                    p.future.set_result(r)
+                    self.service.record(done - p.enqueued)
+            # a failed group's requests are scored again alone, after every
+            # good result is out, so one bad request fails only itself
+            for p in failed:
+                self._retry_one(bank, p)
+            self._batch_s = time.monotonic() - dispatch
+
+    def _retry_one(self, bank, p: _Pending) -> None:
+        """Score a request again alone after its group failed (or the
+        batch's deadline cut it off), first judged against its own
+        deadline."""
+        if p.deadline is not None and p.deadline.expired():
+            self._bump("deadline_expired")
+            p.future.set_exception(DeadlineExceeded(
+                f"deadline expired before retry (rid={p.request_id}, "
+                f"budget {p.deadline.budget_s * 1e3:.0f}ms)"))
+        else:
+            try:
+                p.future.set_result(bank.score(p.name, p.X, p.y))
+            except Exception as exc:
+                p.future.set_exception(exc)
+        self.service.record(time.monotonic() - p.enqueued)

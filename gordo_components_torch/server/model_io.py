@@ -64,6 +64,9 @@ class ModelCollection:
         self._state: Tuple[Dict[str, Any], Dict[str, Dict]] = ({}, {})
         self._versions: Dict[str, Any] = {}
         self.load_failures: Dict[str, str] = {}  # the latest scan's failed loads
+        # every failed load attempt, summed over scans: a counter whose rate
+        # above 0 says an artifact still fails (gordo_models_load_failed_total)
+        self.load_failed_total = 0
         changes = self.refresh()
         if not self.models:
             detail = f"; all artifact loads failed: {changes['failed']}" if changes["failed"] else ""
@@ -135,6 +138,7 @@ class ModelCollection:
         self._state = (models, metadata)  # one assignment publishes both
         self._versions = versions
         self.load_failures = dict(failed)
+        self.load_failed_total += len(failed)
         if added or updated or removed or failed:
             logger.info("Collection refresh: +%d ~%d -%d !%d (now %d models)",
                         len(added), len(updated), len(removed), len(failed), len(models))

@@ -11,8 +11,12 @@ no request sees a torn state. If the build fails, nothing is flipped and
 the old bank keeps serving. The old bank is freed when its last batch lets
 go of it.
 
+The new bank is built with the app's metrics registry, so its bucket
+counters go on from the old bank's and its gauges read the new bank; the
+engine, which keeps its collector, is the same across the swap.
+
 Not in this slice: the placement planner's member order and per-model row
-counts, the metric collectors and the multi-worker engines.
+counts and the multi-worker engines.
 """
 
 import logging

@@ -6,6 +6,10 @@ Counterpart of these routes of ``gordo_components_tpu/server/views.py``:
 - ``GET  /gordo/v0/<project>/ready``
 - ``GET  /gordo/v0/<project>/models``
 - ``GET  /gordo/v0/<project>/metadata-all`` (``?digest=1``)
+- ``GET  /gordo/v0/<project>/stats``
+- ``GET  /gordo/v0/<project>/metrics``
+- ``GET  /gordo/v0/<project>/quarantine``
+- ``POST /gordo/v0/<project>/quarantine/clear``
 - ``POST /gordo/v0/<project>/reload``
 - ``GET  /gordo/v0/<project>/<target>/healthcheck``
 - ``GET  /gordo/v0/<project>/<target>/metadata``
@@ -21,26 +25,57 @@ scored through the batching engine; any other (a bare ``Pipeline`` or
 estimator, or every model when the bank is off) through its own
 ``predict``/``anomaly``: the per-model path. ``download-model`` answers the
 model's artifact directory as a gzipped tar (``serializer.dumps``), where
-the JAX server answers a pickle. ``metadata-all?digest=1`` is not gzipped.
+the JAX server answers a pickle. ``metadata-all?digest=1`` answers gzip to
+a client whose ``Accept-Encoding`` allows it.
+
+What the JAX server's middleware does, ``_dispatch`` does for every
+request: it counts requests by kind (the last segment of the matched
+route's template, ``anomaly`` for ``.../anomaly/prediction``, ``other``
+when nothing matched), errors (every status of 400 or more) and scoring
+POSTs and their bytes by encoding, records the latency per kind, echoes
+the client's ``X-Gordo-Request-Id`` (or a server-made ``srv-<hex>``) and
+``X-Request-Id`` on every response, and reads the request's deadline
+from ``X-Gordo-Deadline-Ms`` or the app's default.
+
+The quarantine breaker (``resilience/quarantine.py``) reads every scoring
+answer: a non-finite output (the ``total-anomaly-scaled`` column of an
+anomaly answer, which the anomaly-score kernel computes) for finite input
+counts as a failure, and so does an exception other than a bad request's
+or a deadline's. A quarantined model answers 410 before its body is read.
+
 Errors: 400 for a bad body or a request the model cannot score, 404 for an
-unknown target or route, 405 for a route's other method, 422 for an
-anomaly request to a model without ``anomaly``, 429 with ``Retry-After``
-when the engine's queue is full, 503 from ``/healthz`` and ``/ready`` when
-nothing is served.
+unknown target or route, 405 for a route's other method, 410 for a
+quarantined model, 422 for an anomaly request to a model without
+``anomaly``, 429 with ``Retry-After`` when the engine's queue is full, 504
+when the request's deadline passed before its scoring, 503 from
+``/healthz`` and ``/ready`` when nothing is served. A 5xx body carries the
+request id.
 """
 
+import gzip
+import itertools
 import json
 import logging
 import math
 import re
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 from urllib.parse import parse_qs
 
+import numpy as np
+
 from gordo_components_torch import __version__, serializer
+from gordo_components_torch.resilience.deadline import (
+    DEADLINE_HEADER,
+    Deadline,
+    DeadlineExceeded,
+    parse_deadline_ms,
+)
 from gordo_components_torch.server.bank import ModelBank
 from gordo_components_torch.server.engine import EngineOverloaded
+from gordo_components_torch.server.stats import LatencyHistogram
 from gordo_components_torch.server.swap import swap_bank
 from gordo_components_torch.server.utils import (
     anomaly_body,
@@ -60,6 +95,10 @@ _ROUTES = [
     ("GET", re.compile(_P + r"/ready$"), "ready"),
     ("GET", re.compile(_P + r"/models$"), "list_models"),
     ("GET", re.compile(_P + r"/metadata-all$"), "metadata_all"),
+    ("GET", re.compile(_P + r"/stats$"), "server_stats"),
+    ("GET", re.compile(_P + r"/metrics$"), "metrics"),
+    ("GET", re.compile(_P + r"/quarantine$"), "quarantine_list"),
+    ("POST", re.compile(_P + r"/quarantine/clear$"), "quarantine_clear"),
     ("POST", re.compile(_P + r"/reload$"), "reload"),
     ("GET", re.compile(_T + r"/healthcheck$"), "healthcheck"),
     ("GET", re.compile(_T + r"/metadata$"), "metadata"),
@@ -67,8 +106,23 @@ _ROUTES = [
     ("POST", re.compile(_T + r"/prediction$"), "prediction"),
     ("POST", re.compile(_T + r"/anomaly/prediction$"), "anomaly_prediction"),
 ]
+
+
+def _kind(pattern: "re.Pattern") -> str:
+    """A route's request kind, as the JAX middleware names it from the
+    route's template: its last segment, ``anomaly`` for
+    ``.../anomaly/prediction``."""
+    template = pattern.pattern.rstrip("$")
+    return "anomaly" if template.endswith("/anomaly/prediction") else template.rsplit("/", 1)[-1]
+
+
+_KINDS = {handler: _kind(pattern) for _method, pattern, handler in _ROUTES}
+_SCORING = ("prediction", "anomaly")
 _TRUE = ("1", "true", "yes")
 ACCEPTS = ["application/json", "application/x-parquet"]
+METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+# server-made request ids, unique in the process
+_RID_SEQ = itertools.count(1)
 
 
 class HTTPError(Exception):
@@ -77,6 +131,37 @@ class HTTPError(Exception):
         self.status = status
         self.body = {"error": error, **extra}
         self.headers = headers or {}
+
+
+class Raw(NamedTuple):
+    """A body sent as it is, with its content type and extra headers."""
+
+    data: bytes
+    content_type: str
+    headers: Dict[str, str] = {}
+
+
+def _encoding_of(content_type: Optional[str]) -> str:
+    """A scoring body's encoding, by the rule that parses it."""
+    return "parquet" if "parquet" in (content_type or "") else "json"
+
+
+def _content_length(headers) -> int:
+    """The body's declared length; 0 for none or a malformed one (which the
+    handler's read then refuses)."""
+    try:
+        return max(0, int(headers.get("Content-Length") or 0))
+    except ValueError:
+        return 0
+
+
+def _accepts_gzip(accept_encoding: Optional[str]) -> bool:
+    """Whether an ``Accept-Encoding`` value allows gzip (not at ``q=0``)."""
+    for token in (accept_encoding or "").split(","):
+        coding, _, params = token.strip().partition(";")
+        if coding.strip().lower() in ("gzip", "*"):
+            return params.replace(" ", "") not in ("q=0", "q=0.0", "q=0.00", "q=0.000")
+    return False
 
 
 class GordoHandler(BaseHTTPRequestHandler):
@@ -93,29 +178,66 @@ class GordoHandler(BaseHTTPRequestHandler):
     def do_POST(self):
         self._dispatch("POST")
 
+    def _route(self, method: str, path: str):
+        """(handler, its arguments, kind) of the route ``path`` matches;
+        (None, the HTTPError, "other") when none does for ``method``."""
+        for route_method, pattern, handler in _ROUTES:
+            match = pattern.match(path)
+            if match is None:
+                continue
+            if route_method != method:
+                return None, HTTPError(405, f"{method} not allowed on {path}"), "other"
+            return handler, match.groupdict(), _KINDS[handler]
+        return None, HTTPError(404, f"No route for {path}"), "other"
+
     def _dispatch(self, method: str) -> None:
         path, _, query = self.path.partition("?")
         self.query = parse_qs(query)
+        app = self.app
+        handler, args, kind = self._route(method, path)
+        # bounded: a hostile header must not become an unbounded log line
+        rid = (self.headers.get("X-Gordo-Request-Id") or "")[:128] or f"srv-{next(_RID_SEQ):x}"
+        self.request_id = rid
+        raw_deadline = self.headers.get(DEADLINE_HEADER)
+        deadline_ms = parse_deadline_ms(raw_deadline) if raw_deadline else None
+        if deadline_ms is None:
+            deadline_ms = app.default_deadline_ms
+        self.deadline = Deadline.after_ms(deadline_ms) if deadline_ms else None
+        with app.stats_lock:
+            stats = app.stats
+            stats["requests"][kind] = stats["requests"].get(kind, 0) + 1
+            if method == "POST" and kind in _SCORING:
+                enc = _encoding_of(self.headers.get("Content-Type"))
+                wire = stats["wire"]
+                wire["requests"][enc] = wire["requests"].get(enc, 0) + 1
+                wire["bytes"][enc] = wire["bytes"].get(enc, 0) + _content_length(self.headers)
+            hist = stats["latency"].get(kind)
+            if hist is None:
+                hist = stats["latency"][kind] = LatencyHistogram()
+        t0 = time.monotonic()
+        headers: Dict[str, str] = {}
         try:
-            for route_method, pattern, handler in _ROUTES:
-                match = pattern.match(path)
-                if match is None:
-                    continue
-                if route_method != method:
-                    raise HTTPError(405, f"{method} not allowed on {path}")
-                status, body = getattr(self, handler)(**match.groupdict())
-                self._send(status, body)
-                return
-            raise HTTPError(404, f"No route for {path}")
+            if handler is None:
+                raise args
+            status, body = getattr(self, handler)(**args)
         except HTTPError as exc:
-            self._send(exc.status, exc.body, exc.headers)
-        except Exception as exc:
-            logger.exception("request failed")
-            self._send(500, {"error": f"{type(exc).__name__}: {exc}"})
+            status, body, headers = exc.status, exc.body, exc.headers
+            if status >= 500:
+                body = {**body, "request_id": rid}
+        except Exception:
+            logger.exception("unhandled error serving %s %s (rid=%s)", method, path, rid)
+            status, body = 500, {"error": "internal server error", "request_id": rid}
+        # errored requests count too: a timeout-then-500 pattern is what a
+        # tail-latency histogram exists to show
+        hist.record(time.monotonic() - t0)
+        if status >= 400:
+            with app.stats_lock:
+                app.stats["errors"] += 1
+        self._send(status, body, {**headers, "X-Gordo-Request-Id": rid, "X-Request-Id": rid})
 
     def _send(self, status: int, body: Any, headers: Optional[Dict[str, str]] = None) -> None:
-        if isinstance(body, bytes):  # download-model's archive
-            raw, content_type = body, "application/octet-stream"
+        if isinstance(body, Raw):
+            raw, content_type, headers = body.data, body.content_type, {**body.headers, **(headers or {})}
         else:
             raw, content_type = json.dumps(body).encode(), "application/json"
         self.send_response(status)
@@ -168,9 +290,37 @@ class GordoHandler(BaseHTTPRequestHandler):
             return engine
         return None
 
-    def _bank_score(self, engine, target: str, X, y):
+    def _quarantine_gate(self, project: str, target: str) -> None:
+        """410 with the recorded reason for a quarantined model: it exists,
+        but the breaker took it out of routing."""
+        info = self.app.quarantine.reason(target)
+        if info is None:
+            return
+        raise HTTPError(410, f"Model {target!r} is quarantined", reason=info.get("reason"),
+                        failures=info.get("failures"), since=info.get("since"),
+                        clear=f"POST /gordo/v0/{project}/quarantine/clear")
+
+    def _check_deadline_per_model(self) -> None:
+        """The per-model path's deadline, checked before its scoring; an
+        expiry counts in the engine's ``deadline_expired`` when there is an
+        engine, as the JAX server counts it."""
+        if self.deadline is not None and self.deadline.expired():
+            engine = self.app.engine
+            if engine is not None:
+                engine.note_deadline_expired()
+            raise DeadlineExceeded("deadline expired before dispatch")
+
+    def _score(self, target: str, bank_call, model_call):
+        """Run ``bank_call(engine)`` on the bank path or ``model_call()`` on
+        the per-model path, and map their errors as the JAX handlers do:
+        429 for a full queue, 504 for a passed deadline, 400 for the rest,
+        which counts against the breaker unless it is a bad request's."""
+        engine = self._engine(target)
         try:
-            return engine.score_blocking(target, X, y)
+            if engine is not None:
+                return bank_call(engine)
+            self._check_deadline_per_model()
+            return model_call()
         except EngineOverloaded as exc:
             raise HTTPError(
                 429, str(exc),
@@ -178,18 +328,23 @@ class GordoHandler(BaseHTTPRequestHandler):
                 reason="engine_overloaded",
                 retry_after_s=round(exc.retry_after_s, 2),
             ) from None
-        except (ValueError, KeyError) as exc:
+        except DeadlineExceeded as exc:
+            # the clock ran out, the model is sound: the breaker counts none
+            raise HTTPError(504, str(exc), request_id=self.request_id) from None
+        except Exception as exc:
+            if not isinstance(exc, (ValueError, KeyError)):
+                self.app.quarantine.record_failure(target, f"{type(exc).__name__}: {exc}")
+            logger.exception("scoring %r failed", target)
             raise HTTPError(400, f"{type(exc).__name__}: {exc}") from None
 
-    @staticmethod
-    def _per_model(fn, *args):
-        """A model's own ``predict``/``anomaly``; its errors are 400s, as
-        the JAX server's per-model path answers them."""
-        try:
-            return fn(*args)
-        except Exception as exc:
-            logger.exception("per-model scoring failed")
-            raise HTTPError(400, f"{type(exc).__name__}: {exc}") from None
+    def _note_scoring_result(self, target: str, X: np.ndarray, values) -> None:
+        """A finite answer resets ``target``'s streak; a non-finite one for
+        finite input counts as a failure (non-finite input is the client's
+        data, not the model's fault)."""
+        if np.all(np.isfinite(values)):
+            self.app.quarantine.record_success(target)
+        elif np.all(np.isfinite(X)):
+            self.app.quarantine.record_failure(target, "non-finite scores in model output")
 
     def _coverage(self, names) -> Optional[Dict[str, Any]]:
         """Which models score through the bank and which on the per-model
@@ -208,23 +363,24 @@ class GordoHandler(BaseHTTPRequestHandler):
     # ----------------------------- routes ------------------------------ #
 
     def healthz(self, project: Optional[str] = None):
-        """``ok``, ``degraded`` (200: some artifact failed to load, or a
-        bank bucket failed to build) or ``unhealthy`` (503: nothing is
-        served), and why."""
+        """``ok``, ``degraded`` (200: a model is quarantined, an artifact
+        failed to load, or a bank bucket failed to build) or ``unhealthy``
+        (503: nothing is served), and why."""
         collection, bank = self.app.collection, self.app.bank
         models = len(collection.models)
         load_failures = dict(collection.load_failures)
+        quarantined = self.app.quarantine.snapshot()["quarantined"]
         finalize_failures = dict(bank.finalize_failures) if bank is not None else {}
         if models == 0:
             status, http = "unhealthy", 503
-        elif load_failures or finalize_failures:
+        elif quarantined or load_failures or finalize_failures:
             status, http = "degraded", 200
         else:
             status, http = "ok", 200
         return http, {
             "status": status,
             "models": models,
-            "quarantined": {},
+            "quarantined": quarantined,
             "load_failures": load_failures,
             "bank_finalize_failures": finalize_failures,
         }
@@ -262,16 +418,86 @@ class GordoHandler(BaseHTTPRequestHandler):
         bank = self._coverage(names)
         if bank is not None:
             body["bank"] = bank
+        if want_digest and _accepts_gzip(self.headers.get("Accept-Encoding")):
+            # the digest body only, as the JAX server: it is small and
+            # repetitive, and a full body's compression would hold the thread
+            return 200, Raw(gzip.compress(json.dumps(body).encode()), "application/json",
+                            {"Content-Encoding": "gzip"})
         return 200, body
+
+    def server_stats(self, project: str):
+        """Request counters by kind, errors, latency percentiles, the wire
+        by encoding, the engine's coalescing, the breaker and the registry's
+        JSON view (JAX ``server_stats``, with the keys the port fills)."""
+        app = self.app
+        with app.stats_lock:
+            stats = app.stats
+            body: Dict[str, Any] = {
+                "uptime_seconds": round(time.time() - stats["started_at"], 1),
+                "requests": dict(stats["requests"]),
+                "errors": int(stats["errors"]),
+            }
+            latency = dict(stats["latency"])
+            wire = {"requests": dict(stats["wire"]["requests"]), "bytes": dict(stats["wire"]["bytes"])}
+        collection = app.collection
+        body["models"] = len(collection.models)
+        body["latency"] = {kind: hist.snapshot() for kind, hist in latency.items()}
+        body["exemplars"] = {}  # no tracer yet
+        body["wire"] = wire
+        body["workers"] = {}  # no worker pool
+        engine = app.engine
+        if engine is not None:
+            es: Dict[str, Any] = engine.stats_snapshot()
+            if es["batches"]:
+                es["avg_batch"] = round(es["requests"] / es["batches"], 2)
+            es["queue_wait"] = engine.queue_wait.snapshot()
+            es["service"] = engine.service.snapshot()
+            es["max_queue"] = engine.max_queue
+            es["queue_depth"] = engine._queue.qsize()
+            body["bank_engine"] = es
+        if app.bank is not None:
+            body["bank_models"] = len(app.bank)
+        body["quarantine"] = app.quarantine.snapshot()
+        body["load_failures"] = {"current": dict(collection.load_failures),
+                                 "total": collection.load_failed_total}
+        body["metrics"] = app.metrics.snapshot()
+        return 200, body
+
+    def metrics(self, project: str):
+        """The app's registry as Prometheus text."""
+        return 200, Raw(self.app.metrics.render().encode("utf-8"), METRICS_CONTENT_TYPE)
+
+    def quarantine_list(self, project: str):
+        return 200, {"enabled": True, **self.app.quarantine.snapshot()}
+
+    def quarantine_clear(self, project: str):
+        """Re-admit quarantined models: body ``{"targets": [...]}`` clears
+        those, an empty or absent body every one."""
+        raw = self._read_body()
+        targets = None
+        if raw:
+            try:
+                body = json.loads(raw)
+            except ValueError:
+                raise HTTPError(400, "expected a JSON body") from None
+            if body:
+                targets = body.get("targets")
+                if targets is not None and not isinstance(targets, list):
+                    raise HTTPError(400, "targets must be a list")
+        return 200, {"enabled": True, "cleared": self.app.quarantine.clear(targets)}
 
     def reload(self, project: str):
         """Rescan the model directory, then build a new bank from the
         collection's models and swap it in (``swap.py``), one reload at a
-        time. A failed bank build leaves the old bank serving: 500 with
-        the error, the collection's changes and the serving generation."""
+        time. A replaced or removed model's quarantine verdict is dropped:
+        it belonged to the old artifact. A failed bank build leaves the old
+        bank serving: 500 with the error, the collection's changes and the
+        serving generation."""
         app = self.app
         with app.reload_lock:
             changes = app.collection.refresh()
+            for name in changes["updated"] + changes["removed"]:
+                app.quarantine.drop(name)
             bank_models, swap = None, None
             if app.bank is not None:
                 try:
@@ -300,35 +526,45 @@ class GordoHandler(BaseHTTPRequestHandler):
 
     def download_model(self, project: str, target: str):
         model, _ = self._entry(target)
-        return 200, serializer.dumps(model)
+        return 200, Raw(serializer.dumps(model), "application/octet-stream")
 
     # a sequence model answers for the rows after its warm-up: the index
     # is trimmed to the output rows, as the JAX server trims its frame
 
     def prediction(self, project: str, target: str):
         model, _ = self._entry(target)
+        self._quarantine_gate(project, target)
         X, y, index = self._parse()
-        engine = self._engine(target)
-        if engine is not None:
-            out = self._bank_score(engine, target, X, y).model_output
-        else:
-            out = self._per_model(model.predict, X)
+        out = self._score(
+            target,
+            lambda engine: engine.score_blocking(target, X, y, deadline=self.deadline,
+                                                 request_id=self.request_id).model_output,
+            lambda: model.predict(X),
+        )
+        self._note_scoring_result(target, X, out)
         return 200, prediction_body(out, index[len(index) - len(out):])
 
     def anomaly_prediction(self, project: str, target: str):
         model, _ = self._entry(target)
         if not hasattr(model, "anomaly"):
             raise HTTPError(422, "Model does not support anomaly scoring")
+        self._quarantine_gate(project, target)
         X, y, index = self._parse()
-        engine = self._engine(target)
-        output_tags = None
-        if engine is not None:
-            result = self._bank_score(engine, target, X, y)
-            tags, arrays, offset = result.tags, result.to_arrays(), result.offset
-        else:
-            arrays = self._per_model(model.anomaly, X, y)
-            tags, offset = model.tags_, len(X) - len(arrays["model-output"])
-            output_tags = getattr(model, "output_tags", None)
+
+        def banked(engine):
+            result = engine.score_blocking(target, X, y, deadline=self.deadline,
+                                           request_id=self.request_id)
+            return result.tags, result.to_arrays(), result.offset, None
+
+        def per_model():
+            arrays = model.anomaly(X, y)
+            return (model.tags_, arrays, len(X) - len(arrays["model-output"]),
+                    getattr(model, "output_tags", None))
+
+        tags, arrays, offset, output_tags = self._score(target, banked, per_model)
+        # a NaN anywhere in the reconstruction reaches the totals (the
+        # kernel's row norms), so they are an O(rows) proxy of the frame
+        self._note_scoring_result(target, X, arrays["total-anomaly-scaled"])
         n_out = len(arrays["model-output"])
         return 200, anomaly_body(tags, arrays, index[offset:][:n_out], output_tags)
 

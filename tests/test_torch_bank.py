@@ -175,7 +175,7 @@ def test_engine_sheds_when_the_queue_is_full(fleet):
     release = threading.Event()
 
     class SlowBank:
-        def score_many(self, requests):
+        def score_many(self, requests, deadline=None, return_exceptions=False):
             release.wait(30)
             return [None] * len(requests)
 

@@ -148,3 +148,48 @@ def test_kernel_launch_validates_its_inputs(change, err):
     args = change(dict(zip(names, (torch.from_numpy(a) for a in _case(3, 4, 5, 2)))))
     with pytest.raises(err):
         port._launch_banked(*(args[n] for n in names))
+
+
+def _nonfinite_case(where: str, value: float, seed: int):
+    """A banked case with ``value`` (NaN, +inf or -inf) placed in some
+    elements of ``output`` or ``target``, or in the whole scale row of the
+    member the first slot reads; every other element finite."""
+    target, output, shift_bank, scale_bank, idx = _case(4, 33, 10, 7, seed=seed)
+    rng = np.random.RandomState(seed)
+    if where == "scale":
+        scale_bank[idx[0]] = value
+    else:
+        arr = target if where == "target" else output
+        flat = arr.reshape(-1)
+        flat[rng.choice(flat.size, 40, replace=False)] = value
+    return target, output, shift_bank, scale_bank, idx
+
+
+def _assert_same_nonfinite(got, want):
+    """diff and scaled equal with NaN equal to NaN and infinities by sign
+    (``assert_array_equal``: finite elements exactly); the norms within the
+    band where finite, and NaN and +-inf in the same places."""
+    for g, w, name in zip(got[:2], want[:2], ["diff", "scaled"]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    for g, w, name in zip(got[2:], want[2:], ["tot_u", "tot_s"]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=NORM_RTOL, atol=NORM_ATOL,
+                                   equal_nan=True, err_msg=name)
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf], ids=["nan", "+inf", "-inf"])
+@pytest.mark.parametrize("where", ["output", "target", "scale"])
+def test_plain_versions_propagate_non_finite_values_as_jax(where, value):
+    """The breaker reads the totals the epilogue computes: the plain
+    versions (the kernels' references on the card) carry NaN and +-inf
+    through as the JAX reference and the Pallas kernels in interpreter mode
+    do, in the banked and the per-model entry points."""
+    args = _nonfinite_case(where, value, seed=3)
+    got = port.banked_anomaly_score(*(torch.from_numpy(a) for a in args))
+    assert not np.isfinite(got[3].numpy()).all()  # the non-finite value reached a total
+    _assert_same_nonfinite(got, _jnp_banked_score(*args))
+    _assert_same_nonfinite(got, banked_anomaly_score(*args, mode="interpret"))
+    target, output, shift_bank, scale_bank, idx = args
+    single = (target[0], output[0], shift_bank[idx[0]], scale_bank[idx[0]])
+    got = port.fused_anomaly_score(*(torch.from_numpy(np.ascontiguousarray(a)) for a in single))
+    _assert_same_nonfinite(got, _jnp_score(*single))
+    _assert_same_nonfinite(got, fused_anomaly_score(*single, force="interpret"))

@@ -12,7 +12,11 @@ The JAX client's own encoder (``Client._encode_parquet``) writes them:
   after ``get_data()`` in the port;
 - ``post_body_y.parquet``: the rows as float64 with a target frame of the
   same rows rounded to 0.1, under the ``__y__`` prefix the server splits
-  back out.
+  back out;
+- ``post_body_10tags.parquet``: 64 rows of 10 tags (``tag-0`` ..
+  ``tag-9``, float32, uniform on [0, 1) from seed 14) at 10 minutes from
+  2020-01-01, the width of BASELINE config 1: what ``chip_smoke.py``'s
+  ``observe`` phase posts to its 10-tag models.
 
 The card's machine cannot write parquet (it has no pyarrow), so
 ``chip_smoke.py`` posts these files as they are committed. This script
@@ -46,6 +50,15 @@ def rows():
     return X.iloc[:ROWS]
 
 
+def ten_tag_rows():
+    """64 rows of 10 seeded tags with a tz-aware 10-minute index."""
+    import pandas as pd
+
+    values = np.random.default_rng(14).random((64, 10)).astype(np.float32)
+    index = pd.date_range("2020-01-01", periods=64, freq="10min", tz="UTC")
+    return pd.DataFrame(values, columns=[f"tag-{i}" for i in range(10)], index=index)
+
+
 def main(argv=None) -> int:
     from gordo_components_tpu.client.client import Client
 
@@ -55,6 +68,7 @@ def main(argv=None) -> int:
     bodies = {
         "post_body.parquet": Client._encode_parquet(X.astype(np.float32), None),
         "post_body_y.parquet": Client._encode_parquet(X.astype(np.float64), X.astype(np.float64).round(1)),
+        "post_body_10tags.parquet": Client._encode_parquet(ten_tag_rows(), None),
     }
     for name, raw in bodies.items():
         with open(os.path.join(out, name), "wb") as f:
