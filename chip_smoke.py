@@ -311,10 +311,38 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             5 rounds in the order with, without, without, with: p50, p99 and
             rows/s of each run and each side's medians (findings, not a
             claim);
+    pipeline  the bank's pipeline: a bank of 1,000 members each of dense,
+            ``lstm_hourglass`` (lookback 32), conv, dense bf16 and
+            ``lstm_hourglass`` bf16 (K3-bf16) members at 10 tags, built
+            through ``GORDO_BANK_INFLIGHT`` at 1, 2 and 4, scores 200
+            back-to-back batches of 64 requests (40-400 rows from a seed,
+            request i to family i % 5, each family's first one 257 rows or
+            more, so every group pads to (16, 512)): every result bitwise
+            window 1's, the page-locked arena's misses the same after the
+            first batch and the last, its pooled bytes, the in-flight peak,
+            the overlap ratio and the ledger's device seconds beside the
+            CUDA-event seconds of the same groups; the engine's closed loop
+            (64 x 4 requests of 128 rows) at windows 1 and 2; then
+            ``run_server`` with every request traced over one member of the
+            first four families and a PCA(3) detector: a POST carrying a
+            ``traceparent`` has the ``queue_wait``, ``coalesce``, ``pad``,
+            ``device_execute`` and ``postprocess`` spans under
+            ``/traces?id=`` (its ``X-Request-Id``), ``/traces/slow`` and the
+            Chrome export parse, ``/stats`` names the last trace as its
+            latency bucket's exemplar, ``/slo?refresh=1`` and
+            ``/costs?refresh=1`` answer (the card's peak, ``device``, and a
+            finite MFU a bucket), the new planes' ``/stats`` and
+            ``/metrics`` integers are equal, and the PCA detector's POST has
+            its ``device_execute`` span over K1; last, an HTTP closed loop
+            (16 x 4 POSTs of 64 rows) against a server with the tracer,
+            ledger, SLO tracker and cost model on and one with
+            ``GORDO_TRACE_SAMPLE=0``, ``GORDO_SLO=0`` and ``GORDO_COST=0``.
+            Both A/Bs: medians of 10 runs a side in the order a, b, b, a
+            (findings, not a claim);
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
             bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
-            definitions, observe), each reset just
+            definitions, observe, pipeline), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -325,14 +353,17 @@ limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
 CUDA. Weights and data are random, made from fixed seeds.
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import datetime
 import functools
 import gc
 import gzip
+import hashlib
 import http.server
 import json
+import math
 import os
 import re
 import shutil
@@ -3767,6 +3798,339 @@ def observe_phase(card: str):
     return summary
 
 
+PIPELINE_DIR = os.path.join(ROOT, "build", "chip_smoke_pipeline")
+# the multi-bucket bank: config 1's width (10 tags), one bucket a family,
+# PIPELINE_MEMBERS each; the bf16 LSTM bucket puts K3-bf16 on this path
+PIPELINE_FAMILIES = ("dense", "lstm", "conv", "dense_bf16", "lstm_bf16")
+PIPELINE_MEMBERS = 1_000
+PIPELINE_BATCHES = 200  # back-to-back mixed batches at each window
+PIPELINE_REQUESTS = 64  # a batch
+PIPELINE_ROWS = (40, 400)  # a request's rows, drawn from a seed
+PIPELINE_WINDOWS = (1, 2, 4)  # GORDO_BANK_INFLIGHT
+PIPELINE_ROUNDS = 5  # rounds of (a, b, b, a): medians of 10 runs a side
+PIPELINE_LOOP = dict(clients=64, requests=4, rows=128)  # the window-1/2 loop
+PLANES_LOOP = dict(clients=16, requests=4, rows=64)  # the planes' loop, over HTTP
+PLANES_OFF = {"GORDO_TRACE_SAMPLE": "0", "GORDO_SLO": "0", "GORDO_COST": "0"}
+PIPELINE_SPANS = ("queue_wait", "coalesce", "pad", "device_execute", "postprocess")
+
+
+def pipeline_entry(name: str, family: str, rng):
+    if family.startswith("dense"):
+        entry = random_entry(name, 10, rng)
+    elif family.startswith("lstm"):
+        entry = random_lstm_entry(name, "LSTMAutoEncoder", rng)
+    else:
+        entry = random_zoo_entry(name, "conv", rng)
+    return dataclasses.replace(entry, compute_dtype=BF16) if family.endswith("bf16") else entry
+
+
+def pipeline_batch(b: int):
+    """Batch ``b``: PIPELINE_REQUESTS requests to random members, request i
+    to family i % 5 (so the bucket groups come in one order), rows drawn
+    from PIPELINE_ROWS; each family's first request is drawn from 257 up,
+    so every group pads to (16, 512): the arena's shapes are the first
+    batch's."""
+    rng = np.random.default_rng((15, b))
+    lo, hi = PIPELINE_ROWS
+    out = []
+    for i in range(PIPELINE_REQUESTS):
+        family = PIPELINE_FAMILIES[i % len(PIPELINE_FAMILIES)]
+        rows = int(rng.integers(257 if i < len(PIPELINE_FAMILIES) else lo, hi + 1))
+        out.append((f"{family}-{int(rng.integers(PIPELINE_MEMBERS)):04d}",
+                    rng.random((rows, 10), dtype=np.float32), None))
+    return out
+
+
+def result_digest(r) -> bytes:
+    h = hashlib.sha1()
+    for a in (r.model_output, r.diff, r.scaled, r.total_unscaled, r.total_scaled):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.digest()
+
+
+@contextlib.contextmanager
+def env_set(values: dict):
+    """The environment with ``values`` set, restored afterwards."""
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def ab_runs(labels, run, what: str) -> dict:
+    """One untimed run a side, then PIPELINE_ROUNDS rounds of (a, b, b, a):
+    each side's p50, p99 and rows/s medians and every run's."""
+    a, b = labels
+    order = [a, b] + [a, b, b, a] * PIPELINE_ROUNDS
+    runs = {label: [] for label in labels}
+    for i, label in enumerate(order):
+        gc.collect()
+        lat, n_rows, wall = run(label)
+        if i < 2:
+            continue
+        lat_ms = np.asarray(lat) * 1e3
+        runs[label].append({"p50_ms": round(float(np.percentile(lat_ms, 50)), 4),
+                            "p99_ms": round(float(np.percentile(lat_ms, 99)), 4),
+                            "rows_per_s": round(n_rows / wall, 1)})
+    medians = {f"{what}_{label}_median_{k}": round(float(np.median([r[k] for r in rs])), 4)
+               for label, rs in runs.items() for k in ("p50_ms", "p99_ms", "rows_per_s")}
+    return {**medians, f"{what}_runs": json.dumps(runs)}
+
+
+def pipeline_bitwise(entries) -> tuple:
+    """PIPELINE_BATCHES batches at each window, the bank built through
+    ``GORDO_BANK_INFLIGHT``: every result bitwise window 1's; the arena's
+    misses flat after the first batch; the readings."""
+    from gordo_components_torch.observability.goodput import GoodputLedger
+
+    banks, summary, reference = {}, {}, None
+    for w in PIPELINE_WINDOWS:
+        with env_set({"GORDO_BANK_INFLIGHT": str(w)}):
+            bank = ModelBank.from_entries(entries, registry=False, ledger=GoodputLedger())
+        if bank._inflight_window != w or bank.n_buckets != len(PIPELINE_FAMILIES):
+            raise AssertionError(f"pipeline: window {bank._inflight_window}, {bank.n_buckets} buckets")
+        gc.collect()
+        digests, misses_first = [], None
+        t0 = time.perf_counter()
+        for b in range(PIPELINE_BATCHES):
+            results = bank.score_many(pipeline_batch(b))
+            if not all(np.isfinite(r.total_scaled).all() for r in results):
+                raise AssertionError(f"pipeline: window {w} batch {b} scored non-finite totals")
+            digests.append([result_digest(r) for r in results])
+            if b == 0:
+                misses_first = bank.arena.misses
+        wall = time.perf_counter() - t0
+        if reference is None:
+            reference = digests
+        else:
+            moved = sum(g != r for gb, rb in zip(digests, reference) for g, r in zip(gb, rb))
+            if moved:
+                raise AssertionError(f"pipeline: window {w}: {moved} results not bitwise window 1's")
+        arena = bank.arena.stats()
+        if arena["misses"] != misses_first or arena["outstanding"] != 0:
+            raise AssertionError(f"pipeline: window {w}: arena misses {misses_first} after the first batch, "
+                                 f"{arena['misses']} after the last; {arena['outstanding']} outstanding")
+        if not torch.from_numpy(next(iter(bank.arena._pool.values()))[0]).is_pinned():
+            raise AssertionError(f"pipeline: window {w}: the arena's buffers are not page-locked")
+        ledger = bank.ledger.snapshot()
+        ledger_s = sum(c["useful_s"] + c["padded_s"] + c["failed_s"] for c in ledger["per_bucket"].values())
+        overlap = bank.pipeline_stats()["overlap"]
+        summary.update({
+            f"w{w}_wall_s": round(wall, 3), f"w{w}_arena_hits": arena["hits"],
+            f"w{w}_arena_misses": arena["misses"], f"w{w}_arena_misses_first_batch": misses_first,
+            f"w{w}_pinned_bytes": arena["pooled_bytes"], f"w{w}_inflight_peak": bank.inflight_peak,
+            f"w{w}_overlap_ratio": overlap["overlap_ratio"],
+            f"w{w}_ledger_busy_ratio": ledger["device"]["busy_ratio"],
+            f"w{w}_ledger_device_s": round(ledger_s, 6), f"w{w}_cuda_event_s": round(bank.event_s, 6),
+        })
+        banks[w] = bank
+    summary["bitwise_results"] = PIPELINE_BATCHES * PIPELINE_REQUESTS * (len(PIPELINE_WINDOWS) - 1)
+    return banks, summary
+
+
+def pipeline_loop(banks, rng) -> dict:
+    """The closed loop (PIPELINE_LOOP, random members of every bucket) on
+    the mixed bank at windows 1 and 2."""
+    c, n, rows = PIPELINE_LOOP["clients"], PIPELINE_LOOP["requests"], PIPELINE_LOOP["rows"]
+    X = rng.random((c, n, rows, 10), dtype=np.float32)
+    names = [[f"{PIPELINE_FAMILIES[int(f)]}-{int(m):04d}"
+              for f, m in zip(rng.integers(0, len(PIPELINE_FAMILIES), n), rng.integers(0, PIPELINE_MEMBERS, n))]
+             for _ in range(c)]
+
+    def run(label):
+        engine = BatchingEngine(banks[int(label[1:])], max_batch=64, flush_ms=2.0)
+        engine.start()
+        try:
+            lat, results, wall = closed_loop(engine, names, X, f"pipeline {label} loop")
+        finally:
+            engine.stop()
+        return lat, len(results) * rows, wall
+
+    return ab_runs(("w1", "w2"), run, "loop")
+
+
+def pipeline_served(rng) -> dict:
+    """The served app on the card with every request traced: the stage
+    spans of a POST carrying a traceparent, /traces, /traces/slow, the
+    Chrome export, X-Request-Id, the exemplar, /slo, /costs (the card's
+    peak, a finite MFU a bucket), /stats against /metrics, and the per-model
+    detector's device_execute span with K1; then the planes on and off."""
+    shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+    banked = {f"pipe-{family}": pipeline_entry(f"pipe-{family}", family, rng)
+              for family in ("dense", "lstm", "conv", "dense_bf16")}
+    for name, entry in banked.items():
+        serializer.dump(entry, os.path.join(PIPELINE_DIR, name))
+    pca, metadata = build_model("pipe-pca", OBSERVE_PCA, dataset("pipe-pca"))
+    serializer.dump(pca, os.path.join(PIPELINE_DIR, "pipe-pca"), metadata=metadata)
+    summary = {}
+    with env_set({"GORDO_TRACE_SAMPLE": "1"}):
+        server = run_server(PIPELINE_DIR, host="127.0.0.1", port=0, background=True)
+    try:
+        base = server.url + "/gordo/v0/smoke"
+        if sorted(server.app.bank._index) != sorted(banked):
+            raise AssertionError(f"pipeline: banked {sorted(server.app.bank._index)}")
+        X = rng.random((128, 10), dtype=np.float32)
+        traced = {}
+        for name in list(banked) + ["pipe-pca"]:
+            trace_id = f"{int(rng.integers(1 << 62)):032x}"
+            parent = "00-" + trace_id + "-00f067aa0ba902b7-01"
+            before = launches()
+            status, hdrs, body = post_anomaly(base, name, X, {"traceparent": parent})
+            moved = launched(before)
+            if status != 200 or not totals_finite(body).all():
+                raise AssertionError(f"pipeline: {name} answered {status}")
+            if hdrs.get("X-Request-Id") != trace_id or not hdrs.get("traceparent", "").startswith(f"00-{trace_id}-"):
+                raise AssertionError(f"pipeline: {name}'s X-Request-Id {hdrs.get('X-Request-Id')}, "
+                                     f"traceparent {hdrs.get('traceparent')}, sent {parent}")
+            status, _, raw = http_raw(f"{base}/traces?id={trace_id}")
+            found = json.loads(raw)["traces"]
+            if status != 200 or len(found) != 1:
+                raise AssertionError(f"pipeline: /traces?id={trace_id} answered {status}: {raw[:300]}")
+
+            def names_of(node):
+                return [node["name"]] + [n for child in node.get("children", ()) for n in names_of(child)]
+
+            spans = names_of(found[0]["spans"])
+            want = ("device_execute",) if name == "pipe-pca" else PIPELINE_SPANS
+            if any(s not in spans for s in want):
+                raise AssertionError(f"pipeline: {name}'s trace has spans {spans}")
+            if name == "pipe-pca" and moved["K1"] < 1:
+                raise AssertionError(f"pipeline: the per-model POST launched {moved}")
+            traced[name] = spans
+        summary["traced_spans"] = json.dumps(traced)
+        status, _, raw = http_raw(f"{base}/traces/slow")
+        slow = json.loads(raw)["traces"]
+        status2, _, raw2 = http_raw(f"{base}/traces?format=chrome")
+        chrome = json.loads(raw2)["traceEvents"]
+        if status != 200 or not slow or status2 != 200 or not chrome:
+            raise AssertionError(f"pipeline: /traces/slow {status}, chrome {status2}")
+        status, _, raw = http_raw(f"{base}/slo?refresh=1")
+        slo = json.loads(raw)
+        status2, _, raw2 = http_raw(f"{base}/costs?refresh=1")
+        costs = json.loads(raw2)
+        mfu = {label: row["mfu"] for label, row in costs.get("buckets", {}).items()}
+        if (status, status2) != (200, 200) or not slo.get("enabled") or not costs.get("enabled") \
+                or costs["peak_source"] != "device" or len(mfu) != len(banked) \
+                or not all(m is not None and math.isfinite(m) and m > 0 for m in mfu.values()):
+            raise AssertionError(f"pipeline: /slo enabled {slo.get('enabled')}, /costs {raw2[:400]}")
+        values = scrape(base)
+        status, _, raw = http_raw(base + "/stats")
+        stats = json.loads(raw)
+        # the last scoring POST (the per-model one) is its latency bucket's exemplar
+        exemplars = {ex["trace_id"] for ex in stats["exemplars"].get("anomaly", {}).values()}
+        if trace_id not in exemplars:
+            raise AssertionError(f"pipeline: /stats exemplars {stats['exemplars']} miss {trace_id}")
+
+        def metric(name, **labels):
+            return values.get((name, tuple(sorted(labels.items()))))
+
+        pairs = {f"goodput[{c}]": (n, metric("gordo_goodput_requests_total", **{"class": c}))
+                 for c, n in stats["goodput"]["requests"].items()}
+        for key, cell in stats["goodput"]["tenants"].items():
+            tenant, _, cls = key.partition("|")
+            for outcome, n in cell.items():
+                pairs[f"tenant[{key}|{outcome}]"] = (n, metric("gordo_goodput_tenant_requests_total", tenant=tenant,
+                                                               outcome=outcome, **{"class": cls}))
+        arena = stats["bank_pipeline"]["arena"]
+        pairs["arena.hits"] = (arena["hits"], metric("gordo_bank_arena_hits_total"))
+        pairs["arena.misses"] = (arena["misses"], metric("gordo_bank_arena_misses_total"))
+        pairs["arena.bytes"] = (arena["pooled_bytes"], metric("gordo_bank_arena_bytes"))
+        pairs["inflight"] = (0, metric("gordo_bank_inflight_groups"))
+        for label, row in stats["costs"]["buckets"].items():
+            pairs[f"flops_per_row[{label}]"] = (row["flops_per_row"], metric("gordo_bucket_flops_per_row",
+                                                                            bucket=label))
+        apart = {k: v for k, v in pairs.items() if v[0] is None or v[0] != v[1]}
+        if apart or stats["goodput"]["requests"]["goodput"] != len(banked) + 1:
+            raise AssertionError(f"pipeline: /stats and /metrics disagree: {apart}; {stats['goodput']['requests']}")
+        summary.update({"stats_metrics_equal": len(pairs), "mfu": json.dumps(mfu),
+                        "peak_flops": costs["peak_flops"], "slo_samples": slo["n_samples"],
+                        "goodput": json.dumps(stats["goodput"]["device"])})
+    finally:
+        server.close()
+    summary.update(planes_cost(list(banked), rng))
+    shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+    return summary
+
+
+def planes_cost(names, rng) -> dict:
+    """The closed loop over HTTP (PLANES_LOOP, random banked targets)
+    against a server with the tracer, ledger, SLO tracker and cost model on
+    (their defaults) and one with ``GORDO_TRACE_SAMPLE=0``, ``GORDO_SLO=0``
+    and ``GORDO_COST=0``."""
+    servers = {"on": run_server(PIPELINE_DIR, host="127.0.0.1", port=0, background=True)}
+    with env_set(PLANES_OFF):
+        servers["off"] = run_server(PIPELINE_DIR, host="127.0.0.1", port=0, background=True)
+    try:
+        app = servers["off"].app
+        if app.tracer.enabled or app.ledger is not None or app.slo is not None or app.cost is not None:
+            raise AssertionError("pipeline: a plane stayed on with its knob at 0")
+        c, n, rows = PLANES_LOOP["clients"], PLANES_LOOP["requests"], PLANES_LOOP["rows"]
+        bodies = [[json.dumps({"X": rng.random((rows, 10)).tolist()}).encode() for _ in range(n)] for _ in range(c)]
+        targets = [[names[int(j)] for j in rng.integers(0, len(names), n)] for _ in range(c)]
+
+        def run(label):
+            base = servers[label].url + "/gordo/v0/smoke"
+            lat, failures = [], []
+            barrier = threading.Barrier(c)
+
+            def client(i):
+                try:
+                    barrier.wait(60)
+                    for r in range(n):
+                        t = time.perf_counter()
+                        status, _, _ = http_raw(f"{base}/{targets[i][r]}/anomaly/prediction", bodies[i][r],
+                                                {"Content-Type": "application/json"})
+                        lat.append(time.perf_counter() - t)
+                        if status != 200:
+                            failures.append(status)
+                except Exception as exc:
+                    failures.append(repr(exc))
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(c)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(300)
+            wall = time.perf_counter() - t0
+            if failures or len(lat) != c * n:
+                raise AssertionError(f"pipeline: the planes-{label} loop: {len(lat)} answers, {failures[:3]}")
+            return lat, c * n * rows, wall
+
+        return ab_runs(("on", "off"), run, "planes")
+    finally:
+        for server in servers.values():
+            server.close()
+
+
+def pipeline_phase(card: str):
+    """The bank's pipeline on the card: a five-bucket bank of
+    PIPELINE_MEMBERS a family scored at windows 1, 2 and 4, bitwise; its
+    closed loop at windows 1 and 2; the served app's traces, SLOs, costs
+    and new series; the planes on against off."""
+    rng = np.random.default_rng(15)
+    t0 = time.perf_counter()
+    entries = [pipeline_entry(f"{family}-{m:04d}", family, rng)
+               for family in PIPELINE_FAMILIES for m in range(PIPELINE_MEMBERS)]
+    summary = {"members": len(entries), "buckets": len(PIPELINE_FAMILIES), "batches": PIPELINE_BATCHES,
+               "requests": PIPELINE_REQUESTS, "entries_s": round(time.perf_counter() - t0, 3)}
+    banks, readings = pipeline_bitwise(entries)
+    del entries
+    summary.update(readings)
+    summary.update(pipeline_loop(banks, rng))
+    del banks
+    gc.collect()
+    summary.update(pipeline_served(rng))
+    phase("pipeline", **summary, card=json.dumps(card))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
@@ -3828,6 +4192,7 @@ def main() -> int:
     drive("lake", lake_phase, card, in_subprocesses=True)
     drive("definitions", definitions_phase, card, in_subprocesses=True)
     drive("observe", observe_phase, card)
+    drive("pipeline", pipeline_phase, card)
     timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
@@ -3841,6 +4206,8 @@ def main() -> int:
                          ("definitions", "banked_anomaly_score"), ("definitions", "fused_anomaly_score"),
                          ("observe", "banked_anomaly_score"), ("observe", "fused_anomaly_score"),
                          ("observe", "lstm_layer"),
+                         ("pipeline", "banked_anomaly_score"), ("pipeline", "fused_anomaly_score"),
+                         ("pipeline", "lstm_layer"), ("pipeline", "lstm_layer_bf16"),
                          ("bf16_train", "lstm_layer_bf16"),
                          ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
                          ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):

@@ -1,7 +1,9 @@
-"""Observability of the port: the metrics registry (``metrics.py``).
+"""Observability of the port: the metrics registry (``metrics.py``), request
+tracing (``tracing.py``), the goodput ledger (``goodput.py``), SLO burn
+rates (``slo.py``) and per-bucket device cost (``cost.py``).
 
-Counterpart of ``gordo_components_tpu/observability/``; tracing, goodput,
-SLOs, heat, costs, events and history are not ported yet.
+Counterpart of ``gordo_components_tpu/observability/``; heat, events and
+history are not ported yet.
 """
 
 from gordo_components_torch.observability.metrics import (
@@ -11,5 +13,6 @@ from gordo_components_torch.observability.metrics import (
     parse_prometheus_text,
     render_samples,
 )
+from gordo_components_torch.observability.tracing import Tracer
 
-__all__ = ["Histogram", "MetricsRegistry", "get_registry", "parse_prometheus_text", "render_samples"]
+__all__ = ["Histogram", "MetricsRegistry", "Tracer", "get_registry", "parse_prometheus_text", "render_samples"]

@@ -18,11 +18,17 @@ mutated under ``stats_lock``: the server answers each connection on its
 own thread), a metrics registry (``metrics``: the bank's, the engine's
 and the server's series, rendered by ``GET .../metrics``), the
 quarantine breaker (``quarantine``, ``GORDO_QUARANTINE_THRESHOLD``) and
-the default request deadline (``GORDO_DEFAULT_DEADLINE_MS``).
+the default request deadline (``GORDO_DEFAULT_DEADLINE_MS``). As the JAX
+app does, it also keeps a request tracer (``tracer``,
+``GORDO_TRACE_SAMPLE``; ``GET .../traces``), the goodput ledger
+(``ledger``) and the SLO tracker (``slo``) unless ``GORDO_SLO=0``, and the
+per-bucket cost model (``cost``) unless ``GORDO_COST=0``. The SLO
+tracker samples on a thread of its own and the bank warms up on another
+(``GORDO_SERVER_WARMUP``); :meth:`App.close` stops both.
 
-Not in this slice: the tensor wire format, QoS, tracing, goodput and
-SLOs, the placement planner, the worker pool and the shared-memory
-transports.
+Not in this slice: the tensor wire format, QoS admission and the fair
+queue, heat, history and events, the placement planner, the worker pool
+and the shared-memory transports.
 """
 
 import os
@@ -32,7 +38,11 @@ from typing import Optional
 
 import torch
 
+from gordo_components_torch.observability.cost import cost_from_env
+from gordo_components_torch.observability.goodput import GoodputLedger
 from gordo_components_torch.observability.metrics import MetricsRegistry
+from gordo_components_torch.observability.slo import SLOTracker
+from gordo_components_torch.observability.tracing import Tracer
 from gordo_components_torch.resilience.deadline import default_deadline_ms
 from gordo_components_torch.resilience.quarantine import DEFAULT_THRESHOLD, QuarantineSet
 from gordo_components_torch.server.bank import ModelBank, ScoreResult
@@ -46,11 +56,13 @@ class App:
     engine (``bank`` and ``engine`` are None when the bank is off; the
     engine is None while the bank holds no model), and what it observes.
     ``reload_lock`` serializes reloads, each of which may swap the bank;
-    ``stats_lock`` guards ``stats``."""
+    ``stats_lock`` guards ``stats``. ``ledger`` (and with it ``slo``) is
+    None when ``GORDO_SLO=0``, ``cost`` when ``GORDO_COST=0``."""
 
     def __init__(self, collection: ModelCollection, bank: Optional[ModelBank],
                  bank_config: dict, engine_config: dict, metrics: MetricsRegistry,
-                 quarantine: QuarantineSet, default_deadline_ms: Optional[float]):
+                 quarantine: QuarantineSet, default_deadline_ms: Optional[float],
+                 tracer: Optional[Tracer] = None, ledger: Optional[GoodputLedger] = None):
         self.collection = collection
         self.bank = bank
         self.bank_config = bank_config
@@ -64,6 +76,8 @@ class App:
             "errors": 0,
             "latency": {},  # kind -> LatencyHistogram
             "wire": {"requests": {}, "bytes": {}},  # scoring POSTs by encoding
+            # kind -> latency bucket edge -> the last retained trace there
+            "exemplars": {},
         }
         self.metrics = metrics
         self.quarantine = quarantine
@@ -71,13 +85,28 @@ class App:
         self.device = torch.device(collection.device)
         self.metrics.collector(_server_collector(self), key="server")
         self.metrics.collector(_hbm_collector(self.device), key="hbm")
+        self.tracer = tracer
+        self.ledger = ledger
+        self.slo = SLOTracker(ledger, registry=metrics) if ledger is not None else None
+        self.cost = cost_from_env(ledger, lambda: self.bank, registry=metrics, device=self.device)
+        self._warmup: Optional[threading.Thread] = None
+        if self.slo is not None:
+            self.slo.start()
         if bank is not None and len(bank):
             self.engine = BatchingEngine(bank, **engine_config)
             self.engine.start()
+            if os.environ.get("GORDO_SERVER_WARMUP", "1") != "0":
+                # off the request path: the port answers while it runs
+                self._warmup = threading.Thread(target=bank.warmup, name="gordo-bank-warmup", daemon=True)
+                self._warmup.start()
 
     def close(self) -> None:
         if self.engine is not None:
             self.engine.stop()
+        if self.slo is not None:
+            self.slo.stop()
+        if self._warmup is not None:
+            self._warmup.join()
 
 
 def _server_collector(app: App):
@@ -156,13 +185,17 @@ def build_app(
     use_bank: Optional[bool] = None,
     device="cuda",
     quarantine_threshold: Optional[int] = None,
+    bank_inflight: Optional[int] = None,
+    arena_max_mb: Optional[float] = None,
 ) -> App:
     """Load every artifact under ``model_dir`` on ``device`` (default the
     card; raises without CUDA unless ``"cpu"``), stack the models the bank
     can hold and start its batching engine. ``use_bank`` defaults to the
     environment's ``GORDO_SERVER_BANK`` != ``"0"``, ``quarantine_threshold``
     to ``GORDO_QUARANTINE_THRESHOLD`` (3; 0 or less disables the breaker),
-    and the requests' default deadline is ``GORDO_DEFAULT_DEADLINE_MS``."""
+    and the requests' default deadline is ``GORDO_DEFAULT_DEADLINE_MS``.
+    ``bank_inflight`` (``GORDO_BANK_INFLIGHT``) and ``arena_max_mb``
+    (``GORDO_ARENA_MAX_MB``) configure the bank's pipeline."""
     from gordo_components_torch.device import resolve_device
 
     device = resolve_device(device)
@@ -178,13 +211,16 @@ def build_app(
     deadline_ms = default_deadline_ms()
     collection = ModelCollection(model_dir, target_name, device=device)
     registry = MetricsRegistry()
-    # the registry rides in the bank's settings, so a /reload's bank
-    # records into the same series
-    bank_config = {"max_rows_per_call": max_rows_per_call, "device": device, "registry": registry}
+    tracer = Tracer()
+    ledger = GoodputLedger.from_env(registry)
+    # the registry and the ledger ride in the bank's settings, so a
+    # /reload's bank records into the same series and cells
+    bank_config = {"max_rows_per_call": max_rows_per_call, "device": device, "registry": registry,
+                   "inflight": bank_inflight, "arena_max_mb": arena_max_mb, "ledger": ledger}
     bank = ModelBank.from_models(collection.models, **bank_config) if use_bank else None
     engine_config = {"max_batch": bank_max_batch, "flush_ms": bank_flush_ms, "max_queue": bank_max_queue}
     return App(collection, bank, bank_config, engine_config, registry, QuarantineSet(quarantine_threshold),
-               deadline_ms)
+               deadline_ms, tracer=tracer, ledger=ledger)
 
 
 def run_server(

@@ -49,22 +49,39 @@ casts its stacked weights to bfloat16 once, at build: the values Flax's
 cast gives on every forward, at half the bytes a batch gathers. The
 network's output is float32 in both, and so is the score.
 
-Metrics (``observability/metrics.py``, the app's registry): per bucket
-its calls, requests and coalesced batch sizes, and the gauges of members
-and buckets, as the JAX bank names them. :meth:`ModelBank.score_many`
-checks a batch's deadline between bucket groups and, for the batching
-engine, returns a failed group's errors in place of its results.
+Scoring is a three-stage pipeline over the bucket groups of a batch
+(:meth:`ModelBank.score_many`, as the JAX bank's): pad a group into
+buffers of a shape-keyed arena (``server/arena.py``; page-locked on the
+card), enqueue its copies, forward, K2 and the copy back without
+waiting, and slice its result once its event has completed, with up to
+``GORDO_BANK_INFLIGHT`` groups in flight. A buffer goes back to the
+arena only after the event recorded behind the copy that uses it.
 
-Not in this slice: the device mesh, quantized banks, the goodput ledger,
-access heat, the buffer arena, the in-flight pipeline and the placement
-planner's per-model row counts, and with them the JAX bank's shard,
-arena, in-flight, quantize, weight-bytes and generation series.
+Metrics (``observability/metrics.py``, the app's registry): per bucket
+its calls, requests and coalesced batch sizes, the gauges of members
+and buckets, and the arena's hits, misses and bytes and the groups in
+flight, as the JAX bank names them. With a goodput ledger
+(``observability/goodput.py``) each group's device window is split into
+useful and padded seconds and each result carries its share
+(``ScoreResult.device_s``); :meth:`ModelBank.flops_stats` feeds the cost
+model (``observability/cost.py``). :meth:`ModelBank.score_many` checks a
+batch's deadline between bucket groups and, for the batching engine,
+returns a failed group's errors in place of its results.
+
+Not in this slice: the device mesh, quantized banks, access heat and the
+placement planner's per-model row counts, and with them the JAX bank's
+shard, quantize, weight-bytes and generation series.
 """
 
+import contextlib
 import hashlib
 import json
 import logging
+import os
+import threading
+import time
 import weakref
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -75,12 +92,14 @@ from gordo_components_torch.device import resolve_device
 from gordo_components_torch.models import lookup_factory
 from gordo_components_torch.models.factories.conv import conv_autoencoder_forward
 from gordo_components_torch.models.register import by_family
+from gordo_components_torch.observability.cost import estimate_flops_per_row
 from gordo_components_torch.observability.metrics import get_registry
 from gordo_components_torch.ops.dense import dense_chain
 from gordo_components_torch.ops.score import banked_anomaly_score_packed
 from gordo_components_torch.ops.seq_scan import lstm_time_major_forward
 from gordo_components_torch.ops.windows import sliding_windows
 from gordo_components_torch.resilience.deadline import Deadline, DeadlineExceeded
+from gordo_components_torch.server.arena import PaddedArena
 
 logger = logging.getLogger(__name__)
 
@@ -150,6 +169,15 @@ def _stack(arrays, device: torch.device, dtype: torch.dtype = torch.float32) -> 
     return torch.from_numpy(np.ascontiguousarray(np.stack(arrays), np.float32)).to(device, dtype)
 
 
+def _tensors(value):
+    """The tensors in a bucket attribute (a tensor, or tuples and lists of them)."""
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, (list, tuple)):
+        return [t for v in value for t in _tensors(v)]
+    return []
+
+
 class _Bucket:
     """All members sharing (type, kind, n_features, lookback, target offset,
     factory kwargs, compute dtype): the stacked weights (in the compute
@@ -171,6 +199,11 @@ class _Bucket:
         got = {k: np.shape(v) for k, v in first.params.items()}
         if got != want:
             raise ValueError(f"bucket {self.label}: params {got}, factory wants {want}")
+        # the cost model's static numbers, once a bucket
+        self.registry_type, self.kind, self.members = first.registry_type, first.kind, len(entries)
+        self.params_per_member = int(sum(np.size(v) for v in first.params.values()))
+        self.flops_per_row, self.flops_method = estimate_flops_per_row(
+            module, self.n_features, self.lookback, self.params_per_member)
 
     def forward(self, idx: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
         """idx (B,); xs (B, T, F) input-scaled -> (B, T - offset, F)."""
@@ -221,6 +254,7 @@ class _LSTMBucket(_Bucket):
     def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device):
         super().__init__(entries, module, device)
         self.funcs, self.out_func = module.funcs, module.out_func
+        self.flops_method += f":time_major(T={self.lookback})"  # as the JAX bank tags its scan
         self.layers = [
             tuple(_stack([e.params[f"layers.{i}.{p}"] for e in entries], device, self.dtype)
                   for p in ("Wi", "Wh", "b"))
@@ -290,6 +324,9 @@ class ScoreResult:
     total_unscaled: np.ndarray
     total_scaled: np.ndarray
     offset: int = 0
+    # the request's share of its group's useful device window (seconds),
+    # set when the bank has a goodput ledger
+    device_s: float = 0.0
 
     def to_arrays(self) -> Dict[str, np.ndarray]:
         """The six anomaly column groups keyed like the reference frame."""
@@ -337,16 +374,137 @@ def _extract_entry(name: str, model) -> Tuple[Optional[_BankEntry], Optional[str
     return entry, None
 
 
+class _GroupRun:
+    """One bucket group's trip through the scoring pipeline: built by
+    ``_host_prep`` (the padded buffers), handed to ``_dispatch`` (the work
+    enqueued on the card, ``event`` recorded behind it), finished by
+    ``_postprocess`` (wait, slice, release). One object a group is what
+    lets ``score_many`` hold several in flight."""
+
+    __slots__ = ("bucket", "req_ids", "req_plans", "group_traces", "n_chunks", "shape", "Xb", "Yb", "idx",
+                 "out", "bufs", "dev_refs", "event", "ev_start", "event_s", "t_group", "t_chunks", "t_pad",
+                 "t_dispatch", "t_ready", "t_device_done", "t_post", "routed_rows", "total_rows")
+
+    def __init__(self, bucket: _Bucket, req_ids: List[int]):
+        self.bucket, self.req_ids = bucket, req_ids
+        # (request index, its rows as float32, its chunks, its output rows)
+        self.req_plans: List[Tuple[int, np.ndarray, List[int], int]] = []
+        self.group_traces = None
+        self.n_chunks = 0
+        self.shape = (0, 0)  # (B, T)
+        self.Xb = self.Yb = self.idx = self.out = None
+        self.bufs: List[np.ndarray] = []  # the arena buffers this group holds
+        self.dev_refs = None  # the device tensors its enqueued work uses
+        self.event = self.ev_start = None
+        self.event_s = 0.0
+        self.t_group = self.t_chunks = self.t_pad = self.t_dispatch = 0.0
+        # t_device_done: the earliest time the result was seen ready, at a
+        # host stage boundary; t_ready: when the host stopped waiting
+        self.t_ready = self.t_device_done = self.t_post = 0.0
+        self.routed_rows = self.total_rows = 0
+
+    def poll_ready(self, now: float) -> None:
+        """Stamp ``t_device_done`` if the group's event has completed."""
+        if self.t_device_done or self.event is None:
+            return
+        try:
+            if self.event.query():
+                self.t_device_done = now
+        except Exception:
+            # a device error surfaces at the group's wait, in its own handler
+            pass
+
+    def release(self, arena: PaddedArena) -> None:
+        """Give the group's buffers back to the arena (idempotent)."""
+        bufs, self.bufs = self.bufs, []
+        for buf in bufs:
+            arena.release(buf)
+
+
+def _pipeline_collector(ref, prev):
+    """The arena and in-flight series of the bank behind ``ref``, read at
+    render time. A /reload's bank replaces its predecessor's collector
+    (``prev``) and carries its values, so the counters never step back:
+    while the old bank lives its values are re-read, and once it is gone
+    its counters freeze as a baseline and its gauges drop out."""
+    base = {"hits": 0, "misses": 0, "bytes": 0, "inflight": 0, "prev": prev}
+
+    def refresh_base():
+        prev = base["prev"]
+        if prev is None:
+            return
+        rows = ()
+        with contextlib.suppress(Exception):
+            rows = tuple(prev())
+        if not rows:
+            base["prev"] = None
+            base["bytes"] = base["inflight"] = 0
+            return
+        for name, _t, _h, _l, value in rows:
+            key = _PIPELINE_KEYS.get(name)
+            if key is not None:
+                base[key] = int(value)
+
+    refresh_base()
+
+    def collect():
+        bank = ref()
+        if bank is None:
+            return ()
+        refresh_base()
+        arena = bank.arena
+        return (
+            ("gordo_bank_arena_hits_total", "counter", "Padded-buffer arena reuses on the coalesced loop",
+             {}, base["hits"] + arena.hits),
+            ("gordo_bank_arena_misses_total", "counter", "Padded-buffer arena allocations (pool miss)",
+             {}, base["misses"] + arena.misses),
+            ("gordo_bank_arena_bytes", "gauge", "Bytes held in the padded-buffer arena pool",
+             {}, base["bytes"] + arena.pooled_bytes),
+            ("gordo_bank_inflight_groups", "gauge", "Bucket groups currently in flight in the scoring pipeline",
+             {}, base["inflight"] + bank._inflight_now),
+        )
+
+    return collect
+
+
+_PIPELINE_KEYS = {"gordo_bank_arena_hits_total": "hits", "gordo_bank_arena_misses_total": "misses",
+                  "gordo_bank_arena_bytes": "bytes", "gordo_bank_inflight_groups": "inflight"}
+
+
 class ModelBank:
     """Stacked scoring bank over a collection of detectors, on one device.
 
     ``device`` defaults to ``"cuda"`` and raises without CUDA unless
     ``"cpu"`` is passed. On the card, float32 matrix products run in full
-    float32 (TF32 off for matmul and cuDNN), like the JAX reference."""
+    float32 (TF32 off for matmul and cuDNN), like the JAX reference.
+    ``inflight`` (``GORDO_BANK_INFLIGHT``, default 2) bounds the groups in
+    flight, 1 being the serial order; ``arena_max_mb``
+    (``GORDO_ARENA_MAX_MB``) bounds the padded-buffer arena; ``ledger`` is
+    the app's goodput ledger, or None."""
 
-    def __init__(self, max_rows_per_call: int = 8192, device="cuda", registry=None):
+    def __init__(self, max_rows_per_call: int = 8192, device="cuda", registry=None,
+                 inflight: Optional[int] = None, arena_max_mb: Optional[float] = None, ledger=None):
         self.device = resolve_device(device)
         self.max_rows = int(max_rows_per_call)
+        if inflight is None:
+            raw = os.environ.get("GORDO_BANK_INFLIGHT", "2")
+            try:
+                inflight = int(raw)
+            except ValueError:
+                raise ValueError(f"GORDO_BANK_INFLIGHT must be an integer, got {raw!r}") from None
+        self._inflight_window = max(1, int(inflight))
+        self._inflight_now = 0
+        self.inflight_peak = 0  # the most groups in flight at once
+        self.arena = PaddedArena(None if arena_max_mb is None else int(arena_max_mb * 1024 * 1024),
+                                 pinned=self.device.type == "cuda")
+        self.ledger = ledger
+        # host/device overlap over multi-group calls: device_busy sums the
+        # groups' non-overlapping windows, wall the calls'
+        self._pipe_lock = threading.Lock()
+        self._pipe = {"calls": 0, "multi_group_calls": 0, "wall_s": 0.0, "device_busy_s": 0.0}
+        # on the card: CUDA-event seconds of every finished group (first
+        # copy in to last copy out), beside the host-observed windows
+        self.event_s = 0.0
         self._buckets: Dict[str, _Bucket] = {}
         self._index: Dict[str, Tuple[str, int]] = {}  # name -> (bucket key, i)
         self._tags: Dict[str, List[str]] = {}
@@ -382,6 +540,8 @@ class ModelBank:
                 lambda: len(b._index) if (b := ref()) is not None else 0)
             registry.gauge("gordo_bank_buckets", "Compiled bucket programs in the bank").labels().set_function(
                 lambda: len(b._buckets) if (b := ref()) is not None else 0)
+            registry.collector(_pipeline_collector(ref, registry.get_collector("bank_pipeline")),
+                               key="bank_pipeline")
 
     @classmethod
     def from_entries(cls, entries: Sequence[_BankEntry], **kwargs) -> "ModelBank":
@@ -470,21 +630,141 @@ class ModelBank:
             "device": str(self.device),
         }
 
-    def score(self, name: str, X: np.ndarray, y: Optional[np.ndarray] = None) -> ScoreResult:
-        return self.score_many([(name, X, y)])[0]
+    def flops_stats(self) -> Dict[str, Any]:
+        """Per bucket, the static numbers the cost model joins to the
+        ledger's device seconds (the JAX bank's keys)."""
+        out: Dict[str, Any] = {}
+        for b in self._buckets.values():
+            tensors = [t for v in vars(b).values() for t in _tensors(v)]
+            out[b.label] = {
+                "flops_per_row": float(b.flops_per_row),
+                "flops_method": b.flops_method,
+                "params_per_member": int(b.params_per_member),
+                "members": int(b.members),
+                "kind": b.kind,
+                "registry_type": b.registry_type,
+                "n_features": int(b.n_features),
+                "lookback": int(b.lookback),
+                "weight_bytes": int(sum(t.numel() * t.element_size() for t in tensors)),
+                "effective_dtype": str(b.dtype).replace("torch.", ""),
+                "seq_layout": "time_major" if isinstance(b, _LSTMBucket) else "legacy",
+                "seq_kernel": ("cuda" if self.device.type == "cuda" else "plain")
+                if isinstance(b, _LSTMBucket) else "none",
+            }
+        return out
+
+    def pipeline_stats(self) -> Dict[str, Any]:
+        """The pipeline and arena at a glance (``/stats`` ``bank_pipeline``)."""
+        with self._pipe_lock:
+            pipe = dict(self._pipe)
+        wall = pipe["wall_s"]
+        return {
+            "inflight_window": self._inflight_window,
+            "arena": self.arena.stats(),
+            "overlap": {
+                "calls": pipe["calls"],
+                "multi_group_calls": pipe["multi_group_calls"],
+                "device_busy_s": round(pipe["device_busy_s"], 6),
+                "wall_s": round(wall, 6),
+                "overlap_ratio": round(pipe["device_busy_s"] / wall, 4) if wall > 0 else None,
+            },
+        }
+
+    @staticmethod
+    def _warmup_grid_env(name: str, default: Tuple[int, ...]) -> Tuple[int, ...]:
+        raw = os.environ.get(name)
+        if not raw:
+            return default
+        try:
+            vals = tuple(int(v) for v in raw.split(",") if v.strip())
+        except ValueError:
+            logger.warning("%s must be comma-separated integers, got %r; using %s", name, raw, default)
+            return default
+        return vals or default
+
+    def warmup_shapes(self, bucket: _Bucket, rows, batch_sizes) -> List[Tuple[int, int]]:
+        """The (T, B) grid of ``rows`` x ``batch_sizes``, each rounded as
+        :meth:`_host_prep` rounds what it dispatches."""
+        batches = sorted({_next_pow2(max(1, int(b))) for b in batch_sizes})
+        return sorted({
+            (max(min(_next_pow2(max(1, int(r))), _prev_pow2(self.max_rows)), _next_pow2(bucket.offset + 1)), B)
+            for r in rows for B in batches
+        })
+
+    def warmup(self, rows=None, batch_sizes=None) -> int:
+        """Run each bucket once at every (B, T) of a grid, off the request
+        path (the server's start, unless ``GORDO_SERVER_WARMUP=0``): on the
+        card this builds the kernels, fills the arena with the page-locked
+        buffers of those shapes and grows the allocator's pool. ``rows``
+        (``GORDO_WARMUP_ROWS``, else 256) and ``batch_sizes``
+        (``GORDO_WARMUP_BATCHES``, else 1) are rounded to the shapes
+        :meth:`score_many` dispatches. Returns the buckets warmed."""
+        if rows is None:
+            row_list = self._warmup_grid_env("GORDO_WARMUP_ROWS", (256,))
+        elif isinstance(rows, int):
+            row_list = (rows,)
+        else:
+            row_list = tuple(rows)
+        if batch_sizes is None:
+            batch_sizes = self._warmup_grid_env("GORDO_WARMUP_BATCHES", (1,))
+        warmed = total_shapes = 0
+        for bucket in list(self._buckets.values()):
+            shapes = self.warmup_shapes(bucket, row_list, batch_sizes)
+            try:
+                for T, B in shapes:
+                    self._warm(bucket, B, T)
+                warmed += 1
+                total_shapes += len(shapes)
+            except Exception:
+                logger.warning("bank warmup failed for bucket %s", bucket.label, exc_info=True)
+        if warmed:
+            logger.info("Model bank warmed: %d bucket(s) over %d (rows, batch) shape(s)", warmed, total_shapes)
+        return warmed
+
+    def _warm(self, bucket: _Bucket, B: int, T: int) -> None:
+        """One zero batch of shape (B, T) through the pipeline's buffers."""
+        run = _GroupRun(bucket, [])
+        run.shape = (B, T)
+        try:
+            F, n = bucket.n_features, T - bucket.offset
+            for attr, shape, dtype in (("Xb", (B, T, F), np.float32), ("Yb", (B, T, F), np.float32),
+                                       ("idx", (B,), np.int32)):
+                buf, _ = self._acquire(run, shape, dtype)
+                buf[...] = 0
+                setattr(run, attr, buf)
+            if self.device.type == "cuda":
+                run.out, _ = self._acquire(run, (B, 3 * n * F + 2 * n), np.float32)
+            self._dispatch(run)
+        finally:
+            self._drain(run)
+
+    def score(self, name: str, X: np.ndarray, y: Optional[np.ndarray] = None, trace=None) -> ScoreResult:
+        return self.score_many([(name, X, y)], traces=None if trace is None else [trace])[0]
 
     def score_many(self, requests: Sequence[Request], deadline: Optional[Deadline] = None,
-                   return_exceptions: bool = False) -> List[Any]:
-        """Score a heterogeneous batch of (name, X, y) requests: one batched
-        pass per bucket group. Raises on the first invalid request (unknown
-        model, wrong width, empty input, y of another shape).
+                   return_exceptions: bool = False, traces: Optional[Sequence[Any]] = None) -> List[Any]:
+        """Score a heterogeneous batch of (name, X, y) requests.
 
-        ``deadline`` (the batch's earliest) is checked between bucket
-        groups: once it has passed, no further group runs and
-        :class:`DeadlineExceeded` is raised. With ``return_exceptions`` a
-        failed group's requests (and those of the groups a deadline cut
-        off) get their exception as their entry, while every other group's
-        results stand."""
+        Requests are grouped by bucket and each group runs through three
+        stages: :meth:`_host_prep` (coalesce and pad into arena buffers),
+        :meth:`_dispatch` (the copies to the card, the forward and K2, and
+        the copy of K2's packed result back into a page-locked buffer, all
+        enqueued without waiting, then one event) and :meth:`_postprocess`
+        (wait on the event, slice, copy out, release the buffers), with up
+        to ``GORDO_BANK_INFLIGHT`` (default 2) groups in flight: while
+        group k runs on the card, group k+1 is padded on the host and group
+        k-1's result is sliced. Results are bitwise those of window 1.
+
+        ``deadline`` (the batch's earliest) is checked between group
+        dispatches: once it has passed, no further group is dispatched and
+        :class:`DeadlineExceeded` is raised. ``traces`` (request-aligned,
+        entries may be None) receive the ``coalesce``, ``pad``,
+        ``device_execute`` and ``postprocess`` spans, and a multi-group
+        call's ``pipeline_overlap``. With ``return_exceptions`` a failed
+        group's requests (and those a deadline cut off) get their
+        exception as their entry, while every other group's results stand.
+        An invalid request (unknown model, wrong width, empty input, y of
+        another shape) fails its group."""
         results: List[Any] = [None] * len(requests)
         errors: Dict[int, Exception] = {}
         by_bucket: Dict[str, List[int]] = {}
@@ -498,106 +778,311 @@ class ModelBank:
                 continue
             by_bucket.setdefault(entry[0], []).append(ri)
         groups = list(by_bucket.items())
-        for gi, (key, req_ids) in enumerate(groups):
-            if deadline is not None and deadline.expired():
-                # the next group's device work would answer nobody
-                exc = DeadlineExceeded(
-                    f"batch deadline expired before all {len(groups)} bucket group(s) dispatched "
-                    f"(budget {deadline.budget_s * 1e3:.0f}ms)")
-                if not return_exceptions:
-                    raise exc
-                for _key, rids in groups[gi:]:
-                    for ri in rids:
-                        errors[ri] = exc
-                break
+        n_groups = len(groups)
+        window = self._inflight_window
+        inflight: "deque[_GroupRun]" = deque()
+        t_call = time.monotonic()
+        device_busy = 0.0
+        last_ready = t_call
+
+        def poll_inflight() -> None:
+            # stamp completions at host stage boundaries, so a group's
+            # window closes near when the card finished, not at its wait
+            if inflight:
+                now = time.monotonic()
+                for r in inflight:
+                    r.poll_ready(now)
+
+        def finish(run: _GroupRun) -> None:
+            nonlocal device_busy, last_ready
+            poll_inflight()
+            ok = True
             try:
-                self._score_group(self._buckets[key], req_ids, requests, results)
+                self._postprocess(run, requests, results, traces)
             except Exception as exc:
+                ok = False
                 if not return_exceptions:
                     raise
-                for ri in req_ids:
+                for ri in run.req_ids:
                     errors[ri] = exc
+            # the window ends at the earliest observed completion and never
+            # overlaps the previous group's
+            t_done = run.t_device_done or run.t_ready
+            window_s = max(0.0, t_done - max(run.t_dispatch, last_ready))
+            device_busy += window_s
+            last_ready = max(last_ready, t_done)
+            with self._pipe_lock:
+                self.event_s += run.event_s
+            if self.ledger is not None:
+                self._account_group(run, results, window_s, ok)
+
+        try:
+            for gi, (key, req_ids) in enumerate(groups):
+                if deadline is not None and deadline.expired():
+                    # the next group's device work would answer nobody
+                    exc = DeadlineExceeded(
+                        f"batch deadline expired before all {n_groups} bucket group(s) dispatched "
+                        f"(budget {deadline.budget_s * 1e3:.0f}ms)")
+                    if not return_exceptions:
+                        raise exc
+                    for _key, rids in groups[gi:]:
+                        for ri in rids:
+                            errors[ri] = exc
+                    break
+                run = None
+                try:
+                    run = self._host_prep(key, req_ids, requests, traces)
+                    self._dispatch(run)
+                except Exception as exc:
+                    if run is not None:
+                        self._drain(run)
+                    if not return_exceptions:
+                        raise
+                    for ri in req_ids:
+                        errors[ri] = exc
+                    continue
+                inflight.append(run)
+                self._set_inflight(len(inflight))
+                poll_inflight()
+                if len(inflight) >= window:
+                    finish(inflight.popleft())
+                    self._set_inflight(len(inflight))
+            while inflight:
+                finish(inflight.popleft())
+                self._set_inflight(len(inflight))
+        except BaseException:
+            # an aborted call leaks no buffer: wait on every group still in
+            # flight, then release its buffers, before the error propagates
+            for run in inflight:
+                self._drain(run)
+            self._set_inflight(0)
+            raise
+        self._set_inflight(0)
+        with self._pipe_lock:
+            self._pipe["calls"] += 1
+            if n_groups > 1:
+                t_end = time.monotonic()
+                wall = t_end - t_call
+                self._pipe["multi_group_calls"] += 1
+                self._pipe["wall_s"] += wall
+                self._pipe["device_busy_s"] += device_busy
+        if n_groups > 1 and traces is not None:
+            ratio = device_busy / wall if wall > 0 else 0.0
+            for ri, tr in enumerate(traces):
+                # only requests that rode the pipeline
+                if tr is None or ri in errors:
+                    continue
+                tr.add_span("pipeline_overlap", t_call, t_end, groups=n_groups, window=window,
+                            device_busy_ms=round(device_busy * 1e3, 3), overlap_ratio=round(ratio, 4))
         for ri, exc in errors.items():
             results[ri] = exc
         return results
 
-    def _score_group(self, bucket: _Bucket, req_ids, requests, results) -> None:
+    def _set_inflight(self, n: int) -> None:
+        self._inflight_now = n
+        if n > self.inflight_peak:
+            self.inflight_peak = n
+
+    def _drain(self, run: "_GroupRun") -> None:
+        """Wait for whatever the card may still do with ``run``'s buffers,
+        then give them back to the arena."""
+        if run.event is not None:
+            with contextlib.suppress(Exception):
+                run.event.synchronize()
+        elif run.dev_refs is not None and self.device.type == "cuda":
+            # a dispatch that failed before its event: its copies may be queued
+            with contextlib.suppress(Exception):
+                torch.cuda.current_stream(self.device).synchronize()
+        run.dev_refs = None
+        run.release(self.arena)
+
+    def _host_prep(self, key: str, req_ids: List[int], requests: Sequence[Request],
+                   traces: Optional[Sequence[Any]]) -> "_GroupRun":
+        """Stage 1, host work: validate the group's requests, chunk long
+        ones (sequence chunks overlap by the warm-up, so no output row is
+        lost) and pad the batch into arena buffers, zeroing only the pad
+        tail of a reused one."""
+        bucket = self._buckets[key]
+        run = _GroupRun(bucket, req_ids)
+        if traces is not None:
+            run.group_traces = [t for t in (traces[ri] for ri in req_ids) if t is not None] or None
+        # stage times serve tracing and the ledger; with neither they stay 0
+        timed = run.group_traces is not None or self.ledger is not None
+        run.t_group = time.monotonic() if timed else 0.0
         F, off = bucket.n_features, bucket.offset
-        rows, ys = [], []
-        for ri in req_ids:
-            name, X, y = requests[ri]
-            X = np.asarray(X, np.float32)
+        rows = [np.asarray(requests[ri][1], np.float32) for ri in req_ids]
+        for ri, X in zip(req_ids, rows):
+            name = requests[ri][0]
             if X.ndim != 2 or X.shape[1] != F:
                 raise ValueError(f"Request for {name!r}: expected (rows, {F}), got {X.shape}")
             if X.shape[0] == 0:
                 raise ValueError(f"Request for {name!r}: empty input")
             if X.shape[0] <= off:
-                raise ValueError(
-                    f"Request for {name!r}: need more than {off} rows "
-                    f"(sequence warm-up), got {X.shape[0]}"
-                )
-            Y = X if y is None else np.asarray(y, np.float32)
-            if Y.shape != X.shape:
-                raise ValueError(
-                    f"Request for {name!r}: y shape {Y.shape} must match X shape {X.shape}"
-                )
-            rows.append(X)
-            ys.append(Y)
+                raise ValueError(f"Request for {name!r}: need more than {off} rows (sequence warm-up), "
+                                 f"got {X.shape[0]}")
         # rows per call: a power of two, at most max_rows but always at
-        # least one window and one output row; longer requests are chunked,
-        # each chunk overlapping the last by the warm-up, and chunk
-        # [start, start + T) yields the output rows [start + off, start + T)
+        # least one window and one output row; chunk [start, start + T)
+        # yields the output rows [start + off, start + T)
         T = min(_next_pow2(max(x.shape[0] for x in rows)), _prev_pow2(self.max_rows))
         T = max(T, _next_pow2(off + 1))
         step = T - off
-        chunks = []  # (request position, member index, start)
-        for pos, (ri, X) in enumerate(zip(req_ids, rows)):
-            member = self._index[requests[ri][0]][1]
+        chunks: List[Tuple[int, np.ndarray, np.ndarray]] = []  # (member, x, y)
+        for ri, X in zip(req_ids, rows):
+            name, _X, yv = requests[ri]
+            Y = X if yv is None else np.asarray(yv, np.float32)
+            if Y.shape != X.shape:
+                raise ValueError(f"Request for {name!r}: y shape {Y.shape} must match X shape {X.shape}")
+            member = self._index[name][1]
+            cis = []
             for start in range(0, X.shape[0] - off, step):
-                chunks.append((pos, member, start))
-        B = _next_pow2(len(chunks))
-        Xb = np.zeros((B, T, F), np.float32)
-        Yb = np.zeros((B, T, F), np.float32)
-        idx = np.zeros((B,), np.int32)
-        for ci, (pos, member, start) in enumerate(chunks):
-            xc = rows[pos][start:start + T]
-            Xb[ci, : len(xc)] = xc
-            Yb[ci, : len(xc)] = ys[pos][start:start + T]
-            idx[ci] = member
+                cis.append(len(chunks))
+                chunks.append((member, X[start:start + T], Y[start:start + T]))
+            run.req_plans.append((ri, X, cis, X.shape[0] - off))
+        run.n_chunks = len(chunks)
+        run.t_chunks = time.monotonic() if timed else 0.0
         if self._m_bucket_calls is not None:
             self._m_bucket_calls.labels(bucket.label).inc()
             self._m_bucket_reqs.labels(bucket.label).inc(len(req_ids))
             self._m_bucket_batch.labels(bucket.label).record(float(len(chunks)))
+        B = _next_pow2(len(chunks))
+        run.shape = (B, T)
+        try:
+            run.Xb, x_clean = self._acquire(run, (B, T, F), np.float32)
+            run.Yb, y_clean = self._acquire(run, (B, T, F), np.float32)
+            run.idx, idx_clean = self._acquire(run, (B,), np.int32)
+            if self.device.type == "cuda":
+                # the page-locked buffer K2's packed result is copied into
+                n = T - off
+                run.out, _ = self._acquire(run, (B, 3 * n * F + 2 * n), np.float32)
+            Xb, Yb, idx = run.Xb, run.Yb, run.idx
+            routed = 0
+            for ci, (member, xc, yc) in enumerate(chunks):
+                n_rows = xc.shape[0]
+                Xb[ci, :n_rows] = xc
+                Yb[ci, :n_rows] = yc
+                if n_rows < T:
+                    if not x_clean:
+                        Xb[ci, n_rows:] = 0.0
+                    if not y_clean:
+                        Yb[ci, n_rows:] = 0.0
+                idx[ci] = member
+                routed += n_rows
+            if not x_clean:
+                Xb[len(chunks):] = 0.0
+            if not y_clean:
+                Yb[len(chunks):] = 0.0
+            if not idx_clean:
+                idx[len(chunks):] = 0
+        except BaseException:
+            run.release(self.arena)
+            raise
+        run.routed_rows, run.total_rows = routed, B * T
+        run.t_pad = time.monotonic() if timed else 0.0
+        return run
+
+    def _acquire(self, run: "_GroupRun", shape, dtype):
+        buf, clean = self.arena.acquire(shape, dtype)
+        run.bufs.append(buf)  # attached at once: a later failure releases it
+        return buf, clean
+
+    def _dispatch(self, run: "_GroupRun") -> None:
+        """Stage 2: on the card, the copies in, the forward and K2, and the
+        copy of K2's packed result into its page-locked buffer, all
+        enqueued on the current stream without waiting, then one event
+        recorded behind them; the device tensors stay referenced until
+        that event. On the CPU the forward runs here, to its end."""
+        bucket = run.bucket
+        run.t_dispatch = time.monotonic()
         dev = self.device
-        # one device-to-host copy of the packed result
-        flat = bucket.score_batch(
-            torch.from_numpy(idx).to(dev),
-            torch.from_numpy(Xb).to(dev),
-            torch.from_numpy(Yb).to(dev),
-        ).cpu().numpy()
-        n = T - off  # output rows per chunk
-        shapes = [(B, n, F)] * 3 + [(B, n)] * 2
-        widths = np.cumsum([0] + [int(np.prod(sh[1:])) for sh in shapes])
-        recon, diff, scaled, tu, ts = (
-            flat[:, a:b].reshape(sh) for a, b, sh in zip(widths[:-1], widths[1:], shapes)
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            idx = torch.from_numpy(run.idx).to(dev, non_blocking=True)
+            X = torch.from_numpy(run.Xb).to(dev, non_blocking=True)
+            Y = torch.from_numpy(run.Yb).to(dev, non_blocking=True)
+            run.dev_refs = (idx, X, Y)
+            flat = bucket.score_batch(idx, X, Y)
+            run.dev_refs = (idx, X, Y, flat)
+            torch.from_numpy(run.out).copy_(flat, non_blocking=True)
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
+            run.ev_start, run.event = start, done
+        else:
+            flat = bucket.score_batch(torch.from_numpy(run.idx), torch.from_numpy(run.Xb),
+                                      torch.from_numpy(run.Yb))
+            run.out = flat.numpy()
+            run.t_ready = run.t_device_done = time.monotonic()
+
+    def _postprocess(self, run: "_GroupRun", requests: Sequence[Request], results: List[Any],
+                     traces: Optional[Sequence[Any]]) -> None:
+        """Stage 3: wait on the group's event, slice each request's rows out
+        of the packed result as copies, record the spans, release."""
+        try:
+            if not run.t_ready:
+                try:
+                    # the group's window ends here when the host waited
+                    run.event.synchronize()
+                finally:
+                    run.t_ready = time.monotonic()
+            if run.ev_start is not None:
+                run.event_s = run.ev_start.elapsed_time(run.event) / 1e3
+            bucket = run.bucket
+            F, off = bucket.n_features, bucket.offset
+            B, T = run.shape
+            n = T - off  # output rows a chunk
+            flat = run.out
+            shapes = [(B, n, F)] * 3 + [(B, n)] * 2
+            widths = np.cumsum([0] + [int(np.prod(sh[1:])) for sh in shapes])
+            outs = [flat[:, a:b].reshape(sh) for a, b, sh in zip(widths[:-1], widths[1:], shapes)]
+            for ri, X, cis, n_out in run.req_plans:
+                # copies, never views into a pooled buffer
+                if len(cis) == 1:
+                    vals = [a[cis[0]][:n_out].copy() for a in outs]
+                else:
+                    vals = [np.concatenate([a[ci] for ci in cis], axis=0)[:n_out] for a in outs]
+                results[ri] = ScoreResult(
+                    tags=self._tags[requests[ri][0]], model_input=X, model_output=vals[0], diff=vals[1],
+                    scaled=vals[2], total_unscaled=vals[3], total_scaled=vals[4], offset=off)
+            if run.group_traces or self.ledger is not None:
+                run.t_post = time.monotonic()
+            if run.group_traces:
+                # the stage boundaries are the group's: every traced request
+                # in it gets the same timestamps
+                label = bucket.label
+                for ri in run.req_ids:
+                    tr = traces[ri]
+                    if tr is None:
+                        continue
+                    tr.add_span("coalesce", run.t_group, run.t_chunks, bucket=label,
+                                requests=len(run.req_ids), chunks=run.n_chunks)
+                    tr.add_span("pad", run.t_chunks, run.t_pad)
+                    tr.add_span("device_execute", run.t_dispatch, run.t_ready, bucket=label)
+                    tr.add_span("postprocess", run.t_ready, run.t_post)
+        finally:
+            run.dev_refs = None
+            run.release(self.arena)
+
+    def _account_group(self, run: "_GroupRun", results: List[Any], window_s: float, ok: bool) -> None:
+        """The goodput ledger's share of one finished group: its device
+        window split by real and pad rows, the useful share apportioned to
+        its requests by their rows (``ScoreResult.device_s``); a failed
+        group's useful share is wasted outright."""
+        total = run.total_rows
+        pad_frac = (1.0 - run.routed_rows / total) if total else 0.0
+        padded_s = window_s * pad_frac
+        useful_s = window_s - padded_s
+        self.ledger.account_group(
+            bucket=run.bucket.label, window_s=window_s, useful_s=useful_s, padded_s=padded_s, ok=ok,
+            coalesce_s=max(0.0, run.t_chunks - run.t_group) if run.t_group else 0.0,
+            pad_s=max(0.0, run.t_pad - run.t_chunks) if run.t_chunks else 0.0,
+            postprocess_s=max(0.0, run.t_post - run.t_ready) if run.t_post else 0.0,
+            shard_rows=(("0", run.routed_rows, total - run.routed_rows),),
         )
-        per_req: Dict[int, List[int]] = {}
-        for ci, (pos, _m, _s) in enumerate(chunks):
-            per_req.setdefault(pos, []).append(ci)
-        for pos, ri in enumerate(req_ids):
-            n_out = rows[pos].shape[0] - off
-            cis = per_req[pos]
-
-            def take(a):
-                return np.concatenate([a[ci] for ci in cis], axis=0)[:n_out].copy()
-
-            results[ri] = ScoreResult(
-                tags=self._tags[requests[ri][0]],
-                model_input=rows[pos],
-                model_output=take(recon),
-                diff=take(diff),
-                scaled=take(scaled),
-                total_unscaled=take(tu),
-                total_scaled=take(ts),
-                offset=off,
-            )
+        if ok and useful_s > 0.0:
+            req_rows = sum(plan[1].shape[0] for plan in run.req_plans)
+            if req_rows:
+                per_row = useful_s / req_rows
+                for ri, X, _cis, _n_out in run.req_plans:
+                    r = results[ri]
+                    if isinstance(r, ScoreResult):
+                        r.device_s = per_row * X.shape[0]

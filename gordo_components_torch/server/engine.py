@@ -28,6 +28,14 @@ a collector of the bank's registry as ``gordo_engine_*``, with the
 ``queue_wait`` (submit to dispatch) and ``service`` (submit to result)
 histograms. The JAX engine's per-class series belong to QoS and are not
 ported yet.
+
+Traces and goodput, as in the JAX engine: a request's trace rides its
+``_Pending`` (a context variable does not cross from the HTTP thread to
+the worker), the worker records its ``queue_wait`` span (submit to
+dispatch, with the batch size) and passes the batch's traces to the
+bank, which records the stage spans; each dispatched request's wait goes
+to the bank's goodput ledger (``record_queue_wait``). An expiry records a
+``deadline_expired`` span where it happened (admission, queue, retry).
 """
 
 import queue
@@ -54,6 +62,7 @@ class _Pending:
     enqueued: float  # monotonic seconds at submission
     deadline: Optional[Deadline] = None
     request_id: Optional[str] = None
+    trace: Optional[Any] = None  # observability.tracing.Trace, or None
 
 
 class EngineOverloaded(Exception):
@@ -174,19 +183,24 @@ class BatchingEngine:
         return max(self.flush_s, depth / self.max_batch * max(self._batch_s, 1e-3))
 
     def submit(self, name: str, X: np.ndarray, y: Optional[np.ndarray] = None,
-               deadline: Optional[Deadline] = None, request_id: Optional[str] = None) -> Future:
+               deadline: Optional[Deadline] = None, request_id: Optional[str] = None,
+               trace=None) -> Future:
         """Queue one request; its future resolves to a :class:`ScoreResult`.
-        An expired ``deadline`` raises :class:`DeadlineExceeded` here."""
+        An expired ``deadline`` raises :class:`DeadlineExceeded` here.
+        ``trace`` receives the request's engine and bank spans."""
         if self._thread is None:
             raise RuntimeError("engine is not running (call start() first)")
         if deadline is not None and deadline.expired():
             # queueing it would only grow the backlog by known waste
             self._bump("deadline_expired")
+            if trace is not None:
+                now = time.monotonic()
+                trace.add_span("deadline_expired", now, now, error=True, where="admission")
             raise DeadlineExceeded(f"deadline expired before admission (rid={request_id}, "
                                    f"budget {deadline.budget_s * 1e3:.0f}ms)")
         fut: Future = Future()
         try:
-            self._queue.put_nowait(_Pending(name, X, y, fut, time.monotonic(), deadline, request_id))
+            self._queue.put_nowait(_Pending(name, X, y, fut, time.monotonic(), deadline, request_id, trace))
         except queue.Full:
             self._bump("shed")
             depth = self._queue.qsize()
@@ -196,11 +210,11 @@ class BatchingEngine:
     def score_blocking(
         self, name: str, X: np.ndarray, y: Optional[np.ndarray] = None,
         timeout: Optional[float] = None, deadline: Optional[Deadline] = None,
-        request_id: Optional[str] = None,
+        request_id: Optional[str] = None, trace=None,
     ) -> ScoreResult:
         """Score one request from a plain thread, blocking until its batch
         is done."""
-        return self.submit(name, X, y, deadline, request_id).result(timeout)
+        return self.submit(name, X, y, deadline, request_id, trace).result(timeout)
 
     def _collect(self, first: _Pending):
         batch = [first]
@@ -228,33 +242,47 @@ class BatchingEngine:
                 self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"], len(batch))
             # one clock read drops the expired entries before device work
             dispatch = time.monotonic()
+            # the goodput ledger, through the bank: a swapped-in bank keeps
+            # feeding the app's ledger
+            bank = self.bank
+            led = getattr(bank, "ledger", None)
             live: List[_Pending] = []
             batch_deadline: Optional[Deadline] = None
             for p in batch:
                 self.queue_wait.record(dispatch - p.enqueued)
-                if p.deadline is None:
-                    live.append(p)
-                elif p.deadline.expired(dispatch):
+                if led is not None:
+                    led.record_queue_wait(dispatch - p.enqueued)
+                if p.deadline is not None and p.deadline.expired(dispatch):
                     self._bump("deadline_expired")
+                    if p.trace is not None:
+                        p.trace.add_span("deadline_expired", p.enqueued, dispatch, error=True, where="queue")
                     p.future.set_exception(DeadlineExceeded(
                         f"deadline expired in scoring queue after {(dispatch - p.enqueued) * 1e3:.0f}ms "
                         f"wait (rid={p.request_id}, budget {p.deadline.budget_s * 1e3:.0f}ms)"))
                     self.service.record(dispatch - p.enqueued)
-                else:
-                    live.append(p)
-                    # the earliest deadline bounds the whole batch
-                    if batch_deadline is None or p.deadline.expires_at < batch_deadline.expires_at:
-                        batch_deadline = p.deadline
+                    continue
+                live.append(p)
+                # the earliest deadline bounds the whole batch
+                if p.deadline is not None and (batch_deadline is None
+                                               or p.deadline.expires_at < batch_deadline.expires_at):
+                    batch_deadline = p.deadline
             if not live:
                 continue
-            # one read of the bank a batch: a swap (server/swap.py) that
-            # flips self.bank meanwhile leaves this batch on the old bank
-            bank = self.bank
+            traced = False
+            for p in live:
+                if p.trace is not None:
+                    traced = True
+                    p.trace.add_span("queue_wait", p.enqueued, dispatch, batch=len(live))
+            # the bank read once above: a swap (server/swap.py) that flips
+            # self.bank meanwhile leaves this batch on the old bank
             requests = [(p.name, p.X, p.y) for p in live]
             failed: List[_Pending] = []
             try:
-                results: List[Any] = bank.score_many(requests, deadline=batch_deadline,
-                                                     return_exceptions=True)
+                if traced:
+                    results: List[Any] = bank.score_many(requests, traces=[p.trace for p in live],
+                                                         deadline=batch_deadline, return_exceptions=True)
+                else:
+                    results = bank.score_many(requests, deadline=batch_deadline, return_exceptions=True)
             except Exception:
                 failed = live
             else:
@@ -274,15 +302,22 @@ class BatchingEngine:
     def _retry_one(self, bank, p: _Pending) -> None:
         """Score a request again alone after its group failed (or the
         batch's deadline cut it off), first judged against its own
-        deadline."""
+        deadline. Its trace rides along unless its group recorded its
+        stage spans before another group failed."""
         if p.deadline is not None and p.deadline.expired():
             self._bump("deadline_expired")
+            if p.trace is not None:
+                p.trace.add_span("deadline_expired", p.enqueued, time.monotonic(), error=True, where="retry")
             p.future.set_exception(DeadlineExceeded(
                 f"deadline expired before retry (rid={p.request_id}, "
                 f"budget {p.deadline.budget_s * 1e3:.0f}ms)"))
         else:
+            trace = p.trace
+            if trace is not None and any(s.name == "device_execute" for s in trace.spans):
+                trace = None
             try:
-                p.future.set_result(bank.score(p.name, p.X, p.y))
+                result = bank.score(p.name, p.X, p.y) if trace is None else bank.score(p.name, p.X, p.y, trace)
+                p.future.set_result(result)
             except Exception as exc:
                 p.future.set_exception(exc)
         self.service.record(time.monotonic() - p.enqueued)

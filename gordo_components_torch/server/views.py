@@ -9,6 +9,10 @@ Counterpart of these routes of ``gordo_components_tpu/server/views.py``:
 - ``GET  /gordo/v0/<project>/stats``
 - ``GET  /gordo/v0/<project>/metrics``
 - ``GET  /gordo/v0/<project>/quarantine``
+- ``GET  /gordo/v0/<project>/traces`` (``?id=``, ``?n=``, ``?format=chrome``)
+- ``GET  /gordo/v0/<project>/traces/slow`` (``?n=``, ``?format=chrome``)
+- ``GET  /gordo/v0/<project>/slo`` (``?refresh=1``)
+- ``GET  /gordo/v0/<project>/costs`` (``?refresh=1``)
 - ``POST /gordo/v0/<project>/quarantine/clear``
 - ``POST /gordo/v0/<project>/reload``
 - ``GET  /gordo/v0/<project>/<target>/healthcheck``
@@ -35,7 +39,16 @@ when nothing matched), errors (every status of 400 or more) and scoring
 POSTs and their bytes by encoding, records the latency per kind, echoes
 the client's ``X-Gordo-Request-Id`` (or a server-made ``srv-<hex>``) and
 ``X-Request-Id`` on every response, and reads the request's deadline
-from ``X-Gordo-Deadline-Ms`` or the app's default.
+from ``X-Gordo-Deadline-Ms`` or the app's default. With a tracer it opens
+the request's trace (continuing an incoming ``traceparent``), answers
+``X-Request-Id`` as the trace id and echoes ``traceparent``, and once the
+trace is retained names it as the exemplar of the latency bucket the
+request landed in; the trace rides the engine's queue and collects the
+``parse``, ``queue_wait``, ``coalesce``, ``pad``, ``device_execute`` and
+``postprocess`` spans (the per-model path's ``device_execute`` spans the
+model's own call). A scoring request's outcome goes to the goodput ledger
+with its device seconds: a 504 counts as expired, a 200 with non-finite
+scores for finite input as wasted.
 
 The quarantine breaker (``resilience/quarantine.py``) reads every scoring
 answer: a non-finite output (the ``total-anomaly-scaled`` column of an
@@ -67,6 +80,9 @@ from urllib.parse import parse_qs
 import numpy as np
 
 from gordo_components_torch import __version__, serializer
+from gordo_components_torch.observability.metrics import _fmt
+from gordo_components_torch.observability.tracing import chrome_trace, format_traceparent
+from gordo_components_torch.qos.classify import classify_headers
 from gordo_components_torch.resilience.deadline import (
     DEADLINE_HEADER,
     Deadline,
@@ -98,6 +114,10 @@ _ROUTES = [
     ("GET", re.compile(_P + r"/stats$"), "server_stats"),
     ("GET", re.compile(_P + r"/metrics$"), "metrics"),
     ("GET", re.compile(_P + r"/quarantine$"), "quarantine_list"),
+    ("GET", re.compile(_P + r"/traces$"), "traces_recent"),
+    ("GET", re.compile(_P + r"/traces/slow$"), "traces_slow"),
+    ("GET", re.compile(_P + r"/slo$"), "slo_view"),
+    ("GET", re.compile(_P + r"/costs$"), "costs_view"),
     ("POST", re.compile(_P + r"/quarantine/clear$"), "quarantine_clear"),
     ("POST", re.compile(_P + r"/reload$"), "reload"),
     ("GET", re.compile(_T + r"/healthcheck$"), "healthcheck"),
@@ -214,6 +234,11 @@ class GordoHandler(BaseHTTPRequestHandler):
             hist = stats["latency"].get(kind)
             if hist is None:
                 hist = stats["latency"][kind] = LatencyHistogram()
+        # the scoring path's goodput inputs, set by the handlers
+        self.device_s, self.scores_finite = 0.0, True
+        self.trace = None
+        if app.tracer is not None:
+            self.trace = app.tracer.start_trace(kind, traceparent=self.headers.get("traceparent"), request_id=rid)
         t0 = time.monotonic()
         headers: Dict[str, str] = {}
         try:
@@ -229,11 +254,32 @@ class GordoHandler(BaseHTTPRequestHandler):
             status, body = 500, {"error": "internal server error", "request_id": rid}
         # errored requests count too: a timeout-then-500 pattern is what a
         # tail-latency histogram exists to show
-        hist.record(time.monotonic() - t0)
+        elapsed = time.monotonic() - t0
+        hist.record(elapsed)
+        if kind in _SCORING and app.ledger is not None:
+            # the untagged tenant is "default"; any other collapses to "other"
+            # (no QoS configuration names tenants yet)
+            qos = classify_headers(self.headers)
+            app.ledger.finish_request(status=status, elapsed_s=elapsed, device_s=self.device_s,
+                                      scores_finite=self.scores_finite, tenant=qos.label_tenant(None),
+                                      qos_class=qos.qos_class)
+        trace = self.trace
+        if trace is not None:
+            trace.finish(error=status >= 400, status=status)
+            # only a retained trace publishes an exemplar: a head-sample
+            # drop must not leave an id /traces cannot resolve
+            if trace.retained:
+                with app.stats_lock:
+                    app.stats["exemplars"].setdefault(kind, {})[_fmt(hist.bucket_le(elapsed))] = {
+                        "trace_id": trace.trace_id, "value_ms": round(elapsed * 1e3, 3), "at": round(time.time(), 3)}
         if status >= 400:
             with app.stats_lock:
                 app.stats["errors"] += 1
-        self._send(status, body, {**headers, "X-Gordo-Request-Id": rid, "X-Request-Id": rid})
+        headers = {**headers, "X-Gordo-Request-Id": rid,
+                   "X-Request-Id": trace.trace_id if trace is not None else rid}
+        if trace is not None:
+            headers["traceparent"] = format_traceparent(trace.trace_id, trace.root.span_id)
+        self._send(status, body, headers)
 
     def _send(self, status: int, body: Any, headers: Optional[Dict[str, str]] = None) -> None:
         if isinstance(body, Raw):
@@ -266,21 +312,27 @@ class GordoHandler(BaseHTTPRequestHandler):
 
     def _parse(self):
         """(X, y, index) of a JSON or parquet POST body; 400 for one that
-        does not parse."""
+        does not parse. A traced request gets its ``parse`` span."""
+        t_parse = time.monotonic()
+        encoding = _encoding_of(self.headers.get("Content-Type"))
         raw = self._read_body()
-        if "parquet" in (self.headers.get("Content-Type") or ""):
+        try:
+            if encoding == "parquet":
+                try:
+                    return extract_x_y_parquet(raw)
+                except (ValueError, NotImplementedError) as exc:
+                    raise HTTPError(400, f"{type(exc).__name__}: {exc}") from None
             try:
-                return extract_x_y_parquet(raw)
-            except (ValueError, NotImplementedError) as exc:
-                raise HTTPError(400, f"{type(exc).__name__}: {exc}") from None
-        try:
-            body = json.loads(raw)
-        except ValueError:
-            raise HTTPError(400, "Expected JSON body with an X entry") from None
-        try:
-            return extract_x_y(body)
-        except ValueError as exc:
-            raise HTTPError(400, str(exc)) from None
+                body = json.loads(raw)
+            except ValueError:
+                raise HTTPError(400, "Expected JSON body with an X entry") from None
+            try:
+                return extract_x_y(body)
+            except ValueError as exc:
+                raise HTTPError(400, str(exc)) from None
+        finally:
+            if self.trace is not None:
+                self.trace.add_span("parse", t_parse, time.monotonic(), encoding=encoding)
 
     def _engine(self, target: str):
         """The batching engine when the bank holds ``target``, else None:
@@ -308,19 +360,29 @@ class GordoHandler(BaseHTTPRequestHandler):
             engine = self.app.engine
             if engine is not None:
                 engine.note_deadline_expired()
+            if self.trace is not None:
+                now = time.monotonic()
+                self.trace.add_span("deadline_expired", now, now, error=True, where="per-model")
             raise DeadlineExceeded("deadline expired before dispatch")
 
     def _score(self, target: str, bank_call, model_call):
         """Run ``bank_call(engine)`` on the bank path or ``model_call()`` on
         the per-model path, and map their errors as the JAX handlers do:
         429 for a full queue, 504 for a passed deadline, 400 for the rest,
-        which counts against the breaker unless it is a bad request's."""
+        which counts against the breaker unless it is a bad request's. The
+        per-model call's time is the request's device seconds and its
+        ``device_execute`` span."""
         engine = self._engine(target)
         try:
             if engine is not None:
                 return bank_call(engine)
             self._check_deadline_per_model()
-            return model_call()
+            t0 = time.monotonic()
+            out = model_call()
+            self.device_s = time.monotonic() - t0
+            if self.trace is not None:
+                self.trace.add_span("device_execute", t0, t0 + self.device_s, path="per-model")
+            return out
         except EngineOverloaded as exc:
             raise HTTPError(
                 429, str(exc),
@@ -340,10 +402,11 @@ class GordoHandler(BaseHTTPRequestHandler):
     def _note_scoring_result(self, target: str, X: np.ndarray, values) -> None:
         """A finite answer resets ``target``'s streak; a non-finite one for
         finite input counts as a failure (non-finite input is the client's
-        data, not the model's fault)."""
+        data, not the model's fault), and as wasted work in the ledger."""
         if np.all(np.isfinite(values)):
             self.app.quarantine.record_success(target)
         elif np.all(np.isfinite(X)):
+            self.scores_finite = False
             self.app.quarantine.record_failure(target, "non-finite scores in model output")
 
     def _coverage(self, names) -> Optional[Dict[str, Any]]:
@@ -426,9 +489,12 @@ class GordoHandler(BaseHTTPRequestHandler):
         return 200, body
 
     def server_stats(self, project: str):
-        """Request counters by kind, errors, latency percentiles, the wire
-        by encoding, the engine's coalescing, the breaker and the registry's
-        JSON view (JAX ``server_stats``, with the keys the port fills)."""
+        """Request counters by kind, errors, latency percentiles and their
+        exemplar traces, the wire by encoding, the engine's coalescing, the
+        bank's pipeline, the breaker, the goodput ledger, the SLO and cost
+        snapshots (the same caches ``/slo`` and ``/costs`` serve) and the
+        registry's JSON view (JAX ``server_stats``, with the keys the port
+        fills)."""
         app = self.app
         with app.stats_lock:
             stats = app.stats
@@ -439,10 +505,11 @@ class GordoHandler(BaseHTTPRequestHandler):
             }
             latency = dict(stats["latency"])
             wire = {"requests": dict(stats["wire"]["requests"]), "bytes": dict(stats["wire"]["bytes"])}
+            exemplars = {kind: dict(edges) for kind, edges in stats["exemplars"].items()}
         collection = app.collection
         body["models"] = len(collection.models)
         body["latency"] = {kind: hist.snapshot() for kind, hist in latency.items()}
-        body["exemplars"] = {}  # no tracer yet
+        body["exemplars"] = exemplars
         body["wire"] = wire
         body["workers"] = {}  # no worker pool
         engine = app.engine
@@ -455,9 +522,17 @@ class GordoHandler(BaseHTTPRequestHandler):
             es["max_queue"] = engine.max_queue
             es["queue_depth"] = engine._queue.qsize()
             body["bank_engine"] = es
-        if app.bank is not None:
-            body["bank_models"] = len(app.bank)
+        bank = app.bank
+        if bank is not None:
+            body["bank_models"] = len(bank)
+            body["bank_pipeline"] = bank.pipeline_stats()
         body["quarantine"] = app.quarantine.snapshot()
+        if app.ledger is not None:
+            body["goodput"] = app.ledger.snapshot()
+        if app.slo is not None:
+            body["slo"] = app.slo.snapshot()
+        if app.cost is not None:
+            body["costs"] = app.cost.snapshot()
         body["load_failures"] = {"current": dict(collection.load_failures),
                                  "total": collection.load_failed_total}
         body["metrics"] = app.metrics.snapshot()
@@ -466,6 +541,64 @@ class GordoHandler(BaseHTTPRequestHandler):
     def metrics(self, project: str):
         """The app's registry as Prometheus text."""
         return 200, Raw(self.app.metrics.render().encode("utf-8"), METRICS_CONTENT_TYPE)
+
+    def _tracer(self):
+        tracer = self.app.tracer
+        return tracer if tracer is not None and tracer.enabled else None
+
+    def _query_n(self, default: str):
+        """``?n=`` as a non-negative int (0: unbounded), else 400."""
+        try:
+            n = int(self.query.get("n", [default])[-1])
+        except ValueError:
+            n = -1
+        if n < 0:
+            raise HTTPError(400, "n must be a non-negative integer")
+        return n or None
+
+    def _traces(self, traces):
+        """``?format=chrome``: Chrome trace events; else summaries and span trees."""
+        if self.query.get("format", [""])[-1] == "chrome":
+            return 200, chrome_trace(traces)
+        return 200, {"enabled": True, "traces": [t.summary() for t in traces]}
+
+    def traces_recent(self, project: str):
+        """Recent retained traces, newest first (``?n=``, default 50);
+        ``?id=`` one trace from the ring or the slow reservoir."""
+        tracer = self._tracer()
+        if tracer is None:
+            return 200, {"enabled": False, "traces": []}
+        trace_id = self.query.get("id", [""])[-1]
+        if trace_id:
+            return self._traces(tracer.find(trace_id))
+        return self._traces(tracer.recent(self._query_n("50")))
+
+    def traces_slow(self, project: str):
+        """The slowest traces, slowest first, whatever the head sampling."""
+        tracer = self._tracer()
+        if tracer is None:
+            return 200, {"enabled": False, "traces": []}
+        return self._traces(tracer.slow(self._query_n("0")))
+
+    def slo_view(self, project: str):
+        """Per-objective windowed ratios and burn rates (``?refresh=1``
+        samples first), with the ledger's snapshot."""
+        app = self.app
+        if app.slo is None:
+            return 200, {"enabled": False}
+        if self.query.get("refresh", [""])[-1].lower() in _TRUE:
+            app.slo.sample(force=True)
+        return 200, {"enabled": True, **app.slo.snapshot(), "goodput": app.ledger.snapshot()}
+
+    def costs_view(self, project: str):
+        """Per-bucket FLOPs, MFU, device seconds a 1,000 rows and pad waste
+        (``?refresh=1`` joins anew)."""
+        cost = self.app.cost
+        if cost is None:
+            return 200, {"enabled": False}
+        if self.query.get("refresh", [""])[-1].lower() in _TRUE:
+            cost.sample(force=True)
+        return 200, {"enabled": True, **cost.snapshot()}
 
     def quarantine_list(self, project: str):
         return 200, {"enabled": True, **self.app.quarantine.snapshot()}
@@ -535,12 +668,13 @@ class GordoHandler(BaseHTTPRequestHandler):
         model, _ = self._entry(target)
         self._quarantine_gate(project, target)
         X, y, index = self._parse()
-        out = self._score(
-            target,
-            lambda engine: engine.score_blocking(target, X, y, deadline=self.deadline,
-                                                 request_id=self.request_id).model_output,
-            lambda: model.predict(X),
-        )
+        def banked(engine):
+            result = engine.score_blocking(target, X, y, deadline=self.deadline, request_id=self.request_id,
+                                           trace=self.trace)
+            self.device_s = result.device_s
+            return result.model_output
+
+        out = self._score(target, banked, lambda: model.predict(X))
         self._note_scoring_result(target, X, out)
         return 200, prediction_body(out, index[len(index) - len(out):])
 
@@ -552,9 +686,14 @@ class GordoHandler(BaseHTTPRequestHandler):
         X, y, index = self._parse()
 
         def banked(engine):
-            result = engine.score_blocking(target, X, y, deadline=self.deadline,
-                                           request_id=self.request_id)
-            return result.tags, result.to_arrays(), result.offset, None
+            result = engine.score_blocking(target, X, y, deadline=self.deadline, request_id=self.request_id,
+                                           trace=self.trace)
+            self.device_s = result.device_s
+            t0 = time.monotonic()
+            arrays = result.to_arrays()
+            if self.trace is not None:
+                self.trace.add_span("postprocess", t0, time.monotonic(), stage="to_arrays")
+            return result.tags, arrays, result.offset, None
 
         def per_model():
             arrays = model.anomaly(X, y)

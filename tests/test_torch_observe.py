@@ -115,22 +115,13 @@ STEPS = [
 # ROADMAP.md's queue A that brings them (each is named there)
 NOT_RENDERED = {
     # A1, the rest of the server's observability: QoS and its per-class
-    # engine series, goodput and SLOs, heat, costs, events, and the bank's
-    # in-flight pipeline and buffer arena
+    # engine series, heat and events
     "gordo_engine_class_requests_total", "gordo_engine_class_shed_total",
     "gordo_engine_class_deadline_expired_total", "gordo_engine_class_queue_depth",
     "gordo_qos_admitted_total", "gordo_qos_unknown_tenant_total",
-    "gordo_goodput_ratio", "gordo_goodput_requests_total", "gordo_goodput_tenant_requests_total",
-    "gordo_goodput_device_seconds_total", "gordo_goodput_bucket_device_seconds_total",
-    "gordo_goodput_stage_seconds_total", "gordo_goodput_shard_padded_row_ratio",
-    "gordo_device_busy_ratio", "gordo_padded_row_waste_ratio", "gordo_slo_burn_rate",
     "gordo_heat_member_rate", "gordo_heat_members_tracked", "gordo_heat_rows_rate",
     "gordo_heat_tier_members",
-    "gordo_bucket_device_seconds_per_1k_rows", "gordo_bucket_flops_per_row", "gordo_bucket_mfu",
-    "gordo_bucket_pad_waste_score",
     "gordo_events_total",
-    "gordo_bank_inflight_groups", "gordo_bank_arena_bytes", "gordo_bank_arena_hits_total",
-    "gordo_bank_arena_misses_total",
     # A5, the low-precision bank
     "gordo_bank_quantize_fallback_total", "gordo_bank_weight_bytes", "gordo_bank_models_per_gb",
     # A6, multi-device: the sharded bank and the placement controller
@@ -200,8 +191,21 @@ def served(tmp_path_factory):
     for name, model in models.items():
         jax_serializer.dump(model, str(jax_root / name), metadata={"name": name})
     assert TOOL.main([str(jax_root), str(port_root)]) == 0
-    jax = asyncio.run(_jax_answers(str(jax_root)))
-    server = run_server(str(port_root), host="127.0.0.1", port=0, device="cpu", background=True)
+    # on both servers: one SLO sample for the whole sequence, however long
+    # it takes (a second one would render gordo_slo_objective_ratio), and
+    # every trace kept (head sampling would drop random kinds' exemplars)
+    pinned = {"GORDO_SLO_SAMPLE_S": "3600", "GORDO_TRACE_SAMPLE": "1"}
+    env = {k: os.environ.get(k) for k in pinned}
+    os.environ.update(pinned)
+    try:
+        jax = asyncio.run(_jax_answers(str(jax_root)))
+        server = run_server(str(port_root), host="127.0.0.1", port=0, device="cpu", background=True)
+    finally:
+        for k, v in env.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
     try:
         port = {key: call(server, method, path, raw, headers) for key, method, path, raw, headers in STEPS}
         yield server, jax, port
@@ -232,7 +236,10 @@ def test_stats_counters_match_jax(served):
         assert got["bank_engine"][key] == want["bank_engine"][key], key
     assert got["bank_engine"]["deadline_expired"] == 2  # the bank's 504 and the per-model one
     assert got["bank_models"] == want["bank_models"] == 3
-    assert got["exemplars"] == {} and got["workers"] == {}
+    # exemplars: the same kinds, each naming a trace the port retained
+    assert sorted(got["exemplars"]) == sorted(want["exemplars"]) and got["workers"] == {}
+    for edges in got["exemplars"].values():
+        assert all(len(ex["trace_id"]) == 32 for ex in edges.values())
     assert _without_since(got["quarantine"]) == _without_since(want["quarantine"])
     assert got["load_failures"] == want["load_failures"] == {"current": {}, "total": 0}
     assert sorted(got["latency"]) == sorted(want["latency"])
@@ -309,7 +316,9 @@ def test_the_504_answers_and_request_ids_match_jax(served):
         assert status == 504 and sorted(body) == sorted(jax_body) == ["error", "request_id"]
         assert body["request_id"] == jax_body["request_id"] == rid
         assert headers["X-Gordo-Request-Id"] == jax_headers["X-Gordo-Request-Id"] == rid
-        assert headers["X-Request-Id"] == rid and "Retry-After" not in headers
+        # traced, as on the JAX server: X-Request-Id is the trace id
+        assert "Retry-After" not in headers and headers["X-Request-Id"] != rid
+        assert len(headers["X-Request-Id"]) == len(jax_headers["X-Request-Id"]) == 32
     assert port["a_long_rid"][1]["X-Gordo-Request-Id"] == jax["a_long_rid"][1]["X-Gordo-Request-Id"] == "r" * 128
     made = port["healthz_ok"][1]["X-Gordo-Request-Id"]
     assert made.startswith("srv-") and int(made[4:], 16) > 0
@@ -354,13 +363,13 @@ def test_score_many_stops_between_bucket_groups(served, monkeypatch):
     monkeypatch.setattr(port_deadline, "time", _Clock)
     _Clock.now = 0.0
     deadline = port_deadline.Deadline(1.0)
-    group = bank._score_group
+    dispatch = bank._dispatch
 
-    def then_late(*args):
-        group(*args)
+    def then_late(run):
+        dispatch(run)
         _Clock.now = 2.0  # the deadline passes after the first group
 
-    monkeypatch.setattr(bank, "_score_group", then_late)
+    monkeypatch.setattr(bank, "_dispatch", then_late)
     results = bank.score_many(requests, deadline=deadline, return_exceptions=True)
     assert isinstance(results[1], port_deadline.DeadlineExceeded)
     for got, want in zip((results[0], results[2]), alone):
