@@ -48,6 +48,7 @@ from gordo_components_torch.resilience.quarantine import DEFAULT_THRESHOLD, Quar
 from gordo_components_torch.server.bank import ModelBank, ScoreResult
 from gordo_components_torch.server.engine import BatchingEngine, EngineOverloaded
 from gordo_components_torch.server.model_io import ModelCollection, scan_artifacts
+from gordo_components_torch.server.swap import warmup_enabled
 from gordo_components_torch.server.views import GordoServer
 
 
@@ -95,7 +96,7 @@ class App:
         if bank is not None and len(bank):
             self.engine = BatchingEngine(bank, **engine_config)
             self.engine.start()
-            if os.environ.get("GORDO_SERVER_WARMUP", "1") != "0":
+            if warmup_enabled():
                 # off the request path: the port answers while it runs
                 self._warmup = threading.Thread(target=bank.warmup, name="gordo-bank-warmup", daemon=True)
                 self._warmup.start()

@@ -516,6 +516,8 @@ class ModelBank:
         # 0 for the bank a server starts with; server/swap.py gives each
         # bank it swaps in the generation after the one it replaces
         self.generation = 0
+        # a reload's build and warm-up seconds (server/swap.build_bank)
+        self.build_s = self.warmup_s = 0.0
         # metrics registry: None = the process default, False = none (the
         # uninstrumented control); a /reload's bank gets the app's, so the
         # counters go on across the swap

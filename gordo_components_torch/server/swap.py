@@ -1,11 +1,16 @@
 """Zero-downtime bank swap.
 
-Counterpart of ``swap_bank`` in ``gordo_components_tpu/placement/swap.py``,
-for the port's one-device bank. ``POST .../reload`` builds the new bank to
-the side (``ModelBank.from_models`` over the collection's current models,
-with the app's bank settings) while the old bank keeps serving, then
+Counterpart of ``build_bank`` and ``swap_bank`` in
+``gordo_components_tpu/placement/swap.py``, for the port's one-device
+bank. ``POST .../reload`` builds the new bank to the side with
+:func:`build_bank` (``ModelBank.from_models`` over the collection's current
+models, with the app's bank settings, then its warm-up unless
+``GORDO_SERVER_WARMUP=0``) while the old bank keeps serving, then
 :func:`swap_bank` flips ``app.bank`` and ``engine.bank`` to it, one
-generation above the old one. The engine reads its bank once a batch, so a
+generation above the old one. The warm-up runs the new bank's buckets at
+the warm shapes before the flip, so its arena holds their page-locked
+buffers before its first request (on the card the first groups after a
+flip would otherwise pay those allocations on the request path). The engine reads its bank once a batch, so a
 batch in flight drains on the old bank and the next one scores on the new;
 no request sees a torn state. If the build fails, nothing is flipped and
 the old bank keeps serving. The old bank is freed when its last batch lets
@@ -20,8 +25,10 @@ counts and the multi-worker engines.
 """
 
 import logging
+import os
 import time
 from dataclasses import dataclass
+from typing import Optional
 
 from gordo_components_torch.server.bank import ModelBank
 from gordo_components_torch.server.engine import BatchingEngine
@@ -34,6 +41,31 @@ class SwapResult:
     generation: int
     pause_s: float  # the flip's wall time
     bank_models: int
+    build_s: float = 0.0  # the new bank's build, before the flip
+    warmup_s: float = 0.0  # its warm-up, before the flip
+
+
+def warmup_enabled() -> bool:
+    """``GORDO_SERVER_WARMUP`` != ``"0"``: the server's start and every
+    reload warm their bank."""
+    return os.environ.get("GORDO_SERVER_WARMUP", "1") != "0"
+
+
+def build_bank(app, warmup: Optional[bool] = None) -> ModelBank:
+    """The bank of the collection's current models with the app's bank
+    settings, warmed (``warmup`` defaults to :func:`warmup_enabled`); the
+    old bank serves meanwhile. ``build_s`` and ``warmup_s`` are recorded
+    on it. A warm-up that raises fails the build."""
+    t0 = time.monotonic()
+    bank = ModelBank.from_models(app.collection.models, **app.bank_config)
+    bank.build_s = time.monotonic() - t0
+    if warmup is None:
+        warmup = warmup_enabled()
+    t1 = time.monotonic()
+    if warmup and len(bank):
+        bank.warmup()
+    bank.warmup_s = time.monotonic() - t1
+    return bank
 
 
 def swap_bank(app, new_bank: ModelBank) -> SwapResult:
@@ -57,4 +89,4 @@ def swap_bank(app, new_bank: ModelBank) -> SwapResult:
     pause_s = time.monotonic() - t0
     logger.info("bank swapped to generation %d (%d model(s), flip pause %.3f ms)",
                 new_bank.generation, len(new_bank), pause_s * 1e3)
-    return SwapResult(new_bank.generation, pause_s, len(new_bank))
+    return SwapResult(new_bank.generation, pause_s, len(new_bank), new_bank.build_s, new_bank.warmup_s)

@@ -89,10 +89,9 @@ from gordo_components_torch.resilience.deadline import (
     DeadlineExceeded,
     parse_deadline_ms,
 )
-from gordo_components_torch.server.bank import ModelBank
 from gordo_components_torch.server.engine import EngineOverloaded
 from gordo_components_torch.server.stats import LatencyHistogram
-from gordo_components_torch.server.swap import swap_bank
+from gordo_components_torch.server.swap import build_bank, swap_bank
 from gordo_components_torch.server.utils import (
     anomaly_body,
     extract_x_y,
@@ -620,11 +619,12 @@ class GordoHandler(BaseHTTPRequestHandler):
         return 200, {"enabled": True, "cleared": self.app.quarantine.clear(targets)}
 
     def reload(self, project: str):
-        """Rescan the model directory, then build a new bank from the
-        collection's models and swap it in (``swap.py``), one reload at a
-        time. A replaced or removed model's quarantine verdict is dropped:
-        it belonged to the old artifact. A failed bank build leaves the old
-        bank serving: 500 with the error, the collection's changes and the
+        """Rescan the model directory, then build and warm a new bank from
+        the collection's models and swap it in (``swap.py``), one reload at
+        a time, the old bank serving until the flip. A replaced or removed
+        model's quarantine verdict is dropped: it belonged to the old
+        artifact. A failed bank build or warm-up leaves the old bank
+        serving: 500 with the error, the collection's changes and the
         serving generation."""
         app = self.app
         with app.reload_lock:
@@ -634,7 +634,7 @@ class GordoHandler(BaseHTTPRequestHandler):
             bank_models, swap = None, None
             if app.bank is not None:
                 try:
-                    result = swap_bank(app, ModelBank.from_models(app.collection.models, **app.bank_config))
+                    result = swap_bank(app, build_bank(app))
                 except Exception as exc:
                     logger.exception("bank rebuild failed; the old bank keeps serving")
                     raise HTTPError(500, f"bank rebuild failed: {type(exc).__name__}: {exc}",

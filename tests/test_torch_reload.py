@@ -7,7 +7,10 @@ load of three client threads no response is other than 200 while the
 generation goes to 1 and then 2, each flip pausing under 250 ms (the JAX
 test's limit). A corrupt artifact is reported under ``failed`` and in
 ``/healthz``'s ``load_failures`` while the rest keep serving, its earlier
-version too; a bank whose build fails leaves the old one serving.
+version too; a bank whose build fails leaves the old one serving. The
+new bank is warmed before the flip (its arena holds the warm shapes before
+its first request) unless ``GORDO_SERVER_WARMUP=0``, and a warm-up that
+raises fails the reload with a 500, the old bank serving.
 
 The detectors are the port's own, fitted once on seeded rows (one epoch,
 120 rows of 3 tags) and dumped into each test's directory.
@@ -217,3 +220,71 @@ def test_reload_with_the_bank_off(serve, fitted):
     assert status == 200 and body["bank_models"] is None and "swap" not in body
     assert body["changes"]["added"] == ["m-b"]
     assert call(server, "/gordo/v0/p/m-b/anomaly/prediction", {"X": X})[0] == 200
+
+
+def _warm_shapes(bank):
+    """The (shape, dtype) keys a warm-up fills the arena with: each
+    bucket's (B, T, F) input and target and (B,) index buffers at every
+    warm (T, B)."""
+    keys = set()
+    for bucket in bank._buckets.values():
+        for T, B in bank.warmup_shapes(bucket, (256,), (1,)):
+            keys |= {((B, T, bucket.n_features), "float32"), ((B,), "int32")}
+    return keys
+
+
+def _arena_keys(bank):
+    return {(shape, np.dtype(dtype).name) for shape, dtype in bank.arena._pool}
+
+
+def test_reload_warms_the_new_bank_before_the_flip(serve, fitted, monkeypatch):
+    """C5: the reloaded bank is built and warmed before the swap, so its
+    arena holds the warm shapes before its first request, and the swap
+    records both times; the body keeps the JAX keys."""
+    monkeypatch.delenv("GORDO_SERVER_WARMUP", raising=False)
+    start, root = serve
+    server = start()
+    dump(fitted, "m-b", root, "m-b")
+    dump(fitted, "pipe", root, "pipe")
+    status, body = reload(server)
+    assert status == 200 and sorted(body) == ["bank_models", "changes", "models", "swap"]
+    assert sorted(body["swap"]) == ["generation", "pause_ms"] and body["swap"]["generation"] == 1
+    bank = server.app.bank
+    stats = bank.arena.stats()
+    assert _arena_keys(bank) == _warm_shapes(bank) and stats["misses"] == stats["pooled_buffers"] == 3
+    assert stats["hits"] == 0 and stats["outstanding"] == 0
+    assert bank.build_s > 0 and bank.warmup_s > 0
+    # the first request after the flip (200 rows: T = 256) takes the warmed buffers
+    assert call(server, "/gordo/v0/p/m-b/anomaly/prediction", {"X": [[0.1, 0.2, 0.3]] * 200})[0] == 200
+    assert bank.arena.stats()["hits"] == 3 and bank.arena.stats()["misses"] == 3
+
+
+def test_reload_serves_cold_with_the_warmup_off(serve, fitted, monkeypatch):
+    monkeypatch.setenv("GORDO_SERVER_WARMUP", "0")
+    start, root = serve
+    server = start()
+    dump(fitted, "m-b", root, "m-b")
+    status, body = reload(server)
+    assert status == 200 and body["swap"]["generation"] == 1
+    bank = server.app.bank
+    assert bank.arena.stats()["misses"] == bank.arena.stats()["pooled_buffers"] == 0
+    assert bank.warmup_s < bank.build_s
+
+
+def test_reload_keeps_the_old_bank_when_the_warmup_raises(serve, fitted, monkeypatch):
+    monkeypatch.delenv("GORDO_SERVER_WARMUP", raising=False)
+    start, root = serve
+    server = start()
+    server.app._warmup.join()
+    old = server.app.bank
+    dump(fitted, "m-b", root, "m-b")
+
+    def fail(self, *args, **kwargs):
+        raise RuntimeError("warm-up failed on the card")
+
+    monkeypatch.setattr(ModelBank, "warmup", fail)
+    status, body = reload(server)
+    assert status == 500 and "RuntimeError: warm-up failed" in body["error"] and body["generation"] == 0
+    assert body["changes"]["added"] == ["m-b"]
+    assert server.app.bank is old and server.app.engine.bank is old
+    assert call(server, "/gordo/v0/p/m-a/anomaly/prediction", {"X": X})[0] == 200
