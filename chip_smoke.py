@@ -339,10 +339,41 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             ``GORDO_TRACE_SAMPLE=0``, ``GORDO_SLO=0`` and ``GORDO_COST=0``.
             Both A/Bs: medians of 10 runs a side in the order a, b, b, a
             (findings, not a claim);
+    qos     QoS, heat, events, history and reload warm-up on the card. The
+            fair queue under a flood: a bank of 1,000 members each of dense,
+            ``lstm_hourglass``, conv and dense bf16 behind one engine, three
+            threads submitting 64 interactive, 64 batch and 512 best_effort
+            requests of 64 rows at once (default weights): each class's
+            share of the dequeues while all three are backlogged against
+            its weight's share, interactive p50 and p99 with and without
+            the flood (medians of 5 runs each), every result within the
+            observe phase's bands of the same request scored alone. Then a
+            server over 20 config-1 dense detectors and a NaN copy, with a
+            tenant limited to 5 requests/s and the history sampled every
+            second: member i gets 20 - i POSTs and ``/heat?refresh=1&top=5``
+            ranks the first five in order, its tiers adding up to the bank;
+            the NaN member's quarantine enter and clear; ``/reload`` with
+            the hottest member rewritten in bf16: before any request the
+            new bank's arena holds the warm shapes (C5), the ranking stands
+            and the member's bucket is the new one; a reload under a POSTing
+            thread keeps its answers 200 and under 250 ms; 5 warm and 5
+            ``GORDO_SERVER_WARMUP=0`` reloads in turns, each followed by a
+            POST of a warm shape, whose latency is read (the cold arena
+            empty before it); the tenant's sixth POST in a second answers
+            429 ``tenant_rate``, a best_effort POST with the engine held at
+            its shed depth 429 ``queue_pressure``, and ``/qos`` equals the
+            ``gordo_qos_*`` and ``gordo_engine_class_*`` integers of
+            ``/metrics``; ``/events`` lists the enter, the clear and every
+            reload's ``bank.swap`` and ``models.reload`` at their
+            generations; 60 POSTs over 3 s are what the history's
+            ``gordo_server_requests_total`` rates add up to, within one
+            interval, and the store stays under its memory bound. Last, the
+            pipeline phase's HTTP loop with heat, history and a tenant off
+            and on (medians of 10 runs a side; findings, not a claim);
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
             bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
-            definitions, observe, pipeline), each reset just
+            definitions, observe, pipeline, qos), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -4058,6 +4089,45 @@ def pipeline_served(rng) -> dict:
     return summary
 
 
+def http_ab(servers, labels, names, rng, what: str) -> dict:
+    """The closed loop over HTTP (PLANES_LOOP, random ``names``) against
+    the two ``servers`` labelled ``labels``, through :func:`ab_runs`."""
+    c, n, rows = PLANES_LOOP["clients"], PLANES_LOOP["requests"], PLANES_LOOP["rows"]
+    bodies = [[json.dumps({"X": rng.random((rows, 10)).tolist()}).encode() for _ in range(n)] for _ in range(c)]
+    targets = [[names[int(j)] for j in rng.integers(0, len(names), n)] for _ in range(c)]
+
+    def run(label):
+        base = servers[label].url + "/gordo/v0/smoke"
+        lat, failures = [], []
+        barrier = threading.Barrier(c)
+
+        def client(i):
+            try:
+                barrier.wait(60)
+                for r in range(n):
+                    t = time.perf_counter()
+                    status, _, _ = http_raw(f"{base}/{targets[i][r]}/anomaly/prediction", bodies[i][r],
+                                            {"Content-Type": "application/json"})
+                    lat.append(time.perf_counter() - t)
+                    if status != 200:
+                        failures.append(status)
+            except Exception as exc:
+                failures.append(repr(exc))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(c)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        wall = time.perf_counter() - t0
+        if failures or len(lat) != c * n:
+            raise AssertionError(f"{what}: the {label} loop: {len(lat)} answers, {failures[:3]}")
+        return lat, c * n * rows, wall
+
+    return ab_runs(labels, run, what)
+
+
 def planes_cost(names, rng) -> dict:
     """The closed loop over HTTP (PLANES_LOOP, random banked targets)
     against a server with the tracer, ledger, SLO tracker and cost model on
@@ -4070,40 +4140,7 @@ def planes_cost(names, rng) -> dict:
         app = servers["off"].app
         if app.tracer.enabled or app.ledger is not None or app.slo is not None or app.cost is not None:
             raise AssertionError("pipeline: a plane stayed on with its knob at 0")
-        c, n, rows = PLANES_LOOP["clients"], PLANES_LOOP["requests"], PLANES_LOOP["rows"]
-        bodies = [[json.dumps({"X": rng.random((rows, 10)).tolist()}).encode() for _ in range(n)] for _ in range(c)]
-        targets = [[names[int(j)] for j in rng.integers(0, len(names), n)] for _ in range(c)]
-
-        def run(label):
-            base = servers[label].url + "/gordo/v0/smoke"
-            lat, failures = [], []
-            barrier = threading.Barrier(c)
-
-            def client(i):
-                try:
-                    barrier.wait(60)
-                    for r in range(n):
-                        t = time.perf_counter()
-                        status, _, _ = http_raw(f"{base}/{targets[i][r]}/anomaly/prediction", bodies[i][r],
-                                                {"Content-Type": "application/json"})
-                        lat.append(time.perf_counter() - t)
-                        if status != 200:
-                            failures.append(status)
-                except Exception as exc:
-                    failures.append(repr(exc))
-
-            threads = [threading.Thread(target=client, args=(i,)) for i in range(c)]
-            t0 = time.perf_counter()
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join(300)
-            wall = time.perf_counter() - t0
-            if failures or len(lat) != c * n:
-                raise AssertionError(f"pipeline: the planes-{label} loop: {len(lat)} answers, {failures[:3]}")
-            return lat, c * n * rows, wall
-
-        return ab_runs(("on", "off"), run, "planes")
+        return http_ab(servers, ("on", "off"), names, rng, "planes")
     finally:
         for server in servers.values():
             server.close()
@@ -4128,6 +4165,503 @@ def pipeline_phase(card: str):
     gc.collect()
     summary.update(pipeline_served(rng))
     phase("pipeline", **summary, card=json.dumps(card))
+    return summary
+
+
+QOS_DIR = os.path.join(ROOT, "build", "chip_smoke_qos")
+QOS_MEMBERS = 20  # config 1's dense detectors (10 tags) the served phase routes rows to
+QOS_FLOOD_FAMILIES = ("dense", "lstm", "conv", "dense_bf16")
+QOS_FLOOD_MEMBERS = 1_000  # a family
+QOS_FLOOD = {"interactive": 64, "batch": 64, "best_effort": 512}  # requests a class, all at once
+QOS_FLOOD_ROWS = 64
+QOS_RUNS = 5  # flood and no flood, in turns after one untimed run each
+QOS_RELOADS = 5  # warm and cold reloads, in turns
+QOS_TENANT = "smoke-tenant"
+QOS_ENV = {"GORDO_QOS_TENANTS": json.dumps({QOS_TENANT: {"rate": 5.0, "burst": 5}}),
+           "GORDO_HISTORY": "1", "GORDO_HISTORY_INTERVAL_S": "1", "GORDO_HISTORY_TIERS": "1s@5m,1m@6h"}
+QOS_PLANES_OFF = {"GORDO_HEAT": "0", "GORDO_HISTORY": "0", "GORDO_QOS_TENANTS": ""}
+QOS_MAX_QUEUE = 16  # the served engine's bound: best_effort sheds from 8 waiting
+QOS_HISTORY_POSTS = (3, 20)  # seconds, POSTs a second: the requests the history's rate must match
+QOS_EVENTS = ("quarantine.enter", "quarantine.clear", "bank.swap", "models.reload")  # the JAX server's order
+
+
+def warm_keys(bank) -> set:
+    """The arena keys a warm-up fills: each bucket's (B, T, F) input and
+    target, (B,) index and, on the card, its packed result, at every warm
+    (T, B)."""
+    rows = bank._warmup_grid_env("GORDO_WARMUP_ROWS", (256,))
+    batches = bank._warmup_grid_env("GORDO_WARMUP_BATCHES", (1,))
+    keys = set()
+    for bucket in bank._buckets.values():
+        F, off = bucket.n_features, bucket.offset
+        for T, B in bank.warmup_shapes(bucket, rows, batches):
+            keys |= {((B, T, F), "float32"), ((B,), "int32")}
+            if bank.device.type == "cuda":
+                keys.add(((B, 3 * (T - off) * F + 2 * (T - off)), "float32"))
+    return keys
+
+
+def arena_keys(bank) -> set:
+    return {(shape, np.dtype(dtype).name) for shape, dtype in bank.arena._pool}
+
+
+def flood_band(got, want, family: str, what: str) -> float:
+    """A result against the same request scored alone, in the observe
+    phase's bands: dense fp32 atol E2E_ATOL, LSTM and conv LSTM_RTOL /
+    LSTM_ATOL, bf16 BF16_ATOL x max(1, |x|); the largest error."""
+    worst = 0.0
+    for a, b in zip(result_arrays(got), result_arrays(want)):
+        if a.shape != b.shape or not np.all(np.isfinite(a)):
+            raise AssertionError(f"{what}: shape {a.shape} against {b.shape}, or non-finite values")
+        err = float(np.abs(a - b).max()) if a.size else 0.0
+        if family.endswith("bf16"):
+            ok = err <= BF16_ATOL * max(1.0, float(np.abs(b).max()) if b.size else 0.0)
+        elif family == "dense":
+            ok = np.allclose(a, b, rtol=0.0, atol=E2E_ATOL)
+        else:
+            ok = np.allclose(a, b, rtol=LSTM_RTOL, atol=LSTM_ATOL)
+        if not ok:
+            raise AssertionError(f"{what}: off by {err} against the request alone")
+        worst = max(worst, err)
+    return worst
+
+
+def result_arrays(r):
+    return (r.model_output, r.diff, r.scaled, r.total_unscaled, r.total_scaled)
+
+
+def qos_flood() -> dict:
+    """The fair queue under a flood: a bank of QOS_FLOOD_MEMBERS each of
+    dense, LSTM, conv and dense bf16 behind one engine; three threads
+    submit QOS_FLOOD's requests at once (default weights). Each class's
+    share of the dequeues while all three are backlogged against its
+    weight's share; interactive p50 and p99 with and without the
+    best_effort flood (medians of QOS_RUNS runs each); every result held
+    to the same request scored alone."""
+    from gordo_components_torch.qos.fair import DEFAULT_WEIGHTS
+
+    rng = np.random.default_rng(16)
+    t0 = time.perf_counter()
+    entries = [pipeline_entry(f"{family}-{m:04d}", family, rng)
+               for family in QOS_FLOOD_FAMILIES for m in range(QOS_FLOOD_MEMBERS)]
+    bank = ModelBank.from_entries(entries, registry=False)
+    del entries
+    requests = {cls: [(f"{QOS_FLOOD_FAMILIES[int(f)]}-{int(m):04d}",
+                       rng.random((QOS_FLOOD_ROWS, 10), dtype=np.float32))
+                      for f, m in zip(rng.integers(0, len(QOS_FLOOD_FAMILIES), n),
+                                      rng.integers(0, QOS_FLOOD_MEMBERS, n))]
+                for cls, n in QOS_FLOOD.items()}
+    alone = {(cls, i): bank.score(name, X) for cls, reqs in requests.items() for i, (name, X) in enumerate(reqs)}
+    summary = {"flood_members": len(bank), "flood_buckets": bank.n_buckets,
+               "flood_build_s": round(time.perf_counter() - t0, 3)}
+    engine = BatchingEngine(bank, max_batch=64, flush_ms=2.0, max_queue=2 * sum(QOS_FLOOD.values()))
+    wfq = engine._queue
+    pops = []  # (class, the backlog a class just before the pop)
+    pop = wfq._pop
+
+    def recording_pop():
+        depths = {c: len(h) for c, h in wfq._heaps.items()}
+        item = pop()
+        pops.append((item.qos_class, depths))
+        return item
+
+    wfq._pop = recording_pop
+    engine.start()
+    worst = 0.0
+    shares, interactive = [], {"flood": [], "no_flood": []}
+
+    def run(label):
+        nonlocal worst
+        classes = [c for c in QOS_FLOOD if label == "flood" or c != "best_effort"]
+        pops.clear()
+        barrier = threading.Barrier(len(classes))
+        futures = {c: [] for c in classes}
+        failures = []
+
+        def client(cls):
+            try:
+                barrier.wait(60)
+                for i, (name, X) in enumerate(requests[cls]):
+                    t = time.perf_counter()
+                    fut = engine.submit(name, X, qos_class=cls)
+                    done = []
+                    fut.add_done_callback(lambda _f, done=done: done.append(time.perf_counter()))
+                    futures[cls].append((i, fut, t, done))
+            except Exception as exc:
+                failures.append(repr(exc))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in classes]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+        lat = []
+        for cls, subs in futures.items():
+            for i, fut, t, done in subs:
+                result = fut.result(120)
+                family = requests[cls][i][0].rsplit("-", 1)[0]
+                worst = max(worst, flood_band(result, alone[(cls, i)], family, f"qos flood {cls} {i}"))
+                if cls == "interactive":
+                    lat.append(done[0] - t)
+        if failures or len(pops) != sum(len(s) for s in futures.values()):
+            raise AssertionError(f"qos flood {label}: {len(pops)} dequeues, failures {failures[:3]}")
+        return lat
+
+    try:
+        order = ["flood", "no_flood"] + ["flood", "no_flood", "no_flood", "flood"] * ((QOS_RUNS + 1) // 2)
+        counts = {"flood": 0, "no_flood": 0}
+        for i, label in enumerate(order):
+            if i >= 2 and counts[label] == QOS_RUNS:
+                continue
+            gc.collect()
+            lat = run(label)
+            if label == "flood":
+                busy = [cls for cls, depths in pops if all(depths.values())]
+                shares.append({c: busy.count(c) / len(busy) for c in QOS_FLOOD} if busy else None)
+            if i < 2:
+                continue
+            counts[label] += 1
+            lat_ms = np.asarray(lat) * 1e3
+            interactive[label].append((float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 99))))
+    finally:
+        engine.stop()
+    busy_shares = [s for s in shares if s is not None]
+    if not busy_shares:
+        raise AssertionError("qos flood: no dequeue found all three classes backlogged")
+    total = sum(DEFAULT_WEIGHTS.values())
+    weight_share = {c: round(w / total, 4) for c, w in DEFAULT_WEIGHTS.items()}
+    mean_share = {c: round(float(np.mean([s[c] for s in busy_shares])), 4) for c in QOS_FLOOD}
+    if abs(mean_share["interactive"] - weight_share["interactive"]) > 0.1:
+        raise AssertionError(f"qos flood: interactive took {mean_share} of the busy dequeues, weights {weight_share}")
+    stats = engine.class_stats_snapshot()
+    runs_a_side = QOS_RUNS + 1
+    want = {c: n * runs_a_side * (2 if c != "best_effort" else 1) for c, n in QOS_FLOOD.items()}
+    if {c: s["requests"] for c, s in stats.items()} != want:
+        raise AssertionError(f"qos flood: the engine counted {stats}, not {want}")
+    summary.update({
+        "flood_weight_share": json.dumps(weight_share), "flood_busy_share": json.dumps(mean_share),
+        "flood_busy_shares": json.dumps([{c: round(v, 4) for c, v in s.items()} for s in busy_shares]),
+        "flood_vs_alone_max_err": worst,
+        "flood_results_held": sum(want.values()),
+    })
+    for label, runs in interactive.items():
+        summary[f"interactive_{label}_median_p50_ms"] = round(float(np.median([r[0] for r in runs])), 4)
+        summary[f"interactive_{label}_median_p99_ms"] = round(float(np.median([r[1] for r in runs])), 4)
+        summary[f"interactive_{label}_runs"] = json.dumps([[round(p50, 4), round(p99, 4)] for p50, p99 in runs])
+    return summary
+
+
+def qos_served() -> dict:
+    """One server over QOS_MEMBERS config-1 dense detectors and a NaN copy,
+    with a rate-limited tenant and the history on (1 s): heat, quarantine
+    events, the C5 reloads, admission and the history's rates."""
+    from gordo_components_torch.server.swap import warmup_enabled
+
+    shutil.rmtree(QOS_DIR, ignore_errors=True)
+    rng = np.random.default_rng(161)
+    names = [f"qos-{i:02d}" for i in range(QOS_MEMBERS)]
+    entries = {name: random_entry(name, 10, rng) for name in names}
+    first = "layers.0.weight"
+    nan = dataclasses.replace(entries[names[0]], name="qos-nan", params={
+        **entries[names[0]].params, first: np.full_like(entries[names[0]].params[first], np.nan)})
+    for entry in list(entries.values()) + [nan]:
+        serializer.dump(entry, os.path.join(QOS_DIR, entry.name))
+    summary = {}
+    with env_set(QOS_ENV):
+        server = run_server(QOS_DIR, host="127.0.0.1", port=0, background=True, bank_max_queue=QOS_MAX_QUEUE)
+    try:
+        app = server.app
+        base = server.url + "/gordo/v0/smoke"
+        if app._warmup is not None:
+            app._warmup.join()
+        summary.update(qos_heat(app, base, names))
+        summary.update(qos_quarantine(base))
+        summary.update(qos_reload_keeps_heat(app, base, names, entries))
+        summary.update(qos_reload_under_load(base, names, rng))
+        summary.update(qos_c5(app, base, names[-1], rng, warmup_enabled))
+        summary.update(qos_admission(app, base, names))
+        summary.update(qos_events_history(app, base, names, rng))
+    finally:
+        server.close()
+    return summary
+
+
+def qos_post(base, name, rows, rng, headers=None):
+    status, hdrs, raw = http_raw(f"{base}/{name}/anomaly/prediction",
+                                 json.dumps({"X": rng.random((rows, 10)).tolist()}).encode(),
+                                 {"Content-Type": "application/json", **(headers or {})})
+    return status, hdrs, raw
+
+
+def qos_heat(app, base, names) -> dict:
+    """Member i gets QOS_MEMBERS - i POSTs of 32 rows (from 8 threads):
+    ``/heat?refresh=1&top=5`` ranks the first five in order, the tiers add
+    up to the members the bank holds, and the members tracked are those
+    that took rows."""
+    jobs = [name for i, name in enumerate(names) for _ in range(len(names) - i)]
+    failures = []
+
+    def post(i):
+        r = np.random.default_rng(i)
+        for name in jobs[i::8]:
+            status = qos_post(base, name, 32, r)[0]
+            if status != 200:
+                failures.append((name, status))
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    status, _, raw = http_raw(base + "/heat?refresh=1&top=5")
+    heat = json.loads(raw)
+    top = [e["member"] for e in heat.get("hottest", ())]
+    if failures or status != 200 or top != names[:5] or sum(heat["tiers"].values()) != heat["members_total"] \
+            or heat["members_total"] != len(app.bank) or heat["members_tracked"] != len(names):
+        raise AssertionError(f"qos heat: failures {failures[:3]}; /heat {raw[:600]}")
+    rows = {e["member"]: (len(names) - names.index(e["member"])) * 32 for e in heat["hottest"]}
+    return {"heat_posts": len(jobs), "heat_top5": json.dumps(top),
+            "heat_top5_rates": json.dumps([e["rate"] for e in heat["hottest"]]),
+            "heat_top5_rows": json.dumps([rows[m] for m in top]), "heat_tiers": json.dumps(heat["tiers"]),
+            "heat_members_tracked": heat["members_tracked"], "heat_members_total": heat["members_total"]}
+
+
+def qos_quarantine(base) -> dict:
+    """Three NaN answers put the NaN member in quarantine; clear re-admits it."""
+    statuses = [qos_post(base, "qos-nan", 16, np.random.default_rng(i))[0] for i in range(4)]
+    cleared = http_json(base + "/quarantine/clear", {"targets": ["qos-nan"]})
+    if statuses != [200, 200, 200, 410] or cleared != (200, {"enabled": True, "cleared": ["qos-nan"]}):
+        raise AssertionError(f"qos quarantine: {statuses}, clear {cleared}")
+    return {"quarantine_statuses": json.dumps(statuses)}
+
+
+def qos_reload_keeps_heat(app, base, names, entries) -> dict:
+    """``/reload`` with the hottest member rewritten in bf16 (another
+    bucket): before any request the new bank's arena holds the warm
+    shapes; the heat ranking stands and the member's bucket is the new
+    bank's."""
+    before = json.loads(http_raw(base + "/heat?top=5")[2])
+    serializer.dump(dataclasses.replace(entries[names[0]], compute_dtype=BF16), os.path.join(QOS_DIR, names[0]))
+    status, body = http_json(base + "/reload", {})
+    bank = app.bank
+    keys, want = arena_keys(bank), warm_keys(bank)
+    if status != 200 or body["changes"]["updated"] != [names[0]] or body["swap"]["generation"] != 1 \
+            or keys != want:
+        raise AssertionError(f"qos reload: {status} {body}; arena {sorted(keys)} against {sorted(want)}")
+    after = json.loads(http_raw(base + "/heat?refresh=1&top=5")[2])
+    label = bank._buckets[bank._index[names[0]][0]].label
+    if [e["member"] for e in after["hottest"]] != [e["member"] for e in before["hottest"]] \
+            or after["hottest"][0]["bucket"] != label or before["hottest"][0]["bucket"] == label:
+        raise AssertionError(f"qos reload: heat {before['hottest']} -> {after['hottest']}, {names[0]} in {label}")
+    return {"reload_build_s": round(bank.build_s, 4), "reload_warmup_s": round(bank.warmup_s, 4),
+            "reload_arena_keys": len(keys), "reload_bucket_before": before["hottest"][0]["bucket"],
+            "reload_bucket_after": label}
+
+
+def qos_reload_under_load(base, names, rng) -> dict:
+    """A warm reload while a thread POSTs: its answers are all 200 and none
+    waits 250 ms (the flip's limit) while the new bank builds and warms."""
+    lat, stop = [], threading.Event()
+
+    def load():
+        r = np.random.default_rng(0)
+        while not stop.is_set():
+            t = time.perf_counter()
+            status = qos_post(base, names[10], 32, r)[0]
+            lat.append((time.perf_counter() - t, status))
+
+    serializer.dump(random_entry(names[5], 10, rng), os.path.join(QOS_DIR, names[5]))
+    loader = threading.Thread(target=load)
+    loader.start()
+    try:
+        time.sleep(0.2)
+        status, body = http_json(base + "/reload", {})
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        loader.join(60)
+    worst_ms = max(t for t, _ in lat) * 1e3
+    if status != 200 or body["changes"]["updated"] != [names[5]] or any(s != 200 for _, s in lat) \
+            or worst_ms >= 250.0:
+        raise AssertionError(f"qos reload under load: {status} {body}; the loader's answers "
+                             f"{sorted(set(s for _, s in lat))}, slowest {worst_ms:.1f} ms")
+    return {"reload_loader_posts": len(lat), "reload_loader_max_ms": round(worst_ms, 3)}
+
+
+def qos_c5(app, base, name, rng, warmup_enabled) -> dict:
+    """QOS_RELOADS reloads warm and as many with ``GORDO_SERVER_WARMUP=0``,
+    in turns, each with ``name`` rewritten: the arena holds the warm
+    shapes (none when cold) before the first POST (200 rows, a warm
+    shape), whose latency is read."""
+    first_ms = {"warm": [], "cold": []}
+    times = {"build_s": [], "warmup_s": []}
+    for i in range(QOS_RELOADS):
+        for label in ("warm", "cold") if i % 2 == 0 else ("cold", "warm"):
+            serializer.dump(random_entry(name, 10, rng), os.path.join(QOS_DIR, name))
+            with env_set({"GORDO_SERVER_WARMUP": "1" if label == "warm" else "0"}):
+                if warmup_enabled() != (label == "warm"):
+                    raise AssertionError("qos c5: GORDO_SERVER_WARMUP not read")
+                status, body = http_json(base + "/reload", {})
+            bank = app.bank
+            keys = arena_keys(bank)
+            if status != 200 or body["changes"]["updated"] != [name] or \
+                    keys != (warm_keys(bank) if label == "warm" else set()):
+                raise AssertionError(f"qos c5 {label}: {status} {body}; arena {sorted(keys)}")
+            if label == "warm":
+                times["build_s"].append(bank.build_s)
+                times["warmup_s"].append(bank.warmup_s)
+            t = time.perf_counter()
+            status = qos_post(base, name, 200, rng)[0]
+            first_ms[label].append((time.perf_counter() - t) * 1e3)
+            if status != 200:
+                raise AssertionError(f"qos c5 {label}: the first POST answered {status}")
+    out = {f"c5_first_post_{label}_median_ms": round(float(np.median(v)), 4) for label, v in first_ms.items()}
+    out.update({f"c5_first_post_{label}_ms": json.dumps([round(x, 4) for x in v]) for label, v in first_ms.items()})
+    out.update({f"c5_{k}": json.dumps([round(x, 4) for x in v]) for k, v in times.items()})
+    return out
+
+
+def qos_admission(app, base, names) -> dict:
+    """The tenant's sixth POST in a second answers 429 ``tenant_rate`` with
+    ``Retry-After``; with the engine held and its queue at best_effort's
+    shed fraction a best_effort POST answers 429 ``queue_pressure``; then
+    ``/qos``'s counters equal the ``gordo_qos_*`` and
+    ``gordo_engine_class_*`` integers of ``/metrics``."""
+    tenant = [qos_post(base, names[1], 8, np.random.default_rng(i), {"X-Gordo-Tenant": QOS_TENANT})
+              for i in range(6)]
+    statuses = [s for s, _, _ in tenant]
+    refused = json.loads(tenant[-1][2])
+    if statuses != [200] * 5 + [429] or refused.get("reason") != "tenant_rate" \
+            or not tenant[-1][1].get("Retry-After"):
+        raise AssertionError(f"qos admission: the tenant's POSTs answered {statuses}: {refused}")
+    engine, bank = app.engine, app.bank
+    gate, entered = threading.Event(), threading.Event()
+    score_many = bank.score_many
+
+    def held(*args, **kwargs):
+        entered.set()
+        gate.wait(60)
+        return score_many(*args, **kwargs)
+
+    bank.score_many = held
+    X = np.random.default_rng(5).random((8, 10), dtype=np.float32)
+    threshold = math.ceil(app.admission.shed_fractions["best_effort"] * engine.max_queue)
+    futures = []
+    try:
+        futures.append(engine.submit(names[2], X, qos_class="batch"))
+        if not entered.wait(30):  # the worker holds the first request
+            raise AssertionError("qos admission: the engine took no request")
+        futures += [engine.submit(names[2], X, qos_class="batch") for _ in range(threshold)]
+        status, hdrs, raw = qos_post(base, names[3], 8, np.random.default_rng(9),
+                                     {"X-Gordo-Priority": "best_effort"})
+    finally:
+        gate.set()
+        del bank.score_many
+    shed = json.loads(raw)
+    for fut in futures:
+        fut.result(60)
+    if status != 429 or shed.get("reason") != "queue_pressure" or not hdrs.get("Retry-After"):
+        raise AssertionError(f"qos admission: best_effort at depth {threshold} answered {status}: {shed}")
+    values = scrape(base)
+    qos = json.loads(http_raw(base + "/qos")[2])
+
+    def metric(name, **labels):
+        return values.get((name, tuple(sorted(labels.items()))))
+
+    pairs = {}
+    for key, n in qos["admission"]["admitted"].items():
+        t, c = key.split("|")
+        pairs[f"admitted[{key}]"] = (n, metric("gordo_qos_admitted_total", tenant=t, **{"class": c}))
+    for key, n in qos["admission"]["shed"].items():
+        t, c, r = key.split("|")
+        pairs[f"shed[{key}]"] = (n, metric("gordo_qos_shed_total", tenant=t, reason=r, **{"class": c}))
+    pairs["unknown_tenants"] = (qos["admission"]["unknown_tenants"], metric("gordo_qos_unknown_tenant_total"))
+    for c, cell in qos["engine"]["classes"].items():
+        for k, name in (("requests", "requests_total"), ("shed", "shed_total"),
+                        ("deadline_expired", "deadline_expired_total")):
+            pairs[f"engine[{c}].{k}"] = (cell[k], metric(f"gordo_engine_class_{name}", **{"class": c}))
+    apart = {k: v for k, v in pairs.items() if v[0] != v[1]}
+    if apart or len(qos["admission"]["shed"]) != 2:
+        raise AssertionError(f"qos admission: /qos and /metrics disagree: {apart}; {qos['admission']['shed']}")
+    return {"tenant_statuses": json.dumps(statuses), "tenant_retry_after": tenant[-1][1]["Retry-After"],
+            "pressure_depth": threshold, "pressure_retry_after": hdrs["Retry-After"],
+            "qos_metrics_equal": len(pairs), "qos_shed": json.dumps(qos["admission"]["shed"]),
+            "qos_classes": json.dumps(qos["engine"]["classes"])}
+
+
+def qos_events_history(app, base, names, rng) -> dict:
+    """``/events`` has the quarantine's enter and clear, then every
+    reload's ``bank.swap`` and ``models.reload``, each with its generation;
+    a steady QOS_HISTORY_POSTS of POSTs, and the history's
+    ``gordo_server_requests_total{kind="anomaly"}`` rate integrated over
+    its points counts them within one interval's POSTs; the store stays
+    under its memory bound."""
+    status, _, raw = http_raw(base + "/events?type=" + ",".join(QOS_EVENTS))
+    events = json.loads(raw)["events"]
+    types = [e["type"] for e in events]
+    reloads = 2 + 2 * QOS_RELOADS
+    want = list(QOS_EVENTS[:2]) + list(QOS_EVENTS[2:]) * reloads
+    gens = [e["generation"] for e in events]
+    if status != 200 or types != want or gens != [0, 0] + [g for g in range(1, reloads + 1) for _ in range(2)]:
+        raise AssertionError(f"qos events: {types} at generations {gens}")
+    seconds, per_s = QOS_HISTORY_POSTS
+    time.sleep(1.5)  # an interval without POSTs before the counted ones
+    t0 = time.time()
+    sent = 0
+    for i in range(seconds * per_s):
+        time.sleep(max(0.0, t0 + i / per_s - time.time()))
+        if qos_post(base, names[i % len(names)], 16, rng)[0] != 200:
+            raise AssertionError("qos history: a POST failed")
+        sent += 1
+    time.sleep(2.5)  # the last POSTs sampled
+    status, _, raw = http_raw(base + "/history?series=gordo_server_requests_total")
+    body = json.loads(raw)
+    key = 'gordo_server_requests_total{kind="anomaly"}:rate'
+    points = body["series"][key]["points"] if status == 200 else []
+    # a rate times its interval is the interval's POSTs: their sum over
+    # the samples after t0 counts the POSTs since (the 1.5 s before t0 held
+    # none, so the sample before t0 closed every earlier one)
+    window = [(t, r, t_prev) for (t_prev, _), (t, r) in zip(points, points[1:]) if t > t0 and r is not None]
+    counted = sum(r * (t - t_prev) for t, r, t_prev in window)
+    history = body if status == 200 else {}
+    if status != 200 or abs(counted - sent) > per_s or history["memory_bytes"] > history["max_bytes"]:
+        raise AssertionError(f"qos history: {sent} POSTs, {counted} counted by the rates; {raw[:400]}")
+    return {"events": len(events), "history_posts": sent, "history_counted": round(counted, 4),
+            "history_points": len(window), "history_samples": history["samples"],
+            "history_series": history["n_series"], "history_memory_bytes": history["memory_bytes"],
+            "history_max_bytes": history["max_bytes"]}
+
+
+def qos_planes(rng) -> dict:
+    """The pipeline phase's HTTP closed loop (PLANES_LOOP) against a server
+    with the new planes off (``GORDO_HEAT=0``, no history, no tenants) and
+    one with all on (QOS_ENV, heat on)."""
+    servers = {}
+    with env_set({**QOS_ENV, "GORDO_HEAT": "1"}):
+        servers["on"] = run_server(QOS_DIR, host="127.0.0.1", port=0, background=True)
+    with env_set(QOS_PLANES_OFF):
+        servers["off"] = run_server(QOS_DIR, host="127.0.0.1", port=0, background=True)
+    try:
+        off, on = servers["off"].app, servers["on"].app
+        if off.heat is not None or off.history is not None or off.admission.buckets \
+                or on.heat is None or on.history is None or not on.admission.buckets:
+            raise AssertionError("qos planes: a plane is not as its knobs say")
+        names = sorted(n for n in on.bank._index if n != "qos-nan")
+        return http_ab(servers, ("off", "on"), names, rng, "qos_planes")
+    finally:
+        for server in servers.values():
+            server.close()
+
+
+def qos_phase(card: str):
+    """QoS, heat, events and history on the card, C5's warm reloads, and
+    the new planes on against off."""
+    summary = qos_flood()
+    gc.collect()
+    summary.update(qos_served())
+    summary.update(qos_planes(np.random.default_rng(162)))
+    shutil.rmtree(QOS_DIR, ignore_errors=True)
+    phase("qos", **summary, card=json.dumps(card))
     return summary
 
 
@@ -4193,6 +4727,7 @@ def main() -> int:
     drive("definitions", definitions_phase, card, in_subprocesses=True)
     drive("observe", observe_phase, card)
     drive("pipeline", pipeline_phase, card)
+    drive("qos", qos_phase, card)
     timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
@@ -4208,6 +4743,7 @@ def main() -> int:
                          ("observe", "lstm_layer"),
                          ("pipeline", "banked_anomaly_score"), ("pipeline", "fused_anomaly_score"),
                          ("pipeline", "lstm_layer"), ("pipeline", "lstm_layer_bf16"),
+                         ("qos", "banked_anomaly_score"), ("qos", "lstm_layer"),
                          ("bf16_train", "lstm_layer_bf16"),
                          ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
                          ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):

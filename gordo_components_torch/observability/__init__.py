@@ -1,9 +1,11 @@
 """Observability of the port: the metrics registry (``metrics.py``), request
 tracing (``tracing.py``), the goodput ledger (``goodput.py``), SLO burn
-rates (``slo.py``) and per-bucket device cost (``cost.py``).
+rates (``slo.py``), per-bucket device cost (``cost.py``), access heat
+(``heat.py``), metric history (``timeseries.py``) and the event log
+(``events.py``).
 
-Counterpart of ``gordo_components_tpu/observability/``; heat, events and
-history are not ported yet.
+Counterpart of ``gordo_components_tpu/observability/``; the watchman's
+incident correlation is not ported yet.
 """
 
 from gordo_components_torch.observability.metrics import (

@@ -331,11 +331,13 @@ class CostModel:
                    "Fraction of this bucket's device time spent on pad rows", lab, row["pad_waste_score"])
 
 
-def cost_from_env(ledger, bank_supplier, registry=None, device=None) -> Optional[CostModel]:
-    """A cost model, or None when ``GORDO_COST=0``."""
+def cost_from_env(ledger, bank_supplier, registry=None, device=None, clock=None) -> Optional[CostModel]:
+    """A cost model sampling on ``clock``'s monotonic time (the app's
+    clock seam; None: the real one), or None when ``GORDO_COST=0``."""
     if os.environ.get("GORDO_COST", "1") == "0":
         return None
-    return CostModel(ledger, bank_supplier, registry=registry, device=device)
+    mono = clock.monotonic if clock is not None else time.monotonic
+    return CostModel(ledger, bank_supplier, registry=registry, clock=mono, device=device)
 
 
 # --------------------------------------------------------------------- #

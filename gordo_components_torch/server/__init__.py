@@ -22,13 +22,18 @@ the default request deadline (``GORDO_DEFAULT_DEADLINE_MS``). As the JAX
 app does, it also keeps a request tracer (``tracer``,
 ``GORDO_TRACE_SAMPLE``; ``GET .../traces``), the goodput ledger
 (``ledger``) and the SLO tracker (``slo``) unless ``GORDO_SLO=0``, and the
-per-bucket cost model (``cost``) unless ``GORDO_COST=0``. The SLO
-tracker samples on a thread of its own and the bank warms up on another
-(``GORDO_SERVER_WARMUP``); :meth:`App.close` stops both.
+per-bucket cost model (``cost``) unless ``GORDO_COST=0``, the QoS
+admission controller (``admission``, always; ``GORDO_QOS_*``), the access
+heat accountant (``heat``) unless ``GORDO_HEAT=0``, the event log
+(``events``, always) and the metric history (``history``) when
+``GORDO_HISTORY=1``. Everything that measures the age of data or events
+reads the app's clock seam (``clock``, ``replay/clock.py``). The SLO
+tracker and the history store sample on threads of their own and the
+bank warms up on another (``GORDO_SERVER_WARMUP``); :meth:`App.close`
+stops them.
 
-Not in this slice: the tensor wire format, QoS admission and the fair
-queue, heat, history and events, the placement planner, the worker pool
-and the shared-memory transports.
+Not in this slice: the tensor wire format, the placement planner, the
+worker pool and the shared-memory transports.
 """
 
 import os
@@ -39,10 +44,15 @@ from typing import Optional
 import torch
 
 from gordo_components_torch.observability.cost import cost_from_env
+from gordo_components_torch.observability.events import EventLog
 from gordo_components_torch.observability.goodput import GoodputLedger
+from gordo_components_torch.observability.heat import HeatAccountant, heat_from_env
 from gordo_components_torch.observability.metrics import MetricsRegistry
 from gordo_components_torch.observability.slo import SLOTracker
+from gordo_components_torch.observability.timeseries import history_from_env
 from gordo_components_torch.observability.tracing import Tracer
+from gordo_components_torch.qos.admission import AdmissionController
+from gordo_components_torch.replay.clock import SYSTEM_CLOCK, Clock
 from gordo_components_torch.resilience.deadline import default_deadline_ms
 from gordo_components_torch.resilience.quarantine import DEFAULT_THRESHOLD, QuarantineSet
 from gordo_components_torch.server.bank import ModelBank, ScoreResult
@@ -58,12 +68,14 @@ class App:
     engine is None while the bank holds no model), and what it observes.
     ``reload_lock`` serializes reloads, each of which may swap the bank;
     ``stats_lock`` guards ``stats``. ``ledger`` (and with it ``slo``) is
-    None when ``GORDO_SLO=0``, ``cost`` when ``GORDO_COST=0``."""
+    None when ``GORDO_SLO=0``, ``cost`` when ``GORDO_COST=0``, ``heat``
+    when ``GORDO_HEAT=0`` and ``history`` unless ``GORDO_HISTORY=1``."""
 
     def __init__(self, collection: ModelCollection, bank: Optional[ModelBank],
                  bank_config: dict, engine_config: dict, metrics: MetricsRegistry,
                  quarantine: QuarantineSet, default_deadline_ms: Optional[float],
-                 tracer: Optional[Tracer] = None, ledger: Optional[GoodputLedger] = None):
+                 tracer: Optional[Tracer] = None, ledger: Optional[GoodputLedger] = None,
+                 clock: Clock = SYSTEM_CLOCK, heat: Optional[HeatAccountant] = None):
         self.collection = collection
         self.bank = bank
         self.bank_config = bank_config
@@ -88,11 +100,28 @@ class App:
         self.metrics.collector(_hbm_collector(self.device), key="hbm")
         self.tracer = tracer
         self.ledger = ledger
-        self.slo = SLOTracker(ledger, registry=metrics) if ledger is not None else None
-        self.cost = cost_from_env(ledger, lambda: self.bank, registry=metrics, device=self.device)
+        self.clock = clock
+        # window ages read the seam: a replayed "5m" window spans 5
+        # replayed minutes
+        self.slo = SLOTracker(ledger, registry=metrics, clock=clock.monotonic) if ledger is not None else None
+        self.cost = cost_from_env(ledger, lambda: self.bank, registry=metrics, device=self.device, clock=clock)
+        # always built: with no tenants it costs one depth comparison a request
+        self.admission = AdmissionController.from_env()
+        self.admission.install_collector(metrics)
+        if self.slo is not None:
+            self.admission.burn_for = self.slo.class_burn
+        # the app's, fed by every bank generation (bank_config carries it)
+        self.heat = heat
+        self.events = EventLog(clock=clock)
+        self.events.attach_registry(metrics)
+        self.history = history_from_env(metrics, clock=clock)
+        self._history_stop = threading.Event()
+        self._history_thread: Optional[threading.Thread] = None
         self._warmup: Optional[threading.Thread] = None
         if self.slo is not None:
             self.slo.start()
+        if self.history is not None:
+            self._start_history()
         if bank is not None and len(bank):
             self.engine = BatchingEngine(bank, **engine_config)
             self.engine.start()
@@ -101,11 +130,34 @@ class App:
                 self._warmup = threading.Thread(target=bank.warmup, name="gordo-bank-warmup", daemon=True)
                 self._warmup.start()
 
+    def _start_history(self) -> None:
+        """A baseline sample (rates start on the second), then a daemon
+        thread sampling every ``interval_s`` of the seam's seconds."""
+        store = self.history
+        store.sample()
+        real_sleep = store.interval_s / max(1.0, self.clock.timescale)
+
+        def tick():
+            while not self._history_stop.wait(real_sleep):
+                store.sample()
+
+        self._history_thread = threading.Thread(target=tick, name="gordo-history-sampler", daemon=True)
+        self._history_thread.start()
+
+    def generation(self) -> Optional[int]:
+        """The serving bank's generation; None with the bank off."""
+        bank = self.bank
+        return bank.generation if bank is not None else None
+
     def close(self) -> None:
         if self.engine is not None:
             self.engine.stop()
         if self.slo is not None:
             self.slo.stop()
+        if self._history_thread is not None:
+            self._history_stop.set()
+            self._history_thread.join(10.0)
+            self._history_thread = None
         if self._warmup is not None:
             self._warmup.join()
 
@@ -188,6 +240,7 @@ def build_app(
     quarantine_threshold: Optional[int] = None,
     bank_inflight: Optional[int] = None,
     arena_max_mb: Optional[float] = None,
+    clock: Optional[Clock] = None,
 ) -> App:
     """Load every artifact under ``model_dir`` on ``device`` (default the
     card; raises without CUDA unless ``"cpu"``), stack the models the bank
@@ -196,7 +249,8 @@ def build_app(
     to ``GORDO_QUARANTINE_THRESHOLD`` (3; 0 or less disables the breaker),
     and the requests' default deadline is ``GORDO_DEFAULT_DEADLINE_MS``.
     ``bank_inflight`` (``GORDO_BANK_INFLIGHT``) and ``arena_max_mb``
-    (``GORDO_ARENA_MAX_MB``) configure the bank's pipeline."""
+    (``GORDO_ARENA_MAX_MB``) configure the bank's pipeline. ``clock`` is
+    the app's clock seam (default the real one, ``SYSTEM_CLOCK``)."""
     from gordo_components_torch.device import resolve_device
 
     device = resolve_device(device)
@@ -210,18 +264,21 @@ def build_app(
             raise ValueError(f"GORDO_QUARANTINE_THRESHOLD must be an integer, got {raw!r} "
                              "(consecutive scoring failures before eviction; <=0 disables)") from None
     deadline_ms = default_deadline_ms()
+    if clock is None:
+        clock = SYSTEM_CLOCK
     collection = ModelCollection(model_dir, target_name, device=device)
     registry = MetricsRegistry()
     tracer = Tracer()
     ledger = GoodputLedger.from_env(registry)
-    # the registry and the ledger ride in the bank's settings, so a
+    heat = heat_from_env(registry, clock=clock)
+    # the registry, the ledger and heat ride in the bank's settings, so a
     # /reload's bank records into the same series and cells
     bank_config = {"max_rows_per_call": max_rows_per_call, "device": device, "registry": registry,
-                   "inflight": bank_inflight, "arena_max_mb": arena_max_mb, "ledger": ledger}
+                   "inflight": bank_inflight, "arena_max_mb": arena_max_mb, "ledger": ledger, "heat": heat}
     bank = ModelBank.from_models(collection.models, **bank_config) if use_bank else None
     engine_config = {"max_batch": bank_max_batch, "flush_ms": bank_flush_ms, "max_queue": bank_max_queue}
     return App(collection, bank, bank_config, engine_config, registry, QuarantineSet(quarantine_threshold),
-               deadline_ms, tracer=tracer, ledger=ledger)
+               deadline_ms, tracer=tracer, ledger=ledger, clock=clock, heat=heat)
 
 
 def run_server(

@@ -64,13 +64,15 @@ flight, as the JAX bank names them. With a goodput ledger
 (``observability/goodput.py``) each group's device window is split into
 useful and padded seconds and each result carries its share
 (``ScoreResult.device_s``); :meth:`ModelBank.flops_stats` feeds the cost
-model (``observability/cost.py``). :meth:`ModelBank.score_many` checks a
-batch's deadline between bucket groups and, for the batching engine,
-returns a failed group's errors in place of its results.
+model (``observability/cost.py``). With the app's heat accountant
+(``observability/heat.py``) each request's rows go to its mailbox.
+:meth:`ModelBank.score_many` checks a batch's deadline between bucket
+groups and, for the batching engine, returns a failed group's errors in
+place of its results.
 
-Not in this slice: the device mesh, quantized banks, access heat and the
-placement planner's per-model row counts, and with them the JAX bank's
-shard, quantize, weight-bytes and generation series.
+Not in this slice: the device mesh, quantized banks and the placement
+planner's per-model row counts, and with them the JAX bank's shard,
+quantize, weight-bytes and generation series.
 """
 
 import contextlib
@@ -480,10 +482,12 @@ class ModelBank:
     ``inflight`` (``GORDO_BANK_INFLIGHT``, default 2) bounds the groups in
     flight, 1 being the serial order; ``arena_max_mb``
     (``GORDO_ARENA_MAX_MB``) bounds the padded-buffer arena; ``ledger`` is
-    the app's goodput ledger, or None."""
+    the app's goodput ledger and ``heat`` its access-heat accountant, or
+    None."""
 
     def __init__(self, max_rows_per_call: int = 8192, device="cuda", registry=None,
-                 inflight: Optional[int] = None, arena_max_mb: Optional[float] = None, ledger=None):
+                 inflight: Optional[int] = None, arena_max_mb: Optional[float] = None, ledger=None,
+                 heat=None):
         self.device = resolve_device(device)
         self.max_rows = int(max_rows_per_call)
         if inflight is None:
@@ -498,6 +502,11 @@ class ModelBank:
         self.arena = PaddedArena(None if arena_max_mb is None else int(arena_max_mb * 1024 * 1024),
                                  pinned=self.device.type == "cuda")
         self.ledger = ledger
+        # the app's heat accountant: every generation feeds it, and its
+        # bucket attribution follows this bank
+        self.heat = heat
+        if heat is not None:
+            heat.bind_bank(self)
         # host/device overlap over multi-group calls: device_busy sums the
         # groups' non-overlapping windows, wall the calls'
         self._pipe_lock = threading.Lock()
@@ -913,6 +922,9 @@ class ModelBank:
         run.t_group = time.monotonic() if timed else 0.0
         F, off = bucket.n_features, bucket.offset
         rows = [np.asarray(requests[ri][1], np.float32) for ri in req_ids]
+        # heat's mailbox: one dict get and set a request; the decay runs on
+        # the accountant's cadence
+        pend = self.heat.pending if self.heat is not None else None
         for ri, X in zip(req_ids, rows):
             name = requests[ri][0]
             if X.ndim != 2 or X.shape[1] != F:
@@ -922,6 +934,8 @@ class ModelBank:
             if X.shape[0] <= off:
                 raise ValueError(f"Request for {name!r}: need more than {off} rows (sequence warm-up), "
                                  f"got {X.shape[0]}")
+            if pend is not None:
+                pend[name] = pend.get(name, 0.0) + X.shape[0]
         # rows per call: a power of two, at most max_rows but always at
         # least one window and one output row; chunk [start, start + T)
         # yields the output rows [start + off, start + T)

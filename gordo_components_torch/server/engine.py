@@ -12,8 +12,14 @@ group comes back as its requests' errors, and those requests are scored
 again alone, so one bad request fails only itself. A batch reads
 ``self.bank`` once, so a bank swap (``server/swap.py``) flips the engine
 between batches and a batch in flight drains on the bank it started on.
-The queue is bounded: when it holds ``max_queue`` requests a new one
-raises :class:`EngineOverloaded` at once (HTTP 429).
+The queue is the weighted-fair queue of ``qos/fair.py``
+(``GORDO_QOS_WEIGHTS``): the worker dequeues across the priority classes
+by weighted virtual time and inside a class by deadline, so a flood of
+``best_effort`` requests delays ``interactive`` ones by at most their
+weight share; with every request in one class the order is FIFO. The
+queue is bounded: when it holds ``max_queue`` requests a new one raises
+:class:`EngineOverloaded` at once (HTTP 429), the bound tested under the
+queue's lock.
 
 Deadlines (``resilience/deadline.py``), as in the JAX engine: ``submit``
 refuses an expired deadline at admission; after a batch is collected one
@@ -26,8 +32,10 @@ Metrics: ``stats`` (requests, batches, max_batch_seen, shed,
 deadline_expired) is mutated under the engine's lock and rendered through
 a collector of the bank's registry as ``gordo_engine_*``, with the
 ``queue_wait`` (submit to dispatch) and ``service`` (submit to result)
-histograms. The JAX engine's per-class series belong to QoS and are not
-ported yet.
+histograms. ``class_stats`` counts requests, shed and deadline_expired
+a class under the same lock (``gordo_engine_class_*``, with the live
+depth a class), and :meth:`BatchingEngine.qos_snapshot` is the engine's
+half of ``GET .../qos``.
 
 Traces and goodput, as in the JAX engine: a request's trace rides its
 ``_Pending`` (a context variable does not cross from the HTTP thread to
@@ -48,6 +56,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from gordo_components_torch.qos.classify import CLASSES, DEFAULT_CLASS, DEFAULT_TENANT
+from gordo_components_torch.qos.fair import WeightedFairQueue, parse_weights
 from gordo_components_torch.resilience.deadline import Deadline, DeadlineExceeded
 from gordo_components_torch.server.bank import ModelBank, ScoreResult
 from gordo_components_torch.server.stats import LatencyHistogram
@@ -63,6 +73,9 @@ class _Pending:
     deadline: Optional[Deadline] = None
     request_id: Optional[str] = None
     trace: Optional[Any] = None  # observability.tracing.Trace, or None
+    # the QoS identity admission stamped: the fair queue dequeues by class
+    tenant: str = DEFAULT_TENANT
+    qos_class: str = DEFAULT_CLASS
 
 
 class EngineOverloaded(Exception):
@@ -80,7 +93,8 @@ class BatchingEngine:
 
     The engine records into the bank's registry; a bank built with
     ``registry=False`` makes it uninstrumented too (its histograms are
-    kept, but nothing renders them)."""
+    kept, but nothing renders them). The fair queue's class weights are
+    ``GORDO_QOS_WEIGHTS``'s."""
 
     def __init__(
         self,
@@ -95,12 +109,13 @@ class BatchingEngine:
         self.max_queue = int(max_queue if max_queue is not None else 8 * self.max_batch)
         if self.max_queue <= 0:
             raise ValueError(f"max_queue must be positive, got {max_queue!r}")
-        self._queue: "queue.Queue[_Pending]" = queue.Queue(self.max_queue)
+        self._queue = WeightedFairQueue(parse_weights(), maxsize=self.max_queue)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._batch_s = 0.0  # the last batch's scoring seconds
         self._stats_lock = threading.Lock()
         self.stats = {"requests": 0, "batches": 0, "max_batch_seen": 0, "shed": 0, "deadline_expired": 0}
+        self.class_stats = {c: {"requests": 0, "shed": 0, "deadline_expired": 0} for c in CLASSES}
         self.registry = registry = getattr(bank, "registry", None)
         if registry is not None:
             self.queue_wait = registry.histogram(
@@ -129,9 +144,18 @@ class BatchingEngine:
         with self._stats_lock:
             return dict(self.stats)
 
-    def _bump(self, key: str, n: int = 1) -> None:
+    def class_stats_snapshot(self) -> Dict[str, Dict[str, int]]:
+        """A copy of ``class_stats`` from one state."""
         with self._stats_lock:
-            self.stats[key] += n
+            return {c: dict(cs) for c, cs in self.class_stats.items()}
+
+    def _bump(self, key: str, qos_class: Optional[str] = None) -> None:
+        """One more ``key``, and in ``qos_class``'s cell when given."""
+        with self._stats_lock:
+            self.stats[key] += 1
+            cs = self.class_stats.get(qos_class)
+            if cs is not None:
+                cs[key] += 1
 
     def note_deadline_expired(self) -> None:
         """Count a request whose deadline ran out on a path beside the
@@ -141,6 +165,20 @@ class BatchingEngine:
     def _collect_metrics(self):
         """The engine's counters and queue state, read at render time."""
         s = self.stats_snapshot()
+        depths = self._queue.depths()
+        per_class = []
+        for cls, cs in self.class_stats_snapshot().items():
+            label = {"class": cls}
+            per_class += [
+                ("gordo_engine_class_requests_total", "counter",
+                 "Requests dispatched by the engine, by priority class", label, cs["requests"]),
+                ("gordo_engine_class_shed_total", "counter", "Full-queue sheds by priority class", label,
+                 cs["shed"]),
+                ("gordo_engine_class_deadline_expired_total", "counter",
+                 "Deadline-expiry drops by priority class", label, cs["deadline_expired"]),
+                ("gordo_engine_class_queue_depth", "gauge", "Live scoring-queue depth by priority class", label,
+                 depths.get(cls, 0)),
+            ]
         return [
             ("gordo_engine_requests_total", "counter",
              "Requests accepted by the batching engine", {}, s["requests"]),
@@ -154,7 +192,21 @@ class BatchingEngine:
              s["max_batch_seen"]),
             ("gordo_engine_queue_depth", "gauge", "Live scoring-queue depth", {}, self._queue.qsize()),
             ("gordo_engine_max_queue", "gauge", "Queue bound before requests shed", {}, self.max_queue),
-        ]
+        ] + per_class
+
+    def qos_snapshot(self) -> dict:
+        """The engine's half of ``GET .../qos``: the fair queue's state,
+        the counters a class, and each banked target's feature width."""
+        bank = self.bank
+        buckets = bank._buckets
+        widths = {name: int(buckets[key].n_features) for name, (key, _i) in list(bank._index.items())
+                  if key in buckets}
+        return {
+            "queue": self._queue.snapshot(),
+            "max_queue": self.max_queue,
+            "classes": self.class_stats_snapshot(),
+            "feature_widths": widths,
+        }
 
     def start(self) -> None:
         if self._thread is None:
@@ -184,15 +236,16 @@ class BatchingEngine:
 
     def submit(self, name: str, X: np.ndarray, y: Optional[np.ndarray] = None,
                deadline: Optional[Deadline] = None, request_id: Optional[str] = None,
-               trace=None) -> Future:
+               trace=None, tenant: str = DEFAULT_TENANT, qos_class: str = DEFAULT_CLASS) -> Future:
         """Queue one request; its future resolves to a :class:`ScoreResult`.
         An expired ``deadline`` raises :class:`DeadlineExceeded` here.
-        ``trace`` receives the request's engine and bank spans."""
+        ``trace`` receives the request's engine and bank spans;
+        ``qos_class`` is its class in the fair queue."""
         if self._thread is None:
             raise RuntimeError("engine is not running (call start() first)")
         if deadline is not None and deadline.expired():
             # queueing it would only grow the backlog by known waste
-            self._bump("deadline_expired")
+            self._bump("deadline_expired", qos_class)
             if trace is not None:
                 now = time.monotonic()
                 trace.add_span("deadline_expired", now, now, error=True, where="admission")
@@ -200,9 +253,10 @@ class BatchingEngine:
                                    f"budget {deadline.budget_s * 1e3:.0f}ms)")
         fut: Future = Future()
         try:
-            self._queue.put_nowait(_Pending(name, X, y, fut, time.monotonic(), deadline, request_id, trace))
+            self._queue.put_nowait(_Pending(name, X, y, fut, time.monotonic(), deadline, request_id, trace,
+                                            tenant, qos_class))
         except queue.Full:
-            self._bump("shed")
+            self._bump("shed", qos_class)
             depth = self._queue.qsize()
             raise EngineOverloaded(depth, self.drain_estimate(depth)) from None
         return fut
@@ -210,11 +264,12 @@ class BatchingEngine:
     def score_blocking(
         self, name: str, X: np.ndarray, y: Optional[np.ndarray] = None,
         timeout: Optional[float] = None, deadline: Optional[Deadline] = None,
-        request_id: Optional[str] = None, trace=None,
+        request_id: Optional[str] = None, trace=None, tenant: str = DEFAULT_TENANT,
+        qos_class: str = DEFAULT_CLASS,
     ) -> ScoreResult:
         """Score one request from a plain thread, blocking until its batch
         is done."""
-        return self.submit(name, X, y, deadline, request_id, trace).result(timeout)
+        return self.submit(name, X, y, deadline, request_id, trace, tenant, qos_class).result(timeout)
 
     def _collect(self, first: _Pending):
         batch = [first]
@@ -238,6 +293,10 @@ class BatchingEngine:
                 continue
             with self._stats_lock:
                 self.stats["requests"] += len(batch)
+                for p in batch:
+                    cs = self.class_stats.get(p.qos_class)
+                    if cs is not None:
+                        cs["requests"] += 1
                 self.stats["batches"] += 1
                 self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"], len(batch))
             # one clock read drops the expired entries before device work
@@ -253,7 +312,7 @@ class BatchingEngine:
                 if led is not None:
                     led.record_queue_wait(dispatch - p.enqueued)
                 if p.deadline is not None and p.deadline.expired(dispatch):
-                    self._bump("deadline_expired")
+                    self._bump("deadline_expired", p.qos_class)
                     if p.trace is not None:
                         p.trace.add_span("deadline_expired", p.enqueued, dispatch, error=True, where="queue")
                     p.future.set_exception(DeadlineExceeded(
@@ -305,7 +364,7 @@ class BatchingEngine:
         deadline. Its trace rides along unless its group recorded its
         stage spans before another group failed."""
         if p.deadline is not None and p.deadline.expired():
-            self._bump("deadline_expired")
+            self._bump("deadline_expired", p.qos_class)
             if p.trace is not None:
                 p.trace.add_span("deadline_expired", p.enqueued, time.monotonic(), error=True, where="retry")
             p.future.set_exception(DeadlineExceeded(

@@ -21,14 +21,14 @@ counters go on from the old bank's and its gauges read the new bank; the
 engine, which keeps its collector, is the same across the swap.
 
 Not in this slice: the placement planner's member order and per-model row
-counts and the multi-worker engines.
+counts (heat, ``observability/heat.py``, is the load signal that survives
+a swap) and the multi-worker engines.
 """
 
 import logging
 import os
 import time
 from dataclasses import dataclass
-from typing import Optional
 
 from gordo_components_torch.server.bank import ModelBank
 from gordo_components_torch.server.engine import BatchingEngine
@@ -51,18 +51,16 @@ def warmup_enabled() -> bool:
     return os.environ.get("GORDO_SERVER_WARMUP", "1") != "0"
 
 
-def build_bank(app, warmup: Optional[bool] = None) -> ModelBank:
+def build_bank(app) -> ModelBank:
     """The bank of the collection's current models with the app's bank
-    settings, warmed (``warmup`` defaults to :func:`warmup_enabled`); the
-    old bank serves meanwhile. ``build_s`` and ``warmup_s`` are recorded
-    on it. A warm-up that raises fails the build."""
+    settings, warmed unless ``GORDO_SERVER_WARMUP=0``; the old bank serves
+    meanwhile. ``build_s`` and ``warmup_s`` are recorded on it. A warm-up
+    that raises fails the build."""
     t0 = time.monotonic()
     bank = ModelBank.from_models(app.collection.models, **app.bank_config)
     bank.build_s = time.monotonic() - t0
-    if warmup is None:
-        warmup = warmup_enabled()
     t1 = time.monotonic()
-    if warmup and len(bank):
+    if warmup_enabled() and len(bank):
         bank.warmup()
     bank.warmup_s = time.monotonic() - t1
     return bank
@@ -72,21 +70,33 @@ def swap_bank(app, new_bank: ModelBank) -> SwapResult:
     """Flip the app to ``new_bank``, its generation one above the old
     bank's; the caller holds ``app.reload_lock``. The engine starts here
     when the first bank with members arrives; if that fails, the old bank
-    and engine stay."""
+    and engine stay, and the app's event log gets ``bank.swap_failed``.
+    Every flip emits one ``bank.swap``."""
     old_bank = app.bank
+    events = getattr(app, "events", None)
     t0 = time.monotonic()
-    new_bank.generation = old_bank.generation + 1
-    # the engine first: until app.bank flips, a request routes by the old
-    # bank, so a target it holds is in both banks and a new one goes to
-    # the per-model path
-    if app.engine is not None:
-        app.engine.bank = new_bank  # batches in flight keep the old one
-    elif len(new_bank):
-        engine = BatchingEngine(new_bank, **app.engine_config)
-        engine.start()
-        app.engine = engine
-    app.bank = new_bank
+    generation = old_bank.generation + 1
+    new_bank.generation = generation
+    try:
+        # the engine first: until app.bank flips, a request routes by the
+        # old bank, so a target it holds is in both banks and a new one
+        # goes to the per-model path
+        if app.engine is not None:
+            app.engine.bank = new_bank  # batches in flight keep the old one
+        elif len(new_bank):
+            engine = BatchingEngine(new_bank, **app.engine_config)
+            engine.start()
+            app.engine = engine
+        app.bank = new_bank
+    except BaseException:
+        logger.error("bank swap to generation %d failed; generation %d keeps serving", generation,
+                     old_bank.generation, exc_info=True)
+        if events is not None:
+            events.emit("bank.swap_failed", severity="error", generation=old_bank.generation, attempted=generation)
+        raise
     pause_s = time.monotonic() - t0
     logger.info("bank swapped to generation %d (%d model(s), flip pause %.3f ms)",
-                new_bank.generation, len(new_bank), pause_s * 1e3)
+                generation, len(new_bank), pause_s * 1e3)
+    if events is not None:
+        events.emit("bank.swap", generation=generation, models=len(new_bank), pause_ms=round(pause_s * 1e3, 3))
     return SwapResult(new_bank.generation, pause_s, len(new_bank), new_bank.build_s, new_bank.warmup_s)

@@ -13,6 +13,10 @@ Counterpart of these routes of ``gordo_components_tpu/server/views.py``:
 - ``GET  /gordo/v0/<project>/traces/slow`` (``?n=``, ``?format=chrome``)
 - ``GET  /gordo/v0/<project>/slo`` (``?refresh=1``)
 - ``GET  /gordo/v0/<project>/costs`` (``?refresh=1``)
+- ``GET  /gordo/v0/<project>/qos``
+- ``GET  /gordo/v0/<project>/heat`` (``?refresh=1``, ``?top=``)
+- ``GET  /gordo/v0/<project>/history`` (``?series=``, ``since``, ``until``, ``step``)
+- ``GET  /gordo/v0/<project>/events`` (``?since=``, ``since_wall``, ``type``, ``limit``)
 - ``POST /gordo/v0/<project>/quarantine/clear``
 - ``POST /gordo/v0/<project>/reload``
 - ``GET  /gordo/v0/<project>/<target>/healthcheck``
@@ -50,6 +54,20 @@ model's own call). A scoring request's outcome goes to the goodput ledger
 with its device seconds: a 504 counts as expired, a 200 with non-finite
 scores for finite input as wasted.
 
+QoS, as in the JAX handlers: every scoring POST carries a tenant and a
+priority class (``X-Gordo-Tenant``, ``X-Gordo-Priority``; ``qos/``). After
+its body parses and before its scoring, the admission controller admits
+it or refuses it with a 429, its reason (``tenant_rate``,
+``queue_pressure``, ``goodput_burn``) and ``Retry-After``; the queue rules
+read the engine's depth, so a per-model target meets the tenant rate
+alone. An admitted banked request enters the engine's fair queue under
+its class, and the goodput ledger books it under admission's bounded
+tenant label.
+
+Events: a quarantine's enter and clear and a ``/reload`` go to the app's
+event log (``observability/events.py``), stamped with the bank's
+generation; the swap itself emits ``bank.swap`` (``swap.py``).
+
 The quarantine breaker (``resilience/quarantine.py``) reads every scoring
 answer: a non-finite output (the ``total-anomaly-scaled`` column of an
 anomaly answer, which the anomaly-score kernel computes) for finite input
@@ -59,7 +77,8 @@ or a deadline's. A quarantined model answers 410 before its body is read.
 Errors: 400 for a bad body or a request the model cannot score, 404 for an
 unknown target or route, 405 for a route's other method, 410 for a
 quarantined model, 422 for an anomaly request to a model without
-``anomaly``, 429 with ``Retry-After`` when the engine's queue is full, 504
+``anomaly``, 429 with ``Retry-After`` when admission refuses a request or
+the engine's queue is full, 504
 when the request's deadline passed before its scoring, 503 from
 ``/healthz`` and ``/ready`` when nothing is served. A 5xx body carries the
 request id.
@@ -82,6 +101,7 @@ import numpy as np
 from gordo_components_torch import __version__, serializer
 from gordo_components_torch.observability.metrics import _fmt
 from gordo_components_torch.observability.tracing import chrome_trace, format_traceparent
+from gordo_components_torch.qos.admission import QosShed
 from gordo_components_torch.qos.classify import classify_headers
 from gordo_components_torch.resilience.deadline import (
     DEADLINE_HEADER,
@@ -117,6 +137,10 @@ _ROUTES = [
     ("GET", re.compile(_P + r"/traces/slow$"), "traces_slow"),
     ("GET", re.compile(_P + r"/slo$"), "slo_view"),
     ("GET", re.compile(_P + r"/costs$"), "costs_view"),
+    ("GET", re.compile(_P + r"/qos$"), "qos_view"),
+    ("GET", re.compile(_P + r"/heat$"), "heat_view"),
+    ("GET", re.compile(_P + r"/history$"), "history_view"),
+    ("GET", re.compile(_P + r"/events$"), "events_view"),
     ("POST", re.compile(_P + r"/quarantine/clear$"), "quarantine_clear"),
     ("POST", re.compile(_P + r"/reload$"), "reload"),
     ("GET", re.compile(_T + r"/healthcheck$"), "healthcheck"),
@@ -233,8 +257,10 @@ class GordoHandler(BaseHTTPRequestHandler):
             hist = stats["latency"].get(kind)
             if hist is None:
                 hist = stats["latency"][kind] = LatencyHistogram()
-        # the scoring path's goodput inputs, set by the handlers
+        # the scoring path's goodput inputs, set by the handlers; the QoS
+        # identity, and the tenant label admission gives it
         self.device_s, self.scores_finite = 0.0, True
+        self.qos, self.qos_label = classify_headers(self.headers), None
         self.trace = None
         if app.tracer is not None:
             self.trace = app.tracer.start_trace(kind, traceparent=self.headers.get("traceparent"), request_id=rid)
@@ -256,12 +282,12 @@ class GordoHandler(BaseHTTPRequestHandler):
         elapsed = time.monotonic() - t0
         hist.record(elapsed)
         if kind in _SCORING and app.ledger is not None:
-            # the untagged tenant is "default"; any other collapses to "other"
-            # (no QoS configuration names tenants yet)
-            qos = classify_headers(self.headers)
+            # the bounded label: admission's, or derived as it derives it
+            qos, label = self.qos, self.qos_label
+            if label is None:
+                label = qos.label_tenant(app.admission.known_tenants)
             app.ledger.finish_request(status=status, elapsed_s=elapsed, device_s=self.device_s,
-                                      scores_finite=self.scores_finite, tenant=qos.label_tenant(None),
-                                      qos_class=qos.qos_class)
+                                      scores_finite=self.scores_finite, tenant=label, qos_class=qos.qos_class)
         trace = self.trace
         if trace is not None:
             trace.finish(error=status >= 400, status=status)
@@ -341,6 +367,35 @@ class GordoHandler(BaseHTTPRequestHandler):
             return engine
         return None
 
+    def _emit(self, etype: str, severity: str = "info", **attrs) -> None:
+        """A state change on the app's event log, at the bank's generation."""
+        app = self.app
+        app.events.emit(etype, severity=severity, generation=app.generation(), **attrs)
+
+    def _qos_admit(self, engine) -> None:
+        """Admission before the scoring call (JAX ``_qos_admit``): 429 with
+        the refusal's reason and ``Retry-After``; the queue rules read
+        ``engine``'s depth (none on the per-model path)."""
+        depth = max_queue = 0
+        drain_s = 0.05
+        if engine is not None:
+            max_queue = engine.max_queue
+            depth = engine._queue.qsize()
+            drain_s = engine.drain_estimate(depth)
+        try:
+            self.qos_label = self.app.admission.admit(self.qos, queue_depth=depth, max_queue=max_queue,
+                                                      drain_s=drain_s)
+        except QosShed as exc:
+            raise HTTPError(429, str(exc), headers={"Retry-After": str(max(1, math.ceil(exc.retry_after_s)))},
+                            reason=exc.reason, tenant=exc.tenant, retry_after_s=round(exc.retry_after_s, 2),
+                            **{"class": exc.qos_class}) from None
+
+    def _record_failure(self, target: str, reason: str) -> None:
+        """A scoring failure against the breaker; ``quarantine.enter`` when
+        it takes the model out of routing."""
+        if self.app.quarantine.record_failure(target, reason):
+            self._emit("quarantine.enter", severity="error", target=target, reason=reason)
+
     def _quarantine_gate(self, project: str, target: str) -> None:
         """410 with the recorded reason for a quarantined model: it exists,
         but the breaker took it out of routing."""
@@ -370,8 +425,9 @@ class GordoHandler(BaseHTTPRequestHandler):
         429 for a full queue, 504 for a passed deadline, 400 for the rest,
         which counts against the breaker unless it is a bad request's. The
         per-model call's time is the request's device seconds and its
-        ``device_execute`` span."""
+        ``device_execute`` span. Admission runs first."""
         engine = self._engine(target)
+        self._qos_admit(engine)
         try:
             if engine is not None:
                 return bank_call(engine)
@@ -394,7 +450,7 @@ class GordoHandler(BaseHTTPRequestHandler):
             raise HTTPError(504, str(exc), request_id=self.request_id) from None
         except Exception as exc:
             if not isinstance(exc, (ValueError, KeyError)):
-                self.app.quarantine.record_failure(target, f"{type(exc).__name__}: {exc}")
+                self._record_failure(target, f"{type(exc).__name__}: {exc}")
             logger.exception("scoring %r failed", target)
             raise HTTPError(400, f"{type(exc).__name__}: {exc}") from None
 
@@ -406,7 +462,7 @@ class GordoHandler(BaseHTTPRequestHandler):
             self.app.quarantine.record_success(target)
         elif np.all(np.isfinite(X)):
             self.scores_finite = False
-            self.app.quarantine.record_failure(target, "non-finite scores in model output")
+            self._record_failure(target, "non-finite scores in model output")
 
     def _coverage(self, names) -> Optional[Dict[str, Any]]:
         """Which models score through the bank and which on the per-model
@@ -489,9 +545,10 @@ class GordoHandler(BaseHTTPRequestHandler):
 
     def server_stats(self, project: str):
         """Request counters by kind, errors, latency percentiles and their
-        exemplar traces, the wire by encoding, the engine's coalescing, the
-        bank's pipeline, the breaker, the goodput ledger, the SLO and cost
-        snapshots (the same caches ``/slo`` and ``/costs`` serve) and the
+        exemplar traces, the wire by encoding, the engine's coalescing (and
+        its counters a class), the bank's pipeline, the breaker, the
+        goodput ledger, the SLO, heat and cost snapshots (the same caches
+        ``/slo``, ``/heat`` and ``/costs`` serve) and the
         registry's JSON view (JAX ``server_stats``, with the keys the port
         fills)."""
         app = self.app
@@ -520,6 +577,7 @@ class GordoHandler(BaseHTTPRequestHandler):
             es["service"] = engine.service.snapshot()
             es["max_queue"] = engine.max_queue
             es["queue_depth"] = engine._queue.qsize()
+            es["by_class"] = engine.class_stats_snapshot()
             body["bank_engine"] = es
         bank = app.bank
         if bank is not None:
@@ -530,6 +588,8 @@ class GordoHandler(BaseHTTPRequestHandler):
             body["goodput"] = app.ledger.snapshot()
         if app.slo is not None:
             body["slo"] = app.slo.snapshot()
+        if app.heat is not None:
+            body["heat"] = app.heat.snapshot()
         if app.cost is not None:
             body["costs"] = app.cost.snapshot()
         body["load_failures"] = {"current": dict(collection.load_failures),
@@ -599,6 +659,70 @@ class GordoHandler(BaseHTTPRequestHandler):
             cost.sample(force=True)
         return 200, {"enabled": True, **cost.snapshot()}
 
+    def _query_float(self, name: str) -> Optional[float]:
+        """``?name=`` as a number, None when absent or empty, else 400."""
+        raw = self.query.get(name, [""])[-1]
+        if raw == "":
+            return None
+        try:
+            return float(raw)
+        except ValueError:
+            raise HTTPError(400, f"{name} must be a number, got {raw!r}") from None
+
+    def qos_view(self, project: str):
+        """Admission's buckets, thresholds and counters, and the engine's
+        fair queue and counters a class (the dicts ``/metrics`` renders)."""
+        app = self.app
+        body: Dict[str, Any] = {"enabled": True, "admission": app.admission.snapshot()}
+        engine = app.engine
+        if engine is not None:
+            body["engine"] = engine.qos_snapshot()
+        return 200, body
+
+    def heat_view(self, project: str):
+        """Heat's tiers, per-bucket breakdown and rate histogram (the cache
+        the ``gordo_heat_*`` series and ``/stats`` read; ``?refresh=1``
+        folds first), and the ``?top=`` (10) hottest and coldest members."""
+        heat = self.app.heat
+        if heat is None:
+            return 200, {"enabled": False}
+        if self.query.get("refresh", [""])[-1].lower() in _TRUE:
+            heat.sample(force=True)
+        body = {"enabled": True, **heat.snapshot()}
+        top = self._query_float("top")
+        body.update(heat.ranked(10 if top is None else int(top)))
+        return 200, body
+
+    def history_view(self, project: str):
+        """The history store's state and its series' names, or with
+        ``?series=a,b`` (and ``since``, ``until`` in epoch seconds,
+        ``step`` in seconds) their points from the finest tier that covers
+        the range."""
+        store = self.app.history
+        if store is None:
+            return 200, {"enabled": False}
+        body: Dict[str, Any] = store.snapshot()
+        names = [n for n in self.query.get("series", [""])[-1].split(",") if n]
+        if names:
+            body["series"] = store.query(names, since=self._query_float("since"),
+                                         until=self._query_float("until"), step=self._query_float("step"))
+        else:
+            body["names"] = store.series_names()
+        return 200, body
+
+    def events_view(self, project: str):
+        """The event log, oldest first: ``?since=<seq>``,
+        ``?since_wall=<epoch s>``, ``?type=a,b``, ``?limit=n`` (the newest n)."""
+        events = self.app.events
+        types = [t for t in self.query.get("type", [""])[-1].split(",") if t] or None
+        since_seq = self._query_float("since") or 0
+        limit = self._query_float("limit")
+        body = {"enabled": True, **events.snapshot()}
+        body["events"] = events.events(since_seq=int(since_seq), types=types,
+                                       since_wall=self._query_float("since_wall"),
+                                       limit=None if limit is None else int(limit))
+        return 200, body
+
     def quarantine_list(self, project: str):
         return 200, {"enabled": True, **self.app.quarantine.snapshot()}
 
@@ -616,7 +740,10 @@ class GordoHandler(BaseHTTPRequestHandler):
                 targets = body.get("targets")
                 if targets is not None and not isinstance(targets, list):
                     raise HTTPError(400, "targets must be a list")
-        return 200, {"enabled": True, "cleared": self.app.quarantine.clear(targets)}
+        cleared = self.app.quarantine.clear(targets)
+        if cleared:
+            self._emit("quarantine.clear", targets=cleared)
+        return 200, {"enabled": True, "cleared": cleared}
 
     def reload(self, project: str):
         """Rescan the model directory, then build and warm a new bank from
@@ -641,6 +768,8 @@ class GordoHandler(BaseHTTPRequestHandler):
                                     changes=changes, generation=app.bank.generation) from None
                 bank_models = result.bank_models
                 swap = {"generation": result.generation, "pause_ms": round(result.pause_s * 1e3, 3)}
+        self._emit("models.reload", added=len(changes.get("added", ())), updated=len(changes.get("updated", ())),
+                   removed=len(changes.get("removed", ())))
         body = {"changes": changes, "models": app.collection.names(), "bank_models": bank_models}
         if swap is not None:
             body["swap"] = swap
@@ -670,7 +799,7 @@ class GordoHandler(BaseHTTPRequestHandler):
         X, y, index = self._parse()
         def banked(engine):
             result = engine.score_blocking(target, X, y, deadline=self.deadline, request_id=self.request_id,
-                                           trace=self.trace)
+                                           trace=self.trace, tenant=self.qos_label, qos_class=self.qos.qos_class)
             self.device_s = result.device_s
             return result.model_output
 
@@ -687,7 +816,7 @@ class GordoHandler(BaseHTTPRequestHandler):
 
         def banked(engine):
             result = engine.score_blocking(target, X, y, deadline=self.deadline, request_id=self.request_id,
-                                           trace=self.trace)
+                                           trace=self.trace, tenant=self.qos_label, qos_class=self.qos.qos_class)
             self.device_s = result.device_s
             t0 = time.monotonic()
             arrays = result.to_arrays()

@@ -114,17 +114,9 @@ STEPS = [
 # families the JAX server renders and the port does not yet, by the item of
 # ROADMAP.md's queue A that brings them (each is named there)
 NOT_RENDERED = {
-    # A1, the rest of the server's observability: QoS and its per-class
-    # engine series, heat and events
-    "gordo_engine_class_requests_total", "gordo_engine_class_shed_total",
-    "gordo_engine_class_deadline_expired_total", "gordo_engine_class_queue_depth",
-    "gordo_qos_admitted_total", "gordo_qos_unknown_tenant_total",
-    "gordo_heat_member_rate", "gordo_heat_members_tracked", "gordo_heat_rows_rate",
-    "gordo_heat_tier_members",
-    "gordo_events_total",
-    # A5, the low-precision bank
+    # A6, the low-precision bank
     "gordo_bank_quantize_fallback_total", "gordo_bank_weight_bytes", "gordo_bank_models_per_gb",
-    # A6, multi-device: the sharded bank and the placement controller
+    # A7, multi-device: the sharded bank and the placement controller
     "gordo_bank_shard_routed_rows_total", "gordo_bank_shard_padded_rows_total",
     "gordo_bank_shard_requests_total", "gordo_bank_generation",
     "gordo_rebalance_total", "gordo_rebalance_noop_total", "gordo_rebalance_failed_total",
@@ -141,13 +133,16 @@ def _nan_detector(fitted: DiffBasedAnomalyDetector) -> DiffBasedAnomalyDetector:
     return fitted
 
 
-async def _jax_answers(root):
-    """(status, headers, body) of every step from the JAX server."""
+async def _jax_answers(root, steps=STEPS, then=None):
+    """(status, headers, body) of every step from the JAX server;
+    ``then(app)`` runs after the last step."""
     client = TestClient(TestServer(jax_build_app(root)))
     await client.start_server()
     try:
         out = {}
-        for key, method, path, raw, headers in STEPS:
+        for key, method, path, raw, headers in steps:
+            if then is not None and key == "metrics":
+                then(client.server.app)
             resp = await client.request(method, path, data=raw, headers=headers)
             text = await resp.read()
             body = json.loads(text) if resp.content_type == "application/json" else text.decode()
@@ -174,7 +169,8 @@ def call(server, method, path, raw=None, headers=None):
 
 
 @pytest.fixture(scope="module")
-def served(tmp_path_factory):
+def roots(tmp_path_factory):
+    """(JAX root, port root) of the collection, written once."""
     rng = np.random.RandomState(0)
     Xv = rng.rand(200, 3).astype("float32")
     jax_root, port_root = tmp_path_factory.mktemp("jax"), tmp_path_factory.mktemp("port")
@@ -191,6 +187,12 @@ def served(tmp_path_factory):
     for name, model in models.items():
         jax_serializer.dump(model, str(jax_root / name), metadata={"name": name})
     assert TOOL.main([str(jax_root), str(port_root)]) == 0
+    return str(jax_root), str(port_root)
+
+
+@pytest.fixture(scope="module")
+def served(roots):
+    jax_root, port_root = roots
     # on both servers: one SLO sample for the whole sequence, however long
     # it takes (a second one would render gordo_slo_objective_ratio), and
     # every trace kept (head sampling would drop random kinds' exemplars)
@@ -198,8 +200,8 @@ def served(tmp_path_factory):
     env = {k: os.environ.get(k) for k in pinned}
     os.environ.update(pinned)
     try:
-        jax = asyncio.run(_jax_answers(str(jax_root)))
-        server = run_server(str(port_root), host="127.0.0.1", port=0, device="cpu", background=True)
+        jax = asyncio.run(_jax_answers(jax_root))
+        server = run_server(port_root, host="127.0.0.1", port=0, device="cpu", background=True)
     finally:
         for k, v in env.items():
             if v is None:
@@ -443,3 +445,69 @@ def test_concurrent_requests_lose_no_count(served):
     assert not any(t.is_alive() for t in threads)
     after = counts()
     assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (64, 64, 64)
+
+
+# history on, a tenant limited to two requests: the third is shed
+HISTORY_ENV = {"GORDO_HISTORY": "1", "GORDO_HISTORY_INTERVAL_S": "3600", "GORDO_SLO_SAMPLE_S": "3600",
+               "GORDO_QOS_TENANTS": json.dumps({"acme": {"rate": 0.001, "burst": 2}})}
+HISTORY_STEPS = [
+    (f"acme_{i}", *_post(f"{P}/machine-a/anomaly/prediction", **{"X-Gordo-Tenant": "acme"})) for i in range(3)
+] + [("metrics", "GET", f"{P}/metrics", None, {})]
+HISTORY_FAMILIES = ("gordo_qos_shed_total", "gordo_history_series", "gordo_history_samples_total",
+                    "gordo_history_dropped_series_total")
+
+
+def _family_lines(text, name):
+    return [line for line in text.splitlines() if line.split("{")[0].split(" ")[0] == name
+            or line.startswith((f"# HELP {name} ", f"# TYPE {name} "))]
+
+
+def test_history_and_a_shed_render_as_jax(roots):
+    """With ``GORDO_HISTORY=1`` and one shed request, ``gordo_qos_shed_total``
+    and the three ``gordo_history_*`` families render as the JAX server
+    renders them; ``gordo_history_series`` counts each store's series,
+    whose families differ only by those the port does not render yet."""
+    jax_root, port_root = roots
+    stores = {}
+    env = {k: os.environ.get(k) for k in HISTORY_ENV}
+    os.environ.update(HISTORY_ENV)
+    try:
+        def sample_jax(app):
+            stores["jax"] = app["history"]
+            app["history"].sample()
+
+        jax = asyncio.run(_jax_answers(jax_root, HISTORY_STEPS, then=sample_jax))
+        server = run_server(port_root, host="127.0.0.1", port=0, device="cpu", background=True)
+    finally:
+        for k, v in env.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    try:
+        port = {}
+        for key, method, path, raw, headers in HISTORY_STEPS:
+            if key == "metrics":
+                server.app.history.sample()
+            port[key] = call(server, method, path, raw, headers)
+        stores["port"] = server.app.history
+    finally:
+        server.close()
+    assert [port[f"acme_{i}"][0] for i in range(3)] == [jax[f"acme_{i}"][0] for i in range(3)] == [200, 200, 429]
+    text, jax_text = port["metrics"][2], jax["metrics"][2]
+    for name in HISTORY_FAMILIES[:1] + HISTORY_FAMILIES[2:]:
+        assert _family_lines(text, name) == _family_lines(jax_text, name) != [], name
+    assert _family_lines(text, "gordo_qos_shed_total")[-1] == \
+        'gordo_qos_shed_total{class="interactive",reason="tenant_rate",tenant="acme"} 1'
+    assert _family_lines(text, "gordo_history_samples_total")[-1] == "gordo_history_samples_total 2"
+    series, jax_series = _family_lines(text, "gordo_history_series"), _family_lines(jax_text, "gordo_history_series")
+    assert series[:2] == jax_series[:2]
+    names, jax_names = stores["port"].series_names(), stores["jax"].series_names()
+    assert series[2] == f"gordo_history_series {len(names)}" and jax_series[2] == f"gordo_history_series {len(jax_names)}"
+    # the families the stores hold: the JAX server's but the ones the port
+    # does not render yet (a histogram's _count and _sum rate under its name)
+    def families(keys):
+        return {k.split("{")[0].split(":")[0].removesuffix("_count").removesuffix("_sum") for k in keys}
+
+    assert families(names) <= families(jax_names)
+    assert families(jax_names) - families(names) <= NOT_RENDERED
