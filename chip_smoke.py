@@ -370,10 +370,29 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             interval, and the store stays under its memory bound. Last, the
             pipeline phase's HTTP loop with heat, history and a tenant off
             and on (medians of 10 runs a side; findings, not a claim);
+    wire    the tensor wire format and the local transports: 16 config-1
+            dense detectors and 4 ``lstm_hourglass`` detectors (10 tags,
+            lookback 32) served banked (K2, K3) by a pool with a Unix socket
+            and the shared-memory ring, and per model (K1, K3) by a second
+            server with ``GORDO_SERVER_BANK=0``. Each family's JSON POST and
+            its tensor twin on both paths and both endpoints: the tensor
+            arrays bitwise the JSON values; one tensor body over TCP, the
+            socket and the ring: the same bytes; a truncated body 400 with
+            the reason over each; a quarantined target 410 over the socket
+            and the ring; a ``__meta__`` tenant over its bucket 429 on the
+            ring. 64 tensor POSTs at once, each on its own connection, to a
+            4-worker and a 1-worker server scoring each request alone
+            (``bank_max_batch=1``): every worker counts some, the answers
+            bitwise equal request by request. Readings (findings, not a
+            claim; medians of 10 runs a side in turns): the pipeline phase's
+            HTTP loop (16 x 4 POSTs of 64 rows) JSON against tensor over TCP,
+            with the ``parse`` span's median by encoding and the answer
+            bytes a request; tensor over TCP against the socket against the
+            ring; 64 x 2 tensor POSTs to 1 worker against 4;
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
             bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
-            definitions, observe, pipeline, qos), each reset just
+            definitions, observe, pipeline, qos, wire), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -392,6 +411,7 @@ import functools
 import gc
 import gzip
 import hashlib
+import http.client
 import http.server
 import json
 import math
@@ -403,6 +423,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -440,6 +461,8 @@ from gordo_components_torch.parallel import FleetTrainer, quantize_batch_count
 from gordo_components_torch.resilience.deadline import Deadline, DeadlineExceeded
 from gordo_components_torch.server import BatchingEngine, ModelBank, run_server
 from gordo_components_torch.server.model_io import ModelCollection
+from gordo_components_torch.utils.shm_ring import ShmRingClient
+from gordo_components_torch.utils.wire import ANOMALY_FRAME_NAMES, TENSOR_CONTENT_TYPE, pack_frames, unpack_frames
 from gordo_components_torch.utils.yaml_subset import safe_load
 from gordo_components_torch.workflow import DEFAULT_MODEL_CONFIG, Machine
 
@@ -2963,7 +2986,7 @@ def collection_phase(card: str):
         status, body = http_json(base + "/models")
         if (status != 200 or body["bank"]["banked"] != sorted(detectors)
                 or body["bank"]["fallback"] != COLLECTION_FALLBACK
-                or body["accepts"] != ["application/json", "application/x-parquet"]):
+                or body["accepts"] != ["application/json", TENSOR_CONTENT_TYPE, "application/x-parquet"]):
             raise AssertionError(f"collection /models answered {status}: {body}")
         served = {}
         worst = {}
@@ -3895,15 +3918,16 @@ def env_set(values: dict):
 
 
 def ab_runs(labels, run, what: str) -> dict:
-    """One untimed run a side, then PIPELINE_ROUNDS rounds of (a, b, b, a):
-    each side's p50, p99 and rows/s medians and every run's."""
-    a, b = labels
-    order = [a, b] + [a, b, b, a] * PIPELINE_ROUNDS
+    """One untimed run a label, then PIPELINE_ROUNDS rounds of the labels
+    forward and back ((a, b, b, a) for two): each label's p50, p99 and
+    rows/s medians and every run's."""
+    labels = list(labels)
+    order = labels + (labels + labels[::-1]) * PIPELINE_ROUNDS
     runs = {label: [] for label in labels}
     for i, label in enumerate(order):
         gc.collect()
         lat, n_rows, wall = run(label)
-        if i < 2:
+        if i < len(labels):
             continue
         lat_ms = np.asarray(lat) * 1e3
         runs[label].append({"p50_ms": round(float(np.percentile(lat_ms, 50)), 4),
@@ -4665,6 +4689,347 @@ def qos_phase(card: str):
     return summary
 
 
+WIRE_DIR = os.path.join(ROOT, "build", "chip_smoke_wire")
+WIRE_DENSE = 16  # config 1's dense detectors (10 tags)
+WIRE_LSTM = 4  # lstm_hourglass detectors at 10 tags, lookback 32
+WIRE_ROWS = 64  # rows a request
+WIRE_TENANT = "wire-tenant"
+# the ring's 16 slots let the 16 clients of the loop each hold one
+WIRE_ENV = {"GORDO_QOS_TENANTS": json.dumps({WIRE_TENANT: {"rate": 0.01, "burst": 1}}), "GORDO_SHM_SLOTS": "16"}
+WIRE_WORKERS = 4
+WIRE_CONNECTIONS = 64  # at once, one tensor POST each: the workers' check
+WIRE_WORKERS_LOOP = dict(clients=64, requests=2, rows=64)  # the workers' reading
+TENSOR_HEADERS = {"Content-Type": TENSOR_CONTENT_TYPE}
+JSON_HEADERS = {"Content-Type": "application/json"}
+
+
+class UnixHTTPConnection(http.client.HTTPConnection):
+    """HTTP over a Unix-domain socket at ``path``."""
+
+    def __init__(self, path: str, timeout: float = 120):
+        super().__init__("localhost", timeout=timeout)
+        self.unix_path = path
+
+    def connect(self):
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        sock.settimeout(self.timeout)
+        sock.connect(self.unix_path)
+        self.sock = sock
+
+
+def uds_raw(path: str, url: str, raw: bytes = None, headers=None):
+    """(status, headers, body bytes) of one request over a new connection
+    to the Unix socket ``path``."""
+    conn = UnixHTTPConnection(path)
+    try:
+        conn.request("POST" if raw is not None else "GET", url, body=raw, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def tensor_body(X, meta=None) -> bytes:
+    frames = [("X", X)]
+    if meta is not None:
+        frames.insert(0, ("__meta__", np.frombuffer(json.dumps(meta).encode(), np.uint8)))
+    return pack_frames(frames)
+
+
+def json_as_frames(answer: dict, prediction: bool) -> dict:
+    """A JSON answer's values as the tensor answer's frames, in float64."""
+    if prediction:
+        return {"data": np.asarray(answer["data"], np.float64)}
+    data = answer["data"]
+    out = {}
+    for name in ANOMALY_FRAME_NAMES:
+        if name.startswith("total"):
+            out[name] = np.asarray(data[name], np.float64)
+        else:
+            out[name] = np.stack([np.asarray(col, np.float64) for col in data[name].values()], axis=1)
+    return out
+
+
+def wire_json_vs_tensor(bases, names, rng) -> dict:
+    """Each family (dense, LSTM) on each path (the bank; the per-model
+    server, K1) and endpoint: a JSON POST and its tensor twin, the tensor
+    answer's arrays bitwise the JSON answer's values."""
+    checked = []
+    for path, base in bases.items():
+        for family, name in (("dense", names["dense"][0]), ("lstm", names["lstm"][0])):
+            X = rng.random((WIRE_ROWS, 10), dtype=np.float32)
+            for endpoint in ("anomaly/prediction", "prediction"):
+                url = f"{base}/{name}/{endpoint}"
+                s1, _, raw_json = http_raw(url, json.dumps({"X": X.tolist()}).encode(), JSON_HEADERS)
+                s2, hdrs, raw_tensor = http_raw(url, tensor_body(X), TENSOR_HEADERS)
+                what = f"wire {path} {family} {endpoint}"
+                if (s1, s2) != (200, 200) or hdrs.get("Content-Type") != TENSOR_CONTENT_TYPE:
+                    raise AssertionError(f"{what}: JSON {s1}, tensor {s2} {hdrs.get('Content-Type')}: {raw_tensor[:300]}")
+                frames = unpack_frames(raw_tensor)
+                meta = json.loads(frames.pop("__meta__").tobytes())
+                want = json_as_frames(json.loads(raw_json), endpoint == "prediction")
+                rows = len(next(iter(frames.values())))
+                if list(frames) != list(want) or meta["offset"] != WIRE_ROWS - rows or not all(
+                        frames[k].dtype == np.float32 and np.all(np.isfinite(frames[k]))
+                        and np.array_equal(frames[k].astype(np.float64), want[k]) for k in want):
+                    raise AssertionError(f"{what}: the tensor answer is not the JSON answer's float32 ({meta})")
+                checked.append(what)
+    return {"json_vs_tensor_bitwise": len(checked)}
+
+
+def wire_transports(pool, client, names, rng) -> dict:
+    """One tensor body over TCP, the Unix socket and the ring: the same
+    bytes; a truncated body 400 with the reason over each; a quarantined
+    target 410 over the socket and the ring; a ``__meta__`` tenant over its
+    bucket 429 on the ring."""
+    base = pool.url + "/gordo/v0/smoke"
+    X = rng.random((WIRE_ROWS, 10), dtype=np.float32)
+    for name, endpoint in ((names["dense"][0], "anomaly"), (names["lstm"][0], "anomaly"),
+                           (names["dense"][1], "prediction"), (names["lstm"][1], "prediction")):
+        body = tensor_body(X)
+        url = f"/gordo/v0/smoke/{name}/{'anomaly/prediction' if endpoint == 'anomaly' else 'prediction'}"
+        tcp = http_raw(pool.url + url, body, TENSOR_HEADERS)
+        uds = uds_raw(pool.uds_path, url, body, TENSOR_HEADERS)
+        ring = client.request(name, body, endpoint, 120)
+        if (tcp[0], uds[0], ring[0]) != (200, 200, 200) or not tcp[2] == uds[2] == ring[1]:
+            raise AssertionError(f"wire transports {name} {endpoint}: {tcp[0]} {uds[0]} {ring[0]}, "
+                                 f"bytes equal {tcp[2] == uds[2]}, {tcp[2] == ring[1]}")
+    name = names["dense"][2]
+    url = f"/gordo/v0/smoke/{name}/anomaly/prediction"
+    bad = tensor_body(X)[:-5]
+    answers = {"tcp": http_raw(pool.url + url, bad, TENSOR_HEADERS)[::2], "uds": uds_raw(pool.uds_path, url, bad,
+                                                                                         TENSOR_HEADERS)[::2],
+               "ring": client.request(name, bad, "anomaly", 120)}
+    for transport, (status, raw) in answers.items():
+        if status != 400 or not json.loads(raw)["error"].startswith("tensor body: truncated body"):
+            raise AssertionError(f"wire {transport}: a truncated body answered {status}: {raw[:300]}")
+    quarantine = pool.app.quarantine
+    for _ in range(quarantine.threshold):
+        quarantine.record_failure(name, "wire smoke poison")
+    try:
+        gone = {"uds": uds_raw(pool.uds_path, url, tensor_body(X), TENSOR_HEADERS)[::2],
+                "ring": client.request(name, tensor_body(X), "anomaly", 120)}
+    finally:
+        quarantine.clear([name])
+    for transport, (status, raw) in gone.items():
+        if status != 410 or json.loads(raw).get("reason") != "wire smoke poison":
+            raise AssertionError(f"wire {transport}: a quarantined target answered {status}: {raw[:300]}")
+    meta = tensor_body(X, {"tenant": WIRE_TENANT})
+    tenant = [client.request(name, meta, "anomaly", 120) for _ in range(2)]
+    refused = json.loads(tenant[1][1]) if tenant[1][0] == 429 else {}
+    if [s for s, _ in tenant] != [200, 429] or refused.get("reason") != "tenant_rate":
+        raise AssertionError(f"wire ring: the tenant's POSTs answered {[s for s, _ in tenant]}: {tenant[1][1][:300]}")
+    stats = json.loads(http_raw(base + "/stats")[2])
+    if stats["transports"] != {"uds": pool.uds_path, "shm": pool.shm_ring_name} or stats["shm"]["errors"] != 3:
+        raise AssertionError(f"wire: /stats transports {stats.get('transports')}, shm {stats.get('shm')}")
+    return {"transports_bitwise": 4, "shm_stats": json.dumps(stats["shm"])}
+
+
+def wire_loop(send, names, rng, clients: int, requests: int, rows: int, what: str):
+    """A closed loop of ``clients`` threads x ``requests`` requests of
+    ``rows`` rows to random ``names``: ``run(label)`` for :func:`ab_runs`,
+    each request ``send[label](target, X)`` -> (status, answer bytes), and
+    the answer bytes a request by label."""
+    data = [[rng.random((rows, 10), dtype=np.float32) for _ in range(requests)] for _ in range(clients)]
+    targets = [[names[int(j)] for j in rng.integers(0, len(names), requests)] for _ in range(clients)]
+    answer_bytes = {label: [] for label in send}
+
+    def run(label):
+        lat, failures, sizes = [], [], []
+        barrier = threading.Barrier(clients)
+
+        def client(i):
+            try:
+                barrier.wait(60)
+                for r in range(requests):
+                    t = time.perf_counter()
+                    status, raw = send[label](targets[i][r], data[i][r])
+                    lat.append(time.perf_counter() - t)
+                    sizes.append(len(raw))
+                    if status != 200:
+                        failures.append(status)
+            except Exception as exc:
+                failures.append(repr(exc))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        wall = time.perf_counter() - t0
+        if failures or len(lat) != clients * requests:
+            raise AssertionError(f"{what}: the {label} loop: {len(lat)} answers, {failures[:3]}")
+        answer_bytes[label].append(float(np.mean(sizes)))
+        return lat, clients * requests * rows, wall
+
+    return run, answer_bytes
+
+
+def wire_readings(pool, client, names, rng) -> dict:
+    """PR 15's HTTP loop (PLANES_LOOP) JSON against tensor over TCP, with
+    the ``parse`` span's median by encoding and the answer bytes a request;
+    then tensor over TCP against the Unix socket against the ring."""
+    app = pool.app
+    tcp = pool.url + "/gordo/v0/smoke"
+    anomaly = "anomaly/prediction"
+
+    def post_json(name, X):
+        return http_raw(f"{tcp}/{name}/{anomaly}", json.dumps({"X": X.tolist()}).encode(), JSON_HEADERS)[::2]
+
+    def post_tensor(name, X):
+        return http_raw(f"{tcp}/{name}/{anomaly}", tensor_body(X), TENSOR_HEADERS)[::2]
+
+    def post_uds(name, X):
+        return uds_raw(pool.uds_path, f"/gordo/v0/smoke/{name}/{anomaly}", tensor_body(X), TENSOR_HEADERS)[::2]
+
+    def post_ring(name, X):
+        return client.request(name, tensor_body(X), "anomaly", 120)
+
+    c, n, rows = PLANES_LOOP["clients"], PLANES_LOOP["requests"], PLANES_LOOP["rows"]
+    seen = {t.trace_id for t in app.tracer.recent()}
+    parse_ms = {"json": [], "tensor": []}
+    run, sizes = wire_loop({"json": post_json, "tensor": post_tensor}, names, rng, c, n, rows, "wire json/tensor")
+
+    def traced_run(label):
+        out = run(label)
+        for trace in app.tracer.recent():
+            if trace.trace_id in seen:
+                continue
+            seen.add(trace.trace_id)
+            for span in trace.spans:
+                if span.name == "parse":
+                    parse_ms[span.attributes["encoding"]].append(span.duration_s * 1e3)
+        return out
+
+    summary = ab_runs(("json", "tensor"), traced_run, "wire_encoding")
+    for enc, values in parse_ms.items():
+        if not values:
+            raise AssertionError(f"wire: no traced parse span of {enc}")
+        summary[f"wire_parse_{enc}_median_ms"] = round(float(np.median(values)), 4)
+        summary[f"wire_parse_{enc}_spans"] = len(values)
+        summary[f"wire_answer_{enc}_bytes"] = round(float(np.mean(sizes[enc])), 1)
+    run, _ = wire_loop({"tcp": post_tensor, "uds": post_uds, "ring": post_ring}, names, rng, c, n, rows,
+                       "wire transports")
+    summary.update(ab_runs(("tcp", "uds", "ring"), run, "wire_transport"))
+    return summary
+
+
+def wire_workers(names, rng) -> dict:
+    """WIRE_CONNECTIONS tensor POSTs at once, each on its own connection,
+    to a WIRE_WORKERS-worker server and to a 1-worker server, both scoring
+    every request alone (``bank_max_batch=1``, so a result does not depend
+    on which requests share a group): every worker counts some, and the
+    answers are bitwise equal request by request. Then the workers' reading
+    (WIRE_WORKERS_LOOP of tensor POSTs over TCP), 1 worker against
+    WIRE_WORKERS, with the default batching."""
+    requests = [(names[int(j)], rng.random((WIRE_ROWS, 10), dtype=np.float32))
+                for j in rng.integers(0, len(names), WIRE_CONNECTIONS)]
+
+    def burst(server):
+        answers = [None] * len(requests)
+        barrier = threading.Barrier(len(requests))
+
+        def one(i):
+            name, X = requests[i]
+            barrier.wait(60)
+            answers[i] = http_raw(f"{server.url}/gordo/v0/smoke/{name}/anomaly/prediction", tensor_body(X),
+                                  TENSOR_HEADERS)[::2]
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(requests))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+        return answers
+
+    alone = dict(bank_max_batch=1, bank_max_queue=2 * WIRE_CONNECTIONS)
+    servers = {1: run_server(WIRE_DIR, host="127.0.0.1", port=0, background=True, workers=1, **alone)}
+    try:
+        servers[WIRE_WORKERS] = run_server(WIRE_DIR, host="127.0.0.1", port=0, background=True,
+                                           workers=WIRE_WORKERS, **alone)
+        many, one = burst(servers[WIRE_WORKERS]), burst(servers[1])
+        app = servers[WIRE_WORKERS].app
+        with app.stats_lock:
+            counted = dict(app.stats["workers"])
+    finally:
+        for server in servers.values():
+            server.close()
+    if any(a is None or a[0] != 200 for a in many + one) or any(a[1] != b[1] for a, b in zip(many, one)):
+        raise AssertionError(f"wire workers: statuses {sorted(set(a and a[0] for a in many + one))}, "
+                             f"{sum(a[1] != b[1] for a, b in zip(many, one) if a and b)} answers apart")
+    if sorted(counted) != [f"w{i}" for i in range(WIRE_WORKERS)] or min(counted.values()) <= 0 \
+            or sum(counted.values()) != WIRE_CONNECTIONS:
+        raise AssertionError(f"wire workers: each worker's requests {counted}")
+    summary = {"workers_counted": json.dumps(counted), "workers_bitwise": len(many)}
+    servers = {"w1": run_server(WIRE_DIR, host="127.0.0.1", port=0, background=True, workers=1)}
+    try:
+        servers[f"w{WIRE_WORKERS}"] = run_server(WIRE_DIR, host="127.0.0.1", port=0, background=True,
+                                                 workers=WIRE_WORKERS)
+
+        def sender(server):
+            return lambda name, X: http_raw(f"{server.url}/gordo/v0/smoke/{name}/anomaly/prediction",
+                                            tensor_body(X), TENSOR_HEADERS)[::2]
+
+        loop = WIRE_WORKERS_LOOP
+        run, _ = wire_loop({label: sender(server) for label, server in servers.items()}, names, rng,
+                           loop["clients"], loop["requests"], loop["rows"], "wire workers")
+        summary.update(ab_runs(list(servers), run, "wire_workers"))
+    finally:
+        for server in servers.values():
+            server.close()
+    return summary
+
+
+def wire_phase(card: str):
+    """The tensor wire format and the local transports on the card: config
+    1's width (10 tags), WIRE_DENSE dense and WIRE_LSTM ``lstm_hourglass``
+    detectors, served banked behind a pool with a Unix socket and the ring
+    (K2, K3) and per model by a second server with ``GORDO_SERVER_BANK=0``
+    (K1, K3)."""
+    shutil.rmtree(WIRE_DIR, ignore_errors=True)
+    rng = np.random.default_rng(17)
+    names = {"dense": [f"wire-dense-{i:02d}" for i in range(WIRE_DENSE)],
+             "lstm": [f"wire-lstm-{i}" for i in range(WIRE_LSTM)]}
+    for name in names["dense"]:
+        serializer.dump(random_entry(name, 10, rng), os.path.join(WIRE_DIR, name))
+    for name in names["lstm"]:
+        serializer.dump(random_lstm_entry(name, "LSTMAutoEncoder", rng), os.path.join(WIRE_DIR, name))
+    everyone = names["dense"] + names["lstm"]
+    uds_dir = WIRE_DIR if len(os.path.join(WIRE_DIR, "w.sock").encode()) < 100 else tempfile.mkdtemp(prefix="gw")
+    ring = f"gordo-smoke-{os.getpid()}"
+    summary = {}
+    with env_set(WIRE_ENV):
+        pool = run_server(WIRE_DIR, host="127.0.0.1", port=0, background=True,
+                          uds_path=os.path.join(uds_dir, "w.sock"), shm_ring=ring)
+    try:
+        with env_set({"GORDO_SERVER_BANK": "0"}):
+            per_model = run_server(WIRE_DIR, host="127.0.0.1", port=0, background=True)
+        try:
+            client = ShmRingClient(ring)
+            try:
+                if sorted(pool.app.bank._index) != sorted(everyone) or per_model.app.bank is not None:
+                    raise AssertionError(f"wire: banked {sorted(pool.app.bank._index)}")
+                if pool.app._warmup is not None:
+                    pool.app._warmup.join()
+                summary.update(wire_json_vs_tensor({"bank": pool.url + "/gordo/v0/smoke",
+                                                    "per_model": per_model.url + "/gordo/v0/smoke"}, names, rng))
+                summary.update(wire_transports(pool, client, names, rng))
+                summary.update(wire_readings(pool, client, everyone, rng))
+            finally:
+                client.close()
+        finally:
+            per_model.close()
+    finally:
+        pool.close()
+    summary.update(wire_workers(everyone, rng))
+    shutil.rmtree(WIRE_DIR, ignore_errors=True)
+    if uds_dir != WIRE_DIR:
+        shutil.rmtree(uds_dir, ignore_errors=True)
+    phase("wire", **summary, card=json.dumps(card))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
@@ -4728,6 +5093,7 @@ def main() -> int:
     drive("observe", observe_phase, card)
     drive("pipeline", pipeline_phase, card)
     drive("qos", qos_phase, card)
+    drive("wire", wire_phase, card)
     timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
@@ -4744,6 +5110,8 @@ def main() -> int:
                          ("pipeline", "banked_anomaly_score"), ("pipeline", "fused_anomaly_score"),
                          ("pipeline", "lstm_layer"), ("pipeline", "lstm_layer_bf16"),
                          ("qos", "banked_anomaly_score"), ("qos", "lstm_layer"),
+                         ("wire", "banked_anomaly_score"), ("wire", "lstm_layer"),
+                         ("wire", "fused_anomaly_score"),
                          ("bf16_train", "lstm_layer_bf16"),
                          ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
                          ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):

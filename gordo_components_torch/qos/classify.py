@@ -1,17 +1,19 @@
 """Request classification: tenant and priority class.
 
-Counterpart of ``gordo_components_tpu/qos/classify.py`` (its header path;
-the tensor wire's ``__meta__`` sidecar is not ported). One identity a
+Counterpart of ``gordo_components_tpu/qos/classify.py``. One identity a
 request, ``RequestClass(tenant, qos_class)``, parsed from the
-``X-Gordo-Tenant`` and ``X-Gordo-Priority`` headers; the goodput ledger
-keys its per-(tenant, class) cells on it. Tenant labels are bounded when
+``X-Gordo-Tenant`` and ``X-Gordo-Priority`` headers and overlaid by the
+``{"tenant", "priority"}`` keys of a tensor body's ``__meta__`` sidecar
+(:func:`classify_meta`): the shared-memory ring has no headers, so there
+the sidecar is the only carrier. The goodput ledger keys its
+per-(tenant, class) cells on it. Tenant labels are bounded when
 they are made: only tenants named in the QoS configuration keep their
 own label, any other collapses to ``other``, so no flood of tenant
 strings can grow a metric family.
 """
 
 from dataclasses import dataclass
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 #: priority classes, strongest first; untagged traffic is ``interactive``
 CLASSES = ("interactive", "batch", "best_effort")
@@ -79,3 +81,21 @@ def classify_headers(headers: Mapping[str, str]) -> RequestClass:
     if not tenant and not priority:
         return DEFAULT_REQUEST_CLASS
     return RequestClass(tenant=normalize_tenant(tenant), qos_class=normalize_class(priority))
+
+
+def classify_meta(meta: Optional[Mapping[str, Any]], base: Optional[RequestClass] = None) -> RequestClass:
+    """``base`` (default: the untagged identity) with the ``__meta__``
+    sidecar's ``tenant`` and ``priority`` keys laid over it: the sidecar
+    wins where present. An unknown priority keeps ``base``'s class."""
+    if base is None:
+        base = RequestClass()
+    if not meta:
+        return base
+    tenant, qos_class = base.tenant, base.qos_class
+    if "tenant" in meta:
+        tenant = normalize_tenant(meta.get("tenant"))
+    if "priority" in meta:
+        qos_class = normalize_class(meta.get("priority"), default=qos_class)
+    if tenant == base.tenant and qos_class == base.qos_class:
+        return base
+    return RequestClass(tenant=tenant, qos_class=qos_class)

@@ -32,8 +32,14 @@ tracker and the history store sample on threads of their own and the
 bank warms up on another (``GORDO_SERVER_WARMUP``); :meth:`App.close`
 stops them.
 
-Not in this slice: the tensor wire format, the placement planner, the
-worker pool and the shared-memory transports.
+``run_server`` serves one ``GordoServer`` unless a local transport or
+more workers are asked for (``workers``/``GORDO_SERVER_WORKERS``,
+``uds_path``/``GORDO_UDS``, ``shm_ring``/``GORDO_SHM_RING``): then a
+``ServerPool`` (``workers.py``) serves the one app through N accept
+loops, a Unix-socket listener and the shared-memory ring
+(``transport.py``), and ``app.transports`` names the local ones.
+
+Not in this slice: the placement planner.
 """
 
 import os
@@ -60,6 +66,7 @@ from gordo_components_torch.server.engine import BatchingEngine, EngineOverloade
 from gordo_components_torch.server.model_io import ModelCollection, scan_artifacts
 from gordo_components_torch.server.swap import warmup_enabled
 from gordo_components_torch.server.views import GordoServer
+from gordo_components_torch.server.workers import ServerPool, resolve_workers
 
 
 class App:
@@ -89,9 +96,13 @@ class App:
             "errors": 0,
             "latency": {},  # kind -> LatencyHistogram
             "wire": {"requests": {}, "bytes": {}},  # scoring POSTs by encoding
+            "workers": {},  # requests a worker of a pool (workers.py)
             # kind -> latency bucket edge -> the last retained trace there
             "exemplars": {},
         }
+        # the armed local transports, by kind ("uds", "shm"): /models and
+        # /stats advertise them
+        self.transports: dict = {}
         self.metrics = metrics
         self.quarantine = quarantine
         self.default_deadline_ms = default_deadline_ms
@@ -164,8 +175,8 @@ class App:
 
 def _server_collector(app: App):
     """The app's counters as series, read at render time from the same
-    cells ``/stats`` reports (JAX ``_server_collector``, without the worker
-    and shared-memory series)."""
+    cells ``/stats`` reports (JAX ``_server_collector``). The worker series
+    have samples in a pool alone, the ring's only once it is armed."""
 
     def collect():
         with app.stats_lock:
@@ -176,6 +187,8 @@ def _server_collector(app: App):
             wire_requests = dict(stats["wire"]["requests"])
             wire_bytes = dict(stats["wire"]["bytes"])
             latency = dict(stats["latency"])
+            workers = dict(stats["workers"])
+            shm = dict(stats["shm"]) if "shm" in stats else None
         yield ("gordo_server_uptime_seconds", "gauge", "Seconds since server start", {},
                time.time() - started)
         for kind, n in requests.items():
@@ -191,6 +204,14 @@ def _server_collector(app: App):
         for enc, n in wire_bytes.items():
             yield ("gordo_server_request_bytes_total", "counter",
                    "Scoring/ingest request body bytes by wire encoding", {"encoding": enc}, n)
+        for worker, n in sorted(workers.items()):
+            yield ("gordo_server_worker_requests_total", "counter", "HTTP requests parsed per worker event loop",
+                   {"worker": worker}, n)
+        if shm is not None:
+            yield ("gordo_shm_requests_total", "counter", "Scoring requests served over the shared-memory ring",
+                   {}, shm["requests"])
+            yield ("gordo_shm_errors_total", "counter",
+                   "Shared-memory ring requests answered with an error status", {}, shm["errors"])
         for kind, hist in latency.items():
             yield ("gordo_server_request_seconds", "histogram", "Service time by endpoint kind",
                    {"kind": kind}, hist)
@@ -289,18 +310,34 @@ def run_server(
     device="cuda",
     background: bool = False,
     use_bank: Optional[bool] = None,
+    workers: Optional[int] = None,
+    uds_path: Optional[str] = None,
+    shm_ring: Optional[str] = None,
     **app_kwargs,
-) -> Optional[GordoServer]:
+):
     """Serve ``model_dir`` on ``host:port`` (``port=0`` picks a free one).
 
-    Blocks until interrupted, or with ``background=True`` returns the
-    running :class:`GordoServer` (its ``url`` says where it listens; its
-    ``close()`` stops it). ``use_bank`` and ``app_kwargs`` go to
-    :func:`build_app`."""
+    ``workers`` (``GORDO_SERVER_WORKERS``, default 1) accept loops,
+    ``uds_path`` (``GORDO_UDS``) a Unix-socket listener and ``shm_ring``
+    (``GORDO_SHM_RING``, with ``GORDO_SHM_SLOTS`` and
+    ``GORDO_SHM_SLOT_MB``) the shared-memory ring: with none of them the
+    server is one :class:`GordoServer`, else a
+    :class:`~.workers.ServerPool`. Blocks until interrupted, or with
+    ``background=True`` returns the running server (its ``url`` says where
+    it listens, its ``app`` what it serves; its ``close()`` stops it).
+    ``use_bank`` and ``app_kwargs`` go to :func:`build_app`."""
+    workers = resolve_workers(workers)
+    if uds_path is None:
+        uds_path = os.environ.get("GORDO_UDS") or None
+    if shm_ring is None:
+        shm_ring = os.environ.get("GORDO_SHM_RING") or None
     app = build_app(model_dir, target_name=target_name, device=device, use_bank=use_bank,
                     **app_kwargs)
     try:
-        server = GordoServer(app, host, port)
+        if workers == 1 and not uds_path and not shm_ring:
+            server = GordoServer(app, host, port)
+        else:
+            server = ServerPool(app, host, port, workers=workers, uds_path=uds_path, shm_ring=shm_ring)
     except BaseException:
         app.close()
         raise
@@ -315,5 +352,5 @@ def run_server(
 
 __all__ = [
     "App", "BatchingEngine", "EngineOverloaded", "GordoServer", "ModelBank",
-    "ModelCollection", "ScoreResult", "build_app", "run_server", "scan_artifacts",
+    "ModelCollection", "ScoreResult", "ServerPool", "build_app", "run_server", "scan_artifacts",
 ]

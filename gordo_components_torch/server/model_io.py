@@ -6,13 +6,25 @@ Counterpart of ``scan_artifacts`` and ``ModelCollection`` in
 every model under its root, whatever its class (a detector, a bare
 ``Pipeline``, a bare estimator), loaded on the server's device.
 
+Also the tensor wire's codecs at the model boundary (JAX
+``decode_tensor_request``, ``decode_tensor_request_ex``,
+``encode_prediction_response`` and ``encode_anomaly_response``): a request
+body decodes to float32 rows (a read-only ``np.frombuffer`` view for a
+native ``<f4`` frame) and the score arrays encode into one preallocated
+body (``utils/wire.py``). The per-model ``anomaly()`` returns the arrays
+themselves, so the port needs no counterpart of JAX's pandas bridge
+``anomaly_frame_arrays``.
+
 Not in this slice: the mesh's ownership set (``acquire``/``release``) and
 the adaptation plane's ``publish``/``restore``.
 """
 
+import json
 import logging
 import os
 from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from gordo_components_torch.serializer.artifacts import (
     artifact_version,
@@ -21,7 +33,67 @@ from gordo_components_torch.serializer.artifacts import (
     load_metadata,
 )
 
+from gordo_components_torch.utils.wire import (
+    ANOMALY_FRAME_NAMES,
+    WireFormatError,
+    pack_frames,
+    rows_as_f32,
+    unpack_frames,
+)
+
 logger = logging.getLogger(__name__)
+
+
+def decode_tensor_request(raw) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """A tensor request body as ``(X, y)`` float32 rows; ``y`` is None
+    without a ``y`` frame. Raises :class:`WireFormatError` (a 400 with the
+    reason) for a malformed body."""
+    X, y, _ = decode_tensor_request_ex(raw)
+    return X, y
+
+
+def decode_tensor_request_ex(raw) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[Dict[str, Any]]]:
+    """:func:`decode_tensor_request` and the body's ``__meta__`` sidecar
+    (None without one). The body must carry ``X``; ``y`` must have as many
+    rows. A sidecar that is not a JSON object is ignored, not a 400: QoS
+    tagging never refuses a well-formed body."""
+    frames = unpack_frames(raw)
+    if "X" not in frames:
+        raise WireFormatError(f"tensor body must carry an 'X' frame (got {sorted(frames)})")
+    X = rows_as_f32(frames["X"], "X")
+    y = rows_as_f32(frames["y"], "y") if "y" in frames else None
+    if y is not None and len(y) != len(X):
+        raise WireFormatError(f"y has {len(y)} rows but X has {len(X)}")
+    meta: Optional[Dict[str, Any]] = None
+    if "__meta__" in frames:
+        try:
+            doc = json.loads(np.asarray(frames["__meta__"], np.uint8).tobytes())
+            if isinstance(doc, dict):
+                meta = doc
+        except (ValueError, TypeError):
+            pass
+    return X, y, meta
+
+
+def _meta_frame(meta: Dict[str, Any]) -> Tuple[str, np.ndarray]:
+    """A JSON sidecar riding as a ``|u1`` frame."""
+    return "__meta__", np.frombuffer(json.dumps(meta).encode("utf-8"), np.uint8)
+
+
+def encode_prediction_response(output: np.ndarray, n_input_rows: int) -> bytes:
+    """``POST .../prediction``'s tensor answer: ``__meta__`` with the
+    warm-up ``offset`` (output row i is input row i + offset), then
+    ``data``."""
+    output = np.asarray(output)
+    return pack_frames([_meta_frame({"offset": int(n_input_rows - len(output))}), ("data", output)])
+
+
+def encode_anomaly_response(tags, arrays: Dict[str, np.ndarray], offset: int) -> bytes:
+    """``POST .../anomaly/prediction``'s tensor answer: ``__meta__`` with
+    ``offset`` and ``tags``, then the six score arrays in
+    ``ANOMALY_FRAME_NAMES`` order."""
+    meta = _meta_frame({"offset": int(offset), "tags": [str(t) for t in tags]})
+    return pack_frames([meta] + [(name, arrays[name]) for name in ANOMALY_FRAME_NAMES])
 
 
 def scan_artifacts(root: str, target_name: Optional[str] = None) -> Dict[str, str]:

@@ -25,16 +25,27 @@ Counterpart of these routes of ``gordo_components_tpu/server/views.py``:
 - ``POST /gordo/v0/<project>/<target>/prediction``
 - ``POST /gordo/v0/<project>/<target>/anomaly/prediction``
 
-Bodies match the JAX server's JSON. A scoring POST is JSON, or parquet
-when its content type contains ``parquet`` (the JAX server's rule; read by
-the port's own reader, ``server/utils.extract_x_y_parquet``), and
-``/models`` lists both in ``accepts``. A model the bank holds is
-scored through the batching engine; any other (a bare ``Pipeline`` or
-estimator, or every model when the bank is off) through its own
-``predict``/``anomaly``: the per-model path. ``download-model`` answers the
-model's artifact directory as a gzipped tar (``serializer.dumps``), where
-the JAX server answers a pickle. ``metadata-all?digest=1`` answers gzip to
-a client whose ``Accept-Encoding`` allows it.
+Bodies match the JAX server's JSON. A scoring POST is JSON, a tensor
+body when its content type contains ``application/x-gordo-tensor``, or
+parquet when it contains ``parquet`` (the JAX server's rule,
+``utils/wire.encoding_of``; parquet is read by the port's own reader,
+``server/utils.extract_x_y_parquet``), and ``/models`` lists the three in
+``accepts``, in the JAX order. A tensor POST (``utils/wire.py``) is
+answered in tensor: its rows are ``np.frombuffer`` views of the body, its
+``__meta__`` sidecar's ``tenant`` and ``priority`` override the headers'
+before admission, and the answer is ``__meta__`` (``offset``, and for an
+anomaly ``tags``) and the score arrays, framed into one body. A model the
+bank holds is scored through the batching engine; any other (a bare
+``Pipeline`` or estimator, or every model when the bank is off) through
+its own ``predict``/``anomaly``: the per-model path. Both go through the
+scoring core the shared-memory ring shares (``transport.py``).
+``download-model`` answers the model's artifact directory as a gzipped
+tar (``serializer.dumps``), where the JAX server answers a pickle.
+``metadata-all?digest=1`` answers gzip to a client whose
+``Accept-Encoding`` allows it. ``/models`` and ``/stats`` name the local
+transports (``transports``: ``uds``, ``shm``) when any is armed, and
+``/stats`` counts the requests of each worker of a pool (``workers``,
+``workers.py``) and the ring's (``shm``).
 
 What the JAX server's middleware does, ``_dispatch`` does for every
 request: it counts requests by kind (the last segment of the matched
@@ -88,30 +99,34 @@ import gzip
 import itertools
 import json
 import logging
-import math
+import os
 import re
+import socket
+import socketserver
+import stat
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, NamedTuple, Optional
 from urllib.parse import parse_qs
 
-import numpy as np
-
 from gordo_components_torch import __version__, serializer
 from gordo_components_torch.observability.metrics import _fmt
 from gordo_components_torch.observability.tracing import chrome_trace, format_traceparent
-from gordo_components_torch.qos.admission import QosShed
-from gordo_components_torch.qos.classify import classify_headers
-from gordo_components_torch.resilience.deadline import (
-    DEADLINE_HEADER,
-    Deadline,
-    DeadlineExceeded,
-    parse_deadline_ms,
-)
-from gordo_components_torch.server.engine import EngineOverloaded
+from gordo_components_torch.qos.classify import classify_headers, classify_meta
+from gordo_components_torch.resilience.deadline import DEADLINE_HEADER, Deadline, parse_deadline_ms
+from gordo_components_torch.server.model_io import encode_prediction_response
 from gordo_components_torch.server.stats import LatencyHistogram
 from gordo_components_torch.server.swap import build_bank, swap_bank
+from gordo_components_torch.server.transport import (
+    HTTPError,
+    decode_tensor,
+    model_entry,
+    quarantine_gate,
+    require_anomaly,
+    score_anomaly,
+    score_prediction,
+)
 from gordo_components_torch.server.utils import (
     anomaly_body,
     extract_x_y,
@@ -119,6 +134,7 @@ from gordo_components_torch.server.utils import (
     prediction_body,
 )
 from gordo_components_torch.utils.digest import metadata_digest
+from gordo_components_torch.utils.wire import TENSOR_CONTENT_TYPE, encoding_of
 
 logger = logging.getLogger(__name__)
 
@@ -162,18 +178,10 @@ def _kind(pattern: "re.Pattern") -> str:
 _KINDS = {handler: _kind(pattern) for _method, pattern, handler in _ROUTES}
 _SCORING = ("prediction", "anomaly")
 _TRUE = ("1", "true", "yes")
-ACCEPTS = ["application/json", "application/x-parquet"]
+ACCEPTS = ["application/json", TENSOR_CONTENT_TYPE, "application/x-parquet"]
 METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 # server-made request ids, unique in the process
 _RID_SEQ = itertools.count(1)
-
-
-class HTTPError(Exception):
-    def __init__(self, status: int, error: str, headers: Optional[Dict[str, str]] = None, **extra):
-        super().__init__(error)
-        self.status = status
-        self.body = {"error": error, **extra}
-        self.headers = headers or {}
 
 
 class Raw(NamedTuple):
@@ -184,14 +192,9 @@ class Raw(NamedTuple):
     headers: Dict[str, str] = {}
 
 
-def _encoding_of(content_type: Optional[str]) -> str:
-    """A scoring body's encoding, by the rule that parses it."""
-    return "parquet" if "parquet" in (content_type or "") else "json"
-
-
 def _content_length(headers) -> int:
-    """The body's declared length; 0 for none or a malformed one (which the
-    handler's read then refuses)."""
+    """The body's declared length; 0 for none or a malformed one (a body
+    that then does not parse)."""
     try:
         return max(0, int(headers.get("Content-Length") or 0))
     except ValueError:
@@ -213,7 +216,9 @@ class GordoHandler(BaseHTTPRequestHandler):
     server_version = f"gordo-components-torch/{__version__}"
 
     def log_message(self, fmt, *args):
-        logger.debug("%s " + fmt, self.address_string(), *args)
+        # a Unix-socket peer has no address: its client_address is ''
+        peer = self.client_address[0] if isinstance(self.client_address, tuple) else "unix"
+        logger.debug("%s " + fmt, peer, *args)
 
     def do_GET(self):
         self._dispatch("GET")
@@ -236,6 +241,8 @@ class GordoHandler(BaseHTTPRequestHandler):
     def _dispatch(self, method: str) -> None:
         path, _, query = self.path.partition("?")
         self.query = parse_qs(query)
+        # the body's bytes no handler has read yet
+        self.unread = _content_length(self.headers)
         app = self.app
         handler, args, kind = self._route(method, path)
         # bounded: a hostile header must not become an unbounded log line
@@ -246,11 +253,14 @@ class GordoHandler(BaseHTTPRequestHandler):
         if deadline_ms is None:
             deadline_ms = app.default_deadline_ms
         self.deadline = Deadline.after_ms(deadline_ms) if deadline_ms else None
+        worker = self.server.worker
         with app.stats_lock:
             stats = app.stats
             stats["requests"][kind] = stats["requests"].get(kind, 0) + 1
+            if worker is not None:
+                stats["workers"][worker] = stats["workers"].get(worker, 0) + 1
             if method == "POST" and kind in _SCORING:
-                enc = _encoding_of(self.headers.get("Content-Type"))
+                enc = encoding_of(self.headers.get("Content-Type"))
                 wire = stats["wire"]
                 wire["requests"][enc] = wire["requests"].get(enc, 0) + 1
                 wire["bytes"][enc] = wire["bytes"].get(enc, 0) + _content_length(self.headers)
@@ -304,6 +314,10 @@ class GordoHandler(BaseHTTPRequestHandler):
                    "X-Request-Id": trace.trace_id if trace is not None else rid}
         if trace is not None:
             headers["traceparent"] = format_traceparent(trace.trace_id, trace.root.span_id)
+        if self.unread:
+            # a body left in the socket makes the close a reset, which can
+            # discard the answer before the client reads it
+            self._read_body()
         self._send(status, body, headers)
 
     def _send(self, status: int, body: Any, headers: Optional[Dict[str, str]] = None) -> None:
@@ -327,21 +341,26 @@ class GordoHandler(BaseHTTPRequestHandler):
 
     def _entry(self, target: str):
         """(model, metadata) from one state of the collection."""
-        try:
-            return self.app.collection.entry(target)
-        except KeyError:
-            raise HTTPError(404, f"No such model: {target}") from None
+        return model_entry(self.app, target)
 
     def _read_body(self) -> bytes:
-        return self.rfile.read(int(self.headers.get("Content-Length") or 0))
+        n, self.unread = self.unread, 0
+        return self.rfile.read(n)
 
     def _parse(self):
-        """(X, y, index) of a JSON or parquet POST body; 400 for one that
-        does not parse. A traced request gets its ``parse`` span."""
+        """(X, y, index) of a scoring POST body, and its encoding in
+        ``self.encoding``; 400 for one that does not parse. A tensor body
+        has no index (None), and its ``__meta__`` sidecar overrides the
+        headers' QoS identity. A traced request gets its ``parse`` span."""
         t_parse = time.monotonic()
-        encoding = _encoding_of(self.headers.get("Content-Type"))
+        encoding = self.encoding = encoding_of(self.headers.get("Content-Type"))
         raw = self._read_body()
         try:
+            if encoding == "tensor":
+                X, y, meta = decode_tensor(raw)
+                if meta:
+                    self.qos = classify_meta(meta, self.qos)
+                return X, y, None
             if encoding == "parquet":
                 try:
                     return extract_x_y_parquet(raw)
@@ -359,110 +378,13 @@ class GordoHandler(BaseHTTPRequestHandler):
             if self.trace is not None:
                 self.trace.add_span("parse", t_parse, time.monotonic(), encoding=encoding)
 
-    def _engine(self, target: str):
-        """The batching engine when the bank holds ``target``, else None:
-        the per-model path."""
-        bank, engine = self.app.bank, self.app.engine
-        if engine is not None and bank is not None and target in bank:
-            return engine
-        return None
-
     def _emit(self, etype: str, severity: str = "info", **attrs) -> None:
         """A state change on the app's event log, at the bank's generation."""
         app = self.app
         app.events.emit(etype, severity=severity, generation=app.generation(), **attrs)
 
-    def _qos_admit(self, engine) -> None:
-        """Admission before the scoring call (JAX ``_qos_admit``): 429 with
-        the refusal's reason and ``Retry-After``; the queue rules read
-        ``engine``'s depth (none on the per-model path)."""
-        depth = max_queue = 0
-        drain_s = 0.05
-        if engine is not None:
-            max_queue = engine.max_queue
-            depth = engine._queue.qsize()
-            drain_s = engine.drain_estimate(depth)
-        try:
-            self.qos_label = self.app.admission.admit(self.qos, queue_depth=depth, max_queue=max_queue,
-                                                      drain_s=drain_s)
-        except QosShed as exc:
-            raise HTTPError(429, str(exc), headers={"Retry-After": str(max(1, math.ceil(exc.retry_after_s)))},
-                            reason=exc.reason, tenant=exc.tenant, retry_after_s=round(exc.retry_after_s, 2),
-                            **{"class": exc.qos_class}) from None
-
-    def _record_failure(self, target: str, reason: str) -> None:
-        """A scoring failure against the breaker; ``quarantine.enter`` when
-        it takes the model out of routing."""
-        if self.app.quarantine.record_failure(target, reason):
-            self._emit("quarantine.enter", severity="error", target=target, reason=reason)
-
     def _quarantine_gate(self, project: str, target: str) -> None:
-        """410 with the recorded reason for a quarantined model: it exists,
-        but the breaker took it out of routing."""
-        info = self.app.quarantine.reason(target)
-        if info is None:
-            return
-        raise HTTPError(410, f"Model {target!r} is quarantined", reason=info.get("reason"),
-                        failures=info.get("failures"), since=info.get("since"),
-                        clear=f"POST /gordo/v0/{project}/quarantine/clear")
-
-    def _check_deadline_per_model(self) -> None:
-        """The per-model path's deadline, checked before its scoring; an
-        expiry counts in the engine's ``deadline_expired`` when there is an
-        engine, as the JAX server counts it."""
-        if self.deadline is not None and self.deadline.expired():
-            engine = self.app.engine
-            if engine is not None:
-                engine.note_deadline_expired()
-            if self.trace is not None:
-                now = time.monotonic()
-                self.trace.add_span("deadline_expired", now, now, error=True, where="per-model")
-            raise DeadlineExceeded("deadline expired before dispatch")
-
-    def _score(self, target: str, bank_call, model_call):
-        """Run ``bank_call(engine)`` on the bank path or ``model_call()`` on
-        the per-model path, and map their errors as the JAX handlers do:
-        429 for a full queue, 504 for a passed deadline, 400 for the rest,
-        which counts against the breaker unless it is a bad request's. The
-        per-model call's time is the request's device seconds and its
-        ``device_execute`` span. Admission runs first."""
-        engine = self._engine(target)
-        self._qos_admit(engine)
-        try:
-            if engine is not None:
-                return bank_call(engine)
-            self._check_deadline_per_model()
-            t0 = time.monotonic()
-            out = model_call()
-            self.device_s = time.monotonic() - t0
-            if self.trace is not None:
-                self.trace.add_span("device_execute", t0, t0 + self.device_s, path="per-model")
-            return out
-        except EngineOverloaded as exc:
-            raise HTTPError(
-                429, str(exc),
-                headers={"Retry-After": str(max(1, math.ceil(exc.retry_after_s)))},
-                reason="engine_overloaded",
-                retry_after_s=round(exc.retry_after_s, 2),
-            ) from None
-        except DeadlineExceeded as exc:
-            # the clock ran out, the model is sound: the breaker counts none
-            raise HTTPError(504, str(exc), request_id=self.request_id) from None
-        except Exception as exc:
-            if not isinstance(exc, (ValueError, KeyError)):
-                self._record_failure(target, f"{type(exc).__name__}: {exc}")
-            logger.exception("scoring %r failed", target)
-            raise HTTPError(400, f"{type(exc).__name__}: {exc}") from None
-
-    def _note_scoring_result(self, target: str, X: np.ndarray, values) -> None:
-        """A finite answer resets ``target``'s streak; a non-finite one for
-        finite input counts as a failure (non-finite input is the client's
-        data, not the model's fault), and as wasted work in the ledger."""
-        if np.all(np.isfinite(values)):
-            self.app.quarantine.record_success(target)
-        elif np.all(np.isfinite(X)):
-            self.scores_finite = False
-            self._record_failure(target, "non-finite scores in model output")
+        quarantine_gate(self.app, target, clear=f"POST /gordo/v0/{project}/quarantine/clear")
 
     def _coverage(self, names) -> Optional[Dict[str, Any]]:
         """Which models score through the bank and which on the per-model
@@ -513,6 +435,8 @@ class GordoHandler(BaseHTTPRequestHandler):
             "models": self.app.collection.names(),
             "accepts": list(ACCEPTS),
         }
+        if self.app.transports:
+            body["transports"] = dict(self.app.transports)
         bank = self._coverage(body["models"])
         if bank is not None:
             body["bank"] = bank
@@ -562,12 +486,18 @@ class GordoHandler(BaseHTTPRequestHandler):
             latency = dict(stats["latency"])
             wire = {"requests": dict(stats["wire"]["requests"]), "bytes": dict(stats["wire"]["bytes"])}
             exemplars = {kind: dict(edges) for kind, edges in stats["exemplars"].items()}
+            workers = dict(stats["workers"])
+            shm = dict(stats["shm"]) if "shm" in stats else None
         collection = app.collection
         body["models"] = len(collection.models)
         body["latency"] = {kind: hist.snapshot() for kind, hist in latency.items()}
         body["exemplars"] = exemplars
         body["wire"] = wire
-        body["workers"] = {}  # no worker pool
+        body["workers"] = workers  # requests a worker of a pool; empty outside one
+        if shm is not None:
+            body["shm"] = shm
+        if app.transports:
+            body["transports"] = dict(app.transports)
         engine = app.engine
         if engine is not None:
             es: Dict[str, Any] = engine.stats_snapshot()
@@ -797,56 +727,49 @@ class GordoHandler(BaseHTTPRequestHandler):
         model, _ = self._entry(target)
         self._quarantine_gate(project, target)
         X, y, index = self._parse()
-        def banked(engine):
-            result = engine.score_blocking(target, X, y, deadline=self.deadline, request_id=self.request_id,
-                                           trace=self.trace, tenant=self.qos_label, qos_class=self.qos.qos_class)
-            self.device_s = result.device_s
-            return result.model_output
-
-        out = self._score(target, banked, lambda: model.predict(X))
-        self._note_scoring_result(target, X, out)
+        out = score_prediction(self.app, self, target, model, X, y)
+        if index is None:  # tensor in, tensor out
+            return 200, Raw(encode_prediction_response(out, len(X)), TENSOR_CONTENT_TYPE)
         return 200, prediction_body(out, index[len(index) - len(out):])
 
     def anomaly_prediction(self, project: str, target: str):
         model, _ = self._entry(target)
-        if not hasattr(model, "anomaly"):
-            raise HTTPError(422, "Model does not support anomaly scoring")
+        require_anomaly(model)
         self._quarantine_gate(project, target)
         X, y, index = self._parse()
-
-        def banked(engine):
-            result = engine.score_blocking(target, X, y, deadline=self.deadline, request_id=self.request_id,
-                                           trace=self.trace, tenant=self.qos_label, qos_class=self.qos.qos_class)
-            self.device_s = result.device_s
-            t0 = time.monotonic()
-            arrays = result.to_arrays()
-            if self.trace is not None:
-                self.trace.add_span("postprocess", t0, time.monotonic(), stage="to_arrays")
-            return result.tags, arrays, result.offset, None
-
-        def per_model():
-            arrays = model.anomaly(X, y)
-            return (model.tags_, arrays, len(X) - len(arrays["model-output"]),
-                    getattr(model, "output_tags", None))
-
-        tags, arrays, offset, output_tags = self._score(target, banked, per_model)
-        # a NaN anywhere in the reconstruction reaches the totals (the
-        # kernel's row norms), so they are an O(rows) proxy of the frame
-        self._note_scoring_result(target, X, arrays["total-anomaly-scaled"])
+        tags, arrays, offset, output_tags, body = score_anomaly(self.app, self, target, model, X, y,
+                                                                wire=index is None)
+        if body is not None:
+            return 200, Raw(body, TENSOR_CONTENT_TYPE)
         n_out = len(arrays["model-output"])
         return 200, anomaly_body(tags, arrays, index[offset:][:n_out], output_tags)
 
 
 class GordoServer(ThreadingHTTPServer):
-    """The app behind a threading HTTP server; one thread per connection."""
+    """The app behind a threading HTTP server; one thread per connection.
+
+    ``worker`` tags the server as one accept loop of a pool
+    (``workers.py``): its requests count into ``stats["workers"]``.
+    ``reuse_port`` binds with ``SO_REUSEPORT``, so several servers listen
+    on one port. With ``bind_and_activate=False`` it has no socket of its
+    own and serves the connections a pool's acceptor hands it
+    (``process_request``)."""
 
     daemon_threads = True
     request_queue_size = 256  # many clients connect at once
 
-    def __init__(self, app, host: str, port: int):
+    def __init__(self, app, host: str, port: int, worker: Optional[str] = None, reuse_port: bool = False,
+                 bind_and_activate: bool = True):
         self.app = app
+        self.worker = worker
+        self.reuse_port = reuse_port
         self._thread: Optional[threading.Thread] = None
-        super().__init__((host, port), GordoHandler)
+        super().__init__((host, port), GordoHandler, bind_and_activate)
+
+    def server_bind(self) -> None:
+        if self.reuse_port:
+            self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        super().server_bind()
 
     @property
     def url(self) -> str:
@@ -855,17 +778,64 @@ class GordoServer(ThreadingHTTPServer):
 
     def start(self) -> "GordoServer":
         """Serve on a background thread; :meth:`close` stops it."""
-        # a short poll: close() waits at most this long for the loop
+        # a short poll: stop() waits at most this long for the loop
         self._thread = threading.Thread(target=self.serve_forever, kwargs={"poll_interval": 0.05},
                                         name="gordo-http", daemon=True)
         self._thread.start()
         return self
 
-    def close(self) -> None:
-        """Stop serving, close the socket and stop the app's engine."""
+    def stop(self) -> None:
+        """Stop serving and close the socket; the app keeps running."""
         if self._thread is not None:
             self.shutdown()
             self._thread.join()
             self._thread = None
         self.server_close()
+
+    def close(self) -> None:
+        """Stop serving, close the socket and stop the app's engine."""
+        self.stop()
         self.app.close()
+
+
+class GordoUnixServer(socketserver.ThreadingMixIn, socketserver.UnixStreamServer):
+    """The app's routes on a Unix-domain socket at ``path``
+    (``GORDO_UDS``): the HTTP surface of :class:`GordoServer` for a client
+    on the same host, one thread per connection. A socket file left at
+    ``path`` by an earlier server is replaced; any other file there is an
+    error. :meth:`stop` removes the file; the app keeps running."""
+
+    daemon_threads = True
+    request_queue_size = 256
+
+    def __init__(self, app, path: str, worker: Optional[str] = None):
+        self.app = app
+        self.worker = worker
+        self._thread: Optional[threading.Thread] = None
+        super().__init__(path, GordoHandler)
+
+    def server_bind(self) -> None:
+        path = self.server_address
+        try:
+            if stat.S_ISSOCK(os.stat(path).st_mode):
+                os.unlink(path)
+        except FileNotFoundError:
+            pass
+        super().server_bind()
+
+    def start(self) -> "GordoUnixServer":
+        self._thread = threading.Thread(target=self.serve_forever, kwargs={"poll_interval": 0.05},
+                                        name="gordo-uds", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self.shutdown()
+            self._thread.join()
+            self._thread = None
+        self.server_close()
+        try:
+            os.unlink(self.server_address)
+        except OSError:
+            pass

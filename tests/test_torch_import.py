@@ -91,7 +91,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "dataset.data_provider.datalake", "dataset.data_provider.auth",
                 "dataset.data_provider.influx_http", "dataset.data_provider._files",
                 "dataset.data_provider._parquet", "dataset.data_provider._snappy",
-                "dataset.data_provider._thrift", "models.compose"):
+                "dataset.data_provider._thrift", "models.compose", "utils.wire", "utils.shm_ring",
+                "server.transport", "server.workers", "qos.classify"):
         assert f"gordo_components_torch.{mod}" in report["modules"]
 
 

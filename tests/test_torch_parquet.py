@@ -422,4 +422,4 @@ def test_parquet_post_the_reader_refuses_answers_400(lake_server):
     import urllib.request
 
     with urllib.request.urlopen(f"{lake_server}/models", timeout=60) as resp:
-        assert json.load(resp)["accepts"] == ["application/json", "application/x-parquet"]
+        assert json.load(resp)["accepts"] == ["application/json", "application/x-gordo-tensor", "application/x-parquet"]

@@ -8,9 +8,8 @@ that directory; ``tools/jax_artifact_to_torch.py`` converts it, and the
 port serves the result. Both get the same requests:
 
 - ``/models``, ``/ready``, ``/healthz`` and ``metadata-all?digest=1``
-  answer the same bodies (``accepts`` lists JSON and parquet in the port,
-  not the JAX server's tensor format, and
-  ``devices`` is 1 where the JAX bank spans the test mesh's CPU devices);
+  answer the same bodies (``accepts`` lists JSON, the tensor format and
+  parquet in both, and ``devices`` is 1 where the JAX bank spans the test mesh's CPU devices);
   ``metadata-all`` without the digest the same keys, each target's
   metadata holding the JAX server's;
 - ``prediction`` on the per-model path (``machine-b``, ``machine-c``) and
@@ -143,9 +142,8 @@ def test_models_matches_jax(served):
     status, body = call(server, "/gordo/v0/proj/models")
     jax_status, jax_body = jax["/gordo/v0/proj/models"]
     assert status == jax_status == 200
-    # the port parses JSON and parquet; the JAX server also its tensor format
-    assert body.pop("accepts") == ["application/json", "application/x-parquet"] == [
-        a for a in jax_body.pop("accepts") if a != "application/x-gordo-tensor"]
+    # JSON, the tensor format and parquet, in the JAX order
+    assert body.pop("accepts") == ["application/json", "application/x-gordo-tensor", "application/x-parquet"] == jax_body.pop("accepts")
     assert body == jax_body
     assert body["bank"]["fallback"] == {"machine-b": "not a DiffBasedAnomalyDetector (AutoEncoder)",
                                         "machine-c": "not a DiffBasedAnomalyDetector (Pipeline)"}

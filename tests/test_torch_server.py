@@ -116,8 +116,8 @@ def test_models_healthcheck_and_metadata(served):
     assert status == 200
     assert body["project"] == "proj" and body["models"] == ["machine-1"]
     # the JAX server's /models shape (views._bank_coverage); the port
-    # parses JSON and parquet bodies
-    assert body["accepts"] == ["application/json", "application/x-parquet"]
+    # parses JSON, tensor and parquet bodies
+    assert body["accepts"] == ["application/json", "application/x-gordo-tensor", "application/x-parquet"]
     assert body["bank"] == {"banked": ["machine-1"], "fallback": {}, "n_buckets": 1, "devices": 1}
     status, _, body = call(server, "/gordo/v0/proj/machine-1/healthcheck")
     assert (status, body) == (200, {"gordo-server-version": __version__})
