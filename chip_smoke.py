@@ -389,10 +389,28 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             with the ``parse`` span's median by encoding and the answer
             bytes a request; tensor over TCP against the socket against the
             ring; 64 x 2 tensor POSTs to 1 worker against 4;
+    client  the bulk client on the serving path: 16 config-1 dense and 4
+            ``lstm_hourglass`` detectors with ``RandomDataset`` metadata,
+            banked (K2, K3) behind a pool with a Unix socket and the ring,
+            and per model (K1, K3) on a ``GORDO_SERVER_BANK=0`` server.
+            ``Client.predict`` of every target over 576 rows in chunks of
+            100 over tcp/JSON, tcp/tensor, uds/tensor and shm/tensor: each
+            run (10 chunks at once) and the per-model run within the
+            families' bands of each detector's ``anomaly()`` here, and the
+            four rungs run one chunk at a time bitwise each other; a tenant
+            over its bucket: every retry sleeps at least ``Retry-After``,
+            and the server sees the chunks and the budget's retries, no
+            more; the two servers as replicas, a hedge after 1 ms: hedges
+            counted, every target within its band. Readings: each rung's
+            rows/s and wall, request bytes a row by encoding, retries,
+            hedges and wins. The cli phase runs the CLI's ``client
+            metadata``, ``client predict --parquet-dir`` (each file read
+            back and held against ``anomaly()``) and ``client
+            download-model`` against its ``run-server``;
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
             bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
-            definitions, observe, pipeline, qos, wire), each reset just
+            definitions, observe, pipeline, qos, wire, client), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -412,8 +430,10 @@ import gc
 import gzip
 import hashlib
 import http.client
+import io
 import http.server
 import json
+import logging
 import math
 import os
 import re
@@ -423,6 +443,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import tarfile
 import tempfile
 import threading
 import time
@@ -441,9 +462,10 @@ from gordo_components_torch.builder import (
     fleet_build,
     provide_saved_model,
 )
+from gordo_components_torch.client import Client
 from gordo_components_torch.convert import entry_from_numpy, lstm_to_flax, params_to_flax
 from gordo_components_torch.dataset import get_dataset
-from gordo_components_torch.dataset.data_provider._parquet import read_parquet_bytes
+from gordo_components_torch.dataset.data_provider._parquet import read_parquet, read_parquet_bytes
 from gordo_components_torch.dataset.times import isoformat
 from gordo_components_torch.models import (
     AutoEncoder,
@@ -2639,6 +2661,74 @@ def wait_for_models(base: str, server, t0: float):
             time.sleep(0.5)
 
 
+CLI_CLIENT_RANGE = ("2020-01-01T00:00:00Z", "2020-01-03T00:00:00Z")  # 288 rows at 10 min
+CLI_CLIENT_BATCH = 100  # rows a chunk, past turbine-lstm's lookback of 12
+
+
+def archive_members(data: bytes):
+    """An artifact archive's members by name; ``detector.json`` (or
+    ``model.json``) without its ``stamp``, which every dump writes anew."""
+    with tarfile.open(fileobj=io.BytesIO(data), mode="r:gz") as tar:
+        out = {m.name: tar.extractfile(m).read() for m in tar.getmembers() if m.isfile()}
+    for name in ("detector.json", "model.json"):
+        if name in out:
+            desc = json.loads(out[name])
+            desc.pop("stamp", None)
+            out[name] = desc
+    return out
+
+
+def cli_client(url: str, out_dir: str, fleet: dict, runs: dict) -> dict:
+    """The CLI's ``client`` commands against its own ``run-server``:
+    ``metadata`` (every target's, as ``/metadata`` answers it), ``predict
+    --parquet-dir`` (each file read back with the port's reader and held
+    against the detector's ``anomaly()`` here, a chunk at a time) and
+    ``download-model`` (the route's archive)."""
+    common = ["--project", "smoke", "--base-url", url]
+    proc = cli("client_metadata", ["client", "metadata", *common])
+    meta = json.loads(proc.stdout) if proc.returncode == 0 else {}
+    if sorted(meta) != sorted(fleet) or any(
+            meta[n] != http_json(f"{url}/gordo/v0/smoke/{n}/metadata")[1]["endpoint-metadata"] for n in fleet):
+        raise AssertionError(f"cli client metadata exited {proc.returncode}: {proc.stdout[:500]} {proc.stderr[-1000:]}")
+    runs["client_metadata"] = cli_counts("client_metadata")
+    predictions = os.path.join(CLI_DIR, "predictions")
+    proc = cli("client_predict", ["client", "predict", *CLI_CLIENT_RANGE, *common, "--parquet-dir", predictions,
+                                  "--batch-size", str(CLI_CLIENT_BATCH)])
+    if proc.returncode != 0 or proc.stdout.strip() != f"{len(fleet)}/{len(fleet)} machines scored successfully":
+        raise AssertionError(f"cli client predict exited {proc.returncode}: {proc.stdout} {proc.stderr[-2000:]}")
+    runs["client_predict"] = cli_counts("client_predict")
+    rows = {}
+    for name, machine in fleet.items():
+        index, columns, values = read_parquet(os.path.join(predictions, f"{name}.parquet"))
+        start, end = CLI_CLIENT_RANGE
+        X, _ = get_dataset({**machine["dataset"], "train_start_date": start, "train_end_date": end}).get_data()
+        model = serializer.load(os.path.join(out_dir, name))
+        want, want_index = [], []
+        for i in range(0, len(X), CLI_CLIENT_BATCH):
+            arrays = model.anomaly(X.values[i:i + CLI_CLIENT_BATCH])
+            n = len(arrays["total-anomaly-scaled"])
+            want.append(np.column_stack([np.asarray(arrays[k], np.float32) for k in ANOMALY_FRAME_NAMES]))
+            want_index.append(X.index[i:i + CLI_CLIENT_BATCH][-n:].view(np.int64))
+        want = np.concatenate(want)
+        names = ["|".join(c for c in col if c) for col in client_columns(X.columns)]
+        got = np.column_stack([values[c] for c in columns]) if columns == names else None
+        band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if "model" in machine else {"rtol": 0.0, "atol": E2E_ATOL}
+        if got is None or not np.array_equal(index, np.concatenate(want_index)) or not np.allclose(
+                got, want.astype(np.float64), **band):
+            raise AssertionError(f"cli client predict: {name}'s parquet file: columns {columns[:3]}..., "
+                                 f"{None if got is None else got.shape} against {want.shape}")
+        rows[name] = len(index)
+    dest = os.path.join(CLI_DIR, "compressor-a.model")
+    proc = cli("client_download", ["client", "download-model", "compressor-a", dest, *common])
+    route = get_bytes(f"{url}/gordo/v0/smoke/compressor-a/download-model")
+    with open(dest, "rb") as f:
+        got = f.read()
+    if proc.returncode != 0 or proc.stdout.strip() != dest or archive_members(got) != archive_members(route):
+        raise AssertionError(f"cli client download-model exited {proc.returncode}: {proc.stderr[-1000:]}")
+    runs["client_download"] = cli_counts("client_download")
+    return {"client_predict_rows": rows, "client_download_bytes": len(got), "client_metadata_targets": len(meta)}
+
+
 def cli_phase():
     """examples/fleet.yaml through ``build-fleet`` and ``run-server``, one
     anomaly POST a machine held against its detector's ``anomaly()`` here;
@@ -2683,6 +2773,7 @@ def cli_phase():
             want = serializer.load(os.path.join(out_dir, name)).anomaly(X)
             band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if "model" in machine else {}
             check_arrays(response_arrays(body, machine["dataset"]["tag_list"]), want, f"cli {name}", **band)
+        client = cli_client(f"http://127.0.0.1:{port}", out_dir, fleet, runs)
     finally:
         stop_server(server)
         log.close()
@@ -2727,7 +2818,7 @@ def cli_phase():
           server_ready_s=round(serve_s, 3), posts=len(fleet), checked="all six arrays vs anomaly() here",
           server_exit_on_sigterm=server.returncode, cv_folds=json.dumps(folds), exit_unparsable=81,
           exit_partial=84, partial_failed=json.dumps(sorted(partial["failed"])),
-          launches_by_run=json.dumps(runs))
+          client=json.dumps(client), launches_by_run=json.dumps(runs))
     return {k: sum(c[k] for c in runs.values()) for k in runs["build_fleet"]}
 
 
@@ -5030,6 +5121,234 @@ def wire_phase(card: str):
     return summary
 
 
+
+# ------------------------------------------------------------------ #
+# the bulk client
+# ------------------------------------------------------------------ #
+
+CLIENT_DIR = os.path.join(ROOT, "build", "chip_smoke_client")
+CLIENT_DENSE = 16  # config 1's dense detectors (10 tags)
+CLIENT_LSTM = 4  # lstm_hourglass detectors at 10 tags, lookback 32
+CLIENT_TAGS = [f"tag-{i}" for i in range(10)]
+CLIENT_DATASET = {"type": "RandomDataset", "tag_list": CLIENT_TAGS, "resolution": "10min"}
+CLIENT_RANGE = ("2020-01-01T00:00:00Z", "2020-01-05T00:00:00Z")
+CLIENT_ROWS = 576  # CLIENT_RANGE's rows at 10 min
+CLIENT_BATCH = 100  # rows a chunk: 6 chunks a target, each past the LSTM's 31-row warm-up
+CLIENT_RUNGS = {  # the bulk run's transport and encoding
+    "tcp_json": dict(transport="tcp", use_tensor=False, use_parquet=False),
+    "tcp_tensor": dict(transport="tcp", use_tensor=True),
+    "uds_tensor": dict(transport="uds", use_tensor=True),
+    "shm_tensor": dict(transport="shm", use_tensor=True),
+}
+CLIENT_TENANT = "client-shed"
+CLIENT_SHED_TARGETS = 4  # dense targets the shed tenant scores (24 chunks)
+CLIENT_ENV = {"GORDO_QOS_TENANTS": json.dumps({CLIENT_TENANT: {"rate": 4.0, "burst": 4}}), "GORDO_SHM_SLOTS": "16"}
+CLIENT_BANDS = {"dense": dict(rtol=0.0, atol=1e-5), "lstm": dict(rtol=1e-5, atol=1e-6)}
+
+
+def client_columns(tags) -> list:
+    return [(top, t) for top in ANOMALY_FRAME_NAMES[:4] for t in tags] + [(top, "") for top in ANOMALY_FRAME_NAMES[4:]]
+
+
+def client_reference(names, paths) -> dict:
+    """Each target's frame as the client would join it, from its
+    detector's ``anomaly()`` here a chunk at a time: (values float32,
+    index ns)."""
+    start, end = CLIENT_RANGE
+    X, _ = get_dataset({**CLIENT_DATASET, "train_start_date": start, "train_end_date": end}).get_data()
+    out = {}
+    for name in names:
+        model = serializer.load(paths[name])
+        values, index = [], []
+        for i in range(0, len(X), CLIENT_BATCH):
+            arrays = model.anomaly(X.values[i:i + CLIENT_BATCH])
+            rows = len(arrays["total-anomaly-scaled"])
+            values.append(np.column_stack([np.asarray(arrays[k], np.float32) for k in ANOMALY_FRAME_NAMES]))
+            index.append(X.index[i:i + CLIENT_BATCH][-rows:])
+        out[name] = (np.concatenate(values), np.concatenate(index).view(np.int64))
+    return out
+
+
+def hold_client_frames(results, reference, what: str) -> dict:
+    """Every target of a run ok and within its family's band of
+    ``anomaly()``; the frames by target."""
+    frames = {}
+    for r in results:
+        if not r.ok:
+            raise AssertionError(f"client {what}: {r.name} failed: {r.error_messages[:2]}")
+        f = r.predictions
+        want, index = reference[r.name]
+        band = CLIENT_BANDS["lstm" if "lstm" in r.name else "dense"]
+        if (f.values.dtype != np.float64 or f.values.shape != want.shape or f.columns != client_columns(CLIENT_TAGS)
+                or not np.array_equal(f.index.view(np.int64), index) or not np.all(np.isfinite(f.values))):
+            raise AssertionError(f"client {what}: {r.name} frame {f.values.shape} of {f.values.dtype}, "
+                                 f"want {want.shape}; index equal {np.array_equal(f.index.view(np.int64), index)}")
+        if not np.allclose(f.values, want.astype(np.float64), **band):
+            raise AssertionError(f"client {what}: {r.name} off anomaly() by {float(np.abs(f.values - want).max())} "
+                                 f"({band})")
+        frames[r.name] = f
+    return frames
+
+
+def client_run(what: str, **kwargs):
+    """One ``Client.predict`` over the range; (client, results, wall s)."""
+    c = Client("smoke", batch_size=CLIENT_BATCH, **kwargs)
+    t = time.perf_counter()
+    results = c.predict(*CLIENT_RANGE)
+    return c, results, time.perf_counter() - t
+
+
+def client_bulk(pool, per_model, names, reference, rows: int):
+    """Every target over the four rungs: a timed run of 10 chunks at once
+    each, held against ``anomaly()``, then a run of one chunk at a time
+    each, bitwise the others (concurrent chunks share bank groups, whose
+    shapes move the card's products in the last bits); and over the
+    per-model server (K1). The readings, and the first rung's frames."""
+    summary, frames, timed = {}, {}, {}
+    for rung, kwargs in CLIENT_RUNGS.items():
+        c, results, wall = client_run(rung, base_url=pool.url, **kwargs)
+        if c.transport_used != rung.split("_")[0]:
+            raise AssertionError(f"client {rung}: the run went over {c.transport_used}")
+        timed[rung] = hold_client_frames(results, reference, rung)
+        stats = c.wire_stats
+        enc = rung.split("_")[1]
+        if list(stats) != [enc] or stats[enc]["rows"] != rows:
+            raise AssertionError(f"client {rung}: wire stats {stats}")
+        _, serial, serial_wall = client_run(rung, base_url=pool.url, parallelism=1, **kwargs)
+        frames[rung] = hold_client_frames(serial, reference, f"{rung} one at a time")
+        summary[rung] = {"wall_s": round(wall, 4), "rows_per_s": round(rows / wall, 2),
+                         "bytes_per_row": round(stats[enc]["bytes_out"] / stats[enc]["rows"], 2),
+                         "serial_wall_s": round(serial_wall, 4), "serial_rows_per_s": round(rows / serial_wall, 2)}
+    first = frames["tcp_json"]
+    for rung, got in frames.items():
+        for name in names:
+            if not np.array_equal(got[name].values, first[name].values):
+                raise AssertionError(f"client {rung}: {name} is not bitwise the tcp_json run")
+        summary[rung]["timed_targets_bitwise_serial"] = sum(
+            np.array_equal(timed[rung][n].values, first[n].values) for n in names)
+    c, results, wall = client_run("per_model", base_url=per_model.url, transport="tcp", use_tensor=True)
+    hold_client_frames(results, reference, "per_model")
+    summary["per_model_tensor"] = {"wall_s": round(wall, 4), "rows_per_s": round(rows / wall, 2)}
+    return summary, first
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def client_shedding(pool, names, reference) -> dict:
+    """A tenant over its bucket: each retry sleeps at least the answer's
+    ``Retry-After``, and the server sees no more POSTs than the chunks and
+    the retries the budget admitted."""
+    targets = names[:CLIENT_SHED_TARGETS]
+    records = _Records()
+    log = logging.getLogger("gordo_components_torch.client.io")
+    log.addHandler(records)
+    try:
+        c = Client("smoke", base_url=pool.url, batch_size=CLIENT_BATCH, tenant=CLIENT_TENANT, transport="tcp",
+                   use_tensor=True, parallelism=8)
+        t = time.perf_counter()
+        results = c.predict(*CLIENT_RANGE, targets=targets)
+        wall = time.perf_counter() - t
+    finally:
+        log.removeHandler(records)
+    qos = pool.app.admission.snapshot()
+    admitted = sum(n for k, n in qos["admitted"].items() if k.startswith(CLIENT_TENANT + "|"))
+    shed = sum(n for k, n in qos["shed"].items() if k.startswith(CLIENT_TENANT + "|"))
+    budget = c.retry_budget.snapshot()
+    chunks = len(targets) * -(-CLIENT_ROWS // CLIENT_BATCH)
+    retries = [r for r in records.records if r.getMessage().startswith("Request POST") and len(r.args) == 6]
+    waits = [(float(r.args[2].headers.get("Retry-After")), float(r.args[5])) for r in retries
+             if getattr(r.args[2], "status", None) == 429]
+    if not waits or any(delay < hinted for hinted, delay in waits):
+        raise AssertionError(f"client shed: retry sleeps against Retry-After {waits}")
+    if admitted + shed != chunks + budget["retries_allowed"] or shed == 0:
+        raise AssertionError(f"client shed: {admitted} admitted + {shed} shed POSTs for {chunks} chunks and "
+                             f"{budget['retries_allowed']} retries")
+    if budget["retries_allowed"] > 10 + c.retry_budget.ratio * budget["requests"]:
+        raise AssertionError(f"client shed: {budget} past the budget's bound")
+    ok = [r for r in results if r.ok]
+    for r in ok:
+        want, _ = reference[r.name]
+        if not np.allclose(r.predictions.values, want.astype(np.float64), **CLIENT_BANDS["dense"]):
+            raise AssertionError(f"client shed: {r.name} off anomaly()")
+    return {"chunks": chunks, "posts": admitted + shed, "shed": shed, "retries": budget["retries_allowed"],
+            "retries_denied": budget["retries_denied"], "budget_requests": budget["requests"],
+            "min_retry_after_s": min(h for h, _ in waits), "min_sleep_s": round(min(d for _, d in waits), 4),
+            "targets_ok": len(ok), "targets": len(targets), "wall_s": round(wall, 4)}
+
+
+def client_hedging(pool, per_model, names, first, reference) -> dict:
+    """The two servers as replicas, a hedge after 1 ms: hedges and wins
+    counted, every target within its band of the unhedged run's."""
+    c, results, wall = client_run("hedge", base_url=pool.url, replica_urls=[pool.url, per_model.url], hedge=True,
+                                  hedge_delay_init_s=0.001, transport="tcp", use_tensor=True)
+    frames = hold_client_frames(results, reference, "hedge")
+    bitwise = sum(np.array_equal(frames[n].values, first[n].values) for n in names)
+    stats = dict(c._hedge_stats)
+    if stats["hedges"] <= 0:
+        raise AssertionError(f"client hedge: {stats}")
+    return {"hedges": stats["hedges"], "hedge_wins": stats["hedge_wins"], "targets_bitwise_unhedged": bitwise,
+            "wall_s": round(wall, 4)}
+
+
+def client_phase(card: str):
+    """The bulk client on the card's serving path: config 1's width,
+    CLIENT_DENSE dense and CLIENT_LSTM ``lstm_hourglass`` detectors with
+    ``RandomDataset`` metadata, banked behind a pool with a Unix socket and
+    the ring (K2, K3) and per model on a ``GORDO_SERVER_BANK=0`` server
+    (K1, K3); ``Client.predict`` of every target over CLIENT_RANGE in
+    chunks of CLIENT_BATCH rows over each rung, a shed tenant and a hedged
+    run."""
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    rng = np.random.default_rng(18)
+    names = [f"client-dense-{i:02d}" for i in range(CLIENT_DENSE)] + [f"client-lstm-{i}" for i in range(CLIENT_LSTM)]
+    paths = {name: os.path.join(CLIENT_DIR, name) for name in names}
+    for name in names:
+        entry = (random_lstm_entry(name, "LSTMAutoEncoder", rng) if "lstm" in name
+                 else random_entry(name, 10, rng))
+        serializer.dump(entry, paths[name], metadata={"name": name, "dataset": CLIENT_DATASET})
+    before = launches()
+    reference = client_reference(names, paths)
+    reference_launches = launched(before)
+    rows = len(names) * CLIENT_ROWS
+    uds_dir = CLIENT_DIR if len(os.path.join(CLIENT_DIR, "c.sock").encode()) < 100 else tempfile.mkdtemp(prefix="gc")
+    summary = {}
+    with env_set(CLIENT_ENV):
+        pool = run_server(CLIENT_DIR, host="127.0.0.1", port=0, background=True,
+                          uds_path=os.path.join(uds_dir, "c.sock"), shm_ring=f"gordo-client-{os.getpid()}")
+    try:
+        with env_set({"GORDO_SERVER_BANK": "0"}):
+            per_model = run_server(CLIENT_DIR, host="127.0.0.1", port=0, background=True)
+        try:
+            if sorted(pool.app.bank._index) != sorted(names) or per_model.app.bank is not None:
+                raise AssertionError(f"client: banked {sorted(pool.app.bank._index)}")
+            if pool.app._warmup is not None:
+                pool.app._warmup.join()
+            summary["rungs"], first = client_bulk(pool, per_model, names, reference, rows)
+            summary["shed"] = client_shedding(pool, names[:CLIENT_DENSE], reference)
+            summary["hedge"] = client_hedging(pool, per_model, names, first, reference)
+        finally:
+            per_model.close()
+    finally:
+        pool.close()
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    if uds_dir != CLIENT_DIR:
+        shutil.rmtree(uds_dir, ignore_errors=True)
+    total = launches()
+    phase("client", targets=len(names), rows_per_run=rows, chunk_rows=CLIENT_BATCH,
+          rungs=json.dumps(summary["rungs"]), shed=json.dumps(summary["shed"]), hedge=json.dumps(summary["hedge"]),
+          reference_launches=json.dumps(reference_launches),
+          phase_launches=json.dumps(total),
+          bands=json.dumps(CLIENT_BANDS), card=json.dumps(card))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
@@ -5094,6 +5413,7 @@ def main() -> int:
     drive("pipeline", pipeline_phase, card)
     drive("qos", qos_phase, card)
     drive("wire", wire_phase, card)
+    drive("client", client_phase, card)
     timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
@@ -5112,6 +5432,8 @@ def main() -> int:
                          ("qos", "banked_anomaly_score"), ("qos", "lstm_layer"),
                          ("wire", "banked_anomaly_score"), ("wire", "lstm_layer"),
                          ("wire", "fused_anomaly_score"),
+                         ("client", "banked_anomaly_score"), ("client", "lstm_layer"),
+                         ("client", "fused_anomaly_score"),
                          ("bf16_train", "lstm_layer_bf16"),
                          ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
                          ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):

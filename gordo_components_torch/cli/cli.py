@@ -12,15 +12,24 @@ same options, environment variables and exit codes:
   ``build_manifest.json`` and printed; 0 when every machine built, 84 when
   some failed, 83 when none built or the build raised, 81 for an empty
   payload;
-- ``run-server``: serve a model directory until SIGINT or SIGTERM.
+- ``run-server``: serve a model directory until SIGINT or SIGTERM;
+- ``client predict START END``: score a time range for every machine of a
+  project (or each ``--target``) with :class:`~gordo_components_torch.client.Client`,
+  forwarding to ``--parquet-dir``; prints ``k/n machines scored
+  successfully``, each failure on stderr, and exits 1 when one failed;
+- ``client metadata``: every model's metadata as JSON (``metadata-all``,
+  else a request a target);
+- ``client download-model TARGET DEST``: the route's bytes written to
+  ``DEST`` as they arrive (urllib).
 
 ``--device`` (default ``cuda``) is the counterpart of the JAX ``--platform``:
 the commands run on the card, and without CUDA they fail through
 ``resolve_device`` unless ``--device cpu`` asks for the CPU. Not ported
 yet, and refused with exit code 2: ``--profile-dir``, ``--compile-cache-dir``,
-a set ``GORDO_FAULTS``, and ``run-server --devices`` above 1. The JAX
-package's ``client``, ``workflow``, ``run-watchman`` and
-``checkpoint-prune`` commands are not ported.
+a set ``GORDO_FAULTS``, and ``run-server --devices`` above 1. The client
+commands move no tensor and ignore ``--device``. The JAX package's
+``workflow``, ``run-watchman`` and ``checkpoint-prune`` commands are not
+ported.
 """
 
 import argparse
@@ -112,13 +121,36 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--port", type=int, default=_env_int("SERVER_PORT", 5555))
     s.add_argument("--devices", type=int, default=_env_int("GORDO_SERVER_DEVICES", None),
                    help="cards to shard the bank over: only 1 is ported")
+
+    c = sub.add_parser("client", help="Bulk prediction client.")
+    csub = c.add_subparsers(dest="client_command", metavar="CLIENT_COMMAND")
+    csub.required = True
+    cp = csub.add_parser("predict", help="Bulk anomaly scoring over a time range.")
+    cp.add_argument("start")
+    cp.add_argument("end")
+    cm = csub.add_parser("metadata", help="Print every model's metadata as JSON.")
+    cd = csub.add_parser("download-model", help="Download a model artifact.")
+    cd.add_argument("target")
+    cd.add_argument("dest")
+    for q in (cp, cm, cd):
+        q.add_argument("--project", default=_env("PROJECT_NAME"))
+        q.add_argument("--base-url", default="http://localhost:5555")
+    cp.add_argument("--target", action="append", default=[], help="Limit to specific machines")
+    cp.add_argument("--parquet-dir", default=None, help="Forward results to parquet files")
+    cp.add_argument("--batch-size", type=int, default=1000)
+    cp.add_argument("--body-encoding", default=_env("GORDO_CLIENT_ENCODING", "auto"),
+                    help="Scoring POST body encoding (auto, json or parquet): auto negotiates parquet when the "
+                         "server advertises it, json/parquet force one")
     return p
 
+
+_BODY_ENCODINGS = {"auto": "auto", "json": False, "parquet": True}
 
 _REQUIRED = {
     "build": (("name", "MACHINE_NAME"), ("model_config", "MODEL_CONFIG"), ("data_config", "DATA_CONFIG")),
     "build-fleet": (("machines_file", "MACHINES_FILE"),),
     "run-server": (("model_dir", "MODEL_COLLECTION_DIR"),),
+    "client": (("project", "PROJECT_NAME"),),
 }
 
 
@@ -228,7 +260,75 @@ def _run_server(args) -> int:
     return EXIT_OK
 
 
-_COMMANDS = {"build": _build, "build-fleet": _build_fleet, "run-server": _run_server}
+def _client_predict(args) -> int:
+    from gordo_components_torch.client import Client, ForwardPredictionsIntoParquet
+    from gordo_components_torch.dataset.times import to_ns
+
+    try:  # up front, as pd.Timestamp refuses a time before any request
+        to_ns(args.start), to_ns(args.end)
+    except ValueError as exc:
+        print(f"Invalid time: {exc}", file=sys.stderr)
+        return 1
+    forwarder = ForwardPredictionsIntoParquet(args.parquet_dir) if args.parquet_dir else None
+    client = Client(args.project, base_url=args.base_url, forwarder=forwarder, batch_size=args.batch_size,
+                    use_parquet=_BODY_ENCODINGS[args.body_encoding])
+    results = client.predict(args.start, args.end, targets=list(args.target) or None)
+    ok = sum(1 for r in results if r.ok)
+    print(f"{ok}/{len(results)} machines scored successfully")
+    for r in results:
+        if not r.ok:
+            print(f"  FAILED {r.name}: {r.error_messages[:1]}", file=sys.stderr)
+    return 1 if ok < len(results) else EXIT_OK
+
+
+def _client_metadata(args) -> int:
+    import asyncio
+
+    from gordo_components_torch.client.http import Session
+    from gordo_components_torch.client.io import fetch_json, fetch_metadata_all
+
+    base_url, project = args.base_url, args.project
+
+    async def go():
+        async with Session() as session:
+            # one metadata-all request; a request a target for a foreign server
+            batched = await fetch_metadata_all(session, base_url, project)
+            if batched is not None:
+                return {name: entry.get("endpoint-metadata", {})
+                        for name, entry in batched["targets"].items() if isinstance(entry, dict)}
+            targets = (await fetch_json(session, f"{base_url}/gordo/v0/{project}/models"))["models"]
+            out = {}
+            for t in targets:
+                body = await fetch_json(session, f"{base_url}/gordo/v0/{project}/{t}/metadata")
+                out[t] = body.get("endpoint-metadata", {})
+            return out
+
+    print(json.dumps(asyncio.run(go()), indent=2, default=str))
+    return EXIT_OK
+
+
+def _client_download_model(args) -> int:
+    import shutil
+    import urllib.error
+    import urllib.request
+
+    url = f"{args.base_url}/gordo/v0/{args.project}/{args.target}/download-model"
+    try:
+        with urllib.request.urlopen(url, timeout=120) as resp, open(args.dest, "wb") as f:
+            shutil.copyfileobj(resp, f)
+    except urllib.error.HTTPError as exc:
+        print(f"Download failed: HTTP {exc.code} from {url}", file=sys.stderr)
+        return 1
+    print(args.dest)
+    return EXIT_OK
+
+
+def _client(args) -> int:
+    return {"predict": _client_predict, "metadata": _client_metadata,
+            "download-model": _client_download_model}[args.client_command](args)
+
+
+_COMMANDS = {"build": _build, "build-fleet": _build_fleet, "run-server": _run_server, "client": _client}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -245,6 +345,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                      "no counterpart in the port")
     if os.environ.get("GORDO_FAULTS"):
         parser.error("GORDO_FAULTS: fault points are not ported yet")
+    if args.command == "client" and args.client_command == "predict" and args.body_encoding not in _BODY_ENCODINGS:
+        parser.error(f"--body-encoding (GORDO_CLIENT_ENCODING): {args.body_encoding!r} is not one of "
+                     f"{', '.join(_BODY_ENCODINGS)}")
     if args.command == "run-server" and args.devices is not None and args.devices > 1:
         parser.error(f"--devices {args.devices}: the bank sharded over several cards is not ported yet")
     logging.basicConfig(

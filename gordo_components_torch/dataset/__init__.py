@@ -1,6 +1,6 @@
 """Dataset layer of the port: numpy only (no pandas)."""
 
-from gordo_components_torch.dataset.base import GordoBaseDataset, TagFrame, get_dataset
+from gordo_components_torch.dataset.base import GordoBaseDataset, ResultFrame, TagFrame, get_dataset
 from gordo_components_torch.dataset.datasets import RandomDataset, TimeSeriesDataset
 from gordo_components_torch.dataset.sensor_tag import (
     SensorTag,
@@ -11,6 +11,7 @@ from gordo_components_torch.dataset.sensor_tag import (
 __all__ = [
     "GordoBaseDataset",
     "RandomDataset",
+    "ResultFrame",
     "SensorTag",
     "TagFrame",
     "TimeSeriesDataset",

@@ -3,7 +3,7 @@
 
 import abc
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -24,6 +24,35 @@ class TagFrame:
     @property
     def shape(self) -> Tuple[int, ...]:
         return self.values.shape
+
+
+@dataclass(frozen=True, eq=False)
+class ResultFrame:
+    """A scored time range, where the JAX bulk client returns a DataFrame.
+    ``values`` (rows, columns) float64, as the JAX frames hold them;
+    ``index`` (rows,) ``datetime64[ns]`` in UTC (the server's index as
+    given when it does not read as timestamps); ``columns`` the JAX
+    frame's labels in its order: ``(group, tag)`` tuples for an anomaly
+    frame, ``(total, "")`` for its two totals, ``0..n-1`` for a
+    prediction frame."""
+
+    values: np.ndarray
+    index: np.ndarray
+    columns: List[Any]
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.values.shape
+
+    @classmethod
+    def concat(cls, frames: Sequence["ResultFrame"]) -> "ResultFrame":
+        """The frames' rows one after the other, as ``pd.concat`` joins
+        frames of the same columns."""
+        return cls(np.concatenate([f.values for f in frames]), np.concatenate([f.index for f in frames]),
+                   list(frames[0].columns))
 
 
 class GordoBaseDataset(abc.ABC):

@@ -34,6 +34,15 @@ another encoding (DELTA_BINARY_PACKED, BYTE_STREAM_SPLIT, ...),
 DATA_PAGE_V2, a repeated or nested column, another physical or logical
 type, or a BYTE_ARRAY column that is not the index. A file that is not
 well-formed raises ``ValueError``.
+
+:func:`write_parquet_bytes` and :func:`write_parquet` write a file of that
+subset, for the bulk client's parquet POST bodies and its parquet
+forwarder: flat REQUIRED columns (DOUBLE, FLOAT, INT64, INT32), PLAIN
+encoding, UNCOMPRESSED, one row group and one data page a column, and the
+index as a ``__index_level_0__`` column of TIMESTAMP(NANOS, UTC) with the
+``pandas`` key-value metadata, so ``pd.read_parquet`` gives back a UTC
+``DatetimeIndex`` (pandas and pyarrow write SNAPPY, dictionary pages and
+OPTIONAL columns by default; readers of either take this file as it is).
 """
 
 import json
@@ -338,3 +347,95 @@ def read_parquet(path: str) -> Tuple[Optional[np.ndarray], List[str], Dict[str, 
     """:func:`read_parquet_bytes` of the file at ``path``."""
     with open(path, "rb") as f:
         return read_parquet_bytes(f.read(), path)
+
+
+# ---------------------------------------------------------------------- #
+# the writer
+# ---------------------------------------------------------------------- #
+
+_INDEX_NAME = "__index_level_0__"
+_PHYSICAL = {np.dtype("<f8"): 5, np.dtype("<f4"): 4, np.dtype("<i8"): 2, np.dtype("<i4"): 1}  # DOUBLE ... INT32
+_PANDAS_TYPE = {"f8": "float64", "f4": "float32", "i8": "int64", "i4": "int32"}
+_NANOS = _thrift.struct((8, "struct", _thrift.struct(  # LogicalType.TIMESTAMP
+    (1, "bool", True), (2, "struct", _thrift.struct((3, "struct", _thrift.struct()))))))
+
+
+def _pandas_meta(names: List[str], columns: Dict[str, np.ndarray], index_kind: Optional[str]) -> str:
+    fields = [{"name": n, "field_name": n, "pandas_type": _PANDAS_TYPE[columns[n].dtype.str[1:]],
+               "numpy_type": columns[n].dtype.name, "metadata": None} for n in names]
+    if index_kind == "M":
+        fields.append({"name": None, "field_name": _INDEX_NAME, "pandas_type": "datetimetz",
+                       "numpy_type": "datetime64[ns]", "metadata": {"timezone": "UTC"}})
+    elif index_kind == "i":
+        fields.append({"name": None, "field_name": _INDEX_NAME, "pandas_type": "int64",
+                       "numpy_type": "int64", "metadata": None})
+    return json.dumps({
+        "index_columns": [_INDEX_NAME] if index_kind else [],
+        "column_indexes": [{"name": None, "field_name": None, "pandas_type": "unicode", "numpy_type": "object",
+                            "metadata": {"encoding": "UTF-8"}}],
+        "columns": fields,
+        "attributes": {},
+        "creator": {"library": "gordo-components-torch"},
+    })
+
+
+def write_parquet_bytes(index: Optional[np.ndarray], names: List[str], columns: Dict[str, np.ndarray]) -> bytes:
+    """A parquet file of ``columns`` (name -> 1-D float64, float32, int64
+    or int32 values, all of one length) in the order of ``names``, with
+    ``index`` (``datetime64`` values, written as UTC ns; int64 values; or
+    None for no index) as the pandas index. :func:`read_parquet_bytes`
+    reads back what was written, to the bit."""
+    cols = {}
+    for n in names:
+        a = np.asarray(columns[n])
+        a = a.astype(a.dtype.newbyteorder("<"))
+        if a.ndim != 1 or a.dtype not in _PHYSICAL:
+            raise NotImplementedError(f"column {n!r}: {a.dtype} of shape {a.shape} (the writer writes 1-D "
+                                      "float64, float32, int64 and int32 columns)")
+        cols[n] = a
+    n_rows = len(cols[names[0]]) if names else (0 if index is None else len(index))
+    index_kind = None
+    if index is not None:
+        index = np.asarray(index)
+        index_kind = "M" if index.dtype.kind == "M" else "i"
+        if index_kind == "M":
+            index = index.astype("datetime64[ns]").view("<i8")
+        elif index.dtype.kind not in "iu":
+            raise NotImplementedError(f"index of {index.dtype} (the writer writes timestamps and integers)")
+        cols[_INDEX_NAME] = index.astype("<i8")
+    if any(len(a) != n_rows for a in cols.values()):
+        raise ValueError("the columns and the index differ in length")
+    out = bytearray(MAGIC)
+    schema = [_thrift.struct((4, "string", "schema"), (5, "i32", len(cols)))]
+    chunks = []
+    for n, a in cols.items():
+        payload = np.ascontiguousarray(a).tobytes()
+        header = _thrift.struct(
+            (1, "i32", _DATA_PAGE), (2, "i32", len(payload)), (3, "i32", len(payload)),
+            (5, "struct", _thrift.struct((1, "i32", n_rows), (2, "i32", _PLAIN), (3, "i32", _RLE),
+                                         (4, "i32", _RLE))))
+        offset = len(out)
+        out += header + payload
+        meta = _thrift.struct(
+            (1, "i32", _PHYSICAL[a.dtype]), (2, ("list", "i32"), [_PLAIN]), (3, ("list", "string"), [n]),
+            (4, "i32", 0), (5, "i64", n_rows), (6, "i64", len(header) + len(payload)),
+            (7, "i64", len(header) + len(payload)), (9, "i64", offset))
+        chunks.append(_thrift.struct((2, "i64", offset), (3, "struct", meta)))
+        timestamp = n == _INDEX_NAME and index_kind == "M"
+        schema.append(_thrift.struct((1, "i32", _PHYSICAL[a.dtype]), (3, "i32", _REQUIRED), (4, "string", n),
+                                     (10, "struct", _NANOS if timestamp else None)))
+    group = _thrift.struct((1, ("list", "struct"), chunks), (2, "i64", len(out) - len(MAGIC)),
+                           (3, "i64", n_rows))
+    kv = [_thrift.struct((1, "string", "pandas"), (2, "string", _pandas_meta(names, cols, index_kind)))]
+    footer = _thrift.struct((1, "i32", 2), (2, ("list", "struct"), schema), (3, "i64", n_rows),
+                            (4, ("list", "struct"), [group]), (5, ("list", "struct"), kv),
+                            (6, "string", "gordo-components-torch"))
+    out += footer + len(footer).to_bytes(4, "little") + MAGIC
+    return bytes(out)
+
+
+def write_parquet(path: str, index: Optional[np.ndarray], names: List[str], columns: Dict[str, np.ndarray]) -> None:
+    """:func:`write_parquet_bytes` to the file at ``path``."""
+    data = write_parquet_bytes(index, names, columns)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -1,8 +1,9 @@
-"""A reader of Thrift's compact protocol, for parquet's footer and page headers.
+"""Thrift's compact protocol, for parquet's footer and page headers.
 
 Parquet describes a file (``FileMetaData``) and each page (``PageHeader``)
 as Thrift structs in the compact protocol. This module reads that protocol
-with the standard library:
+with the standard library, and writes the part of it a flat file needs
+(:func:`struct`):
 
 - a field header byte holds the field id's delta from the last id in its
   high nibble (0: a zigzag varint id follows) and the type in its low one;
@@ -19,6 +20,11 @@ whose id the spec does not name is skipped, whatever its type and at any
 depth, so fields that newer writers add (size statistics, geospatial
 statistics, ...) change nothing. The specs below name only what
 ``_parquet.py`` reads.
+
+A struct is written from ``(field id, kind, value)`` triples in field-id
+order, a kind being ``"i32"``, ``"i64"``, ``"bool"``, ``"string"``,
+``"struct"`` (the value already written by :func:`struct`) or ``("list",
+kind)``; a value of None is left out.
 """
 
 from typing import Any, Dict, Tuple
@@ -146,6 +152,67 @@ class Reader:
                 self.skip(ttype)
             else:
                 out[named[0]] = self._value(ttype, named[1])
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _zigzag(n: int) -> bytes:
+    return _varint((n << 1) ^ (n >> 63))
+
+
+_WRITE_TYPES = {"i32": _I32, "i64": _I64, "string": _BINARY, "struct": _STRUCT}
+
+
+def _element(kind, value) -> bytes:
+    if kind in ("i32", "i64"):
+        return _zigzag(int(value))
+    if kind == "string":
+        raw = value.encode("utf-8") if isinstance(value, str) else bytes(value)
+        return _varint(len(raw)) + raw
+    if kind == "struct":
+        return value
+    raise ThriftError(f"cannot write a list element of kind {kind!r}")
+
+
+def struct(*fields: Tuple[int, Any, Any]) -> bytes:
+    """A compact-protocol struct of ``(field id, kind, value)`` triples,
+    ids ascending; None values are left out."""
+    out = bytearray()
+    last = 0
+    for fid, kind, value in fields:
+        if value is None:
+            continue
+        if kind == "bool":
+            ttype = _TRUE if value else _FALSE
+        elif isinstance(kind, tuple):
+            ttype = _LIST
+        else:
+            ttype = _WRITE_TYPES[kind]
+        delta = fid - last
+        out += bytes([(delta << 4) | ttype]) if 0 < delta <= 15 else bytes([ttype]) + _zigzag(fid)
+        last = fid
+        if kind == "bool":
+            continue
+        if isinstance(kind, tuple):
+            etype = _WRITE_TYPES[kind[1]]
+            n = len(value)
+            out += bytes([(n << 4) | etype]) if n < 15 else bytes([0xF0 | etype]) + _varint(n)
+            for v in value:
+                out += _element(kind[1], v)
+        else:
+            out += _element(kind, value)
+    out.append(_STOP)
+    return bytes(out)
 
 
 def read_struct(buf, spec, pos: int = 0) -> Tuple[Dict[str, Any], int]:

@@ -152,3 +152,21 @@ def isoformat(ns: int) -> str:
         head = head.split(".")[0] + f".{(int(ns) % 1_000_000_000):09d}"
         text = f"{head}+{tz}"
     return text
+
+
+def timestamp_text(ns: int) -> str:
+    """``str(pd.Timestamp(ns, tz="UTC"))``: ``2020-01-01 00:10:00+00:00``,
+    with :func:`isoformat`'s fraction."""
+    return isoformat(ns).replace("T", " ", 1)
+
+
+def timestamp_texts(index: np.ndarray) -> list:
+    """:func:`timestamp_text` of every value of a ``datetime64`` array;
+    whole seconds, the usual case, without a loop over the values."""
+    ns = np.asarray(index).astype("datetime64[ns]").view(np.int64)
+    whole = ns % 1_000_000_000 == 0
+    out = np.char.add(np.char.replace(np.datetime_as_string(ns.view("datetime64[ns]"), unit="s"), "T", " "),
+                      "+00:00").tolist()
+    for i in np.flatnonzero(~whole):
+        out[i] = timestamp_text(int(ns[i]))
+    return out

@@ -1,5 +1,6 @@
 """Where the port runs, and in which precision it computes."""
 
+import numpy as np
 import torch
 
 # compute_dtype names the port accepts, as the JAX package spells them
@@ -48,3 +49,15 @@ def resolve_compute_dtype(name) -> torch.dtype:
         raise NotImplementedError(
             f"compute_dtype={name!r}: the port computes in 'float32' or 'bfloat16'"
         ) from None
+
+
+def rows_tensor(a: np.ndarray, device=None) -> torch.Tensor:
+    """``torch.as_tensor(a, device=device)`` for rows that may be
+    read-only (a tensor request body's ``np.frombuffer`` views). A
+    read-only array goes through ``torch.tensor``, which copies it: on the
+    card that is the one host-to-device copy ``as_tensor`` makes too, on
+    the CPU a host copy, so no tensor is a view torch could write through
+    (``as_tensor`` would share it and warn)."""
+    if a.flags.writeable:
+        return torch.as_tensor(a, device=device)
+    return torch.tensor(a, device=device)

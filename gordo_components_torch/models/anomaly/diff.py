@@ -40,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from gordo_components_torch.device import resolve_device
+from gordo_components_torch.device import resolve_device, rows_tensor
 from gordo_components_torch.models.anomaly.base import AnomalyDetectorBase
 from gordo_components_torch.models.base import GordoBase, score_metrics_of, transform_through_steps
 from gordo_components_torch.models.register import lookup_factory
@@ -300,7 +300,7 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
         off = s.lookback - 1 + s.target_offset
         if len(Xv) <= off:
             raise ValueError(f"need more than {off} rows (sequence warm-up), got {len(Xv)}")
-        x = torch.as_tensor(Xv, device=s.input_scaler.shift.device)
+        x = rows_tensor(Xv, s.input_scaler.shift.device)
         xs = scaler_transform(s.input_scaler, x)
         if s.model.windowed:  # an LSTM or conv model reads windows of rows
             W = sliding_windows(xs, s.lookback)
@@ -328,7 +328,7 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
             s, x, output = self._forward(Xv)
             device = x.device
             off = s.lookback - 1 + s.target_offset
-            yv = x if y is None else torch.as_tensor(_as_f32(y), device=device)
+            yv = x if y is None else rows_tensor(_as_f32(y), device)
             n_out = output.shape[0]
             target = scaler_transform(s.input_scaler, yv)[off:][:n_out]
             shift, scale = s.error_scaler

@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from gordo_components_torch.device import resolve_device
+from gordo_components_torch.device import resolve_device, rows_tensor
 from gordo_components_torch.models import train_core
 from gordo_components_torch.models.base import GordoBase
 from gordo_components_torch.models.register import lookup_factory
@@ -265,7 +265,7 @@ class _SequenceEstimator(BaseEstimator):
         X = _as_float32(X)
         self._check_rows(len(X))
         device = resolve_device(self.device)
-        W = sliding_windows(torch.as_tensor(X, device=device), self.lookback_window)
+        W = sliding_windows(rows_tensor(X, device), self.lookback_window)
         return train_core.batched_apply(self.module, W[: len(W) - self._target_offset], device)
 
     def _scoring_pair(self, X, y):

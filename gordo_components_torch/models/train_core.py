@@ -52,6 +52,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gordo_components_torch.device import rows_tensor
 from gordo_components_torch.models.factories.conv import Conv1DAutoEncoder, conv_autoencoder_forward
 from gordo_components_torch.models.factories.variational import VariationalAutoEncoder, vae_elbo_terms
 from gordo_components_torch.models.register import by_family
@@ -646,5 +647,7 @@ def batched_apply(module: torch.nn.Module, X, device, batch_size: int = 4096) ->
     as a float32 numpy array."""
     if X.shape[0] == 0:
         raise ValueError("empty input")
+    if isinstance(X, np.ndarray):
+        X = rows_tensor(X, device)
     x = torch.as_tensor(X, dtype=torch.float32, device=device)
     return torch.cat([module(x[s:s + batch_size]) for s in range(0, len(x), batch_size)]).cpu().numpy()

@@ -1,8 +1,9 @@
-"""Serving resilience of the port: per-request deadlines (``deadline.py``)
-and the per-model quarantine breaker (``quarantine.py``).
+"""Resilience of the port: per-request deadlines (``deadline.py``), the
+per-model quarantine breaker (``quarantine.py``) and the client's retry
+budget and backoff (``retry_budget.py``).
 
-Counterpart of those two modules of ``gordo_components_tpu/resilience/``;
-fault points, retries and the watchdog are not ported yet.
+Counterpart of those three modules of ``gordo_components_tpu/resilience/``;
+fault points and the watchdog are not ported yet.
 """
 
 from gordo_components_torch.resilience.deadline import (
@@ -14,8 +15,9 @@ from gordo_components_torch.resilience.deadline import (
     parse_deadline_ms,
 )
 from gordo_components_torch.resilience.quarantine import DEFAULT_THRESHOLD, QuarantineSet
+from gordo_components_torch.resilience.retry_budget import RetryBudget, decorrelated_jitter
 
 __all__ = [
     "DEADLINE_HEADER", "DEFAULT_THRESHOLD", "MAX_DEADLINE_MS", "Deadline", "DeadlineExceeded",
-    "QuarantineSet", "default_deadline_ms", "parse_deadline_ms",
+    "QuarantineSet", "RetryBudget", "decorrelated_jitter", "default_deadline_ms", "parse_deadline_ms",
 ]

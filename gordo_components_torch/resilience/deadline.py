@@ -12,15 +12,18 @@ answers someone still waits for.
 
 :class:`DeadlineExceeded` subclasses the builtin ``TimeoutError`` (which
 ``asyncio.TimeoutError`` is on Python 3.11 and later, the JAX class's
-base). Deadlines are absolute ``time.monotonic()`` instants; the header
-carries a relative budget. ``Deadline.wait_for`` of the JAX module is not
-ported: only the mesh and watchman use it.
+base), so a caller that catches ``asyncio.TimeoutError`` catches a spent
+deadline too. Deadlines are absolute ``time.monotonic()`` instants; the
+header carries a relative budget. :meth:`Deadline.wait_for` bounds an
+awaitable by the remaining budget: the bulk client's per-attempt bound and
+its ``metadata-all`` fetch.
 """
 
+import asyncio
 import math
 import os
 import time
-from typing import Optional
+from typing import Any, Awaitable, Optional
 
 __all__ = [
     "DEADLINE_HEADER",
@@ -67,6 +70,14 @@ class Deadline:
 
     def remaining_ms(self) -> float:
         return self.remaining_s() * 1e3
+
+    async def wait_for(self, awaitable: Awaitable[Any]) -> Any:
+        """``asyncio.wait_for`` bounded by the remaining budget, raising
+        :class:`DeadlineExceeded` when it runs out."""
+        try:
+            return await asyncio.wait_for(awaitable, timeout=self.remaining_s())
+        except asyncio.TimeoutError:
+            raise DeadlineExceeded(f"deadline exceeded after {self.budget_s:.3f}s budget") from None
 
     def __repr__(self) -> str:
         return f"<Deadline budget={self.budget_s:.3f}s remaining={self.remaining_s():.3f}s>"

@@ -104,6 +104,7 @@ import re
 import socket
 import socketserver
 import stat
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -745,7 +746,20 @@ class GordoHandler(BaseHTTPRequestHandler):
         return 200, anomaly_body(tags, arrays, index[offset:][:n_out], output_tags)
 
 
-class GordoServer(ThreadingHTTPServer):
+class _QuietDisconnects:
+    """A client that drops its connection before the answer is written
+    (the loser of a hedged request, a spent deadline) is logged at DEBUG,
+    not printed as a traceback: the answer had no one left to read it."""
+
+    def handle_error(self, request, client_address) -> None:
+        exc = sys.exc_info()[1]
+        if isinstance(exc, ConnectionError):
+            logger.debug("client %s went away before its answer: %s", client_address or "unix", exc)
+            return
+        super().handle_error(request, client_address)
+
+
+class GordoServer(_QuietDisconnects, ThreadingHTTPServer):
     """The app behind a threading HTTP server; one thread per connection.
 
     ``worker`` tags the server as one accept loop of a pool
@@ -798,7 +812,7 @@ class GordoServer(ThreadingHTTPServer):
         self.app.close()
 
 
-class GordoUnixServer(socketserver.ThreadingMixIn, socketserver.UnixStreamServer):
+class GordoUnixServer(_QuietDisconnects, socketserver.ThreadingMixIn, socketserver.UnixStreamServer):
     """The app's routes on a Unix-domain socket at ``path``
     (``GORDO_UDS``): the HTTP surface of :class:`GordoServer` for a client
     on the same host, one thread per connection. A socket file left at

@@ -3,8 +3,8 @@ package, and its entry points default to the card and refuse to run on the
 CPU unless asked to.
 
 The import check runs in a subprocess because this test process has already
-imported jax (tests/conftest.py). It blocks pandas, sklearn, PyYAML and
-pyarrow too: the card's machine has none of them. The port reads parquet
+imported jax (tests/conftest.py). It blocks pandas, sklearn, PyYAML,
+pyarrow, aiohttp and requests too: the card's machine has none of them. The port reads parquet
 with its own reader, so under the block it still reads the lake's 2021
 parquet file.
 """
@@ -21,7 +21,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "gordo_components_tpu",
-           "pandas", "sklearn", "yaml", "pyarrow")
+           "pandas", "sklearn", "yaml", "pyarrow", "aiohttp", "requests")
 
 _IMPORT_ALL = """
 import importlib, importlib.abc, importlib.util, json, pkgutil, sys
@@ -92,7 +92,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "dataset.data_provider.influx_http", "dataset.data_provider._files",
                 "dataset.data_provider._parquet", "dataset.data_provider._snappy",
                 "dataset.data_provider._thrift", "models.compose", "utils.wire", "utils.shm_ring",
-                "server.transport", "server.workers", "qos.classify"):
+                "server.transport", "server.workers", "qos.classify", "client", "client.client",
+                "client.io", "client.http", "client.forwarders", "resilience.retry_budget"):
         assert f"gordo_components_torch.{mod}" in report["modules"]
 
 
