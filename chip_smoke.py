@@ -2700,20 +2700,12 @@ def cli_client(url: str, out_dir: str, fleet: dict, runs: dict) -> dict:
     rows = {}
     for name, machine in fleet.items():
         index, columns, values = read_parquet(os.path.join(predictions, f"{name}.parquet"))
-        start, end = CLI_CLIENT_RANGE
-        X, _ = get_dataset({**machine["dataset"], "train_start_date": start, "train_end_date": end}).get_data()
-        model = serializer.load(os.path.join(out_dir, name))
-        want, want_index = [], []
-        for i in range(0, len(X), CLI_CLIENT_BATCH):
-            arrays = model.anomaly(X.values[i:i + CLI_CLIENT_BATCH])
-            n = len(arrays["total-anomaly-scaled"])
-            want.append(np.column_stack([np.asarray(arrays[k], np.float32) for k in ANOMALY_FRAME_NAMES]))
-            want_index.append(X.index[i:i + CLI_CLIENT_BATCH][-n:].view(np.int64))
-        want = np.concatenate(want)
-        names = ["|".join(c for c in col if c) for col in client_columns(X.columns)]
+        want, want_index = client_reference(machine["dataset"], CLI_CLIENT_RANGE, CLI_CLIENT_BATCH,
+                                            {name: os.path.join(out_dir, name)})[name]
+        names = ["|".join(c for c in col if c) for col in client_columns(machine["dataset"]["tag_list"])]
         got = np.column_stack([values[c] for c in columns]) if columns == names else None
         band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if "model" in machine else {"rtol": 0.0, "atol": E2E_ATOL}
-        if got is None or not np.array_equal(index, np.concatenate(want_index)) or not np.allclose(
+        if got is None or not np.array_equal(index, want_index) or not np.allclose(
                 got, want.astype(np.float64), **band):
             raise AssertionError(f"cli client predict: {name}'s parquet file: columns {columns[:3]}..., "
                                  f"{None if got is None else got.shape} against {want.shape}")
@@ -5134,6 +5126,7 @@ CLIENT_DATASET = {"type": "RandomDataset", "tag_list": CLIENT_TAGS, "resolution"
 CLIENT_RANGE = ("2020-01-01T00:00:00Z", "2020-01-05T00:00:00Z")
 CLIENT_ROWS = 576  # CLIENT_RANGE's rows at 10 min
 CLIENT_BATCH = 100  # rows a chunk: 6 chunks a target, each past the LSTM's 31-row warm-up
+CLIENT_ROUNDS = 3  # timed bulk runs a rung
 CLIENT_RUNGS = {  # the bulk run's transport and encoding
     "tcp_json": dict(transport="tcp", use_tensor=False, use_parquet=False),
     "tcp_tensor": dict(transport="tcp", use_tensor=True),
@@ -5150,21 +5143,21 @@ def client_columns(tags) -> list:
     return [(top, t) for top in ANOMALY_FRAME_NAMES[:4] for t in tags] + [(top, "") for top in ANOMALY_FRAME_NAMES[4:]]
 
 
-def client_reference(names, paths) -> dict:
+def client_reference(dataset: dict, span, batch: int, paths: dict) -> dict:
     """Each target's frame as the client would join it, from its
-    detector's ``anomaly()`` here a chunk at a time: (values float32,
-    index ns)."""
-    start, end = CLIENT_RANGE
-    X, _ = get_dataset({**CLIENT_DATASET, "train_start_date": start, "train_end_date": end}).get_data()
+    detector's ``anomaly()`` here a chunk of ``batch`` rows at a time over
+    ``span`` of ``dataset``: (values float32, index ns)."""
+    start, end = span
+    X, _ = get_dataset({**dataset, "train_start_date": start, "train_end_date": end}).get_data()
     out = {}
-    for name in names:
-        model = serializer.load(paths[name])
+    for name, path in paths.items():
+        model = serializer.load(path)
         values, index = [], []
-        for i in range(0, len(X), CLIENT_BATCH):
-            arrays = model.anomaly(X.values[i:i + CLIENT_BATCH])
+        for i in range(0, len(X), batch):
+            arrays = model.anomaly(X.values[i:i + batch])
             rows = len(arrays["total-anomaly-scaled"])
             values.append(np.column_stack([np.asarray(arrays[k], np.float32) for k in ANOMALY_FRAME_NAMES]))
-            index.append(X.index[i:i + CLIENT_BATCH][-rows:])
+            index.append(X.index[i:i + batch][-rows:])
         out[name] = (np.concatenate(values), np.concatenate(index).view(np.int64))
     return out
 
@@ -5199,26 +5192,36 @@ def client_run(what: str, **kwargs):
 
 
 def client_bulk(pool, per_model, names, reference, rows: int):
-    """Every target over the four rungs: a timed run of 10 chunks at once
-    each, held against ``anomaly()``, then a run of one chunk at a time
-    each, bitwise the others (concurrent chunks share bank groups, whose
-    shapes move the card's products in the last bits); and over the
-    per-model server (K1). The readings, and the first rung's frames."""
+    """Every target over the four rungs: CLIENT_ROUNDS timed runs of 10
+    chunks at once each, the rungs' order rotated a round, each held
+    against ``anomaly()``; then a run of one chunk at a time each, bitwise
+    the others (concurrent chunks share bank groups, whose shapes move the
+    card's products in the last bits); and over the per-model server, whose
+    own run must launch K1. The readings, and the first rung's frames."""
     summary, frames, timed = {}, {}, {}
+    walls = {rung: [] for rung in CLIENT_RUNGS}
+    order = list(CLIENT_RUNGS)
+    for r in range(CLIENT_ROUNDS):
+        for rung in order[r % len(order):] + order[:r % len(order)]:
+            kwargs = CLIENT_RUNGS[rung]
+            c, results, wall = client_run(rung, base_url=pool.url, **kwargs)
+            if c.transport_used != rung.split("_")[0]:
+                raise AssertionError(f"client {rung}: the run went over {c.transport_used}")
+            got = hold_client_frames(results, reference, f"{rung} round {r}")
+            stats = c.wire_stats
+            enc = rung.split("_")[1]
+            if list(stats) != [enc] or stats[enc]["rows"] != rows:
+                raise AssertionError(f"client {rung}: wire stats {stats}")
+            walls[rung].append(round(wall, 4))
+            if r == 0:
+                timed[rung] = got
+                summary[rung] = {"bytes_per_row": round(stats[enc]["bytes_out"] / stats[enc]["rows"], 2)}
     for rung, kwargs in CLIENT_RUNGS.items():
-        c, results, wall = client_run(rung, base_url=pool.url, **kwargs)
-        if c.transport_used != rung.split("_")[0]:
-            raise AssertionError(f"client {rung}: the run went over {c.transport_used}")
-        timed[rung] = hold_client_frames(results, reference, rung)
-        stats = c.wire_stats
-        enc = rung.split("_")[1]
-        if list(stats) != [enc] or stats[enc]["rows"] != rows:
-            raise AssertionError(f"client {rung}: wire stats {stats}")
         _, serial, serial_wall = client_run(rung, base_url=pool.url, parallelism=1, **kwargs)
         frames[rung] = hold_client_frames(serial, reference, f"{rung} one at a time")
-        summary[rung] = {"wall_s": round(wall, 4), "rows_per_s": round(rows / wall, 2),
-                         "bytes_per_row": round(stats[enc]["bytes_out"] / stats[enc]["rows"], 2),
-                         "serial_wall_s": round(serial_wall, 4), "serial_rows_per_s": round(rows / serial_wall, 2)}
+        median = float(np.median(walls[rung]))
+        summary[rung].update(walls_s=walls[rung], median_rows_per_s=round(rows / median, 2),
+                             serial_wall_s=round(serial_wall, 4), serial_rows_per_s=round(rows / serial_wall, 2))
     first = frames["tcp_json"]
     for rung, got in frames.items():
         for name in names:
@@ -5226,9 +5229,14 @@ def client_bulk(pool, per_model, names, reference, rows: int):
                 raise AssertionError(f"client {rung}: {name} is not bitwise the tcp_json run")
         summary[rung]["timed_targets_bitwise_serial"] = sum(
             np.array_equal(timed[rung][n].values, first[n].values) for n in names)
+    before = launches()
     c, results, wall = client_run("per_model", base_url=per_model.url, transport="tcp", use_tensor=True)
+    per_model_launches = launched(before)
     hold_client_frames(results, reference, "per_model")
-    summary["per_model_tensor"] = {"wall_s": round(wall, 4), "rows_per_s": round(rows / wall, 2)}
+    if per_model_launches["K1"] <= 0:
+        raise AssertionError(f"client per_model: the run launched {per_model_launches}")
+    summary["per_model_tensor"] = {"wall_s": round(wall, 4), "rows_per_s": round(rows / wall, 2),
+                                   "launches": per_model_launches}
     return summary, first
 
 
@@ -5314,8 +5322,10 @@ def client_phase(card: str):
                  else random_entry(name, 10, rng))
         serializer.dump(entry, paths[name], metadata={"name": name, "dataset": CLIENT_DATASET})
     before = launches()
-    reference = client_reference(names, paths)
+    reference = client_reference(CLIENT_DATASET, CLIENT_RANGE, CLIENT_BATCH, paths)
     reference_launches = launched(before)
+    score.reset_launch_counts()  # the phase's counts are the served runs' alone
+    seq_scan.reset_launch_counts()
     rows = len(names) * CLIENT_ROWS
     uds_dir = CLIENT_DIR if len(os.path.join(CLIENT_DIR, "c.sock").encode()) < 100 else tempfile.mkdtemp(prefix="gc")
     summary = {}

@@ -213,8 +213,11 @@ async def _read_answer(reader: asyncio.StreamReader, method: str, url: str) -> T
     coding = headers.get("Content-Encoding", "").lower()
     if coding == "gzip":
         body = gzip.decompress(body)
-    elif coding == "deflate":
-        body = zlib.decompress(body)
+    elif coding == "deflate":  # zlib's format, or raw deflate as some servers send it (aiohttp reads both)
+        try:
+            body = zlib.decompress(body)
+        except zlib.error:
+            body = zlib.decompress(body, -zlib.MAX_WBITS)
     return Response(status, headers, body, url), keep
 
 

@@ -161,12 +161,5 @@ def timestamp_text(ns: int) -> str:
 
 
 def timestamp_texts(index: np.ndarray) -> list:
-    """:func:`timestamp_text` of every value of a ``datetime64`` array;
-    whole seconds, the usual case, without a loop over the values."""
-    ns = np.asarray(index).astype("datetime64[ns]").view(np.int64)
-    whole = ns % 1_000_000_000 == 0
-    out = np.char.add(np.char.replace(np.datetime_as_string(ns.view("datetime64[ns]"), unit="s"), "T", " "),
-                      "+00:00").tolist()
-    for i in np.flatnonzero(~whole):
-        out[i] = timestamp_text(int(ns[i]))
-    return out
+    """:func:`timestamp_text` of every value of a ``datetime64`` array."""
+    return [timestamp_text(int(n)) for n in np.asarray(index).astype("datetime64[ns]").view(np.int64)]

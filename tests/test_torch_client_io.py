@@ -11,7 +11,8 @@
   bound, the budget's cap, the deadline header restamped on each attempt
   and no sleep past it, hedging (a fast primary never hedges, the hedge
   gets one attempt and no budget, the primary's error when both fail), and
-  a keep-alive socket that outlives a cancelled hedge.
+  a keep-alive socket that outlives a cancelled hedge; the session's
+  answer framings (length, chunked, HTTP/1.0 to the close) and codings.
 - ``client/client.py``'s rules against the JAX ``Client``: the
   constructor's checks and per-class posture, ``_connector_limit``,
   ``_hedge_delay_s``, ``_chunk_urls`` with and without a routing table,
@@ -23,6 +24,7 @@ Every network wait has a timeout; the file takes a few seconds.
 
 import asyncio
 import random
+import zlib
 from email.utils import format_datetime
 from datetime import datetime, timedelta, timezone
 
@@ -38,7 +40,7 @@ from gordo_components_tpu.client import Client as JaxClient
 from gordo_components_tpu.client import io as jax_io
 from gordo_components_tpu.resilience import deadline as jax_deadline
 from gordo_components_tpu.resilience import retry_budget as jax_rb
-from torch_client_stubs import Stub, answer
+from torch_client_stubs import RawStub, Stub, answer
 
 TIMEOUT_S = 30  # the bound of every test's network waits
 
@@ -359,19 +361,69 @@ def test_a_cancelled_request_closes_its_socket_and_the_pool_reuses_the_rest():
     assert idle == 1  # one socket carried every answer after the first
 
 
+def _chunked(data: bytes) -> bytes:
+    """``data`` in two chunks, a chunk extension and a trailer field."""
+    half = len(data) // 2
+    return (b"%x;ext=1\r\n%s\r\n%x\r\n%s\r\n0\r\nX-Trailer: 1\r\n\r\n"
+            % (half, data[:half], len(data) - half, data[half:]))
+
+
 def test_http_session_reads_gzip_chunked_and_http10_answers():
+    """gzip with a length; a chunked answer, plain and gzip (a compressed
+    aiohttp answer goes out chunked), twice on one socket; an HTTP/1.0
+    answer with no length, read to the close and never pooled."""
     import gzip
     body = b'{"a": 1}'
     stub = Stub({"/gz": [answer(200, gzip.compress(body), {"Content-Encoding": "gzip"})]})
 
-    async def go():
+    async def get(url, n=1, **kwargs):
         async with port_http.Session(timeout=TIMEOUT_S) as s:
-            resp = await s.get(stub.url + "/gz", params={"digest": "1"})
-            return resp.status, resp.json(), resp.headers.get("content-encoding"), resp.content_type
+            out = [await s.get(url, **kwargs) for _ in range(n)]
+            idle = sum(len(p) for p in s._idle.values())
+        return [(r.status, r.json(), r.headers.get("content-encoding"), r.content_type) for r in out], idle
 
     try:
-        assert asyncio.run(go()) == (200, {"a": 1}, "gzip", "application/json")
+        got, _ = asyncio.run(asyncio.wait_for(get(stub.url + "/gz", params={"digest": "1"}), TIMEOUT_S))
+        assert got == [(200, {"a": 1}, "gzip", "application/json")]
         assert stub.requests[0][1] == "/gz?digest=1" and "gzip" in stub.requests[0][2]["Accept-Encoding"]
+    finally:
+        stub.close()
+    head = b"HTTP/1.1 200 OK\r\nContent-Type: application/json\r\nTransfer-Encoding: chunked\r\n"
+    for coding, data in ((None, body), ("gzip", gzip.compress(body))):
+        raw = head + (b"Content-Encoding: %s\r\n" % coding.encode() if coding else b"") + b"\r\n" + _chunked(data)
+        stub = RawStub(raw)
+        try:
+            got, idle = asyncio.run(asyncio.wait_for(get(stub.url + "/c", n=2), TIMEOUT_S))
+            assert got == [(200, {"a": 1}, coding, "application/json")] * 2
+            assert (stub.connections, idle) == (1, 1)  # the second answer came on the first's socket
+        finally:
+            stub.close()
+    stub = RawStub(b"HTTP/1.0 200 OK\r\nContent-Type: application/json\r\n\r\n" + body, close=True)
+    try:
+        got, idle = asyncio.run(asyncio.wait_for(get(stub.url + "/h", n=2), TIMEOUT_S))
+        assert got == [(200, {"a": 1}, None, "application/json")] * 2
+        assert (stub.connections, idle) == (2, 0)
+    finally:
+        stub.close()
+
+
+@pytest.mark.parametrize("wbits", [zlib.MAX_WBITS, -zlib.MAX_WBITS], ids=["zlib", "raw"])
+def test_http_session_decodes_deflate_answers(wbits):
+    """``Content-Encoding: deflate`` as aiohttp's server sends it (zlib's
+    format; the JAX server picks deflate first for ``gzip, deflate``) and
+    as raw deflate, which aiohttp's client also reads."""
+    body = b'{"a": [1, 2, 3]}'
+    packer = zlib.compressobj(wbits=wbits)
+    data = packer.compress(body) + packer.flush()
+    stub = Stub({"/d": [answer(200, data, {"Content-Encoding": "deflate"})]})
+
+    async def go():
+        async with port_http.Session(timeout=TIMEOUT_S) as s:
+            resp = await s.get(stub.url + "/d")
+            return resp.status, resp.json()
+
+    try:
+        assert asyncio.run(asyncio.wait_for(go(), TIMEOUT_S)) == (200, {"a": [1, 2, 3]})
     finally:
         stub.close()
 
@@ -495,3 +547,14 @@ def test_fetch_routing_etag_force_and_throttle_match_jax():
     assert changed == [True, False, True, False, False, False, False]
     assert requests[:3] == [("/routing", None), ("/routing", '"v4"'), ("/routing?refresh=1", None)]
     assert version == 5 and stats["refreshes_throttled"] == 1
+
+
+@pytest.mark.parametrize("ns", [1577837400000000000, 0, 1577837400123456000, 1577837400000000007,
+                                -86400123456789, 4102444799999999999], ids=str)
+def test_timestamp_texts_are_str_of_pandas_timestamps(ns):
+    import numpy as np
+    import pandas as pd
+    from gordo_components_torch.dataset.times import timestamp_texts
+
+    index = np.array([ns, ns + 600_000_000_000], dtype="datetime64[ns]")
+    assert timestamp_texts(index) == [str(pd.Timestamp(int(n), tz="UTC")) for n in index.view(np.int64)]

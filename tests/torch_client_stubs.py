@@ -4,8 +4,11 @@
 path from a script, ``{path: [(status, headers, body, delay_s), ...]}``
 (the last answer repeats; a path's query string is matched too when the
 script names it), or from ``handler(method, path, headers, body)``, and
-records every request. :class:`ClosingUnixSocket` accepts connections on
-a Unix socket and closes each at once: a server that died mid-run.
+records every request. :class:`RawStub` writes one answer's bytes as
+given to every request, for framings ``http.server`` does not write
+(chunked, HTTP/1.0 without a length). :class:`ClosingUnixSocket` accepts
+connections on a Unix socket and closes each at once: a server that died
+mid-run.
 """
 
 import json
@@ -82,6 +85,55 @@ class Stub:
     def close(self):
         self.server.shutdown()
         self.server.server_close()
+
+
+class RawStub:
+    """A loopback server writing ``raw`` to each request of a connection,
+    which it keeps open for the next unless ``close`` is set."""
+
+    def __init__(self, raw: bytes, close: bool = False):
+        self.raw, self.close_each = raw, close
+        self.connections = 0
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(8)
+        self.sock.settimeout(0.1)
+        self.url = f"http://127.0.0.1:{self.sock.getsockname()[1]}"
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                conn, _ = self.sock.accept()
+            except (socket.timeout, OSError):
+                continue
+            self.connections += 1
+            threading.Thread(target=self._serve, args=(conn,), daemon=True).start()
+
+    def _serve(self, conn):
+        conn.settimeout(5)
+        pending = b""
+        with conn:
+            try:
+                while not self._stop.is_set():
+                    while b"\r\n\r\n" not in pending:
+                        data = conn.recv(65536)
+                        if not data:
+                            return
+                        pending += data
+                    pending = pending.split(b"\r\n\r\n", 1)[1]  # requests here carry no body
+                    conn.sendall(self.raw)
+                    if self.close_each:
+                        return
+            except OSError:
+                return
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.sock.close()
 
 
 class ClosingUnixSocket:
