@@ -407,10 +407,42 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             metadata``, ``client predict --parquet-dir`` (each file read
             back and held against ``anomaly()``) and ``client
             download-model`` against its ``run-server``;
+    resilience  checkpoint and resume, heartbeats, build traces and fault
+            points at config 1's width (10 tags, 1,440 rows a member). (a) a
+            256-member dense fleet (6 epochs, batch 128, validation 0.1,
+            patience 2) and a 16-member LSTM fleet (lstm_hourglass, lookback
+            32, 4 epochs) each killed by its epoch callback and resumed: the
+            epochs the resume ran, and its fit held against an uninterrupted
+            one, bitwise where two uninterrupted fits are, else each array
+            within TRAIN_RTOL/TRAIN_ATOL; (b) steady epoch seconds with
+            ``checkpoint_every=1`` against none (order none, every, every,
+            none) at 1,024 dense and 256 LSTM members, the ``checkpoint``
+            spans' seconds, each piece of a span (generator states, the
+            wait for the writer, the commit, the copy to the host, the
+            histories' copy) and the writer's, and a save's bytes; (c) ``build-fleet
+            --checkpoint-dir --state-dir --gang-id`` over 4 LSTM and 8 dense
+            machines SIGKILLed once the heartbeat reads training at epoch 2,
+            then run again: fewer epochs for the killed bucket in
+            ``build_trace.json``, the heartbeat ``done``, the checkpoint
+            directory empty, ``checkpoint-prune`` removing a stale key, and
+            ``run-server`` serving every machine within the bands of its
+            ``anomaly()`` (K2, K3); (d) ``fleet_build.group=error,times=1``
+            gives one retry and a full build; a server with
+            ``bank.finalize`` failing once serves that bucket's members per
+            model (K1) within the bands, ``/healthz`` degraded; ``bank.score``
+            leads to 400, 400, 400, 410; ``server.connection=reset,times=1``
+            is retried through by ``Client.predict``; ``/events`` lists each
+            ``fault.fired``; the disarmed ``bank.score`` point's cost in
+            ``score_many`` against a no-op stub, interleaved rounds (a
+            reading, no limit). The references (each machine's
+            ``anomaly()`` in this process) run between the counted
+            segments, so the phase's launches are the fits', builds' and
+            servers' alone, and the per-model POSTs' own K1 must cover the
+            members sent per model;
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
             bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
-            definitions, observe, pipeline, qos, wire, client), each reset just
+            definitions, observe, pipeline, qos, wire, client, resilience), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -462,6 +494,7 @@ from gordo_components_torch.builder import (
     fleet_build,
     provide_saved_model,
 )
+from gordo_components_torch.cli import main as cli_main
 from gordo_components_torch.client import Client
 from gordo_components_torch.convert import entry_from_numpy, lstm_to_flax, params_to_flax
 from gordo_components_torch.dataset import get_dataset
@@ -5359,6 +5392,499 @@ def client_phase(card: str):
     return summary
 
 
+# ------------------------------------------------------------------ #
+# resilience: checkpoint and resume, heartbeats, build traces, faults
+# ------------------------------------------------------------------ #
+
+RES_DIR = os.path.join(ROOT, "build", "chip_smoke_resilience")
+RES_DENSE = dict(kind="feedforward_hourglass", epochs=6, batch_size=128, validation_split=0.1,
+                 early_stopping_patience=2)
+RES_DENSE_MEMBERS = 256
+RES_LSTM = dict(model_type="LSTMAutoEncoder", epochs=4, **SEQ_CONFIG)
+RES_LSTM_MEMBERS = 16
+RES_COST_LSTM_MEMBERS = 256
+RES_COST_LSTM_EPOCHS = 3
+RES_KILL_EPOCH = 2  # the CLI build is SIGKILLed once its heartbeat is training at this epoch or later
+RES_GANG = dict(lstm=4, dense=8, lstm_epochs=5, dense_epochs=4)
+RES_COST_ROUNDS = 5  # interleaved score_many rounds (real, stub, stub, real)
+RES_COST_CALLS = 50  # score_many calls a round
+
+
+class Preempted(Exception):
+    pass
+
+
+def kill_after(n_syncs: int):
+    calls = {"n": 0}
+
+    def cb(info):
+        calls["n"] += 1
+        if calls["n"] >= n_syncs:
+            raise Preempted(f"preempted after epoch {info['epoch']}")
+
+    return cb
+
+
+@contextlib.contextmanager
+def counted(total: dict):
+    """The launch counts from 0 on entry, read on exit into the yielded dict
+    and added to ``total``: a phase sums the segments it counts and leaves
+    out what runs between them (its references)."""
+    score.reset_launch_counts()
+    seq_scan.reset_launch_counts()
+    got = {}
+    yield got
+    got.update(score.launch_counts)
+    got.update(seq_scan.launch_counts)
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def fleet_diff(a: dict, b: dict):
+    """The largest difference between two fits' parameters, histories,
+    scalers and thresholds (inf where a history's length, a shape or a
+    NaN differs), and whether every array is within TRAIN_RTOL/TRAIN_ATOL
+    of its counterpart."""
+    worst, close = 0.0, True
+    for name in a:
+        x, y = a[name], b[name]
+        if {k: len(v) for k, v in x.history.items()} != {k: len(v) for k, v in y.history.items()}:
+            return float("inf"), False
+        pairs = [(x.params[k], y.params[k]) for k in x.params]
+        pairs += [(x.history[k], y.history[k]) for k in x.history]
+        pairs += list(zip(x.scaler, y.scaler)) + list(zip(x.error_scaler, y.error_scaler))
+        pairs += [(x.feature_thresholds, y.feature_thresholds), (x.total_threshold, y.total_threshold)]
+        for p, q in pairs:
+            p, q = np.asarray(p, np.float64), np.asarray(q, np.float64)
+            if p.shape != q.shape:
+                return float("inf"), False
+            if p.size:
+                d = float(np.abs(p - q).max())
+                worst = max(worst, d if np.isfinite(d) else float("inf"))
+                close = close and bool(np.allclose(p, q, rtol=TRAIN_RTOL, atol=TRAIN_ATOL))
+    return worst, close
+
+
+def resilience_preemption(total: dict) -> dict:
+    """(a) Each fleet killed by its epoch callback and resumed, held against
+    an uninterrupted fit: bitwise where two uninterrupted fits are, else
+    each array within TRAIN_RTOL/TRAIN_ATOL. The killed and resumed fits'
+    launches go to ``total``."""
+    out = {}
+    for fam, n, config, kill_at in (("dense", RES_DENSE_MEMBERS, RES_DENSE, 3),
+                                    ("lstm", RES_LSTM_MEMBERS, RES_LSTM, 2)):
+        members = synth_fleet(n, FLEET_SHAPE["rows"], FLEET_SHAPE["n_features"], seed=19)
+        ckdir = os.path.join(RES_DIR, f"preempt-{fam}")
+        t = time.perf_counter()
+        ref = FleetTrainer(**config).fit(members)
+        again = FleetTrainer(**config).fit(members)
+        fit_s = (time.perf_counter() - t) / 2
+        with counted(total):
+            try:
+                FleetTrainer(checkpoint_dir=ckdir, epoch_callback=kill_after(kill_at), **config).fit(members)
+            except Preempted:
+                pass
+            else:
+                raise AssertionError(f"resilience {fam}: the fit was not preempted")
+        if not os.listdir(ckdir):
+            raise AssertionError(f"resilience {fam}: no checkpoint survived the preemption")
+        ran = []
+        t = time.perf_counter()
+        with counted(total):
+            resumed = FleetTrainer(checkpoint_dir=ckdir, epoch_callback=lambda i: ran.append(int(i["epoch"])),
+                                   **config).fit(members)
+        resume_s = time.perf_counter() - t
+        first = kill_at - 1  # the kill's epoch: the save before it committed
+        if not ran or ran != list(range(first, first + len(ran))):
+            raise AssertionError(f"resilience {fam}: the resume ran epochs {ran}, not from {first}")
+        uninterrupted, _ = fleet_diff(ref, again)
+        diff, close = fleet_diff(ref, resumed)
+        if uninterrupted == 0.0:
+            band = "bitwise"
+            if diff != 0.0:
+                raise AssertionError(f"resilience {fam}: the resumed fit is {diff} off the uninterrupted one, "
+                                     "which two uninterrupted fits are bitwise")
+        else:
+            band = f"rtol={TRAIN_RTOL},atol={TRAIN_ATOL}"
+            if not close:
+                raise AssertionError(f"resilience {fam}: the resumed fit is {diff} off, outside {band}")
+        stopped = sum(len(m.history["loss"]) < config["epochs"] for m in ref.values())
+        out[fam] = {"members": n, "epochs": config["epochs"], "resumed_epochs": ran,
+                    "uninterrupted_max_diff": uninterrupted, "resumed_max_diff": diff, "band": band,
+                    "early_stopped": stopped, "fit_s": round(fit_s, 4), "resume_s": round(resume_s, 4),
+                    "left": os.listdir(ckdir)}
+        if out[fam]["left"]:
+            raise AssertionError(f"resilience {fam}: the finished fit left {out[fam]['left']}")
+    return out
+
+
+def resilience_cost(total: dict) -> dict:
+    """(b) Steady epoch seconds with checkpoint_every=1 against none, in the
+    order none, every, every, none, with the checkpoint spans' seconds, the
+    median of each piece of a span (the generator states stacked, the wait
+    for the save before, its commit, the copy to the host, the histories'
+    deep copy) and of the writer's (the archive, both digests), and the
+    bytes of a save."""
+    from gordo_components_torch.observability.tracing import Trace, use_trace
+
+    out = {}
+    for fam, members, config in (
+            ("dense", synth_fleet(**FLEET_SHAPE), FLEET_CONFIG),
+            ("lstm", synth_fleet(RES_COST_LSTM_MEMBERS, FLEET_SHAPE["rows"], FLEET_SHAPE["n_features"]),
+             dict(model_type="LSTMAutoEncoder", epochs=RES_COST_LSTM_EPOCHS, **SEQ_CONFIG))):
+        steady = {"none": [], "every": []}
+        spans, saved = [], []
+        for side in ("none", "every", "every", "none"):
+            kw = {}
+            holder = {}
+            if side == "every":
+                trainer_box = {}
+
+                def cb(info, box=trainer_box):
+                    holder["ck"] = box["t"]._active_ckpt
+
+                kw = dict(checkpoint_dir=os.path.join(RES_DIR, f"cost-{fam}"), checkpoint_every=1, epoch_callback=cb)
+            trainer = FleetTrainer(**config, **kw)
+            if side == "every":
+                trainer_box["t"] = trainer
+            trace = Trace(None, "resilience-cost")
+            with counted(total), use_trace(trace):
+                trainer.fit(members)
+            epochs = trainer.last_stats["buckets"][0]["epoch_seconds"]
+            steady[side].append(statistics.median(epochs[1:]))
+            if side == "every":
+                spans += [s for s in trace.spans if s.name == "checkpoint"]
+                saved.append(holder["ck"].last_save_bytes)
+        none, every = statistics.median(steady["none"]), statistics.median(steady["every"])
+        if len(spans) != 2 * (config["epochs"] - 1) or min(saved) <= 0:
+            raise AssertionError(f"resilience cost {fam}: {len(spans)} checkpoint spans, saves of {saved} bytes")
+        pieces = {}
+        for span in spans:
+            for k, v in span.attributes.items():
+                if k.endswith("_s"):
+                    pieces.setdefault(k[:-2], []).append(v * 1e3)
+        span_ms = [span.duration_s * 1e3 for span in spans]
+        out[fam] = {"members": len(members), "epochs": config["epochs"],
+                    "steady_epoch_s": steady, "median_epoch_s_none": none, "median_epoch_s_every": every,
+                    "rise_share": every / none - 1.0, "rise_ms": (every - none) * 1e3,
+                    "checkpoint_span_ms_median": statistics.median(span_ms), "checkpoint_span_ms_max": max(span_ms),
+                    "span_pieces_ms_median": {k: statistics.median(v) for k, v in pieces.items()},
+                    "span_pieces_ms_max": {k: max(v) for k, v in pieces.items()},
+                    "save_bytes": int(max(saved))}
+    return out
+
+
+def res_dataset(name: str) -> dict:
+    """A RandomDataset of 10 days at 10 min: 1,440 rows of 10 tags."""
+    return dict(dataset(name), train_end_date="2020-01-11T00:00:00Z")
+
+
+def gang_machines() -> list:
+    """The killed gang: RES_GANG lstm_hourglass machines (lookback 32) first,
+    so the kill lands in their bucket, then the dense ones, 1,440 rows of 10
+    tags each."""
+    lstm = detector_pipeline("LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=LOOKBACK,
+                             epochs=RES_GANG["lstm_epochs"], batch_size=128)
+    dense = detector_pipeline("AutoEncoder", kind="feedforward_hourglass", epochs=RES_GANG["dense_epochs"],
+                              batch_size=128)
+    out = []
+    for i in range(RES_GANG["lstm"]):
+        out.append({"name": f"gang-lstm-{i}", "dataset": res_dataset(f"gang-lstm-{i}"), "model": lstm})
+    for i in range(RES_GANG["dense"]):
+        out.append({"name": f"gang-dense-{i}", "dataset": res_dataset(f"gang-dense-{i}"), "model": dense})
+    return out
+
+
+def resilience_kill(runs: dict) -> dict:
+    """(c) build-fleet with a checkpoint directory, a state directory and a
+    gang id, SIGKILLed once its heartbeat reads training at epoch >=
+    RES_KILL_EPOCH, then run again; checkpoint-prune; run-server over what
+    the second run built, each machine held against its ``anomaly()``
+    (computed in this process before the server starts: the references,
+    returned for the faults' servers too, launch nothing counted)."""
+    from gordo_components_torch.workflow import read_gang_states
+
+    machines = gang_machines()
+    payload = os.path.join(RES_DIR, "gang.json")
+    with open(payload, "w") as f:
+        json.dump({"machines": machines}, f)
+    out_dir, ckdir, state_dir = (os.path.join(RES_DIR, d) for d in ("gang", "ck", "state"))
+    args = ["build-fleet", "--machines-file", payload, "--output-dir", out_dir, "--checkpoint-dir", ckdir,
+            "--state-dir", state_dir, "--gang-id", "smoke-gang"]
+    log = open(os.path.join(RES_DIR, "killed.log"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cli_command("killed_build", args, RES_DIR), cwd=ROOT, stdout=log,
+                            stderr=subprocess.STDOUT)
+    seen = None
+    try:
+        while seen is None:
+            if proc.poll() is not None:
+                raise AssertionError(f"resilience: the gang build ended ({proc.returncode}) before the kill")
+            if time.perf_counter() - t0 > CLI_TIMEOUT_S:
+                raise AssertionError("resilience: the gang build never reached the kill epoch")
+            for s in read_gang_states(state_dir):
+                if s.get("phase") == "training" and s.get("epoch", -1) >= RES_KILL_EPOCH:
+                    seen = s
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    kill_s = time.perf_counter() - t0
+    committed = [(k, e) for k in os.listdir(ckdir) for e in os.listdir(os.path.join(ckdir, k))
+                 if os.path.exists(os.path.join(ckdir, k, e, "host.json"))]
+    if not committed:
+        raise AssertionError(f"resilience: no committed checkpoint after the kill at {seen}")
+    t1 = time.perf_counter()
+    proc = cli("resumed_build", args, counts_dir=RES_DIR)
+    resume_s = time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise AssertionError(f"resilience: the resumed build exited {proc.returncode}: {proc.stderr[-2000:]}")
+    runs["resumed_build"] = cli_counts("resumed_build", RES_DIR)
+    manifest = json.loads(proc.stdout)
+    if sorted(manifest["built"]) != sorted(m["name"] for m in machines) or manifest["failed"]:
+        raise AssertionError(f"resilience: the resumed build's manifest {manifest}")
+    (state,) = read_gang_states(state_dir)
+    if state["phase"] != "done" or state["gang_id"] != "smoke-gang" or os.listdir(ckdir):
+        raise AssertionError(f"resilience: heartbeat {state}, checkpoints left {os.listdir(ckdir)}")
+    with open(os.path.join(out_dir, "build_trace.json")) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    # the killed bucket: the LSTM group's (the dense group's label may be the same)
+    killed_label = f"fit:f{seen['bucket'][0]}x{seen['bucket'][1]}"
+    fits = {f"{e['name']} ({e['args']['members']} members)": e["args"]["epochs"] for e in spans
+            if e["name"].startswith("fit:")}
+    killed = fits.get(f"{killed_label} ({RES_GANG['lstm']} members)")
+    if killed is None or killed >= RES_GANG["lstm_epochs"] - seen["epoch"] + 1:
+        raise AssertionError(f"resilience: the killed bucket {killed_label} ran {fits} epochs after the resume")
+    stale = os.path.join(ckdir, "ab" * 12, "0")
+    os.makedirs(stale)
+    old = time.time() - 30 * 86400
+    os.utime(os.path.dirname(stale), (old, old))
+    # in this process: the command moves no tensor
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli_main(["checkpoint-prune", "--checkpoint-dir", ckdir, "--older-than-days", "7"])
+    if rc != 0 or printed.getvalue().strip() != "Pruned 1 stale checkpoint(s)" or os.listdir(ckdir):
+        raise AssertionError(f"resilience: checkpoint-prune printed {printed.getvalue()!r} ({rc})")
+
+    refs = {}
+    for m in machines:
+        X = get_dataset(m["dataset"]).get_data()[0].values
+        refs[m["name"]] = X, serializer.load(os.path.join(out_dir, m["name"])).anomaly(X)
+    port = free_port()
+    log = open(os.path.join(RES_DIR, "server.log"), "w")
+    t2 = time.perf_counter()
+    server = subprocess.Popen(cli_command("run_server", ["run-server", "--model-dir", out_dir, "--host", "127.0.0.1",
+                                                         "--port", str(port)], RES_DIR),
+                              cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        base = f"http://127.0.0.1:{port}/gordo/v0/smoke"
+        status, models = wait_for_models(base, server, t2)
+        if status != 200 or models["models"] != sorted(m["name"] for m in machines):
+            raise AssertionError(f"resilience run-server /models answered {status}: {models}")
+        for m in machines:
+            X, want = refs[m["name"]]
+            status, body = http_json(f"{base}/{m['name']}/anomaly/prediction", {"X": X.tolist()})
+            if status != 200:
+                raise AssertionError(f"resilience run-server: {m['name']} answered {status}: {body}")
+            band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if "lstm" in m["name"] else {}
+            check_arrays(response_arrays(body, m["dataset"]["tag_list"]), want, f"resilience {m['name']}", **band)
+    finally:
+        stop_server(server)
+        log.close()
+    if server.returncode != 0:
+        raise AssertionError(f"resilience run-server exited {server.returncode} on SIGTERM")
+    runs["run_server"] = cli_counts("run_server", RES_DIR)
+    return {"killed_at": {k: seen[k] for k in ("phase", "epoch", "bucket")}, "kill_s": round(kill_s, 3),
+            "committed_at_kill": [e for _, e in committed], "resume_s": round(resume_s, 3),
+            "fit_epochs_after_resume": fits, "heartbeat": state["phase"], "pruned": 1, "machines": len(machines),
+            "out_dir": out_dir, "refs": refs}
+
+
+def events_of(base: str, site: str) -> list:
+    status, body = http_json(f"{base}/events?type=fault.fired")
+    if status != 200:
+        raise AssertionError(f"resilience: /events answered {status}")
+    return [e for e in body["events"] if e["attrs"].get("site") == site]
+
+
+def resilience_faults(out_dir: str, refs: dict, total: dict) -> dict:
+    """(d) The fault points on the card: a retried group, a bank whose
+    finalize fails (members per model: K1), a scoring fault quarantining to
+    410, a reset connection the client retries through, each fault.fired in
+    /events; the disarmed points' cost in score_many. ``refs``: each gang
+    machine's rows and ``anomaly()``; the builds' and servers' launches go
+    to ``total``, and the per-model POSTs' K1 must cover the members sent
+    per model."""
+    from gordo_components_torch import resilience
+    from gordo_components_torch.server import bank as bank_mod
+
+    out = {}
+    machines = {m["name"]: m for m in gang_machines()}
+    try:
+        resilience.configure_from_env("fleet_build.group=error,times=1")
+        dense = [dict(machines[f"gang-dense-{i}"], name=f"retry-{i}") for i in range(2)]
+        with counted(total):
+            report = build_fleet(dense, os.path.join(RES_DIR, "retry"))
+        if sorted(report) != ["retry-0", "retry-1"] or report.group_retries != 1:
+            raise AssertionError(f"resilience: a retried group built {sorted(report)}, {report.group_retries} retries")
+        out["group_retries"] = report.group_retries
+        resilience.reset()
+
+        resilience.arm("bank.finalize", times=1)
+        with counted(total):
+            server = run_server(out_dir, host="127.0.0.1", port=0, background=True)
+        try:
+            base = server.url + "/gordo/v0/smoke"
+            health = http_json(base + "/healthz")[1]
+            fallback = sorted(http_json(base + "/models")[1]["bank"]["fallback"])
+            # the first bucket built failed: its members, and only they, per model
+            if (health["status"] != "degraded" or len(health["bank_finalize_failures"]) != 1
+                    or not fallback or len(fallback) == len(machines)):
+                raise AssertionError(f"resilience: finalize fault gave {health['status']}, per model {fallback}")
+            answers = {}
+            with counted(total) as served:
+                for name in machines:
+                    answers[name] = http_json(f"{base}/{name}/anomaly/prediction", {"X": refs[name][0].tolist()})
+            for name, (status, body) in answers.items():
+                if status != 200:
+                    raise AssertionError(f"resilience per-model {name} answered {status}: {body}")
+                band = {"rtol": LSTM_RTOL, "atol": LSTM_ATOL} if "lstm" in name else {}
+                check_arrays(response_arrays(body, machines[name]["dataset"]["tag_list"]), refs[name][1],
+                             f"resilience per-model {name}", **band)
+            if served["fused_anomaly_score"] < len(fallback):
+                raise AssertionError(f"resilience: the {len(fallback)} per-model POSTs launched "
+                                     f"{served['fused_anomaly_score']} K1")
+            out["finalize"] = {"healthz": health["status"], "per_model": fallback, "posts": len(machines),
+                               "served_launches": served, "fault_fired": len(events_of(base, "bank.finalize"))}
+            if out["finalize"]["fault_fired"] != 1:
+                raise AssertionError(f"resilience: finalize fault.fired {out['finalize']}")
+        finally:
+            server.close()
+        resilience.reset()
+
+        X = refs["gang-dense-0"][0][:64]
+        with counted(total):
+            server = run_server(out_dir, host="127.0.0.1", port=0, background=True, quarantine_threshold=3)
+        try:
+            base = server.url + "/gordo/v0/smoke"
+            resilience.arm("bank.score")
+            with counted(total):
+                statuses = [http_json(f"{base}/gang-dense-0/prediction", {"X": X.tolist()})[0] for _ in range(4)]
+            resilience.reset()
+            health = http_json(base + "/healthz")[1]
+            if statuses != [400, 400, 400, 410] or "gang-dense-0" not in health["quarantined"]:
+                raise AssertionError(f"resilience: bank.score gave {statuses}, healthz {health['status']}")
+            out["score"] = {"statuses": statuses, "healthz": health["status"],
+                            "fault_fired": len(events_of(base, "bank.score"))}
+        finally:
+            server.close()
+
+        client_dir = os.path.join(RES_DIR, "client")
+        rng = np.random.default_rng(19)
+        names = [f"res-client-{i}" for i in range(4)]
+        for name in names:
+            serializer.dump(random_entry(name, 10, rng), os.path.join(client_dir, name),
+                            metadata={"name": name, "dataset": CLIENT_DATASET})
+        with counted(total):
+            server = run_server(client_dir, host="127.0.0.1", port=0, background=True)
+        try:
+            resilience.configure_from_env("server.connection=reset,times=1")
+            c = Client("smoke", base_url=server.url, batch_size=CLIENT_BATCH, transport="tcp", parallelism=1)
+            with counted(total):
+                results = c.predict(*CLIENT_RANGE)
+            bad = [r.name for r in results if not r.ok]
+            fired = resilience.fault_stats()["server.connection"]["fired"]
+            resilience.reset()
+            if bad or fired != 1:
+                raise AssertionError(f"resilience: a reset connection left {bad} failed (fired {fired})")
+            out["reset"] = {"targets_ok": len(results), "fired": fired,
+                            "client_retries": c.retry_budget.snapshot()["retries_allowed"],
+                            "fault_fired": len(events_of(server.url + "/gordo/v0/smoke", "server.connection"))}
+        finally:
+            server.close()
+        for key in ("score", "reset"):
+            if out[key]["fault_fired"] < 1:
+                raise AssertionError(f"resilience: /events lists no fault.fired for {key}: {out[key]}")
+    finally:
+        resilience.reset()
+    with counted(total):
+        out["disarmed_cost"] = disarmed_cost(bank_mod)
+    return out
+
+
+class NoopPoint:
+    """A fault point's stand-in that does nothing."""
+
+    def fire(self) -> None:
+        pass
+
+
+def disarmed_cost(bank_mod) -> dict:
+    """Interleaved score_many rounds with the bank's disarmed ``bank.score``
+    point against a no-op stub: each side's median call ms (a finding; no
+    limit)."""
+    rng = np.random.default_rng(20)
+    entries = [random_entry(f"cost-{i}", 10, rng) for i in range(64)]
+    bank = ModelBank.from_entries(entries, registry=False)
+    requests = [(e.name, rng.standard_normal((64, 10)).astype(np.float32), None) for e in entries]
+    real = bank_mod._FP_SCORE
+    times = {"disarmed": [], "stub": []}
+    try:
+        bank.score_many(requests)
+        for _ in range(RES_COST_ROUNDS):
+            for side in ("disarmed", "stub", "stub", "disarmed"):
+                bank_mod._FP_SCORE = real if side == "disarmed" else NoopPoint()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(RES_COST_CALLS):
+                    bank.score_many(requests)
+                torch.cuda.synchronize()
+                times[side].append((time.perf_counter() - t) / RES_COST_CALLS * 1e3)
+    finally:
+        bank_mod._FP_SCORE = real
+    a, b = statistics.median(times["disarmed"]), statistics.median(times["stub"])
+    return {"requests": len(requests), "call_ms_disarmed": round(a, 5), "call_ms_stub": round(b, 5),
+            "delta_share": round(a / b - 1.0, 5), "rounds": RES_COST_ROUNDS, "calls": RES_COST_CALLS}
+
+
+def resilience_phase(card: str):
+    """Checkpoint and resume, heartbeats, build traces and fault points on
+    the card at config 1's width: (a) dense and LSTM fleets preempted and
+    resumed in process; (b) what checkpoints cost an epoch; (c) a CLI gang
+    build SIGKILLed and resumed, pruned, and served (K2, K3); (d) faults
+    through the builder and the server (K1 per model). Returns the phase's
+    launch counts: this process's counted segments (the fits, builds,
+    servers and the cost loop; no reference) and the counted CLI runs'."""
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    os.makedirs(RES_DIR)
+    here = {}
+    walls = {}
+    t = time.perf_counter()
+    preempt = resilience_preemption(here)
+    walls["preempt"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    cost = resilience_cost(here)
+    walls["cost"] = round(time.perf_counter() - t, 1)
+    runs = {}
+    t = time.perf_counter()
+    kill = resilience_kill(runs)
+    walls["kill"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    faults = resilience_faults(kill.pop("out_dir"), kill.pop("refs"), here)
+    walls["faults"] = round(time.perf_counter() - t, 1)
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    if runs["run_server"]["banked_anomaly_score"] <= 0 or runs["run_server"]["lstm_layer"] <= 0:
+        raise AssertionError(f"resilience run-server launched no K2 or K3: {runs}")
+    phase("resilience", preempt=json.dumps(preempt), cost=json.dumps(cost), kill=json.dumps(kill),
+          faults=json.dumps(faults), walls_s=json.dumps(walls), in_process_launches=json.dumps(here),
+          launches_by_run=json.dumps(runs), card=json.dumps(card))
+    return {k: here[k] + sum(c.get(k, 0) for c in runs.values()) for k in here}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
@@ -5424,6 +5950,7 @@ def main() -> int:
     drive("qos", qos_phase, card)
     drive("wire", wire_phase, card)
     drive("client", client_phase, card)
+    drive("resilience", resilience_phase, card, in_subprocesses=True)
     timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
@@ -5444,6 +5971,8 @@ def main() -> int:
                          ("wire", "fused_anomaly_score"),
                          ("client", "banked_anomaly_score"), ("client", "lstm_layer"),
                          ("client", "fused_anomaly_score"),
+                         ("resilience", "lstm_layer"), ("resilience", "banked_anomaly_score"),
+                         ("resilience", "fused_anomaly_score"),
                          ("bf16_train", "lstm_layer_bf16"),
                          ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
                          ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):

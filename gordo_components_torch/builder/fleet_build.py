@@ -21,16 +21,30 @@ metadata with ``fleet_cv: True``. Fold members are never written,
 registered or reported. A ``cross_val_only`` machine, and a machine whose
 folds are too short for its family, take the single-build path.
 
+Preemption and progress, as the JAX builder does them: ``checkpoint_dir``
+makes every gang checkpoint its training every ``checkpoint_every`` epochs
+and resume it after a restart (``parallel/checkpoint.py``; CV fold members
+included); ``state_dir`` publishes the gang's heartbeat
+(``workflow/gang_state.py``) through the phases starting, loading,
+training (with the epoch), building and done, partial or failed;
+``GORDO_FAULTS`` arms the fault points (``resilience/faults.py``, this
+module's site ``fleet_build.group`` among them) at entry. Each run records
+one build trace, a ``fit:`` span a bucket with its ``checkpoint`` and
+``compile`` children, written to ``<output_dir>/build_trace.json`` as
+Chrome trace-event JSON (on the crash path too), and counts its models in
+``gordo_build_models_built_total{path}`` and
+``gordo_build_cache_hits_total`` of the process registry.
+
 Not ported yet, and raising (or, for one machine, recorded in ``failed``
-with the error): top-level configs that are not detectors, checkpoint and
-resume, the distributed gang, heartbeats (``state_dir``), fault points
-(``GORDO_FAULTS``) and gang worker threads (``GORDO_GANG_WIDTH``). The build trace and metrics registry of the JAX
-builder are not written.
+with the error): top-level configs that are not detectors, the distributed
+gang and gang worker threads (``GORDO_GANG_WIDTH``).
 """
 
 import copy
+import json
 import logging
 import os
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -49,12 +63,64 @@ from gordo_components_torch.builder.build_model import (
 )
 from gordo_components_torch.builder.splits import TimeSeriesSplit
 from gordo_components_torch.device import resolve_device
+from gordo_components_torch.observability.metrics import get_registry
+from gordo_components_torch.observability.tracing import chrome_trace, get_tracer, use_trace
 from gordo_components_torch.parallel.fleet import DEFAULT_LEARNING_RATE, FleetTrainer, _family_defaults
+from gordo_components_torch.resilience.faults import configure_from_env, faultpoint
 from gordo_components_torch.utils import metadata_timestamp
 from gordo_components_torch.utils.staging import stage_members
 from gordo_components_torch.workflow.config import Machine
+from gordo_components_torch.workflow.gang_state import GangHeartbeat
 
 logger = logging.getLogger(__name__)
+
+# one poisoned group's training degrades to a partial manifest, never
+# aborts the gang
+_FP_GROUP = faultpoint("fleet_build.group")
+
+
+class _LockedHeartbeat:
+    """Serializes the heartbeat's read-modify-write updates."""
+
+    def __init__(self, hb: GangHeartbeat):
+        self._hb = hb
+        self._lock = threading.Lock()
+
+    def update(self, **kw):
+        with self._lock:
+            self._hb.update(**kw)
+
+    def finish(self, *a, **kw):
+        with self._lock:
+            self._hb.finish(*a, **kw)
+
+
+def _finish_build_trace(trace, output_dir: str, **attrs: Any) -> None:
+    """Close the build trace and write it beside the manifest as Chrome
+    trace-event JSON; best-effort, and on the crash path too."""
+    if trace is None:
+        return
+    trace.finish(**attrs)
+    try:
+        os.makedirs(output_dir, exist_ok=True)
+        path = os.path.join(output_dir, "build_trace.json")
+        with open(path, "w") as f:
+            json.dump(chrome_trace([trace]), f)
+        logger.info("build trace (fit/compile/checkpoint spans per bucket) -> %s (trace_id=%s)",
+                    path, trace.trace_id)
+    except Exception:
+        logger.warning("failed to write build trace", exc_info=True)
+
+
+def _build_counters():
+    """The builder's counters in the process registry: models built, by
+    path, and builds the cache spared."""
+    reg = get_registry()
+    return {
+        "built": reg.counter("gordo_build_models_built_total", "Models built (artifact written)", ("path",)),
+        "cache_hits": reg.counter("gordo_build_cache_hits_total",
+                                  "Builds skipped because the register cache satisfied them"),
+    }
 
 
 class FleetBuildReport(Dict[str, str]):
@@ -306,15 +372,9 @@ def _score_cv_folds(
     return out
 
 
-def _refuse_unported(checkpoint_dir, distributed, state_dir) -> None:
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint_dir: fleet checkpoint and resume is not ported yet")
+def _refuse_unported(distributed) -> None:
     if distributed:
         raise NotImplementedError("distributed: the multi-host gang is not ported yet")
-    if state_dir is not None:
-        raise NotImplementedError("state_dir: gang heartbeats are not ported yet")
-    if os.environ.get("GORDO_FAULTS"):
-        raise NotImplementedError("GORDO_FAULTS: fault points are not ported yet")
     if (os.environ.get("GORDO_GANG_WIDTH") or "auto").strip().lower() not in ("auto", "1"):
         raise NotImplementedError("GORDO_GANG_WIDTH: gang worker threads are not ported yet")
 
@@ -325,66 +385,105 @@ def build_fleet(
     model_register_dir: Optional[str] = None,
     replace_cache: bool = False,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
     distributed: bool = False,
     state_dir: Optional[str] = None,
+    gang_id: Optional[str] = None,
     group_retries: Optional[int] = None,
     device="cuda",
 ) -> FleetBuildReport:
     """Build every machine (a ``Machine`` or its dict) on ``device``;
-    returns a :class:`FleetBuildReport`. ``checkpoint_dir``,
-    ``distributed`` and ``state_dir`` are not ported and raise."""
+    returns a :class:`FleetBuildReport`. ``checkpoint_dir`` resumes
+    preempted gangs, ``state_dir`` publishes the heartbeat ``gang_id``
+    (default host-pid), which ends ``done`` (nothing failed), ``partial``
+    or ``failed`` (nothing built). ``distributed`` is not ported and
+    raises."""
     device = resolve_device(device)
-    _refuse_unported(checkpoint_dir, distributed, state_dir)
+    _refuse_unported(distributed)
+    configure_from_env()  # GORDO_FAULTS
     if group_retries is None:
         group_retries = int(os.environ.get("GORDO_BUILD_GROUP_RETRIES", "1"))
+    # one trace a run, kept whatever the sampling (GORDO_TRACE_SAMPLE=0
+    # still turns it off)
+    trace = get_tracer().start_trace("fleet_build", force=True)
+    counters = _build_counters()
     results = FleetBuildReport()
-    groups: Dict[Tuple, List[Tuple[Machine, Dict[str, Any]]]] = {}
-    for machine in machines:
-        if isinstance(machine, dict):
-            machine = Machine.from_dict(machine)
-        ae_kwargs = extract_fleetable(machine.model)
-        # a dataset with target tags supervises X -> y, and cross_val_only
-        # wants an untrained artifact: both take the single-build path
-        if ae_kwargs is not None and (machine.dataset or {}).get("target_tag_list"):
-            ae_kwargs = None
-        if ae_kwargs is not None and (machine.evaluation or {}).get("cv_mode") == "cross_val_only":
-            ae_kwargs = None
-        if ae_kwargs is None:
-            logger.info("Machine %s: bespoke config, single-build path", machine.name)
-            try:
-                results[machine.name] = provide_saved_model(
-                    machine.name, machine.model, machine.dataset, machine.metadata,
-                    output_dir=os.path.join(output_dir, machine.name),
-                    model_register_dir=model_register_dir, replace_cache=replace_cache,
-                    evaluation_config=machine.evaluation or None, device=device,
-                )
-            except Exception as exc:  # one machine's failure stays its own
-                results.failed[machine.name] = f"{type(exc).__name__}: {exc}"
-                logger.error("Machine %s: single build FAILED (%s); the others continue",
-                             machine.name, exc, exc_info=True)
-            continue
-        groups.setdefault(_group_key(ae_kwargs), []).append((machine, ae_kwargs))
+    heartbeat = None
+    if state_dir:
+        heartbeat = _LockedHeartbeat(GangHeartbeat(state_dir, gang_id))
+        heartbeat.update(phase="starting", n_machines=len(machines), built=0, distributed=bool(distributed))
+    try:
+        groups: Dict[Tuple, List[Tuple[Machine, Dict[str, Any]]]] = {}
+        for machine in machines:
+            if isinstance(machine, dict):
+                machine = Machine.from_dict(machine)
+            ae_kwargs = extract_fleetable(machine.model)
+            # a dataset with target tags supervises X -> y, and cross_val_only
+            # wants an untrained artifact: both take the single-build path
+            if ae_kwargs is not None and (machine.dataset or {}).get("target_tag_list"):
+                ae_kwargs = None
+            if ae_kwargs is not None and (machine.evaluation or {}).get("cv_mode") == "cross_val_only":
+                ae_kwargs = None
+            if ae_kwargs is None:
+                logger.info("Machine %s: bespoke config, single-build path", machine.name)
+                try:
+                    results[machine.name] = provide_saved_model(
+                        machine.name, machine.model, machine.dataset, machine.metadata,
+                        output_dir=os.path.join(output_dir, machine.name),
+                        model_register_dir=model_register_dir, replace_cache=replace_cache,
+                        evaluation_config=machine.evaluation or None, device=device,
+                    )
+                except Exception as exc:  # one machine's failure stays its own
+                    results.failed[machine.name] = f"{type(exc).__name__}: {exc}"
+                    logger.error("Machine %s: single build FAILED (%s); the others continue",
+                                 machine.name, exc, exc_info=True)
+                else:
+                    counters["built"].labels("single").inc()
+                if heartbeat is not None:
+                    heartbeat.update(phase="building", built=len(results), failed_members=len(results.failed))
+                continue
+            groups.setdefault(_group_key(ae_kwargs), []).append((machine, ae_kwargs))
 
-    for group in groups.values():
-        for attempt in range(group_retries + 1):
-            try:
-                _build_fleet_group(group, output_dir, model_register_dir, replace_cache,
-                                   results, device)
-                break
-            except Exception as exc:
-                if attempt < group_retries:
-                    results.group_retries += 1
-                    logger.warning("Fleet group of %d member(s) failed (attempt %d/%d): %s; retrying",
-                                   len(group), attempt + 1, group_retries + 1, exc)
-                    continue
-                error = f"{type(exc).__name__}: {exc}"
-                for m, _kw in group:
-                    # members already shipped (cache hits, single builds of
-                    # infeasible folds) are built, not failed
-                    if m.name not in results:
-                        results.failed[m.name] = error
-                logger.error("Fleet group of %d member(s) FAILED after %d attempt(s): %s",
-                             len(group), group_retries + 1, error, exc_info=True)
+        for group in groups.values():
+            for attempt in range(group_retries + 1):
+                try:
+                    # the trainer's bucket loop reads the trace from the context
+                    with use_trace(trace):
+                        _build_fleet_group(group, output_dir, model_register_dir, replace_cache,
+                                           results, device, checkpoint_dir=checkpoint_dir,
+                                           checkpoint_every=checkpoint_every, heartbeat=heartbeat,
+                                           counters=counters)
+                    break
+                except Exception as exc:
+                    if attempt < group_retries:
+                        results.group_retries += 1
+                        logger.warning("Fleet group of %d member(s) failed (attempt %d/%d): %s; retrying",
+                                       len(group), attempt + 1, group_retries + 1, exc)
+                        continue
+                    error = f"{type(exc).__name__}: {exc}"
+                    for m, _kw in group:
+                        # members already shipped (cache hits, single builds of
+                        # infeasible folds) are built, not failed
+                        if m.name not in results:
+                            results.failed[m.name] = error
+                    logger.error("Fleet group of %d member(s) FAILED after %d attempt(s): %s",
+                                 len(group), group_retries + 1, error, exc_info=True)
+    except BaseException as exc:
+        # what the isolation above does not hold: a signal, a broken volume
+        if heartbeat is not None:
+            heartbeat.finish("failed", built=len(results), error=f"{type(exc).__name__}: {exc}")
+        _finish_build_trace(trace, output_dir, error=True)
+        raise
+    _finish_build_trace(trace, output_dir, n_built=len(results), n_failed=len(results.failed))
+    if heartbeat is not None:
+        if not results.failed:
+            heartbeat.finish("done", built=len(results))
+        elif results:
+            heartbeat.finish("partial", built=len(results), failed_members=len(results.failed),
+                             error=next(iter(results.failed.values())))
+        else:
+            heartbeat.finish("failed", built=0, failed_members=len(results.failed),
+                             error=next(iter(results.failed.values())))
     return results
 
 
@@ -395,7 +494,14 @@ def _build_fleet_group(
     replace_cache: bool,
     results: Dict[str, str],
     device,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    heartbeat=None,
+    counters=None,
 ) -> None:
+    _FP_GROUP.fire()
+    if counters is None:  # a direct caller, outside build_fleet
+        counters = _build_counters()
     ae_kwargs = copy.deepcopy(group[0][1])
     pending: List[Machine] = []
     member_hparams: Dict[str, Dict[str, Any]] = {}
@@ -407,6 +513,7 @@ def _build_fleet_group(
             logger.info("Machine %s: cache hit", machine.name)
             _mirror_artifact(cached, os.path.join(output_dir, machine.name))
             results[machine.name] = cached
+            counters["cache_hits"].inc()
             continue
         pending.append(machine)
         member_hparams[machine.name] = _member_hparams_of(kw)
@@ -414,7 +521,16 @@ def _build_fleet_group(
         return
 
     trainer_kwargs = {k: ae_kwargs.pop(k) for k in _TRAINER_KEYS if k in ae_kwargs}
-    trainer = FleetTrainer(device=device, **trainer_kwargs, **ae_kwargs)
+    epoch_cb = None
+    if heartbeat is not None:
+        heartbeat.update(phase="loading", group_members=len(pending))
+
+        def epoch_cb(info):
+            heartbeat.update(phase="training", bucket=[int(info["n_features"]), int(info["padded_rows"])],
+                             epoch=int(info["epoch"]), n_active=int(info["n_active"]))
+
+    trainer = FleetTrainer(device=device, checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+                           epoch_callback=epoch_cb, **trainer_kwargs, **ae_kwargs)
     t0 = time.time()
     loaded = stage_members([dict(m.dataset) for m in pending])
     member_data = {m.name: X for m, (X, _meta) in zip(pending, loaded)}
@@ -435,6 +551,7 @@ def _build_fleet_group(
             model_register_dir=model_register_dir, replace_cache=replace_cache,
             evaluation_config=machine.evaluation or None, device=device,
         )
+        counters["built"].labels("single").inc()
     if not pending:
         return
 
@@ -477,4 +594,7 @@ def _build_fleet_group(
         serializer.dump(det, dest, metadata=metadata)
         _mirror_artifact(dest, os.path.join(output_dir, name))
         results[name] = dest
+        counters["built"].labels("fleet").inc()
         logger.info("Machine %s: fleet-built -> %s", name, dest)
+    if heartbeat is not None:
+        heartbeat.update(phase="building", built=len(results))

@@ -12,6 +12,9 @@ same options, environment variables and exit codes:
   ``build_manifest.json`` and printed; 0 when every machine built, 84 when
   some failed, 83 when none built or the build raised, 81 for an empty
   payload;
+- ``checkpoint-prune``: delete the fleet checkpoints under
+  ``--checkpoint-dir`` untouched for ``--older-than-days`` and print
+  ``Pruned N stale checkpoint(s)``;
 - ``run-server``: serve a model directory until SIGINT or SIGTERM;
 - ``client predict START END``: score a time range for every machine of a
   project (or each ``--target``) with :class:`~gordo_components_torch.client.Client`,
@@ -24,12 +27,13 @@ same options, environment variables and exit codes:
 
 ``--device`` (default ``cuda``) is the counterpart of the JAX ``--platform``:
 the commands run on the card, and without CUDA they fail through
-``resolve_device`` unless ``--device cpu`` asks for the CPU. Not ported
-yet, and refused with exit code 2: ``--profile-dir``, ``--compile-cache-dir``,
-a set ``GORDO_FAULTS``, and ``run-server --devices`` above 1. The client
-commands move no tensor and ignore ``--device``. The JAX package's
-``workflow``, ``run-watchman`` and ``checkpoint-prune`` commands are not
-ported.
+``resolve_device`` unless ``--device cpu`` asks for the CPU. A set
+``GORDO_FAULTS`` arms the fault points before any command runs
+(``resilience/faults.py``). Not ported yet, and refused with exit code 2:
+``--profile-dir``, ``--compile-cache-dir`` and ``run-server --devices``
+above 1; ``build-fleet --distributed`` exits 83. The client commands move
+no tensor and ignore ``--device``. The JAX package's ``workflow`` and
+``run-watchman`` commands are not ported.
 """
 
 import argparse
@@ -105,15 +109,20 @@ def _parser() -> argparse.ArgumentParser:
                    help="JSON/YAML file: a list of machines or {machines: [...]}")
     f.add_argument("--output-dir", default=_env("OUTPUT_DIR", "./model-output"))
     f.add_argument("--model-register-dir", default=_env("MODEL_REGISTER_DIR"))
-    f.add_argument("--checkpoint-dir", default=_env("CHECKPOINT_DIR"), help="not ported")
-    # --checkpoint-every and --gang-id keep the JAX CLI's environment; they
-    # qualify checkpoints and heartbeats, which are not ported, and are not
-    # passed on
-    f.add_argument("--checkpoint-every", type=int, default=_env_int("CHECKPOINT_EVERY", 1))
+    f.add_argument("--checkpoint-dir", default=_env("CHECKPOINT_DIR"),
+                   help="Checkpoint fleet training here and resume a preempted gang")
+    f.add_argument("--checkpoint-every", type=int, default=_env_int("CHECKPOINT_EVERY", 1),
+                   help="Epochs between fleet checkpoints")
     f.add_argument("--distributed", action="store_true", default=_env_flag("GORDO_DISTRIBUTED"),
                    help="not ported")
-    f.add_argument("--state-dir", default=_env("GANG_STATE_DIR"), help="not ported")
-    f.add_argument("--gang-id", default=_env("GANG_ID"))
+    f.add_argument("--state-dir", default=_env("GANG_STATE_DIR"),
+                   help="Publish the gang's heartbeat (phase and progress) here")
+    f.add_argument("--gang-id", default=_env("GANG_ID"), help="Heartbeat identity (default: hostname-pid)")
+
+    k = sub.add_parser("checkpoint-prune", help="Delete stale fleet checkpoints.")
+    k.add_argument("--checkpoint-dir", default=_env("CHECKPOINT_DIR"))
+    k.add_argument("--older-than-days", type=float, default=7.0,
+                   help="Delete bucket checkpoints untouched for this long")
 
     s = sub.add_parser("run-server", help="Serve the model collection under a directory.")
     s.add_argument("--model-dir", default=_env("MODEL_COLLECTION_DIR"))
@@ -149,6 +158,7 @@ _BODY_ENCODINGS = {"auto": "auto", "json": False, "parquet": True}
 _REQUIRED = {
     "build": (("name", "MACHINE_NAME"), ("model_config", "MODEL_CONFIG"), ("data_config", "DATA_CONFIG")),
     "build-fleet": (("machines_file", "MACHINES_FILE"),),
+    "checkpoint-prune": (("checkpoint_dir", "CHECKPOINT_DIR"),),
     "run-server": (("model_dir", "MODEL_COLLECTION_DIR"),),
     "client": (("project", "PROJECT_NAME"),),
 }
@@ -222,7 +232,8 @@ def _build_fleet(args) -> int:
     try:
         results = build_fleet(
             machines, args.output_dir, model_register_dir=args.model_register_dir,
-            checkpoint_dir=args.checkpoint_dir, distributed=args.distributed, state_dir=args.state_dir,
+            checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
+            distributed=args.distributed, state_dir=args.state_dir, gang_id=args.gang_id,
             device=args.device,
         )
     except Exception as exc:
@@ -241,6 +252,14 @@ def _build_fleet(args) -> int:
         return EXIT_BUILD_ERROR
     if results.failed:
         return EXIT_PARTIAL_BUILD
+    return EXIT_OK
+
+
+def _checkpoint_prune(args) -> int:
+    from gordo_components_torch.parallel.checkpoint import prune_stale_checkpoints
+
+    n = prune_stale_checkpoints(args.checkpoint_dir, args.older_than_days)
+    print(f"Pruned {n} stale checkpoint(s)")
     return EXIT_OK
 
 
@@ -328,7 +347,8 @@ def _client(args) -> int:
             "download-model": _client_download_model}[args.client_command](args)
 
 
-_COMMANDS = {"build": _build, "build-fleet": _build_fleet, "run-server": _run_server, "client": _client}
+_COMMANDS = {"build": _build, "build-fleet": _build_fleet, "checkpoint-prune": _checkpoint_prune,
+             "run-server": _run_server, "client": _client}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -343,8 +363,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.compile_cache_dir:
         parser.error("--compile-cache-dir (GORDO_COMPILE_CACHE_DIR): the XLA compile cache has "
                      "no counterpart in the port")
-    if os.environ.get("GORDO_FAULTS"):
-        parser.error("GORDO_FAULTS: fault points are not ported yet")
     if args.command == "client" and args.client_command == "predict" and args.body_encoding not in _BODY_ENCODINGS:
         parser.error(f"--body-encoding (GORDO_CLIENT_ENCODING): {args.body_encoding!r} is not one of "
                      f"{', '.join(_BODY_ENCODINGS)}")
@@ -354,6 +372,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         level=getattr(logging, args.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
+    if os.environ.get("GORDO_FAULTS"):
+        # before any subsystem runs: specs for sites not imported yet wait
+        # for their registration
+        from gordo_components_torch.resilience import configure_from_env
+
+        configure_from_env()
     return _COMMANDS[args.command](args)
 
 

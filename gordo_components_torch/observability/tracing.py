@@ -361,6 +361,18 @@ def _env_float(name: str, default: float) -> float:
         raise ValueError(f"{name} must be a number, got {raw!r}") from None
 
 
+# the process-default tracer (a server builds one of its own per app): the
+# builder's traces start here
+_DEFAULT: Optional[Tracer] = None
+
+
+def get_tracer() -> Tracer:
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = Tracer()
+    return _DEFAULT
+
+
 # the current trace of this context: a thread or task that sets it reads
 # it back without passing it down (the engine's worker thread does not see
 # the HTTP thread's, so requests carry their trace explicitly there)

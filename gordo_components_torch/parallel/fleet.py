@@ -33,10 +33,19 @@ fleet is the tensor:
 
 Early-stopping state and losses stay on the device; the host reads them
 once every ``host_sync_every`` epochs (the JAX package's host loop at 1, its
-on-device chunks above). Buckets train one after another on the one card.
+on-device chunks above), and at each such sync calls ``epoch_callback`` and,
+every ``checkpoint_every`` epochs, checkpoints the bucket under
+``checkpoint_dir`` (``parallel/checkpoint.py``): its parameters, optimizer
+state, every member's random stream and its early-stopping state, so that a
+preempted fit resumes the same run. Buckets train one after another on the
+one card. Under a build trace (``observability.tracing.current_trace``)
+each bucket records a ``fit:f{F}x{items}`` span with its ``checkpoint``
+spans and an estimated ``compile`` span (epoch 0's excess over the steady
+epochs: the port compiles nothing, so this is its warm-up), and the
+process registry carries the ``gordo_fleet_*`` gauges and counters.
 
-Not ported yet, and raising: ``mesh``, checkpoints (``checkpoint_dir``) and
-the ``GORDO_FLEET_WIDTH`` member-width cap.
+Not ported yet, and raising: ``mesh`` and the ``GORDO_FLEET_WIDTH``
+member-width cap.
 """
 
 import inspect
@@ -52,7 +61,10 @@ import torch
 from gordo_components_torch.device import resolve_device
 from gordo_components_torch.models import train_core
 from gordo_components_torch.models.register import lookup_factory
+from gordo_components_torch.observability.metrics import get_registry
+from gordo_components_torch.observability.tracing import current_trace
 from gordo_components_torch.ops.scaler import ScalerParams, fit_minmax, fit_standard
+from gordo_components_torch.parallel.checkpoint import FleetBucketCheckpoint, bucket_checkpoint_key
 from gordo_components_torch.utils import capture_args
 
 logger = logging.getLogger(__name__)
@@ -250,6 +262,47 @@ def _threshold_method(stack, q: float) -> str:
     return "exact" if not stack.windowed or q >= 1.0 else f"histogram-{_QUANTILE_BINS}"
 
 
+def _restore_bucket(resumed: Dict[str, Any], state, M: int, es_enabled: bool, device):
+    """``(state, best_params, es, histories, histories_val)`` of a bucket
+    from its checkpoint (``FleetBucketCheckpoint.restore``), every piece on
+    the bucket's device, with fresh generators carrying the saved streams;
+    ``es`` holds ``active`` and, with early stopping, ``best`` and
+    ``patience``. Raises on any mismatch with the fresh ``state`` before it
+    has replaced anything."""
+    saved = resumed["state"]
+
+    def like(a, ref):
+        t = torch.from_numpy(np.asarray(a))
+        if tuple(t.shape) != tuple(ref.shape) or t.dtype != ref.dtype:
+            raise ValueError(f"saved {tuple(t.shape)} {t.dtype}, the bucket wants {tuple(ref.shape)} {ref.dtype}")
+        return t.to(device)
+
+    params = like(saved["params"], state.params)
+    fields = state.opt_state._asdict()
+    if set(saved["opt"]) != {k for k, v in fields.items() if v is not None}:
+        raise ValueError(f"optimizer state {sorted(saved['opt'])} does not match {sorted(fields)}")
+    opt = train_core.OptState(**{k: None if v is None else like(saved["opt"][k], v) for k, v in fields.items()})
+    gen_states = np.asarray(saved["generators"])
+    if gen_states.shape[0] != M or gen_states.dtype != np.uint8:
+        raise ValueError(f"generator states {gen_states.shape} {gen_states.dtype} for {M} members")
+    generators = []
+    for row in gen_states:
+        g = torch.Generator()
+        g.set_state(torch.from_numpy(row.copy()))
+        generators.append(g)
+    es = {"active": like(saved["active"], torch.ones(M, dtype=torch.bool))}
+    if es_enabled:
+        es["best"] = like(saved["best"], torch.zeros(M))
+        es["patience"] = like(saved["patience"], torch.zeros(M, dtype=torch.int32))
+    best_params = like(saved["best_params"], state.params) if "best_params" in saved else None
+    histories = [list(h) for h in resumed["histories"]]
+    histories_val = [list(h) for h in resumed["histories_val"]]
+    if len(histories) != M or len(histories_val) != M:
+        raise ValueError(f"histories of {len(histories)} members for {M}")
+    return (train_core.TrainState(params, opt, tuple(generators)), best_params, es, histories,
+            histories_val)
+
+
 @dataclass
 class FleetMemberModel:
     """One trained fleet member, unstacked."""
@@ -338,6 +391,8 @@ class FleetTrainer:
         mesh=None,
         compute_dtype: str = "float32",
         checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 1,
+        epoch_callback=None,
         host_sync_every: int = 1,
         quantize_rows: bool = True,
         input_scaler: str = "minmax",
@@ -354,8 +409,6 @@ class FleetTrainer:
             raise ValueError(f"model_type must be one of {sorted(_MODEL_TYPES)}, got {model_type!r}")
         if mesh is not None:
             raise NotImplementedError("mesh: multi-device fleet training is not ported yet")
-        if checkpoint_dir is not None:
-            raise NotImplementedError("checkpoint_dir: fleet checkpoint and resume is not ported yet")
         if (os.environ.get("GORDO_FLEET_WIDTH") or "").strip().lower() not in ("", "off"):
             raise NotImplementedError("GORDO_FLEET_WIDTH: the member-width cap is not ported yet")
         if input_scaler not in ("minmax", "standard"):
@@ -378,6 +431,12 @@ class FleetTrainer:
         self.seed = int(seed)
         self.compute_dtype = compute_dtype
         self.host_sync_every = max(1, int(host_sync_every))
+        # preemption recovery: the bucket's state every checkpoint_every
+        # epochs (at host syncs), and a matching interrupted run resumed
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = max(1, int(checkpoint_every))
+        # epoch_callback(info) at every host sync, with the sync's last epoch
+        self.epoch_callback = epoch_callback
         self.quantize_rows = bool(quantize_rows)
         self.input_scaler = input_scaler
         self.loss = loss
@@ -386,6 +445,19 @@ class FleetTrainer:
         self.device = device
         self.factory_kwargs = factory_kwargs
         self.last_stats: Dict[str, Any] = {}
+        # (trace, open fit span) of the bucket in training: its checkpoint
+        # spans nest there; and the bucket's checkpoint, which fit() flushes
+        # and closes when the bucket raises
+        self._trace_span = None
+        self._active_ckpt = None
+
+    def _trace_checkpoint(self, start: float, epoch: int, error: bool = False, **seconds) -> None:
+        """One checkpoint save as a span under the bucket's ``fit`` span,
+        its pieces' seconds as attributes."""
+        if self._trace_span is not None:
+            trace, fit_span = self._trace_span
+            trace.add_span("checkpoint", start, time.monotonic(), parent=fit_span, epoch=int(epoch),
+                           error=error, **seconds)
 
     def fit(
         self,
@@ -442,14 +514,67 @@ class FleetTrainer:
                 n_batches = quantize_batch_count(n_batches)
             buckets.setdefault((X.shape[1], n_batches * self.batch_size), []).append(name)
 
+        # progress in the process registry: one set() a bucket or a sync
+        reg = get_registry()
+        self._g_members_active = reg.gauge(
+            "gordo_fleet_members_active", "Members still training (not early-stopped) in the current bucket"
+        ).labels()
+        g_trained = reg.gauge(
+            "gordo_fleet_members_trained", "Members whose bucket finished training in the current fit"
+        ).labels()
+        reg.gauge("gordo_fleet_members_total", "Members in the current fleet fit").labels().set(len(members))
+        g_trained.set(0)
+        trace = current_trace()
         out: Dict[str, FleetMemberModel] = {}
         bucket_stats = []
         for (n_features, padded_items), names in sorted(buckets.items()):
             tb = time.time()
-            res, epoch_seconds, padded_m = self._fit_bucket(
-                stacks[n_features], n_features, padded_items, names, arrays, device
-            )
+            blabel = f"f{n_features}x{padded_items}"
+            fit_span = None
+            if trace is not None:
+                fit_span = trace.start_span(f"fit:{blabel}", bucket=blabel, members=len(names))
+                self._trace_span = (trace, fit_span)
+            try:
+                res, epoch_seconds, padded_m = self._fit_bucket(
+                    stacks[n_features], n_features, padded_items, names, arrays, device
+                )
+            except BaseException:
+                # the pending save is whole training state: commit it if it
+                # can be, and stop its writer before a retry reuses the key
+                ckpt = self._active_ckpt
+                if ckpt is not None:
+                    try:
+                        ckpt.flush()
+                    except Exception:
+                        logger.warning("checkpoint flush failed", exc_info=True)
+                    finally:
+                        ckpt.close()
+                if fit_span is not None:
+                    fit_span.close(error=True)
+                raise
+            finally:
+                self._active_ckpt = None
+                self._trace_span = None
             out.update(res)
+            g_trained.set(len(out))
+            # epoch 0's excess over the steady epochs: the warm-up (the
+            # JAX package's compile)
+            compile_s = 0.0
+            if epoch_seconds:
+                steady = min(epoch_seconds[1:]) if len(epoch_seconds) > 1 else 0.0
+                compile_s = max(0.0, epoch_seconds[0] - steady)
+            if fit_span is not None:
+                fit_span.attributes["epochs"] = len(epoch_seconds)
+                fit_span.close()
+                if compile_s > 0:
+                    trace.add_span("compile", fit_span.start, fit_span.start + compile_s, parent=fit_span,
+                                   bucket=blabel, estimated=True)
+            reg.counter("gordo_fleet_bucket_builds_total", "Bucket training runs", ("bucket",)).labels(blabel).inc()
+            reg.counter("gordo_fleet_bucket_epochs_total", "Epochs trained per bucket",
+                        ("bucket",)).labels(blabel).inc(len(epoch_seconds))
+            reg.gauge("gordo_fleet_bucket_compile_seconds",
+                      "Estimated warm-up seconds (epoch 0 minus the steady epochs)",
+                      ("bucket",)).labels(blabel).set(round(compile_s, 3))
             bucket_stats.append({
                 "n_features": n_features,
                 "padded_items": padded_items,
@@ -548,25 +673,97 @@ class FleetTrainer:
 
         lr = torch.tensor(mvec("learning_rate", self.learning_rate), dtype=torch.float32, device=device)
         es_enabled = self.early_stopping_patience is not None
+        p0 = patience = best = best_params = None
         if es_enabled:
             p0 = torch.tensor(mvec("early_stopping_patience", self.early_stopping_patience),
                               dtype=torch.int32, device=device)
             patience = p0.clone()
             best = torch.full((M,), torch.inf, device=device)
-            best_params = None
         active = torch.ones(M, dtype=torch.bool, device=device)
         has_val_d = torch.from_numpy(has_val).to(device)
         delta = self.early_stopping_min_delta
 
         histories: List[List[float]] = [[] for _ in range(M)]
         histories_val: List[List[float]] = [[] for _ in range(M)]
+
+        # ---- preemption recovery: resume a matching interrupted run ----
+        ckpt = None
+        start_epoch = 0
+        if self.checkpoint_dir:
+            key = bucket_checkpoint_key(
+                [
+                    self.model_type,
+                    # lookback shapes only the sequence families' training
+                    self.lookback_window if stack.windowed else None,
+                    self.kind, sorted(self.factory_kwargs.items()), self.compute_dtype,
+                    self.input_scaler, loss, self.kl_weight, n_features, padded_items, list(names),
+                    self.epochs, self.batch_size, self.learning_rate,
+                    sorted((n, sorted(h.items())) for n, h in hp.items() if n in names),
+                    sorted(n for n in self._initial_params if n in names),
+                    self.optimizer, self.early_stopping_patience, self.early_stopping_min_delta,
+                    self.validation_split, self.seed,
+                    1,  # the member axis' width: one card
+                    self.host_sync_every,
+                ],
+                data=(arrays[n] for n in names),
+            )
+            # the archive is written while the next epochs train; a
+            # preemption loses at most the one uncommitted save
+            ckpt = FleetBucketCheckpoint(self.checkpoint_dir, key)
+            self._active_ckpt = ckpt
+            resumed = ckpt.restore()
+            if resumed is not None:
+                try:
+                    state, best_params, es, histories, histories_val = _restore_bucket(
+                        resumed, state, M, es_enabled, device)
+                    active = es["active"]
+                    if es_enabled:
+                        best, patience = es["best"], es["patience"]
+                    start_epoch = int(resumed["epoch"]) + 1
+                    if es_enabled and not bool(active.any()):
+                        # every member had stopped at the save: nothing to run
+                        start_epoch = self.epochs
+                except Exception:
+                    # a checkpoint of another layout: nothing was replaced
+                    # (the restore checks every piece before it returns)
+                    logger.warning("Fleet checkpoint structure mismatch; training from scratch",
+                                   exc_info=True)
+
+        def save_checkpoint(epoch: int) -> None:
+            t_ck = time.monotonic()
+            try:
+                generators = torch.stack([g.get_state() for g in state.generators])
+                generators_s = time.monotonic() - t_ck
+                tosave = {
+                    "params": state.params,
+                    "opt": {k: v for k, v in state.opt_state._asdict().items() if v is not None},
+                    "generators": generators,
+                    "active": active,
+                }
+                if es_enabled:
+                    tosave.update(best=best, patience=patience)
+                if best_params is not None:
+                    tosave["best_params"] = best_params
+                ckpt.save(epoch, tosave, {"histories": histories, "histories_val": histories_val})
+            except Exception:
+                # best effort: a full volume (or a checkpoint.write fault)
+                # costs resumability, not the training it protects
+                logger.warning("fleet checkpoint save failed at epoch %d; training continues without it",
+                               epoch, exc_info=True)
+                self._trace_checkpoint(t_ck, epoch, error=True)
+            else:
+                self._trace_checkpoint(t_ck, epoch, generators_s=generators_s, **ckpt.last_save_seconds)
+
         pending: List[Tuple[torch.Tensor, ...]] = []  # per epoch: (loss, val, active before)
         epoch_times: List[float] = []
         t_sync = time.time()
 
-        def sync() -> None:
-            """Read the pending epochs' rows on the host into the histories."""
+        def sync(last: int) -> None:
+            """Read the pending epochs' rows on the host into the histories,
+            then the callback and, on its cadence, the checkpoint (JAX
+            ``after_epochs``, ``fleet.py:1475-1500``)."""
             nonlocal t_sync
+            first = last + 1 - len(pending)
             rows = torch.stack([torch.stack([l, v, a.float()]) for l, v, a in pending]).cpu().numpy()
             now = time.time()
             epoch_times.extend([(now - t_sync) / len(pending)] * len(pending))
@@ -578,8 +775,19 @@ class FleetTrainer:
                         if use_val and has_val[i]:
                             histories_val[i].append(float(val_row[i]))
             pending.clear()
+            n_active = int(active.sum())
+            self._g_members_active.set(n_active)
+            if self.epoch_callback is not None:
+                self.epoch_callback({
+                    # "padded_rows" names the bucket's padded items, as in JAX
+                    "n_features": n_features, "padded_rows": padded_items, "epoch": last,
+                    "losses": rows[-1][0][:M_real], "n_active": n_active,
+                })
+            crossed = (last + 1) // self.checkpoint_every > first // self.checkpoint_every
+            if ckpt is not None and crossed and last + 1 < self.epochs:
+                save_checkpoint(last)
 
-        for epoch in range(self.epochs):
+        for epoch in range(start_epoch, self.epochs):
             active_pre = active
             new_state, losses = epoch_fn(state, Xd, Xd, train_maskd, lr, n_real=n_train)
             if es_enabled:  # stopped members keep their parameters and optimizer state
@@ -612,10 +820,15 @@ class FleetTrainer:
             pending.append((losses, vals, active_pre))
             last = epoch + 1 == self.epochs
             if last or len(pending) >= self.host_sync_every:
-                sync()
+                sync(epoch)
                 if es_enabled and not bool(active.any()):
                     logger.info("All %d models early-stopped by epoch %d", M, epoch + 1)
                     break
+
+        if ckpt is not None:
+            # commit the save in flight: a preemption in the error pass
+            # below resumes from it
+            ckpt.flush()
 
         final = best_params if es_enabled else state.params
         if stack.windowed:
@@ -647,4 +860,8 @@ class FleetTrainer:
                 threshold_method=_threshold_method(stack, self.threshold_quantile),
                 device=self.device,
             )
+        # cleared only once the results are on the host: a preemption in
+        # the error pass above resumes from the last save
+        if ckpt is not None:
+            ckpt.clear()
         return out, [round(t, 4) for t in epoch_times], M

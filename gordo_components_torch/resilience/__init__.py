@@ -1,9 +1,10 @@
-"""Resilience of the port: per-request deadlines (``deadline.py``), the
+"""Resilience of the port: fault points (``faults.py``: named sites armed
+from code or ``GORDO_FAULTS``), per-request deadlines (``deadline.py``), the
 per-model quarantine breaker (``quarantine.py``) and the client's retry
 budget and backoff (``retry_budget.py``).
 
-Counterpart of those three modules of ``gordo_components_tpu/resilience/``;
-fault points and the watchdog are not ported yet.
+Counterpart of those four modules of ``gordo_components_tpu/resilience/``;
+the watchdog is not ported yet.
 """
 
 from gordo_components_torch.resilience.deadline import (
@@ -14,10 +15,24 @@ from gordo_components_torch.resilience.deadline import (
     default_deadline_ms,
     parse_deadline_ms,
 )
+from gordo_components_torch.resilience.faults import (
+    FaultInjected,
+    FaultSpec,
+    arm,
+    configure_from_env,
+    disarm,
+    fault_stats,
+    faultpoint,
+    registered_sites,
+    reset,
+    set_fire_listener,
+)
 from gordo_components_torch.resilience.quarantine import DEFAULT_THRESHOLD, QuarantineSet
 from gordo_components_torch.resilience.retry_budget import RetryBudget, decorrelated_jitter
 
 __all__ = [
     "DEADLINE_HEADER", "DEFAULT_THRESHOLD", "MAX_DEADLINE_MS", "Deadline", "DeadlineExceeded",
-    "QuarantineSet", "RetryBudget", "decorrelated_jitter", "default_deadline_ms", "parse_deadline_ms",
+    "FaultInjected", "FaultSpec", "QuarantineSet", "RetryBudget", "arm", "configure_from_env",
+    "decorrelated_jitter", "default_deadline_ms", "disarm", "fault_stats", "faultpoint",
+    "parse_deadline_ms", "registered_sites", "reset", "set_fire_listener",
 ]

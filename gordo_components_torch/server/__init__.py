@@ -39,6 +39,14 @@ more workers are asked for (``workers``/``GORDO_SERVER_WORKERS``,
 loops, a Unix-socket listener and the shared-memory ring
 (``transport.py``), and ``app.transports`` names the local ones.
 
+``build_app`` arms the fault points that ``GORDO_FAULTS`` names
+(``resilience/faults.py``; the server's sites are ``model_io.load``,
+``bank.finalize``, ``bank.score``, ``engine.queue``, ``bank.swap`` and
+``server.connection``) and installs the process's fire listener before
+the collection loads, so every fire from then on lands in the app's event
+log as ``fault.fired``; :meth:`App.close` removes the listener if it is
+still the app's.
+
 Not in this slice: the placement planner.
 """
 
@@ -59,6 +67,7 @@ from gordo_components_torch.observability.timeseries import history_from_env
 from gordo_components_torch.observability.tracing import Tracer
 from gordo_components_torch.qos.admission import AdmissionController
 from gordo_components_torch.replay.clock import SYSTEM_CLOCK, Clock
+from gordo_components_torch.resilience import faults
 from gordo_components_torch.resilience.deadline import default_deadline_ms
 from gordo_components_torch.resilience.quarantine import DEFAULT_THRESHOLD, QuarantineSet
 from gordo_components_torch.server.bank import ModelBank, ScoreResult
@@ -82,7 +91,8 @@ class App:
                  bank_config: dict, engine_config: dict, metrics: MetricsRegistry,
                  quarantine: QuarantineSet, default_deadline_ms: Optional[float],
                  tracer: Optional[Tracer] = None, ledger: Optional[GoodputLedger] = None,
-                 clock: Clock = SYSTEM_CLOCK, heat: Optional[HeatAccountant] = None):
+                 clock: Clock = SYSTEM_CLOCK, heat: Optional[HeatAccountant] = None,
+                 events: Optional[EventLog] = None, fault_listener=None):
         self.collection = collection
         self.bank = bank
         self.bank_config = bank_config
@@ -123,8 +133,10 @@ class App:
             self.admission.burn_for = self.slo.class_burn
         # the app's, fed by every bank generation (bank_config carries it)
         self.heat = heat
-        self.events = EventLog(clock=clock)
+        self.events = events if events is not None else EventLog(clock=clock)
         self.events.attach_registry(metrics)
+        # the process's fault listener, installed by build_app for this app
+        self._fault_listener = fault_listener
         self.history = history_from_env(metrics, clock=clock)
         self._history_stop = threading.Event()
         self._history_thread: Optional[threading.Thread] = None
@@ -161,6 +173,7 @@ class App:
         return bank.generation if bank is not None else None
 
     def close(self) -> None:
+        _remove_fault_listener(self._fault_listener)
         if self.engine is not None:
             self.engine.stop()
         if self.slo is not None:
@@ -171,6 +184,13 @@ class App:
             self._history_thread = None
         if self._warmup is not None:
             self._warmup.join()
+
+
+def _remove_fault_listener(listener) -> None:
+    """Clear the process's fire listener if it is still ``listener`` (a
+    later app may own it by now)."""
+    if listener is not None and faults._FIRE_LISTENER is listener:
+        faults.set_fire_listener(None)
 
 
 def _server_collector(app: App):
@@ -287,19 +307,37 @@ def build_app(
     deadline_ms = default_deadline_ms()
     if clock is None:
         clock = SYSTEM_CLOCK
-    collection = ModelCollection(model_dir, target_name, device=device)
-    registry = MetricsRegistry()
-    tracer = Tracer()
-    ledger = GoodputLedger.from_env(registry)
-    heat = heat_from_env(registry, clock=clock)
-    # the registry, the ledger and heat ride in the bank's settings, so a
-    # /reload's bank records into the same series and cells
-    bank_config = {"max_rows_per_call": max_rows_per_call, "device": device, "registry": registry,
-                   "inflight": bank_inflight, "arena_max_mb": arena_max_mb, "ledger": ledger, "heat": heat}
-    bank = ModelBank.from_models(collection.models, **bank_config) if use_bank else None
-    engine_config = {"max_batch": bank_max_batch, "flush_ms": bank_flush_ms, "max_queue": bank_max_queue}
-    return App(collection, bank, bank_config, engine_config, registry, QuarantineSet(quarantine_threshold),
-               deadline_ms, tracer=tracer, ledger=ledger, clock=clock, heat=heat)
+    faults.configure_from_env()  # GORDO_FAULTS
+    events = EventLog(clock=clock)
+    owner: dict = {}  # the app, once built: its bank generation rides on each event
+
+    def on_fault_fire(site: str, spec) -> None:
+        app = owner.get("app")
+        events.emit("fault.fired", severity="warning", generation=app.generation() if app else None,
+                    site=site, fired=spec.fired)
+
+    # the most recent app owns the process-wide seam
+    faults.set_fire_listener(on_fault_fire)
+    try:
+        collection = ModelCollection(model_dir, target_name, device=device)
+        registry = MetricsRegistry()
+        tracer = Tracer()
+        ledger = GoodputLedger.from_env(registry)
+        heat = heat_from_env(registry, clock=clock)
+        # the registry, the ledger and heat ride in the bank's settings, so a
+        # /reload's bank records into the same series and cells
+        bank_config = {"max_rows_per_call": max_rows_per_call, "device": device, "registry": registry,
+                       "inflight": bank_inflight, "arena_max_mb": arena_max_mb, "ledger": ledger, "heat": heat}
+        bank = ModelBank.from_models(collection.models, **bank_config) if use_bank else None
+        engine_config = {"max_batch": bank_max_batch, "flush_ms": bank_flush_ms, "max_queue": bank_max_queue}
+        app = App(collection, bank, bank_config, engine_config, registry, QuarantineSet(quarantine_threshold),
+                  deadline_ms, tracer=tracer, ledger=ledger, clock=clock, heat=heat, events=events,
+                  fault_listener=on_fault_fire)
+    except BaseException:
+        _remove_fault_listener(on_fault_fire)
+        raise
+    owner["app"] = app
+    return app
 
 
 def run_server(

@@ -101,9 +101,15 @@ from gordo_components_torch.ops.score import banked_anomaly_score_packed
 from gordo_components_torch.ops.seq_scan import lstm_time_major_forward
 from gordo_components_torch.ops.windows import sliding_windows
 from gordo_components_torch.resilience.deadline import Deadline, DeadlineExceeded
+from gordo_components_torch.resilience.faults import faultpoint
 from gordo_components_torch.server.arena import PaddedArena
 
 logger = logging.getLogger(__name__)
+
+# a bucket whose build fails serves its members on the per-model path; a
+# dispatch that fails counts toward its models' quarantine
+_FP_FINALIZE = faultpoint("bank.finalize")
+_FP_SCORE = faultpoint("bank.score")
 
 
 @dataclass
@@ -585,6 +591,7 @@ class ModelBank:
                 entries.append(entry)
         for key, group in bank._group(entries).items():
             try:
+                _FP_FINALIZE.fire()
                 bank._buckets[key] = _make_bucket(group, bank.device)
             except Exception as exc:
                 label = group[0].bucket_label()
@@ -1007,6 +1014,7 @@ class ModelBank:
         enqueued on the current stream without waiting, then one event
         recorded behind them; the device tensors stay referenced until
         that event. On the CPU the forward runs here, to its end."""
+        _FP_SCORE.fire()
         bucket = run.bucket
         run.t_dispatch = time.monotonic()
         dev = self.device

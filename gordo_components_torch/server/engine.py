@@ -59,8 +59,13 @@ import numpy as np
 from gordo_components_torch.qos.classify import CLASSES, DEFAULT_CLASS, DEFAULT_TENANT
 from gordo_components_torch.qos.fair import WeightedFairQueue, parse_weights
 from gordo_components_torch.resilience.deadline import Deadline, DeadlineExceeded
+from gordo_components_torch.resilience.faults import faultpoint
 from gordo_components_torch.server.bank import ModelBank, ScoreResult
 from gordo_components_torch.server.stats import LatencyHistogram
+
+# every request's admission (score_blocking goes through submit): a failure
+# here counts toward the model's quarantine
+_FP_QUEUE = faultpoint("engine.queue")
 
 
 @dataclass
@@ -241,6 +246,7 @@ class BatchingEngine:
         An expired ``deadline`` raises :class:`DeadlineExceeded` here.
         ``trace`` receives the request's engine and bank spans;
         ``qos_class`` is its class in the fair queue."""
+        _FP_QUEUE.fire()
         if self._thread is None:
             raise RuntimeError("engine is not running (call start() first)")
         if deadline is not None and deadline.expired():

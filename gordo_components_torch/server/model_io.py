@@ -40,8 +40,12 @@ from gordo_components_torch.utils.wire import (
     rows_as_f32,
     unpack_frames,
 )
+from gordo_components_torch.resilience.faults import faultpoint
 
 logger = logging.getLogger(__name__)
+
+# one artifact that fails to load leaves the others serving
+_FP_LOAD = faultpoint("model_io.load")
 
 
 def decode_tensor_request(raw) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -195,6 +199,7 @@ class ModelCollection:
                 continue
             try:
                 logger.info("Loading model %r from %s", name, path)
+                _FP_LOAD.fire()
                 model = load(path, device=self.device)
                 meta = load_metadata(path)
                 if artifact_version(path) != version:

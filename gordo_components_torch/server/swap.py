@@ -30,10 +30,14 @@ import os
 import time
 from dataclasses import dataclass
 
+from gordo_components_torch.resilience.faults import faultpoint
 from gordo_components_torch.server.bank import ModelBank
 from gordo_components_torch.server.engine import BatchingEngine
 
 logger = logging.getLogger(__name__)
+
+# a flip that fails leaves the old generation serving
+_FP_SWAP = faultpoint("bank.swap")
 
 
 @dataclass
@@ -78,6 +82,7 @@ def swap_bank(app, new_bank: ModelBank) -> SwapResult:
     generation = old_bank.generation + 1
     new_bank.generation = generation
     try:
+        _FP_SWAP.fire()
         # the engine first: until app.bank flips, a request routes by the
         # old bank, so a target it holds is in both banks and a new one
         # goes to the per-model path

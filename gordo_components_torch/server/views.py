@@ -104,6 +104,7 @@ import re
 import socket
 import socketserver
 import stat
+import struct
 import sys
 import threading
 import time
@@ -116,6 +117,7 @@ from gordo_components_torch.observability.metrics import _fmt
 from gordo_components_torch.observability.tracing import chrome_trace, format_traceparent
 from gordo_components_torch.qos.classify import classify_headers, classify_meta
 from gordo_components_torch.resilience.deadline import DEADLINE_HEADER, Deadline, parse_deadline_ms
+from gordo_components_torch.resilience.faults import faultpoint
 from gordo_components_torch.server.model_io import encode_prediction_response
 from gordo_components_torch.server.stats import LatencyHistogram
 from gordo_components_torch.server.swap import build_bank, swap_bank
@@ -138,6 +140,10 @@ from gordo_components_torch.utils.digest import metadata_digest
 from gordo_components_torch.utils.wire import TENSOR_CONTENT_TYPE, encoding_of
 
 logger = logging.getLogger(__name__)
+
+# transport chaos: armed with refuse/reset/blackhole, the connection dies
+# before the request is read or answered, as a real peer failure would
+_FP_CONNECTION = faultpoint("server.connection")
 
 _P = r"^/gordo/v0/(?P<project>[^/]+)"
 _T = _P + r"/(?P<target>[^/]+)"
@@ -239,7 +245,29 @@ class GordoHandler(BaseHTTPRequestHandler):
             return handler, match.groupdict(), _KINDS[handler]
         return None, HTTPError(404, f"No route for {path}"), "other"
 
+    def _abort(self, exc: BaseException) -> None:
+        """Drop the connection without an answer, the body unread: a
+        ``reset`` closes with ``SO_LINGER`` 0, so the peer sees an RST; any
+        other fault (``refuse``, ``blackhole`` after its sleep, an error)
+        closes it."""
+        self.close_connection = True
+        if isinstance(exc, ConnectionResetError):
+            try:
+                self.connection.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+            except OSError:
+                pass
+        try:
+            self.connection.close()  # closes once the handler's files are closed too
+        except OSError:
+            pass
+        logger.warning("server.connection fault: connection dropped (%s)", type(exc).__name__)
+
     def _dispatch(self, method: str) -> None:
+        try:
+            _FP_CONNECTION.fire()
+        except Exception as exc:
+            self._abort(exc)
+            return
         path, _, query = self.path.partition("?")
         self.query = parse_qs(query)
         # the body's bytes no handler has read yet

@@ -222,11 +222,10 @@ def test_build_fleet_group_retry_and_unported_options(tmp_path, monkeypatch):
     monkeypatch.setattr(FleetTrainer, "fit", flaky)
     report = build_fleet(machines, str(tmp_path / "out"), device="cpu")
     assert sorted(report) == ["m0", "m1"] and report.group_retries == 1
-    for kw in ({"checkpoint_dir": "x"}, {"distributed": True}, {"state_dir": "x"}):
-        with pytest.raises(NotImplementedError):
-            build_fleet(machines, str(tmp_path / "o2"), device="cpu", **kw)
-    monkeypatch.setenv("GORDO_FAULTS", "fleet_build.group:raise")
-    with pytest.raises(NotImplementedError, match="GORDO_FAULTS"):
+    with pytest.raises(NotImplementedError, match="distributed"):
+        build_fleet(machines, str(tmp_path / "o2"), device="cpu", distributed=True)
+    monkeypatch.setenv("GORDO_GANG_WIDTH", "2")
+    with pytest.raises(NotImplementedError, match="GORDO_GANG_WIDTH"):
         build_fleet(machines, str(tmp_path / "o3"), device="cpu")
 
 

@@ -6,7 +6,9 @@ built and failed names in the fleet manifest, the same keys from
 ``--print-cv-scores``, and the same machine list from a machines file (the
 default model config written in each package's class paths). Options that
 are not ported exit 2, or 83 where ``build_fleet`` refuses them, as the JAX
-CLI maps a ``NotImplementedError``. One subprocess run drives
+CLI maps a ``NotImplementedError`` (``GORDO_FAULTS``, ``--checkpoint-dir``
+and ``--state-dir`` are ported: ``test_torch_faults.py``,
+``test_torch_checkpoint.py`` and ``test_torch_gang_state.py`` drive them). One subprocess run drives
 ``python -m gordo_components_torch.cli build-fleet`` on examples/fleet.yaml,
 then ``run-server`` on the result: one anomaly POST per machine, held
 against the built detector's ``anomaly()`` within atol=1e-5 (the band of
@@ -203,7 +205,6 @@ NOT_PORTED = {
     "GORDO_PROFILE_DIR": ([], {"GORDO_PROFILE_DIR": "p"}),
     "--compile-cache-dir": (["--compile-cache-dir", "c"], {}),
     "GORDO_COMPILE_CACHE_DIR": ([], {"GORDO_COMPILE_CACHE_DIR": "c"}),
-    "GORDO_FAULTS": ([], {"GORDO_FAULTS": "fleet_build.group:raise"}),
 }
 
 
@@ -233,8 +234,7 @@ def test_missing_required_option_exits_2_as_jax(command, capsys):
     assert exit_info.value.code == 2
 
 
-@pytest.mark.parametrize("extra", [["--checkpoint-dir", "c"], ["--distributed"], ["--state-dir", "s"]],
-                         ids=str)
+@pytest.mark.parametrize("extra", [["--distributed"]], ids=str)
 def test_build_fleet_refuses_unported_options_with_83(extra, tmp_path, capsys):
     path = _machines_file(tmp_path, "m.json", FLEET_CASES["all built"][1](PORT))
     assert main(["--device", "cpu", "build-fleet", "--machines-file", path,

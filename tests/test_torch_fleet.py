@@ -180,8 +180,6 @@ def test_unported_fleet_features_raise(monkeypatch):
         FleetTrainer(model_type="ConvAutoEncoder", loss="huber", device="cpu").fit(_members(1, 20))
     with pytest.raises(NotImplementedError, match="mesh"):
         FleetTrainer(mesh=object())
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        FleetTrainer(checkpoint_dir="/nonexistent")
     with pytest.raises(NotImplementedError, match="'float32' or 'bfloat16'"):
         FleetTrainer(compute_dtype="float16", device="cpu", **ARCH).fit(_members(1, 10))
     monkeypatch.setenv("GORDO_FLEET_WIDTH", "64")

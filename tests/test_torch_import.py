@@ -136,7 +136,7 @@ def test_cli_builds_fleet_yaml_with_yaml_click_sklearn_pandas_and_jax_blocked(tm
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report == {"rc": 0, "leaked": []}
     assert sorted(os.listdir(tmp_path / "out")) == [
-        "build_manifest.json", "compressor-a", "compressor-b", "turbine-lstm"]
+        "build_manifest.json", "build_trace.json", "compressor-a", "compressor-b", "turbine-lstm"]
 
 
 def test_chip_smoke_fails_without_cuda():
