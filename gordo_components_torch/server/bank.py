@@ -70,9 +70,21 @@ model (``observability/cost.py``). With the app's heat accountant
 groups and, for the batching engine, returns a failed group's errors in
 place of its results.
 
-Not in this slice: the device mesh, quantized banks and the placement
-planner's per-model row counts, and with them the JAX bank's shard,
-quantize, weight-bytes and generation series.
+Storage (``bank_dtype``, ``GORDO_BANK_DTYPE``; ``ops/quantize.py``): a
+bucket keeps its stacked weights in float32 (the identity: stacked in the
+compute dtype, as above), bfloat16 or int8 codes with per-member scales,
+quantized from the float32 parameters. A forward gathers its slots' codes
+and scales and dequantizes them to float32, then to the compute dtype: the
+stack is never expanded whole, and K2 and K3 see the dequantized weights.
+A quantization that fails (the ``bank.quantize`` fault point fires before
+it) leaves that bucket in float32 storage, named in
+``quantize_fallbacks`` and counted by
+``gordo_bank_quantize_fallback_total``; :meth:`ModelBank.capacity_stats`
+and the ``gordo_bank_weight_bytes``/``gordo_bank_models_per_gb`` gauges
+report the bytes stored.
+
+Not in this slice: the device mesh and the placement planner's per-model
+row counts, and with them the JAX bank's shard and generation series.
 """
 
 import contextlib
@@ -97,6 +109,13 @@ from gordo_components_torch.models.register import by_family
 from gordo_components_torch.observability.cost import estimate_flops_per_row
 from gordo_components_torch.observability.metrics import get_registry
 from gordo_components_torch.ops.dense import dense_chain
+from gordo_components_torch.ops.quantize import (
+    normalize_bank_dtype,
+    quantize_stack,
+    storage_dtype,
+    take,
+    tree_weight_bytes,
+)
 from gordo_components_torch.ops.score import banked_anomaly_score_packed
 from gordo_components_torch.ops.seq_scan import lstm_time_major_forward
 from gordo_components_torch.ops.windows import sliding_windows
@@ -110,6 +129,11 @@ logger = logging.getLogger(__name__)
 # dispatch that fails counts toward its models' quarantine
 _FP_FINALIZE = faultpoint("bank.finalize")
 _FP_SCORE = faultpoint("bank.score")
+# a bucket whose quantization fails serves from float32 storage
+_FP_QUANTIZE = faultpoint("bank.quantize")
+
+# the storage dtype's tag in a bucket label (JAX bank.py _DTYPE_TAGS)
+_DTYPE_TAGS = {"bfloat16": "bf16", "int8": "int8"}
 
 
 @dataclass
@@ -152,11 +176,15 @@ class _BankEntry:
             default=str,
         )
 
-    def bucket_label(self) -> str:
-        """The bucket's name in logs and ``finalize_failures``."""
+    def bucket_label(self, bank_dtype: str = "float32") -> str:
+        """The bucket's name in logs, metrics and ``finalize_failures``;
+        a bank below float32 storage tags it ``:qbf16`` or ``:qint8``, even
+        where the quantization falls back (JAX bank.py:286-291)."""
         label = f"{self.registry_type}:{self.kind}:f{self.n_features}:l{self.lookback}"
         if self.target_offset:
             label += f":o{self.target_offset}"
+        if bank_dtype != "float32":
+            label += f":q{_DTYPE_TAGS.get(bank_dtype, bank_dtype)}"
         if self.compute_dtype != "float32":
             # JAX bank.py:293-298: a bfloat16 bucket is another program and
             # another metric series than a float32 one of the same kwargs
@@ -174,31 +202,30 @@ def _prev_pow2(n: int) -> int:
 
 
 def _stack(arrays, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.stack(arrays), np.float32)).to(device, dtype)
+    return torch.from_numpy(_np_stack(arrays)).to(device, dtype)
 
 
-def _tensors(value):
-    """The tensors in a bucket attribute (a tensor, or tuples and lists of them)."""
-    if isinstance(value, torch.Tensor):
-        return [value]
-    if isinstance(value, (list, tuple)):
-        return [t for v in value for t in _tensors(v)]
-    return []
+def _np_stack(arrays) -> np.ndarray:
+    return np.ascontiguousarray(np.stack(arrays), np.float32)
 
 
 class _Bucket:
     """All members sharing (type, kind, n_features, lookback, target offset,
-    factory kwargs, compute dtype): the stacked weights (in the compute
-    dtype) and scalers (float32) on the card, and the batched forward. This
-    base holds the scalers and the epilogue; the subclasses the network."""
+    factory kwargs, compute dtype): the stacked weights (stored in the
+    bank's dtype, ``ops/quantize.py``) and scalers (float32) on the card,
+    and the batched forward. This base holds the scalers, the weights'
+    storage and the epilogue; the subclasses name their weight stacks
+    (:meth:`_stacks`) and run the network on the gathered ones."""
 
-    def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device):
+    def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device,
+                 bank_dtype: str = "float32"):
         first = entries[0]
         self.n_features = first.n_features
         self.lookback, self.target_offset = first.lookback, first.target_offset
         self.offset = first.offset
-        self.label = first.bucket_label()
+        self.label = first.bucket_label(bank_dtype)
         self.dtype = module.compute_dtype
+        self.bank_dtype = bank_dtype
         self.in_shift, self.in_scale, self.err_shift, self.err_scale = (
             _stack([getattr(e, f) for e in entries], device)
             for f in ("in_shift", "in_scale", "err_shift", "err_scale")
@@ -212,6 +239,40 @@ class _Bucket:
         self.params_per_member = int(sum(np.size(v) for v in first.params.values()))
         self.flops_per_row, self.flops_method = estimate_flops_per_row(
             module, self.n_features, self.lookback, self.params_per_member)
+        self._store(self._stacks(entries, module), device)
+
+    def _stacks(self, entries: Sequence[_BankEntry], module) -> Dict[str, Tuple[np.ndarray, int]]:
+        """name -> (the float32 stack (M, ...), its int8 segments: the JAX
+        leaves its last axis concatenates)."""
+        raise NotImplementedError
+
+    def _store(self, stacks: Dict[str, Tuple[np.ndarray, int]], device: torch.device) -> None:
+        """Store the stacks in the bank's dtype (JAX ``_Bucket.finalize``'s
+        quantization): ``weights`` name -> the stored stack,
+        ``weight_bytes_fp32`` the float32 stacks' bytes, ``weight_bytes``
+        the stored ones', ``effective_dtype`` the storage dtype; a failed
+        quantization stores float32, its error in ``quantize_error``."""
+        self.weight_bytes_fp32 = int(sum(a.nbytes for a, _ in stacks.values()))
+        self.quantize_error: Optional[str] = None
+        weights = None
+        if self.bank_dtype != "float32":
+            try:
+                _FP_QUANTIZE.fire()
+                weights = {k: quantize_stack(a, self.bank_dtype, device, self.dtype, seg)
+                           for k, (a, seg) in stacks.items()}
+            except Exception as exc:
+                self.quantize_error = f"{type(exc).__name__}: {exc}"
+                logger.warning("Bucket %s: %s quantization failed (%s); storing float32 for this bucket",
+                               self.label, self.bank_dtype, exc)
+        if weights is None:
+            weights = {k: quantize_stack(a, "float32", device, self.dtype) for k, (a, _) in stacks.items()}
+        self.weights = weights
+        self.effective_dtype = storage_dtype(list(weights.values()))
+        self.weight_bytes = tree_weight_bytes(weights.values())
+
+    def _take(self, name: str, idx: torch.Tensor) -> torch.Tensor:
+        """The members ``idx`` of stack ``name`` in the compute dtype."""
+        return take(self.weights[name], idx, self.dtype)
 
     def forward(self, idx: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
         """idx (B,); xs (B, T, F) input-scaled -> (B, T - offset, F)."""
@@ -240,44 +301,51 @@ class _DenseBucket(_Bucket):
     one's mean decode); a batch gathers its slots' layers and runs
     ``ops.dense.dense_chain`` with the slots as the member axis."""
 
-    def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device):
-        super().__init__(entries, module, device)
+    def _stacks(self, entries, module):
         chains = [module.serving_chain(e.params) for e in entries]
-        dt = self.dtype
-        self.layers = [
-            (_stack([c[i][0] for c in chains], device, dt), _stack([c[i][1] for c in chains], device, dt), act)
-            for i, (_W, _b, act) in enumerate(chains[0])
-        ]
+        self.acts = [act for _W, _b, act in chains[0]]
+        out = {}
+        for i in range(len(self.acts)):
+            out[f"{i}.kernel"] = (_np_stack([c[i][0] for c in chains]), 1)
+            out[f"{i}.bias"] = (_np_stack([c[i][1] for c in chains]), 1)
+        return out
 
     def forward(self, idx, h):
-        return dense_chain(h, [(W.index_select(0, idx), b.index_select(0, idx), act)
-                               for W, b, act in self.layers], self.dtype).float()
+        layers = [(self._take(f"{i}.kernel", idx), self._take(f"{i}.bias", idx), act)
+                  for i, act in enumerate(self.acts)]
+        return dense_chain(h, layers, self.dtype).float()
 
 
 class _LSTMBucket(_Bucket):
     """LSTM stacks: each layer's ``Wi``/``Wh``/``b`` and the head stacked
     ``(M, ...)``; a batch gathers its slots' members and runs the time-major
-    forward with the slots as the member axis and the windows as the batch."""
+    forward with the slots as the member axis and the windows as the batch.
+    ``Wi``, ``Wh`` and ``b`` concatenate the four gate leaves of a Flax
+    cell, so int8 storage scales each gate on its own."""
 
-    def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device):
-        super().__init__(entries, module, device)
+    def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device,
+                 bank_dtype: str = "float32"):
         self.funcs, self.out_func = module.funcs, module.out_func
+        self.n_layers = len(module.layers)
+        super().__init__(entries, module, device, bank_dtype)
         self.flops_method += f":time_major(T={self.lookback})"  # as the JAX bank tags its scan
-        self.layers = [
-            tuple(_stack([e.params[f"layers.{i}.{p}"] for e in entries], device, self.dtype)
-                  for p in ("Wi", "Wh", "b"))
-            for i in range(len(module.layers))
-        ]
-        self.head = tuple(
-            _stack([e.params[f"head.{p}"] for e in entries], device, self.dtype) for p in ("kernel", "bias")
-        )
+
+    def _stacks(self, entries, module):
+        out = {}
+        for i in range(self.n_layers):
+            for p in ("Wi", "Wh", "b"):
+                key = f"layers.{i}.{p}"
+                out[key] = (_np_stack([e.params[key] for e in entries]), 4)
+        for p in ("kernel", "bias"):
+            out[f"head.{p}"] = (_np_stack([e.params[f"head.{p}"] for e in entries]), 1)
+        return out
 
     def forward(self, idx, xs):
         W = sliding_windows(xs, self.lookback)  # (B, T - lookback + 1, L, F)
         W = W[:, : W.shape[1] - self.target_offset]
         weights = (
-            [tuple(a.index_select(0, idx) for a in layer) for layer in self.layers],
-            tuple(a.index_select(0, idx) for a in self.head),
+            [tuple(self._take(f"layers.{i}.{p}", idx) for p in ("Wi", "Wh", "b")) for i in range(self.n_layers)],
+            tuple(self._take(f"head.{p}", idx) for p in ("kernel", "bias")),
         )
         return lstm_time_major_forward(weights, W, self.funcs, self.out_func, self.dtype)
 
@@ -288,19 +356,20 @@ class _ConvBucket(_Bucket):
     every slot through ``conv_autoencoder_forward`` with the slots as the
     member axis."""
 
-    def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device):
-        super().__init__(entries, module, device)
+    def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device,
+                 bank_dtype: str = "float32"):
         self.n_encoder, self.activation = len(module.channels), module.activation
-        self.layers = [
-            tuple(_stack([e.params[f"{name}.{p}"] for e in entries], device, self.dtype)
-                  for p in ("kernel", "bias"))
-            for name in module.layer_names()
-        ]
+        self.names = list(module.layer_names())
+        super().__init__(entries, module, device, bank_dtype)
+
+    def _stacks(self, entries, module):
+        return {f"{name}.{p}": (_np_stack([e.params[f"{name}.{p}"] for e in entries]), 1)
+                for name in self.names for p in ("kernel", "bias")}
 
     def forward(self, idx, xs):
         W = sliding_windows(xs, self.lookback)  # (B, T - lookback + 1, L, F), a view
         W = W[:, : W.shape[1] - self.target_offset]
-        weights = [tuple(a.index_select(0, idx) for a in layer) for layer in self.layers]
+        weights = [tuple(self._take(f"{name}.{p}", idx) for p in ("kernel", "bias")) for name in self.names]
         return conv_autoencoder_forward(weights, W, self.n_encoder, self.activation, self.dtype)
 
 
@@ -308,12 +377,12 @@ class _ConvBucket(_Bucket):
 _BUCKETS = {"dense": _DenseBucket, "vae": _DenseBucket, "lstm": _LSTMBucket, "conv": _ConvBucket}
 
 
-def _make_bucket(entries: Sequence[_BankEntry], device: torch.device) -> _Bucket:
+def _make_bucket(entries: Sequence[_BankEntry], device: torch.device, bank_dtype: str = "float32") -> _Bucket:
     first = entries[0]
     module = lookup_factory(first.registry_type, first.kind)(
         first.n_features, compute_dtype=first.compute_dtype, **first.factory_kwargs
     )
-    return by_family(_BUCKETS, module, "bank bucket")(entries, module, device)
+    return by_family(_BUCKETS, module, "bank bucket")(entries, module, device, bank_dtype)
 
 
 @dataclass
@@ -475,6 +544,27 @@ def _pipeline_collector(ref, prev):
     return collect
 
 
+def _capacity_collector(ref):
+    """The stored weight bytes by dtype and the members a GiB of the bank
+    behind ``ref``, read at render time from one :meth:`ModelBank.capacity_stats`
+    (JAX ``_capacity_collect``); a /reload's bank replaces it under its key."""
+
+    def collect():
+        bank = ref()
+        if bank is None:
+            return ()
+        cap = bank.capacity_stats()
+        rows = [("gordo_bank_weight_bytes", "gauge", "Stacked bank weight bytes resident in HBM, by storage dtype",
+                 {"dtype": d}, nbytes) for d, nbytes in sorted(cap["weight_bytes_by_dtype"].items())]
+        if cap["models_per_gb"] is not None:
+            rows.append(("gordo_bank_models_per_gb", "gauge",
+                         "Bank members per GB of stacked-weight HBM at the current dtype mix", {},
+                         cap["models_per_gb"]))
+        return tuple(rows)
+
+    return collect
+
+
 _PIPELINE_KEYS = {"gordo_bank_arena_hits_total": "hits", "gordo_bank_arena_misses_total": "misses",
                   "gordo_bank_arena_bytes": "bytes", "gordo_bank_inflight_groups": "inflight"}
 
@@ -489,13 +579,21 @@ class ModelBank:
     flight, 1 being the serial order; ``arena_max_mb``
     (``GORDO_ARENA_MAX_MB``) bounds the padded-buffer arena; ``ledger`` is
     the app's goodput ledger and ``heat`` its access-heat accountant, or
-    None."""
+    None. ``bank_dtype`` (``GORDO_BANK_DTYPE``, default ``"float32"``) is
+    the weights' storage: ``float32``, ``bfloat16`` or ``int8``
+    (``ops/quantize.py``; aliases as there, anything else raises)."""
 
     def __init__(self, max_rows_per_call: int = 8192, device="cuda", registry=None,
                  inflight: Optional[int] = None, arena_max_mb: Optional[float] = None, ledger=None,
-                 heat=None):
+                 heat=None, bank_dtype: Optional[str] = None):
         self.device = resolve_device(device)
         self.max_rows = int(max_rows_per_call)
+        if bank_dtype is None:
+            bank_dtype = os.environ.get("GORDO_BANK_DTYPE", "float32")
+        self.bank_dtype = normalize_bank_dtype(bank_dtype)
+        # bucket label -> error, for buckets whose quantization failed: they
+        # serve from float32 storage (a loss of capacity, not of correctness)
+        self.quantize_fallbacks: Dict[str, str] = {}
         if inflight is None:
             raw = os.environ.get("GORDO_BANK_INFLIGHT", "2")
             try:
@@ -541,7 +639,7 @@ class ModelBank:
         elif registry is False:
             registry = None
         self.registry = registry
-        self._m_bucket_calls = self._m_bucket_reqs = self._m_bucket_batch = None
+        self._m_bucket_calls = self._m_bucket_reqs = self._m_bucket_batch = self._m_quant_fallback = None
         if registry is not None:
             self._m_bucket_calls = registry.counter(
                 "gordo_bank_bucket_calls_total", "Batched XLA scoring dispatches per bucket", ("bucket",))
@@ -550,6 +648,10 @@ class ModelBank:
             self._m_bucket_batch = registry.histogram(
                 "gordo_bank_bucket_batch_size", "Coalesced chunks per batched XLA call, per bucket",
                 ("bucket",), lo=1.0, hi=1e5)
+            self._m_quant_fallback = registry.counter(
+                "gordo_bank_quantize_fallback_total",
+                "Bucket quantizations that failed and fell back to fp32 storage (capacity impairment, not a "
+                "correctness one)", ("bucket",))
             # through a weak reference: the registry outlives a swapped-out
             # bank, and must not pin its stacked weights on the card
             ref = weakref.ref(self)
@@ -559,13 +661,14 @@ class ModelBank:
                 lambda: len(b._buckets) if (b := ref()) is not None else 0)
             registry.collector(_pipeline_collector(ref, registry.get_collector("bank_pipeline")),
                                key="bank_pipeline")
+            registry.collector(_capacity_collector(ref), key="bank_capacity")
 
     @classmethod
     def from_entries(cls, entries: Sequence[_BankEntry], **kwargs) -> "ModelBank":
         """A bank of bank entries; raises if a bucket cannot be built."""
         bank = cls(**kwargs)
         for key, group in bank._group(entries).items():
-            bank._buckets[key] = _make_bucket(group, bank.device)
+            bank._add_bucket(key, group)
         logger.info("Model bank: %d models in %d bucket(s) on %s", len(bank), bank.n_buckets, bank.device)
         return bank
 
@@ -592,9 +695,9 @@ class ModelBank:
         for key, group in bank._group(entries).items():
             try:
                 _FP_FINALIZE.fire()
-                bank._buckets[key] = _make_bucket(group, bank.device)
+                bank._add_bucket(key, group)
             except Exception as exc:
-                label = group[0].bucket_label()
+                label = group[0].bucket_label(bank.bank_dtype)
                 logger.error("Bucket %s build FAILED (%d member(s) fall back to the per-model "
                              "path): %s", label, len(group), exc, exc_info=True)
                 reason = f"bucket finalize failed: {type(exc).__name__}: {exc}"
@@ -612,6 +715,16 @@ class ModelBank:
                 + (" ..." if len(bank.fallback) > 10 else ""),
             )
         return bank
+
+    def _add_bucket(self, key: str, group: List[_BankEntry]) -> None:
+        """Build and add one bucket; a quantization that fell back is
+        recorded in ``quantize_fallbacks`` and counted."""
+        bucket = _make_bucket(group, self.device, self.bank_dtype)
+        self._buckets[key] = bucket
+        if bucket.quantize_error is not None:
+            self.quantize_fallbacks[bucket.label] = bucket.quantize_error
+            if self._m_quant_fallback is not None:
+                self._m_quant_fallback.labels(bucket.label).inc()
 
     def _group(self, entries: Sequence[_BankEntry]) -> Dict[str, List[_BankEntry]]:
         """Index ``entries`` by name and group them by bucket key."""
@@ -648,12 +761,40 @@ class ModelBank:
             "device": str(self.device),
         }
 
+    def capacity_stats(self) -> Dict[str, Any]:
+        """The weights' storage at a glance (``/stats`` ``bank_capacity``,
+        the JAX bank's keys): bytes stored and at float32, their ratio, the
+        bytes a member and members a GiB, and the buckets whose quantization
+        fell back. ``kernel`` names the K2 route: ``"cuda"`` on the card,
+        ``"plain"`` on the CPU."""
+        buckets = list(self._buckets.values())
+        total = sum(b.weight_bytes for b in buckets)
+        fp32 = sum(b.weight_bytes_fp32 for b in buckets)
+        by_dtype: Dict[str, int] = {}
+        for b in buckets:
+            by_dtype[b.effective_dtype] = by_dtype.get(b.effective_dtype, 0) + b.weight_bytes
+        members = len(self._index)
+        bpm = total / members if members else None
+        return {
+            "dtype": self.bank_dtype,
+            "kernel": "cuda" if self.device.type == "cuda" else "plain",
+            "members": members,
+            "weight_bytes": total,
+            "weight_bytes_by_dtype": by_dtype,
+            "fp32_bytes": fp32,
+            "capacity_ratio": round(fp32 / total, 3) if total else None,
+            "bytes_per_member": round(bpm, 1) if bpm is not None else None,
+            "models_per_gb": round(1024**3 / bpm, 1) if bpm else None,
+            "quantize_fallbacks": dict(self.quantize_fallbacks),
+        }
+
     def flops_stats(self) -> Dict[str, Any]:
         """Per bucket, the static numbers the cost model joins to the
-        ledger's device seconds (the JAX bank's keys)."""
+        ledger's device seconds (the JAX bank's keys): ``weight_bytes`` the
+        stored weight stacks' bytes, without the scalers, and
+        ``effective_dtype`` their storage dtype."""
         out: Dict[str, Any] = {}
         for b in self._buckets.values():
-            tensors = [t for v in vars(b).values() for t in _tensors(v)]
             out[b.label] = {
                 "flops_per_row": float(b.flops_per_row),
                 "flops_method": b.flops_method,
@@ -663,8 +804,8 @@ class ModelBank:
                 "registry_type": b.registry_type,
                 "n_features": int(b.n_features),
                 "lookback": int(b.lookback),
-                "weight_bytes": int(sum(t.numel() * t.element_size() for t in tensors)),
-                "effective_dtype": str(b.dtype).replace("torch.", ""),
+                "weight_bytes": int(b.weight_bytes),
+                "effective_dtype": b.effective_dtype,
                 "seq_layout": "time_major" if isinstance(b, _LSTMBucket) else "legacy",
                 "seq_kernel": ("cuda" if self.device.type == "cuda" else "plain")
                 if isinstance(b, _LSTMBucket) else "none",

@@ -446,7 +446,7 @@ def test_bank_buckets_by_dtype_and_scores_as_anomaly(family, tmp_path):
     labels = sorted(b.label for b in bank._buckets.values())
     assert labels[0] != labels[1] and labels[0] in labels[1]
     bucket = bank._buckets[entries[0].bucket_key()]
-    weights = [p for layer in bucket.layers for p in layer if isinstance(p, torch.Tensor)]
+    weights = list(bucket.weights.values())
     assert weights and all(w.dtype == torch.bfloat16 for w in weights)
     X = _rows(40, seed=5)
     for name, member in bf.items():

@@ -197,10 +197,10 @@ def test_from_models_isolates_a_failing_extraction_and_bucket(fitted, monkeypatc
     monkeypatch.setattr(broken, "to_entry", lambda name=None: 1 / 0)
     real = port_bank._make_bucket
 
-    def make(entries, device):
+    def make(entries, device, *storage):
         if entries[0].registry_type == "LSTMAutoEncoder":
             raise MemoryError("no room")
-        return real(entries, device)
+        return real(entries, device, *storage)
 
     monkeypatch.setattr(port_bank, "_make_bucket", make)
     models = {"dense": port["detector"], "lstm": lstm, "broken": broken, "bare": port["estimator"]}

@@ -114,8 +114,6 @@ STEPS = [
 # families the JAX server renders and the port does not yet, by the item of
 # ROADMAP.md's queue A that brings them (each is named there)
 NOT_RENDERED = {
-    # A6, the low-precision bank
-    "gordo_bank_quantize_fallback_total", "gordo_bank_weight_bytes", "gordo_bank_models_per_gb",
     # A7, multi-device: the sharded bank and the placement controller
     "gordo_bank_shard_routed_rows_total", "gordo_bank_shard_padded_rows_total",
     "gordo_bank_shard_requests_total", "gordo_bank_generation",
