@@ -1,9 +1,9 @@
 """The port's bulk-prediction client (counterpart of
-``gordo_components_tpu/client/``), on the standard library and numpy.
-``PushSubscriber`` waits for the server's ``/results/stream`` (ROADMAP
-A8)."""
+``gordo_components_tpu/client/``), on the standard library and numpy;
+``PushSubscriber`` (``subscribe.py``) consumes the server's push stream."""
 
 from gordo_components_torch.client.client import Client, PredictionResult
+from gordo_components_torch.client.subscribe import PushSubscriber
 from gordo_components_torch.client.forwarders import (
     ForwardPredictionsIntoInflux,
     ForwardPredictionsIntoParquet,
@@ -12,6 +12,7 @@ from gordo_components_torch.client.forwarders import (
 __all__ = [
     "Client",
     "PredictionResult",
+    "PushSubscriber",
     "ForwardPredictionsIntoInflux",
     "ForwardPredictionsIntoParquet",
 ]

@@ -1026,11 +1026,78 @@ class Client:
     # ------------------------------------------------------------------ #
 
     def ingest(self, target: str, X, timestamps=None, tensor: bool = False) -> Dict[str, int]:
-        """Not ported: the server's ``/ingest`` comes with ROADMAP A8."""
-        raise NotImplementedError(
-            "Client.ingest: the streaming forwarder needs the server's /ingest route, which is not ported "
-            "yet (ROADMAP A8)")
+        """Synchronous wrapper over :meth:`ingest_async`."""
+        return asyncio.run(self.ingest_async(target, X, timestamps, tensor=tensor))
 
     async def ingest_async(self, target: str, X, timestamps=None, tensor: bool = False) -> Dict[str, int]:
-        """Not ported: the server's ``/ingest`` comes with ROADMAP A8."""
-        self.ingest(target, X, timestamps, tensor)
+        """Streaming forwarder: POST fresh rows to the server's
+        ``.../{target}/ingest`` window buffer in ``batch_size``-row chunks,
+        on the scoring path's terms: each chunk's deadline rides as
+        ``X-Gordo-Deadline-Ms`` and every retry spends the shared
+        :class:`RetryBudget`. NaN cells (sensor dropout) travel as JSON
+        ``null``.
+
+        ``X``: a frame (``TagFrame``/``ResultFrame``: its ``datetime64``
+        index gives the event times unless ``timestamps`` does) or a (rows,
+        features) array. Returns the summed accounting (``accepted``,
+        ``late``, ``dropped`` rows and ``chunks`` posted) and feeds
+        ``gordo_client_ingest_rows_total``.
+
+        ``tensor=True`` posts each chunk as a framed tensor body: float32
+        ``rows`` (NaN cells are the dropout) and float64 epoch-seconds
+        ``timestamps``; opt-in, as the ingest path negotiates nothing.
+
+        Delivery is at least once: a chunk whose answer was lost is
+        retried and its rows ingested twice (the server's duplicate
+        accounting catches exact re-sends)."""
+        if hasattr(X, "values") and hasattr(X, "columns"):
+            values = np.asarray(X.values)
+            index = getattr(X, "index", None)
+            if timestamps is None and index is not None and np.asarray(index).dtype.kind == "M":
+                # only a datetime index carries event times; without one the
+                # server stamps the arrival
+                timestamps = timestamp_texts(index)
+        else:
+            values = np.asarray(X)
+        epoch_ts = None
+        if tensor and timestamps is not None:
+            ts_list = list(timestamps)
+            if ts_list and isinstance(ts_list[0], (int, float, np.integer, np.floating)):
+                epoch_ts = np.asarray(ts_list, np.float64)
+            else:  # ISO strings, datetimes: to ns, then seconds, as the server reads them
+                epoch_ts = np.array([to_ns(t) for t in ts_list], np.int64) / 1e9
+        totals = {"accepted": 0, "late": 0, "dropped": 0, "chunks": 0}
+        url = self._url(target, "ingest")
+        async with Session(limit=self._connector_limit(), timeout=600) as session:
+            for i in range(0, len(values), self.batch_size):
+                chunk = values[i: i + self.batch_size]
+                rid = self._next_request_id()
+                deadline = Deadline.after_ms(self.deadline_ms) if self.deadline_ms is not None else None
+                if tensor:
+                    frames = [("rows", np.ascontiguousarray(chunk, dtype=np.float32))]
+                    if epoch_ts is not None:
+                        frames.append(("timestamps", epoch_ts[i: i + self.batch_size]))
+                    data = pack_frames(frames)
+                    content_type, wire = TENSOR_CONTENT_TYPE, "ingest-tensor"
+                else:
+                    payload: Dict[str, Any] = {
+                        "rows": [[None if v != v else float(v) for v in row] for row in chunk.tolist()]}
+                    if timestamps is not None:
+                        payload["timestamps"] = [t if isinstance(t, (int, float, str)) else str(t)
+                                                 for t in list(timestamps[i: i + self.batch_size])]
+                    data = json.dumps(payload).encode("utf-8")
+                    content_type, wire = "application/json", "ingest-json"
+                body = await fetch_json(
+                    session, url, method="POST", data=data,
+                    headers={"Content-Type": content_type, **self._trace_headers(rid)},
+                    retries=self.retries, backoff=self.backoff, retry_budget=self.retry_budget,
+                    deadline=deadline,
+                )
+                # its own cell: ingest bytes never mix into the scoring ones
+                self._note_wire(wire, len(data), len(chunk))
+                totals["chunks"] += 1
+                for key in ("accepted", "late", "dropped"):
+                    totals[key] += int(body.get(key, 0))
+                self._ingest_stats["rows"] += int(body.get("accepted", 0))
+                self._ingest_stats["chunks"] += 1
+        return totals

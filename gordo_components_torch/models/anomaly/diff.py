@@ -33,6 +33,7 @@ the target and ``model-input`` are the rows from ``offset`` on, as in the
 reference.
 """
 
+import copy
 import dataclasses
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -165,15 +166,39 @@ class DiffBasedAnomalyDetector(AnomalyDetectorBase):
         return names
 
     def _model_space(self, X: np.ndarray) -> np.ndarray:
-        """Raw values through the pipeline's pre-model transformers, so the
-        diff is computed where the model reconstructs."""
+        """Raw values through the pipeline's pre-model transformers (a
+        loaded detector: its entry's composed input affine), so the diff is
+        computed where the model reconstructs."""
+        if self._entry is not None:
+            return (_as_f32(X) - self._entry.in_shift) * self._entry.in_scale
         est = self.base_estimator
         if hasattr(est, "steps"):
             X = transform_through_steps(est, X)
         return np.asarray(X, dtype=np.float32)
 
     def _predict_model_space(self, X: np.ndarray) -> np.ndarray:
+        """The model's output for raw rows ``X``, in model space."""
+        if self.base_estimator is None:
+            return self._forward(_as_f32(X))[2].float().cpu().numpy()
         return np.asarray(self._final_estimator.predict(self._model_space(X)), np.float32)
+
+    def recalibrated(self, error_scaler: ScalerParams, feature_thresholds: np.ndarray, total_threshold: float,
+                     method: str) -> "DiffBasedAnomalyDetector":
+        """A copy that shares the weights and carries another error scaler
+        and thresholds (the streaming plane's recalibration); a loaded
+        detector's entry is replaced to match, so the bank and ``anomaly()``
+        score with the new calibration."""
+        det = copy.copy(self)
+        det.error_scaler_ = ScalerParams(*(np.asarray(a, np.float32) for a in error_scaler))
+        det.feature_thresholds_ = np.asarray(feature_thresholds)
+        det.total_threshold_ = float(total_threshold)
+        det.threshold_method_ = method
+        det._scorer = None
+        if self._entry is not None:
+            det._entry = dataclasses.replace(
+                self._entry, err_shift=det.error_scaler_.shift, err_scale=det.error_scaler_.scale,
+                thresholds=det._thresholds())
+        return det
 
     # ------------------------------------------------------------------ #
 

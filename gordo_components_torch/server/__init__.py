@@ -39,6 +39,15 @@ more workers are asked for (``workers``/``GORDO_SERVER_WORKERS``,
 loops, a Unix-socket listener and the shared-memory ring
 (``transport.py``), and ``app.transports`` names the local ones.
 
+The bank stores its weights in ``bank_dtype`` (``GORDO_BANK_DTYPE``:
+``float32``, ``bfloat16`` or ``int8``; ``server/bank.py``), kept in the
+app's ``bank_config`` so a ``/reload`` rebuilds at the same storage.
+With ``GORDO_STREAM=1`` the app builds the streaming plane (``stream``,
+``streaming/``: ``/ingest``, ``/drift``, ``/adapt`` and, with
+``GORDO_PUSH=1``, ``/results/stream``), whose loops run on threads of
+their own until :meth:`App.close`; with the default ``GORDO_STREAM=0``
+``stream`` is None and nothing of it is built.
+
 ``build_app`` arms the fault points that ``GORDO_FAULTS`` names
 (``resilience/faults.py``; the server's sites are ``model_io.load``,
 ``bank.finalize``, ``bank.score``, ``engine.queue``, ``bank.swap`` and
@@ -76,6 +85,7 @@ from gordo_components_torch.server.model_io import ModelCollection, scan_artifac
 from gordo_components_torch.server.swap import warmup_enabled
 from gordo_components_torch.server.views import GordoServer
 from gordo_components_torch.server.workers import ServerPool, resolve_workers
+from gordo_components_torch.streaming.adapt import StreamingPlane, stream_enabled
 
 
 class App:
@@ -152,6 +162,10 @@ class App:
                 # off the request path: the port answers while it runs
                 self._warmup = threading.Thread(target=bank.warmup, name="gordo-bank-warmup", daemon=True)
                 self._warmup.start()
+        # the streaming plane (GORDO_STREAM=1): none of it otherwise
+        self.stream: Optional[StreamingPlane] = StreamingPlane(self) if stream_enabled() else None
+        if self.stream is not None:
+            self.stream.start()
 
     def _start_history(self) -> None:
         """A baseline sample (rates start on the second), then a daemon
@@ -174,6 +188,8 @@ class App:
 
     def close(self) -> None:
         _remove_fault_listener(self._fault_listener)
+        if self.stream is not None:
+            self.stream.stop()
         if self.engine is not None:
             self.engine.stop()
         if self.slo is not None:
@@ -282,6 +298,7 @@ def build_app(
     bank_inflight: Optional[int] = None,
     arena_max_mb: Optional[float] = None,
     clock: Optional[Clock] = None,
+    bank_dtype: Optional[str] = None,
 ) -> App:
     """Load every artifact under ``model_dir`` on ``device`` (default the
     card; raises without CUDA unless ``"cpu"``), stack the models the bank
@@ -290,9 +307,12 @@ def build_app(
     to ``GORDO_QUARANTINE_THRESHOLD`` (3; 0 or less disables the breaker),
     and the requests' default deadline is ``GORDO_DEFAULT_DEADLINE_MS``.
     ``bank_inflight`` (``GORDO_BANK_INFLIGHT``) and ``arena_max_mb``
-    (``GORDO_ARENA_MAX_MB``) configure the bank's pipeline. ``clock`` is
-    the app's clock seam (default the real one, ``SYSTEM_CLOCK``)."""
+    (``GORDO_ARENA_MAX_MB``) configure the bank's pipeline, ``bank_dtype``
+    (``GORDO_BANK_DTYPE``, default ``"float32"``) its weights' storage.
+    ``clock`` is the app's clock seam (default the real one,
+    ``SYSTEM_CLOCK``)."""
     from gordo_components_torch.device import resolve_device
+    from gordo_components_torch.ops.quantize import normalize_bank_dtype
 
     device = resolve_device(device)
     if use_bank is None:
@@ -305,6 +325,9 @@ def build_app(
             raise ValueError(f"GORDO_QUARANTINE_THRESHOLD must be an integer, got {raw!r} "
                              "(consecutive scoring failures before eviction; <=0 disables)") from None
     deadline_ms = default_deadline_ms()
+    if bank_dtype is None:
+        bank_dtype = os.environ.get("GORDO_BANK_DTYPE", "float32")
+    bank_dtype = normalize_bank_dtype(bank_dtype)
     if clock is None:
         clock = SYSTEM_CLOCK
     faults.configure_from_env()  # GORDO_FAULTS
@@ -327,7 +350,8 @@ def build_app(
         # the registry, the ledger and heat ride in the bank's settings, so a
         # /reload's bank records into the same series and cells
         bank_config = {"max_rows_per_call": max_rows_per_call, "device": device, "registry": registry,
-                       "inflight": bank_inflight, "arena_max_mb": arena_max_mb, "ledger": ledger, "heat": heat}
+                       "inflight": bank_inflight, "arena_max_mb": arena_max_mb, "ledger": ledger, "heat": heat,
+                       "bank_dtype": bank_dtype}
         bank = ModelBank.from_models(collection.models, **bank_config) if use_bank else None
         engine_config = {"max_batch": bank_max_batch, "flush_ms": bank_flush_ms, "max_queue": bank_max_queue}
         app = App(collection, bank, bank_config, engine_config, registry, QuarantineSet(quarantine_threshold),

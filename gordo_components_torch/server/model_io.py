@@ -15,8 +15,11 @@ body (``utils/wire.py``). The per-model ``anomaly()`` returns the arrays
 themselves, so the port needs no counterpart of JAX's pandas bridge
 ``anomaly_frame_arrays``.
 
-Not in this slice: the mesh's ownership set (``acquire``/``release``) and
-the adaptation plane's ``publish``/``restore``.
+The streaming plane's adaptations replace models in memory
+(:meth:`ModelCollection.publish`) and roll back
+(:meth:`ModelCollection.restore`), as the JAX collection does.
+
+Not in this slice: the mesh's ownership set (``acquire``/``release``).
 """
 
 import json
@@ -170,6 +173,36 @@ class ModelCollection:
 
     def names(self) -> List[str]:
         return sorted(self.models)
+
+    def publish(self, updates: Dict[str, Any], note: Optional[Dict[str, Any]] = None) -> None:
+        """Publish in-memory replacements of models already in the
+        collection, all at once (the streaming plane's recalibration and
+        refit: no artifact is written). A replacement stands across
+        refreshes until its artifact's version changes. ``note`` is merged
+        into each replaced model's metadata under ``online-adaptation``
+        with its new total threshold and threshold method (JAX
+        ``model_io.py:388-423``)."""
+        unknown = [n for n in updates if n not in self.models]
+        if unknown:
+            raise KeyError(f"cannot publish unknown members: {sorted(unknown)}")
+        models, metadata = dict(self.models), dict(self.metadata)
+        for name, model in updates.items():
+            models[name] = model
+            if note is not None:
+                meta = dict(metadata.get(name, {}))
+                meta["online-adaptation"] = {
+                    **note,
+                    "total-anomaly-threshold": getattr(model, "total_threshold_", None),
+                    "threshold-method": getattr(model, "threshold_method_", None),
+                }
+                metadata[name] = meta
+        self._state = (models, metadata)  # one assignment publishes both
+
+    def restore(self, state: Tuple[Dict[str, Any], Dict[str, Dict]]) -> None:
+        """Go back to a :meth:`snapshot` taken before :meth:`publish` (a
+        failed adaptation's rollback); a published state is never changed,
+        so it is published as it is."""
+        self._state = state
 
     def refresh(self) -> Dict[str, Any]:
         """Rescan ``root``: ``{"added": [...], "updated": [...], "removed":

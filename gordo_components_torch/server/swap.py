@@ -18,7 +18,12 @@ go of it.
 
 The new bank is built with the app's metrics registry, so its bucket
 counters go on from the old bank's and its gauges read the new bank; the
-engine, which keeps its collector, is the same across the swap.
+engine, which keeps its collector, is the same across the swap. Building
+a bank replaces the registry's bank collectors (the pipeline's and the
+capacity's): :func:`snapshot_collectors` takes them before a build and
+:func:`restore_collectors` puts them back, so a build or flip that fails
+leaves the old generation's series as they were (the streaming plane's
+rollback, JAX ``placement/swap.py:77-100``).
 
 Not in this slice: the placement planner's member order and per-model row
 counts (heat, ``observability/heat.py``, is the load signal that survives
@@ -29,6 +34,7 @@ import logging
 import os
 import time
 from dataclasses import dataclass
+from typing import Any, Dict, Optional
 
 from gordo_components_torch.resilience.faults import faultpoint
 from gordo_components_torch.server.bank import ModelBank
@@ -38,6 +44,9 @@ logger = logging.getLogger(__name__)
 
 # a flip that fails leaves the old generation serving
 _FP_SWAP = faultpoint("bank.swap")
+
+# the registry collectors a bank generation owns (JAX _BANK_COLLECTOR_KEYS)
+BANK_COLLECTOR_KEYS = ("bank_pipeline", "bank_capacity", "bank_heat", "bank_cost")
 
 
 @dataclass
@@ -55,6 +64,23 @@ def warmup_enabled() -> bool:
     return os.environ.get("GORDO_SERVER_WARMUP", "1") != "0"
 
 
+def snapshot_collectors(registry) -> Optional[Dict[str, Any]]:
+    """The bank-owned collectors of ``registry``, taken before a new bank's
+    build overwrites them."""
+    if registry is None:
+        return None
+    return {key: registry.get_collector(key) for key in BANK_COLLECTOR_KEYS}
+
+
+def restore_collectors(registry, prev: Optional[Dict[str, Any]]) -> None:
+    """Put back the collectors :func:`snapshot_collectors` took."""
+    if registry is None or not prev:
+        return
+    for key, fn in prev.items():
+        if fn is not None:
+            registry.collector(fn, key=key)
+
+
 def build_bank(app) -> ModelBank:
     """The bank of the collection's current models with the app's bank
     settings, warmed unless ``GORDO_SERVER_WARMUP=0``; the old bank serves
@@ -70,11 +96,12 @@ def build_bank(app) -> ModelBank:
     return bank
 
 
-def swap_bank(app, new_bank: ModelBank) -> SwapResult:
+def swap_bank(app, new_bank: ModelBank, prev_collectors: Optional[Dict[str, Any]] = None) -> SwapResult:
     """Flip the app to ``new_bank``, its generation one above the old
     bank's; the caller holds ``app.reload_lock``. The engine starts here
     when the first bank with members arrives; if that fails, the old bank
-    and engine stay, and the app's event log gets ``bank.swap_failed``.
+    and engine stay, ``prev_collectors`` (from :func:`snapshot_collectors`)
+    are put back, and the app's event log gets ``bank.swap_failed``.
     Every flip emits one ``bank.swap``."""
     old_bank = app.bank
     events = getattr(app, "events", None)
@@ -94,6 +121,7 @@ def swap_bank(app, new_bank: ModelBank) -> SwapResult:
             app.engine = engine
         app.bank = new_bank
     except BaseException:
+        restore_collectors(getattr(app, "metrics", None), prev_collectors)
         logger.error("bank swap to generation %d failed; generation %d keeps serving", generation,
                      old_bank.generation, exc_info=True)
         if events is not None:

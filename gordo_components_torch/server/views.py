@@ -17,13 +17,31 @@ Counterpart of these routes of ``gordo_components_tpu/server/views.py``:
 - ``GET  /gordo/v0/<project>/heat`` (``?refresh=1``, ``?top=``)
 - ``GET  /gordo/v0/<project>/history`` (``?series=``, ``since``, ``until``, ``step``)
 - ``GET  /gordo/v0/<project>/events`` (``?since=``, ``since_wall``, ``type``, ``limit``)
+- ``GET  /gordo/v0/<project>/drift`` (``?refresh=1``)
 - ``POST /gordo/v0/<project>/quarantine/clear``
 - ``POST /gordo/v0/<project>/reload``
+- ``POST /gordo/v0/<project>/adapt``
 - ``GET  /gordo/v0/<project>/<target>/healthcheck``
 - ``GET  /gordo/v0/<project>/<target>/metadata``
 - ``GET  /gordo/v0/<project>/<target>/download-model``
 - ``POST /gordo/v0/<project>/<target>/prediction``
 - ``POST /gordo/v0/<project>/<target>/anomaly/prediction``
+- ``POST /gordo/v0/<project>/<target>/ingest``
+- ``GET  /gordo/v0/<project>/<target>/results/stream`` (``?subscriber=``, ``?timeout=``)
+
+The streaming routes (``streaming/``, ``GORDO_STREAM=1``) answer as the JAX
+server's: ``/ingest`` takes a JSON body (``rows`` with ``null`` cells for
+dropout, ``timestamps`` in epoch seconds or ISO 8601, which the port reads
+with ``dataset/times.to_ns`` where the JAX server asks pandas) or a tensor
+body (a float32 ``rows`` frame, optional float64 ``timestamps``);
+``/drift`` is ``{"enabled": false}`` without the plane; ``/adapt``
+recalibrates or refits (500 with ``rolled_back`` when it fails); the
+long poll of ``/results/stream`` waits on its handler thread for the push
+broker (429 with ``Retry-After`` when the subscriber table is full).
+Without the plane ``/ingest``, ``/adapt`` and ``/results/stream`` answer
+404 naming ``GORDO_STREAM=0``, and without the broker
+``/results/stream`` answers 404 naming ``GORDO_PUSH=0``. Ingest POSTs
+count in the wire's encodings as scoring POSTs do.
 
 Bodies match the JAX server's JSON. A scoring POST is JSON, a tensor
 body when its content type contains ``application/x-gordo-tensor``, or
@@ -99,6 +117,7 @@ import gzip
 import itertools
 import json
 import logging
+import math
 import os
 import re
 import socket
@@ -108,9 +127,12 @@ import struct
 import sys
 import threading
 import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, NamedTuple, Optional
 from urllib.parse import parse_qs
+
+import numpy as np
 
 from gordo_components_torch import __version__, serializer
 from gordo_components_torch.observability.metrics import _fmt
@@ -137,7 +159,14 @@ from gordo_components_torch.server.utils import (
     prediction_body,
 )
 from gordo_components_torch.utils.digest import metadata_digest
-from gordo_components_torch.utils.wire import TENSOR_CONTENT_TYPE, encoding_of
+from gordo_components_torch.dataset.times import to_ns
+from gordo_components_torch.utils.wire import (
+    TENSOR_CONTENT_TYPE,
+    WireFormatError,
+    encoding_of,
+    rows_as_f32,
+    unpack_frames,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -164,13 +193,17 @@ _ROUTES = [
     ("GET", re.compile(_P + r"/heat$"), "heat_view"),
     ("GET", re.compile(_P + r"/history$"), "history_view"),
     ("GET", re.compile(_P + r"/events$"), "events_view"),
+    ("GET", re.compile(_P + r"/drift$"), "drift_view"),
     ("POST", re.compile(_P + r"/quarantine/clear$"), "quarantine_clear"),
     ("POST", re.compile(_P + r"/reload$"), "reload"),
+    ("POST", re.compile(_P + r"/adapt$"), "adapt"),
     ("GET", re.compile(_T + r"/healthcheck$"), "healthcheck"),
     ("GET", re.compile(_T + r"/metadata$"), "metadata"),
     ("GET", re.compile(_T + r"/download-model$"), "download_model"),
     ("POST", re.compile(_T + r"/prediction$"), "prediction"),
     ("POST", re.compile(_T + r"/anomaly/prediction$"), "anomaly_prediction"),
+    ("POST", re.compile(_T + r"/ingest$"), "ingest"),
+    ("GET", re.compile(_T + r"/results/stream$"), "results_stream"),
 ]
 
 
@@ -184,6 +217,8 @@ def _kind(pattern: "re.Pattern") -> str:
 
 _KINDS = {handler: _kind(pattern) for _method, pattern, handler in _ROUTES}
 _SCORING = ("prediction", "anomaly")
+# POSTs whose bodies count in the wire's encodings (JAX middleware)
+_WIRE = _SCORING + ("ingest",)
 _TRUE = ("1", "true", "yes")
 ACCEPTS = ["application/json", TENSOR_CONTENT_TYPE, "application/x-parquet"]
 METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
@@ -288,7 +323,7 @@ class GordoHandler(BaseHTTPRequestHandler):
             stats["requests"][kind] = stats["requests"].get(kind, 0) + 1
             if worker is not None:
                 stats["workers"][worker] = stats["workers"].get(worker, 0) + 1
-            if method == "POST" and kind in _SCORING:
+            if method == "POST" and kind in _WIRE:
                 enc = encoding_of(self.headers.get("Content-Type"))
                 wire = stats["wire"]
                 wire["requests"][enc] = wire["requests"].get(enc, 0) + 1
@@ -542,6 +577,7 @@ class GordoHandler(BaseHTTPRequestHandler):
         if bank is not None:
             body["bank_models"] = len(bank)
             body["bank_pipeline"] = bank.pipeline_stats()
+            body["bank_capacity"] = bank.capacity_stats()
         body["quarantine"] = app.quarantine.snapshot()
         if app.ledger is not None:
             body["goodput"] = app.ledger.snapshot()
@@ -733,6 +769,136 @@ class GordoHandler(BaseHTTPRequestHandler):
         if swap is not None:
             body["swap"] = swap
         return 200, body
+
+    # ------------------------- the streaming plane ------------------------- #
+
+    def _stream_plane(self):
+        """The streaming plane, or a 404 naming the knob (a plain 404
+        would read as a mistyped URL)."""
+        plane = self.app.stream
+        if plane is None:
+            raise HTTPError(404, "streaming plane not enabled (GORDO_STREAM=0)")
+        return plane
+
+    def drift_view(self, project: str):
+        """Per-member drift over the window buffers and the drifted list;
+        ``?refresh=1`` runs a sweep first (device work, on this thread)."""
+        plane = self.app.stream
+        if plane is None:
+            return 200, {"enabled": False}
+        if self.query.get("refresh", [""])[-1].lower() in _TRUE:
+            plane.evaluate()
+        return 200, {"enabled": True, **plane.drift_view()}
+
+    def ingest(self, project: str, target: str):
+        """Append rows to the target's window buffer: JSON ``{"rows":
+        [[...], ...], "timestamps": [...]}`` (``null`` cells are dropout;
+        timestamps epoch seconds or ISO 8601, absent = arrived now on the
+        plane's clock) or a tensor body (float32 ``rows``, optional float64
+        ``timestamps``). The answer is the buffer's accounting."""
+        plane = self._stream_plane()
+        self._entry(target)  # 404 for an unknown target, as scoring
+        raw = self._read_body()
+        if encoding_of(self.headers.get("Content-Type")) == "tensor":
+            try:
+                frames = unpack_frames(raw)
+                if "rows" not in frames:
+                    raise WireFormatError(f"tensor ingest body must carry a 'rows' frame (got {sorted(frames)})")
+                values = rows_as_f32(frames["rows"], "rows")
+                ts = frames.get("timestamps")
+                if ts is None:
+                    event_ts = np.full((len(values),), plane.clock.time())
+                else:
+                    event_ts = np.asarray(ts, np.float64).reshape(-1)
+                    if len(event_ts) != len(values):
+                        raise WireFormatError(f"{len(event_ts)} timestamps for {len(values)} rows")
+                counts = plane.ingest(target, event_ts, values)
+            except (WireFormatError, ValueError) as exc:
+                raise HTTPError(400, str(exc)) from None
+            return 200, {"target": target, **counts}
+        try:
+            body = json.loads(raw)
+        except ValueError:
+            raise HTTPError(400, "expected a JSON body with rows") from None
+        rows = body.get("rows") if isinstance(body, dict) else None
+        if not isinstance(rows, list) or not rows:
+            raise HTTPError(400, "rows must be a non-empty list of lists")
+        try:
+            values = np.asarray([[np.nan if v is None else v for v in r] for r in rows], dtype=np.float32)
+            raw_ts = body.get("timestamps")
+            if raw_ts is None:
+                event_ts = np.full((len(values),), plane.clock.time())
+            elif not isinstance(raw_ts, list):
+                raise ValueError("timestamps must be a list")
+            elif len(raw_ts) != len(values):
+                raise ValueError(f"{len(raw_ts)} timestamps for {len(values)} rows")
+            elif raw_ts and isinstance(raw_ts[0], str):
+                event_ts = np.array([to_ns(t) for t in raw_ts], np.int64) / 1e9
+            else:
+                event_ts = np.asarray(raw_ts, np.float64)
+            counts = plane.ingest(target, event_ts, values)
+        except ValueError as exc:
+            raise HTTPError(400, str(exc)) from None
+        return 200, {"target": target, **counts}
+
+    def results_stream(self, project: str, target: str):
+        """The push long poll: the target's scored windows since this
+        subscriber's last poll, waiting up to ``?timeout=`` (10 s, at most
+        60) for the first; ``?subscriber=`` keeps one bounded queue across
+        polls (absent: an id is minted and echoed). ``dropped`` counts what
+        the subscriber lost to its bounded queue; 429 past
+        ``GORDO_PUSH_SUBSCRIBERS_MAX`` subscribers."""
+        plane = self._stream_plane()
+        broker = plane.broker
+        if broker is None:
+            raise HTTPError(404, "push mode not enabled (GORDO_PUSH=0)")
+        self._entry(target)
+        subscriber = self.query.get("subscriber", [""])[-1][:128] or uuid.uuid4().hex[:12]
+        try:
+            timeout = float(self.query.get("timeout", ["10"])[-1])
+        except ValueError:
+            raise HTTPError(400, "timeout must be a number") from None
+        timeout = min(max(timeout, 0.0), 60.0)
+        if not broker.subscribe(subscriber, target):
+            # a full table drains on the poll timeout's cadence: a slot
+            # frees within one long poll, which is the honest retry hint
+            retry_s = max(timeout, 1.0)
+            raise HTTPError(429, "push subscriber table full (GORDO_PUSH_SUBSCRIBERS_MAX)",
+                            headers={"Retry-After": str(max(1, math.ceil(retry_s)))},
+                            reason="push_subscribers_full", retry_after_s=round(retry_s, 2))
+        results, dropped = broker.poll(subscriber, target, timeout)
+        return 200, {"subscriber": subscriber, "target": target, "results": results, "dropped": dropped}
+
+    def adapt(self, project: str):
+        """Recalibrate (default) or refit the drifted members (or the body's
+        ``targets``) and land them as a new bank generation. Body
+        (optional): ``{"mode": "recalibrate"|"refit", "targets": [...]}``.
+        A failed adaptation rolls back: 500 with ``rolled_back``."""
+        plane = self._stream_plane()
+        mode, targets = "recalibrate", None
+        raw = self._read_body()
+        if raw:
+            try:
+                body = json.loads(raw)
+            except ValueError:
+                raise HTTPError(400, "expected a JSON body") from None
+            if isinstance(body, dict):
+                mode = body.get("mode", "recalibrate")
+                targets = body.get("targets")
+            elif body:
+                raise HTTPError(400, "expected a JSON object body")
+        if mode not in ("recalibrate", "refit"):
+            raise HTTPError(400, f"mode must be recalibrate|refit, got {mode!r}")
+        if targets is not None and not isinstance(targets, list):
+            raise HTTPError(400, "targets must be a list")
+        try:
+            return 200, plane.adapt(mode, targets=targets)
+        except Exception as exc:
+            # the rollback already ran: the serving generation and the
+            # published models are untouched
+            logger.exception("adaptation failed (rolled back)")
+            return 500, {"error": f"{type(exc).__name__}: {exc}", "rolled_back": True,
+                         "generation": int(self.app.generation() or 0), "request_id": self.request_id}
 
     def healthcheck(self, project: str, target: str):
         self._entry(target)

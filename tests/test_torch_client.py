@@ -372,7 +372,9 @@ def test_predict_forwards_each_ok_target_and_ingest_waits_for_a8(served, tmp_pat
     assert [r.ok for r in results] == [True, False]
     assert results[1].error_messages[0].startswith("dataset: HTTP 404 from ")
     assert sorted(os.listdir(tmp_path)) == [f"{DENSE[0]}.parquet"]
-    with pytest.raises(NotImplementedError, match="A8"):
+    # A8's /ingest is ported: this server runs without its streaming plane
+    # (GORDO_STREAM=0), so it refuses the rows and the error names the knob
+    with pytest.raises(ValueError, match=r"HTTP 404 .*GORDO_STREAM=0"):
         client.ingest(DENSE[0], np.zeros((3, 10)))
 
 

@@ -508,8 +508,18 @@ def test_replicas_from_watchman_matches_jax(snapshot):
 
 
 def test_ingest_is_refused_naming_a8():
-    with pytest.raises(NotImplementedError, match="A8"):
-        PortClient("p").ingest("m1", [[1.0]])
+    """A8's ``/ingest`` is ported: a server without its streaming plane
+    refuses the forwarder's chunk, and the error names the knob; the JAX
+    client's forwarder fails on the same answer."""
+    refused = {"error": "streaming plane not enabled (GORDO_STREAM=0)"}
+    for cls, match in ((PortClient, r"HTTP 404 .*GORDO_STREAM=0"), (JaxClient, "404|GORDO_STREAM=0")):
+        stub = Stub({"/gordo/v0/p/m1/ingest": [answer(404, refused)]})
+        try:
+            with pytest.raises(Exception, match=match):
+                cls("p", base_url=stub.url, retries=1).ingest("m1", [[1.0]])
+        finally:
+            stub.close()
+        assert [r[:2] for r in stub.requests] == [("POST", "/gordo/v0/p/m1/ingest")]
 
 
 def test_fetch_routing_etag_force_and_throttle_match_jax():

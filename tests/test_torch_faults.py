@@ -53,10 +53,10 @@ from gordo_components_tpu.server import build_app as jax_build_app
 
 REGISTRIES = {"jax": jax_resilience, "port": port_resilience}
 # the JAX package's sites that wait for the port of their modules
-WAITING = {"bank.quantize", "stream.ingest", "stream.refit", "watchman.probe", "watchman.scrape",
-           "watchman.snapshot", "workflow.canary"}
-PORT_SITES = {"bank.finalize", "bank.score", "bank.swap", "checkpoint.read", "checkpoint.write", "engine.queue",
-              "fleet_build.group", "model_io.load", "server.connection"}
+WAITING = {"watchman.probe", "watchman.scrape", "watchman.snapshot", "workflow.canary"}
+PORT_SITES = {"bank.finalize", "bank.quantize", "bank.score", "bank.swap", "checkpoint.read", "checkpoint.write",
+              "engine.queue", "fleet_build.group", "model_io.load", "server.connection", "stream.ingest",
+              "stream.refit"}
 _SPEC = importlib.util.spec_from_file_location(
     "jax_artifact_to_torch",
     os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools", "jax_artifact_to_torch.py"))

@@ -93,7 +93,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "dataset.data_provider._parquet", "dataset.data_provider._snappy",
                 "dataset.data_provider._thrift", "models.compose", "utils.wire", "utils.shm_ring",
                 "server.transport", "server.workers", "qos.classify", "client", "client.client",
-                "client.io", "client.http", "client.forwarders", "resilience.retry_budget"):
+                "client.io", "client.http", "client.forwarders", "resilience.retry_budget",
+                "ops.quantize", "streaming", "streaming.ingest", "streaming.drift", "streaming.push",
+                "streaming.adapt", "dataset.data_provider.streaming", "client.subscribe"):
         assert f"gordo_components_torch.{mod}" in report["modules"]
 
 
