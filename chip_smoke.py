@@ -66,9 +66,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             of the bench's fleet (1,440 rows x 10 tags, float32): a warm
             1-epoch fit, then the timed fit (models/hour, fit and epoch
             seconds, the loss falling from epoch 1 to 5); then the single
-            build's detector fit of that estimator, whose predict runs K3 (its
-            launches); a fit with a validation split of 0.2 and early
-            stopping, whose K3 launches must be exactly its validation
+            build's detector fit of that estimator (SEQ_CHECK_EPOCHS), whose
+            predict runs K3 (its launches); a fit with a validation split of
+            0.2 and early stopping (SEQ_CHECK_EPOCHS), whose K3 launches must be exactly its validation
             passes' (epochs run x validation batches x layers: the training
             steps launch none); one training step's device operations and
             host launch time, and the device's busy share of one epoch
@@ -153,7 +153,7 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             its bf16 twin: four buckets, every bf16 twin's scores equal to
             its ``anomaly()`` on the card within TRAIN_RTOL/TRAIN_ATOL and
             apart from its fp32 twin's;
-9. build    ``build_fleet`` on the card: 64 RandomDataset machines with the
+9. build    ``build_fleet`` on the card: 32 RandomDataset machines with the
             default model config (10 tags, 7 days at 10 min), one bespoke
             machine (a bare AutoEncoder: the single-build path), the
             ``turbine-lstm`` machine of examples/fleet.yaml (2 tags, lookback
@@ -186,12 +186,12 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             counts are theirs, summed (build-fleet's LSTM error passes launch
             K3; run-server's buckets launch K2 for every POST, and K3), not
             this process's ``anomaly()`` checks;
-11. cv      ``build_fleet`` of 64 dense machines (the default model config)
-            and 8 ``LSTMAutoEncoder`` machines (``lstm_hourglass``, lookback
+11. cv      ``build_fleet`` of 32 dense machines (the default model config)
+            and 4 ``LSTMAutoEncoder`` machines (``lstm_hourglass``, lookback
             32), each 10 tags x 1,008 rows with 3 cross-validation folds, and
             one ``cross_val_only`` machine: every gang machine carries 3 finite
             folds of all four metrics and ``fleet_cv``; ``cv_fold_members`` is
-            192 and 24; the cross_val_only machine is untrained, unregistered
+            96 and 12; the cross_val_only machine is untrained, unregistered
             and not served; K3 launches in the fold scoring; the first machine
             of each family cross-validated alone (``cross_val_only``: the same
             folds): every fold's four metrics within TRAIN_RTOL/TRAIN_ATOL
@@ -416,7 +416,7 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             one, bitwise where two uninterrupted fits are, else each array
             within TRAIN_RTOL/TRAIN_ATOL; (b) steady epoch seconds with
             ``checkpoint_every=1`` against none (order none, every, every,
-            none) at 1,024 dense and 256 LSTM members, the ``checkpoint``
+            none) at 512 dense and 128 LSTM members, the ``checkpoint``
             spans' seconds, each piece of a span (generator states, the
             wait for the writer, the commit, the copy to the host, the
             histories' copy) and the writer's, and a save's bytes; (c) ``build-fleet
@@ -439,10 +439,34 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             segments, so the phase's launches are the fits', builds' and
             servers' alone, and the per-model POSTs' own K1 must cover the
             members sent per model;
+    quantized  the low-precision bank (``GORDO_BANK_DTYPE``): a
+            10,000-member ``feedforward_hourglass`` bank, a 1,000-member
+            ``lstm_hourglass`` bank (lookback 32) and the same LSTM bank
+            computing in bfloat16 (K3-bf16), 10 tags, each at float32,
+            bfloat16 and int8 storage (the bf16-compute one at float32 and
+            int8), driven by 64 clients x 4 requests through the engine
+            (``max_batch`` 64): stored and float32 bytes, capacity ratio,
+            members a GiB, ``memory_allocated`` after the build, p50, p99,
+            rows/s, launches, and every array within rtol 0.02 / atol 0.05
+            of the float32-storage bank's on the same requests; no
+            quantization may fall back;
+    stream  the streaming plane: 16 dense and 4 ``lstm_hourglass``
+            detectors (10 tags) fitted on the card on
+            ``SimulatedLiveProvider``'s healthy rows and a PCA detector (per
+            model, K1), served with ``GORDO_STREAM=1``, ``GORDO_PUSH=1`` and
+            ``GORDO_BANK_DTYPE=int8``; windows over JSON, the tensor wire
+            and ``Client.ingest``; ``/drift`` flags nothing, then exactly
+            the 4 members whose windows carry a mean shift; ``/adapt``
+            recalibrates and then refits them, each under a concurrent
+            scoring loop (a new generation each, no answer but 200); two
+            ``PushSubscriber`` loops receive their scored windows; ingest
+            rows/s, the sweeps' seconds, the adaptations' walls and
+            ``pause_ms``, launches;
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
             bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
-            definitions, observe, pipeline, qos, wire, client, resilience), each reset just
+            definitions, observe, pipeline, qos, wire, client, resilience,
+            quantized, stream), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -453,6 +477,7 @@ limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
 CUDA. Weights and data are random, made from fixed seeds.
 """
 
+import asyncio
 import contextlib
 import ctypes
 import dataclasses
@@ -499,7 +524,7 @@ from gordo_components_torch.client import Client
 from gordo_components_torch.convert import entry_from_numpy, lstm_to_flax, params_to_flax
 from gordo_components_torch.dataset import get_dataset
 from gordo_components_torch.dataset.data_provider._parquet import read_parquet, read_parquet_bytes
-from gordo_components_torch.dataset.times import isoformat
+from gordo_components_torch.dataset.times import isoformat, to_ns
 from gordo_components_torch.models import (
     AutoEncoder,
     ConvAutoEncoder,
@@ -531,7 +556,8 @@ CLI_TIMEOUT_S = 600  # the deadline of each CLI subprocess
 CLI_DEVICE = "cuda"
 # the cv phase: dense and LSTM machines of the reference's widths, each
 # cross-validated over 3 folds in its gang
-CV_MEMBERS = dict(dense=64, lstm=8)
+CV_MEMBERS = dict(dense=32, lstm=4)  # cut from 64 and 8 (the smoke's wall)
+CV_LSTM_EPOCHS = 3  # the LSTM machines' epochs, cut from the estimator's 10 (the smoke's wall)
 CV_EVALUATION = {"cross_validation": True, "n_splits": 3}
 # the reference bench's fleet (bench.py bench_fleet; BASELINE.json config 3)
 FLEET_SHAPE = dict(n_models=1024, rows=1440, n_features=10)
@@ -563,7 +589,8 @@ LOOKBACK = 32
 # 5 epochs; as a fleet at the bench's fleet width
 SEQ_CONFIG = dict(kind="lstm_hourglass", lookback_window=LOOKBACK, batch_size=128)
 SEQ_EPOCHS = 5
-SEQ_FLEET_MEMBERS = 1024
+SEQ_CHECK_EPOCHS = 2  # seq_train's detector and validated fits (their K3 checks), cut from 5
+SEQ_FLEET_MEMBERS = 512  # cut from 1,024 (the smoke's wall)
 QUANTILE_BINS = 8192  # the sequence error pass's histogram bins
 # (S, B, M, H) of the LSTM bank's full batch: 32 steps, 97 windows of a
 # 128-row request, 64 slots, the widest hourglass layer; then ragged shapes
@@ -1979,7 +2006,7 @@ def seq_train_phase(card: str):
     k3_before = lstm_launches()
     t0 = time.perf_counter()
     det = DiffBasedAnomalyDetector(base_estimator=Pipeline([
-        ("scale", MinMaxScaler()), ("model", LSTMAutoEncoder(epochs=SEQ_EPOCHS, **SEQ_CONFIG))])).fit(X)
+        ("scale", MinMaxScaler()), ("model", LSTMAutoEncoder(epochs=SEQ_CHECK_EPOCHS, **SEQ_CONFIG))])).fit(X)
     det_wall = time.perf_counter() - t0
     k3_fit = lstm_launches() - k3_before
     if k3_fit <= 0:
@@ -1999,7 +2026,7 @@ def seq_train_phase(card: str):
     # one of it (epochs run x validation batches x layers) and the training
     # steps launch none
     k3_before = lstm_launches()
-    val_est = LSTMAutoEncoder(epochs=SEQ_EPOCHS, validation_split=0.2, early_stopping_patience=2,
+    val_est = LSTMAutoEncoder(epochs=SEQ_CHECK_EPOCHS, validation_split=0.2, early_stopping_patience=2,
                               **SEQ_CONFIG).fit(X)
     k3_val = lstm_launches() - k3_before
     val_loss = val_est.history["val_loss"]
@@ -2495,11 +2522,14 @@ def dataset(name, tags=10):
             "tag_list": [f"{name}-tag-{j}" for j in range(tags)]}
 
 
+BUILD_MACHINES = 32  # RandomDataset machines of the build phase, cut from 64 (the smoke's wall)
+
+
 def build_phase():
     shutil.rmtree(FLEET_DIR, ignore_errors=True)
     out_dir, reg_dir = os.path.join(FLEET_DIR, "models"), os.path.join(FLEET_DIR, "register")
 
-    machines = [Machine(name=f"fleet-{i:03d}", dataset=dataset(f"fleet-{i:03d}")) for i in range(64)]
+    machines = [Machine(name=f"fleet-{i:03d}", dataset=dataset(f"fleet-{i:03d}")) for i in range(BUILD_MACHINES)]
     # a bare AutoEncoder (no scaler step) is not fleetable: the single-build path
     machines.append(Machine(name="bespoke", dataset=dataset("bespoke"), model={
         "gordo_components_torch.models.DiffBasedAnomalyDetector": {"base_estimator": {
@@ -2856,14 +2886,15 @@ def cv_machines():
     ev = dict(CV_EVALUATION)
     dense = [Machine(name=f"cvd-{i:03d}", dataset=dataset(f"cvd-{i:03d}"), evaluation=dict(ev))
              for i in range(CV_MEMBERS["dense"])]
-    lstm_model = detector_pipeline("LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=LOOKBACK)
+    lstm_model = detector_pipeline("LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=LOOKBACK,
+                                   epochs=CV_LSTM_EPOCHS)
     lstm = [Machine(name=f"cvl-{i}", dataset=dataset(f"cvl-{i}"), model=lstm_model, evaluation=dict(ev))
             for i in range(CV_MEMBERS["lstm"])]
     return dense, lstm
 
 
 def cv_phase(card: str):
-    """``build_fleet`` of 64 dense and 8 LSTM machines, each cross-validated
+    """``build_fleet`` of 32 dense and 4 LSTM machines, each cross-validated
     in its gang, and one ``cross_val_only`` machine; then the first machine
     of each family single-built, its folds against the gang's."""
     shutil.rmtree(CV_DIR, ignore_errors=True)
@@ -3873,7 +3904,7 @@ def observe_gzip(base: str) -> dict:
     return {"digest_bytes": len(plain[2]), "digest_gzip_bytes": len(packed[2])}
 
 
-OBSERVE_COST_ROUNDS = 5  # rounds of (with, without, without, with)
+OBSERVE_COST_ROUNDS = 3  # rounds of (with, without, without, with); cut from 5
 
 
 def instrumentation_cost(rng) -> dict:
@@ -3977,7 +4008,7 @@ PIPELINE_BATCHES = 200  # back-to-back mixed batches at each window
 PIPELINE_REQUESTS = 64  # a batch
 PIPELINE_ROWS = (40, 400)  # a request's rows, drawn from a seed
 PIPELINE_WINDOWS = (1, 2, 4)  # GORDO_BANK_INFLIGHT
-PIPELINE_ROUNDS = 5  # rounds of (a, b, b, a): medians of 10 runs a side
+PIPELINE_ROUNDS = 3  # rounds of (a, b, b, a): medians of 6 runs a side; cut from 5
 PIPELINE_LOOP = dict(clients=64, requests=4, rows=128)  # the window-1/2 loop
 PLANES_LOOP = dict(clients=16, requests=4, rows=64)  # the planes' loop, over HTTP
 PLANES_OFF = {"GORDO_TRACE_SAMPLE": "0", "GORDO_SLO": "0", "GORDO_COST": "0"}
@@ -4314,7 +4345,7 @@ QOS_FLOOD_FAMILIES = ("dense", "lstm", "conv", "dense_bf16")
 QOS_FLOOD_MEMBERS = 1_000  # a family
 QOS_FLOOD = {"interactive": 64, "batch": 64, "best_effort": 512}  # requests a class, all at once
 QOS_FLOOD_ROWS = 64
-QOS_RUNS = 5  # flood and no flood, in turns after one untimed run each
+QOS_RUNS = 3  # flood and no flood, in turns after one untimed run each; cut from 5
 QOS_RELOADS = 5  # warm and cold reloads, in turns
 QOS_TENANT = "smoke-tenant"
 QOS_ENV = {"GORDO_QOS_TENANTS": json.dumps({QOS_TENANT: {"rate": 5.0, "burst": 5}}),
@@ -5402,11 +5433,12 @@ RES_DENSE = dict(kind="feedforward_hourglass", epochs=6, batch_size=128, validat
 RES_DENSE_MEMBERS = 256
 RES_LSTM = dict(model_type="LSTMAutoEncoder", epochs=4, **SEQ_CONFIG)
 RES_LSTM_MEMBERS = 16
-RES_COST_LSTM_MEMBERS = 256
+RES_COST_DENSE_MEMBERS = 512  # the save legs' dense fleet, cut from 1,024
+RES_COST_LSTM_MEMBERS = 128  # cut from 256
 RES_COST_LSTM_EPOCHS = 3
 RES_KILL_EPOCH = 2  # the CLI build is SIGKILLed once its heartbeat is training at this epoch or later
-RES_GANG = dict(lstm=4, dense=8, lstm_epochs=5, dense_epochs=4)
-RES_COST_ROUNDS = 5  # interleaved score_many rounds (real, stub, stub, real)
+RES_GANG = dict(lstm=4, dense=8, lstm_epochs=4, dense_epochs=4)  # lstm_epochs cut from 5
+RES_COST_ROUNDS = 3  # interleaved score_many rounds (real, stub, stub, real); cut from 5
 RES_COST_CALLS = 50  # score_many calls a round
 
 
@@ -5529,7 +5561,8 @@ def resilience_cost(total: dict) -> dict:
 
     out = {}
     for fam, members, config in (
-            ("dense", synth_fleet(**FLEET_SHAPE), FLEET_CONFIG),
+            ("dense", synth_fleet(RES_COST_DENSE_MEMBERS, FLEET_SHAPE["rows"], FLEET_SHAPE["n_features"]),
+             FLEET_CONFIG),
             ("lstm", synth_fleet(RES_COST_LSTM_MEMBERS, FLEET_SHAPE["rows"], FLEET_SHAPE["n_features"]),
              dict(model_type="LSTMAutoEncoder", epochs=RES_COST_LSTM_EPOCHS, **SEQ_CONFIG))):
         steady = {"none": [], "every": []}
@@ -5885,6 +5918,344 @@ def resilience_phase(card: str):
     return {k: here[k] + sum(c.get(k, 0) for c in runs.values()) for k in here}
 
 
+
+# ------------------------------------------------------------------ #
+# phases: the low-precision bank and the streaming plane
+# ------------------------------------------------------------------ #
+
+QUANT_DTYPES = ("float32", "bfloat16", "int8")
+QUANT_FAMILIES = {"dense": 10_000, "lstm": 1_000, "lstm_bf16": 1_000}  # members a bank
+QUANT_RTOL, QUANT_ATOL = 0.02, 0.05  # tests/test_bank_quantized.py's band against the fp32 bank
+QUANT_LOOP = dict(clients=64, requests=4)  # the bank phase's closed loop, max_batch 64
+
+
+def quantized_entries(family: str):
+    rng = np.random.default_rng({"dense": 21, "lstm": 22, "lstm_bf16": 23}[family])
+    n = QUANT_FAMILIES[family]
+    if family == "dense":
+        return [random_entry(f"q{i:05d}", 10, rng) for i in range(n)]
+    entries = [random_lstm_entry(f"ql{i:05d}", "LSTMAutoEncoder", rng) for i in range(n)]
+    if family == "lstm_bf16":
+        entries = [dataclasses.replace(e, compute_dtype=BF16) for e in entries]
+    return entries
+
+
+def quantized_bank(family: str, entries, bank_dtype: str, names, X):
+    """Build ``entries`` at ``bank_dtype`` storage and drive the closed loop
+    through the engine: (readings, {(c, r): result})."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bank = ModelBank.from_entries(entries, registry=False, bank_dtype=bank_dtype)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mem = torch.cuda.memory_allocated()
+    cap = bank.capacity_stats()
+    if cap["quantize_fallbacks"]:
+        raise AssertionError(f"quantized {family} {bank_dtype}: fallbacks {cap['quantize_fallbacks']}")
+    want = {"float32": "bfloat16" if family == "lstm_bf16" else "float32"}.get(bank_dtype, bank_dtype)
+    if set(cap["weight_bytes_by_dtype"]) != {want}:
+        raise AssertionError(f"quantized {family} {bank_dtype}: stored as {cap['weight_bytes_by_dtype']}")
+    gc.collect()
+    engine = BatchingEngine(bank, max_batch=64, flush_ms=2.0)
+    engine.start()
+    try:
+        engine.score_blocking(names[0][0], X[0, 0])  # the allocator's warm-up
+        before = dict(engine.stats)
+        launches_before = dict(score.launch_counts, **seq_scan.launch_counts)
+        lat, results, wall = closed_loop(engine, names, X, f"quantized {family} {bank_dtype}")
+        after = dict(score.launch_counts, **seq_scan.launch_counts)
+        batches = max(engine.stats["batches"] - before["batches"], 1)
+    finally:
+        engine.stop()
+    del bank, engine
+    lat_ms = np.asarray(lat) * 1e3
+    n_out = X.shape[2] - entries[0].offset
+    launches = {k: after[k] - launches_before[k] for k in after}
+    return {
+        "build_s": round(build_s, 3), "memory_allocated": mem, "memory_allocated_delta": mem - mem0,
+        "weight_bytes": cap["weight_bytes"], "fp32_bytes": cap["fp32_bytes"],
+        "capacity_ratio": cap["capacity_ratio"], "models_per_gb": cap["models_per_gb"],
+        "bytes_per_member": cap["bytes_per_member"],
+        "p50_ms": round(float(np.percentile(lat_ms, 50)), 4), "p99_ms": round(float(np.percentile(lat_ms, 99)), 4),
+        "rows_per_s": round(len(results) * n_out / wall, 1), "batches": batches,
+        "launches": {"K2": launches["banked_anomaly_score"], "K3": launches["lstm_layer"],
+                     "K3_bf16": launches["lstm_layer_bf16"]},
+    }, results
+
+
+def quantized_phase(card: str):
+    """The low-precision bank at config 1's and config 2's widths: a
+    10,000-member ``feedforward_hourglass`` bank, a 1,000-member
+    ``lstm_hourglass`` bank (lookback 32) and the same LSTM bank computing
+    in bfloat16, each at float32, bfloat16 and int8 storage, 10 tags, with
+    the bank phase's closed loop (64 clients x 4 requests, ``max_batch``
+    64). Each bank's bytes, capacity ratio, members a GiB,
+    ``memory_allocated`` after its build, p50, p99 and rows/s, launches,
+    and its largest deviation from the float32-storage bank on the same
+    requests (within QUANT_RTOL/QUANT_ATOL, every array); no quantization
+    may fall back. The bf16-compute bank at int8 storage puts K3-bf16 on
+    the path, dequantized to float32 and then to bfloat16."""
+    n_clients, n_requests = QUANT_LOOP["clients"], QUANT_LOOP["requests"]
+    summary = {}
+    for family in QUANT_FAMILIES:
+        entries = quantized_entries(family)
+        rng = np.random.default_rng(31)
+        n_rows = 64 if family == "dense" else 128
+        X = rng.random((n_clients, n_requests, n_rows, 10)).astype(np.float32)
+        names = [[entries[int(j)].name for j in rng.integers(0, len(entries), n_requests)]
+                 for _ in range(n_clients)]
+        base = None
+        dtypes = ("float32", "int8") if family == "lstm_bf16" else QUANT_DTYPES
+        for bank_dtype in dtypes:
+            readings, results = quantized_bank(family, entries, bank_dtype, names, X)
+            for res in results.values():
+                if not all(np.all(np.isfinite(a)) for a in res.to_arrays().values()):
+                    raise AssertionError(f"quantized {family} {bank_dtype}: non-finite scores")
+            if base is None:
+                base = results
+            else:
+                err, excess = 0.0, 0.0
+                for key, res in results.items():
+                    got, want = res.to_arrays(), base[key].to_arrays()
+                    for k, w in want.items():
+                        d = np.abs(got[k] - w)
+                        err = max(err, float(d.max()))
+                        excess = max(excess, float((d - QUANT_ATOL - QUANT_RTOL * np.abs(w)).max()))
+                readings["max_abs_dev_vs_fp32"] = err
+                if excess > 0:
+                    raise AssertionError(f"quantized {family} {bank_dtype}: {err} off the fp32 bank, "
+                                         f"outside rtol={QUANT_RTOL} atol={QUANT_ATOL}")
+            summary[f"{family}.{bank_dtype}"] = readings
+            phase("quantized", family=family, members=len(entries), bank_dtype=bank_dtype,
+                  compute_dtype=entries[0].compute_dtype,
+                  **{k: json.dumps(v) if isinstance(v, dict) else v for k, v in readings.items()},
+                  card=json.dumps(card))
+        del entries, base
+    for family in ("lstm", "lstm_bf16"):
+        k3 = "K3_bf16" if family == "lstm_bf16" else "K3"
+        if any(summary[f"{family}.{d}"]["launches"][k3] <= 0 for d in ("float32", "int8")):
+            raise AssertionError(f"quantized {family}: {k3} was not launched")
+    return summary
+
+
+STREAM_DIR = os.path.join(ROOT, "build", "chip_smoke_stream")
+STREAM_DENSE, STREAM_LSTM = 16, 4  # config 1's dense detectors and lstm_hourglass ones (lookback 32), 10 tags
+STREAM_TAGS = [f"tag-{i}" for i in range(10)]
+STREAM_TRAIN_ROWS, STREAM_EPOCHS = 240, 3  # tests/test_streaming.py's size
+STREAM_WINDOW, STREAM_BATCH = 128, 96  # the window buffers' rows; rows a delivery
+STREAM_SHIFTED = ("s-dense-01", "s-dense-07", "s-lstm-00", "s-lstm-02")
+STREAM_PER_MODEL = "s-pca"  # a PCA detector: the per-model path (K1)
+STREAM_ENV = {"GORDO_STREAM": "1", "GORDO_PUSH": "1", "GORDO_BANK_DTYPE": "int8",
+              "GORDO_STREAM_WINDOW": str(STREAM_WINDOW), "GORDO_STREAM_MIN_ROWS": "32",
+              "GORDO_REFIT_EPOCHS": "2", "GORDO_PUSH_INTERVAL_S": "0.1"}
+STREAM_T_TRAIN, STREAM_T_LIVE = "2026-08-01T00:00:00Z", "2026-08-02T00:00:00Z"
+
+
+def stream_models(prov):
+    """Fit the phase's detectors on the card on the provider's healthy
+    rows and write them under STREAM_DIR."""
+    from gordo_components_torch.models.transformers import PCA
+
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    frames = {f"s-dense-{i:02d}": prov.frame(STREAM_T_TRAIN, STREAM_TRAIN_ROWS, STREAM_TAGS)
+              for i in range(STREAM_DENSE)}
+    dense = FleetTrainer(kind="feedforward_hourglass", epochs=STREAM_EPOCHS, batch_size=64).fit(frames)
+    lstm_frames = {f"s-lstm-{i:02d}": prov.frame(STREAM_T_TRAIN, STREAM_TRAIN_ROWS, STREAM_TAGS)
+                   for i in range(STREAM_LSTM)}
+    lstm = FleetTrainer(model_type="LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=LOOKBACK,
+                        epochs=STREAM_EPOCHS, batch_size=64).fit(lstm_frames)
+    for name, member in {**dense, **lstm}.items():
+        serializer.dump(member.to_estimator(), os.path.join(STREAM_DIR, name))
+    pca = DiffBasedAnomalyDetector(base_estimator=Pipeline([
+        ("pca", PCA(n_components=5)),
+        ("model", AutoEncoder(kind="feedforward_hourglass", epochs=STREAM_EPOCHS, batch_size=64))]))
+    pca.fit(prov.frame(STREAM_T_TRAIN, STREAM_TRAIN_ROWS, STREAM_TAGS))
+    serializer.dump(pca, os.path.join(STREAM_DIR, STREAM_PER_MODEL))
+    return sorted([*frames, *lstm_frames, STREAM_PER_MODEL])
+
+
+def stream_load(base: str, names, stop, statuses):
+    """POST anomaly requests round the members until ``stop`` is set."""
+    rng = np.random.default_rng(41)
+    i = 0
+    while not stop.is_set():
+        X = rng.random((64, 10)).astype(np.float32)
+        status, _ = http_json(f"{base}/{names[i % len(names)]}/anomaly/prediction", {"X": X.tolist()})
+        statuses.append(status)
+        i += 1
+
+
+def stream_adapt(base: str, names, body: dict, what: str):
+    """``POST /adapt`` under a concurrent scoring loop (4 threads):
+    (answer, its wall s, the loop's statuses)."""
+    stop, statuses = threading.Event(), []
+    threads = [threading.Thread(target=stream_load, args=(base, names[k::4], stop, statuses)) for k in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        status, answer = http_json(f"{base}/adapt", body)
+        wall = time.perf_counter() - t0
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+    if status != 200 or not answer.get("applied"):
+        raise AssertionError(f"stream {what}: {status} {answer}")
+    bad = [s for s in statuses if s != 200]
+    if bad or not statuses:
+        raise AssertionError(f"stream {what}: {len(bad)} answers other than 200 of {len(statuses)}")
+    return answer, wall, statuses
+
+
+def stream_phase(card: str):
+    """The streaming plane on the card: a server over 16 dense and 4
+    ``lstm_hourglass`` detectors (10 tags, lookback 32) fitted on the card
+    on ``SimulatedLiveProvider``'s healthy rows, and a PCA detector scored
+    per model (K1), with ``GORDO_STREAM=1``, ``GORDO_PUSH=1`` and
+    ``GORDO_BANK_DTYPE=int8``. Healthy windows go in over JSON, the tensor
+    wire and ``Client.ingest``; ``/drift`` flags nothing; a mean shift of 4
+    in STREAM_SHIFTED's windows, and ``/drift`` flags exactly those; then
+    ``/adapt`` recalibrates them and refits them, each under a concurrent
+    scoring loop: a new generation each time and no answer but 200. A push
+    subscriber on a dense member and one on the PCA member receive their
+    scored windows. Readings: ingest rows/s, the drift sweep's seconds, the
+    two adaptations' walls and ``pause_ms``, launches."""
+    from gordo_components_torch.client.http import Session
+    from gordo_components_torch.client.subscribe import PushSubscriber
+    from gordo_components_torch.dataset.data_provider.streaming import SimulatedLiveProvider
+
+    prov = SimulatedLiveProvider(freq="10s", noise=0.1, seed=5)
+    t0 = time.perf_counter()
+    names = stream_models(prov)
+    fit_s = time.perf_counter() - t0
+    with env_set({**STREAM_ENV, "GORDO_SERVER_WARMUP": "0"}):
+        server = run_server(STREAM_DIR, host="127.0.0.1", port=0, background=True)
+    base = f"{server.url}/gordo/v0/smoke"
+    subs = {name: PushSubscriber(server.url, "smoke", name, subscriber=f"smoke-{name}", poll_timeout_s=2.0)
+            for name in ("s-dense-00", STREAM_PER_MODEL)}
+    sub_stop = threading.Event()
+
+    def subscribe():
+        async def run():
+            async with Session(timeout=60) as session:
+                while not sub_stop.is_set():
+                    for sub in subs.values():
+                        await sub.poll_once(session)
+        asyncio.run(run())
+
+    sub_thread = threading.Thread(target=subscribe, daemon=True)
+    try:
+        app = server.app
+        if app.bank.bank_dtype != "int8" or app.bank.capacity_stats()["quantize_fallbacks"]:
+            raise AssertionError(f"stream: bank {app.bank.capacity_stats()}")
+        sub_thread.start()
+        time.sleep(0.3)
+        cursor = [time.time() - 3600.0]
+
+        def stamps(ts):
+            out = np.asarray(ts) - ts[0] + cursor[0]
+            cursor[0] = float(out[-1]) + 10.0
+            return out
+
+        client = Client("smoke", base_url=server.url, batch_size=STREAM_BATCH)
+        rows = 0
+        t_ingest = time.perf_counter()
+
+        def deliver(i, name, start):
+            ts, vals = prov.batch(start, STREAM_BATCH, STREAM_TAGS)
+            ts = stamps(ts)
+            if i % 3 == 0:
+                status, body = http_json(f"{base}/{name}/ingest", {
+                    "rows": [[None if v != v else float(v) for v in r] for r in vals.tolist()],
+                    "timestamps": ts.tolist()})
+            elif i % 3 == 1:
+                status, body = http_json(f"{base}/{name}/ingest", raw=pack_frames(
+                    [("rows", vals), ("timestamps", ts)]), content_type=TENSOR_CONTENT_TYPE)
+            else:
+                status, body = 200, client.ingest(name, vals, timestamps=ts.tolist())
+            if status != 200 or body["accepted"] != STREAM_BATCH:
+                raise AssertionError(f"stream ingest {name}: {status} {body}")
+            return len(vals)
+
+        for i, name in enumerate(names):
+            rows += deliver(i, name, STREAM_T_LIVE)
+        healthy_s = time.perf_counter() - t_ingest
+        t = time.perf_counter()
+        status, drift = http_json(f"{base}/drift?refresh=1")
+        sweep_s = [time.perf_counter() - t]
+        if status != 200 or drift["drifted"] != []:
+            raise AssertionError(f"stream: healthy windows drifted: {drift['drifted']}")
+        prov.inject(mean_shift=4.0)
+        t = time.perf_counter()
+        for k in range(2):  # 192 rows displace the healthy 128-row windows
+            for i, name in enumerate(STREAM_SHIFTED):
+                rows += deliver(i + k, name, to_ns(STREAM_T_LIVE) + (k + 1) * 3_600_000_000_000)
+        shifted_s = time.perf_counter() - t
+        prov.clear()
+        t = time.perf_counter()
+        status, drift = http_json(f"{base}/drift?refresh=1")
+        sweep_s.append(time.perf_counter() - t)
+        if drift["drifted"] != sorted(STREAM_SHIFTED):
+            raise AssertionError(f"stream: /drift flagged {drift['drifted']}, shifted {sorted(STREAM_SHIFTED)}")
+        scores = {n: m.get("drift_score") for n, m in drift["members"].items()}
+        gen0 = app.generation()
+        recal, recal_s, recal_statuses = stream_adapt(base, names, {}, "recalibrate")
+        if recal["members"] != sorted(STREAM_SHIFTED):
+            raise AssertionError(f"stream: recalibrated {recal['members']}")
+        refit, refit_s, refit_statuses = stream_adapt(base, names, {"mode": "refit", "targets": list(STREAM_SHIFTED)},
+                                                      "refit")
+        if [recal["swap"]["generation"], refit["swap"]["generation"]] != [gen0 + 1, gen0 + 2]:
+            raise AssertionError(f"stream: generations {recal['swap']} {refit['swap']} after {gen0}")
+        for name in STREAM_SHIFTED:
+            det = app.collection.models[name]
+            if det.threshold_method_ != "incremental-refit":
+                raise AssertionError(f"stream: {name} not refit ({det.threshold_method_})")
+        # the pushed windows: wait for the push loop and the subscribers
+        deadline = time.time() + 30
+        while time.time() < deadline and not all(len(s.results) for s in subs.values()):
+            time.sleep(0.1)
+        if not all(len(s.results) for s in subs.values()):
+            raise AssertionError(f"stream: push subscribers got {[len(s.results) for s in subs.values()]}")
+        for sub in subs.values():
+            for doc in sub.results:
+                if doc["target"] != sub.target or len(doc["total_scaled"]) != doc["scored"]:
+                    raise AssertionError(f"stream: pushed window {doc['target']}: {doc['scored']} scored")
+                if not np.all(np.isfinite(doc["total_scaled"])):
+                    raise AssertionError(f"stream: pushed non-finite scores for {doc['target']}")
+        status, view = http_json(f"{base}/drift")
+        metrics = http_raw(f"{base}/metrics")[2].decode()
+        for family in ("gordo_stream_rows_total", "gordo_drift_score", "gordo_push_published_total",
+                       "gordo_bank_weight_bytes", "gordo_bank_models_per_gb"):
+            if family not in metrics:
+                raise AssertionError(f"stream: /metrics lacks {family}")
+    finally:
+        sub_stop.set()
+        sub_thread.join(30)
+        server.close()
+    readings = {
+        "members": len(names), "banked": STREAM_DENSE + STREAM_LSTM, "per_model": 1,
+        "fit_s": round(fit_s, 3), "ingested_rows": rows,
+        "ingest_rows_per_s": round(rows / (healthy_s + shifted_s), 1),
+        "drift_sweep_s": [round(s, 4) for s in sweep_s],
+        "drifted": drift["drifted"], "drift_scores": json.dumps({n: scores[n] for n in sorted(scores)}),
+        "recalibrate_wall_s": round(recal_s, 4), "refit_wall_s": round(refit_s, 4),
+        "pause_ms": [recal["swap"]["pause_ms"], refit["swap"]["pause_ms"]],
+        "generations": [recal["swap"]["generation"], refit["swap"]["generation"]],
+        "requests_under_adapt": len(recal_statuses) + len(refit_statuses), "non_200_under_adapt": 0,
+        "pushed": {n: len(s.results) for n, s in subs.items()},
+        "push": json.dumps(view["push"]), "stats": json.dumps(view["stats"]),
+    }
+    phase("stream", **{k: json.dumps(v) if isinstance(v, (list, dict)) else v for k, v in readings.items()},
+          card=json.dumps(card))
+    return readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
@@ -5951,6 +6322,8 @@ def main() -> int:
     drive("wire", wire_phase, card)
     drive("client", client_phase, card)
     drive("resilience", resilience_phase, card, in_subprocesses=True)
+    drive("quantized", quantized_phase, card)
+    drive("stream", stream_phase, card)
     timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
@@ -5973,6 +6346,10 @@ def main() -> int:
                          ("client", "fused_anomaly_score"),
                          ("resilience", "lstm_layer"), ("resilience", "banked_anomaly_score"),
                          ("resilience", "fused_anomaly_score"),
+                         ("quantized", "banked_anomaly_score"), ("quantized", "lstm_layer"),
+                         ("quantized", "lstm_layer_bf16"),
+                         ("stream", "banked_anomaly_score"), ("stream", "fused_anomaly_score"),
+                         ("stream", "lstm_layer"),
                          ("bf16_train", "lstm_layer_bf16"),
                          ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
                          ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):
