@@ -6250,6 +6250,11 @@ def stream_phase(card: str):
         "requests_under_adapt": len(recal_statuses) + len(refit_statuses), "non_200_under_adapt": 0,
         "pushed": {n: len(s.results) for n, s in subs.items()},
         "push": json.dumps(view["push"]), "stats": json.dumps(view["stats"]),
+        # since the path's reset: the fits, the server, the drift sweeps, both
+        # adaptations and their scoring loops, the push loop
+        "launches": {"K1": score.launch_counts["fused_anomaly_score"],
+                     "K2": score.launch_counts["banked_anomaly_score"],
+                     "K3": seq_scan.launch_counts["lstm_layer"]},
     }
     phase("stream", **{k: json.dumps(v) if isinstance(v, (list, dict)) else v for k, v in readings.items()},
           card=json.dumps(card))

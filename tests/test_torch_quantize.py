@@ -46,17 +46,27 @@ LOOKBACK = 8
 # family -> (registry type, kind, factory kwargs, lookback)
 FAMILIES = {
     "dense": ("AutoEncoder", "feedforward_hourglass", {}, 1),
-    "lstm": ("LSTMAutoEncoder", "lstm_model", {"dims": (6, 5)}, LOOKBACK),
-    "conv": ("ConvAutoEncoder", "conv1d_autoencoder", {"channels": (4, 2)}, LOOKBACK),
+    "lstm": ("LSTMAutoEncoder", "lstm_hourglass", {}, LOOKBACK),
+    "conv": ("ConvAutoEncoder", "conv1d_autoencoder", {}, LOOKBACK),  # config 4's channels
 }
 MEMBERS = 3
 
 
 def _state(registry_type, kind, kwargs, rng, zero=False):
+    """Random weights scaled by their fan-in (the inputs of one output),
+    small biases: outputs of order one, as a trained member's."""
     module = lookup_factory(registry_type, kind)(F, **kwargs)
-    return {k: (np.zeros(tuple(v.shape), np.float32) if zero else
-                (rng.standard_normal(tuple(v.shape)) / np.sqrt(max(v.shape[0], 1))).astype(np.float32))
-            for k, v in module.state_dict().items()}
+    out = {}
+    for k, v in module.state_dict().items():
+        shape = tuple(v.shape)
+        if len(shape) == 1:
+            scale = 0.1
+        elif registry_type == "AutoEncoder" and kind == "feedforward_hourglass":
+            scale = 1.0 / np.sqrt(shape[1])  # nn.Linear weight (out, in)
+        else:
+            scale = 1.0 / np.sqrt(np.prod(shape[:-1]))  # (in, out), (K, F_in, C), (in, 4H)
+        out[k] = np.zeros(shape, np.float32) if zero else (scale * rng.standard_normal(shape)).astype(np.float32)
+    return out
 
 
 def _pair(family, i, rng, compute_dtype="float32", zero=False):

@@ -330,6 +330,9 @@ def test_events_and_series_families_match_jax(served):
                                                             "gordo_bank_quantize"))}
     jax_fams = {n: t for n, t in jax_types.items() if n in fams or n.startswith(("gordo_stream_", "gordo_drift_"))}
     assert fams == jax_fams and "gordo_push_published_total" not in types
+    capacity = ("gordo_bank_weight_bytes", "gordo_bank_models_per_gb", "gordo_bank_quantize_fallback_total")
+    assert sorted((n, lb, v) for n, lb, v in samples if n in capacity) == \
+        sorted((n, lb, v) for n, lb, v in jax_samples if n in capacity)
     counters = {(n, tuple(sorted(lb.items()))): v for n, lb, v in samples
                 if n.startswith("gordo_stream_") and types[n] == "counter"}
     jax_counters = {(n, tuple(sorted(lb.items()))): v for n, lb, v in jax_samples
