@@ -241,7 +241,10 @@ def test_build_fleet_under_group_faults_matches_jax(spec, rc, built, failed, ret
         path.write_text(json.dumps(_machines(pkg)))
         args = ["build-fleet", "--machines-file", str(path), "--output-dir", str(tmp_path / out)]
         if out == "j":
-            result = CliRunner().invoke(gordo, args, env={"GORDO_FAULTS": spec})
+            # one gang thread, as the port builds: with the tests' 8 virtual
+            # devices the JAX builder runs both groups on 2 threads, which
+            # then race for the fault's fires and the verdict
+            result = CliRunner().invoke(gordo, args, env={"GORDO_FAULTS": spec, "GORDO_GANG_WIDTH": "1"})
             got_rc, text = result.exit_code, result.stdout
         else:
             monkeypatch.setenv("GORDO_FAULTS", spec)
