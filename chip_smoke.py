@@ -6134,6 +6134,8 @@ def stream_phase(card: str):
     t0 = time.perf_counter()
     names = stream_models(prov)
     fit_s = time.perf_counter() - t0
+    score.reset_launch_counts()  # the phase's counts are the server's run alone, not the fits'
+    seq_scan.reset_launch_counts()
     with env_set({**STREAM_ENV, "GORDO_SERVER_WARMUP": "0"}):
         server = run_server(STREAM_DIR, host="127.0.0.1", port=0, background=True)
     base = f"{server.url}/gordo/v0/smoke"
@@ -6250,12 +6252,14 @@ def stream_phase(card: str):
         "requests_under_adapt": len(recal_statuses) + len(refit_statuses), "non_200_under_adapt": 0,
         "pushed": {n: len(s.results) for n, s in subs.items()},
         "push": json.dumps(view["push"]), "stats": json.dumps(view["stats"]),
-        # since the path's reset: the fits, the server, the drift sweeps, both
-        # adaptations and their scoring loops, the push loop
+        # since the reset after the fits: the server, the drift sweeps, both
+        # adaptations (the refit's error pass) and their scoring loops, the push loop
         "launches": {"K1": score.launch_counts["fused_anomaly_score"],
                      "K2": score.launch_counts["banked_anomaly_score"],
                      "K3": seq_scan.launch_counts["lstm_layer"]},
     }
+    if min(readings["launches"].values()) <= 0:
+        raise AssertionError(f"stream: the server's run launched {readings['launches']}")
     phase("stream", **{k: json.dumps(v) if isinstance(v, (list, dict)) else v for k, v in readings.items()},
           card=json.dumps(card))
     return readings

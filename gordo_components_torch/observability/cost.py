@@ -30,6 +30,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from gordo_components_torch.utils import env_num
+
 __all__ = [
     "dense_chain_flops", "lstm_step_flops", "lstm_stack_flops", "conv1d_autoencoder_flops",
     "estimate_flops_per_row", "resolve_peak_flops", "bucket_cost_row", "CostModel", "cost_from_env",
@@ -45,16 +47,6 @@ _ASSUMED_PEAK_FLOPS = 1e12
 PEAK_BF16_FLOPS = {
     "NVIDIA H100 80GB HBM3": 989.4e12,
 }
-
-
-def _env_float(name: str, default: float) -> float:
-    raw = os.environ.get(name)
-    if raw is None or raw == "":
-        return default
-    try:
-        return float(raw)
-    except ValueError:
-        raise ValueError(f"{name} must be a number, got {raw!r}") from None
 
 
 # --------------------------------------------------------------------- #
@@ -235,7 +227,7 @@ class CostModel:
         self.ledger = ledger
         self._bank_supplier = bank_supplier
         if sample_interval_s is None:
-            sample_interval_s = _env_float("GORDO_COST_SAMPLE_S", 10.0)
+            sample_interval_s = env_num("GORDO_COST_SAMPLE_S", 10.0, float)
         self.sample_interval_s = max(0.001, float(sample_interval_s))
         if peak_flops is None:
             peak_flops, peak_source = resolve_peak_flops(device)

@@ -40,6 +40,7 @@ import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from gordo_components_torch.observability.metrics import Histogram
+from gordo_components_torch.utils import env_num
 
 __all__ = ["HeatAccountant", "heat_from_env", "merge_heat_snapshots"]
 
@@ -51,16 +52,6 @@ LN2 = math.log(2.0)
 _EVICT_HEAT_ROWS = 1e-3
 
 DEFAULT_TOP_N = 10
-
-
-def _env_float(name: str, default: float) -> float:
-    raw = os.environ.get(name)
-    if raw is None or raw == "":
-        return default
-    try:
-        return float(raw)
-    except ValueError:
-        raise ValueError(f"{name} must be a number, got {raw!r}") from None
 
 
 def _tier_of(rate: float, hot_rate: float, warm_rate: float) -> str:
@@ -81,19 +72,19 @@ class HeatAccountant:
                  warm_rate: Optional[float] = None, sample_interval_s: Optional[float] = None,
                  registry=None, clock: Callable[[], float] = time.time):
         if halflife_s is None:
-            halflife_s = _env_float("GORDO_HEAT_HALFLIFE_S", 300.0)
+            halflife_s = env_num("GORDO_HEAT_HALFLIFE_S", 300.0, float)
         self.halflife_s = max(1e-3, float(halflife_s))
         if hot_rate is None:
-            hot_rate = _env_float("GORDO_HEAT_HOT_RATE", 10.0)
+            hot_rate = env_num("GORDO_HEAT_HOT_RATE", 10.0, float)
         if warm_rate is None:
-            warm_rate = _env_float("GORDO_HEAT_WARM_RATE", 1.0)
+            warm_rate = env_num("GORDO_HEAT_WARM_RATE", 1.0, float)
         self.hot_rate = float(hot_rate)
         self.warm_rate = float(warm_rate)
         if self.warm_rate > self.hot_rate:
             raise ValueError(f"GORDO_HEAT_WARM_RATE ({self.warm_rate}) must not exceed "
                              f"GORDO_HEAT_HOT_RATE ({self.hot_rate})")
         if sample_interval_s is None:
-            sample_interval_s = _env_float("GORDO_HEAT_SAMPLE_S", 10.0)
+            sample_interval_s = env_num("GORDO_HEAT_SAMPLE_S", 10.0, float)
         self.sample_interval_s = max(0.001, float(sample_interval_s))
         self._clock = clock
         self.pending: Dict[str, float] = {}  # the scoring path's mailbox

@@ -31,6 +31,8 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from gordo_components_torch.utils import env_num
+
 __all__ = ["DEFAULT_OBJECTIVES", "DEFAULT_WINDOWS", "SLOTracker", "merge_slo_snapshots",
            "parse_objectives", "parse_windows"]
 
@@ -127,16 +129,6 @@ def parse_windows(raw: Optional[str] = None) -> List[Tuple[str, float]]:
     return sorted(out, key=lambda w: w[1])
 
 
-def _env_float(name: str, default: float) -> float:
-    raw = os.environ.get(name)
-    if raw is None or raw == "":
-        return default
-    try:
-        return float(raw)
-    except ValueError:
-        raise ValueError(f"{name} must be a number, got {raw!r}") from None
-
-
 def _window_cell(actual: float, good: float, total: float, budget: float) -> Dict[str, Any]:
     if total <= 0:
         ratio, burn = None, 0.0
@@ -169,10 +161,10 @@ class SLOTracker:
             self.objectives = [_Objective(o["name"], o["target"], o.get("quantile")) for o in self.objectives]
         self.windows = list(windows) if windows is not None else parse_windows()
         if sample_interval_s is None:
-            sample_interval_s = _env_float("GORDO_SLO_SAMPLE_S", 10.0)
+            sample_interval_s = env_num("GORDO_SLO_SAMPLE_S", 10.0, float)
         self.sample_interval_s = max(0.001, float(sample_interval_s))
         self.fast_burn_threshold = (float(fast_burn) if fast_burn is not None
-                                    else _env_float("GORDO_SLO_FAST_BURN", DEFAULT_FAST_BURN))
+                                    else env_num("GORDO_SLO_FAST_BURN", DEFAULT_FAST_BURN, float))
         self._clock = clock
         max_window = max(s for _, s in self.windows)
         # enough samples for the longest window at the cadence, capped

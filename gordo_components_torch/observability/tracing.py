@@ -38,6 +38,8 @@ import time
 from collections import deque
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+from gordo_components_torch.utils import env_num
+
 __all__ = [
     "Span", "Trace", "Tracer", "chrome_trace", "current_trace", "format_traceparent", "parse_traceparent",
     "use_trace",
@@ -270,11 +272,11 @@ class Tracer:
     def __init__(self, sample: Optional[float] = None, ring: Optional[int] = None,
                  slow_keep: Optional[int] = None):
         if sample is None:
-            sample = _env_float("GORDO_TRACE_SAMPLE", 0.1)
+            sample = env_num("GORDO_TRACE_SAMPLE", 0.1, float)
         if ring is None:
-            ring = int(_env_float("GORDO_TRACE_RING", 128))
+            ring = int(env_num("GORDO_TRACE_RING", 128, float))
         if slow_keep is None:
-            slow_keep = int(_env_float("GORDO_TRACE_SLOW_KEEP", 16))
+            slow_keep = int(env_num("GORDO_TRACE_SLOW_KEEP", 16, float))
         self.sample = float(sample)
         self.slow_keep = max(1, slow_keep)
         self._recent: "deque[Trace]" = deque(maxlen=max(1, ring))
@@ -349,16 +351,6 @@ class Tracer:
                 if t.trace_id == trace_id and t not in seen:
                     seen.append(t)
         return seen
-
-
-def _env_float(name: str, default: float) -> float:
-    raw = os.environ.get(name)
-    if raw is None or raw == "":
-        return default
-    try:
-        return float(raw)
-    except ValueError:
-        raise ValueError(f"{name} must be a number, got {raw!r}") from None
 
 
 # the process-default tracer (a server builds one of its own per app): the

@@ -312,7 +312,6 @@ def build_app(
     ``clock`` is the app's clock seam (default the real one,
     ``SYSTEM_CLOCK``)."""
     from gordo_components_torch.device import resolve_device
-    from gordo_components_torch.ops.quantize import normalize_bank_dtype
 
     device = resolve_device(device)
     if use_bank is None:
@@ -325,9 +324,6 @@ def build_app(
             raise ValueError(f"GORDO_QUARANTINE_THRESHOLD must be an integer, got {raw!r} "
                              "(consecutive scoring failures before eviction; <=0 disables)") from None
     deadline_ms = default_deadline_ms()
-    if bank_dtype is None:
-        bank_dtype = os.environ.get("GORDO_BANK_DTYPE", "float32")
-    bank_dtype = normalize_bank_dtype(bank_dtype)
     if clock is None:
         clock = SYSTEM_CLOCK
     faults.configure_from_env()  # GORDO_FAULTS
@@ -353,6 +349,9 @@ def build_app(
                        "inflight": bank_inflight, "arena_max_mb": arena_max_mb, "ledger": ledger, "heat": heat,
                        "bank_dtype": bank_dtype}
         bank = ModelBank.from_models(collection.models, **bank_config) if use_bank else None
+        if bank is not None:
+            # the bank owns the env default: a /reload rebuilds at its storage
+            bank_config["bank_dtype"] = bank.bank_dtype
         engine_config = {"max_batch": bank_max_batch, "flush_ms": bank_flush_ms, "max_queue": bank_max_queue}
         app = App(collection, bank, bank_config, engine_config, registry, QuarantineSet(quarantine_threshold),
                   deadline_ms, tracer=tracer, ledger=ledger, clock=clock, heat=heat, events=events,

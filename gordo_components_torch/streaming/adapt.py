@@ -46,24 +46,13 @@ from gordo_components_torch.ops.scaler import ScalerParams
 from gordo_components_torch.resilience.faults import faultpoint
 from gordo_components_torch.streaming.drift import DriftDetector
 from gordo_components_torch.streaming.ingest import StreamIngestor
+from gordo_components_torch.utils import env_num
 
 logger = logging.getLogger(__name__)
 
 # chaos site: fired at the head of the refit path — a failed refit must
 # leave the serving generation untouched
 _FP_REFIT = faultpoint("stream.refit")
-
-
-def env_num(name: str, default, cast):
-    """A numeric env knob; unset or empty keeps ``default``, a malformed
-    value raises naming the knob (JAX ``utils.env_num``)."""
-    raw = os.environ.get(name)
-    if not raw:
-        return default
-    try:
-        return cast(raw)
-    except ValueError:
-        raise ValueError(f"{name} must be a number, got {raw!r}") from None
 
 
 def stream_enabled() -> bool:
@@ -354,12 +343,7 @@ class StreamingPlane:
             self.stats[key] += len(updates)
             # the adapted members' EWMA was measured under the old
             # calibration: reset so the next sweep measures afresh
-            for name in updates:
-                st = self.detector.members.get(name)
-                if st is not None:
-                    st.ewma_total = None
-                    st.drift_score = None
-                    st.drifted = False
+            self.detector.reset_members(updates)
             app.events.emit(f"adapt.{mode}", generation=app.generation(), members=sorted(updates))
             body: Dict[str, Any] = {"applied": True, "mode": mode, "members": sorted(updates)}
             if swap_info is not None:

@@ -245,6 +245,17 @@ class DriftDetector:
         in_scale = bucket.in_scale[i].cpu().numpy()
         return (np.asarray(X, np.float32) - in_shift) * in_scale
 
+    def reset_members(self, names) -> None:
+        """Forget the rolling drift state of ``names``, under the sweeps'
+        lock so that a sweep in flight cannot write the old EWMA back."""
+        with self._eval_lock:
+            for name in names:
+                st = self.members.get(name)
+                if st is not None:
+                    st.ewma_total = None
+                    st.drift_score = None
+                    st.drifted = False
+
     # ----------------------------- views ------------------------------- #
 
     def drifted_members(self) -> List[str]:

@@ -238,6 +238,9 @@ class StreamIngestor:
         self.lateness_s = float(lateness_s)
         self.clock = clock if clock is not None else SYSTEM_CLOCK
         self.buffers: Dict[str, WindowBuffer] = {}
+        # each request runs on its own handler thread: two first ingests of
+        # one member must share one buffer, not replace each other's
+        self._lock = threading.Lock()
 
     def ingest(
         self, name: str, event_ts: np.ndarray, values: np.ndarray
@@ -248,10 +251,13 @@ class StreamIngestor:
             raise ValueError(f"expected (rows, features) values, got {values.shape}")
         buf = self.buffers.get(name)
         if buf is None:
-            buf = self.buffers[name] = WindowBuffer(
-                self.capacity, values.shape[1], self.lateness_s,
-                clock=self.clock,
-            )
+            with self._lock:
+                buf = self.buffers.get(name)
+                if buf is None:
+                    buf = self.buffers[name] = WindowBuffer(
+                        self.capacity, values.shape[1], self.lateness_s,
+                        clock=self.clock,
+                    )
         out = buf.add(event_ts, values)
         out["window_rows"] = len(buf)
         out["watermark"] = buf.watermark

@@ -1,10 +1,12 @@
 """Small helpers of the port: constructor-argument capture for config
-round-tripping, and the build metadata's timestamp (counterparts of
-``gordo_components_tpu/utils/capture.py`` and ``utils/metadata.py``)."""
+round-tripping, the build metadata's timestamp and the numeric env knobs
+(counterparts of ``gordo_components_tpu/utils/capture.py``,
+``utils/metadata.py`` and ``utils.env_num``)."""
 
 import datetime
 import functools
 import inspect
+import os
 from typing import Any, Callable, Dict
 
 
@@ -37,3 +39,15 @@ def capture_args(init: Callable) -> Callable:
 def metadata_timestamp() -> str:
     """UTC ISO-8601 timestamp used in build metadata."""
     return datetime.datetime.now(datetime.timezone.utc).isoformat()
+
+
+def env_num(name: str, default, cast):
+    """A numeric env knob; unset or empty keeps ``default``, a malformed
+    value raises naming the knob."""
+    raw = os.environ.get(name)
+    if not raw:
+        return default
+    try:
+        return cast(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be a number, got {raw!r}") from None

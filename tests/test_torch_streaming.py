@@ -513,6 +513,57 @@ def test_window_buffer_and_ingestor_match_jax_bitwise():
     assert pi.totals() == ji.totals()
 
 
+def test_concurrent_first_ingests_of_a_member_share_one_buffer(monkeypatch):
+    """The port answers each request on its own thread: two first ingests
+    of one member, racing through a slow buffer construction, both land in
+    one buffer."""
+    from gordo_components_torch.streaming import ingest as port_ingest
+
+    class SlowBuffer(PortBuffer):
+        def __init__(self, *args, **kwargs):
+            time.sleep(0.05)  # both threads are past the lookup by now
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(port_ingest, "WindowBuffer", SlowBuffer)
+    ingestor = PortIngestor(capacity=16, lateness_s=60.0)  # either order accepts every row
+    rng = np.random.default_rng(6)
+    batches = [(np.arange(4.0) + 100 + 10 * k, rng.random((4, 2)).astype(np.float32)) for k in range(2)]
+    start = threading.Barrier(2)
+    answers = []
+
+    def deliver(ts, vals):
+        start.wait()
+        answers.append(ingestor.ingest("m", ts, vals))
+
+    threads = [threading.Thread(target=deliver, args=b) for b in batches]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+    assert [a["accepted"] for a in answers] == [4, 4]
+    assert list(ingestor.buffers) == ["m"] and len(ingestor.buffers["m"]) == 8
+    assert ingestor.totals()["rows_total"] == 8
+
+
+def test_adaptation_reset_waits_for_a_sweep_in_flight():
+    """An adaptation forgets its members' EWMA under the sweeps' lock: a
+    sweep in flight writes first, and the reset then clears what it wrote."""
+    from gordo_components_torch.streaming.drift import DriftDetector, MemberDrift
+
+    detector = DriftDetector(app=None, ingestor=PortIngestor())
+    st = detector.members["m"] = MemberDrift()
+    st.ewma_total, st.drift_score, st.drifted = 5.0, 2.5, True
+    with detector._eval_lock:  # a sweep in flight
+        reset = threading.Thread(target=detector.reset_members, args=(["m"],))
+        reset.start()
+        reset.join(0.1)
+        assert reset.is_alive()
+        st.ewma_total, st.drift_score = 6.0, 3.0  # the sweep's write
+    reset.join(10)
+    assert (st.ewma_total, st.drift_score, st.drifted) == (None, None, False)
+    assert detector.drifted_members() == []
+
+
 @pytest.mark.parametrize("drift", [None, dict(mean_shift=2.0, var_inflation=3.0, dropout_p=0.1, late_fraction=0.2,
                                               duplicate_p=0.1, tags=["tag-1"])])
 def test_simulated_provider_matches_jax_bitwise(drift):
