@@ -3,8 +3,7 @@ from code or ``GORDO_FAULTS``), per-request deadlines (``deadline.py``), the
 per-model quarantine breaker (``quarantine.py``) and the client's retry
 budget and backoff (``retry_budget.py``).
 
-Counterpart of those four modules of ``gordo_components_tpu/resilience/``;
-the watchdog is not ported yet.
+Counterpart of the four modules of ``gordo_components_tpu/resilience/``.
 """
 
 from gordo_components_torch.resilience.deadline import (

@@ -19,7 +19,8 @@ routes of the server's second observability half.
   quarantine's enter and clear, a reload); both answer the same statuses,
   429 bodies and ``Retry-After``, the same keys and integers in ``/qos``,
   ``/heat``, ``/events`` and ``/history``, the same event types in the same
-  order, and the same disabled answers.
+  order, and the same disabled answers. Both apps' admission runs on one
+  clock that stands still, so the 429s do not depend on the wall clock.
 """
 
 import asyncio
@@ -541,6 +542,21 @@ def _with_env(env, fn, *args):
                 os.environ[k] = v
 
 
+def _still_admission_clock(mp):
+    """Build both apps' admission controllers on one clock that stands
+    still while the steps run. The tenant's bucket refills at 0.001/s, so
+    on the wall clock a second between ``acme_1`` and ``acme_429`` (a slow
+    first POST under load) moves ``Retry-After`` off 1000 on one server."""
+
+    def still():
+        return 1000.0
+
+    for cls in (port_admission.AdmissionController, jax_admission.AdmissionController):
+        from_env = cls.from_env.__func__
+        mp.setattr(cls, "from_env", classmethod(
+            lambda c, env=os, clock=still, _from_env=from_env: _from_env(c, env, clock=clock)))
+
+
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
     rng = np.random.RandomState(0)
@@ -559,10 +575,12 @@ def served(tmp_path_factory):
     for name, model in models.items():
         jax_serializer.dump(model, str(jax_root / name), metadata={"name": name})
     assert TOOL.main([str(jax_root), str(port_root)]) == 0
-    jax, jax_app = _with_env(QOS_ENV, lambda: asyncio.run(_jax_answers(str(jax_root), STEPS)))
-    port, port_app = _with_env(QOS_ENV, _port_answers, str(port_root), STEPS)
-    jax_off = _with_env(OFF_ENV, lambda: asyncio.run(_jax_answers(str(jax_root), OFF_STEPS)))[0]
-    port_off = _with_env(OFF_ENV, _port_answers, str(port_root), OFF_STEPS)[0]
+    with pytest.MonkeyPatch.context() as mp:
+        _still_admission_clock(mp)
+        jax, jax_app = _with_env(QOS_ENV, lambda: asyncio.run(_jax_answers(str(jax_root), STEPS)))
+        port, port_app = _with_env(QOS_ENV, _port_answers, str(port_root), STEPS)
+        jax_off = _with_env(OFF_ENV, lambda: asyncio.run(_jax_answers(str(jax_root), OFF_STEPS)))[0]
+        port_off = _with_env(OFF_ENV, _port_answers, str(port_root), OFF_STEPS)[0]
     return jax, port, jax_off, port_off, jax_app, port_app
 
 
