@@ -6265,6 +6265,273 @@ def stream_phase(card: str):
     return readings
 
 
+# ------------------------------------------------------------------ #
+# gang: worker threads, the member-width cap, staging engines, profiler
+# ------------------------------------------------------------------ #
+
+GANG_DIR = os.path.join(ROOT, "build", "chip_smoke_gang")
+GANG_MEMBERS = 4  # machines a gang
+GANG_EPOCHS = 3
+GANG_LOOKBACKS = (10, 12, 16)  # the lstm_hourglass gangs
+GANG_WIDTHS = (1, 4, 1, 4)  # GORDO_GANG_WIDTH of the four streamed builds; the last two are the fair pair
+GANG_CAP = 256  # the member-width cap the train phase's fleet is fitted at, beside no cap
+GANG_CAP_EPOCHS = 3
+GANG_TRACE_ID = "0af7651916cd43dd8448eb211c80319c"
+
+
+def gang_phase_machines() -> list:
+    """Six small heterogeneous gangs of GANG_MEMBERS machines (10 tags,
+    1,008 rows): dense, variational, conv and lstm_hourglass at each of
+    GANG_LOOKBACKS; two dense machines resample at 7 min with the median."""
+    models = {
+        "dense": detector_pipeline("AutoEncoder", kind="feedforward_hourglass", epochs=GANG_EPOCHS,
+                                   batch_size=128),
+        "vae": detector_pipeline("AutoEncoder", kind="feedforward_variational", epochs=GANG_EPOCHS,
+                                 batch_size=128),
+        "conv": detector_pipeline("ConvAutoEncoder", lookback_window=LOOKBACK, epochs=GANG_EPOCHS,
+                                  batch_size=128),
+        **{f"lstm{lb}": detector_pipeline("LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=lb,
+                                          epochs=GANG_EPOCHS, batch_size=128) for lb in GANG_LOOKBACKS},
+    }
+    out = []
+    for gang, model in models.items():
+        for i in range(GANG_MEMBERS):
+            name = f"gang-{gang}-{i}"
+            ds = dataset(name)
+            if gang == "dense" and i < 2:
+                ds = dict(ds, resolution="7min", aggregation_method="median")
+            out.append({"name": name, "dataset": ds, "model": model})
+    return out
+
+
+def gang_artifacts(out_dir: str, names) -> dict:
+    """(machine, what) -> arrays: every member's parameters, scalers and
+    thresholds as written."""
+    out = {}
+    for name in names:
+        d = os.path.join(out_dir, name)
+        for f in ("params.npz", "scalers.npz"):
+            with np.load(os.path.join(d, f)) as z:
+                out[(name, f)] = {k: z[k] for k in z.files}
+        with open(os.path.join(d, "detector.json")) as f:
+            thresholds = json.load(f)["thresholds"]
+        out[(name, "thresholds")] = {
+            "feature": np.asarray(list(thresholds["feature-thresholds"].values()), np.float64),
+            "total": np.asarray([thresholds["total-anomaly-threshold"]], np.float64)}
+    return out
+
+
+def gang_compare(ref: dict, got: dict, bitwise_keys, what: str) -> float:
+    """Hold ``got`` to ``ref``: bitwise where two width-1 builds are
+    bitwise, else within the training bands; the largest difference."""
+    worst = 0.0
+    for key, arrays in ref.items():
+        lstm = "-lstm" in key[0]
+        rtol, atol = (LSTM_RTOL, LSTM_ATOL) if lstm else (TRAIN_RTOL, TRAIN_ATOL)
+        if got[key].keys() != arrays.keys():
+            raise AssertionError(f"gang {what}: {key} holds {sorted(got[key])}, expected {sorted(arrays)}")
+        for k, want in arrays.items():
+            have = got[key][k]
+            if key in bitwise_keys:
+                if not np.array_equal(have, want, equal_nan=True):
+                    raise AssertionError(f"gang {what}: {key}/{k} differs from the width-1 build")
+                continue
+            worst = max(worst, float(np.abs(np.asarray(have, np.float64) - want).max()) if want.size else 0.0)
+            if not np.allclose(have, want, rtol=rtol, atol=atol):
+                raise AssertionError(f"gang {what}: {key}/{k} outside rtol {rtol} / atol {atol}")
+    return worst
+
+
+def gang_build(machines, out_dir: str, env: dict, streams: bool = True) -> tuple:
+    """One build_fleet under ``env``, its gang workers on streams of their
+    own or on the default stream: (report, wall seconds, fit spans)."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with env_set(env):
+        fleet_build.WORKER_STREAMS = streams
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = build_fleet(machines, out_dir)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            fleet_build.WORKER_STREAMS = True
+    if report.failed or len(report) != len(machines):
+        raise AssertionError(f"gang: built {len(report)} of {len(machines)}, failed {report.failed}")
+    with open(os.path.join(out_dir, "build_trace.json")) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    (root,) = [e for e in events if e.get("name") == "fleet_build" and e.get("ph") == "X"]
+    if root["args"].get("gang_width") != report.gang_width:
+        raise AssertionError(f"gang: build_trace.json gang_width {root['args'].get('gang_width')}, "
+                             f"report {report.gang_width}")
+    fits = [e for e in events if str(e.get("name", "")).startswith("fit:")]
+    return report, wall, fits
+
+
+def gang_builds(machines) -> dict:
+    """The four builds at GANG_WIDTHS, two at width 4 with every worker on
+    the default stream (in turns with the streamed ones), and one at width
+    4 with the process staging engine, their artifacts held together."""
+    names = [m["name"] for m in machines]
+    n_groups = 3 + len(GANG_LOOKBACKS)
+    runs, arts = [], []
+    plan = [(w, "thread", True) for w in GANG_WIDTHS[:2]] + [(4, "thread", False)] + [
+        (w, "thread", True) for w in GANG_WIDTHS[2:]] + [(4, "thread", False), (4, "process", True)]
+    for i, (width, mode, streams) in enumerate(plan):
+        out_dir = os.path.join(GANG_DIR, f"build-{i}")
+        report, wall, fits = gang_build(machines, out_dir, {"GORDO_GANG_WIDTH": str(width),
+                                                            "GORDO_LOAD_MODE": mode}, streams)
+        if report.gang_width != min(width, n_groups):
+            raise AssertionError(f"gang: width {report.gang_width} at GORDO_GANG_WIDTH={width}")
+        # every group's buckets have their fit: spans, whichever thread trained them
+        members = sum(int(e["args"]["members"]) for e in fits)
+        if len(fits) < n_groups or members != len(machines):
+            raise AssertionError(f"gang: {len(fits)} fit spans over {members} members, "
+                                 f"expected >= {n_groups} over {len(machines)}")
+        # the groups' own staging and training seconds, summed (their
+        # metadata spreads each over its members)
+        load_s = fit_s = 0.0
+        for name in names:
+            with open(os.path.join(out_dir, name, "metadata.json")) as f:
+                model_md = json.load(f)["model"]
+            load_s += model_md["data_query_duration_sec"]
+            fit_s += model_md["model_training_duration_sec"]
+        runs.append({"width": report.gang_width, "load_mode": mode, "streams": streams, "wall_s": round(wall, 3),
+                     "models_per_hour": round(len(machines) / wall * 3600, 1), "fit_spans": len(fits),
+                     "groups_load_s": round(load_s, 3), "groups_fit_s": round(fit_s, 3)})
+        arts.append(gang_artifacts(out_dir, names))
+    # plan: w1, w4, w4 default stream, w1, w4, w4 default stream, w4 process
+    bitwise = {k for k, v in arts[0].items()
+               if all(np.array_equal(a, b, equal_nan=True) for a, b in zip(v.values(), arts[3][k].values()))}
+    worst = {f"build{i}": gang_compare(arts[0], arts[i], bitwise, f"build {i}") for i in (1, 2, 4, 5, 6)}
+    worst["build3"] = gang_compare(arts[0], arts[3], set(), "build 3")
+    return {"runs": runs, "bitwise_share": round(len(bitwise) / len(arts[0]), 4), "max_abs_diff": worst,
+            "fair_pair_speedup": round(runs[4]["models_per_hour"] / runs[3]["models_per_hour"], 4)}
+
+
+def gang_width_cap() -> dict:
+    """GORDO_FLEET_WIDTH: the auto sweep (once, then read from its cache),
+    and the train phase's fleet fitted capped and uncapped, in turns."""
+    from gordo_components_torch.parallel import autotune
+
+    sweeps, cache = [], os.path.join(GANG_DIR, "fleet_width.json")
+    arch = f"AutoEncoder:{FLEET_CONFIG['kind']}"
+
+    def sweep(a):
+        sweeps.append(autotune.calibrate_width(a, "cuda"))
+        return sweeps[-1]
+
+    with env_set({"GORDO_FLEET_WIDTH": "auto", "GORDO_FLEET_WIDTH_CACHE": cache}):
+        autotune._process_cache.pop(f"{arch}|{autotune._device_kind('cuda')}", None)
+        picked = autotune.resolve_fleet_width(arch, sweep=sweep, device="cuda")
+        autotune._process_cache.clear()  # a new process: the file answers
+        again = autotune.resolve_fleet_width(arch, sweep=sweep, device="cuda")
+    if len(sweeps) != 1 or again != picked:
+        raise AssertionError(f"gang: {len(sweeps)} sweeps, widths {picked} then {again}")
+    members = synth_fleet(**FLEET_SHAPE)
+    config = dict(FLEET_CONFIG, epochs=GANG_CAP_EPOCHS)
+    fits = {"uncapped": [], "capped": []}
+    for label in ("uncapped", "capped", "capped", "uncapped"):
+        with env_set({"GORDO_FLEET_WIDTH": str(GANG_CAP) if label == "capped" else "off"}):
+            trainer = FleetTrainer(**config)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            models = trainer.fit(members)
+            wall = time.perf_counter() - t0
+        losses = np.array([m.history["loss"] for m in models.values()])
+        fell = float(np.mean(losses[:, -1] < losses[:, 0]))
+        if fell < 0.99 or len(models) != len(members):
+            raise AssertionError(f"gang: {label} fit's loss fell for a share of {fell}")
+        chunks = [b["n_members"] for b in trainer.last_stats["buckets"]]
+        want = [GANG_CAP] * (len(members) // GANG_CAP) if label == "capped" else [len(members)]
+        if chunks != want or trainer.last_stats["width_cap"] != (GANG_CAP if label == "capped" else None):
+            raise AssertionError(f"gang: {label} fit trained chunks {chunks}")
+        fits[label].append({"wall_s": round(wall, 4), "models_per_hour": round(len(members) / wall * 3600, 1),
+                            "loss_fell_share": fell})
+    measured = sweeps[0][1]
+    return {"auto_width": picked, "sweeps": len(sweeps), "sweep_members_per_s": measured,
+            "members": len(members), "epochs": GANG_CAP_EPOCHS, "cap": GANG_CAP, **fits}
+
+
+def trace_kernels(directory: str) -> list:
+    """The kernel names of the Chrome traces under ``directory``."""
+    names = set()
+    for path in sorted(os.listdir(directory)):
+        if path.endswith(".pt.trace.json"):
+            with open(os.path.join(directory, path)) as f:
+                names |= {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+    return sorted(names)
+
+
+def gang_profiles(machines) -> dict:
+    """GORDO_PROFILE_DIR: one LSTM gang's fit (one epoch), then one bank
+    group of a traced request to the built gang; each trace must name its
+    kernels (K3 in the fit's error pass, K2 and K3 in the group)."""
+    prof = os.path.join(GANG_DIR, "profiles")
+    shutil.rmtree(prof, ignore_errors=True)
+    lb = GANG_LOOKBACKS[0]
+    model = detector_pipeline("LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=lb, epochs=1,
+                              batch_size=128)
+    lstm = [dict(m, model=model) for m in machines if m["name"].startswith(f"gang-lstm{lb}-")]
+    out_dir = os.path.join(GANG_DIR, "profiled")
+    with env_set({"GORDO_PROFILE_DIR": prof, "GORDO_GANG_WIDTH": "1"}):
+        gang_build(lstm, out_dir, {})
+    fit_kernels = trace_kernels(os.path.join(prof, f"fleet-gang-{len(lstm)}m"))
+    if not any("lstm_steps" in k for k in fit_kernels):
+        raise AssertionError(f"gang: the LSTM gang's capture names no K3 kernel: {fit_kernels[:20]}")
+    target = lstm[0]["name"]
+    X = get_dataset(lstm[0]["dataset"]).get_data()[0].values[:64]
+    with env_set({"GORDO_PROFILE_DIR": prof, "GORDO_TRACE_SAMPLE": "1"}):
+        server = run_server(out_dir, host="127.0.0.1", port=0, background=True)
+        try:
+            base = server.url + "/gordo/v0/proj"
+            status, _, _ = http_raw(base + f"/{target}/anomaly/prediction", json.dumps({"X": X.tolist()}).encode(),
+                                    {"Content-Type": "application/json",
+                                     "traceparent": f"00-{GANG_TRACE_ID}-00f067aa0ba902b7-01"})
+            if status != 200:
+                raise AssertionError(f"gang: the traced POST answered {status}")
+            status, answer = http_json(base + f"/traces?id={GANG_TRACE_ID}")
+            if status != 200:
+                raise AssertionError(f"gang: /traces answered {status}")
+        finally:
+            server.close()
+    (trace,) = answer["traces"]
+    (execute,) = [s for s in trace["spans"]["children"] if s["name"] == "device_execute"]
+    serve_dir = os.path.join(prof, f"serve-{GANG_TRACE_ID}")
+    if execute["attributes"].get("profile") != serve_dir:
+        raise AssertionError(f"gang: device_execute's profile is {execute['attributes'].get('profile')}")
+    serve_kernels = trace_kernels(serve_dir)
+    if not (any("score_rows<" in k and "true>" in k for k in serve_kernels)
+            and any("lstm_steps" in k for k in serve_kernels)):
+        raise AssertionError(f"gang: the bank group's capture names no K2 or no K3 kernel: {serve_kernels[:20]}")
+    return {"fit_trace_kernels": len(fit_kernels), "serve_trace_kernels": len(serve_kernels),
+            "k3_names": [k for k in fit_kernels if "lstm_steps" in k][:2],
+            "k2_names": [k for k in serve_kernels if "score_rows<" in k][:2]}
+
+
+def gang_phase(card: str):
+    """Gang worker threads (GORDO_GANG_WIDTH 1, 4, 1, 4, then 4 with the
+    process staging engine), the member-width cap and the profiler."""
+    shutil.rmtree(GANG_DIR, ignore_errors=True)
+    machines = gang_phase_machines()
+    t = time.perf_counter()
+    builds = gang_builds(machines)
+    builds_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cap = gang_width_cap()
+    cap_s = time.perf_counter() - t
+    t = time.perf_counter()
+    profiles = gang_profiles(machines)
+    profiles_s = time.perf_counter() - t
+    phase("gang", machines=len(machines), gangs=3 + len(GANG_LOOKBACKS), epochs=GANG_EPOCHS,
+          builds=json.dumps(builds["runs"]), fair_pair_speedup=builds["fair_pair_speedup"],
+          bitwise_share=builds["bitwise_share"], max_abs_diff=json.dumps(builds["max_abs_diff"]),
+          width_cap=json.dumps(cap), profiles=json.dumps(profiles),
+          seconds=json.dumps({"builds": round(builds_s, 1), "cap": round(cap_s, 1),
+                              "profiles": round(profiles_s, 1)}), card=json.dumps(card))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
@@ -6333,6 +6600,7 @@ def main() -> int:
     drive("resilience", resilience_phase, card, in_subprocesses=True)
     drive("quantized", quantized_phase, card)
     drive("stream", stream_phase, card)
+    drive("gang", gang_phase, card)
     timed("path_parity", lambda: path_parity_phase(kernels))
     for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
                          ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
@@ -6359,6 +6627,7 @@ def main() -> int:
                          ("quantized", "lstm_layer_bf16"),
                          ("stream", "banked_anomaly_score"), ("stream", "fused_anomaly_score"),
                          ("stream", "lstm_layer"),
+                         ("gang", "lstm_layer"), ("gang", "banked_anomaly_score"),
                          ("bf16_train", "lstm_layer_bf16"),
                          ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
                          ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):

@@ -12,8 +12,17 @@ point takes a ``device`` that defaults to ``"cuda"`` and raises when CUDA is
 missing, unless ``"cpu"`` is passed explicitly.
 """
 
-from gordo_components_torch.device import resolve_device
-
 __version__ = "0.1.0"
 
 __all__ = ["resolve_device", "__version__"]
+
+
+def __getattr__(name):
+    # torch is imported on first use of ``resolve_device``, so that a
+    # process that needs only the dataset modules (a spawned staging
+    # worker, ``utils/staging.py``) never imports it
+    if name == "resolve_device":
+        from gordo_components_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

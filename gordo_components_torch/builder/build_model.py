@@ -14,7 +14,9 @@ artifact format has no untrained detector, so such a build writes
 config that is not a ``DiffBasedAnomalyDetector`` (a bare ``Pipeline`` or
 estimator) builds the same way and is written as ``model.json``
 (``serializer/artifacts.py``); its metadata records a Pipeline's final
-estimator under ``final_step``, as the JAX builder's does.
+estimator under ``final_step``, as the JAX builder's does. Under
+``GORDO_PROFILE_DIR`` the fit is captured as ``build-<name>``
+(``utils/profiling.py``).
 """
 
 import hashlib
@@ -25,7 +27,6 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
-import torch
 
 from gordo_components_torch import __version__, serializer
 from gordo_components_torch.builder.splits import TimeSeriesSplit
@@ -33,6 +34,7 @@ from gordo_components_torch.dataset import get_dataset
 from gordo_components_torch.device import resolve_device
 from gordo_components_torch.models.base import score_metrics_of
 from gordo_components_torch.utils import metadata_timestamp
+from gordo_components_torch.utils.profiling import device_memory_stats, maybe_profile
 
 logger = logging.getLogger(__name__)
 
@@ -53,15 +55,6 @@ def place(model, device) -> None:
             break
     if hasattr(est, "device"):
         est.device = device
-
-
-def device_memory_stats(device: torch.device) -> Dict[str, Any]:
-    if device.type != "cuda":
-        return {"device": str(device)}
-    return {
-        "device": torch.cuda.get_device_name(device),
-        "peak_bytes_allocated": int(torch.cuda.max_memory_allocated(device)),
-    }
 
 
 def build_model(
@@ -94,7 +87,8 @@ def build_model(
     t1 = time.time()
     trained = evaluation_config["cv_mode"] != "cross_val_only"
     if trained:
-        model.fit(X, y)
+        with maybe_profile(f"build-{name}"):
+            model.fit(X, y)
     fit_elapsed = time.time() - t1
 
     build_metadata = {

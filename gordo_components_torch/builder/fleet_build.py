@@ -10,7 +10,16 @@ train apart); every other machine takes the single-model path
 and a failure stays with its machine or group: a bespoke build that raises,
 or a group that fails ``group_retries + 1`` times (default 1 retry, env
 ``GORDO_BUILD_GROUP_RETRIES``), lands in the report's ``failed`` while the
-rest ship. Groups train one after another on the one card.
+rest ship.
+
+Gang worker threads (``GORDO_GANG_WIDTH``, :func:`resolve_gang_width`):
+groups of more than ``GANG_SMALL_MAX`` members train first, one at a time;
+the small groups then train on a pool of that many threads, each group on
+a CUDA stream of its worker's own on the card, so one group's host work
+(staging, stacking, the epochs' launches) overlaps another's device work.
+Each worker enters the build trace itself (a thread does not inherit the
+context), and every group's members draw from their own generators, so a
+build's artifacts do not depend on the width.
 
 Cross-validation in a gang: each machine that asks for it adds its
 ``TimeSeriesSplit`` folds' training rows as extra members of its gang's
@@ -33,13 +42,15 @@ one build trace, a ``fit:`` span a bucket with its ``checkpoint`` and
 ``compile`` children, written to ``<output_dir>/build_trace.json`` as
 Chrome trace-event JSON (on the crash path too), and counts its models in
 ``gordo_build_models_built_total{path}`` and
-``gordo_build_cache_hits_total`` of the process registry.
+``gordo_build_cache_hits_total`` of the process registry. Under
+``GORDO_PROFILE_DIR`` each gang's fit is captured as
+``fleet-gang-<n>m`` (``utils/profiling.py``).
 
-Not ported yet, and raising (or, for one machine, recorded in ``failed``
-with the error): top-level configs that are not detectors, the distributed
-gang and gang worker threads (``GORDO_GANG_WIDTH``).
+Not ported yet, and raising: the distributed gang (``distributed``).
 """
 
+import concurrent.futures
+import contextlib
 import copy
 import json
 import logging
@@ -49,6 +60,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from gordo_components_torch import serializer
 from gordo_components_torch.builder.build_model import (
@@ -68,6 +80,7 @@ from gordo_components_torch.observability.tracing import chrome_trace, get_trace
 from gordo_components_torch.parallel.fleet import DEFAULT_LEARNING_RATE, FleetTrainer, _family_defaults
 from gordo_components_torch.resilience.faults import configure_from_env, faultpoint
 from gordo_components_torch.utils import metadata_timestamp
+from gordo_components_torch.utils.profiling import device_memory_stats, maybe_profile
 from gordo_components_torch.utils.staging import stage_members
 from gordo_components_torch.workflow.config import Machine
 from gordo_components_torch.workflow.gang_state import GangHeartbeat
@@ -77,6 +90,31 @@ logger = logging.getLogger(__name__)
 # one poisoned group's training degrades to a partial manifest, never
 # aborts the gang
 _FP_GROUP = faultpoint("fleet_build.group")
+
+# groups of at most this many members are small: their wall time is mostly
+# host work (staging, stacking, launches), so several train at once; larger
+# groups fill the card alone and train one at a time
+GANG_SMALL_MAX = 32
+GANG_WIDTH_ENV = "GORDO_GANG_WIDTH"
+# each gang worker enqueues on a CUDA stream of its own (False: every worker
+# on the current stream)
+WORKER_STREAMS = True
+
+
+def resolve_gang_width(n_groups: int, device) -> int:
+    """Worker threads for the small groups. ``GORDO_GANG_WIDTH``: an
+    integer pins the width (clamped to the group count); ``auto`` or unset
+    gives ``min(4, n_groups)`` when the build runs on the card, where one
+    group's launches overlap another's device work, and 1 on the CPU."""
+    raw = (os.environ.get(GANG_WIDTH_ENV) or "auto").strip().lower()
+    if raw not in ("", "auto"):
+        width = int(raw)
+        if width < 1:
+            raise ValueError(f"{GANG_WIDTH_ENV} must be >= 1, got {width}")
+        return min(width, max(1, n_groups))
+    if torch.device(device).type == "cuda":
+        return min(4, max(1, n_groups))
+    return 1
 
 
 class _LockedHeartbeat:
@@ -136,6 +174,11 @@ class FleetBuildReport(Dict[str, str]):
         self.failed: Dict[str, str] = {}
         self.group_retries: int = 0
         self.gang_width: int = 1
+        self._lock = threading.Lock()  # gang workers count retries at once
+
+    def note_retry(self) -> None:
+        with self._lock:
+            self.group_retries += 1
 
     def manifest(self) -> Dict[str, Any]:
         return {
@@ -372,13 +415,6 @@ def _score_cv_folds(
     return out
 
 
-def _refuse_unported(distributed) -> None:
-    if distributed:
-        raise NotImplementedError("distributed: the multi-host gang is not ported yet")
-    if (os.environ.get("GORDO_GANG_WIDTH") or "auto").strip().lower() not in ("auto", "1"):
-        raise NotImplementedError("GORDO_GANG_WIDTH: gang worker threads are not ported yet")
-
-
 def build_fleet(
     machines: List[Any],
     output_dir: str,
@@ -396,10 +432,12 @@ def build_fleet(
     returns a :class:`FleetBuildReport`. ``checkpoint_dir`` resumes
     preempted gangs, ``state_dir`` publishes the heartbeat ``gang_id``
     (default host-pid), which ends ``done`` (nothing failed), ``partial``
-    or ``failed`` (nothing built). ``distributed`` is not ported and
+    or ``failed`` (nothing built). ``results.gang_width`` records the
+    small groups' worker threads. ``distributed`` is not ported and
     raises."""
     device = resolve_device(device)
-    _refuse_unported(distributed)
+    if distributed:
+        raise NotImplementedError("distributed: the multi-host gang is not ported yet")
     configure_from_env()  # GORDO_FAULTS
     if group_retries is None:
         group_retries = int(os.environ.get("GORDO_BUILD_GROUP_RETRIES", "1"))
@@ -444,19 +482,30 @@ def build_fleet(
                 continue
             groups.setdefault(_group_key(ae_kwargs), []).append((machine, ae_kwargs))
 
-        for group in groups.values():
+        workers = threading.local()  # a gang worker's CUDA stream
+
+        def train_group(group):
+            # a group that fails group_retries + 1 times records its members
+            # as failed; the other groups still ship
+            stream = None
+            if WORKER_STREAMS and device.type == "cuda" and threading.current_thread() is not main_thread:
+                stream = getattr(workers, "stream", None)
+                if stream is None:
+                    stream = workers.stream = torch.cuda.Stream(device)
             for attempt in range(group_retries + 1):
                 try:
-                    # the trainer's bucket loop reads the trace from the context
-                    with use_trace(trace):
+                    # the trainer's bucket loop reads the trace from the
+                    # context, which a pool thread does not inherit
+                    with use_trace(trace), (torch.cuda.stream(stream) if stream is not None
+                                            else contextlib.nullcontext()):
                         _build_fleet_group(group, output_dir, model_register_dir, replace_cache,
                                            results, device, checkpoint_dir=checkpoint_dir,
                                            checkpoint_every=checkpoint_every, heartbeat=heartbeat,
                                            counters=counters)
-                    break
+                    return
                 except Exception as exc:
                     if attempt < group_retries:
-                        results.group_retries += 1
+                        results.note_retry()
                         logger.warning("Fleet group of %d member(s) failed (attempt %d/%d): %s; retrying",
                                        len(group), attempt + 1, group_retries + 1, exc)
                         continue
@@ -468,13 +517,29 @@ def build_fleet(
                             results.failed[m.name] = error
                     logger.error("Fleet group of %d member(s) FAILED after %d attempt(s): %s",
                                  len(group), group_retries + 1, error, exc_info=True)
+
+        main_thread = threading.current_thread()
+        gang_width = resolve_gang_width(len(groups), device)
+        results.gang_width = gang_width
+        large = [g for g in groups.values() if len(g) > GANG_SMALL_MAX]
+        small = [g for g in groups.values() if len(g) <= GANG_SMALL_MAX]
+        for group in large:
+            train_group(group)
+        if gang_width > 1 and len(small) > 1:
+            with concurrent.futures.ThreadPoolExecutor(gang_width, thread_name_prefix="gordo-gang") as pool:
+                for future in [pool.submit(train_group, g) for g in small]:
+                    future.result()  # train_group records build failures: this raises only a fault of its own
+        else:
+            for group in small:
+                train_group(group)
     except BaseException as exc:
         # what the isolation above does not hold: a signal, a broken volume
         if heartbeat is not None:
             heartbeat.finish("failed", built=len(results), error=f"{type(exc).__name__}: {exc}")
         _finish_build_trace(trace, output_dir, error=True)
         raise
-    _finish_build_trace(trace, output_dir, n_built=len(results), n_failed=len(results.failed))
+    _finish_build_trace(trace, output_dir, n_built=len(results), n_failed=len(results.failed),
+                        gang_width=results.gang_width)
     if heartbeat is not None:
         if not results.failed:
             heartbeat.finish("done", built=len(results))
@@ -560,8 +625,10 @@ def _build_fleet_group(
         for fold in range(len(splits)):
             member_hparams[_cv_key(name, fold)] = member_hparams[name]
     t1 = time.time()
-    fleet_models = trainer.fit({**member_data, **fold_data}, member_hparams=member_hparams)
+    with maybe_profile(f"fleet-gang-{len(pending)}m"):
+        fleet_models = trainer.fit({**member_data, **fold_data}, member_hparams=member_hparams)
     train_elapsed = time.time() - t1
+    trainer.last_stats["device_memory"] = device_memory_stats(device)
     if fold_data:
         trainer.last_stats["cv_fold_members"] = len(fold_data)
     cv_meta = _score_cv_folds(cv_plan, fleet_models)

@@ -29,9 +29,12 @@ same options, environment variables and exit codes:
 the commands run on the card, and without CUDA they fail through
 ``resolve_device`` unless ``--device cpu`` asks for the CPU. A set
 ``GORDO_FAULTS`` arms the fault points before any command runs
-(``resilience/faults.py``). Not ported yet, and refused with exit code 2:
-``--profile-dir``, ``--compile-cache-dir`` and ``run-server --devices``
-above 1; ``build-fleet --distributed`` exits 83. The client commands move
+(``resilience/faults.py``), and ``--profile-dir`` sets
+``GORDO_PROFILE_DIR``, under which builds and traced bank groups write
+profiler captures (``utils/profiling.py``). Refused with exit code 2:
+``--compile-cache-dir`` (the XLA compile cache has no counterpart in the
+port) and ``run-server --devices`` above 1, which is not ported yet;
+``build-fleet --distributed`` exits 83. The client commands move
 no tensor and ignore ``--device``. The JAX package's ``workflow`` and
 ``run-watchman`` commands are not ported.
 """
@@ -87,7 +90,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--log-level", default=_env("LOG_LEVEL", "INFO"))
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default) or 'cpu'; never chosen on its own")
-    p.add_argument("--profile-dir", default=_env("GORDO_PROFILE_DIR"), help="not ported")
+    p.add_argument("--profile-dir", default=_env("GORDO_PROFILE_DIR"),
+                   help="write torch.profiler captures of builds and traced bank groups here")
     p.add_argument("--compile-cache-dir", default=_env("GORDO_COMPILE_CACHE_DIR"), help="not ported")
     sub = p.add_subparsers(dest="command", metavar="COMMAND")
     sub.required = True
@@ -358,8 +362,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     for attr, env in _REQUIRED[args.command]:
         if getattr(args, attr) is None:
             parser.error(f"{args.command}: --{attr.replace('_', '-')} (or {env}) is required")
-    if args.profile_dir:
-        parser.error("--profile-dir (GORDO_PROFILE_DIR): profiling is not ported yet")
     if args.compile_cache_dir:
         parser.error("--compile-cache-dir (GORDO_COMPILE_CACHE_DIR): the XLA compile cache has "
                      "no counterpart in the port")
@@ -372,6 +374,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         level=getattr(logging, args.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
+    if args.profile_dir:
+        os.environ["GORDO_PROFILE_DIR"] = args.profile_dir
     if os.environ.get("GORDO_FAULTS"):
         # before any subsystem runs: specs for sites not imported yet wait
         # for their registration

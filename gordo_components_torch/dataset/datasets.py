@@ -1,6 +1,7 @@
 """Concrete datasets (counterpart of ``TimeSeriesDataset``/``RandomDataset``
 in ``gordo_components_tpu/dataset/datasets.py``): pull each tag's series
-from a provider, resample them to ``resolution`` and outer-join them
+from a provider, resample them to ``resolution`` with
+``aggregation_method`` and outer-join them
 (:func:`~.resample.fused_agg_join`), drop rows with any missing value,
 then keep the rows ``row_filter`` (a pandas expression, read by
 :mod:`~.filter_rows`) selects; X holds the tags, y the ``target_tag_list``
@@ -25,7 +26,7 @@ from gordo_components_torch.dataset.sensor_tag import normalize_sensor_tags
 from gordo_components_torch.dataset.times import (
     isoformat,
     normalize_resolution,
-    resolution_ns,
+    parse_resolution,
     to_ns,
 )
 from gordo_components_torch.utils import capture_args
@@ -70,7 +71,7 @@ class TimeSeriesDataset(GordoBaseDataset):
             self.start_ns, self.end_ns, list(self.tag_list) + extra
         ))
         index, columns, tag_meta = fused_agg_join(
-            series, self.start_ns, self.end_ns, resolution_ns(self.resolution),
+            series, self.start_ns, self.end_ns, parse_resolution(self.resolution),
             self.aggregation_method,
         )
         rows_joined = index.size

@@ -3,7 +3,8 @@
 Configurations give dates as ISO-8601 strings (``"2020-01-01T00:00:00Z"``,
 ``"2017-12-25 06:00:00Z"``, an offset such as ``+01:00``, or naive, which
 reads as UTC) and resolutions as pandas-style offsets (``"10min"``, the
-reference-era ``"10T"``, ``"1h"``, ``"30s"``, ``"1d"``). Data files and
+reference-era ``"10T"``, ``"1h"``, ``"30s"``, ``"1d"``, and for resampling
+the weekly ``"W"`` and ``"W-MON"`` ... ``"W-SUN"``: :func:`parse_resolution`). Data files and
 InfluxDB answer with columns of such strings, which :func:`parse_times`
 reads to int64 ns as ``pd.to_datetime(col, utc=True)`` does: a date, or a
 date with ``HH:MM``, ``HH:MM:SS`` or ``HH:MM:SS.f`` (1 to 9 fractional
@@ -13,6 +14,7 @@ nothing (naive reads as UTC). Anything else raises ``ValueError``.
 
 import datetime
 import re
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -133,6 +135,44 @@ def resolution_ns(resolution: str) -> int:
     if not m or m.group(2) not in _UNITS_NS:
         raise ValueError(f"Unsupported resolution {resolution!r} (a count and one of {sorted(_UNITS_NS)})")
     return int(m.group(1) or 1) * _UNITS_NS[m.group(2)]
+
+
+WEEKDAYS = ("MON", "TUE", "WED", "THU", "FRI", "SAT", "SUN")
+_WEEKLY = re.compile(r"^(\d*)W(?:-([A-Z]{3}))?$")
+# pandas' calendar offsets, which the port does not resample at
+_CALENDAR = re.compile(
+    r"^\d*(M|ME|MS|SM|SME|SMS|BM|BME|BMS|CBM|CBME|CBMS|Q|QE|QS|BQ|BQE|BQS|A|AS|Y|YE|YS|BA|BAS|BY|BYE|BYS|"
+    r"B|C|BH|CBH)(-[A-Z]{3})?$")
+
+
+class Resolution(NamedTuple):
+    """A resampling resolution: a fixed step, or one week anchored on
+    ``weekday`` (0 = Monday), whose bins end on that day and are labelled
+    by it (pandas' ``W-<day>``, closed and labelled right)."""
+
+    step_ns: int
+    weekday: Optional[int] = None
+
+
+def parse_resolution(resolution: str) -> Resolution:
+    """A fixed offset (:func:`resolution_ns`) or ``W`` (``W-SUN``),
+    ``W-MON`` ... ``W-SUN``. pandas' calendar offsets (month, quarter, year,
+    business days) and multi-week anchors raise ``NotImplementedError``
+    naming them; anything else ``ValueError``."""
+    text = normalize_resolution(resolution.strip())
+    m = _WEEKLY.match(text)
+    if m:
+        if m.group(1) not in ("", "1"):
+            raise NotImplementedError(f"resolution {resolution!r}: the port resamples at one-week anchors only")
+        day = m.group(2) or "SUN"
+        if day not in WEEKDAYS:
+            raise ValueError(f"Unsupported resolution {resolution!r} (W-{'|'.join(WEEKDAYS)})")
+        return Resolution(7 * _UNITS_NS["D"], WEEKDAYS.index(day))
+    if _CALENDAR.match(text):
+        raise NotImplementedError(
+            f"resolution {resolution!r}: calendar offsets (month, quarter, year, business days) are not "
+            "resampled by the port")
+    return Resolution(resolution_ns(text))
 
 
 def normalize_resolution(resolution: str) -> str:

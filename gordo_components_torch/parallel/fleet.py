@@ -44,13 +44,18 @@ spans and an estimated ``compile`` span (epoch 0's excess over the steady
 epochs: the port compiles nothing, so this is its warm-up), and the
 process registry carries the ``gordo_fleet_*`` gauges and counters.
 
-Not ported yet, and raising: ``mesh`` and the ``GORDO_FLEET_WIDTH``
-member-width cap.
+``GORDO_FLEET_WIDTH`` (``parallel/autotune.py``) caps a stack's members:
+a bucket wider than the cap trains in near-equal chunks no wider than it,
+as the JAX trainer splits it. A chunk's members take their positions in
+the chunk, which reseeds their initialisation: a capped fit trains valid
+models, not bitwise the uncapped ones. ``last_stats["width_cap"]`` records
+the cap.
+
+Not ported yet, and raising: ``mesh``.
 """
 
 import inspect
 import logging
-import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -63,6 +68,7 @@ from gordo_components_torch.models import train_core
 from gordo_components_torch.models.register import lookup_factory
 from gordo_components_torch.observability.metrics import get_registry
 from gordo_components_torch.observability.tracing import current_trace
+from gordo_components_torch.parallel.autotune import resolve_fleet_width, split_widths
 from gordo_components_torch.ops.scaler import ScalerParams, fit_minmax, fit_standard
 from gordo_components_torch.parallel.checkpoint import FleetBucketCheckpoint, bucket_checkpoint_key
 from gordo_components_torch.utils import capture_args
@@ -409,8 +415,6 @@ class FleetTrainer:
             raise ValueError(f"model_type must be one of {sorted(_MODEL_TYPES)}, got {model_type!r}")
         if mesh is not None:
             raise NotImplementedError("mesh: multi-device fleet training is not ported yet")
-        if (os.environ.get("GORDO_FLEET_WIDTH") or "").strip().lower() not in ("", "off"):
-            raise NotImplementedError("GORDO_FLEET_WIDTH: the member-width cap is not ported yet")
         if input_scaler not in ("minmax", "standard"):
             raise ValueError(f"input_scaler must be minmax|standard, got {input_scaler!r}")
         self.threshold_quantile = float(threshold_quantile)
@@ -524,10 +528,12 @@ class FleetTrainer:
         ).labels()
         reg.gauge("gordo_fleet_members_total", "Members in the current fleet fit").labels().set(len(members))
         g_trained.set(0)
+        width_cap = resolve_fleet_width(f"{self.model_type}:{self.kind}", device=device)
+        work = [(key, chunk) for key, names in sorted(buckets.items()) for chunk in split_widths(names, width_cap)]
         trace = current_trace()
         out: Dict[str, FleetMemberModel] = {}
         bucket_stats = []
-        for (n_features, padded_items), names in sorted(buckets.items()):
+        for (n_features, padded_items), names in work:
             tb = time.time()
             blabel = f"f{n_features}x{padded_items}"
             fit_span = None
@@ -588,7 +594,7 @@ class FleetTrainer:
             "total_seconds": time.time() - t0,
             "n_members": len(members),
             "buckets": bucket_stats,
-            "width_cap": None,
+            "width_cap": width_cap,
             "device": str(device),
         }
         return out

@@ -57,6 +57,7 @@ module that registers the site.
 import logging
 import os
 import random
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -113,7 +114,7 @@ _ALLOWED_EXCEPTIONS["FaultInjected"] = FaultInjected
 class FaultSpec:
     """One armed behavior: what happens when its site fires."""
 
-    __slots__ = ("exc", "delay_s", "times", "p", "_rng", "remaining", "fired")
+    __slots__ = ("exc", "delay_s", "times", "p", "_rng", "remaining", "fired", "_lock")
 
     def __init__(
         self,
@@ -138,15 +139,19 @@ class FaultSpec:
         self._rng = random.Random(0 if seed is None else seed)
         self.remaining = self.times
         self.fired = 0
+        # the draw and the counts under one lock: a site fired from several
+        # threads (gang workers) spends each of its ``times`` once
+        self._lock = threading.Lock()
 
     def fire(self, site: str) -> None:
-        if self.p < 1.0 and self._rng.random() >= self.p:
-            return
-        if self.remaining is not None:
-            if self.remaining <= 0:
+        with self._lock:
+            if self.p < 1.0 and self._rng.random() >= self.p:
                 return
-            self.remaining -= 1
-        self.fired += 1
+            if self.remaining is not None:
+                if self.remaining <= 0:
+                    return
+                self.remaining -= 1
+            self.fired += 1
         listener = _FIRE_LISTENER
         if listener is not None:
             try:

@@ -86,6 +86,7 @@ from gordo_components_torch.server.swap import warmup_enabled
 from gordo_components_torch.server.views import GordoServer
 from gordo_components_torch.server.workers import ServerPool, resolve_workers
 from gordo_components_torch.streaming.adapt import StreamingPlane, stream_enabled
+from gordo_components_torch.utils.profiling import device_memory_stats
 
 
 class App:
@@ -266,21 +267,17 @@ def _server_collector(app: App):
 
 
 def _hbm_collector(device):
-    """The card's memory as gauges, read at each scrape:
-    ``torch.cuda.memory_allocated``, the total of ``torch.cuda.mem_get_info``
-    and ``torch.cuda.max_memory_allocated`` of the app's device. An app on
-    the CPU gives no samples, as the JAX package's CPU devices report none."""
+    """The card's memory as gauges, read at each scrape: the numbers
+    ``utils/profiling.device_memory_stats`` records into build metadata
+    (``torch.cuda.memory_allocated``, the total of ``mem_get_info`` and
+    ``max_memory_allocated`` of the app's device). An app on the CPU gives
+    no samples, as the JAX package's CPU devices report none."""
 
     def collect():
-        if device.type != "cuda":
-            return
-        index = device.index if device.index is not None else torch.cuda.current_device()
-        label = {"device": f"cuda:{index}"}
-        help = "Per-device HBM memory (bytes)"
-        yield ("gordo_device_hbm_bytes_in_use", "gauge", help, label, torch.cuda.memory_allocated(index))
-        yield ("gordo_device_hbm_bytes_limit", "gauge", help, label, torch.cuda.mem_get_info(index)[1])
-        yield ("gordo_device_hbm_peak_bytes_in_use", "gauge", help, label,
-               torch.cuda.max_memory_allocated(index))
+        for dev, stats in device_memory_stats(device).items():
+            for key in ("bytes_in_use", "bytes_limit", "peak_bytes_in_use"):
+                yield (f"gordo_device_hbm_{key}", "gauge", "Per-device HBM memory (bytes)", {"device": dev},
+                       stats[key])
 
     return collect
 

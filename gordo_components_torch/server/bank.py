@@ -68,7 +68,10 @@ model (``observability/cost.py``). With the app's heat accountant
 (``observability/heat.py``) each request's rows go to its mailbox.
 :meth:`ModelBank.score_many` checks a batch's deadline between bucket
 groups and, for the batching engine, returns a failed group's errors in
-place of its results.
+place of its results. Under ``GORDO_PROFILE_DIR`` a traced group is
+captured by the profiler (``utils/profiling.py``) as
+``serve-<trace id>``, waiting for its work inside the capture, and its
+``device_execute`` span carries the capture's directory as ``profile``.
 
 Storage (``bank_dtype``, ``GORDO_BANK_DTYPE``; ``ops/quantize.py``): a
 bucket keeps its stacked weights in float32 (the identity: stacked in the
@@ -122,6 +125,7 @@ from gordo_components_torch.ops.windows import sliding_windows
 from gordo_components_torch.resilience.deadline import Deadline, DeadlineExceeded
 from gordo_components_torch.resilience.faults import faultpoint
 from gordo_components_torch.server.arena import PaddedArena
+from gordo_components_torch.utils.profiling import PROFILE_DIR_ENV, maybe_profile, profile_path
 
 logger = logging.getLogger(__name__)
 
@@ -460,7 +464,7 @@ class _GroupRun:
 
     __slots__ = ("bucket", "req_ids", "req_plans", "group_traces", "n_chunks", "shape", "Xb", "Yb", "idx",
                  "out", "bufs", "dev_refs", "event", "ev_start", "event_s", "t_group", "t_chunks", "t_pad",
-                 "t_dispatch", "t_ready", "t_device_done", "t_post", "routed_rows", "total_rows")
+                 "t_dispatch", "t_ready", "t_device_done", "t_post", "routed_rows", "total_rows", "profile_dir")
 
     def __init__(self, bucket: _Bucket, req_ids: List[int]):
         self.bucket, self.req_ids = bucket, req_ids
@@ -479,6 +483,7 @@ class _GroupRun:
         # host stage boundary; t_ready: when the host stopped waiting
         self.t_ready = self.t_device_done = self.t_post = 0.0
         self.routed_rows = self.total_rows = 0
+        self.profile_dir = None  # the capture of this group, under GORDO_PROFILE_DIR
 
     def poll_ready(self, now: float) -> None:
         """Stamp ``t_device_done`` if the group's event has completed."""
@@ -1156,8 +1161,25 @@ class ModelBank:
         recorded behind them; the device tensors stay referenced until
         that event. On the CPU the forward runs here, to its end."""
         _FP_SCORE.fire()
-        bucket = run.bucket
         run.t_dispatch = time.monotonic()
+        prof_root = os.environ.get(PROFILE_DIR_ENV) if run.group_traces else None
+        if prof_root:
+            # a profiler capture of exactly this group, named by its first
+            # request's trace id (the device_execute span's ``profile``
+            # links the two); it must see the work, so it waits for the
+            # group's event inside the capture
+            prof_name = f"serve-{run.group_traces[0].trace_id}"
+            run.profile_dir = profile_path(prof_name, prof_root)
+            with maybe_profile(prof_name, prof_root):
+                self._enqueue(run)
+                if run.event is not None:
+                    run.event.synchronize()
+            run.t_ready = run.t_device_done = time.monotonic()
+        else:
+            self._enqueue(run)
+
+    def _enqueue(self, run: "_GroupRun") -> None:
+        bucket = run.bucket
         dev = self.device
         if dev.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
@@ -1221,7 +1243,10 @@ class ModelBank:
                     tr.add_span("coalesce", run.t_group, run.t_chunks, bucket=label,
                                 requests=len(run.req_ids), chunks=run.n_chunks)
                     tr.add_span("pad", run.t_chunks, run.t_pad)
-                    tr.add_span("device_execute", run.t_dispatch, run.t_ready, bucket=label)
+                    exec_attrs = {"bucket": label}
+                    if run.profile_dir is not None:
+                        exec_attrs["profile"] = run.profile_dir
+                    tr.add_span("device_execute", run.t_dispatch, run.t_ready, **exec_attrs)
                     tr.add_span("postprocess", run.t_ready, run.t_post)
         finally:
             run.dev_refs = None

@@ -224,9 +224,11 @@ def test_build_fleet_group_retry_and_unported_options(tmp_path, monkeypatch):
     assert sorted(report) == ["m0", "m1"] and report.group_retries == 1
     with pytest.raises(NotImplementedError, match="distributed"):
         build_fleet(machines, str(tmp_path / "o2"), device="cpu", distributed=True)
+    # gang worker threads: the width is clamped to the groups (here one)
     monkeypatch.setenv("GORDO_GANG_WIDTH", "2")
-    with pytest.raises(NotImplementedError, match="GORDO_GANG_WIDTH"):
-        build_fleet(machines, str(tmp_path / "o3"), device="cpu")
+    report = build_fleet(machines, str(tmp_path / "o3"), device="cpu")
+    assert sorted(report) == ["m0", "m1"] and report.gang_width == 1
+    assert report.manifest()["gang_width"] == 1
 
 
 def test_build_model_and_provide_saved_model(tmp_path):

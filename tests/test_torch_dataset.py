@@ -8,11 +8,12 @@ import pytest
 from gordo_components_torch.dataset import RandomDataset, get_dataset, normalize_sensor_tags
 from gordo_components_torch.dataset.data_provider.base import Series
 from gordo_components_torch.dataset.resample import fused_agg_join
-from gordo_components_torch.dataset.times import resolution_ns, to_ns
+from gordo_components_torch.dataset.times import parse_resolution, resolution_ns, to_ns
 from gordo_components_torch.utils.staging import stage_members
 from gordo_components_tpu.dataset import RandomDataset as JaxRandomDataset
 from gordo_components_tpu.dataset import get_dataset as jax_get_dataset
 from gordo_components_tpu.dataset import normalize_sensor_tags as jax_normalize
+from gordo_components_tpu.dataset.datasets import join_timeseries
 from gordo_components_tpu.dataset.resample import fused_agg_join as jax_fused
 
 # the three machines of examples/fleet.yaml, as dicts
@@ -93,10 +94,21 @@ def test_fused_agg_join_matches_jax(agg):
         np.testing.assert_array_equal(cols[name], want_df[name].values)
         assert cols[name].dtype == want_df[name].dtype
     assert meta == want_meta
-    with pytest.raises(NotImplementedError, match="aggregation"):
-        fused_agg_join([], 0, 1, 60, "median")
-    with pytest.raises(NotImplementedError, match="divide one day"):
-        fused_agg_join([], 0, 1, resolution_ns("7min"), "mean")
+    # beyond the fused path: the same tags at a resolution that does not
+    # divide a day, and the median at one that does, as pandas resamples
+    # them (tests/test_torch_resample.py fuzzes the rest)
+    port_series = [Series(s.name, s.index.as_unit("ns").asi8, s.values) for s in series]
+    for res, how in (("7min", agg), ("10min", "median")):
+        want_df, want_meta = join_timeseries(series, start, end, res, how, fast=False)
+        index, cols, meta = fused_agg_join(port_series, to_ns("2020-01-01T00:00:00Z"),
+                                           to_ns("2020-01-01T06:00:00Z"), parse_resolution(res), how)
+        np.testing.assert_array_equal(index.astype("datetime64[ns]"), _index_ns(want_df.index))
+        for name in want_df.columns:
+            np.testing.assert_array_equal(cols[name], want_df[name].values)
+            assert cols[name].dtype == want_df[name].dtype
+        assert meta == want_meta
+    with pytest.raises(NotImplementedError, match="ohlc"):
+        fused_agg_join([], 0, 1, 60, "ohlc")
 
 
 def test_sensor_tags_and_staging(monkeypatch):
@@ -109,6 +121,8 @@ def test_sensor_tags_and_staging(monkeypatch):
         assert X.columns == config["tag_list"]
         np.testing.assert_array_equal(X.values, get_dataset(config).get_data()[0].values)
         assert meta["rows_after_dropna"] == 1008
+    # the process engine (spawned workers) stages the same arrays
     monkeypatch.setenv("GORDO_LOAD_MODE", "process")
-    with pytest.raises(NotImplementedError, match="process"):
-        stage_members(configs)
+    for (X, meta), (PX, pmeta) in zip(staged, stage_members(configs, workers=2)):
+        np.testing.assert_array_equal(PX.values, X.values)
+        assert PX.columns == X.columns and pmeta == meta

@@ -240,14 +240,14 @@ def test_build_fleet_under_group_faults_matches_jax(spec, rc, built, failed, ret
         path = tmp_path / f"{out}.json"
         path.write_text(json.dumps(_machines(pkg)))
         args = ["build-fleet", "--machines-file", str(path), "--output-dir", str(tmp_path / out)]
+        # one gang thread on both sides: on several threads the groups race
+        # for the fault's fires, and the verdict follows their order
         if out == "j":
-            # one gang thread, as the port builds: with the tests' 8 virtual
-            # devices the JAX builder runs both groups on 2 threads, which
-            # then race for the fault's fires and the verdict
             result = CliRunner().invoke(gordo, args, env={"GORDO_FAULTS": spec, "GORDO_GANG_WIDTH": "1"})
             got_rc, text = result.exit_code, result.stdout
         else:
             monkeypatch.setenv("GORDO_FAULTS", spec)
+            monkeypatch.setenv("GORDO_GANG_WIDTH", "1")
             got_rc, text = main(["--device", "cpu", *args]), capsys.readouterr().out
             monkeypatch.delenv("GORDO_FAULTS")
         assert got_rc == rc, (pkg, text)

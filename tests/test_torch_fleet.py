@@ -182,7 +182,13 @@ def test_unported_fleet_features_raise(monkeypatch):
         FleetTrainer(mesh=object())
     with pytest.raises(NotImplementedError, match="'float32' or 'bfloat16'"):
         FleetTrainer(compute_dtype="float16", device="cpu", **ARCH).fit(_members(1, 10))
-    monkeypatch.setenv("GORDO_FLEET_WIDTH", "64")
-    with pytest.raises(NotImplementedError, match="GORDO_FLEET_WIDTH"):
-        FleetTrainer()
+    # the member-width cap: five members at a cap of 2 train as 2 + 2 + 1
+    monkeypatch.setenv("GORDO_FLEET_WIDTH", "2")
+    trainer = FleetTrainer(epochs=1, batch_size=16, device="cpu", **ARCH)
+    out = trainer.fit(_members(5, 20))
+    assert sorted(out) == [f"m{i}" for i in range(5)] and trainer.last_stats["width_cap"] == 2
+    assert [b["n_members"] for b in trainer.last_stats["buckets"]] == [2, 2, 1]
+    monkeypatch.setenv("GORDO_FLEET_WIDTH", "0")
+    with pytest.raises(ValueError, match="GORDO_FLEET_WIDTH must be >= 1"):
+        FleetTrainer(device="cpu", **ARCH).fit(_members(1, 10))
     assert torch.get_default_dtype() == torch.float32
