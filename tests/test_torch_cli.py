@@ -215,7 +215,9 @@ def test_unported_global_options_exit_2_with_a_message(name, tmp_path, capsys, m
     the profiler was ported, now reach the build as ``GORDO_PROFILE_DIR``,
     as the JAX CLI passes them on."""
     args, env = NOT_PORTED[name]
-    monkeypatch.delenv("GORDO_PROFILE_DIR", raising=False)  # the CLIs set it: restored after
+    # the CLIs set it in os.environ: setenv first records it for the restore
+    monkeypatch.setenv("GORDO_PROFILE_DIR", "")
+    monkeypatch.delenv("GORDO_PROFILE_DIR")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     if "PROFILE" in name.upper():
