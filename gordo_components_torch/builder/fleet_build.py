@@ -15,7 +15,7 @@ rest ship.
 Gang worker threads (``GORDO_GANG_WIDTH``, :func:`resolve_gang_width`):
 groups of more than ``GANG_SMALL_MAX`` members train first, one at a time;
 the small groups then train on a pool of that many threads, each group on
-a CUDA stream of its worker's own on the card, so one group's host work
+a CUDA stream of its own on the card, so one group's host work
 (staging, stacking, the epochs' launches) overlaps another's device work.
 Each worker enters the build trace itself (a thread does not inherit the
 context), and every group's members draw from their own generators, so a
@@ -50,7 +50,6 @@ Not ported yet, and raising: the distributed gang (``distributed``).
 """
 
 import concurrent.futures
-import contextlib
 import copy
 import json
 import logging
@@ -96,8 +95,8 @@ _FP_GROUP = faultpoint("fleet_build.group")
 # groups fill the card alone and train one at a time
 GANG_SMALL_MAX = 32
 GANG_WIDTH_ENV = "GORDO_GANG_WIDTH"
-# each gang worker enqueues on a CUDA stream of its own (False: every worker
-# on the current stream)
+# each small group on gang worker threads enqueues on a CUDA stream of its
+# own (False: on the current stream; the smoke's gang phase times both)
 WORKER_STREAMS = True
 
 
@@ -482,22 +481,14 @@ def build_fleet(
                 continue
             groups.setdefault(_group_key(ae_kwargs), []).append((machine, ae_kwargs))
 
-        workers = threading.local()  # a gang worker's CUDA stream
-
-        def train_group(group):
+        def train_group(group, stream=None):
             # a group that fails group_retries + 1 times records its members
             # as failed; the other groups still ship
-            stream = None
-            if WORKER_STREAMS and device.type == "cuda" and threading.current_thread() is not main_thread:
-                stream = getattr(workers, "stream", None)
-                if stream is None:
-                    stream = workers.stream = torch.cuda.Stream(device)
             for attempt in range(group_retries + 1):
                 try:
                     # the trainer's bucket loop reads the trace from the
                     # context, which a pool thread does not inherit
-                    with use_trace(trace), (torch.cuda.stream(stream) if stream is not None
-                                            else contextlib.nullcontext()):
+                    with use_trace(trace), torch.cuda.stream(stream):
                         _build_fleet_group(group, output_dir, model_register_dir, replace_cache,
                                            results, device, checkpoint_dir=checkpoint_dir,
                                            checkpoint_every=checkpoint_every, heartbeat=heartbeat,
@@ -518,7 +509,6 @@ def build_fleet(
                     logger.error("Fleet group of %d member(s) FAILED after %d attempt(s): %s",
                                  len(group), group_retries + 1, error, exc_info=True)
 
-        main_thread = threading.current_thread()
         gang_width = resolve_gang_width(len(groups), device)
         results.gang_width = gang_width
         large = [g for g in groups.values() if len(g) > GANG_SMALL_MAX]
@@ -526,8 +516,13 @@ def build_fleet(
         for group in large:
             train_group(group)
         if gang_width > 1 and len(small) > 1:
+            # on the card each small group enqueues on a stream of its own
+            # (torch.cuda.Stream hands out PyTorch's pooled streams)
+            on_streams = WORKER_STREAMS and device.type == "cuda"
             with concurrent.futures.ThreadPoolExecutor(gang_width, thread_name_prefix="gordo-gang") as pool:
-                for future in [pool.submit(train_group, g) for g in small]:
+                futures = [pool.submit(train_group, g, torch.cuda.Stream(device) if on_streams else None)
+                           for g in small]
+                for future in futures:
                     future.result()  # train_group records build failures: this raises only a fault of its own
         else:
             for group in small:
