@@ -5644,10 +5644,13 @@ def resilience_kill(runs: dict) -> dict:
     out_dir, ckdir, state_dir = (os.path.join(RES_DIR, d) for d in ("gang", "ck", "state"))
     args = ["build-fleet", "--machines-file", payload, "--output-dir", out_dir, "--checkpoint-dir", ckdir,
             "--state-dir", state_dir, "--gang-id", "smoke-gang"]
+    # one gang thread: the kill must land in the LSTM group's bucket, which
+    # trains first only when the groups train one after another
+    serial = {"GORDO_GANG_WIDTH": "1"}
     log = open(os.path.join(RES_DIR, "killed.log"), "w")
     t0 = time.perf_counter()
     proc = subprocess.Popen(cli_command("killed_build", args, RES_DIR), cwd=ROOT, stdout=log,
-                            stderr=subprocess.STDOUT)
+                            stderr=subprocess.STDOUT, env=dict(os.environ, **serial))
     seen = None
     try:
         while seen is None:
@@ -5672,7 +5675,7 @@ def resilience_kill(runs: dict) -> dict:
     if not committed:
         raise AssertionError(f"resilience: no committed checkpoint after the kill at {seen}")
     t1 = time.perf_counter()
-    proc = cli("resumed_build", args, counts_dir=RES_DIR)
+    proc = cli("resumed_build", args, env=serial, counts_dir=RES_DIR)
     resume_s = time.perf_counter() - t1
     if proc.returncode != 0:
         raise AssertionError(f"resilience: the resumed build exited {proc.returncode}: {proc.stderr[-2000:]}")
@@ -6273,7 +6276,7 @@ GANG_DIR = os.path.join(ROOT, "build", "chip_smoke_gang")
 GANG_MEMBERS = 4  # machines a gang
 GANG_EPOCHS = 3
 GANG_LOOKBACKS = (10, 12, 16)  # the lstm_hourglass gangs
-GANG_WIDTHS = (1, 4, 1, 4)  # GORDO_GANG_WIDTH of the four streamed builds; the last two are the fair pair
+GANG_WIDTHS = (1, 4, 1, 4)  # GORDO_GANG_WIDTH of the four builds; the second and third are the fair pair
 GANG_CAP = 256  # the member-width cap the train phase's fleet is fitted at, beside no cap
 GANG_CAP_EPOCHS = 3
 GANG_TRACE_ID = "0af7651916cd43dd8448eb211c80319c"
@@ -6342,20 +6345,15 @@ def gang_compare(ref: dict, got: dict, bitwise_keys, what: str) -> float:
     return worst
 
 
-def gang_build(machines, out_dir: str, env: dict, streams: bool = True) -> tuple:
-    """One build_fleet under ``env``, its gang workers on streams of their
-    own or on the default stream: (report, wall seconds, fit spans)."""
+def gang_build(machines, out_dir: str, env: dict) -> tuple:
+    """One build_fleet under ``env``: (report, wall seconds, fit spans)."""
     shutil.rmtree(out_dir, ignore_errors=True)
     with env_set(env):
-        fleet_build.WORKER_STREAMS = streams
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            report = build_fleet(machines, out_dir)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            fleet_build.WORKER_STREAMS = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = build_fleet(machines, out_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     if report.failed or len(report) != len(machines):
         raise AssertionError(f"gang: built {len(report)} of {len(machines)}, failed {report.failed}")
     with open(os.path.join(out_dir, "build_trace.json")) as f:
@@ -6370,18 +6368,16 @@ def gang_build(machines, out_dir: str, env: dict, streams: bool = True) -> tuple
 
 
 def gang_builds(machines) -> dict:
-    """The four builds at GANG_WIDTHS, two at width 4 with every worker on
-    the default stream (in turns with the streamed ones), and one at width
-    4 with the process staging engine, their artifacts held together."""
+    """The four builds at GANG_WIDTHS and one at width 4 with the process
+    staging engine, their artifacts held together."""
     names = [m["name"] for m in machines]
     n_groups = 3 + len(GANG_LOOKBACKS)
     runs, arts = [], []
-    plan = [(w, "thread", True) for w in GANG_WIDTHS[:2]] + [(4, "thread", False)] + [
-        (w, "thread", True) for w in GANG_WIDTHS[2:]] + [(4, "thread", False), (4, "process", True)]
-    for i, (width, mode, streams) in enumerate(plan):
+    plan = [(w, "thread") for w in GANG_WIDTHS] + [(4, "process")]
+    for i, (width, mode) in enumerate(plan):
         out_dir = os.path.join(GANG_DIR, f"build-{i}")
         report, wall, fits = gang_build(machines, out_dir, {"GORDO_GANG_WIDTH": str(width),
-                                                            "GORDO_LOAD_MODE": mode}, streams)
+                                                            "GORDO_LOAD_MODE": mode})
         if report.gang_width != min(width, n_groups):
             raise AssertionError(f"gang: width {report.gang_width} at GORDO_GANG_WIDTH={width}")
         # every group's buckets have their fit: spans, whichever thread trained them
@@ -6397,17 +6393,17 @@ def gang_builds(machines) -> dict:
                 model_md = json.load(f)["model"]
             load_s += model_md["data_query_duration_sec"]
             fit_s += model_md["model_training_duration_sec"]
-        runs.append({"width": report.gang_width, "load_mode": mode, "streams": streams, "wall_s": round(wall, 3),
+        runs.append({"width": report.gang_width, "load_mode": mode, "wall_s": round(wall, 3),
                      "models_per_hour": round(len(machines) / wall * 3600, 1), "fit_spans": len(fits),
                      "groups_load_s": round(load_s, 3), "groups_fit_s": round(fit_s, 3)})
         arts.append(gang_artifacts(out_dir, names))
-    # plan: w1, w4, w4 default stream, w1, w4, w4 default stream, w4 process
+    # plan: w1, w4, w1, w4, w4 process; the width-1 builds decide bitwise
     bitwise = {k for k, v in arts[0].items()
-               if all(np.array_equal(a, b, equal_nan=True) for a, b in zip(v.values(), arts[3][k].values()))}
-    worst = {f"build{i}": gang_compare(arts[0], arts[i], bitwise, f"build {i}") for i in (1, 2, 4, 5, 6)}
-    worst["build3"] = gang_compare(arts[0], arts[3], set(), "build 3")
+               if all(np.array_equal(a, b, equal_nan=True) for a, b in zip(v.values(), arts[2][k].values()))}
+    worst = {f"build{i}": gang_compare(arts[0], arts[i], bitwise, f"build {i}") for i in (1, 3, 4)}
+    worst["build2"] = gang_compare(arts[0], arts[2], set(), "build 2")
     return {"runs": runs, "bitwise_share": round(len(bitwise) / len(arts[0]), 4), "max_abs_diff": worst,
-            "fair_pair_speedup": round(runs[4]["models_per_hour"] / runs[3]["models_per_hour"], 4)}
+            "fair_pair_speedup": round(runs[1]["models_per_hour"] / runs[2]["models_per_hour"], 4)}
 
 
 def gang_width_cap() -> dict:

@@ -95,9 +95,6 @@ _FP_GROUP = faultpoint("fleet_build.group")
 # groups fill the card alone and train one at a time
 GANG_SMALL_MAX = 32
 GANG_WIDTH_ENV = "GORDO_GANG_WIDTH"
-# each small group on gang worker threads enqueues on a CUDA stream of its
-# own (False: on the current stream; the smoke's gang phase times both)
-WORKER_STREAMS = True
 
 
 def resolve_gang_width(n_groups: int, device) -> int:
@@ -518,9 +515,8 @@ def build_fleet(
         if gang_width > 1 and len(small) > 1:
             # on the card each small group enqueues on a stream of its own
             # (torch.cuda.Stream hands out PyTorch's pooled streams)
-            on_streams = WORKER_STREAMS and device.type == "cuda"
             with concurrent.futures.ThreadPoolExecutor(gang_width, thread_name_prefix="gordo-gang") as pool:
-                futures = [pool.submit(train_group, g, torch.cuda.Stream(device) if on_streams else None)
+                futures = [pool.submit(train_group, g, torch.cuda.Stream(device) if device.type == "cuda" else None)
                            for g in small]
                 for future in futures:
                     future.result()  # train_group records build failures: this raises only a fault of its own
