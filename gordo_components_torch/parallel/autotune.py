@@ -120,11 +120,12 @@ def calibrate_width(arch: str, device) -> "tuple[int, dict]":
     return width, {str(w): round(e, 1) for w, e in eff.items()}
 
 
-def resolve_fleet_width(arch: str, sweep: Optional[Callable] = None, device="cpu") -> Optional[int]:
+def resolve_fleet_width(arch: str, sweep: Optional[Callable] = None, device="cuda") -> Optional[int]:
     """The member-width cap of a training stack, or None for no cap.
 
-    ``arch`` keys the persisted sweep (``"LSTMAutoEncoder:lstm_hourglass"``);
-    ``sweep(arch)`` replaces the calibration on ``device`` (tests inject
+    ``arch`` keys the persisted sweep (``"LSTMAutoEncoder:lstm_hourglass"``)
+    with ``device``'s kind (the card by default; ``"cpu"`` asks for the
+    CPU); ``sweep(arch)`` replaces the calibration there (tests inject
     one). Resolution: unset or ``off`` -> None; an integer -> it; ``auto``
     -> the process's table, then the file's, else one sweep, persisted."""
     raw = (os.environ.get(FLEET_WIDTH_ENV) or "").strip().lower()

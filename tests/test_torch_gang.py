@@ -102,6 +102,8 @@ def test_resolve_fleet_width_matches_jax(tmp_path, monkeypatch):
     # auto: one sweep, persisted in one table layout, then read back
     monkeypatch.setenv("GORDO_FLEET_WIDTH", "auto")
     tables = {}
+    # the port keys its table by the device it is given, JAX by its backend's
+    on = {"jax": {}, "port": {"device": "cpu"}}
     for name, mod in (("jax", jax_at), ("port", port_at)):
         monkeypatch.setattr(mod, "_process_cache", {})
         path = tmp_path / name / "fleet_width.json"
@@ -112,10 +114,10 @@ def test_resolve_fleet_width_matches_jax(tmp_path, monkeypatch):
             sweeps.append(arch)
             return 1024, {"512": 1.5, "1024": 3.0}
 
-        assert mod.resolve_fleet_width("LSTMAutoEncoder:lstm_hourglass", sweep=sweep) == 1024
-        assert mod.resolve_fleet_width("LSTMAutoEncoder:lstm_hourglass", sweep=sweep) == 1024
+        assert mod.resolve_fleet_width("LSTMAutoEncoder:lstm_hourglass", sweep=sweep, **on[name]) == 1024
+        assert mod.resolve_fleet_width("LSTMAutoEncoder:lstm_hourglass", sweep=sweep, **on[name]) == 1024
         monkeypatch.setattr(mod, "_process_cache", {})  # a new process reads the file
-        assert mod.resolve_fleet_width("LSTMAutoEncoder:lstm_hourglass", sweep=sweep) == 1024
+        assert mod.resolve_fleet_width("LSTMAutoEncoder:lstm_hourglass", sweep=sweep, **on[name]) == 1024
         assert sweeps == ["LSTMAutoEncoder:lstm_hourglass"]
         tables[name] = json.loads(path.read_text())
         assert not [p for p in os.listdir(path.parent) if ".tmp." in p]
@@ -125,7 +127,7 @@ def test_resolve_fleet_width_matches_jax(tmp_path, monkeypatch):
     # a corrupt table is swept over and rewritten
     monkeypatch.setattr(port_at, "_process_cache", {})
     path.write_text("{not json")
-    assert port_at.resolve_fleet_width("x:y", sweep=lambda a: (512, {})) == 512
+    assert port_at.resolve_fleet_width("x:y", sweep=lambda a: (512, {}), device="cpu") == 512
     assert json.loads(path.read_text())["x:y|cpu"]["width"] == 512
 
 
