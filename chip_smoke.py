@@ -6280,6 +6280,7 @@ GANG_WIDTHS = (1, 4, 1, 4)  # GORDO_GANG_WIDTH of the four builds; the second an
 GANG_CAP = 256  # the member-width cap the train phase's fleet is fitted at, beside no cap
 GANG_CAP_EPOCHS = 3
 GANG_TRACE_ID = "0af7651916cd43dd8448eb211c80319c"
+GANG_CAPTURES = 3  # traced POSTs of the bank group, at most, until one capture holds K2 and K3
 
 
 def gang_phase_machines() -> list:
@@ -6478,30 +6479,42 @@ def gang_profiles(machines) -> dict:
         raise AssertionError(f"gang: the LSTM gang's capture names no K3 kernel: {fit_kernels[:20]}")
     target = lstm[0]["name"]
     X = get_dataset(lstm[0]["dataset"]).get_data()[0].values[:64]
+    # on an H100 a short capture now and then comes back without its first
+    # kernels (as device_trace's empty traces): such a group is traced
+    # again, up to GANG_CAPTURES times, and counted
+    incomplete = []
     with env_set({"GORDO_PROFILE_DIR": prof, "GORDO_TRACE_SAMPLE": "1"}):
         server = run_server(out_dir, host="127.0.0.1", port=0, background=True)
         try:
             base = server.url + "/gordo/v0/proj"
-            status, _, _ = http_raw(base + f"/{target}/anomaly/prediction", json.dumps({"X": X.tolist()}).encode(),
-                                    {"Content-Type": "application/json",
-                                     "traceparent": f"00-{GANG_TRACE_ID}-00f067aa0ba902b7-01"})
-            if status != 200:
-                raise AssertionError(f"gang: the traced POST answered {status}")
-            status, answer = http_json(base + f"/traces?id={GANG_TRACE_ID}")
-            if status != 200:
-                raise AssertionError(f"gang: /traces answered {status}")
+            for attempt in range(GANG_CAPTURES):
+                trace_id = f"{attempt:02x}{GANG_TRACE_ID[2:]}"
+                status, _, _ = http_raw(base + f"/{target}/anomaly/prediction",
+                                        json.dumps({"X": X.tolist()}).encode(),
+                                        {"Content-Type": "application/json",
+                                         "traceparent": f"00-{trace_id}-00f067aa0ba902b7-01"})
+                if status != 200:
+                    raise AssertionError(f"gang: the traced POST answered {status}")
+                status, answer = http_json(base + f"/traces?id={trace_id}")
+                if status != 200:
+                    raise AssertionError(f"gang: /traces answered {status}")
+                (trace,) = answer["traces"]
+                (execute,) = [s for s in trace["spans"]["children"] if s["name"] == "device_execute"]
+                serve_dir = os.path.join(prof, f"serve-{trace_id}")
+                if execute["attributes"].get("profile") != serve_dir:
+                    raise AssertionError(f"gang: device_execute's profile is {execute['attributes'].get('profile')}")
+                serve_kernels = trace_kernels(serve_dir)
+                if (any("score_rows<" in k and "true>" in k for k in serve_kernels)
+                        and any("lstm_steps" in k for k in serve_kernels)):
+                    break
+                incomplete.append(len(serve_kernels))
+            else:
+                raise AssertionError(f"gang: {GANG_CAPTURES} captures of the bank group in a row named no K2 or "
+                                     f"no K3 kernel (kernels {incomplete}): {serve_kernels[:20]}")
         finally:
             server.close()
-    (trace,) = answer["traces"]
-    (execute,) = [s for s in trace["spans"]["children"] if s["name"] == "device_execute"]
-    serve_dir = os.path.join(prof, f"serve-{GANG_TRACE_ID}")
-    if execute["attributes"].get("profile") != serve_dir:
-        raise AssertionError(f"gang: device_execute's profile is {execute['attributes'].get('profile')}")
-    serve_kernels = trace_kernels(serve_dir)
-    if not (any("score_rows<" in k and "true>" in k for k in serve_kernels)
-            and any("lstm_steps" in k for k in serve_kernels)):
-        raise AssertionError(f"gang: the bank group's capture names no K2 or no K3 kernel: {serve_kernels[:20]}")
     return {"fit_trace_kernels": len(fit_kernels), "serve_trace_kernels": len(serve_kernels),
+            "serve_incomplete_kernels": incomplete,
             "k3_names": [k for k in fit_kernels if "lstm_steps" in k][:2],
             "k2_names": [k for k in serve_kernels if "score_rows<" in k][:2]}
 
