@@ -6281,6 +6281,7 @@ GANG_CAP = 256  # the member-width cap the train phase's fleet is fitted at, bes
 GANG_CAP_EPOCHS = 3
 GANG_TRACE_ID = "0af7651916cd43dd8448eb211c80319c"
 GANG_CAPTURES = 3  # traced POSTs of the bank group, at most, until one capture holds K2 and K3
+GANG_PROCESS_WORKERS = 2  # the process engine's workers a group
 
 
 def gang_phase_machines() -> list:
@@ -6377,8 +6378,11 @@ def gang_builds(machines) -> dict:
     plan = [(w, "thread") for w in GANG_WIDTHS] + [(4, "process")]
     for i, (width, mode) in enumerate(plan):
         out_dir = os.path.join(GANG_DIR, f"build-{i}")
-        report, wall, fits = gang_build(machines, out_dir, {"GORDO_GANG_WIDTH": str(width),
-                                                            "GORDO_LOAD_MODE": mode})
+        # each spawned worker imports this script (torch and the port):
+        # GANG_PROCESS_WORKERS a group, cut from the default 4 (the smoke's wall)
+        env = {"GORDO_GANG_WIDTH": str(width), "GORDO_LOAD_MODE": mode,
+               **({"GORDO_LOAD_WORKERS": str(GANG_PROCESS_WORKERS)} if mode == "process" else {})}
+        report, wall, fits = gang_build(machines, out_dir, env)
         if report.gang_width != min(width, n_groups):
             raise AssertionError(f"gang: width {report.gang_width} at GORDO_GANG_WIDTH={width}")
         # every group's buckets have their fit: spans, whichever thread trained them
