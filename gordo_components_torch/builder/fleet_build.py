@@ -14,12 +14,14 @@ rest ship.
 
 Gang worker threads (``GORDO_GANG_WIDTH``, :func:`resolve_gang_width`):
 groups of more than ``GANG_SMALL_MAX`` members train first, one at a time;
-the small groups then train on a pool of that many threads, each group on
-a CUDA stream of its own on the card, so one group's host work
-(staging, stacking, the epochs' launches) overlaps another's device work.
-Each worker enters the build trace itself (a thread does not inherit the
-context), and every group's members draw from their own generators, so a
-build's artifacts do not depend on the width.
+the small groups then train on a pool of that many threads, all on the
+current stream. ``auto`` is one thread on the card too, where the JAX
+package runs four: a small group's fit is paced by its host launches, and
+on an H100 four threads built small gangs at 0.69-0.88x one thread's
+models/hour (PERF.md, section 6). Each worker enters the build trace
+itself (a thread does not inherit the context), and every group's members
+draw from their own generators, so a build's artifacts do not depend on
+the width.
 
 Cross-validation in a gang: each machine that asks for it adds its
 ``TimeSeriesSplit`` folds' training rows as extra members of its gang's
@@ -59,7 +61,6 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from gordo_components_torch import serializer
 from gordo_components_torch.builder.build_model import (
@@ -97,19 +98,17 @@ GANG_SMALL_MAX = 32
 GANG_WIDTH_ENV = "GORDO_GANG_WIDTH"
 
 
-def resolve_gang_width(n_groups: int, device) -> int:
+def resolve_gang_width(n_groups: int) -> int:
     """Worker threads for the small groups. ``GORDO_GANG_WIDTH``: an
     integer pins the width (clamped to the group count); ``auto`` or unset
-    gives ``min(4, n_groups)`` when the build runs on the card, where one
-    group's launches overlap another's device work, and 1 on the CPU."""
+    gives 1 (the JAX package's ``min(4, n_groups)`` on an accelerator host
+    is slower here: see the module docstring)."""
     raw = (os.environ.get(GANG_WIDTH_ENV) or "auto").strip().lower()
     if raw not in ("", "auto"):
         width = int(raw)
         if width < 1:
             raise ValueError(f"{GANG_WIDTH_ENV} must be >= 1, got {width}")
         return min(width, max(1, n_groups))
-    if torch.device(device).type == "cuda":
-        return min(4, max(1, n_groups))
     return 1
 
 
@@ -478,14 +477,14 @@ def build_fleet(
                 continue
             groups.setdefault(_group_key(ae_kwargs), []).append((machine, ae_kwargs))
 
-        def train_group(group, stream=None):
+        def train_group(group):
             # a group that fails group_retries + 1 times records its members
             # as failed; the other groups still ship
             for attempt in range(group_retries + 1):
                 try:
                     # the trainer's bucket loop reads the trace from the
                     # context, which a pool thread does not inherit
-                    with use_trace(trace), torch.cuda.stream(stream):
+                    with use_trace(trace):
                         _build_fleet_group(group, output_dir, model_register_dir, replace_cache,
                                            results, device, checkpoint_dir=checkpoint_dir,
                                            checkpoint_every=checkpoint_every, heartbeat=heartbeat,
@@ -506,18 +505,15 @@ def build_fleet(
                     logger.error("Fleet group of %d member(s) FAILED after %d attempt(s): %s",
                                  len(group), group_retries + 1, error, exc_info=True)
 
-        gang_width = resolve_gang_width(len(groups), device)
+        gang_width = resolve_gang_width(len(groups))
         results.gang_width = gang_width
         large = [g for g in groups.values() if len(g) > GANG_SMALL_MAX]
         small = [g for g in groups.values() if len(g) <= GANG_SMALL_MAX]
         for group in large:
             train_group(group)
         if gang_width > 1 and len(small) > 1:
-            # on the card each small group enqueues on a stream of its own
-            # (torch.cuda.Stream hands out PyTorch's pooled streams)
             with concurrent.futures.ThreadPoolExecutor(gang_width, thread_name_prefix="gordo-gang") as pool:
-                futures = [pool.submit(train_group, g, torch.cuda.Stream(device) if device.type == "cuda" else None)
-                           for g in small]
+                futures = [pool.submit(train_group, g) for g in small]
                 for future in futures:
                     future.result()  # train_group records build failures: this raises only a fault of its own
         else:

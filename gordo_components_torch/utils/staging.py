@@ -7,10 +7,13 @@ engines.
   ``min(8, max(4, cores))``.
 - ``load_mode``: ``GORDO_LOAD_MODE``, one of ``sync`` (inline),
   ``thread``, ``process`` (spawned workers; see below) or ``auto`` (unset
-  or empty):
-  ``process`` when there is more than one core, more than one worker and
-  at least 16 members a worker; ``sync`` on one core when no provider
-  waits on I/O; ``thread`` otherwise. Any other value raises.
+  or empty): ``sync`` on one core when no provider waits on I/O, else
+  ``thread``. Any other value raises. The JAX package's ``auto`` picks
+  ``process`` at 16 members a worker and more, for a worker start-up of
+  about 3 s; the port's never does: a spawned worker imports torch and the
+  calling script, which cost 11-133 s of summed load against 0.25-1.9 s on
+  threads for 4-member groups on an H100 host (PERF.md, section 6), and the
+  engine was not measured at the sizes where JAX picks it.
 
 Configs that cannot be pickled (an injected provider object) stage with
 threads where ``process`` was chosen, as the JAX package does. A spawned
@@ -46,13 +49,7 @@ def load_mode(n_tasks: int, workers: int, io_bound: bool = True) -> str:
     if mode not in LOAD_MODES:
         raise ValueError(f"GORDO_LOAD_MODE must be auto|thread|process|sync, got {mode!r}")
     if mode == "auto":
-        cores = os.cpu_count() or 1
-        if cores > 1 and workers > 1 and n_tasks >= 16 * workers:
-            mode = "process"
-        elif cores == 1 and not io_bound:
-            mode = "sync"
-        else:
-            mode = "thread"
+        mode = "sync" if (os.cpu_count() or 1) == 1 and not io_bound else "thread"
     return mode
 
 

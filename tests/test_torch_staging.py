@@ -1,6 +1,7 @@
 """The port's staging engines (``utils/staging.py``) against the JAX
 package's, on the CPU: ``load_mode`` picks the same engine for the same
-environment, host and member count, ``_io_bound_hint`` reads the same
+environment, host and member count (threads where JAX's ``auto`` spawns
+processes), ``_io_bound_hint`` reads the same
 providers the same way, and the ``sync``, ``thread`` and ``process``
 engines stage bitwise the same arrays, in input order."""
 
@@ -35,7 +36,10 @@ def test_load_mode_matches_jax(cores, monkeypatch):
         for n_tasks in (1, 15, 16, 64, 200):
             for workers in (1, 4, 8):
                 for io_bound in (True, False):
-                    assert port.load_mode(n_tasks, workers, io_bound) == jax.load_mode(n_tasks, workers, io_bound)
+                    want = jax.load_mode(n_tasks, workers, io_bound)
+                    if env in (None, "", "auto") and want == "process":
+                        want = "thread"  # the port's auto never spawns workers
+                    assert port.load_mode(n_tasks, workers, io_bound) == want
     for bad in ("threads", "PROCESS", "fork"):
         monkeypatch.setenv("GORDO_LOAD_MODE", bad)
         with pytest.raises(ValueError) as want:
