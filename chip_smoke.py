@@ -462,11 +462,26 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             ``PushSubscriber`` loops receive their scored windows; ingest
             rows/s, the sweeps' seconds, the adaptations' walls and
             ``pause_ms``, launches;
+    gang    gang worker threads, the member-width cap, the staging engines
+            and the profiler: six 4-machine gangs (10 tags, 1,008 rows, 3
+            epochs: dense, variational, conv, lstm_hourglass at lookbacks
+            10, 12, 16; two dense machines at 7 min with the median) built
+            at ``GORDO_GANG_WIDTH`` 1, 4, 1, 4 and at 4 with
+            ``GORDO_LOAD_MODE=process``: artifacts bitwise where the two
+            width-1 builds are, else within the training bands,
+            ``gang_width`` in the report and ``build_trace.json``, a
+            ``fit:`` span every group, models/hour and walls; the
+            ``GORDO_FLEET_WIDTH=auto`` sweep (once, then from its cache) and
+            the train phase's fleet capped at 256 and not; under
+            ``GORDO_PROFILE_DIR`` one LSTM gang fit and several traced bank
+            groups, every capture holding a kernel for each launch it saw
+            (K3 in the fit, K2 and K3 in each group), and ``device_execute``
+            carrying ``profile``;
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
             bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
             definitions, observe, pipeline, qos, wire, client, resilience,
-            quantized, stream), each reset just
+            quantized, stream, gang), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -475,6 +490,13 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
 CUDA. Weights and data are random, made from fixed seeds.
+
+    python3 chip_smoke.py PHASE [PHASE ...]      (e.g. gang)
+
+runs only the named paths and checks (after the kernels' build), each
+path's launch counts from 0 and held to its kernels as in the whole run,
+then its counts and walls; the kernels' parity and numbers are the whole
+run's.
 """
 
 import asyncio
@@ -5644,13 +5666,10 @@ def resilience_kill(runs: dict) -> dict:
     out_dir, ckdir, state_dir = (os.path.join(RES_DIR, d) for d in ("gang", "ck", "state"))
     args = ["build-fleet", "--machines-file", payload, "--output-dir", out_dir, "--checkpoint-dir", ckdir,
             "--state-dir", state_dir, "--gang-id", "smoke-gang"]
-    # one gang thread: the kill must land in the LSTM group's bucket, which
-    # trains first only when the groups train one after another
-    serial = {"GORDO_GANG_WIDTH": "1"}
     log = open(os.path.join(RES_DIR, "killed.log"), "w")
     t0 = time.perf_counter()
     proc = subprocess.Popen(cli_command("killed_build", args, RES_DIR), cwd=ROOT, stdout=log,
-                            stderr=subprocess.STDOUT, env=dict(os.environ, **serial))
+                            stderr=subprocess.STDOUT)
     seen = None
     try:
         while seen is None:
@@ -5675,7 +5694,7 @@ def resilience_kill(runs: dict) -> dict:
     if not committed:
         raise AssertionError(f"resilience: no committed checkpoint after the kill at {seen}")
     t1 = time.perf_counter()
-    proc = cli("resumed_build", args, env=serial, counts_dir=RES_DIR)
+    proc = cli("resumed_build", args, counts_dir=RES_DIR)
     resume_s = time.perf_counter() - t1
     if proc.returncode != 0:
         raise AssertionError(f"resilience: the resumed build exited {proc.returncode}: {proc.stderr[-2000:]}")
@@ -6280,7 +6299,7 @@ GANG_WIDTHS = (1, 4, 1, 4)  # GORDO_GANG_WIDTH of the four builds; the second an
 GANG_CAP = 256  # the member-width cap the train phase's fleet is fitted at, beside no cap
 GANG_CAP_EPOCHS = 3
 GANG_TRACE_ID = "0af7651916cd43dd8448eb211c80319c"
-GANG_CAPTURES = 3  # traced POSTs of the bank group, at most, until one capture holds K2 and K3
+GANG_CAPTURES = 16  # traced POSTs of the bank group, each captured and each held to K2 and K3
 GANG_PROCESS_WORKERS = 2  # the process engine's workers a group
 
 
@@ -6456,19 +6475,26 @@ def gang_width_cap() -> dict:
 
 
 def trace_kernels(directory: str) -> list:
-    """The kernel names of the Chrome traces under ``directory``."""
-    names = set()
-    for path in sorted(os.listdir(directory)):
-        if path.endswith(".pt.trace.json"):
-            with open(os.path.join(directory, path)) as f:
-                names |= {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
-    return sorted(names)
+    """The kernel names of the Chrome trace under ``directory`` (exactly
+    one), which must hold a kernel for every kernel launch it recorded."""
+    (path,) = [p for p in os.listdir(directory) if p.endswith(".pt.trace.json")]
+    with open(os.path.join(directory, path)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launched = {e["args"].get("correlation") for e in events
+                if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", "")}
+    lost = launched - {e["args"].get("correlation") for e in kernels}
+    if not launched or lost:
+        raise AssertionError(f"gang: the capture {directory} recorded {len(launched)} kernel launches, "
+                             f"{len(lost)} of them without their kernel")
+    return sorted({e["name"] for e in kernels})
 
 
 def gang_profiles(machines) -> dict:
-    """GORDO_PROFILE_DIR: one LSTM gang's fit (one epoch), then one bank
-    group of a traced request to the built gang; each trace must name its
-    kernels (K3 in the fit's error pass, K2 and K3 in the group)."""
+    """GORDO_PROFILE_DIR: one LSTM gang's fit (one epoch), then the bank
+    groups of GANG_CAPTURES traced requests to the built gang; each capture
+    must hold every kernel it launched, K3 in the fit's error pass, K2 and
+    K3 in each group."""
     prof = os.path.join(GANG_DIR, "profiles")
     shutil.rmtree(prof, ignore_errors=True)
     lb = GANG_LOOKBACKS[0]
@@ -6476,23 +6502,20 @@ def gang_profiles(machines) -> dict:
                               batch_size=128)
     lstm = [dict(m, model=model) for m in machines if m["name"].startswith(f"gang-lstm{lb}-")]
     out_dir = os.path.join(GANG_DIR, "profiled")
-    with env_set({"GORDO_PROFILE_DIR": prof, "GORDO_GANG_WIDTH": "1"}):
+    with env_set({"GORDO_PROFILE_DIR": prof}):
         gang_build(lstm, out_dir, {})
     fit_kernels = trace_kernels(os.path.join(prof, f"fleet-gang-{len(lstm)}m"))
     if not any("lstm_steps" in k for k in fit_kernels):
         raise AssertionError(f"gang: the LSTM gang's capture names no K3 kernel: {fit_kernels[:20]}")
     target = lstm[0]["name"]
     X = get_dataset(lstm[0]["dataset"]).get_data()[0].values[:64]
-    # on an H100 a short capture now and then comes back without its first
-    # kernels (as device_trace's empty traces): such a group is traced
-    # again, up to GANG_CAPTURES times, and counted
-    incomplete = []
+    serve = []
     with env_set({"GORDO_PROFILE_DIR": prof, "GORDO_TRACE_SAMPLE": "1"}):
         server = run_server(out_dir, host="127.0.0.1", port=0, background=True)
         try:
             base = server.url + "/gordo/v0/proj"
-            for attempt in range(GANG_CAPTURES):
-                trace_id = f"{attempt:02x}{GANG_TRACE_ID[2:]}"
+            for i in range(GANG_CAPTURES):
+                trace_id = f"{i:02x}{GANG_TRACE_ID[2:]}"
                 status, _, _ = http_raw(base + f"/{target}/anomaly/prediction",
                                         json.dumps({"X": X.tolist()}).encode(),
                                         {"Content-Type": "application/json",
@@ -6507,20 +6530,17 @@ def gang_profiles(machines) -> dict:
                 serve_dir = os.path.join(prof, f"serve-{trace_id}")
                 if execute["attributes"].get("profile") != serve_dir:
                     raise AssertionError(f"gang: device_execute's profile is {execute['attributes'].get('profile')}")
-                serve_kernels = trace_kernels(serve_dir)
-                if (any("score_rows<" in k and "true>" in k for k in serve_kernels)
-                        and any("lstm_steps" in k for k in serve_kernels)):
-                    break
-                incomplete.append(len(serve_kernels))
-            else:
-                raise AssertionError(f"gang: {GANG_CAPTURES} captures of the bank group in a row named no K2 or "
-                                     f"no K3 kernel (kernels {incomplete}): {serve_kernels[:20]}")
+                kernels = trace_kernels(serve_dir)
+                if not (any("score_rows<" in k and "true>" in k for k in kernels)
+                        and any("lstm_steps" in k for k in kernels)):
+                    raise AssertionError(f"gang: the bank group's capture {i} names no K2 or no K3 kernel: "
+                                         f"{kernels[:20]}")
+                serve.append(kernels)
         finally:
             server.close()
-    return {"fit_trace_kernels": len(fit_kernels), "serve_trace_kernels": len(serve_kernels),
-            "serve_incomplete_kernels": incomplete,
+    return {"fit_trace_kernels": len(fit_kernels), "serve_trace_kernels": [len(k) for k in serve],
             "k3_names": [k for k in fit_kernels if "lstm_steps" in k][:2],
-            "k2_names": [k for k in serve_kernels if "score_rows<" in k][:2]}
+            "k2_names": [k for k in serve[0] if "score_rows<" in k][:2]}
 
 
 def gang_phase(card: str):
@@ -6545,11 +6565,89 @@ def gang_phase(card: str):
                               "profiles": round(profiles_s, 1)}), card=json.dumps(card))
 
 
-def main() -> int:
+# (path, kernel): the kernels each path must launch in its own run
+PATH_KERNELS = (
+    ("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
+    ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
+    ("zoo_bank", "banked_anomaly_score"),
+    ("http", "banked_anomaly_score"), ("http", "fused_anomaly_score"),
+    ("build", "banked_anomaly_score"), ("build", "fused_anomaly_score"),
+    ("build", "lstm_layer"), ("cli", "banked_anomaly_score"), ("cli", "lstm_layer"),
+    ("cv", "lstm_layer"), ("collection", "fused_anomaly_score"),
+    ("collection", "banked_anomaly_score"), ("collection", "lstm_layer"),
+    ("lake", "banked_anomaly_score"), ("lake", "lstm_layer"),
+    ("definitions", "banked_anomaly_score"), ("definitions", "fused_anomaly_score"),
+    ("observe", "banked_anomaly_score"), ("observe", "fused_anomaly_score"),
+    ("observe", "lstm_layer"),
+    ("pipeline", "banked_anomaly_score"), ("pipeline", "fused_anomaly_score"),
+    ("pipeline", "lstm_layer"), ("pipeline", "lstm_layer_bf16"),
+    ("qos", "banked_anomaly_score"), ("qos", "lstm_layer"),
+    ("wire", "banked_anomaly_score"), ("wire", "lstm_layer"),
+    ("wire", "fused_anomaly_score"),
+    ("client", "banked_anomaly_score"), ("client", "lstm_layer"),
+    ("client", "fused_anomaly_score"),
+    ("resilience", "lstm_layer"), ("resilience", "banked_anomaly_score"),
+    ("resilience", "fused_anomaly_score"),
+    ("quantized", "banked_anomaly_score"), ("quantized", "lstm_layer"),
+    ("quantized", "lstm_layer_bf16"),
+    ("stream", "banked_anomaly_score"), ("stream", "fused_anomaly_score"),
+    ("stream", "lstm_layer"),
+    ("gang", "lstm_layer"), ("gang", "banked_anomaly_score"),
+    ("bf16_train", "lstm_layer_bf16"),
+    ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
+    ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score"),
+)
+
+
+def steps(card: str) -> list:
+    """The main paths and checks in order, as (name, kind, function,
+    arguments): ``path`` counts its launches in this process, ``sub`` in
+    the subprocesses it runs (returned), ``check`` is timed alone."""
+    return [
+        ("train", "path", train_phase, (card,)),
+        ("train_parity", "check", train_parity_phase, ()),
+        ("seq_train", "path", seq_train_phase, (card,)),
+        ("seq_fleet", "path", seq_fleet_phase, (card,)),
+        ("seq_train_parity", "check", seq_train_parity_phase, ()),
+        ("zoo_train", "path", zoo_train_phase, (card,)),
+        ("zoo_fleet", "path", zoo_fleet_phase, (card,)),
+        ("zoo_parity", "check", zoo_parity_phase, ()),
+        ("bf16_train", "path", bf16_train_phase, (card,)),
+        ("bf16_parity", "check", bf16_parity_phase, ()),
+        ("http", "path", http_phase, ()),
+        ("bank", "path", bank_phase, (card,)),
+        ("lstm", "path", bank_phase, (card, "lstm")),
+        ("zoo_bank", "path", bank_phase, (card, "conv")),
+        ("bf16_bank", "path", bf16_bank_phase, (card,)),
+        ("build", "path", build_phase, ()),
+        ("cli", "sub", cli_phase, ()),
+        ("cv", "path", cv_phase, (card,)),
+        ("cv_parity", "check", cv_parity_phase, ()),
+        ("collection", "path", collection_phase, (card,)),
+        ("lake", "sub", lake_phase, (card,)),
+        ("definitions", "sub", definitions_phase, (card,)),
+        ("observe", "path", observe_phase, (card,)),
+        ("pipeline", "path", pipeline_phase, (card,)),
+        ("qos", "path", qos_phase, (card,)),
+        ("wire", "path", wire_phase, (card,)),
+        ("client", "path", client_phase, (card,)),
+        ("resilience", "sub", resilience_phase, (card,)),
+        ("quantized", "path", quantized_phase, (card,)),
+        ("stream", "path", stream_phase, (card,)),
+        ("gang", "path", gang_phase, (card,)),
+    ]
+
+
+def main(names=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
         return 2
     card = card_line()
+    known = [name for name, *_ in steps(card)]
+    if set(names) - set(known):
+        print(f"chip_smoke: unknown phases {sorted(set(names) - set(known))}; known: {' '.join(known)}",
+              file=sys.stderr)
+        return 2
     phase("card", torch=torch.__version__, cuda=torch.version.cuda,
           device=json.dumps(torch.cuda.get_device_name(0)), nvidia_smi=json.dumps(card))
 
@@ -6559,92 +6657,33 @@ def main() -> int:
           libraries=",".join(sorted(libs)), flags=json.dumps(" ".join(_cuda.NVCC_FLAGS)),
           kernels_max_regs_max_local_bytes=json.dumps(resource_usage(libs)))
 
-    kernels = kernel_phase()
-    kernels.update(lstm_kernel_phase())
-    kernels.update(bf16_kernel_phase())
+    kernels = {}
+    if not names:
+        kernels = kernel_phase()
+        kernels.update(lstm_kernel_phase())
+        kernels.update(bf16_kernel_phase())
 
     # every path: the launch counters from 0 just before it, read just after
+    # (a path run in subprocesses returns theirs, each from 0 at its start)
     paths = {}
     walls = {"kernels": round(time.perf_counter() - t0, 1)}  # each phase's wall seconds
-
-    # (a path run in subprocesses returns theirs, each from 0 at its start)
-    def drive(name, fn, *args, in_subprocesses=False):
+    record_path_shapes()
+    for name, kind, fn, args in steps(card):
+        if names and name not in names:
+            continue
         score.reset_launch_counts()
         seq_scan.reset_launch_counts()
         t = time.perf_counter()
         result = fn(*args)
         walls[name] = round(time.perf_counter() - t, 1)
-        paths[name] = result if in_subprocesses else dict(score.launch_counts, **seq_scan.launch_counts)
-
-    def timed(name, fn):
+        if kind != "check":
+            paths[name] = result if kind == "sub" else dict(score.launch_counts, **seq_scan.launch_counts)
+    if not names:
         t = time.perf_counter()
-        fn()
-        walls[name] = round(time.perf_counter() - t, 1)
-
-    record_path_shapes()
-
-    drive("train", train_phase, card)
-    timed("train_parity", train_parity_phase)
-    drive("seq_train", seq_train_phase, card)
-    drive("seq_fleet", seq_fleet_phase, card)
-    timed("seq_train_parity", seq_train_parity_phase)
-    drive("zoo_train", zoo_train_phase, card)
-    drive("zoo_fleet", zoo_fleet_phase, card)
-    timed("zoo_parity", zoo_parity_phase)
-    drive("bf16_train", bf16_train_phase, card)
-    timed("bf16_parity", bf16_parity_phase)
-    drive("http", http_phase)
-    drive("bank", bank_phase, card)
-    drive("lstm", bank_phase, card, "lstm")
-    drive("zoo_bank", bank_phase, card, "conv")
-    drive("bf16_bank", bf16_bank_phase, card)
-    drive("build", build_phase)
-    drive("cli", cli_phase, in_subprocesses=True)
-    drive("cv", cv_phase, card)
-    timed("cv_parity", cv_parity_phase)
-    drive("collection", collection_phase, card)
-    drive("lake", lake_phase, card, in_subprocesses=True)
-    drive("definitions", definitions_phase, card, in_subprocesses=True)
-    drive("observe", observe_phase, card)
-    drive("pipeline", pipeline_phase, card)
-    drive("qos", qos_phase, card)
-    drive("wire", wire_phase, card)
-    drive("client", client_phase, card)
-    drive("resilience", resilience_phase, card, in_subprocesses=True)
-    drive("quantized", quantized_phase, card)
-    drive("stream", stream_phase, card)
-    drive("gang", gang_phase, card)
-    timed("path_parity", lambda: path_parity_phase(kernels))
-    for path, kernel in (("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
-                         ("zoo_train", "fused_anomaly_score"), ("zoo_fleet", "banked_anomaly_score"),
-                         ("zoo_bank", "banked_anomaly_score"),
-                         ("http", "banked_anomaly_score"), ("http", "fused_anomaly_score"),
-                         ("build", "banked_anomaly_score"), ("build", "fused_anomaly_score"),
-                         ("build", "lstm_layer"), ("cli", "banked_anomaly_score"), ("cli", "lstm_layer"),
-                         ("cv", "lstm_layer"), ("collection", "fused_anomaly_score"),
-                         ("collection", "banked_anomaly_score"), ("collection", "lstm_layer"),
-                         ("lake", "banked_anomaly_score"), ("lake", "lstm_layer"),
-                         ("definitions", "banked_anomaly_score"), ("definitions", "fused_anomaly_score"),
-                         ("observe", "banked_anomaly_score"), ("observe", "fused_anomaly_score"),
-                         ("observe", "lstm_layer"),
-                         ("pipeline", "banked_anomaly_score"), ("pipeline", "fused_anomaly_score"),
-                         ("pipeline", "lstm_layer"), ("pipeline", "lstm_layer_bf16"),
-                         ("qos", "banked_anomaly_score"), ("qos", "lstm_layer"),
-                         ("wire", "banked_anomaly_score"), ("wire", "lstm_layer"),
-                         ("wire", "fused_anomaly_score"),
-                         ("client", "banked_anomaly_score"), ("client", "lstm_layer"),
-                         ("client", "fused_anomaly_score"),
-                         ("resilience", "lstm_layer"), ("resilience", "banked_anomaly_score"),
-                         ("resilience", "fused_anomaly_score"),
-                         ("quantized", "banked_anomaly_score"), ("quantized", "lstm_layer"),
-                         ("quantized", "lstm_layer_bf16"),
-                         ("stream", "banked_anomaly_score"), ("stream", "fused_anomaly_score"),
-                         ("stream", "lstm_layer"),
-                         ("gang", "lstm_layer"), ("gang", "banked_anomaly_score"),
-                         ("bf16_train", "lstm_layer_bf16"),
-                         ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
-                         ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score")):
-        if paths[path][kernel] <= 0:
+        path_parity_phase(kernels)
+        walls["path_parity"] = round(time.perf_counter() - t, 1)
+    for path, kernel in PATH_KERNELS:
+        if path in paths and paths[path][kernel] <= 0:
             raise AssertionError(f"{path}: launched no {kernel}")
     phase("counts", **{f"{path}.{k}": v for path, c in paths.items() for k, v in c.items()})
     phase("walls", total_s=round(time.perf_counter() - t0, 1), **walls)
@@ -6654,7 +6693,8 @@ def main() -> int:
             raise AssertionError(f"{name}: the main path launched its kernel {n} times")
         kernels[name]["launches"] = n
 
-    print(json.dumps({"kernels": list(kernels.values())}))
+    if kernels:
+        print(json.dumps({"kernels": list(kernels.values())}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6664,4 +6704,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -9,7 +9,14 @@
   allows one capture a process, so captures hold one lock: a capture that
   starts while another is open waits for it, and both are written. A
   capture opened inside another on the same thread is recorded by the
-  outer one (it is logged, and the inner block runs uncaptured).
+  outer one (it is logged, and the inner block runs uncaptured). On the
+  card the block starts ``CAPTURE_MARGIN_S`` after the capture opens, on
+  an idle card, and the capture closes that long after the block's device
+  work ends: the profiler keeps only the device activity stamped inside
+  its window, and while other threads contend for the interpreter lock a
+  kernel's stamp lands up to about 5 ms before its own launch on an H100.
+  A short capture opened right at its first launch lost those kernels
+  (PERF.md, section 6).
 - :func:`device_memory_stats` is a snapshot of the card's memory in the
   JAX package's layout, ``{device: {bytes_in_use, bytes_limit,
   peak_bytes_in_use}}``, empty on the CPU: the build metadata's
@@ -23,6 +30,7 @@ import os
 import re
 import socket
 import threading
+import time
 from typing import Any, Dict, Optional
 
 import torch
@@ -30,6 +38,9 @@ import torch
 logger = logging.getLogger(__name__)
 
 PROFILE_DIR_ENV = "GORDO_PROFILE_DIR"
+# the idle time on the card at each end of a capture, four times the
+# largest stamp shift measured
+CAPTURE_MARGIN_S = 0.02
 
 _capture_lock = threading.Lock()
 _capturing = threading.local()
@@ -59,15 +70,22 @@ def maybe_profile(name: str, profile_dir: Optional[str] = None):
         yield
         return
     os.makedirs(out, exist_ok=True)
+    cuda = torch.cuda.is_available()
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with _capture_lock:
         _capturing.dir = out
         try:
             logger.info("Profiling %r -> %s", name, out)
             with torch.profiler.profile(activities=activities) as prof:
+                if cuda:
+                    torch.cuda.synchronize()
+                    time.sleep(CAPTURE_MARGIN_S)
                 yield
+                if cuda:
+                    torch.cuda.synchronize()
+                    time.sleep(CAPTURE_MARGIN_S)
             path = os.path.join(out, f"{socket.gethostname()}_{os.getpid()}.{next(_serial)}.pt.trace.json")
             prof.export_chrome_trace(path)
         finally:
