@@ -474,8 +474,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             ``GORDO_FLEET_WIDTH=auto`` sweep (once, then from its cache) and
             the train phase's fleet capped at 256 and not; under
             ``GORDO_PROFILE_DIR`` one LSTM gang fit and several traced bank
-            groups, every capture holding a kernel for each launch it saw
-            (K3 in the fit, K2 and K3 in each group), and ``device_execute``
+            groups, every capture holding a kernel for each launch after
+            its lead-in (K3 in the fit, K2 and K3 in each group; the
+            lead-in launches it lost are printed), and ``device_execute``
             carrying ``profile``;
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
@@ -6474,20 +6475,27 @@ def gang_width_cap() -> dict:
             "members": len(members), "epochs": GANG_CAP_EPOCHS, "cap": GANG_CAP, **fits}
 
 
-def trace_kernels(directory: str) -> list:
+def trace_kernels(directory: str) -> tuple:
     """The kernel names of the Chrome trace under ``directory`` (exactly
-    one), which must hold a kernel for every kernel launch it recorded."""
+    one), which must hold a kernel for every kernel launch it recorded
+    after its lead-in (``profiling.LEAD_IN_RANGE``), and the lead-in's
+    launches that came back without their kernel."""
+    from gordo_components_torch.utils.profiling import LEAD_IN_LAUNCHES, LEAD_IN_RANGE
+
     (path,) = [p for p in os.listdir(directory) if p.endswith(".pt.trace.json")]
     with open(os.path.join(directory, path)) as f:
         events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    launched = {e["args"].get("correlation") for e in events
-                if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", "")}
-    lost = launched - {e["args"].get("correlation") for e in kernels}
-    if not launched or lost:
-        raise AssertionError(f"gang: the capture {directory} recorded {len(launched)} kernel launches, "
-                             f"{len(lost)} of them without their kernel")
-    return sorted({e["name"] for e in kernels})
+    kernels = {e["args"].get("correlation"): e for e in events if e.get("cat") == "kernel"}
+    (lead_in,) = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == LEAD_IN_RANGE]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", "")]
+    inside = [e for e in launches if lead_in["ts"] <= e["ts"] <= lead_in["ts"] + lead_in["dur"]]
+    after = [e for e in launches if e["ts"] > lead_in["ts"] + lead_in["dur"]]
+    lost = [e for e in after if e["args"].get("correlation") not in kernels]
+    if len(inside) < LEAD_IN_LAUNCHES or not after or lost:
+        raise AssertionError(f"gang: the capture {directory} recorded {len(inside)} lead-in launches and "
+                             f"{len(after)} after them, {len(lost)} of those without their kernel")
+    lead_in_lost = sum(e["args"].get("correlation") not in kernels for e in inside)
+    return sorted({e["name"] for e in kernels.values()}), lead_in_lost
 
 
 def gang_profiles(machines) -> dict:
@@ -6504,12 +6512,12 @@ def gang_profiles(machines) -> dict:
     out_dir = os.path.join(GANG_DIR, "profiled")
     with env_set({"GORDO_PROFILE_DIR": prof}):
         gang_build(lstm, out_dir, {})
-    fit_kernels = trace_kernels(os.path.join(prof, f"fleet-gang-{len(lstm)}m"))
+    fit_kernels, fit_lead_in_lost = trace_kernels(os.path.join(prof, f"fleet-gang-{len(lstm)}m"))
     if not any("lstm_steps" in k for k in fit_kernels):
         raise AssertionError(f"gang: the LSTM gang's capture names no K3 kernel: {fit_kernels[:20]}")
     target = lstm[0]["name"]
     X = get_dataset(lstm[0]["dataset"]).get_data()[0].values[:64]
-    serve = []
+    serve, lead_in_lost = [], []
     with env_set({"GORDO_PROFILE_DIR": prof, "GORDO_TRACE_SAMPLE": "1"}):
         server = run_server(out_dir, host="127.0.0.1", port=0, background=True)
         try:
@@ -6530,7 +6538,8 @@ def gang_profiles(machines) -> dict:
                 serve_dir = os.path.join(prof, f"serve-{trace_id}")
                 if execute["attributes"].get("profile") != serve_dir:
                     raise AssertionError(f"gang: device_execute's profile is {execute['attributes'].get('profile')}")
-                kernels = trace_kernels(serve_dir)
+                kernels, lost = trace_kernels(serve_dir)
+                lead_in_lost.append(lost)
                 if not (any("score_rows<" in k and "true>" in k for k in kernels)
                         and any("lstm_steps" in k for k in kernels)):
                     raise AssertionError(f"gang: the bank group's capture {i} names no K2 or no K3 kernel: "
@@ -6538,7 +6547,10 @@ def gang_profiles(machines) -> dict:
                 serve.append(kernels)
         finally:
             server.close()
+    # the lead-in launches each capture lost: the records the profiler
+    # dropped at its start
     return {"fit_trace_kernels": len(fit_kernels), "serve_trace_kernels": [len(k) for k in serve],
+            "fit_lead_in_lost": fit_lead_in_lost, "serve_lead_in_lost": lead_in_lost,
             "k3_names": [k for k in fit_kernels if "lstm_steps" in k][:2],
             "k2_names": [k for k in serve[0] if "score_rows<" in k][:2]}
 

@@ -9,14 +9,19 @@
   allows one capture a process, so captures hold one lock: a capture that
   starts while another is open waits for it, and both are written. A
   capture opened inside another on the same thread is recorded by the
-  outer one (it is logged, and the inner block runs uncaptured). On the
-  card the block starts ``CAPTURE_MARGIN_S`` after the capture opens, on
-  an idle card, and the capture closes that long after the block's device
-  work ends: the profiler keeps only the device activity stamped inside
-  its window, and while other threads contend for the interpreter lock a
-  kernel's stamp lands up to about 5 ms before its own launch on an H100.
-  A short capture opened right at its first launch lost those kernels
-  (PERF.md, section 6).
+  outer one (it is logged, and the inner block runs uncaptured).
+
+  On the card a capture drops device records at its start, and each
+  capture opens with a lead-in that absorbs the loss. Under
+  PyTorch 2.11 and CUDA 12.8 on an H100 the first few kernels of every
+  capture come back without their records, more of them the longer the
+  process has been profiling (on any thread, whatever the idle time
+  before them), and while other threads contend for the interpreter lock
+  a kernel's stamp can land before the capture's window. So a capture
+  first launches ``LEAD_IN_LAUNCHES`` one-element fills inside a
+  ``gordo_profile_lead_in`` range, then idles the card for
+  ``CAPTURE_MARGIN_S``, runs the block, and idles the card that long
+  again before it closes (PERF.md, section 6).
 - :func:`device_memory_stats` is a snapshot of the card's memory in the
   JAX package's layout, ``{device: {bytes_in_use, bytes_limit,
   peak_bytes_in_use}}``, empty on the CPU: the build metadata's
@@ -38,9 +43,12 @@ import torch
 logger = logging.getLogger(__name__)
 
 PROFILE_DIR_ENV = "GORDO_PROFILE_DIR"
-# the idle time on the card at each end of a capture, four times the
-# largest stamp shift measured
+# the idle time on the card at each end of a capture
 CAPTURE_MARGIN_S = 0.02
+# kernels launched at a capture's start to take the records the profiler
+# drops there (several milliseconds of launches)
+LEAD_IN_LAUNCHES = 1024
+LEAD_IN_RANGE = "gordo_profile_lead_in"
 
 _capture_lock = threading.Lock()
 _capturing = threading.local()
@@ -80,8 +88,7 @@ def maybe_profile(name: str, profile_dir: Optional[str] = None):
             logger.info("Profiling %r -> %s", name, out)
             with torch.profiler.profile(activities=activities) as prof:
                 if cuda:
-                    torch.cuda.synchronize()
-                    time.sleep(CAPTURE_MARGIN_S)
+                    _lead_in()
                 yield
                 if cuda:
                     torch.cuda.synchronize()
@@ -90,6 +97,18 @@ def maybe_profile(name: str, profile_dir: Optional[str] = None):
             prof.export_chrome_trace(path)
         finally:
             _capturing.dir = None
+
+
+def _lead_in() -> None:
+    """The start of a capture on the card: LEAD_IN_LAUNCHES launches in a
+    range of their own, then an idle card for CAPTURE_MARGIN_S."""
+    torch.cuda.synchronize()
+    cell = torch.empty(1, device="cuda")
+    with torch.profiler.record_function(LEAD_IN_RANGE):
+        for _ in range(LEAD_IN_LAUNCHES):
+            cell.zero_()
+    torch.cuda.synchronize()
+    time.sleep(CAPTURE_MARGIN_S)
 
 
 def device_memory_stats(device: Optional[torch.device] = None) -> Dict[str, Any]:
