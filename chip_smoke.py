@@ -478,11 +478,24 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             its lead-in (K3 in the fit, K2 and K3 in each group; the
             lead-in launches it lost are printed), and ``device_execute``
             carrying ``profile``;
+    replay  the replay harness: ``default_fleet()`` (4 members, 3 and 5
+            tags, 3 epochs) trained with ``replay.engine.train_fleet`` on the
+            card, then the eight ``standard_scenarios()`` through one
+            ``ReplayEngine`` at the JAX defaults (speed 500, 24-row batches,
+            128-row windows), each over a fresh server on a replay clock:
+            every verdict passes its scenario's ``judge`` whole (the 100x
+            speed floor included) with no answer but 200, the refit fault
+            scenario records its rollback; each scenario's wall, speedup,
+            detection latency, adaptation and refit seconds, the swap's
+            pause, FP rates before and after, K2 launches and the
+            ``gordo_replay_*`` series. The cli phase also runs ``workflow
+            compile`` twice (byte-equal DAGs), ``workflow generate`` and
+            ``workflow run`` (exit 2: not ported);
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
             bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
             definitions, observe, pipeline, qos, wire, client, resilience,
-            quantized, stream, gang), each reset just
+            quantized, stream, gang, replay), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -2807,10 +2820,51 @@ def cli_client(url: str, out_dir: str, fleet: dict, runs: dict) -> dict:
     return {"client_predict_rows": rows, "client_download_bytes": len(got), "client_metadata_targets": len(meta)}
 
 
+def workflow_cli(args):
+    """One ``workflow`` command of the CLI in a subprocess (it moves no
+    tensor, so it runs uncounted); its CompletedProcess."""
+    return subprocess.run([sys.executable, "-m", "gordo_components_torch.cli", "workflow", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+
+
+def cli_workflow() -> dict:
+    """examples/fleet.yaml through ``workflow compile`` twice and ``workflow
+    generate`` once: each exits 0, the two DAGs are byte-equal, and
+    ``workflow run`` (not ported) exits 2. Returns the readings."""
+    out, seconds = {}, {}
+    for run in ("compile_1", "compile_2", "generate"):
+        command = "generate" if run == "generate" else "compile"
+        out[run] = os.path.join(CLI_DIR, f"workflow_{run}.out")
+        t = time.perf_counter()
+        proc = workflow_cli([command, "-f", FLEET_YAML, "-p", "smoke", "-o", out[run]])
+        seconds[run] = round(time.perf_counter() - t, 3)
+        if proc.returncode != 0 or proc.stdout.strip() != out[run]:
+            raise AssertionError(f"cli workflow {command} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out["compile_1"], "rb") as a, open(out["compile_2"], "rb") as b:
+        dag, again = a.read(), b.read()
+    if dag != again:
+        raise AssertionError("cli workflow compile: two compiles of one spec differ")
+    counts = json.loads(dag)["counts"]
+    if counts != {"bucket": 2, "build": 3, "canary": 1, "place": 1, "promote": 1}:
+        raise AssertionError(f"cli workflow compile: {counts}")
+    with open(out["generate"]) as f:
+        manifest = f.read()
+    jobs = manifest.count("\nkind: Job\n")
+    if jobs != counts["bucket"] or "GORDO_SLO_OBJECTIVES" not in manifest:
+        raise AssertionError(f"cli workflow generate: {jobs} Jobs for {counts['bucket']} buckets")
+    proc = workflow_cli(["run", "-f", FLEET_YAML, "-p", "smoke"])
+    if proc.returncode != 2 or "A13" not in proc.stderr:
+        raise AssertionError(f"cli workflow run exited {proc.returncode}, not 2: {proc.stderr[-2000:]}")
+    return {"dag_bytes": len(dag), "dag_sha256": hashlib.sha256(dag).hexdigest()[:16], "jobs": jobs,
+            "manifest_bytes": len(manifest.encode()), "exit_run": 2, "seconds": seconds}
+
+
 def cli_phase():
     """examples/fleet.yaml through ``build-fleet`` and ``run-server``, one
     anomaly POST a machine held against its detector's ``anomaly()`` here;
-    ``build`` with cross-validation; the exit codes 81 and 84. Returns the
+    ``build`` with cross-validation; the exit codes 81 and 84;
+    ``workflow compile`` twice, ``workflow generate`` and ``workflow run``
+    (``cli_workflow``). Returns the
     launch counts of the CLI runs, summed: this process's launches (the
     ``anomaly()`` checks) are not the CLI's."""
     shutil.rmtree(CLI_DIR, ignore_errors=True)
@@ -2885,6 +2939,7 @@ def cli_phase():
     if proc.returncode != 84 or sorted(partial.get("failed", {})) != ["ghost"]:
         raise AssertionError(f"cli build-fleet of a partial payload exited {proc.returncode}: {partial}")
     runs["build_partial"] = cli_counts("build_partial")
+    workflow = cli_workflow()
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     # turbine-lstm's error passes in build-fleet, and every POST scored by
     # its bucket behind run-server (the LSTM bucket's layers too)
@@ -2896,7 +2951,7 @@ def cli_phase():
           server_ready_s=round(serve_s, 3), posts=len(fleet), checked="all six arrays vs anomaly() here",
           server_exit_on_sigterm=server.returncode, cv_folds=json.dumps(folds), exit_unparsable=81,
           exit_partial=84, partial_failed=json.dumps(sorted(partial["failed"])),
-          client=json.dumps(client), launches_by_run=json.dumps(runs))
+          client=json.dumps(client), workflow=json.dumps(workflow), launches_by_run=json.dumps(runs))
     return {k: sum(c[k] for c in runs.values()) for k in runs["build_fleet"]}
 
 
@@ -6577,6 +6632,75 @@ def gang_phase(card: str):
                               "profiles": round(profiles_s, 1)}), card=json.dumps(card))
 
 
+REPLAY_DIR = os.path.join(ROOT, "build", "chip_smoke_replay")
+REPLAY_EPOCHS = 3  # the JAX harness's train_fleet default
+# every standard scenario, in the catalog's order
+REPLAY_SCENARIOS = ("mean_shift", "variance_inflation", "sensor_dropout", "flatline", "late_duplicate",
+                    "seasonal_cycle", "correlated_failure", "refit_fault_mid_incident")
+
+
+def replay_series(registry) -> dict:
+    """The ``gordo_replay_*`` samples a registry renders, by name."""
+    _, samples = parse_prometheus_text(registry.render())
+    return {name: value for name, _, value in samples if name.startswith("gordo_replay_")}
+
+
+def replay_phase(card: str):
+    """The replay harness on the card: ``default_fleet()`` (4 members, 3
+    and 5 tags) trained with ``train_fleet`` on the card, then each of
+    REPLAY_SCENARIOS through one ``ReplayEngine`` at the JAX defaults
+    (speed 500, 24-row batches, 128-row windows), a fresh server on a
+    fresh replay clock each. Every verdict must pass its scenario's
+    ``judge`` whole (the 100x speed floor included) with no answer but
+    200; ``refit_fault_mid_incident`` must record its rollback. A scenario
+    that raises fails the phase. The counts go to 0 after the fleet's fit,
+    so the phase's launches are the engine's servers' (drift sweeps and
+    probes through the bank: K2)."""
+    from gordo_components_torch.replay import scenarios as replay_scenarios
+    from gordo_components_torch.replay.engine import ReplayEngine, train_fleet
+
+    shutil.rmtree(REPLAY_DIR, ignore_errors=True)
+    members = replay_scenarios.default_fleet()
+    t = time.perf_counter()
+    train_fleet(REPLAY_DIR, members, epochs=REPLAY_EPOCHS)
+    train_s = time.perf_counter() - t
+    score.reset_launch_counts()
+    seq_scan.reset_launch_counts()
+    engine = ReplayEngine(REPLAY_DIR, members)
+    scenarios = {sc.name: sc for sc in replay_scenarios.standard_scenarios()}
+    readings = {}
+    for name in REPLAY_SCENARIOS:
+        k2 = score.launch_counts["banked_anomaly_score"]
+        verdict = engine.run_sync(scenarios[name])
+        launched = score.launch_counts["banked_anomaly_score"] - k2
+        if not verdict["passed"] or verdict["non_200"] != 0:
+            raise AssertionError(f"replay {name}: {verdict['failures']} (statuses {verdict['statuses']}, "
+                                 f"degradation {verdict['degradation']})")
+        if name == "refit_fault_mid_incident" and verdict["rolled_back"] < 1:
+            raise AssertionError(f"replay {name}: no rollback recorded ({verdict['degradation']})")
+        if launched <= 0:
+            raise AssertionError(f"replay {name}: the bank launched no banked_anomaly_score")
+        readings[name] = {
+            "wall_s": verdict["wall_seconds"], "speedup": verdict["speedup"],
+            "detection_latency_s": {k: v["detection_latency_s"] for k, v in verdict["incidents"].items()},
+            "flagged": verdict["ever_drifted"], "adaptation_cost_s": round(verdict["adaptation_cost_s"], 4),
+            "refit_s": round(verdict["refit_s"], 4), "swap_pause_ms_max": verdict["swap_pause_ms_max"],
+            "fp_before": verdict["fp_rate_before"], "fp_after": verdict["fp_rate_after"],
+            "fn_after": verdict["fn_rate_after"], "adaptations": verdict["adaptations"],
+            "rolled_back": verdict["rolled_back"], "generation": verdict["generation"],
+            "rows": verdict["rows_total"], "duplicates": verdict["duplicate_rows_total"],
+            "statuses": verdict["statuses"], "k2_launches": launched, "series": replay_series(engine.registry),
+        }
+        phase(f"replay.{name}", **{k: json.dumps(v) for k, v in readings[name].items()})
+    if engine.totals["scenarios"] != len(REPLAY_SCENARIOS) or engine.totals["non_200"] != 0:
+        raise AssertionError(f"replay: engine totals {engine.totals}")
+    shutil.rmtree(REPLAY_DIR, ignore_errors=True)
+    phase("replay", scenarios=len(readings), train_s=round(train_s, 3),
+          walls=json.dumps({n: r["wall_s"] for n, r in readings.items()}),
+          speedups=json.dumps({n: r["speedup"] for n, r in readings.items()}),
+          k2_launches=score.launch_counts["banked_anomaly_score"], card=json.dumps(card))
+
+
 # (path, kernel): the kernels each path must launch in its own run
 PATH_KERNELS = (
     ("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
@@ -6605,6 +6729,7 @@ PATH_KERNELS = (
     ("stream", "banked_anomaly_score"), ("stream", "fused_anomaly_score"),
     ("stream", "lstm_layer"),
     ("gang", "lstm_layer"), ("gang", "banked_anomaly_score"),
+    ("replay", "banked_anomaly_score"),
     ("bf16_train", "lstm_layer_bf16"),
     ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
     ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score"),
@@ -6647,6 +6772,7 @@ def steps(card: str) -> list:
         ("quantized", "path", quantized_phase, (card,)),
         ("stream", "path", stream_phase, (card,)),
         ("gang", "path", gang_phase, (card,)),
+        ("replay", "path", replay_phase, (card,)),
     ]
 
 

@@ -23,7 +23,12 @@ same options, environment variables and exit codes:
 - ``client metadata``: every model's metadata as JSON (``metadata-all``,
   else a request a target);
 - ``client download-model TARGET DEST``: the route's bytes written to
-  ``DEST`` as they arrive (urllib).
+  ``DEST`` as they arrive (urllib);
+- ``workflow compile``: a fleet spec compiled to the typed DAG's
+  deterministic JSON (``compile_fleet``), printed or written to
+  ``--output-file``; 81 when the spec does not parse or validate;
+- ``workflow generate``: the spec's Kubernetes manifests
+  (``generate_workflow``), the JAX generator's bytes; 81 likewise.
 
 ``--device`` (default ``cuda``) is the counterpart of the JAX ``--platform``:
 the commands run on the card, and without CUDA they fail through
@@ -34,9 +39,10 @@ the commands run on the card, and without CUDA they fail through
 profiler captures (``utils/profiling.py``). Refused with exit code 2:
 ``--compile-cache-dir`` (the XLA compile cache has no counterpart in the
 port) and ``run-server --devices`` above 1, which is not ported yet;
-``build-fleet --distributed`` exits 83. The client commands move
-no tensor and ignore ``--device``. The JAX package's ``workflow`` and
-``run-watchman`` commands are not ported.
+``build-fleet --distributed`` exits 83, and ``workflow run`` (the fleet
+executor, ROADMAP.md A13) exits 2. The client and ``workflow`` commands move
+no tensor and ignore ``--device``. The JAX package's ``run-watchman`` is not
+ported.
 """
 
 import argparse
@@ -154,6 +160,26 @@ def _parser() -> argparse.ArgumentParser:
     cp.add_argument("--body-encoding", default=_env("GORDO_CLIENT_ENCODING", "auto"),
                     help="Scoring POST body encoding (auto, json or parquet): auto negotiates parquet when the "
                          "server advertises it, json/parquet force one")
+
+    w = sub.add_parser("workflow", help="Workflow generation.")
+    wsub = w.add_subparsers(dest="workflow_command", metavar="WORKFLOW_COMMAND")
+    wsub.required = True
+    wc = wsub.add_parser("compile", help="Compile a fleet spec into the typed build/place/canary/promote DAG.")
+    wr = wsub.add_parser("run", help="Compile and execute a fleet spec: not ported")
+    wg = wsub.add_parser("generate", help="Render gang-scheduled manifests from a fleet config.")
+    for q in (wc, wr, wg):
+        q.add_argument("--machine-config", "-f", required=True)
+        q.add_argument("--project-name", "-p", required=True)
+    for q in (wc, wg):
+        q.add_argument("--output-file", "-o", default=None)
+    wc.add_argument("--models-per-bucket", type=int, default=None)
+    wc.add_argument("--devices-per-bucket", type=int, default=None)
+    wg.add_argument("--models-per-gang", type=int, default=None)
+    wg.add_argument("--devices-per-gang", type=int, default=None)
+    wr.add_argument("--state-dir", default=_env("GORDO_FLEET_STATE_DIR", ".fleet-state"))
+    wr.add_argument("--server-url", default=_env("SERVER_BASE_URL"))
+    wr.add_argument("--collection-dir", default=_env("MODEL_COLLECTION_DIR"))
+    wr.add_argument("--model-register-dir", default=_env("MODEL_REGISTER_DIR"))
     return p
 
 
@@ -165,6 +191,7 @@ _REQUIRED = {
     "checkpoint-prune": (("checkpoint_dir", "CHECKPOINT_DIR"),),
     "run-server": (("model_dir", "MODEL_COLLECTION_DIR"),),
     "client": (("project", "PROJECT_NAME"),),
+    "workflow": (),
 }
 
 
@@ -351,8 +378,64 @@ def _client(args) -> int:
             "download-model": _client_download_model}[args.client_command](args)
 
 
+def _write_or_print(text: str, output_file: Optional[str]) -> None:
+    """``text`` into ``output_file`` (its path printed), else printed."""
+    if output_file:
+        with open(output_file, "w") as f:
+            f.write(text)
+        print(output_file)
+    else:
+        print(text)
+
+
+def _workflow_compile(args) -> int:
+    from gordo_components_torch.workflow import compile_fleet
+
+    overrides = {}
+    if args.models_per_bucket:
+        overrides["models_per_bucket"] = args.models_per_bucket
+    if args.devices_per_bucket:
+        overrides["devices_per_bucket"] = args.devices_per_bucket
+    try:
+        with open(args.machine_config) as f:
+            dag = compile_fleet(safe_load(f.read()), args.project_name, **overrides)
+    except (ValueError, YAMLSubsetError) as exc:
+        print(f"Invalid fleet spec: {exc}", file=sys.stderr)
+        return EXIT_CONFIG_ERROR
+    doc = dag.to_json()
+    _write_or_print(doc + "\n" if args.output_file else doc, args.output_file)
+    return EXIT_OK
+
+
+def _workflow_generate(args) -> int:
+    from gordo_components_torch.workflow import NormalizedConfig, generate_workflow
+
+    try:
+        config = NormalizedConfig.from_yaml_file(args.machine_config)
+    except (ValueError, YAMLSubsetError) as exc:
+        print(f"Invalid machine config: {exc}", file=sys.stderr)
+        return EXIT_CONFIG_ERROR
+    overrides = {}
+    if args.models_per_gang:
+        overrides["models_per_gang"] = args.models_per_gang
+    if args.devices_per_gang:
+        overrides["devices_per_gang"] = args.devices_per_gang
+    try:
+        # generating compiles the spec, so a spec error exits as compile's does
+        manifest = generate_workflow(config, args.project_name, **overrides)
+    except ValueError as exc:
+        print(f"Invalid fleet spec: {exc}", file=sys.stderr)
+        return EXIT_CONFIG_ERROR
+    _write_or_print(manifest, args.output_file)
+    return EXIT_OK
+
+
+def _workflow(args) -> int:
+    return {"compile": _workflow_compile, "generate": _workflow_generate}[args.workflow_command](args)
+
+
 _COMMANDS = {"build": _build, "build-fleet": _build_fleet, "checkpoint-prune": _checkpoint_prune,
-             "run-server": _run_server, "client": _client}
+             "run-server": _run_server, "client": _client, "workflow": _workflow}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -370,6 +453,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                      f"{', '.join(_BODY_ENCODINGS)}")
     if args.command == "run-server" and args.devices is not None and args.devices > 1:
         parser.error(f"--devices {args.devices}: the bank sharded over several cards is not ported yet")
+    if args.command == "workflow":
+        if args.workflow_command == "run":
+            parser.error("workflow run: the fleet executor (build, place, canary, promote against a live "
+                         "server) is not ported yet (ROADMAP.md A13)")
+        if not os.path.exists(args.machine_config):
+            parser.error(f"--machine-config / -f: path {args.machine_config!r} does not exist")
     logging.basicConfig(
         level=getattr(logging, args.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",

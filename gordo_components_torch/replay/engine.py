@@ -1,0 +1,612 @@
+"""The replay engine: months of sensor history through the REAL
+adaptive loop at 100-1000x wall speed.
+
+Counterpart of ``gordo_components_tpu/replay/engine.py``. Nothing here is
+a simulation of the serving stack: the engine starts the port's server
+(``server.run_server``, on a loopback port) with a :class:`ReplayClock`
+injected at the clock seam, then drives the public HTTP surface exactly
+the way a live deployment does:
+
+    POST .../{member}/ingest   <- provider batches (+ incident effects)
+    GET  .../drift?refresh=1   <- the real drift sweep (bank scoring, K2)
+    POST .../adapt             <- recalibrate/refit -> REAL hot-swap
+    POST .../anomaly/prediction<- FP/FN probes + swap-pause witnesses
+
+Event time advances only when the engine steps the clock, so watermark
+lateness, staleness, EWMA cadence, and SLO windows all age on the
+replayed timeline while the wall clock burns as fast as the host can
+go. Durations that measure real cost (refit seconds, swap pause, sweep
+time) stay on the real clock and are reported as-is in the verdict.
+
+The verdict per scenario: detection latency (event seconds from
+incident start to the flagging sweep), false-positive/negative rates
+before and after adaptation, adaptation cost (wall seconds, swap
+count/pause), delivery accounting (late/dropped/duplicate rows), the
+data-plane non-200 count (must stay zero through replay-driven swaps),
+and the achieved compression factor. ``Scenario.judge`` turns the
+verdict into pass/fail against the scenario's bounds.
+
+Divergences from the JAX engine, each documented:
+
+- it is synchronous: the JAX engine is a coroutine serving through
+  aiohttp's in-process test client, the port's server is threaded, so
+  :meth:`ReplayEngine.run` blocks and talks HTTP/1.0 over the loopback
+  socket (``urllib``), one request at a time in the JAX engine's order;
+- event time is integer nanoseconds from ``dataset/times.py`` where the
+  JAX engine uses pandas: ``pd.Timedelta(seconds=s)`` is
+  ``int(s * 1_000_000_000)`` ns (:func:`seconds_ns`), and the clock steps
+  to ``float(ns) / 1e9`` as the JAX engine's ``Timestamp.value / 1e9``
+  does, so both engines give the server the same floats;
+- ``device`` (default ``"cuda"``; ``"cpu"`` must be asked for) places the
+  trained fleet and the server; ``devices`` above 1 raises until the bank
+  sharded over several cards is ported.
+"""
+
+import json
+import os
+import time
+import urllib.error
+import urllib.request
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from gordo_components_torch.dataset.times import resolution_ns, to_ns
+from gordo_components_torch.replay.clock import ReplayClock
+from gordo_components_torch.replay.incidents import Scenario, combine_injection
+from gordo_components_torch.replay.verdict import finalize_verdict
+from gordo_components_torch.utils.wire import TENSOR_CONTENT_TYPE, pack_frames
+
+__all__ = ["ReplayEngine", "seconds_ns", "train_fleet"]
+
+_HTTP_TIMEOUT_S = 600.0  # a refit's /adapt answers after its training
+
+
+def seconds_ns(seconds: float) -> int:
+    """``pd.Timedelta(seconds=seconds).value``: the float seconds times
+    1e9, truncated to an integer, as pandas converts a keyword."""
+    return int(seconds * 1_000_000_000)
+
+
+def train_fleet(
+    root: str,
+    members: Dict[str, List[str]],
+    freq: str = "1min",
+    noise: float = 0.1,
+    seed: int = 5,
+    epochs: int = 3,
+    train_rows: int = 240,
+    train_start: str = "2026-07-01T00:00:00Z",
+    device="cuda",
+) -> str:
+    """Train + serialize a small fleet on the provider's HEALTHY signal
+    (the distribution replay drifts away from), on ``device``. One
+    artifact dir per member under ``root``, the layout the server
+    serves."""
+    from gordo_components_torch import serializer
+    from gordo_components_torch.dataset.data_provider.streaming import SimulatedLiveProvider
+    from gordo_components_torch.device import resolve_device
+    from gordo_components_torch.models import AutoEncoder, DiffBasedAnomalyDetector
+
+    device = resolve_device(device)
+    prov = SimulatedLiveProvider(freq=freq, noise=noise, seed=seed)
+    t0 = to_ns(train_start)
+    for name, tags in members.items():
+        frame = prov.frame(t0, train_rows, tags)
+        det = DiffBasedAnomalyDetector(base_estimator=AutoEncoder(epochs=epochs, batch_size=64, device=device))
+        det.fit(frame)
+        serializer.dump(det, os.path.join(root, name), metadata={"name": name})
+    return root
+
+
+class _Answer:
+    """One HTTP answer: status and body bytes."""
+
+    __slots__ = ("status", "body")
+
+    def __init__(self, status: int, body: bytes):
+        self.status = status
+        self.body = body
+
+    def json(self) -> Any:
+        return json.loads(self.body)
+
+
+def _request(url: str, method: str = "GET", body: Optional[bytes] = None,
+             content_type: str = "application/json") -> _Answer:
+    """One request and its answer, whatever its status; no retry."""
+    headers = {"Content-Type": content_type} if body is not None else {}
+    req = urllib.request.Request(url, data=body, headers=headers, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=_HTTP_TIMEOUT_S) as resp:
+            return _Answer(resp.status, resp.read())
+    except urllib.error.HTTPError as exc:
+        with exc:
+            return _Answer(exc.code, exc.read())
+
+
+class ReplayEngine:
+    """Drives scenarios against one trained fleet. Construct once per
+    fleet (the artifact root is the expensive part); ``run_sync`` each
+    scenario — every run starts a fresh server on a fresh
+    :class:`ReplayClock`, so scenarios are independent backtests."""
+
+    def __init__(
+        self,
+        root: str,
+        members: Dict[str, List[str]],
+        freq: str = "1min",
+        noise: float = 0.1,
+        seed: int = 5,
+        speed: float = 500.0,
+        batch_rows: int = 24,
+        window_rows: int = 128,
+        min_rows: int = 32,
+        refit_epochs: int = 2,
+        sweep_every_s: Optional[float] = None,
+        fault_probe_shift: float = 8.0,
+        start: str = "2026-08-02T00:00:00Z",
+        devices: int = 1,
+        device="cuda",
+    ):
+        from gordo_components_torch.device import resolve_device
+
+        if int(devices) > 1:
+            raise NotImplementedError(
+                f"devices={devices}: the bank sharded over several cards is not ported yet (ROADMAP.md A12)")
+        self.devices = int(devices)
+        self.device = resolve_device(device)
+        self.root = root
+        self.members = dict(members)
+        self.freq = freq
+        self.noise = float(noise)
+        self.seed = int(seed)
+        self.speed = float(speed)
+        self.batch_rows = int(batch_rows)
+        self.window_rows = int(window_rows)
+        self.min_rows = int(min_rows)
+        self.refit_epochs = int(refit_epochs)
+        self.step_s = resolution_ns(freq) / 1e9
+        self.batch_span_s = self.step_s * self.batch_rows
+        self.sweep_every_s = (
+            float(sweep_every_s)
+            if sweep_every_s is not None
+            else 2.0 * self.batch_span_s
+        )
+        self.fault_probe_shift = float(fault_probe_shift)
+        self.start_ns = to_ns(start)  # a start without a zone is UTC
+        # the last run's app registry: it goes on rendering the
+        # gordo_replay_* series after that run's server has stopped
+        self.registry = None
+        # rolling totals across runs, exposed as gordo_replay_* through
+        # each run's app registry (read-through collector)
+        self.totals = {
+            "scenarios": 0,
+            "event_seconds": 0.0,
+            "non_200": 0,
+            "last_speedup": 0.0,
+        }
+
+    # ------------------------------------------------------------------ #
+    # environment plumbing
+    # ------------------------------------------------------------------ #
+
+    def _env(self) -> Dict[str, str]:
+        return {
+            "GORDO_STREAM": "1",
+            "GORDO_SERVER_WARMUP": "0",
+            "GORDO_STREAM_WINDOW": str(self.window_rows),
+            "GORDO_STREAM_MIN_ROWS": str(self.min_rows),
+            "GORDO_REFIT_EPOCHS": str(self.refit_epochs),
+            # late rows trail their window by a few batch spans on the
+            # replayed timeline; the allowance must cover that or the
+            # late-delivery scenario only ever exercises the drop path
+            "GORDO_STREAM_LATENESS_S": str(
+                max(300.0, 6.0 * self.batch_span_s)
+            ),
+        }
+
+    # ------------------------------------------------------------------ #
+    # the drive loop
+    # ------------------------------------------------------------------ #
+
+    def run_sync(self, scenario: Scenario) -> Dict[str, Any]:
+        """Sets the env knobs, runs the scenario, restores the env and
+        disarms every faultpoint."""
+        from gordo_components_torch.resilience import faults
+
+        saved = {k: os.environ.get(k) for k in self._env()}
+        os.environ.update(self._env())
+        try:
+            return self.run(scenario)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            faults.reset()
+
+    def run(self, scenario: Scenario) -> Dict[str, Any]:
+        """One scenario under the environment as it stands (``run_sync``
+        sets the engine's knobs around it)."""
+        from gordo_components_torch.dataset.data_provider.streaming import SimulatedLiveProvider
+        from gordo_components_torch.resilience import faults
+        from gordo_components_torch.server import run_server
+
+        start_epoch = float(self.start_ns) / 1e9
+        clock = ReplayClock(start_epoch, speed=self.speed)
+        server = run_server(self.root, host="127.0.0.1", port=0, background=True, clock=clock,
+                            device=self.device)
+        app = server.app
+        base = f"{server.url}/gordo/v0/replay"
+        prov = SimulatedLiveProvider(
+            freq=self.freq, noise=self.noise, seed=self.seed
+        )
+        tracer = app.tracer
+        trace = (
+            tracer.start_trace("replay") if tracer is not None else None
+        )
+        app.metrics.collector(self._collect, key="replay")
+        self.registry = app.metrics
+
+        verdict: Dict[str, Any] = {
+            "scenario": scenario.name,
+            "description": scenario.description,
+            "members": len(self.members),
+            "event_seconds": scenario.duration_s,
+            "speed": self.speed,
+            "incidents": {
+                inc.key(i): {
+                    "kind": inc.kind,
+                    "start_s": inc.start_s,
+                    "expect_detect": inc.expect_detect,
+                    "detected": False,
+                    "detection_latency_s": None,
+                    "members_flagged": [],
+                }
+                for i, inc in enumerate(scenario.incidents)
+            },
+            "fp_rate_before": {},
+            "fp_rate_after": {},
+            "fn_rate_before": {},
+            "fn_rate_after": {},
+            "adaptations": 0,
+            "refits": 0,
+            "rolled_back": 0,
+            "adaptation_cost_s": 0.0,
+            "refit_s": 0.0,
+            "swap_count": 0,
+            "swap_pause_ms_max": 0.0,
+            "non_200": 0,
+            "statuses": {},
+            "degradation": [],
+            "ever_drifted": [],
+        }
+        statuses: Dict[int, int] = {}
+        ever_drifted: set = set()
+        armed: set = set()
+        flat_frozen: Dict[Any, float] = {}
+        measured_before = False
+        wall_t0 = time.monotonic()
+
+        def note_status(code: int) -> None:
+            statuses[code] = statuses.get(code, 0) + 1
+            if code != 200:
+                verdict["non_200"] += 1
+
+        def post_rows(name: str, ts: np.ndarray, vals: np.ndarray) -> None:
+            # binary ingest frames: NaN dropout cells ride as NaN, and
+            # replay exercises the same zero-copy wire the production
+            # forwarders negotiate
+            body = pack_frames(
+                [
+                    ("rows", np.ascontiguousarray(vals, np.float32)),
+                    ("timestamps", np.ascontiguousarray(ts, np.float64)),
+                ]
+            )
+            resp = _request(f"{base}/{name}/ingest", "POST", body, TENSOR_CONTENT_TYPE)
+            note_status(resp.status)
+
+        def ingest(name: str, ts: np.ndarray, vals: np.ndarray) -> None:
+            # a gateway flushing its backlog delivers the out-of-order
+            # tail as its own POST — splitting here is what makes the
+            # ingestor's watermark actually SEE the disorder (one body
+            # would hide intra-batch lateness behind the batch max)
+            behind = ts < np.maximum.accumulate(ts)
+            if behind.any():
+                post_rows(name, ts[~behind], vals[~behind])
+                post_rows(name, ts[behind], vals[behind])
+            else:
+                post_rows(name, ts, vals)
+
+        def score_totals(name: str, X: np.ndarray) -> np.ndarray:
+            resp = _request(f"{base}/{name}/anomaly/prediction", "POST",
+                            json.dumps({"X": X.tolist()}).encode())
+            note_status(resp.status)
+            if resp.status != 200:
+                # the non-200 is already the verdict-relevant fact; the
+                # body (possibly a non-JSON error page) is diagnostics
+                verdict["degradation"].append(
+                    f"scoring probe {name} -> {resp.status}"
+                )
+                return np.zeros(0)
+            return np.asarray(resp.json()["data"]["total-anomaly-scaled"])
+
+        def probe_batch(
+            name: str, t_s: float, extra_shift: float = 0.0
+        ) -> np.ndarray:
+            """A clean (no dropout/late/dup) sample of the member's
+            CURRENT distribution at ``t_s`` — the FP/FN measurement
+            substrate."""
+            active = [
+                inc
+                for inc in scenario.incidents
+                if inc.active(t_s, scenario.duration_s)
+                and inc.applies_to(name)
+            ]
+            args = combine_injection(active, t_s)
+            args["dropout_p"] = args["late_fraction"] = args["duplicate_p"] = 0.0
+            args["mean_shift"] += extra_shift
+            if extra_shift:
+                args["tags"] = None  # a gross fault hits every sensor
+            prov.inject(**args)
+            _, vals = prov.batch(
+                self.start_ns + seconds_ns(t_s),
+                self.batch_rows * 2,
+                self.members[name],
+            )
+            return vals[~np.isnan(vals).any(axis=1)]
+
+        def measure(which: str, t_s: float) -> None:
+            """FP/FN rates for every member a detection-expected
+            incident targets, against the CURRENT serving thresholds."""
+            collection = app.collection
+            targets: List[str] = []
+            for inc in scenario.incidents:
+                if not inc.expect_detect:
+                    continue
+                targets.extend(
+                    m for m in self.members if inc.applies_to(m)
+                )
+            for name in sorted(set(targets)):
+                thr = collection.models[name].total_threshold_
+                fp_x = probe_batch(name, t_s)
+                if len(fp_x):
+                    totals = score_totals(name, fp_x)
+                    verdict[f"fp_rate_{which}"][name] = round(
+                        float((totals > thr).mean()), 4
+                    )
+                fn_x = probe_batch(
+                    name, t_s, extra_shift=self.fault_probe_shift
+                )
+                if len(fn_x):
+                    totals = score_totals(name, fn_x)
+                    verdict[f"fn_rate_{which}"][name] = round(
+                        float((totals <= thr).mean()), 4
+                    )
+
+        def adapt_once(t_s: float, drifted: List[str]) -> None:
+            nonlocal measured_before
+            if not measured_before:
+                measure("before", t_s)
+                measured_before = True
+            modes = [("recalibrate", list(drifted))]
+            if scenario.refit_targets:
+                refit = [
+                    m for m in scenario.refit_targets if m in drifted
+                ] or list(scenario.refit_targets)
+                modes.append(("refit", refit))
+            for mode, targets in modes:
+                a0 = time.monotonic()
+                resp = _request(f"{base}/adapt", "POST",
+                                json.dumps({"mode": mode, "targets": targets}).encode())
+                try:
+                    body = resp.json()
+                except ValueError:
+                    # a crash outside the handler's own error path can
+                    # answer text/plain — the harness records it, never
+                    # dies on it (the verdict-over-crash contract)
+                    body = {"error": f"non-JSON {resp.status} response"}
+                cost = time.monotonic() - a0
+                verdict["adaptation_cost_s"] += cost
+                if mode == "refit":
+                    verdict["refit_s"] += cost
+                if resp.status == 200 and body.get("applied"):
+                    verdict["adaptations"] += 1
+                    if mode == "refit":
+                        verdict["refits"] += 1
+                    swap = body.get("swap") or {}
+                    if swap:
+                        verdict["swap_count"] += 1
+                        verdict["swap_pause_ms_max"] = max(
+                            verdict["swap_pause_ms_max"],
+                            float(swap.get("pause_ms", 0.0)),
+                        )
+                        verdict["generation"] = swap.get("generation")
+                    if trace is not None:
+                        trace.add_span(
+                            f"adapt:{mode}", a0, time.monotonic(),
+                            members=len(body.get("members", [])),
+                        )
+                elif resp.status != 200:
+                    # the rollback contract: a failed adaptation answers
+                    # 500 rolled_back with the serving generation
+                    # untouched — the verdict records the degradation
+                    # instead of the harness crashing
+                    verdict["rolled_back"] += 1
+                    verdict["degradation"].append(
+                        f"t={t_s:.0f}s {mode} rolled back: "
+                        f"{body.get('error', resp.status)}"
+                    )
+
+        try:
+            t = 0.0
+            next_sweep = self.sweep_every_s
+            while t < scenario.duration_s:
+                t_mid = t + self.batch_span_s / 2.0
+                # arm co-fired faults as their incidents activate
+                for i, inc in enumerate(scenario.incidents):
+                    if (
+                        i not in armed
+                        and inc.faults
+                        and inc.active(t_mid, scenario.duration_s)
+                    ):
+                        armed.add(i)
+                        for spec in inc.faults:
+                            spec = dict(spec)
+                            faults.arm(spec.pop("site"), **spec)
+                batch_start_ns = self.start_ns + seconds_ns(t)
+                for name, tags in self.members.items():
+                    active = [
+                        inc
+                        for inc in scenario.incidents
+                        if inc.active(t_mid, scenario.duration_s)
+                        and inc.applies_to(name)
+                    ]
+                    prov.inject(**combine_injection(active, t_mid))
+                    ts, vals = prov.batch(batch_start_ns, self.batch_rows, tags)
+                    for i, inc in enumerate(scenario.incidents):
+                        if inc.flatline_tags and inc in active:
+                            for tag in inc.flatline_tags:
+                                if tag not in tags:
+                                    continue
+                                col = tags.index(tag)
+                                fkey = (i, name, tag)
+                                if fkey not in flat_frozen:
+                                    finite = vals[:, col][
+                                        np.isfinite(vals[:, col])
+                                    ]
+                                    flat_frozen[fkey] = float(
+                                        finite[0] if len(finite) else 0.0
+                                    )
+                                vals[:, col] = flat_frozen[fkey]
+                    ingest(name, ts, vals)
+                clock.advance_to(
+                    float(batch_start_ns + seconds_ns(self.batch_span_s)) / 1e9
+                )
+                t += self.batch_span_s
+                self.totals["event_seconds"] += self.batch_span_s
+                if t < next_sweep:
+                    continue
+                next_sweep += self.sweep_every_s
+                s0 = time.monotonic()
+                resp = _request(f"{base}/drift?refresh=1")
+                if resp.status == 200:
+                    drifted = resp.json().get("drifted", [])
+                else:
+                    verdict["degradation"].append(
+                        f"t={t:.0f}s drift sweep -> {resp.status}"
+                    )
+                    drifted = []
+                if drifted:
+                    ever_drifted.update(drifted)
+                    for i, inc in enumerate(scenario.incidents):
+                        entry = verdict["incidents"][inc.key(i)]
+                        if entry["detected"]:
+                            continue
+                        flagged = [
+                            m for m in drifted if inc.applies_to(m)
+                        ]
+                        # detection lags the incident by design (EWMA +
+                        # sweep cadence): credit a flag landing within
+                        # one window-displacement + one sweep AFTER a
+                        # finite incident ended — a short incident whose
+                        # flagging sweep fires just past its window is
+                        # detected, not missed
+                        grace = (
+                            self.sweep_every_s
+                            + self.window_rows * self.step_s
+                        )
+                        in_credit_window = (
+                            t >= inc.start_s
+                            and t <= inc.end_s(scenario.duration_s) + grace
+                        )
+                        if flagged and in_credit_window:
+                            entry["detected"] = True
+                            entry["detection_latency_s"] = round(
+                                t - inc.start_s, 1
+                            )
+                            entry["members_flagged"] = sorted(flagged)
+                            if trace is not None:
+                                trace.add_span(
+                                    f"detect:{inc.kind}", s0,
+                                    time.monotonic(),
+                                    latency_s=entry["detection_latency_s"],
+                                )
+                    if scenario.adapt:
+                        adapt_once(t, drifted)
+            # end of timeline: post-adaptation measurements on the final
+            # serving generation, plus the delivery accounting
+            measure("after", max(0.0, scenario.duration_s - 1.0))
+            if not measured_before:
+                # nothing ever adapted (forbid-detection scenarios):
+                # "before" is the same serving generation — measure it
+                # so FP bounds still have a substrate
+                measure("before", max(0.0, scenario.duration_s - 1.0))
+            drift_body = _request(f"{base}/drift").json()
+            for key in (
+                "rows_total", "late_rows_total", "dropped_rows_total",
+                "duplicate_rows_total", "dropout_cells_total",
+            ):
+                verdict[key] = drift_body.get(key, 0)
+            verdict["generation"] = int(app.generation() or 0)
+            slo = app.slo
+            if slo is not None:
+                verdict["slo_worst_burn"] = (slo.snapshot().get("worst") or {})
+            events = app.events
+            if events is not None:
+                # per-scenario flight-recorder timeline: every swap /
+                # drift flag / quarantine / fault fire the run produced,
+                # rendered relative to replay t=0 (events are stamped on
+                # the replay clock, so offsets ARE event time)
+                from gordo_components_torch.watchman.correlate import render_timeline
+
+                evs = events.events()
+                verdict["events"] = evs
+                verdict["timeline"] = render_timeline(start_epoch, evs)
+        finally:
+            wall = max(1e-9, time.monotonic() - wall_t0)
+            verdict["wall_seconds"] = round(wall, 3)
+            verdict["speedup"] = round(scenario.duration_s / wall, 1)
+            verdict["statuses"] = {str(k): v for k, v in sorted(statuses.items())}
+            verdict["ever_drifted"] = sorted(ever_drifted)
+            self.totals["scenarios"] += 1
+            self.totals["non_200"] += verdict["non_200"]
+            self.totals["last_speedup"] = verdict["speedup"]
+            if trace is not None:
+                trace.finish(
+                    error=bool(verdict["non_200"]),
+                    scenario=scenario.name,
+                    speedup=verdict.get("speedup"),
+                )
+            faults.reset()
+            server.close()
+        return finalize_verdict(verdict, scenario.judge(verdict))
+
+    # ------------------------------------------------------------------ #
+    # metric surface (per-run app registry, read-through)
+    # ------------------------------------------------------------------ #
+
+    def _collect(self):
+        yield (
+            "gordo_replay_scenarios_total", "counter",
+            "Replay scenarios driven by this engine", {},
+            self.totals["scenarios"],
+        )
+        yield (
+            "gordo_replay_event_seconds_total", "counter",
+            "Replayed event time driven through the adaptive loop", {},
+            self.totals["event_seconds"],
+        )
+        yield (
+            "gordo_replay_non200_total", "counter",
+            "Data-plane non-200 responses during replay (must stay 0)",
+            {}, self.totals["non_200"],
+        )
+        yield (
+            "gordo_replay_speedup", "gauge",
+            "Event-seconds per wall-second of the last completed "
+            "scenario", {}, self.totals["last_speedup"],
+        )
+

@@ -53,10 +53,10 @@ from gordo_components_tpu.server import build_app as jax_build_app
 
 REGISTRIES = {"jax": jax_resilience, "port": port_resilience}
 # the JAX package's sites that wait for the port of their modules
-WAITING = {"watchman.probe", "watchman.scrape", "watchman.snapshot", "workflow.canary"}
+WAITING = {"watchman.probe", "watchman.scrape", "watchman.snapshot"}
 PORT_SITES = {"bank.finalize", "bank.quantize", "bank.score", "bank.swap", "checkpoint.read", "checkpoint.write",
               "engine.queue", "fleet_build.group", "model_io.load", "server.connection", "stream.ingest",
-              "stream.refit"}
+              "stream.refit", "workflow.canary"}
 _SPEC = importlib.util.spec_from_file_location(
     "jax_artifact_to_torch",
     os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools", "jax_artifact_to_torch.py"))
@@ -192,6 +192,7 @@ def test_the_port_registers_the_jax_sites_less_those_that_wait():
     import gordo_components_torch.builder.fleet_build  # noqa: F401
     import gordo_components_torch.parallel.checkpoint  # noqa: F401
     import gordo_components_torch.server  # noqa: F401
+    import gordo_components_torch.workflow.canary  # noqa: F401
     import gordo_components_tpu.builder.fleet_build  # noqa: F401
     import gordo_components_tpu.parallel.checkpoint  # noqa: F401
     import gordo_components_tpu.placement.swap  # noqa: F401
