@@ -34,11 +34,16 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             widths and H down to 1; the cv phase's 8-member gang at batch
             100, and 221, 473 and 725 windows of one member); its reciprocal
             bitwise against the IEEE division over every float in
-            [1, 2^126); each lstm_hourglass
+            [1, 2^126); K3-bf16's self-tests, each finding 0 mismatches:
+            all 65,536 bf16 codes through its gate tables against the cell's
+            formula, its packed bf16 add and multiply against float32 then
+            round over all 2^32 pairs of codes (and its packed conversion
+            over all 2^32 floats); each lstm_hourglass
             layer's device time at the serving shape against its bound; both
             K3 wrappers refuse a CUDA input that requires grad (the kernel has
             no backward). Each kernel, its plain version
-            and a library expression are timed with CUDA events;
+            and a library expression are timed with CUDA events; K1 and its
+            library call again in turns, 100 rounds of one call each;
    bf16_kernel  K3's bfloat16 instance (bf16 xz, Wh and b; f32 h, c and
             results) against its bfloat16 plain version, one step and a
             layer, at the serving shape, the ragged and edge shapes above and
@@ -47,8 +52,14 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             share of values bitwise equal and its most error in bf16 ulps
             (K3_BF16_*), while the fp32 instance on the same inputs cast up
             (a kernel that skips the bf16 roundings) must fall outside
-            them at every shape; its device time beside
+            them at every shape, and the design equals the arithmetic
+            design (the yardstick gordo_lstm_steps_bf16_arith, which only
+            this script calls) bit for bit at every shape; its device time beside
             the fp32 instance's, ms, plain_ms, library_ms and the bound;
+            bf16_lstm_layers: both designs' device us, launched in turns,
+            at every lstm_hourglass layer of the serving batch against the
+            bound, for one member and at the error passes' 128 x 1,024
+            training shapes;
 4. train    FleetTrainer at the reference bench's fleet width (1,024
             members x 1,440 rows x 10 tags, feedforward_hourglass, 5 epochs,
             batch 128, float32) on the card: a warm fit, then a timed fit of
@@ -707,6 +718,7 @@ BF16_MISALIGNED = [(LOOKBACK, 97, 1, 5), (LOOKBACK, 97, 1, 7)]
 # the float32 phases' numbers, printed beside the bfloat16 phases'
 F32_RUNS = {}
 SOURCE = "gordo_components_torch/ops/csrc/anomaly_score.cu"
+K1_TURNS = 100  # rounds of K1 against its library call, one call of each a round
 # the shapes every call on the card gave each kernel from the main paths on,
 # this process's and the CLI runs': K1's (rows, F), K2's (B, T, F, M), K3's
 # (S, B, M, H); held against the plain versions afterwards
@@ -911,6 +923,24 @@ def time_ms(fn, args, warmup=20, runs=100) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def alternating_ms(fns, args, rounds=K1_TURNS, warmup=10):
+    """Median CUDA-event ms a call of each function on the same arguments,
+    the calls taken in turns (one of each a round)."""
+    for _ in range(warmup):
+        for fn in fns:
+            fn(*args)
+    events = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, got in zip(fns, events):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            got.append((start, end))
+    torch.cuda.synchronize()
+    return [statistics.median(s.elapsed_time(e) for s, e in got) for got in events]
+
+
 def kernel_device_us(fn, args, runs=50, kernel="score_rows", attempts=2):
     """Average device time of the named CUDA kernel itself, from the
     profiler's CUDA trace; a trace that holds no device time for it (the
@@ -1009,6 +1039,10 @@ def kernel_phase():
           device_ops_per_call=ops, ms=round(k1["ms"], 5), plain_ms=round(k1["plain_ms"], 5),
           library_ms=round(k1["library_ms"], 5), below_library=k1["ms"] < k1["library_ms"],
           bound_ms=round(bound, 7), host_us=json.dumps(host_split(k1_pieces(single))))
+    turn_ms, turn_library_ms = alternating_ms((score.fused_anomaly_score, library_fused), single)
+    phase("parity", kernel="fused_anomaly_score", in_turns=f"{K1_TURNS} rounds of (kernel, library) at {T}x{F}",
+          ms_median=round(turn_ms, 6), library_ms_median=round(turn_library_ms, 6),
+          below_library=turn_ms < turn_library_ms)
     seen = nonfinite_parity()
     phase("parity", kernels="banked_anomaly_score,fused_anomaly_score", nonfinite="nan,+inf,-inf",
           placed_in="output,target,one member's scale row", shapes="K2 64x64x10 M=10000, K1 64x10",
@@ -1139,6 +1173,31 @@ def close(got, want, rtol, atol, what) -> float:
     return float((got - want).abs().max())
 
 
+def bf16_self_tests():
+    """K3-bf16's self-tests on the card, each required to find 0
+    mismatches: every one of the 65,536 codes through the gate tables'
+    path against the cell's formula (sigmoid, tanh), and the packed
+    bfloat16 add and multiply against float32-then-round over all 2^32
+    pairs of codes, the packed conversion over all 2^32 float32 values."""
+    lib, p = _cuda.load("lstm_step"), ctypes.c_void_p
+    stream = torch.cuda.current_stream().cuda_stream
+    gate = torch.zeros(2, dtype=torch.int32, device="cuda")
+    arith = torch.zeros(3, dtype=torch.int32, device="cuda")
+    tables = seq_scan.gate_tables(torch.device("cuda"))
+    for entry, args in (("gordo_lstm_bf16_gate_check", (tables.data_ptr(), gate.data_ptr())),
+                        ("gordo_lstm_bf16_arith_check", (arith.data_ptr(),))):
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = [p] * (len(args) + 1), ctypes.c_int
+        if fn(*args, stream) != 0:
+            raise RuntimeError(f"{entry} did not launch")
+    torch.cuda.synchronize()
+    gate = dict(zip(("sigmoid", "tanh"), gate.tolist()))
+    arith = dict(zip(("add", "mul", "cvt"), arith.tolist()))
+    if any(gate.values()) or any(arith.values()):
+        raise AssertionError(f"bf16 self-tests: gate tables {gate}, packed arithmetic {arith} mismatches")
+    return gate, arith
+
+
 def lstm_kernel_phase():
     """K3 against its plain versions: one step (fused_lstm_step, S=1) and a
     whole layer (lstm_layer, S steps) at every shape, the serving, edge and
@@ -1166,6 +1225,7 @@ def lstm_kernel_phase():
         raise RuntimeError("lstm_step reciprocal self-test did not launch")
     if int(mismatches) != 0:
         raise AssertionError(f"rcp_in_range differs from 1.0f / y on {int(mismatches)} values")
+    gate_mismatches, arith_mismatches = bf16_self_tests()
     # the kernel has no backward: both wrappers refuse an input that autograd
     # would differentiate through it
     xz, h, c, Wh, b = lstm_case(4, 3, 2, 8, seed=198)
@@ -1186,7 +1246,9 @@ def lstm_kernel_phase():
     step_bound, _ = lstm_bound(1, B, M, H)
     phase("parity", kernel="fused_lstm_step", steps=1, shapes=len(shapes),
           band="rtol=atol=1e-6", max_err=step_err, rcp_bitwise_over="[1,2^126)",
-          rcp_mismatches=int(mismatches), refuses_requires_grad="lstm_layer,fused_lstm_step",
+          rcp_mismatches=int(mismatches), bf16_gate_table_mismatches=json.dumps(gate_mismatches),
+          bf16x2_arith_mismatches=json.dumps(arith_mismatches),
+          refuses_requires_grad="lstm_layer,fused_lstm_step",
           kernel_device_us=kernel_device_us(seq_scan.fused_lstm_step, step,
                                             kernel="lstm_steps"),
           ms=round(time_ms(seq_scan.fused_lstm_step, step), 5),
@@ -1266,12 +1328,69 @@ def hold_bf16(got, want, limits, what):
     return reading
 
 
+def k3_bf16_arith(xz, h0, c0, Wh, b):
+    """S steps of K3-bf16's arithmetic design
+    (``gordo_lstm_steps_bf16_arith``, the float arithmetic of every rounding
+    point), the yardstick the main path's design is held to bitwise and
+    timed against; nothing in the package calls it. Its plan on the warp
+    path is the one it had as the instance (the float32 plan's at half its
+    shared memory), on the block path the bfloat16 plan without the gate
+    tables. Returns (ys, c) as ``seq_scan._launch``."""
+    S, B, M, H4 = xz.shape
+    H = H4 // 4
+    if H <= seq_scan.WARP_MAX_HIDDEN:
+        plan = seq_scan._launch_plan(B, M, H, 4)
+        smem = plan.smem_bytes // 2
+    else:
+        plan = seq_scan._launch_plan(B, M, H, 2)
+        smem = plan.smem_bytes - plan.tables
+    fn = _cuda.load("lstm_step").gordo_lstm_steps_bf16_arith
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [p, p, p, p, p, *[i] * 12, p, p, p], ctypes.c_int
+    ys = torch.empty((S, B, M, H), device=xz.device)
+    c = torch.empty((B, M, H), device=xz.device)
+    err = fn(xz.data_ptr(), None if h0 is None else h0.data_ptr(), None if c0 is None else c0.data_ptr(),
+             Wh.data_ptr(), b.data_ptr(), S, B, M, H, plan.group, plan.tile, plan.threads, plan.stages,
+             int(plan.stage_w), smem, *plan.grid, ys.data_ptr(), c.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gordo_lstm_steps_bf16_arith launch failed: cudaError {err}")
+    return ys, c
+
+
+def lstm_layer_bf16_arith(xz, Wh, b):
+    return k3_bf16_arith(xz, None, None, Wh, b)[0]
+
+
+def same_bits(got, want, what):
+    """Raise unless the two float32 tensors are equal bit for bit."""
+    if got.shape != want.shape or not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        diff = int((got != want).sum()) if got.shape == want.shape else None
+        raise AssertionError(f"{what}: the bf16 design differs from the arithmetic design ({diff} values)")
+
+
+def k3_bf16_designs_us(args, runs=50):
+    """Mean device us of K3-bf16's two designs on the same layer inputs
+    ``(xz, Wh, b)`` (warp path), both launched in turns (the main path's
+    design, then the arithmetic one) in each capture: (design us,
+    arithmetic us)."""
+    def both(*a):
+        seq_scan.lstm_layer(*a)
+        lstm_layer_bf16_arith(*a)
+
+    return (kernel_device_us(both, args, runs=runs, kernel="lstm_steps_warp_tables"),
+            kernel_device_us(both, args, runs=runs, kernel="lstm_steps_warp<__nv_bfloat16"))
+
+
 def bf16_kernel_phase():
     """K3's bfloat16 instance against its bfloat16 plain versions, one step
     and a layer, at the serving shape, the ragged and edge shapes of the
     float32 phase and the misaligned steps, each within its limits; the
     control (the fp32 instance on the inputs cast up to float32) must fall
-    outside them at every shape. Times at the serving shape."""
+    outside them at every shape. At every shape the design equals the
+    arithmetic design (its yardstick) bit for bit. Times at the serving
+    shape, then both designs' device us in turns at every hourglass width,
+    one member and the error passes' training shapes."""
     resolve_device("cuda")  # bfloat16 products reduced in float32 for the plain versions
     shapes = [LSTM_SERVE, *LSTM_RAGGED, *LSTM_EDGES, *BF16_MISALIGNED]
     worst = {k: {"err": 0.0, "ulps": 0.0, "share": 1.0, "control_share": 0.0,
@@ -1295,10 +1414,14 @@ def bf16_kernel_phase():
         got = seq_scan.fused_lstm_step(xz[0], h, c, Wh, b)
         control = seq_scan.fused_lstm_step(up[0][0], h, c, up[1], up[2])
         torch.cuda.synchronize()
-        for g, k, w, name in zip(got, control, seq_scan.lstm_step_plain(xz[0], h, c, Wh, b), ("c", "h")):
+        yard_ys, yard_c = k3_bf16_arith(xz[:1], h, c, Wh, b)
+        for g, k, w, y, name in zip(got, control, seq_scan.lstm_step_plain(xz[0], h, c, Wh, b),
+                                    (yard_c, yard_ys[0]), ("c", "h")):
             hold("fused_lstm_step", g, k, w, K3_BF16_STEP, f"fused_lstm_step bf16 {name} B={B} M={M} H={H}")
+            same_bits(g, y, f"fused_lstm_step bf16 {name} B={B} M={M} H={H}")
         got, control = seq_scan.lstm_layer(xz, Wh, b), seq_scan.lstm_layer(*up)
         torch.cuda.synchronize()
+        same_bits(got, lstm_layer_bf16_arith(xz, Wh, b), f"lstm_layer bf16 S={S} B={B} M={M} H={H}")
         q = hold("lstm_layer", got, control, seq_scan.lstm_layer_plain(xz, Wh, b),
                  k3_bf16_layer_limits((S, B, M, H)), f"lstm_layer bf16 S={S} B={B} M={M} H={H}")
         serve_share = q if i == 0 else serve_share
@@ -1315,7 +1438,8 @@ def bf16_kernel_phase():
     phase("bf16_kernel", kernel="fused_lstm_step_bf16", steps=1, shapes=len(shapes),
           limits=json.dumps(f"bitwise share >= {K3_BF16_STEP[0]}, <= {K3_BF16_STEP[1]} ulps; "
                             "the fp32 control outside"),
-          **held("fused_lstm_step"), misaligned=json.dumps(BF16_MISALIGNED),
+          **held("fused_lstm_step"), arith_bitwise_shapes=f"{len(shapes)}/{len(shapes)}",
+          misaligned=json.dumps(BF16_MISALIGNED),
           kernel_device_us=kernel_device_us(seq_scan.fused_lstm_step, step, kernel="lstm_steps"),
           ms=round(time_ms(seq_scan.fused_lstm_step, step), 5),
           plain_ms=round(time_ms(seq_scan.lstm_step_plain, step), 5),
@@ -1337,13 +1461,52 @@ def bf16_kernel_phase():
                             f"{sorted(K3_BF16_LAYER_WIDE.values())}), <= {K3_BF16_LAYER[1]} ulps; "
                             "the fp32 control outside"),
           **held("lstm_layer"), serving_bitwise_share=serve_share,
+          arith_bitwise_shapes=f"{len(shapes)}/{len(shapes)}",
           kernel_device_us=kernel_device_us(seq_scan.lstm_layer, layer, kernel="lstm_steps"),
           f32_kernel_device_us=kernel_device_us(seq_scan.lstm_layer, (f32[0], f32[3], f32[4]),
                                                 kernel="lstm_steps"),
           ms=round(result["ms"], 5), plain_ms=round(result["plain_ms"], 5),
           library_ms=round(result["library_ms"], 5), bound_ms=round(bound, 6), bound_by=bound_by,
           f32_bound_ms=round(lstm_bound(S, B, M, H)[0], 6))
+    bf16_lstm_layers()
     return {"lstm_layer_bf16": result}
+
+
+def bf16_lstm_layers():
+    """The ``lstm_layers`` line for K3-bf16: both designs' device us, in
+    turns, at every layer of the LSTM bank's batch against the bound, for
+    one member (the step chain's latency alone) and at the error passes'
+    training shapes."""
+    S, B, M, _ = LSTM_SERVE
+    us, bound = {}, {}
+    for H in sorted(set(HOURGLASS_WIDTHS)):
+        xz, _, _, Wh, b = bf16_case(S, B, M, H, seed=700 + H)
+        us[H] = k3_bf16_designs_us((xz, Wh, b))
+        bound[H] = lstm_bound(S, B, M, H, elem_bytes=2)[0] * 1e3
+    H = LSTM_SERVE[3]
+    xz, _, _, Wh, b = bf16_case(S, B, 1, H, seed=710)
+    one = k3_bf16_designs_us((xz, Wh, b))
+    one_s8 = k3_bf16_designs_us((xz[:8].contiguous(), Wh, b))  # with `one`: a step's latency and the rest
+    train = {}
+    for S_, B_, M_, H_ in LSTM_TRAIN[:3]:
+        xz, _, _, Wh, b = bf16_case(S_, B_, M_, H_, seed=720 + H_)
+        t_us, p_us = k3_bf16_designs_us((xz, Wh, b), runs=20)
+        train[f"{S_}x{B_}x{M_}x{H_}"] = dict(device_us=t_us, arith_device_us=p_us,
+                                           bound_us=round(lstm_bound(S_, B_, M_, H_, elem_bytes=2)[0] * 1e3, 3))
+        del xz, Wh, b
+    phase("bf16_lstm_layers", S=S, B=B, M=M, H=json.dumps(HOURGLASS_WIDTHS), turns="design,arith a launch each",
+          device_us=json.dumps([us[H][0] for H in HOURGLASS_WIDTHS]),
+          arith_device_us=json.dumps([us[H][1] for H in HOURGLASS_WIDTHS]),
+          bound_us=json.dumps([round(bound[H], 3) for H in HOURGLASS_WIDTHS]),
+          bound_share=json.dumps([round(bound[H] / us[H][0], 4) if us[H][0] else None
+                                  for H in HOURGLASS_WIDTHS]),
+          arith_bound_share=json.dumps([round(bound[H] / us[H][1], 4) if us[H][1] else None
+                                      for H in HOURGLASS_WIDTHS]),
+          sum_device_us=round(sum(us[H][0] or 0.0 for H in HOURGLASS_WIDTHS), 3),
+          arith_sum_device_us=round(sum(us[H][1] or 0.0 for H in HOURGLASS_WIDTHS), 3),
+          one_member_device_us=one[0], arith_one_member_device_us=one[1], one_member_H=H,
+          one_member_S8_device_us=one_s8[0], arith_one_member_S8_device_us=one_s8[1],
+          train=json.dumps(train))
 
 
 def record_path_shapes():
@@ -1401,6 +1564,7 @@ def hold_k3_bf16(shape, seed):
     xz, _, _, Wh, b = bf16_case(*shape, seed=seed)
     got = seq_scan.lstm_layer(xz, Wh, b)
     torch.cuda.synchronize()
+    same_bits(got, lstm_layer_bf16_arith(xz, Wh, b), "lstm_layer_bf16 at the main path's S={} B={} M={} H={}".format(*shape))
     return hold_bf16(got, seq_scan.lstm_layer_plain(xz, Wh, b), k3_bf16_layer_limits(shape),
                      "lstm_layer_bf16 at the main path's S={} B={} M={} H={}".format(*shape))[0]
 
@@ -1417,7 +1581,8 @@ def path_parity_phase(kernels):
         "lstm_layer": (hold_k3, {LSTM_SERVE, *LSTM_RAGGED, *LSTM_EDGES, *LSTM_TRAIN},
                        f"rtol={LAYER_RTOL},atol={LAYER_ATOL}"),
         "lstm_layer_bf16": (hold_k3_bf16, {LSTM_SERVE, *LSTM_RAGGED, *LSTM_EDGES, *BF16_MISALIGNED},
-                            f"bitwise share >= {K3_BF16_LAYER[0]}, <= {K3_BF16_LAYER[1]} bf16 ulps"),
+                            f"bitwise share >= {K3_BF16_LAYER[0]}, <= {K3_BF16_LAYER[1]} bf16 ulps; "
+                            "bitwise the arithmetic design"),
     }
     for name, (hold, held, band) in checks.items():
         shapes = PATH_SHAPES[name]

@@ -25,7 +25,9 @@ The JAX package's Pallas step cannot run this (its stores are typed by
 ``xz``, so bfloat16 inputs fail to trace); the contract is the cell, which
 ``tests/test_torch_bf16.py`` holds the plain version to. The kernel has a
 bfloat16 instance for it, and each wrapper picks the instance by
-``xz.dtype``.
+``xz.dtype``. That instance reads the gates from tables
+(``ops/bf16_gates.py``), which :func:`gate_tables` builds on the card at
+first use and keeps for the process, one buffer a device.
 
 Two wrappers launch the one kernel, which runs S consecutive steps:
 
@@ -53,10 +55,12 @@ instance's under ``fused_lstm_step_bf16`` and ``lstm_layer_bf16``.
 
 import ctypes
 import functools
+import threading
 from typing import List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from gordo_components_torch.ops import _cuda, bf16_gates
 from gordo_components_torch.ops._cuda import LaunchCounts, check_tensor
 from gordo_components_torch.ops.activations import resolve_activation, sigmoid
 
@@ -74,6 +78,8 @@ launch_counts = LaunchCounts("fused_lstm_step", "lstm_layer", "fused_lstm_step_b
 _INSTANCES = {torch.float32: ("gordo_lstm_steps", ""), torch.bfloat16: ("gordo_lstm_steps_bf16", "_bf16")}
 reset_launch_counts = launch_counts.reset
 _kernel_fns = {}
+_tables = {}  # device -> its gate tables
+_tables_lock = threading.Lock()
 
 
 def extract_lstm_weights(params: Mapping) -> Weights:
@@ -135,7 +141,8 @@ class LaunchPlan(NamedTuple):
     threads: int  # a block
     stages: int  # slots of the shared-memory ring that streams xz ahead
     stage_w: bool  # block path: Wh[m] staged in shared memory
-    smem_bytes: int  # dynamic shared memory a block
+    tables: int  # bytes of the gate tables staged in shared memory (bfloat16; 0 for float32)
+    smem_bytes: int  # dynamic shared memory a block, the tables included
     grid: Tuple[int, int]
 
 
@@ -157,39 +164,73 @@ def _launch_plan(B: int, M: int, H: int, elem_bytes: int = 4) -> LaunchPlan:
     Block path (H > 32): windows of one member a block, about 256 threads,
     the tile balanced over the windows; a ring of 8 slots (4 where 8 do not
     fit the budget) and ``Wh[m]`` in shared memory where it fits beside them.
+
+    bfloat16 (the table design): the gate tables (``bf16_gates.TABLE_BYTES``)
+    lead the shared memory of both paths; the warp path also keeps a float
+    a thread after the rings, where the pairs exchange h, and the block path
+    stages ``Wh[m]`` only where it fits beside the tables (a ring and h
+    take at most 70 KB, so the tables always fit). Float32 plans have none.
     """
     f32 = 4
+    tables = bf16_gates.TABLE_BYTES if elem_bytes == 2 else 0
     if H <= WARP_MAX_HIDDEN:
         group = 1 << (H - 1).bit_length()
         per_warp = 32 // group
         pairs = B * M
         warps = min(4, max(1, _cdiv(_cdiv(pairs, per_warp), N_SM)))
         tile = warps * per_warp
-        smem = elem_bytes * warps * WARP_STAGES * per_warp * 4 * H
-        return LaunchPlan(group, tile, 32 * warps, WARP_STAGES, False, smem,
+        smem = tables + elem_bytes * warps * WARP_STAGES * per_warp * 4 * H + (4 * 32 * warps if tables else 0)
+        return LaunchPlan(group, tile, 32 * warps, WARP_STAGES, False, tables, smem,
                           (_cdiv(pairs, tile), 1))
     n_tiles = _cdiv(B, max(1, min(B, 256 // H)))
     tile = _cdiv(B, n_tiles)
     slot = elem_bytes * tile * 4 * H
     h_bytes = f32 * tile * H
     w_bytes = elem_bytes * H * 4 * H
-    stages = 8 if 8 * slot + h_bytes <= BLOCK_SMEM_BUDGET else 4
-    stage_w = stages * slot + h_bytes + w_bytes <= BLOCK_SMEM_BUDGET
-    smem = stages * slot + h_bytes + (w_bytes if stage_w else 0)
-    return LaunchPlan(0, tile, 32 * _cdiv(tile * H, 32), stages, stage_w, smem, (n_tiles, M))
+    stages = 8 if tables + 8 * slot + h_bytes <= BLOCK_SMEM_BUDGET else 4
+    stage_w = tables + stages * slot + h_bytes + w_bytes <= BLOCK_SMEM_BUDGET
+    smem = tables + stages * slot + h_bytes + (w_bytes if stage_w else 0)
+    return LaunchPlan(0, tile, 32 * _cdiv(tile * H, 32), stages, stage_w, tables, smem, (n_tiles, M))
 
 
 def _kernel(entry: str):
+    """A steps entry of ``csrc/lstm_step.cu``, argument types set: (xz, h0,
+    c0, Wh, b, 12 ints, ys, c_out, stream), the bfloat16 instance's with
+    (tables, table_bytes) after b."""
     fn = _kernel_fns.get(entry)
     if fn is None:
-        from gordo_components_torch.ops import _cuda
-
         fn = getattr(_cuda.load("lstm_step"), entry)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, *[i] * 12, p, p, p]
+        tables = [p, i] if entry == "gordo_lstm_steps_bf16" else []
+        fn.argtypes = [p, p, p, p, p, *tables, *[i] * 12, p, p, p]
         fn.restype = ctypes.c_int
         _kernel_fns[entry] = fn
     return fn
+
+
+def gate_tables(device: torch.device) -> torch.Tensor:
+    """The bfloat16 gate tables on ``device`` (a CUDA device): int16
+    ``bf16_gates.TABLE_WORDS``, the header written here and the entries by
+    ``gordo_lstm_bf16_gate_tables`` with the kernel's own arithmetic, at the
+    first call for the device; kept for the process."""
+    device = torch.device(device)
+    key = torch.cuda.current_device() if device.index is None else device.index
+    with _tables_lock:
+        tables = _tables.get(key)
+        if tables is None:
+            with torch.cuda.device(key):
+                tables = torch.zeros(bf16_gates.TABLE_WORDS, dtype=torch.int16, device="cuda")
+                tables[:bf16_gates.HEADER_WORDS] = torch.tensor(
+                    bf16_gates.HEADER, dtype=torch.int32).view(torch.int16)
+                build = _cuda.load("lstm_step").gordo_lstm_bf16_gate_tables
+                build.argtypes, build.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+                stream = torch.cuda.current_stream()
+                err = build(tables.data_ptr(), stream.cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"bf16 gate table build failed: cudaError {err}")
+                stream.synchronize()  # every stream's launches read them
+            _tables[key] = tables
+        return tables
 
 
 def _launch(xz, h0: Optional[torch.Tensor], c0: Optional[torch.Tensor], Wh, b):
@@ -217,11 +258,12 @@ def _launch(xz, h0: Optional[torch.Tensor], c0: Optional[torch.Tensor], Wh, b):
     if xz.data_ptr() % piece:
         raise ValueError(f"xz must start on a {piece}-byte boundary (the kernel copies {piece}-byte pieces)")
     plan = _launch_plan(B, M, H, xz.element_size())
+    tables = (gate_tables(dev).data_ptr(), plan.tables) if dt == torch.bfloat16 else ()
     ys = torch.empty((S, B, M, H), dtype=torch.float32, device=dev)
     c_out = torch.empty((B, M, H), dtype=torch.float32, device=dev)
     err = _kernel(_INSTANCES[dt][0])(
         xz.data_ptr(), None if h0 is None else h0.data_ptr(),
-        None if c0 is None else c0.data_ptr(), Wh.data_ptr(), b.data_ptr(),
+        None if c0 is None else c0.data_ptr(), Wh.data_ptr(), b.data_ptr(), *tables,
         S, B, M, H, plan.group, plan.tile, plan.threads, plan.stages,
         int(plan.stage_w), plan.smem_bytes, *plan.grid, ys.data_ptr(),
         c_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,

@@ -20,7 +20,9 @@
   8192 rows a call. K3's copies of xz (pieces of four elements: 16 bytes
   in float32, 8 in bfloat16) are replayed too: every element of a step
   exactly once, every piece aligned to its size, also where an odd B*M*H
-  starts a bfloat16 step 8 bytes off a 16-byte line.
+  starts a bfloat16 step 8 bytes off a 16-byte line. The bfloat16 plans'
+  shared memory is replayed piece by piece: the gate tables staged on both
+  paths at every width, within the block path's budget.
 
 Bands, as the JAX suite states them: chained steps within rtol=1e-5,
 atol=1e-6; diff and scaled bitwise, the two norms within rtol=atol=1e-6.
@@ -34,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from gordo_components_torch.ops import bf16_gates as gates
 from gordo_components_torch.ops import score as port_score
 from gordo_components_torch.ops import seq_scan as port_seq
 from gordo_components_tpu.ops.pallas_score import banked_anomaly_score, fused_anomaly_score
@@ -214,6 +217,42 @@ def test_bf16_launch_plan_covers_the_bank_shape(H):
     _check_plan(1, 64, H, elem_bytes=2)
 
 
+def _smem_pieces(plan, H, elem_bytes):
+    """The plan's shared memory piece by piece, in the kernels' order: the
+    bfloat16 gate tables, the ring, then r(h) a lane (bfloat16 warp path)
+    or h and, when staged, Wh (block path)."""
+    ring = elem_bytes * plan.stages * plan.tile * 4 * H
+    if plan.group:
+        return [plan.tables, ring, 4 * plan.threads if elem_bytes == 2 else 0]
+    return [plan.tables, ring, 4 * plan.tile * H, elem_bytes * 4 * H * H if plan.stage_w else 0]
+
+
+@pytest.mark.parametrize("B,M", [(1, 1), (3, 7), (97, 1), (2, 3), (97, 64), (1, 64)])
+def test_bf16_plan_stages_the_gate_tables_within_the_budget(B, M):
+    """Every width at the bank's shapes and the misaligned (97, 1): both
+    paths stage the tables, ahead of a 16-byte aligned ring, the warp path
+    without the opt-in, the block path within its budget (Wh staged only
+    where it fits beside them)."""
+    for H in range(1, port_seq.MAX_HIDDEN + 1):
+        plan = port_seq._launch_plan(B, M, H, 2)
+        pieces = _smem_pieces(plan, H, 2)
+        assert plan.tables == gates.TABLE_BYTES and plan.tables % 16 == 0
+        assert plan.smem_bytes == sum(pieces) <= MAX_SMEM, (B, M, H, plan)
+        assert plan.smem_bytes <= (48 * 1024 if plan.group else port_seq.BLOCK_SMEM_BUDGET)
+        if not plan.group:
+            fits = sum(pieces[:3]) + 2 * 4 * H * H <= port_seq.BLOCK_SMEM_BUDGET
+            assert plan.stage_w == fits, (B, M, H, plan)
+
+
+@pytest.mark.parametrize("B,M", [(97, 64), (97, 1), (128, 1024)])
+def test_float32_plan_has_no_tables(B, M):
+    """The float32 instance's plans are what they were: no tables, the ring
+    (and on the block path h and Wh) alone."""
+    for H in range(1, port_seq.MAX_HIDDEN + 1):
+        plan = port_seq._launch_plan(B, M, H, 4)
+        assert plan.tables == 0 and plan.smem_bytes == sum(_smem_pieces(plan, H, 4)), (B, M, H, plan)
+
+
 def _copies(plan, B, M, H):
     """Element offsets (in xz, one step) of every four-element piece the
     plan's threads copy, replaying the kernels' mapping: a warp's copier
@@ -264,6 +303,21 @@ def test_bank_shape_plan_fills_the_card():
     plan = port_seq._launch_plan(97, 64, 8)
     assert (plan.group, plan.tile, plan.threads, plan.stages) == (8, 16, 128, 8)
     assert plan.grid == (388, 1) and plan.grid[0] * plan.tile - 97 * 64 <= 3
+
+
+@pytest.mark.parametrize("B,M", [(97, 64), (97, 1), (128, 1024), (3, 7)])
+def test_bf16_plan_keeps_the_float32_geometry(B, M):
+    """The table design's plans cover the pairs as the float32 instance's
+    do (the arithmetic yardstick launches with that geometry): the same lanes a
+    pair, tile, threads and grid, and on the warp path shared memory that
+    differs only by the tables and a float a thread."""
+    for H in range(1, port_seq.MAX_HIDDEN + 1):
+        bf, f32 = port_seq._launch_plan(B, M, H, 2), port_seq._launch_plan(B, M, H, 4)
+        if bf.group:
+            assert (bf.group, bf.tile, bf.threads, bf.grid) == (f32.group, f32.tile, f32.threads, f32.grid)
+            assert bf.smem_bytes == bf.tables + f32.smem_bytes // 2 + 4 * bf.threads
+        else:
+            assert (bf.tile, bf.threads, bf.grid) == (f32.tile, f32.threads, f32.grid)
 
 
 def test_layer_refuses_misaligned_xz():
