@@ -282,8 +282,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             bank (K2 on every POST), PCA(n_components=3) and FeatureUnion(
             [MinMaxScaler, PCA(2)]) on the per-model path (``/models``
             coverage names each under ``fallback`` as non-affine; K1 in
-            their ``anomaly()``), and a bare TransformedTargetRegressor over
-            an AutoEncoder served by its ``predict``. Each answer held to
+            their ``anomaly()``), a bare TransformedTargetRegressor over
+            an AutoEncoder served by its ``predict``, and a MinMaxScaler
+            detector over a year resampled at business days (``B``: a
+            calendar resolution, in the bank). Each answer held to
             the same artifact's CPU answer in check_arrays' bands; build
             seconds, server-ready seconds and the launches of each run;
     observe  ``run_server`` on the card over four models at config 1's
@@ -502,11 +504,30 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             ``gordo_replay_*`` series. The cli phase also runs ``workflow
             compile`` twice (byte-equal DAGs), ``workflow generate`` and
             ``workflow run`` (exit 2: not ported);
+    watchman  the watchman's read side over three one-card replicas:
+            ``run-server`` subprocesses (``GORDO_STREAM=1``) over 6 dense and
+            2 ``lstm_hourglass`` detectors each (10 tags, lookback 32; 24
+            members, none on two), the watchman in this process on a replay
+            clock. ``GET /`` (replica 0's members, each healthy and banked,
+            three reachable replicas) and a snapshot of each other replica;
+            ``/routing`` every member at its owner, a routed ``Client``
+            bitwise the owners' direct answers (one chunk at a time);
+            ``/metrics``' summed request counters the replicas' own; the
+            ``/traces``, ``/slo``, ``/heat``, ``/costs``, ``/history`` and
+            ``/events`` parts of each replica its own endpoint's; a mean
+            shift flagged in exactly 2 members by ``/drift?refresh=1`` and
+            ``/`` degraded; ``watchman.scrape``, ``.snapshot`` and
+            ``.probe`` armed (last good numbers, a stale snapshot, the
+            replicas dark then recovered with their events); a replica
+            SIGTERMed (unreachable, its members unhealthy, its counters
+            frozen and stamped stale); ``run-watchman`` of the CLI. The
+            snapshot's, the scrapes', the routing build's and the drift
+            sweep's walls and the routed rows/s; the replicas' launches;
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
             bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
             definitions, observe, pipeline, qos, wire, client, resilience,
-            quantized, stream, gang, replay), each reset just
+            quantized, stream, gang, replay, watchman), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -3754,15 +3775,20 @@ DEFINITION_STEPS = {  # machine -> its named preprocessing step, and whether the
     "def-union": (["union", {"sklearn.pipeline.FeatureUnion": {"transformer_list": [
         ["minmax", "sklearn.preprocessing.MinMaxScaler"],
         ["pca", {"sklearn.decomposition.PCA": {"n_components": 2}}]]}}], False),
+    "def-business-days": (["minmax", "sklearn.preprocessing.MinMaxScaler"], True),
 }
 DEFINITION_TTR = "def-ttr"
+# a calendar resolution: a year of business days (weekend rows fold into the Friday before)
+DEFINITION_CALENDAR = {"def-business-days": {"resolution": "B", "train_start_date": "2020-01-01T00:00:00Z",
+                                             "train_end_date": "2021-01-01T00:00:00Z"}}
 
 
 def definition_machines() -> list:
     """The definitions phase's fleet: a detector over each step of
     DEFINITION_STEPS and a bare TransformedTargetRegressor (its target the
-    tags themselves), each on its own week of 10 tags."""
-    machines = [{"name": name, "dataset": dataset(name), "model": {
+    tags themselves), each on its own week of 10 tags; DEFINITION_CALENDAR's
+    machine on a year resampled at a calendar resolution."""
+    machines = [{"name": name, "dataset": dict(dataset(name), **DEFINITION_CALENDAR.get(name, {})), "model": {
         "gordo_components_tpu.models.DiffBasedAnomalyDetector": {"base_estimator": {
             "sklearn.pipeline.Pipeline": {"steps": [step, ["model", _HOURGLASS]]}}}}}
         for name, (step, _) in DEFINITION_STEPS.items()]
@@ -6297,26 +6323,30 @@ STREAM_ENV = {"GORDO_STREAM": "1", "GORDO_PUSH": "1", "GORDO_BANK_DTYPE": "int8"
 STREAM_T_TRAIN, STREAM_T_LIVE = "2026-08-01T00:00:00Z", "2026-08-02T00:00:00Z"
 
 
-def stream_models(prov):
-    """Fit the phase's detectors on the card on the provider's healthy
-    rows and write them under STREAM_DIR."""
+def stream_models(prov, out_dir: str = STREAM_DIR, dense_n: int = STREAM_DENSE, lstm_n: int = STREAM_LSTM,
+                  prefix: str = "s", per_model: bool = True):
+    """Fit ``dense_n`` dense and ``lstm_n`` ``lstm_hourglass`` detectors
+    (and, with ``per_model``, the PCA detector) on the card on the
+    provider's healthy rows and write them under ``out_dir``; their names."""
     from gordo_components_torch.models.transformers import PCA
 
-    shutil.rmtree(STREAM_DIR, ignore_errors=True)
-    frames = {f"s-dense-{i:02d}": prov.frame(STREAM_T_TRAIN, STREAM_TRAIN_ROWS, STREAM_TAGS)
-              for i in range(STREAM_DENSE)}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    frames = {f"{prefix}-dense-{i:02d}": prov.frame(STREAM_T_TRAIN, STREAM_TRAIN_ROWS, STREAM_TAGS)
+              for i in range(dense_n)}
     dense = FleetTrainer(kind="feedforward_hourglass", epochs=STREAM_EPOCHS, batch_size=64).fit(frames)
-    lstm_frames = {f"s-lstm-{i:02d}": prov.frame(STREAM_T_TRAIN, STREAM_TRAIN_ROWS, STREAM_TAGS)
-                   for i in range(STREAM_LSTM)}
+    lstm_frames = {f"{prefix}-lstm-{i:02d}": prov.frame(STREAM_T_TRAIN, STREAM_TRAIN_ROWS, STREAM_TAGS)
+                   for i in range(lstm_n)}
     lstm = FleetTrainer(model_type="LSTMAutoEncoder", kind="lstm_hourglass", lookback_window=LOOKBACK,
                         epochs=STREAM_EPOCHS, batch_size=64).fit(lstm_frames)
     for name, member in {**dense, **lstm}.items():
-        serializer.dump(member.to_estimator(), os.path.join(STREAM_DIR, name))
+        serializer.dump(member.to_estimator(), os.path.join(out_dir, name))
+    if not per_model:
+        return sorted([*frames, *lstm_frames])
     pca = DiffBasedAnomalyDetector(base_estimator=Pipeline([
         ("pca", PCA(n_components=5)),
         ("model", AutoEncoder(kind="feedforward_hourglass", epochs=STREAM_EPOCHS, batch_size=64))]))
     pca.fit(prov.frame(STREAM_T_TRAIN, STREAM_TRAIN_ROWS, STREAM_TAGS))
-    serializer.dump(pca, os.path.join(STREAM_DIR, STREAM_PER_MODEL))
+    serializer.dump(pca, os.path.join(out_dir, STREAM_PER_MODEL))
     return sorted([*frames, *lstm_frames, STREAM_PER_MODEL])
 
 
@@ -6866,6 +6896,363 @@ def replay_phase(card: str):
           k2_launches=score.launch_counts["banked_anomaly_score"], card=json.dumps(card))
 
 
+# ------------------------------------------------------------------ #
+# watchman: the fleet-health service over three one-card replicas
+# ------------------------------------------------------------------ #
+
+WATCHMAN_DIR = os.path.join(ROOT, "build", "chip_smoke_watchman")
+WATCHMAN_REPLICAS = 3
+WATCHMAN_DENSE, WATCHMAN_LSTM = 6, 2  # a replica: config 1's dense and config 2's lstm_hourglass detectors, 10 tags
+WATCHMAN_SHIFTED = 2  # replica 0's members given a mean shift
+WATCHMAN_REFRESH_S = 30.0  # the JAX default; the watchman's clock is stepped past it
+WATCHMAN_ENV = {"GORDO_STREAM": "1", "GORDO_STREAM_WINDOW": str(STREAM_WINDOW), "GORDO_STREAM_MIN_ROWS": "32",
+                "GORDO_HISTORY": "1", "GORDO_TRACE_SAMPLE": "1",
+                # the planes' samples only on request: each replica's part of a
+                # rollup is then the same as the replica's own answer a moment later
+                "GORDO_HISTORY_INTERVAL_S": "3600", "GORDO_SLO_SAMPLE_S": "3600", "GORDO_HEAT_SAMPLE_S": "3600",
+                "GORDO_COST_SAMPLE_S": "3600"}
+WATCHMAN_SPAN = ("2020-01-01T00:00:00Z", "2020-01-02T00:00:00Z")  # 144 rows at 10 min: two chunks a member
+WATCHMAN_BATCH = 72
+WATCHMAN_DATASET = {"type": "RandomDataset", "tag_list": STREAM_TAGS, "resolution": "10min"}
+
+
+def request_counters(text: str) -> dict:
+    """``gordo_server_requests_total`` by its labels, less the ``metrics``
+    kind, which each scrape moves."""
+    return {tuple(sorted(labels.items())): value for name, labels, value in parse_prometheus_text(text)[1]
+            if name == "gordo_server_requests_total" and labels.get("kind") != "metrics"}
+
+
+def summed_counters(agg: dict) -> dict:
+    return {labels: value for (name, labels), value in agg["sums"].items()
+            if name == "gordo_server_requests_total" and dict(labels).get("kind") != "metrics"}
+
+
+# watchman route -> (the replica's route, replica i's part of the watchman's
+# body, the same part of the replica's own body)
+WATCHMAN_ROLLUPS = {
+    "/traces?n=5": ("/traces/slow?n=5", lambda body, i: body["replicas"][i].get("traces"),
+                    lambda own, i: own.get("traces") if own.get("enabled") else None),
+    "/slo": ("/slo", lambda body, i: body["replicas"][i]["worst"], lambda own, i: own.get("worst")),
+    "/heat": ("/heat?top=10", lambda body, i: body["replicas"][i]["heat_enabled"],
+              lambda own, i: bool(own.get("enabled"))),
+    "/costs": ("/costs", lambda body, i: body["replicas"][i]["cost_enabled"], lambda own, i: bool(own.get("enabled"))),
+    "/history": ("/history", lambda body, i: {k: v for k, v in body["replicas"][i].items()
+                                              if k not in ("replica", "scraped")}, lambda own, i: own),
+    "/events": ("/events", lambda body, i: [{k: v for k, v in e.items() if k != "replica_index"}
+                                            for e in body["events"] if e.get("replica_index") == i],
+                lambda own, i: [dict(e, replica=e.get("replica") or f"replica-{i}") for e in own["events"]]),
+}
+
+
+def watchman_replicas(names: dict) -> tuple:
+    """Start each replica's ``run-server`` (counted CLI subprocesses on the
+    card) and the CLI's ``run-watchman`` over replica 0, all at once, and
+    wait for the replicas; (processes, base URLs, logs, the
+    ``run-watchman`` process and its URL)."""
+    servers, bases, logs, t0 = [], [], [], time.perf_counter()
+    for r in range(WATCHMAN_REPLICAS):
+        port = free_port()
+        log = open(os.path.join(WATCHMAN_DIR, f"replica-{r}.log"), "w")
+        servers.append(subprocess.Popen(
+            cli_command(f"watchman_replica_{r}", ["run-server", "--model-dir", os.path.join(WATCHMAN_DIR, f"r{r}"),
+                                                   "--host", "127.0.0.1", "--port", str(port)],
+                        counts_dir=WATCHMAN_DIR),
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, env=dict(os.environ, **WATCHMAN_ENV)))
+        bases.append(f"http://127.0.0.1:{port}")
+        logs.append(log)
+    port = free_port()
+    logs.append(open(os.path.join(WATCHMAN_DIR, "run-watchman.log"), "w"))
+    cli_proc = subprocess.Popen([sys.executable, "-m", "gordo_components_torch.cli", "run-watchman", "--project",
+                                 "smoke", "--server-base-url", bases[0], "--host", "127.0.0.1", "--port", str(port)],
+                                cwd=ROOT, stdout=logs[-1], stderr=subprocess.STDOUT)
+    for r, (base, server) in enumerate(zip(bases, servers)):
+        status, models = wait_for_models(f"{base}/gordo/v0/smoke", server, t0)
+        if status != 200 or models["models"] != names[r] or models["bank"]["banked"] != names[r]:
+            raise AssertionError(f"watchman replica {r} /models answered {status}: {models}")
+    return servers, bases, logs, cli_proc, f"http://127.0.0.1:{port}"
+
+
+def watchman_ingest(prov, base: str, names, shifted, cursor) -> int:
+    """One healthy delivery into each of ``names``, then ``shifted`` two
+    deliveries of a mean shift of 4 (as the stream phase); rows sent."""
+    rows = 0
+
+    def deliver(name, start):
+        ts, vals = prov.batch(start, STREAM_BATCH, STREAM_TAGS)
+        ts = np.asarray(ts) - ts[0] + cursor[0]
+        cursor[0] = float(ts[-1]) + 10.0
+        status, body = http_json(f"{base}/gordo/v0/smoke/{name}/ingest", {
+            "rows": [[None if v != v else float(v) for v in r] for r in vals.tolist()], "timestamps": ts.tolist()})
+        if status != 200 or body["accepted"] != STREAM_BATCH:
+            raise AssertionError(f"watchman ingest {name}: {status} {body}")
+        return len(vals)
+
+    if not shifted:
+        for name in names:
+            rows += deliver(name, STREAM_T_LIVE)
+        return rows
+    prov.inject(mean_shift=4.0)
+    try:
+        for k in range(2):  # 192 rows displace the healthy 128-row windows
+            for name in shifted:
+                rows += deliver(name, to_ns(STREAM_T_LIVE) + (k + 1) * 3_600_000_000_000)
+    finally:
+        prov.clear()
+    return rows
+
+
+def watchman_cli(proc, url: str) -> dict:
+    """``run-watchman`` of the CLI (started with the replicas, over replica
+    0): ``/healthcheck`` and ``/`` answer, and SIGTERM stops it with exit
+    code 0."""
+    t0 = time.perf_counter()
+    try:
+        while True:
+            try:
+                status, health = http_json(url + "/healthcheck")
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > CLI_TIMEOUT_S:
+                    raise AssertionError(f"run-watchman did not answer (exit {proc.poll()})") from None
+                time.sleep(0.2)
+        status_root, root = http_json(url + "/")
+        if status != 200 or "gordo-watchman-version" not in health or status_root != 200 or not root["endpoints"]:
+            raise AssertionError(f"run-watchman answered {status} {health}, / {status_root}")
+    finally:
+        stop_server(proc)
+    if proc.returncode != 0:
+        raise AssertionError(f"run-watchman exited {proc.returncode} on SIGTERM")
+    return {"endpoints": len(root["endpoints"]), "exit_on_sigterm": proc.returncode}
+
+
+def watchman_phase(card: str):
+    """The watchman's read side over three one-card replicas: each a
+    ``run-server`` subprocess (``GORDO_STREAM=1``) over its own 6 dense
+    and 2 ``lstm_hourglass`` detectors (10 tags, lookback 32) fitted on
+    the card; the watchman in this process (``run_watchman(metrics_urls=
+    ...)`` on a ``ReplayClock`` stepped past its refresh interval). It
+    checks the snapshot (replica 0's members through ``GET /``, the
+    others' through a snapshot of each replica), the routing table and a
+    routed ``Client`` bitwise the owners' direct answers, the ``/metrics``
+    sums against the replicas' own, the rollups' parts against each
+    replica's endpoint, a drift sweep that flags exactly the two shifted
+    members (``/`` degraded), the three fault points, a killed replica
+    (dark in ``/routing``, frozen and stamped in ``/metrics``) and the
+    CLI's ``run-watchman``. Returns the replicas' launch counts, summed."""
+    from gordo_components_torch.dataset.data_provider.streaming import SimulatedLiveProvider
+    from gordo_components_torch.replay.clock import ReplayClock
+    from gordo_components_torch.resilience import faults
+    from gordo_components_torch.watchman import run_watchman
+    from gordo_components_torch.watchman.server import WatchmanState
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(WATCHMAN_DIR, ignore_errors=True)
+    os.makedirs(WATCHMAN_DIR)
+    prov = SimulatedLiveProvider(freq="10s", noise=0.1, seed=11)
+    t0 = time.perf_counter()
+    names = {r: stream_models(prov, os.path.join(WATCHMAN_DIR, f"r{r}"), WATCHMAN_DENSE, WATCHMAN_LSTM,
+                              prefix=f"w{r}", per_model=False) for r in range(WATCHMAN_REPLICAS)}
+    fit_s = time.perf_counter() - t0
+    members = sorted(n for r in names for n in names[r])
+    owner = {n: r for r in names for n in names[r]}
+    readings, runs, servers, logs, wm, cli_proc = {"fit_s": round(fit_s, 3)}, {}, [], [], None, None
+    try:
+        t0 = time.perf_counter()
+        servers, bases, logs, cli_proc, cli_url = watchman_replicas(names)
+        readings["replicas_ready_s"] = round(time.perf_counter() - t0, 3)
+        prefixes = [f"{b}/gordo/v0/smoke" for b in bases]
+        clock = ReplayClock(time.time())
+        wm = run_watchman("smoke", bases[0], host="127.0.0.1", port=0, refresh_interval=WATCHMAN_REFRESH_S,
+                          metrics_urls=[p + "/metrics" for p in prefixes], clock=clock, background=True)
+        state = wm.state
+
+        def get(path, headers=None):
+            status, hdrs, raw = http_raw(wm.url + path, None, headers)
+            return status, hdrs, raw
+
+        def get_json(path):
+            status, _, raw = get(path)
+            if status != 200:
+                raise AssertionError(f"watchman {path} answered {status}: {raw[:300]}")
+            return json.loads(raw)
+
+        def expire():  # the watchman's caches due again
+            clock.advance(WATCHMAN_REFRESH_S)
+
+        # 1. the routing table, the snapshot, every member healthy and banked
+        t = time.perf_counter()
+        table = get_json("/routing")
+        readings["routing_build_s"] = round(time.perf_counter() - t, 4)
+        if table["members"] != owner or not all(r["reachable"] and r["status"] == "ok" for r in table["replicas"]):
+            raise AssertionError(f"watchman /routing: {table}")
+        t = time.perf_counter()
+        metrics_text = get("/metrics")[2].decode()
+        readings["metrics_cold_s"] = round(time.perf_counter() - t, 4)
+        t = time.perf_counter()
+        get("/metrics")
+        readings["metrics_cached_s"] = round(time.perf_counter() - t, 4)
+        get_json("/drift")
+        t = time.perf_counter()
+        root = get_json("/")
+        readings["snapshot_s"] = round(time.perf_counter() - t, 4)
+        if ([e["target"] for e in root["endpoints"]] != names[0]
+                or not all(e["healthy"] and e["banked"] is True for e in root["endpoints"])
+                or [r["url"] for r in root["replicas"]] != bases or not all(r["reachable"] for r in root["replicas"])
+                or root["fleet-metrics"]["replicas_scraped"] != WATCHMAN_REPLICAS or "status" in root):
+            raise AssertionError(f"watchman /: {json.dumps(root)[:2000]}")
+        for r in range(1, WATCHMAN_REPLICAS):  # the other replicas' members, a snapshot each
+            snap = wm.app.run(WatchmanState("smoke", bases[r]).snapshot())
+            if ([e["target"] for e in snap["endpoints"]] != names[r]
+                    or not all(e["healthy"] and e["banked"] is True for e in snap["endpoints"])):
+                raise AssertionError(f"watchman: replica {r}'s snapshot {json.dumps(snap)[:1000]}")
+        if "gordo_fleet_routing_version 1" not in metrics_text:
+            raise AssertionError("watchman /metrics: no routing version")
+
+        # 2. a routed client, bitwise the owners' direct answers: both one
+        # chunk at a time, so each replica scores each chunk alone
+        t = time.perf_counter()
+        routed = Client("smoke", base_url=bases[0], routing_url=wm.url, batch_size=WATCHMAN_BATCH, parallelism=1,
+                        metadata_fallback_dataset=WATCHMAN_DATASET)
+        results = {res.name: res for res in routed.predict(*WATCHMAN_SPAN)}
+        routed_s = time.perf_counter() - t
+        if sorted(results) != members or routed.routing_version != table["version"]:
+            raise AssertionError(f"watchman: routed client scored {sorted(results)} at v{routed.routing_version}")
+        rows = 0
+        for r in range(WATCHMAN_REPLICAS):
+            direct = Client("smoke", base_url=bases[r], batch_size=WATCHMAN_BATCH, parallelism=1, transport="tcp",
+                            use_tensor=routed.use_tensor, metadata_fallback_dataset=WATCHMAN_DATASET)
+            for res in direct.predict(*WATCHMAN_SPAN, targets=names[r]):
+                got = results[res.name]
+                if not (res.ok and got.ok) or not np.array_equal(got.predictions.values, res.predictions.values) \
+                        or not np.array_equal(got.predictions.index, res.predictions.index):
+                    raise AssertionError(f"watchman: routed {res.name} differs from replica {r}'s direct answer "
+                                         f"({got.error_messages[:1]} {res.error_messages[:1]})")
+                rows += len(got.predictions.values)
+        readings["routed_rows_per_s_serial"] = round(rows / routed_s, 1)
+        readings["routed_rows"] = rows
+
+        # 3. the rollup's sums are the replicas' own, at one quiet moment
+        expire()
+        agg = wm.app.run(state.fleet_metrics())
+        direct = [request_counters(http_raw(p + "/metrics")[2].decode()) for p in prefixes]
+        want = {}
+        for counters in direct:
+            for labels, value in counters.items():
+                want[labels] = want.get(labels, 0.0) + value
+        if agg["replicas_scraped"] != WATCHMAN_REPLICAS or summed_counters(agg) != want or not want:
+            raise AssertionError(f"watchman /metrics sums {summed_counters(agg)} != replicas' {want}")
+        text = get("/metrics")[2].decode()
+        if f"gordo_fleet_replicas_scraped {WATCHMAN_REPLICAS}" not in text:
+            raise AssertionError("watchman /metrics: replicas_scraped")
+        sums_before = summed_counters(agg)
+
+        # 4. the rollups: each replica's part is its own endpoint's
+        checks = {}
+        for path, (suffix, theirs, own) in WATCHMAN_ROLLUPS.items():
+            before = [own(http_json(p + suffix)[1], i) for i, p in enumerate(prefixes)]
+            body = get_json(path)
+            for i, p in enumerate(prefixes):
+                part = theirs(body, i)
+                # a request in between may move the replica: its answer just before or just after
+                if part != before[i] and part != own(http_json(p + suffix)[1], i):
+                    raise AssertionError(f"watchman {path}: replica {i}'s part {json.dumps(part)[:300]} is not "
+                                         f"its own {json.dumps(before[i])[:300]}")
+            checks[path] = "each replica's part its own"
+
+        # 5. drift: healthy windows flag nothing; a mean shift flags its two members
+        cursor = [time.time() - 3600.0]
+        ingested = watchman_ingest(prov, bases[0], names[0], (), cursor)
+        drift = get_json("/drift?refresh=1")
+        if drift["drifted"] != [] or drift["replicas_streaming"] != WATCHMAN_REPLICAS:
+            raise AssertionError(f"watchman: healthy windows drifted: {drift}")
+        shifted = names[0][:WATCHMAN_SHIFTED]
+        ingested += watchman_ingest(prov, bases[0], names[0], shifted, cursor)
+        t = time.perf_counter()
+        drift = get_json("/drift?refresh=1")
+        readings["drift_sweep_s"] = round(time.perf_counter() - t, 4)
+        root = get_json("/")
+        if drift["drifted"] != sorted(shifted) or root.get("status") != "degraded":
+            raise AssertionError(f"watchman: /drift flagged {drift['drifted']}, shifted {shifted}; "
+                                 f"/ {root.get('status')}")
+        readings["degraded_reason"] = root["degraded_reason"]
+        incidents = get_json("/incidents")
+        readings["drifted"] = drift["drifted"]
+        readings["ingested_rows"] = ingested
+
+        # 6. the fault points, armed here
+        faults.arm("watchman.scrape", times=WATCHMAN_REPLICAS)
+        expire()
+        agg = wm.app.run(state.fleet_metrics())
+        status, _, raw = get("/metrics")
+        fell = {k: v for k, v in summed_counters(agg).items() if v < sums_before.get(k, 0.0)}
+        if agg["replicas_scraped"] != 0 or status != 200 or fell or b"gordo_fleet_replicas_scraped 0" not in raw:
+            raise AssertionError(f"watchman.scrape: scraped {agg['replicas_scraped']}, status {status}, fell {fell}")
+        faults.arm("watchman.snapshot", times=1)
+        expire()
+        stale = get_json("/")
+        if stale.get("stale") is not True or "FaultInjected" not in stale.get("refresh_error", ""):
+            raise AssertionError(f"watchman.snapshot: / answered {json.dumps(stale)[:500]}")
+        version = get_json("/routing?refresh=1")["version"]
+        faults.configure_from_env(f"watchman.probe=refuse,times={WATCHMAN_REPLICAS}")
+        dark = get_json("/routing?refresh=1")
+        healed = get_json("/routing?refresh=1")
+        events = get_json("/events?type=mesh.replica_unreachable,mesh.replica_recovered")["events"]
+        kinds = [e["type"] for e in events]
+        if (dark["version"] <= version or any(r["reachable"] for r in dark["replicas"])
+                or healed["version"] <= dark["version"] or not all(r["reachable"] for r in healed["replicas"])
+                or kinds != ["mesh.replica_unreachable"] * WATCHMAN_REPLICAS
+                + ["mesh.replica_recovered"] * WATCHMAN_REPLICAS):
+            raise AssertionError(f"watchman.probe: v{version} -> {dark['version']} -> {healed['version']}, {kinds}")
+        faults.reset()
+        checks["faults"] = {"scrape": "replicas_scraped 0, no sum fell", "snapshot": "last good, stale",
+                            "probe": [version, dark["version"], healed["version"]]}
+
+        # 7. a replica killed: dark in /routing, its members unhealthy, its counters frozen and stamped
+        expire()
+        wm.app.run(state.fleet_metrics())
+        stop_server(servers[2])
+        killed = get_json("/routing?refresh=1")
+        if killed["replicas"][2]["reachable"] or any(owner[n] == 2 for n in killed["members"]):
+            raise AssertionError(f"watchman: a killed replica in /routing: {killed}")
+        snap = wm.app.run(WatchmanState("smoke", bases[2], targets=names[2]).snapshot())
+        if [e["target"] for e in snap["endpoints"]] != names[2] or any(e["healthy"] for e in snap["endpoints"]):
+            raise AssertionError(f"watchman: the killed replica's members {snap['endpoints']}")
+        expire()
+        agg = wm.app.run(state.fleet_metrics())
+        text = get("/metrics")[2].decode()
+        fell = {k: v for k, v in summed_counters(agg).items() if v < sums_before.get(k, 0.0)}
+        if (agg["replicas_scraped"] != WATCHMAN_REPLICAS - 1 or fell
+                or f'gordo_fleet_scrape_stale_seconds{{replica="2"}} {WATCHMAN_REFRESH_S:g}' not in text):
+            raise AssertionError(f"watchman: after the kill scraped {agg['replicas_scraped']}, fell {fell}")
+        checks["killed"] = "unreachable, 8 unhealthy, frozen and stamped"
+
+        # 9. the CLI's run-watchman over one replica
+        readings["cli"] = watchman_cli(cli_proc, cli_url)
+    finally:
+        faults.reset()
+        if wm is not None:
+            wm.close()
+        for server in servers + ([cli_proc] if cli_proc is not None else []):
+            stop_server(server)
+        for log in logs:
+            log.close()
+    for r, server in enumerate(servers):
+        if server.returncode != 0:
+            raise AssertionError(f"watchman replica {r} exited {server.returncode} on SIGTERM")
+        runs[f"replica_{r}"] = cli_counts(f"watchman_replica_{r}", counts_dir=WATCHMAN_DIR)
+    shutil.rmtree(WATCHMAN_DIR, ignore_errors=True)
+    total = {k: sum(c[k] for c in runs.values()) for k in runs["replica_0"]}
+    if total["banked_anomaly_score"] <= 0 or total["lstm_layer"] <= 0:
+        raise AssertionError(f"watchman: the replicas launched {runs}")
+    readings["wall_s"] = round(time.perf_counter() - t_phase, 3)
+    phase("watchman", members=len(members), replicas=WATCHMAN_REPLICAS, checks=json.dumps(checks),
+          incidents=incidents["detected"], launches_by_run=json.dumps(runs),
+          **{k: json.dumps(v) if isinstance(v, (list, dict)) else v for k, v in readings.items()},
+          card=json.dumps(card))
+    return total
+
+
 # (path, kernel): the kernels each path must launch in its own run
 PATH_KERNELS = (
     ("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
@@ -6895,6 +7282,7 @@ PATH_KERNELS = (
     ("stream", "lstm_layer"),
     ("gang", "lstm_layer"), ("gang", "banked_anomaly_score"),
     ("replay", "banked_anomaly_score"),
+    ("watchman", "banked_anomaly_score"), ("watchman", "lstm_layer"),
     ("bf16_train", "lstm_layer_bf16"),
     ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
     ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score"),
@@ -6938,6 +7326,7 @@ def steps(card: str) -> list:
         ("stream", "path", stream_phase, (card,)),
         ("gang", "path", gang_phase, (card,)),
         ("replay", "path", replay_phase, (card,)),
+        ("watchman", "sub", watchman_phase, (card,)),
     ]
 
 

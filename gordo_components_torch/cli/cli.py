@@ -16,6 +16,14 @@ same options, environment variables and exit codes:
   ``--checkpoint-dir`` untouched for ``--older-than-days`` and print
   ``Pruned N stale checkpoint(s)``;
 - ``run-server``: serve a model directory until SIGINT or SIGTERM;
+- ``run-watchman``: the fleet-health service over a server
+  (``watchman/server.py``) until SIGINT or SIGTERM, with the JAX options:
+  ``--project`` (``PROJECT_NAME``), ``--server-base-url``
+  (``SERVER_BASE_URL``), ``--targets`` (``TARGET_NAMES``, a JSON list;
+  discovered when omitted), ``--gang-state-dir`` (``GANG_STATE_DIR``),
+  ``--full-metadata`` (``WATCHMAN_FULL_METADATA``), ``--host`` and
+  ``--port`` (5556); a watchman over several replicas is built with
+  ``run_watchman(metrics_urls=...)``, as in the JAX package;
 - ``client predict START END``: score a time range for every machine of a
   project (or each ``--target``) with :class:`~gordo_components_torch.client.Client`,
   forwarding to ``--parquet-dir``; prints ``k/n machines scored
@@ -41,8 +49,7 @@ profiler captures (``utils/profiling.py``). Refused with exit code 2:
 port) and ``run-server --devices`` above 1, which is not ported yet;
 ``build-fleet --distributed`` exits 83, and ``workflow run`` (the fleet
 executor, ROADMAP.md A13) exits 2. The client and ``workflow`` commands move
-no tensor and ignore ``--device``. The JAX package's ``run-watchman`` is not
-ported.
+no tensor and ignore ``--device``; so does ``run-watchman``.
 """
 
 import argparse
@@ -141,6 +148,18 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--devices", type=int, default=_env_int("GORDO_SERVER_DEVICES", None),
                    help="cards to shard the bank over: only 1 is ported")
 
+    wm = sub.add_parser("run-watchman", help="Fleet health aggregation service.")
+    wm.add_argument("--project", default=_env("PROJECT_NAME"))
+    wm.add_argument("--server-base-url", default=_env("SERVER_BASE_URL"))
+    wm.add_argument("--targets", default=_env("TARGET_NAMES"),
+                    help="JSON list; discovered from the server when omitted")
+    wm.add_argument("--gang-state-dir", default=_env("GANG_STATE_DIR"),
+                    help="Aggregate builder-gang heartbeats from this directory")
+    wm.add_argument("--full-metadata", action="store_true", default=_env_flag("WATCHMAN_FULL_METADATA"),
+                    help="Aggregate FULL per-target metadata instead of the bounded digest")
+    wm.add_argument("--host", default="0.0.0.0")
+    wm.add_argument("--port", type=int, default=5556)
+
     c = sub.add_parser("client", help="Bulk prediction client.")
     csub = c.add_subparsers(dest="client_command", metavar="CLIENT_COMMAND")
     csub.required = True
@@ -190,6 +209,7 @@ _REQUIRED = {
     "build-fleet": (("machines_file", "MACHINES_FILE"),),
     "checkpoint-prune": (("checkpoint_dir", "CHECKPOINT_DIR"),),
     "run-server": (("model_dir", "MODEL_COLLECTION_DIR"),),
+    "run-watchman": (("project", "PROJECT_NAME"), ("server_base_url", "SERVER_BASE_URL")),
     "client": (("project", "PROJECT_NAME"),),
     "workflow": (),
 }
@@ -305,6 +325,24 @@ def _run_server(args) -> int:
         run_server(args.model_dir, host=args.host, port=args.port, device=args.device)
     except KeyboardInterrupt:
         logger.info("Server stopped")
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    return EXIT_OK
+
+
+def _run_watchman(args) -> int:
+    from gordo_components_torch.watchman import run_watchman
+
+    def stop(signum, frame):
+        raise KeyboardInterrupt
+
+    target_list = json.loads(args.targets) if args.targets else None
+    previous = signal.signal(signal.SIGTERM, stop)
+    try:
+        run_watchman(args.project, args.server_base_url, target_list, host=args.host, port=args.port,
+                     gang_state_dir=args.gang_state_dir, full_metadata=args.full_metadata)
+    except KeyboardInterrupt:
+        logger.info("Watchman stopped")
     finally:
         signal.signal(signal.SIGTERM, previous)
     return EXIT_OK
@@ -435,7 +473,8 @@ def _workflow(args) -> int:
 
 
 _COMMANDS = {"build": _build, "build-fleet": _build_fleet, "checkpoint-prune": _checkpoint_prune,
-             "run-server": _run_server, "client": _client, "workflow": _workflow}
+             "run-server": _run_server, "run-watchman": _run_watchman, "client": _client,
+             "workflow": _workflow}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -18,8 +18,14 @@ computes it:
 
 - bins: a fixed resolution's bins start at midnight (UTC) of the first kept
   sample's day (``origin="start_day"``) and are closed and labelled left;
-  a weekly ``W-<day>`` bin holds the seven days that end on ``<day>`` and
-  is labelled by it (closed and labelled right);
+  a calendar offset's (weeks, months, quarters, years, business days and
+  their multiples, ``times.parse_resolution``) are stepped by pandas'
+  offset arithmetic (``times.offset_apply``) from the first sample's day:
+  an end-anchored offset's (``W``, ``ME``, ``QE``, ``YE``) bin holds the
+  days after the previous edge through its own and is labelled by it
+  (closed and labelled right), a start-anchored one's (``MS``, ``QS``,
+  ``YS``, ``B``) is closed and labelled left, so a weekend's samples fall
+  in the Friday before;
 - the aggregations ``mean``, ``sum``, ``min``, ``max``, ``median``,
   ``first``, ``last``, ``std``, ``var``, ``sem``, ``count`` and ``prod``
   skip NaN and follow pandas' group kernels step by step (Kahan-compensated
@@ -35,17 +41,18 @@ computes it:
 Each tag's bins span its first kept sample's bin to its last's; the joined
 index is the sorted union of the tags' bins, and a bin a tag does not cover
 holds NaN for it (an integer column that gains one becomes float64). Other
-aggregations (``ohlc`` and any that is not one of these strings) and
-calendar resolutions (``times.parse_resolution``) raise
-``NotImplementedError`` naming them.
+aggregations (``ohlc``, which the JAX package's join refuses too, and any
+that is not one of these strings) raise ``NotImplementedError`` naming
+them.
 """
 
+import datetime
 from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 
 from gordo_components_torch.dataset.data_provider.base import Series
-from gordo_components_torch.dataset.times import Resolution
+from gordo_components_torch.dataset.times import RIGHT_CLOSED, Resolution, offset_apply, on_offset
 
 _DAY_NS = 86_400_000_000_000
 _MAX_BUCKETS = 20_000_000
@@ -66,7 +73,7 @@ def fused_agg_join(
     if not isinstance(aggregation, str) or aggregation not in AGGREGATIONS:
         raise NotImplementedError(f"aggregation {aggregation!r}: the port resamples with {AGGREGATIONS}")
     res = resolution if isinstance(resolution, Resolution) else Resolution(int(resolution))
-    if res.step_ns <= 0:
+    if res.calendar is None and res.step_ns <= 0:
         raise ValueError(f"resolution must be positive, got {res.step_ns} ns")
     names = [s.name for s in series_list]
     if len(set(names)) != len(names):
@@ -74,10 +81,14 @@ def fused_agg_join(
     # the fused path takes the whole join or none of it, as in the JAX
     # package: an integer tag under another aggregation than mean sends
     # every tag to the pandas path
-    fused = (res.weekday is None and _DAY_NS % res.step_ns == 0 and aggregation in _FUSED_AGGS
+    fused = (res.calendar is None and res.timedelta and _DAY_NS % res.step_ns == 0 and aggregation in _FUSED_AGGS
              and (aggregation == "mean" or all(np.asarray(s.values).dtype in (np.float32, np.float64)
                                                for s in series_list if np.asarray(s.values).size)))
 
+    if not fused and not res.offset and any(np.asarray(s.values).size for s in series_list):
+        # as the JAX package's resample of its first tag with samples refuses it
+        raise ValueError("resolution: a spelling pandas' resample does not read (the fused path alone takes it: "
+                         f"{', '.join(_FUSED_AGGS)} of float tags at a step dividing a day)")
     meta: Dict[str, Any] = {}
     cols: List[Tuple[str, np.ndarray, np.ndarray]] = []  # (name, bin labels, column)
     for s in series_list:
@@ -159,23 +170,58 @@ def _pandas_column(name, ts: np.ndarray, values: np.ndarray, res: Resolution, ag
         raise NotImplementedError(f"tag {name!r}: resampling {values.dtype} values")
     order = np.argsort(ts, kind="stable")  # pandas sorts the index stably
     ts, values = ts[order], values[order]
-    if res.weekday is None:
-        step = res.step_ns
-        origin = (int(ts[0]) // _DAY_NS) * _DAY_NS  # midnight of the first sample's day
-        label0 = 0
-    else:
-        step = 7 * _DAY_NS
-        # the first day on or after the epoch that opens a week ending on
-        # the anchor (1970-01-01 was a Thursday, weekday 3)
-        origin = ((res.weekday + 1 - 3) % 7) * _DAY_NS
-        label0 = 6 * _DAY_NS  # a week is labelled by its last day
+    if res.calendar is not None:
+        labels, b = _calendar_bins(ts, res)
+        return labels, _aggregate(b, labels.size, values, aggregation)
+    step = res.step_ns
+    origin = (int(ts[0]) // _DAY_NS) * _DAY_NS  # midnight of the first sample's day
     b = (ts - origin) // step
     lo = int(b[0])
     n = int(b[-1]) - lo + 1
     if n > _MAX_BUCKETS:
         raise ValueError(f"tag {name!r} spans {n} buckets, more than {_MAX_BUCKETS}")
-    labels = origin + label0 + (lo + np.arange(n, dtype=np.int64)) * step
+    labels = origin + (lo + np.arange(n, dtype=np.int64)) * step
     return labels, _aggregate(b - lo, n, values, aggregation)
+
+
+_EPOCH_DAY = datetime.date(1970, 1, 1).toordinal()
+
+
+def _calendar_bins(ts: np.ndarray, res: Resolution):
+    """pandas' bins of a calendar offset over sorted ``ts``: (bin labels,
+    each sample's bin). The edges run from the offset date before the
+    first sample's day (one period back for an end-anchored offset, the
+    date rolled back onto the offset for the others) to one period past
+    the last sample's day, stepped ``res.n`` periods from there. An
+    end-anchored offset's bins are closed and labelled right, each edge
+    moved to the last nanosecond of its day (the day is in the bin), and
+    an edge past the data is dropped; the others' bins are closed and
+    labelled left."""
+    first = datetime.date.fromordinal(_EPOCH_DAY + int(ts[0]) // _DAY_NS)
+    last = datetime.date.fromordinal(_EPOCH_DAY + int(ts[-1]) // _DAY_NS)
+    right = res.calendar in RIGHT_CLOSED
+    if right:
+        start = offset_apply(res, first, -res.n)
+    else:
+        start = first if on_offset(res, first) else offset_apply(res, first, -1)
+    end = offset_apply(res, last, res.n)
+    # pandas' date_range(start, end): both rolled onto the offset, then n periods a step
+    cur = start if on_offset(res, start) else offset_apply(res, start, 1)
+    if not on_offset(res, end):
+        end = offset_apply(res, end, -1)
+    days = []
+    while cur <= end:
+        days.append(cur.toordinal() - _EPOCH_DAY)
+        if len(days) > _MAX_BUCKETS:
+            raise ValueError(f"resolution spans more than {_MAX_BUCKETS} buckets")
+        cur = offset_apply(res, cur, res.n)
+    edges = np.asarray(days, np.int64) * _DAY_NS
+    if right:
+        ends = edges + (_DAY_NS - 1)
+        if ends.size >= 2 and ends[-2] > ts[-1]:  # the last edge holds no sample
+            edges, ends = edges[:-1], ends[:-1]
+        return edges[1:], np.searchsorted(ends, ts, "left") - 1
+    return edges[:-1], np.searchsorted(edges, ts, "right") - 1
 
 
 def _positions(b: np.ndarray, n: int):

@@ -4,7 +4,8 @@ Configurations give dates as ISO-8601 strings (``"2020-01-01T00:00:00Z"``,
 ``"2017-12-25 06:00:00Z"``, an offset such as ``+01:00``, or naive, which
 reads as UTC) and resolutions as pandas-style offsets (``"10min"``, the
 reference-era ``"10T"``, ``"1h"``, ``"30s"``, ``"1d"``, and for resampling
-the weekly ``"W"`` and ``"W-MON"`` ... ``"W-SUN"``: :func:`parse_resolution`). Data files and
+pandas' calendar offsets: weeks, months, quarters, years and business days,
+:func:`parse_resolution`). Data files and
 InfluxDB answer with columns of such strings, which :func:`parse_times`
 reads to int64 ns as ``pd.to_datetime(col, utc=True)`` does: a date, or a
 date with ``HH:MM``, ``HH:MM:SS`` or ``HH:MM:SS.f`` (1 to 9 fractional
@@ -12,6 +13,7 @@ digits) after a ``T`` or a space, then ``Z``, ``±HH:MM``, ``±HHMM`` or
 nothing (naive reads as UTC). Anything else raises ``ValueError``.
 """
 
+import calendar
 import datetime
 import re
 from typing import NamedTuple, Optional
@@ -138,41 +140,190 @@ def resolution_ns(resolution: str) -> int:
 
 
 WEEKDAYS = ("MON", "TUE", "WED", "THU", "FRI", "SAT", "SUN")
+MONTHS = ("JAN", "FEB", "MAR", "APR", "MAY", "JUN", "JUL", "AUG", "SEP", "OCT", "NOV", "DEC")
 _WEEKLY = re.compile(r"^(\d*)W(?:-([A-Z]{3}))?$")
-# pandas' calendar offsets, which the port does not resample at
-_CALENDAR = re.compile(
-    r"^\d*(M|ME|MS|SM|SME|SMS|BM|BME|BMS|CBM|CBME|CBMS|Q|QE|QS|BQ|BQE|BQS|A|AS|Y|YE|YS|BA|BAS|BY|BYE|BYS|"
-    r"B|C|BH|CBH)(-[A-Z]{3})?$")
+_BUSINESS = re.compile(r"^\d*B$")
+# pandas' month, quarter and year offsets, and business days
+_CALENDAR = re.compile(r"^(\d*)(ME|MS|QE|QS|YE|YS|B)(?:-([A-Z]{3}))?$")
+# pandas' other calendar offsets, which the port does not resample at
+_NOT_PORTED = re.compile(r"^\d*(SME|SMS|BME|BMS|BQE|BQS|BYE|BYS|C|CBME|CBMS|bh|cbh)(-[A-Z0-9]+)?$")
+# a fixed step's spellings, as pandas 3 reads them for the JAX package:
+# pd.Timedelta (its fused path) takes a count and these units in any case,
+_TIMEDELTA_UNITS = {
+    **dict.fromkeys(("ns", "nano", "nanos", "nanosecond", "nanoseconds"), 1),
+    **dict.fromkeys(("us", "micro", "micros", "microsecond", "microseconds"), 1_000),
+    **dict.fromkeys(("ms", "milli", "millis", "millisecond", "milliseconds"), 1_000_000),
+    **dict.fromkeys(("s", "sec", "second", "seconds"), _UNITS_NS["s"]),
+    **dict.fromkeys(("min", "minute", "minutes"), _UNITS_NS["min"]),
+    **dict.fromkeys(("h", "hr", "hour", "hours"), _UNITS_NS["h"]),
+    **dict.fromkeys(("d", "day", "days"), _UNITS_NS["D"]),
+}
+# its offsets (the resample path) these, in this case (``MS`` is month start),
+_OFFSET_UNITS = {"D": _UNITS_NS["D"], "d": _UNITS_NS["D"], "h": _UNITS_NS["h"], "s": _UNITS_NS["s"], "ms": 1_000_000}
+# and these in any case
+_OFFSET_UNITS_ANY_CASE = {"min": _UNITS_NS["min"], "us": 1_000, "ns": 1}
+# pandas' default anchors: QE is QE-MAR's quarters (= QE-DEC's), QS QS-JAN, YE YE-DEC, YS YS-JAN
+_DEFAULT_MONTH = {"QE": 3, "QS": 1, "YE": 12, "YS": 1}
+# end-anchored offsets: closed and labelled right; the others left
+RIGHT_CLOSED = ("ME", "QE", "YE", "W")
 
 
 class Resolution(NamedTuple):
-    """A resampling resolution: a fixed step, or one week anchored on
-    ``weekday`` (0 = Monday), whose bins end on that day and are labelled
-    by it (pandas' ``W-<day>``, closed and labelled right)."""
+    """A resampling resolution: a fixed step (``step_ns``), or (``step_ns``
+    0) a calendar offset ``calendar`` of ``n`` periods: ``ME``/``MS`` (month
+    end, start), ``QE``/``QS`` and ``YE``/``YS`` anchored on ``month`` (1 =
+    January), ``B`` (business days) or ``W`` anchored on ``weekday`` (0 =
+    Monday). A fixed step's spelling says which of the JAX package's paths
+    read it: ``timedelta``, ``pd.Timedelta`` (its fused path), and
+    ``offset``, pandas' offsets (its resample path)."""
 
     step_ns: int
     weekday: Optional[int] = None
+    calendar: Optional[str] = None
+    n: int = 1
+    month: Optional[int] = None
+    timedelta: bool = True
+    offset: bool = True
 
 
 def parse_resolution(resolution: str) -> Resolution:
-    """A fixed offset (:func:`resolution_ns`) or ``W`` (``W-SUN``),
-    ``W-MON`` ... ``W-SUN``. pandas' calendar offsets (month, quarter, year,
-    business days) and multi-week anchors raise ``NotImplementedError``
-    naming them; anything else ``ValueError``."""
+    """A fixed step, or one of pandas' calendar offsets the port resamples
+    at: ``[n]W[-DAY]`` (``W`` is ``W-SUN``),
+    ``[n]ME``, ``[n]MS``, ``[n]QE[-MON]``, ``[n]QS[-MON]``,
+    ``[n]YE[-MON]``, ``[n]YS[-MON]`` and ``[n]B``, the spellings pandas
+    accepts (not its retired ``M``, ``Q``, ``A`` or ``Y``, which raise
+    ``ValueError`` there too). A fixed step takes the spellings either of
+    pandas' parsers takes (``Resolution.timedelta``, ``.offset``: ``1H``
+    only as ``pd.Timedelta`` reads it, ``h`` only as an offset); the
+    legacy ``10T`` reads as ``10min``. pandas' other calendar offsets
+    (semi-month, business month, quarter and year, custom business days) raise
+    ``NotImplementedError`` naming them (business hours too); anything
+    else ``ValueError``."""
     text = normalize_resolution(resolution.strip())
+    if _WEEKLY.match(text.upper()) or _BUSINESS.match(text.upper()):
+        text = text.upper()  # pandas still reads the deprecated lower-case w, w-mon and b
     m = _WEEKLY.match(text)
     if m:
-        if m.group(1) not in ("", "1"):
-            raise NotImplementedError(f"resolution {resolution!r}: the port resamples at one-week anchors only")
         day = m.group(2) or "SUN"
         if day not in WEEKDAYS:
             raise ValueError(f"Unsupported resolution {resolution!r} (W-{'|'.join(WEEKDAYS)})")
-        return Resolution(7 * _UNITS_NS["D"], WEEKDAYS.index(day))
-    if _CALENDAR.match(text):
+        n = _count(m.group(1), resolution)
+        return Resolution(0, WEEKDAYS.index(day), "W", n)
+    m = _CALENDAR.match(text)
+    if m:
+        kind, anchor = m.group(2), m.group(3)
+        if anchor is not None and (kind not in _DEFAULT_MONTH or anchor not in MONTHS):
+            raise ValueError(f"Unsupported resolution {resolution!r} (anchors: {kind}-{'|'.join(MONTHS)})"
+                             if kind in _DEFAULT_MONTH else f"Unsupported resolution {resolution!r}")
+        month = MONTHS.index(anchor) + 1 if anchor else _DEFAULT_MONTH.get(kind)
+        return Resolution(0, None, kind, _count(m.group(1), resolution), month)
+    if _NOT_PORTED.match(text):
         raise NotImplementedError(
-            f"resolution {resolution!r}: calendar offsets (month, quarter, year, business days) are not "
-            "resampled by the port")
-    return Resolution(resolution_ns(text))
+            f"resolution {resolution!r}: semi-month, business month, quarter and year, custom business day "
+            "and business hour offsets are not resampled by the port")
+    m = _OFFSET.match(text)
+    if m:
+        count, unit = m.group(1), m.group(2)
+        td = _TIMEDELTA_UNITS.get(unit.lower()) if count else None
+        off = _OFFSET_UNITS.get(unit, _OFFSET_UNITS_ANY_CASE.get(unit.lower()))
+        if td is not None or off is not None:
+            return Resolution(int(count or 1) * (td or off), timedelta=td is not None, offset=off is not None)
+    raise ValueError(f"Unsupported resolution {resolution!r} (a count and one of {sorted(_TIMEDELTA_UNITS)}, or "
+                     f"one of {sorted(_OFFSET_UNITS)} and {sorted(_OFFSET_UNITS_ANY_CASE)} in any case)")
+
+
+def _count(digits: str, resolution: str) -> int:
+    n = int(digits or 1)
+    if n <= 0:
+        raise ValueError(f"resolution {resolution!r}: the offset does not increment a date")
+    return n
+
+
+# ------------------------------------------------------------------ #
+# calendar offsets, as pandas' offsets step a date
+# ------------------------------------------------------------------ #
+
+
+def _days_in_month(year: int, month: int) -> int:
+    return calendar.monthrange(year, month)[1]
+
+
+def _shift_month(d: datetime.date, months: int, day_opt: str) -> datetime.date:
+    year, month0 = divmod(d.month - 1 + months, 12)
+    year += d.year
+    day = 1 if day_opt == "start" else _days_in_month(year, month0 + 1)
+    return datetime.date(year, month0 + 1, day)
+
+
+def _day_of_month(d: datetime.date, day_opt: str) -> int:
+    return 1 if day_opt == "start" else _days_in_month(d.year, d.month)
+
+
+def _roll_qtrday(d: datetime.date, n: int, month: int, day_opt: str, modby: int) -> int:
+    """Periods to shift, as pandas' ``roll_qtrday`` rolls forward or back."""
+    months_since = d.month % modby - month % modby if modby != 12 else d.month - month
+    if n > 0:
+        if months_since < 0 or (months_since == 0 and d.day < _day_of_month(d, day_opt)):
+            n -= 1
+    elif months_since > 0 or (months_since == 0 and d.day > _day_of_month(d, day_opt)):
+        n += 1
+    return n
+
+
+def offset_apply(res: Resolution, d: datetime.date, n: int) -> datetime.date:
+    """``d`` stepped ``n`` periods of ``res``'s calendar offset (pandas'
+    ``Timestamp + n * offset`` at midnight)."""
+    kind = res.calendar
+    if kind == "W":
+        k = n
+        if d.weekday() != res.weekday:
+            d = d + datetime.timedelta((res.weekday - d.weekday()) % 7)
+            if k > 0:
+                k -= 1
+        return d + datetime.timedelta(weeks=k)
+    if kind == "B":
+        wday = d.weekday()
+        weeks = n // 5
+        if n <= 0 and wday > 4:
+            n += 1
+        n -= 5 * weeks
+        if n == 0 and wday > 4:
+            days = 4 - wday
+        elif wday > 4:
+            days = (7 - wday) + (n - 1)
+        elif wday + n <= 4:
+            days = n
+        else:
+            days = n + 2
+        return d + datetime.timedelta(days=7 * weeks + days)
+    day_opt = "end" if kind.endswith("E") else "start"
+    if kind[0] == "M":
+        compare = _day_of_month(d, day_opt)
+        months = n
+        if n > 0 and d.day < compare:
+            months -= 1
+        elif n <= 0 and d.day > compare:
+            months += 1
+    elif kind[0] == "Q":
+        months = _roll_qtrday(d, n, res.month, day_opt, 3) * 3 - (d.month % 3 - res.month % 3)
+    else:
+        months = _roll_qtrday(d, n, res.month, day_opt, 12) * 12 + (res.month - d.month)
+    return _shift_month(d, months, day_opt)
+
+
+def on_offset(res: Resolution, d: datetime.date) -> bool:
+    """Whether ``d`` is one of ``res``'s calendar dates."""
+    kind = res.calendar
+    if kind == "W":
+        return d.weekday() == res.weekday
+    if kind == "B":
+        return d.weekday() < 5
+    day = _day_of_month(d, "end" if kind.endswith("E") else "start")
+    if kind[0] == "M":
+        return d.day == day
+    if kind[0] == "Q":
+        return (d.month - res.month) % 3 == 0 and d.day == day
+    return d.month == res.month and d.day == day
 
 
 def normalize_resolution(resolution: str) -> str:

@@ -4,8 +4,9 @@ rates (``slo.py``), per-bucket device cost (``cost.py``), access heat
 (``heat.py``), metric history (``timeseries.py``) and the event log
 (``events.py``).
 
-Counterpart of ``gordo_components_tpu/observability/``; the watchman's
-incident correlation is not ported yet.
+Counterpart of ``gordo_components_tpu/observability/``. The watchman's
+incident correlation lives in ``watchman/correlate.py``, as in the JAX
+package, and its fleet rollups in ``watchman/server.py``.
 """
 
 from gordo_components_torch.observability.metrics import (

@@ -29,7 +29,7 @@ lost: a bounded race, never a torn read. ``sample`` and the reads take
 the accountant's lock.
 
 :func:`merge_heat_snapshots` is the watchman's pure rollup of several
-replicas' ``/heat`` bodies; the watchman itself is not ported yet.
+replicas' ``/heat`` bodies (``watchman/server.py``'s ``fleet_heat``).
 """
 
 import math

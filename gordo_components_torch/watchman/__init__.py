@@ -1,11 +1,15 @@
-"""Watchman of the port: the incident correlation (``correlate.py``).
+"""Watchman of the port: the fleet-health service's read side
+(``server.py``: the health snapshot, the fleet rollups and the routing
+table over one or more serving replicas, ``run-watchman``) and the
+incident correlation (``correlate.py``), which the replay engine also uses
+to render its per-scenario timelines.
 
-Counterpart of ``gordo_components_tpu/watchman/``. The fleet-health
-service itself (``server.py``, ``run-watchman``) is not ported yet; the
-replay engine renders its per-scenario timelines with
-:func:`correlate.render_timeline`.
+Counterpart of ``gordo_components_tpu/watchman/``. The write side
+(``POST /rebalance``, ``/migrate``, ``/fleet-rebalance``: moves across the
+serving mesh) is not ported; those routes answer 501.
 """
 
 from gordo_components_torch.watchman.correlate import burn_episodes, group_incidents, render_timeline
+from gordo_components_torch.watchman.server import build_watchman_app, run_watchman
 
-__all__ = ["burn_episodes", "group_incidents", "render_timeline"]
+__all__ = ["build_watchman_app", "burn_episodes", "group_incidents", "render_timeline", "run_watchman"]

@@ -249,7 +249,7 @@ def test_run_server_on_several_cards_is_not_ported(tmp_path, capsys):
     assert exit_info.value.code == 2 and "not ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("command", ["build", "build-fleet", "run-server"])
+@pytest.mark.parametrize("command", ["build", "build-fleet", "run-server", "run-watchman"])
 def test_missing_required_option_exits_2_as_jax(command, capsys):
     assert run_jax([command])[0] == 2
     with pytest.raises(SystemExit) as exit_info:

@@ -5,9 +5,9 @@ through the builder and the server) against the JAX package's, on the CPU.
   (raise N times, seeded probability, latency, the context-manager and
   decorator forms, the ``GORDO_FAULTS`` grammar and the transport kinds),
   each on both registries; the disarmed ``fire()`` reads one slot. The
-  port registers the JAX package's sites less those that wait for their
-  modules (ROADMAP A: ``bank.quantize`` for A6; ``watchman.*``,
-  ``stream.*`` and ``workflow.canary`` for A8).
+  port registers every site of the JAX package (the watchman's three,
+  ``watchman.probe``, ``watchman.scrape`` and ``watchman.snapshot``, are
+  driven in tests/test_torch_watchman.py).
 - **Build under faults.** ``fleet_build.group=error,times=1`` through
   ``GORDO_FAULTS`` gives a full build with ``group_retries == 1``, and a
   group poisoned past its retries a partial manifest and exit 84, in both
@@ -52,11 +52,11 @@ from gordo_components_tpu.resilience.faults import FaultSpec as JaxFaultSpec
 from gordo_components_tpu.server import build_app as jax_build_app
 
 REGISTRIES = {"jax": jax_resilience, "port": port_resilience}
-# the JAX package's sites that wait for the port of their modules
-WAITING = {"watchman.probe", "watchman.scrape", "watchman.snapshot"}
+# the JAX package's sites that wait for the port of their modules: none
+WAITING = set()
 PORT_SITES = {"bank.finalize", "bank.quantize", "bank.score", "bank.swap", "checkpoint.read", "checkpoint.write",
               "engine.queue", "fleet_build.group", "model_io.load", "server.connection", "stream.ingest",
-              "stream.refit", "workflow.canary"}
+              "stream.refit", "watchman.probe", "watchman.scrape", "watchman.snapshot", "workflow.canary"}
 _SPEC = importlib.util.spec_from_file_location(
     "jax_artifact_to_torch",
     os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools", "jax_artifact_to_torch.py"))
@@ -192,6 +192,7 @@ def test_the_port_registers_the_jax_sites_less_those_that_wait():
     import gordo_components_torch.builder.fleet_build  # noqa: F401
     import gordo_components_torch.parallel.checkpoint  # noqa: F401
     import gordo_components_torch.server  # noqa: F401
+    import gordo_components_torch.watchman.server  # noqa: F401
     import gordo_components_torch.workflow.canary  # noqa: F401
     import gordo_components_tpu.builder.fleet_build  # noqa: F401
     import gordo_components_tpu.parallel.checkpoint  # noqa: F401
