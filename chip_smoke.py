@@ -7253,6 +7253,375 @@ def watchman_phase(card: str):
     return total
 
 
+PLACEMENT_DIR = os.path.join(ROOT, "build", "chip_smoke_placement")
+PLACEMENT_SHARDS = 4  # logical shards of the one card
+PLACEMENT_DENSE, PLACEMENT_LSTM = 256, 16  # config 1's dense (the smoke's random_entry) and config 2's lstm_hourglass
+PLACEMENT_HOT, PLACEMENT_HOT_WEIGHT = 8, 16  # the hot members, all in shard 0 at boot, and their requests a round
+PLACEMENT_ROWS = 64  # rows a request (past the LSTM warm-up of 31)
+PLACEMENT_ENV = {"GORDO_REBALANCE_MIN_ROWS": "1", "GORDO_SERVER_WARMUP": "0"}
+SHARD_BAND = dict(rtol=1e-5, atol=1e-6)  # the engine's band (tests/test_bank_sharded.py:233-240)
+
+
+def placement_entries() -> dict:
+    rng = np.random.default_rng(25)
+    entries = {f"p-dense-{i:03d}": random_entry(f"p-dense-{i:03d}", 10, rng) for i in range(PLACEMENT_DENSE)}
+    entries.update({f"p-lstm-{i:02d}": random_lstm_entry(f"p-lstm-{i:02d}", "LSTMAutoEncoder", rng)
+                    for i in range(PLACEMENT_LSTM)})
+    return entries
+
+
+def shard_rows_of(registry) -> dict:
+    snap = registry.snapshot()
+    return {v["labels"]["shard"]: v["value"]
+            for v in snap.get("gordo_bank_shard_routed_rows_total", {}).get("values", [])}
+
+
+def sharded_against_unsharded(entries: dict, mesh) -> dict:
+    """The sharded bank's answers against the unsharded bank's at the same
+    batch composition (one request at a time, and one heterogeneous batch
+    of every member), and its launches a shard."""
+    rng = np.random.default_rng(26)
+    flat = ModelBank.from_entries(list(entries.values()), registry=False)
+    sharded = ModelBank.from_entries(list(entries.values()), mesh=mesh, registry=False)
+    names = sorted(entries)
+    X = {n: rng.standard_normal((PLACEMENT_ROWS, 10)).astype(np.float32) for n in names}
+    requests = [(n, X[n], None) for n in names]
+    singles = [names[0], names[PLACEMENT_DENSE // 2], names[PLACEMENT_DENSE - 1], names[-1]]
+    reading = {"single_bitwise": True, "batch_bitwise": True, "batch_max_abs_dev": 0.0, "batch_max_rel_dev": 0.0}
+    for n in singles:
+        a, b = flat.score(n, X[n]), sharded.score(n, X[n])
+        for key, w in a.to_arrays().items():
+            if not np.array_equal(b.to_arrays()[key], w):
+                reading["single_bitwise"] = False
+                np.testing.assert_allclose(b.to_arrays()[key], w, **SHARD_BAND, err_msg=f"placement single {n} {key}")
+    before = dict(sharded.shard_launches)
+    k2, k3 = score.launch_counts["banked_anomaly_score"], seq_scan.launch_counts["lstm_layer"]
+    got = sharded.score_many(requests)
+    torch.cuda.synchronize()
+    per_shard = {d: sharded.shard_launches[d] - before.get(d, 0) for d in sorted(sharded.shard_launches)}
+    k2, k3 = score.launch_counts["banked_anomaly_score"] - k2, seq_scan.launch_counts["lstm_layer"] - k3
+    n_layers = next(b for b in sharded._buckets.values() if b.lookback > 1).shards[0].n_layers
+    if (sorted(per_shard) != list(range(PLACEMENT_SHARDS)) or set(per_shard.values()) != {2}
+            or k2 != sum(per_shard.values()) or k3 != PLACEMENT_SHARDS * n_layers):
+        raise AssertionError(f"placement: launches a shard {per_shard}, K2 {k2}, K3 {k3}")
+    want = flat.score_many(requests)
+    for (n, _X, _y), g, w in zip(requests, got, want):
+        for key, wv in w.to_arrays().items():
+            gv = g.to_arrays()[key]
+            if not np.array_equal(gv, wv):
+                reading["batch_bitwise"] = False
+                dev = float(np.abs(gv - wv).max())
+                reading["batch_max_abs_dev"] = max(reading["batch_max_abs_dev"], dev)
+                reading["batch_max_rel_dev"] = max(reading["batch_max_rel_dev"],
+                                                   float((np.abs(gv - wv) / np.maximum(np.abs(wv), 1e-30)).max()))
+                np.testing.assert_allclose(gv, wv, **SHARD_BAND, err_msg=f"placement batch {n} {key}")
+    reading.update(launches_per_shard=per_shard, k2=k2, k3=k3)
+    del flat, sharded
+    return reading
+
+
+def placement_round(base: str, weights: dict, rng, statuses: list) -> None:
+    """Every member's requests of one round, from 8 client threads."""
+    jobs = [n for n, w in weights.items() for _ in range(w)]
+    rng.shuffle(jobs)
+    X = rng.standard_normal((PLACEMENT_ROWS, 10)).astype(np.float32).tolist()
+
+    def post(chunk):
+        for n in chunk:
+            statuses.append(http_json(f"{base}/gordo/v0/smoke/{n}/anomaly/prediction", {"X": X})[0])
+
+    threads = [threading.Thread(target=post, args=(jobs[i::8],)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+
+def placement_phase(card: str):
+    """The sharded bank and the placement plane on 4 logical shards of the
+    card: 256 dense and 16 ``lstm_hourglass`` members (random weights from a
+    seed, 10 tags), the sharded bank held against the unsharded one and its
+    K2/K3 launches counted a shard; then ``run_server(devices=4)`` over
+    them under skewed traffic (8 hot members, all on shard 0 at boot):
+    ``/placement``'s skew, ``POST /rebalance`` applied under a POSTing
+    thread (no answer but 200), the next window's measured skew, the
+    generation, and the ``bank.swap`` fault's 500 with the bank's series
+    unchanged and serving going on."""
+    from gordo_components_torch.parallel import mesh as mesh_module
+    from gordo_components_torch.placement.planner import skew_ratio
+    from gordo_components_torch.resilience import faults
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PLACEMENT_DIR, ignore_errors=True)
+    entries = placement_entries()
+    for name, entry in entries.items():
+        serializer.dump(entry, os.path.join(PLACEMENT_DIR, name))
+    mesh = mesh_module.fleet_mesh(devices=[resolve_device("cuda")] * PLACEMENT_SHARDS)
+    card_dev = mesh.devices[0]
+    readings = {"bank": sharded_against_unsharded(entries, mesh)}
+    available = mesh_module.available_devices
+    mesh_module.available_devices = lambda kind="cuda": [card_dev] * PLACEMENT_SHARDS
+    server, rng, statuses = None, np.random.default_rng(27), []
+    try:
+        with env_set(PLACEMENT_ENV):
+            server = run_server(PLACEMENT_DIR, host="127.0.0.1", port=0, background=True, devices=PLACEMENT_SHARDS)
+        base, registry = server.url, server.app.metrics
+        prefix = f"{base}/gordo/v0/smoke"
+        _, models = http_json(prefix + "/models")
+        if models["bank"]["devices"] != PLACEMENT_SHARDS or len(models["bank"]["banked"]) != len(entries):
+            raise AssertionError(f"placement /models: {models['bank']['devices']} shards")
+        _, place = http_json(prefix + "/placement")
+        dense = next(b for b in place["buckets"] if len(b["members"]) == PLACEMENT_DENSE)
+        hot = dense["members"][:PLACEMENT_HOT]  # shard 0's first members
+        weights = {n: PLACEMENT_HOT_WEIGHT if n in hot else 1 for n in sorted(entries)}
+
+        def measured(round_fn):
+            before = shard_rows_of(registry)
+            round_fn()
+            now = shard_rows_of(registry)
+            return skew_ratio([now[s] - before.get(s, 0.0) for s in sorted(now)])
+
+        skew_before = measured(lambda: placement_round(base, weights, rng, statuses))
+        _, view = http_json(prefix + "/placement?dry_run=1")
+        load_statuses, stop = [], threading.Event()
+
+        def load():
+            X = rng.standard_normal((PLACEMENT_ROWS, 10)).astype(np.float32).tolist()
+            i = 0
+            while not stop.is_set():
+                n = hot[i % len(hot)]
+                i += 1
+                load_statuses.append(http_json(f"{prefix}/{n}/anomaly/prediction", {"X": X})[0])
+
+        loader = threading.Thread(target=load)
+        loader.start()
+        try:
+            status, body = http_json(prefix + "/rebalance", {})
+        finally:
+            stop.set()
+            loader.join()
+        if status != 200 or not body["applied"]:
+            raise AssertionError(f"placement: POST /rebalance answered {status}: {json.dumps(body)[:1000]}")
+        skew_after = measured(lambda: placement_round(base, weights, rng, statuses))
+        metrics = http_raw(prefix + "/metrics")[2].decode()
+        if (skew_after is None or skew_after >= skew_before or "gordo_bank_generation 1" not in metrics
+                or set(load_statuses) != {200} or set(statuses) != {200}):
+            raise AssertionError(f"placement: skew {skew_before} -> {skew_after}, answers {sorted(set(statuses))}, "
+                                 f"under the swap {sorted(set(load_statuses))}")
+        readings.update(observed_skew=view["observed"]["skew_ratio"], plan_skew=[view["plan"]["skew_before"],
+                        view["plan"]["skew_after"]], moved=body["plan"]["moved"],
+                        skew_before=skew_before, skew_after=skew_after, pause_ms=body["swap"]["pause_ms"],
+                        build_s=body["swap"]["build_s"], drained=body["swap"]["drained"],
+                        posts_under_swap=len(load_statuses), non_200_under_swap=sum(s != 200 for s in load_statuses))
+
+        # the bank.swap fault: a new skew (shard 0's first members now), a
+        # rebalance that fails mid-flip and rolls back, serving on
+        _, place = http_json(prefix + "/placement")
+        dense = next(b for b in place["buckets"] if len(b["members"]) == PLACEMENT_DENSE)
+        weights = {n: PLACEMENT_HOT_WEIGHT if n in dense["members"][:PLACEMENT_HOT] else 1 for n in sorted(entries)}
+        placement_round(base, weights, rng, statuses)
+        bank_series = [line for line in registry.render().splitlines() if line.startswith("gordo_bank_")]
+        faults.arm("bank.swap", times=1)
+        try:
+            status, body = http_json(prefix + "/rebalance", {"force": True})
+        finally:
+            faults.disarm("bank.swap")
+        after = [line for line in registry.render().splitlines() if line.startswith("gordo_bank_")]
+        served = http_json(f"{prefix}/{hot[0]}/anomaly/prediction",
+                           {"X": rng.standard_normal((PLACEMENT_ROWS, 10)).tolist()})[0]
+        failed = registry.snapshot()["gordo_rebalance_failed_total"]["values"][0]["value"]
+        if status != 500 or not body.get("rolled_back") or body["generation"] != 1 or after != bank_series \
+                or served != 200 or failed != 1:
+            raise AssertionError(f"placement bank.swap: {status} {body}, series changed "
+                                 f"{sorted(set(after) ^ set(bank_series))[:8]}, "
+                                 f"serving {served}, failed {failed}")
+        readings["fault"] = {"status": status, "rolled_back": body["rolled_back"], "generation": body["generation"],
+                             "bank_series_unchanged": True, "then_served": served}
+        events = http_json(prefix + "/events?type=rebalance.applied,bank.swap_failed")[1]["events"]
+        readings["events"] = [e["type"] for e in events]
+    finally:
+        mesh_module.available_devices = available
+        if server is not None:
+            server.close()
+    shutil.rmtree(PLACEMENT_DIR, ignore_errors=True)
+    readings["wall_s"] = round(time.perf_counter() - t_phase, 3)
+    phase("placement", members=len(entries), shards=PLACEMENT_SHARDS,
+          **{k: json.dumps(v) if isinstance(v, (list, dict)) else v for k, v in readings.items()},
+          card=json.dumps(card))
+
+
+MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh")
+MESH_REPLICAS = 3
+MESH_DENSE, MESH_LSTM = 18, 6  # over one shared directory: 24 members, as many as the watchman step's replicas hold
+MESH_ROWS = 64
+
+
+def mesh_replicas(root: str) -> tuple:
+    """Each replica's counted ``run-server`` with ``GORDO_MESH_REPLICA_ID``
+    and ``GORDO_MESH_REPLICAS`` over the one shared directory, started at
+    once; (processes, base URLs, logs)."""
+    servers, bases, logs, t0 = [], [], [], time.perf_counter()
+    for r in range(MESH_REPLICAS):
+        port = free_port()
+        log = open(os.path.join(MESH_DIR, f"replica-{r}.log"), "w")
+        env = dict(os.environ, GORDO_MESH_REPLICA_ID=str(r), GORDO_MESH_REPLICAS=str(MESH_REPLICAS),
+                   GORDO_SERVER_WARMUP="0")
+        servers.append(subprocess.Popen(
+            cli_command(f"mesh_replica_{r}", ["run-server", "--model-dir", root, "--host", "127.0.0.1",
+                                              "--port", str(port)], counts_dir=MESH_DIR),
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, env=env))
+        bases.append(f"http://127.0.0.1:{port}")
+        logs.append(log)
+    for base, server in zip(bases, servers):
+        wait_for_models(f"{base}/gordo/v0/smoke", server, t0)
+    return servers, bases, logs
+
+
+def mesh_score(base: str, name: str, X: np.ndarray):
+    status, _, raw = http_raw(f"{base}/gordo/v0/smoke/{name}/anomaly/prediction", tensor_body(X), TENSOR_HEADERS)
+    return status, raw
+
+
+def mesh_phase(card: str):
+    """The serving mesh across three one-card replicas: ``run-server``
+    subprocesses with ``GORDO_MESH_REPLICA_ID``/``GORDO_MESH_REPLICAS`` over
+    one shared directory of 18 dense and 6 ``lstm_hourglass`` members
+    (random weights from a seed, 10 tags), the watchman (``run_watchman``)
+    over them. The partitions are disjoint and exhaustive; ``POST
+    /migrate`` moves a member from replica 0 to 1 while a client follows the
+    routing table (refetching it once on a 404, as the bulk client does)
+    and POSTs (no answer but 200, the routing version steps, the answers
+    bitwise before, during and after); an acquire with
+    ``source`` ships an artifact into a replica over its own root; a forced
+    ``/fleet-rebalance`` moves a member; ``gordo_fleet_migrations_total``
+    counts each move. Returns the replicas' launch counts, summed."""
+    from gordo_components_torch.parallel.distributed import partition_members
+    from gordo_components_torch.watchman import run_watchman
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    root = os.path.join(MESH_DIR, "shared")
+    rng = np.random.default_rng(28)
+    names = [f"m-dense-{i:02d}" for i in range(MESH_DENSE)] + [f"m-lstm-{i:02d}" for i in range(MESH_LSTM)]
+    for name in names:
+        entry = (random_entry(name, 10, rng) if "dense" in name
+                 else random_lstm_entry(name, "LSTMAutoEncoder", rng))
+        serializer.dump(entry, os.path.join(root, name))
+    readings, runs, servers, logs, wm, own = {}, {}, [], [], None, None
+    try:
+        t0 = time.perf_counter()
+        servers, bases, logs = mesh_replicas(root)
+        readings["replicas_ready_s"] = round(time.perf_counter() - t0, 3)
+        prefixes = [f"{b}/gordo/v0/smoke" for b in bases]
+        owned = [http_json(p + "/mesh")[1] for p in prefixes]
+        parts = [o["owned"] for o in owned]
+        flat = [n for p in parts for n in p]
+        if (sorted(flat) != sorted(names) or len(set(flat)) != len(names)
+                or parts != [partition_members(names, r, MESH_REPLICAS) for r in range(MESH_REPLICAS)]
+                or [(o["replica_id"], o["replica_count"]) for o in owned] != [(r, MESH_REPLICAS)
+                                                                                for r in range(MESH_REPLICAS)]):
+            raise AssertionError(f"mesh: partitions {parts}")
+        wm = run_watchman("smoke", bases[0], host="127.0.0.1", port=0, refresh_interval=0.5,
+                          metrics_urls=[p + "/metrics" for p in prefixes], background=True)
+        table = http_json(wm.url + "/routing?refresh=1")[1]
+        if table["members"] != {n: r for r, p in enumerate(parts) for n in p}:
+            raise AssertionError(f"mesh /routing: {table}")
+
+        # 1. a migration under load, bitwise before, during and after
+        member = next(n for n in parts[0] if "lstm" in n) if any("lstm" in n for n in parts[0]) else parts[0][0]
+        X = rng.standard_normal((MESH_ROWS, 10)).astype(np.float32)
+        status, want = mesh_score(bases[0], member, X)
+        statuses, answers, rerouted, stop = [], [], [], threading.Event()
+
+        def load():
+            # a client that follows the table, refetching it once on a 404
+            # (a table read before the release), as the bulk client does
+            while not stop.is_set():
+                status, raw = mesh_score(bases[http_json(wm.url + "/routing")[1]["members"].get(member, 0)], member, X)
+                if status == 404:
+                    rerouted.append(1)
+                    owner = http_json(wm.url + "/routing?refresh=1")[1]["members"][member]
+                    status, raw = mesh_score(bases[owner], member, X)
+                statuses.append(status)
+                answers.append(raw)
+
+        loader = threading.Thread(target=load)
+        loader.start()
+        t = time.perf_counter()
+        try:
+            status, verdict = http_json(wm.url + "/migrate", {"member": member, "to": 1})
+        finally:
+            migrate_s = time.perf_counter() - t
+            time.sleep(0.5)  # a few answers after the move
+            stop.set()
+            loader.join()
+        after = http_json(wm.url + "/routing?refresh=1")[1]
+        if (status != 200 or not verdict["moved"] or set(statuses) != {200} or any(a != want for a in answers)
+                or after["members"][member] != 1 or after["version"] <= table["version"]
+                or mesh_score(bases[1], member, X) != (200, want)
+                or member in http_json(prefixes[0] + "/mesh")[1]["owned"]):
+            raise AssertionError(f"mesh /migrate of {member}: {status} {json.dumps(verdict)[:600]}, answers "
+                                 f"{sorted(set(statuses))}, bitwise {all(a == want for a in answers)}")
+        readings.update(migrated=member, migrate_s=round(migrate_s, 3), posts_under_migration=len(statuses),
+                        non_200=sum(s != 200 for s in statuses), rerouted=len(rerouted), bitwise=True,
+                        routing_version=[table["version"], after["version"]],
+                        acquire_pause_ms=verdict["acquire"]["swap"]["pause_ms"],
+                        release_pause_ms=verdict["release"]["swap"]["pause_ms"])
+
+        # 2. an acquire with source, into a replica over its own root
+        own_root = os.path.join(MESH_DIR, "own")
+        shipped = parts[2][0]
+        shutil.copytree(os.path.join(root, parts[1][0]), os.path.join(own_root, parts[1][0]))
+        with env_set({"GORDO_SERVER_WARMUP": "0"}):
+            own = run_server(own_root, host="127.0.0.1", port=0, background=True)
+        status, body = http_json(own.url + "/gordo/v0/smoke/mesh/acquire", {"member": shipped, "source": bases[2]})
+        if status != 200 or not body["shipped"] or mesh_score(own.url, shipped, X) != mesh_score(bases[2], shipped, X):
+            raise AssertionError(f"mesh acquire with source: {status} {json.dumps(body)[:600]}")
+        readings["shipped"] = {"member": shipped, "pause_ms": body["swap"]["pause_ms"]}
+
+        # 3. a forced /fleet-rebalance: replica 2's members made the
+        # hottest, twice replica 1's window (the migration's load)
+        hottest = max(sum(http_json(p + "/placement")[1]["member_rows"].values()) for p in prefixes[:2])
+        for _ in range(2 + int(2 * hottest) // (MESH_ROWS * len(parts[2]))):
+            for n in parts[2]:
+                if mesh_score(bases[2], n, X)[0] != 200:
+                    raise AssertionError(f"mesh: {n} on replica 2")
+        status, result = http_json(wm.url + "/fleet-rebalance", {"force": True})
+        moves = [m for m in result.get("moves", []) if m["moved"]]
+        if status != 200 or not moves or result["applied"] != len(moves):
+            raise AssertionError(f"mesh /fleet-rebalance: {status} {json.dumps(result)[:1000]}")
+        text = http_raw(wm.url + "/metrics")[2].decode()
+        if f"gordo_fleet_migrations_total {1 + len(moves)}" not in text:
+            raise AssertionError(f"mesh: gordo_fleet_migrations_total after {1 + len(moves)} moves")
+        final = http_json(wm.url + "/routing?refresh=1")[1]
+        if any(final["members"][m["member"]] != m["dst"] for m in moves) or sorted(final["members"]) != sorted(names):
+            raise AssertionError(f"mesh: the routing after the fleet moves {final}")
+        readings.update(fleet_moves=[[m["member"], m["src"], m["dst"]] for m in moves],
+                        fleet_plan=result["plan"]["reason"], migrations_total=1 + len(moves))
+    finally:
+        if own is not None:
+            own.close()
+        if wm is not None:
+            wm.close()
+        for server in servers:
+            stop_server(server)
+        for log in logs:
+            log.close()
+    for r, server in enumerate(servers):
+        if server.returncode != 0:
+            raise AssertionError(f"mesh replica {r} exited {server.returncode} on SIGTERM")
+        runs[f"replica_{r}"] = cli_counts(f"mesh_replica_{r}", counts_dir=MESH_DIR)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    total = {k: sum(c[k] for c in runs.values()) for k in runs["replica_0"]}
+    if total["banked_anomaly_score"] <= 0 or total["lstm_layer"] <= 0:
+        raise AssertionError(f"mesh: the replicas launched {runs}")
+    readings["wall_s"] = round(time.perf_counter() - t_phase, 3)
+    phase("mesh", members=len(names), replicas=MESH_REPLICAS, launches_by_run=json.dumps(runs),
+          **{k: json.dumps(v) if isinstance(v, (list, dict)) else v for k, v in readings.items()},
+          card=json.dumps(card))
+    return total
+
+
 # (path, kernel): the kernels each path must launch in its own run
 PATH_KERNELS = (
     ("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
@@ -7283,6 +7652,8 @@ PATH_KERNELS = (
     ("gang", "lstm_layer"), ("gang", "banked_anomaly_score"),
     ("replay", "banked_anomaly_score"),
     ("watchman", "banked_anomaly_score"), ("watchman", "lstm_layer"),
+    ("placement", "banked_anomaly_score"), ("placement", "lstm_layer"),
+    ("mesh", "banked_anomaly_score"), ("mesh", "lstm_layer"),
     ("bf16_train", "lstm_layer_bf16"),
     ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
     ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score"),
@@ -7327,6 +7698,8 @@ def steps(card: str) -> list:
         ("gang", "path", gang_phase, (card,)),
         ("replay", "path", replay_phase, (card,)),
         ("watchman", "sub", watchman_phase, (card,)),
+        ("placement", "path", placement_phase, (card,)),
+        ("mesh", "sub", mesh_phase, (card,)),
     ]
 
 

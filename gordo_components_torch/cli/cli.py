@@ -46,8 +46,7 @@ the commands run on the card, and without CUDA they fail through
 ``GORDO_PROFILE_DIR``, under which builds and traced bank groups write
 profiler captures (``utils/profiling.py``). Refused with exit code 2:
 ``--compile-cache-dir`` (the XLA compile cache has no counterpart in the
-port) and ``run-server --devices`` above 1, which is not ported yet;
-``build-fleet --distributed`` exits 83, and ``workflow run`` (the fleet
+port); ``build-fleet --distributed`` exits 83, and ``workflow run`` (the fleet
 executor, ROADMAP.md A13) exits 2. The client and ``workflow`` commands move
 no tensor and ignore ``--device``; so does ``run-watchman``.
 """
@@ -146,7 +145,8 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--host", default=_env("SERVER_HOST", "0.0.0.0"))
     s.add_argument("--port", type=int, default=_env_int("SERVER_PORT", 5555))
     s.add_argument("--devices", type=int, default=_env_int("GORDO_SERVER_DEVICES", None),
-                   help="cards to shard the bank over: only 1 is ported")
+                   help="Shard the model bank over an N-device models-axis mesh (0/unset = all available "
+                        "devices when more than one is present).")
 
     wm = sub.add_parser("run-watchman", help="Fleet health aggregation service.")
     wm.add_argument("--project", default=_env("PROJECT_NAME"))
@@ -322,7 +322,7 @@ def _run_server(args) -> int:
 
     previous = signal.signal(signal.SIGTERM, stop)
     try:
-        run_server(args.model_dir, host=args.host, port=args.port, device=args.device)
+        run_server(args.model_dir, host=args.host, port=args.port, device=args.device, devices=args.devices)
     except KeyboardInterrupt:
         logger.info("Server stopped")
     finally:
@@ -490,8 +490,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.command == "client" and args.client_command == "predict" and args.body_encoding not in _BODY_ENCODINGS:
         parser.error(f"--body-encoding (GORDO_CLIENT_ENCODING): {args.body_encoding!r} is not one of "
                      f"{', '.join(_BODY_ENCODINGS)}")
-    if args.command == "run-server" and args.devices is not None and args.devices > 1:
-        parser.error(f"--devices {args.devices}: the bank sharded over several cards is not ported yet")
     if args.command == "workflow":
         if args.workflow_command == "run":
             parser.error("workflow run: the fleet executor (build, place, canary, promote against a live "

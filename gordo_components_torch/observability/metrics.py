@@ -308,6 +308,11 @@ class MetricsRegistry:
             self._families[name] = fam
             return fam
 
+    def get_family(self, name: str) -> Optional[MetricFamily]:
+        """The family registered under ``name``, or None."""
+        with self._lock:
+            return self._families.get(name)
+
     def counter(self, name: str, help: str = "", labelnames=()) -> MetricFamily:
         return self._family(name, "counter", help, tuple(labelnames), lambda: _Value(self._lock))
 

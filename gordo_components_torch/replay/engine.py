@@ -38,8 +38,8 @@ Divergences from the JAX engine, each documented:
   to ``float(ns) / 1e9`` as the JAX engine's ``Timestamp.value / 1e9``
   does, so both engines give the server the same floats;
 - ``device`` (default ``"cuda"``; ``"cpu"`` must be asked for) places the
-  trained fleet and the server; ``devices`` above 1 raises until the bank
-  sharded over several cards is ported.
+  trained fleet and the server; ``devices`` goes to ``build_app``, as the
+  JAX engine passes it (above the devices present it clamps there).
 """
 
 import json
@@ -151,9 +151,6 @@ class ReplayEngine:
     ):
         from gordo_components_torch.device import resolve_device
 
-        if int(devices) > 1:
-            raise NotImplementedError(
-                f"devices={devices}: the bank sharded over several cards is not ported yet (ROADMAP.md A12)")
         self.devices = int(devices)
         self.device = resolve_device(device)
         self.root = root
@@ -237,7 +234,7 @@ class ReplayEngine:
         start_epoch = float(self.start_ns) / 1e9
         clock = ReplayClock(start_epoch, speed=self.speed)
         server = run_server(self.root, host="127.0.0.1", port=0, background=True, clock=clock,
-                            device=self.device)
+                            device=self.device, devices=self.devices)
         app = server.app
         base = f"{server.url}/gordo/v0/replay"
         prov = SimulatedLiveProvider(

@@ -56,8 +56,20 @@ the collection loads, so every fire from then on lands in the app's event
 log as ``fault.fired``; :meth:`App.close` removes the listener if it is
 still the app's.
 
-Not in this slice: the placement planner.
+The bank may be sharded over a mesh (``devices``/``GORDO_SERVER_DEVICES``:
+0 or -1 every card, a count above the cards present clamps with a
+warning; ``parallel/mesh.py``), and with the bank on the app keeps its
+placement controller (``placement``, ``placement/controller.py``: ``GET
+.../placement``, ``POST .../rebalance``, ``GORDO_REBALANCE=auto``). With
+``GORDO_MESH_REPLICA_ID`` and ``GORDO_MESH_REPLICAS`` the app is one
+replica of the serving mesh (``mesh``, ``parallel/distributed.py``): its
+collection owns its partition of the members under the model directory,
+and the mesh routes (``.../mesh``, ``.../mesh/acquire``,
+``.../mesh/release``, ``.../mesh/member/<t>/artifact``) move members
+between replicas.
 """
+
+import logging
 
 import os
 import threading
@@ -67,6 +79,8 @@ from typing import Optional
 import torch
 
 from gordo_components_torch.observability.cost import cost_from_env
+from gordo_components_torch.parallel.distributed import MeshIdentity, bootstrap_serving_mesh
+from gordo_components_torch.parallel import mesh as mesh_module
 from gordo_components_torch.observability.events import EventLog
 from gordo_components_torch.observability.goodput import GoodputLedger
 from gordo_components_torch.observability.heat import HeatAccountant, heat_from_env
@@ -88,6 +102,8 @@ from gordo_components_torch.server.workers import ServerPool, resolve_workers
 from gordo_components_torch.streaming.adapt import StreamingPlane, stream_enabled
 from gordo_components_torch.utils.profiling import device_memory_stats
 
+logger = logging.getLogger(__name__)
+
 
 class App:
     """What a server serves: the collection, its bank and the bank's
@@ -96,16 +112,20 @@ class App:
     ``reload_lock`` serializes reloads, each of which may swap the bank;
     ``stats_lock`` guards ``stats``. ``ledger`` (and with it ``slo``) is
     None when ``GORDO_SLO=0``, ``cost`` when ``GORDO_COST=0``, ``heat``
-    when ``GORDO_HEAT=0`` and ``history`` unless ``GORDO_HISTORY=1``."""
+    when ``GORDO_HEAT=0`` and ``history`` unless ``GORDO_HISTORY=1``.
+    ``placement`` is the placement controller (None with the bank off),
+    ``mesh`` the serving mesh identity (None outside mesh mode)."""
 
     def __init__(self, collection: ModelCollection, bank: Optional[ModelBank],
                  bank_config: dict, engine_config: dict, metrics: MetricsRegistry,
                  quarantine: QuarantineSet, default_deadline_ms: Optional[float],
                  tracer: Optional[Tracer] = None, ledger: Optional[GoodputLedger] = None,
                  clock: Clock = SYSTEM_CLOCK, heat: Optional[HeatAccountant] = None,
-                 events: Optional[EventLog] = None, fault_listener=None):
+                 events: Optional[EventLog] = None, fault_listener=None,
+                 mesh: Optional[MeshIdentity] = None):
         self.collection = collection
         self.bank = bank
+        self.mesh = mesh
         self.bank_config = bank_config
         self.engine_config = engine_config
         self.engine: Optional[BatchingEngine] = None
@@ -148,6 +168,14 @@ class App:
         self.events.attach_registry(metrics)
         # the process's fault listener, installed by build_app for this app
         self._fault_listener = fault_listener
+        # the placement controller's series exist before the history's
+        # baseline sample, as in the JAX app
+        self.placement = None
+        if bank is not None:
+            # imported here: the placement package imports the server's swap
+            from gordo_components_torch.placement.controller import PlacementController
+
+            self.placement = PlacementController(self)
         self.history = history_from_env(metrics, clock=clock)
         self._history_stop = threading.Event()
         self._history_thread: Optional[threading.Thread] = None
@@ -163,6 +191,8 @@ class App:
                 # off the request path: the port answers while it runs
                 self._warmup = threading.Thread(target=bank.warmup, name="gordo-bank-warmup", daemon=True)
                 self._warmup.start()
+        if self.placement is not None:
+            self.placement.start()
         # the streaming plane (GORDO_STREAM=1): none of it otherwise
         self.stream: Optional[StreamingPlane] = StreamingPlane(self) if stream_enabled() else None
         if self.stream is not None:
@@ -189,6 +219,8 @@ class App:
 
     def close(self) -> None:
         _remove_fault_listener(self._fault_listener)
+        if self.placement is not None:
+            self.placement.stop()
         if self.stream is not None:
             self.stream.stop()
         if self.engine is not None:
@@ -296,6 +328,7 @@ def build_app(
     arena_max_mb: Optional[float] = None,
     clock: Optional[Clock] = None,
     bank_dtype: Optional[str] = None,
+    devices: Optional[int] = None,
 ) -> App:
     """Load every artifact under ``model_dir`` on ``device`` (default the
     card; raises without CUDA unless ``"cpu"``), stack the models the bank
@@ -307,12 +340,40 @@ def build_app(
     (``GORDO_ARENA_MAX_MB``) configure the bank's pipeline, ``bank_dtype``
     (``GORDO_BANK_DTYPE``, default ``"float32"``) its weights' storage.
     ``clock`` is the app's clock seam (default the real one,
-    ``SYSTEM_CLOCK``)."""
+    ``SYSTEM_CLOCK``). ``devices`` (``GORDO_SERVER_DEVICES``; 0 or -1 every
+    device ``parallel/mesh.available_devices`` lists, the default) shards
+    the bank over that many devices of ``device``'s kind; a count above
+    those present clamps with a warning, and one device is no mesh.
+    ``GORDO_MESH_REPLICA_ID``/``GORDO_MESH_REPLICAS`` make the app one
+    replica of the serving mesh, owning its partition of the members."""
     from gordo_components_torch.device import resolve_device
 
     device = resolve_device(device)
     if use_bank is None:
         use_bank = os.environ.get("GORDO_SERVER_BANK", "1") != "0"
+    if devices is None:
+        raw = os.environ.get("GORDO_SERVER_DEVICES", "0") or "0"
+        try:
+            devices = int(raw)
+        except ValueError:
+            raise ValueError(f"GORDO_SERVER_DEVICES must be an integer, got {raw!r} "
+                             "(0/unset = all available devices)") from None
+    mesh = None
+    if use_bank and devices != 1:
+        avail = len(mesh_module.available_devices(device.type))
+        want = avail if devices in (0, -1) else min(devices, avail)
+        if devices > avail:
+            logger.warning("GORDO_SERVER_DEVICES=%d but only %d device(s) present; sharding the bank over %d",
+                           devices, avail, want)
+        if want > 1:
+            mesh = mesh_module.fleet_mesh(want, kind=device.type)
+    mesh_identity = bootstrap_serving_mesh()
+    owned = None
+    if mesh_identity is not None:
+        roster = sorted(scan_artifacts(model_dir, target_name))
+        owned = mesh_identity.partition(roster)
+        logger.info("mesh replica %d/%d owns %d of %d member(s)", mesh_identity.replica_id,
+                    mesh_identity.replica_count, len(owned), len(roster))
     if quarantine_threshold is None:
         raw = os.environ.get("GORDO_QUARANTINE_THRESHOLD", str(DEFAULT_THRESHOLD))
         try:
@@ -324,7 +385,7 @@ def build_app(
     if clock is None:
         clock = SYSTEM_CLOCK
     faults.configure_from_env()  # GORDO_FAULTS
-    events = EventLog(clock=clock)
+    events = EventLog(clock=clock, replica=None if mesh_identity is None else f"replica-{mesh_identity.replica_id}")
     owner: dict = {}  # the app, once built: its bank generation rides on each event
 
     def on_fault_fire(site: str, spec) -> None:
@@ -335,7 +396,7 @@ def build_app(
     # the most recent app owns the process-wide seam
     faults.set_fire_listener(on_fault_fire)
     try:
-        collection = ModelCollection(model_dir, target_name, device=device)
+        collection = ModelCollection(model_dir, target_name, device=device, owned=owned)
         registry = MetricsRegistry()
         tracer = Tracer()
         ledger = GoodputLedger.from_env(registry)
@@ -344,7 +405,7 @@ def build_app(
         # /reload's bank records into the same series and cells
         bank_config = {"max_rows_per_call": max_rows_per_call, "device": device, "registry": registry,
                        "inflight": bank_inflight, "arena_max_mb": arena_max_mb, "ledger": ledger, "heat": heat,
-                       "bank_dtype": bank_dtype}
+                       "bank_dtype": bank_dtype, "mesh": mesh}
         bank = ModelBank.from_models(collection.models, **bank_config) if use_bank else None
         if bank is not None:
             # the bank owns the env default: a /reload rebuilds at its storage
@@ -352,7 +413,7 @@ def build_app(
         engine_config = {"max_batch": bank_max_batch, "flush_ms": bank_flush_ms, "max_queue": bank_max_queue}
         app = App(collection, bank, bank_config, engine_config, registry, QuarantineSet(quarantine_threshold),
                   deadline_ms, tracer=tracer, ledger=ledger, clock=clock, heat=heat, events=events,
-                  fault_listener=on_fault_fire)
+                  fault_listener=on_fault_fire, mesh=mesh_identity)
     except BaseException:
         _remove_fault_listener(on_fault_fire)
         raise

@@ -86,8 +86,19 @@ it) leaves that bucket in float32 storage, named in
 and the ``gordo_bank_weight_bytes``/``gordo_bank_models_per_gb`` gauges
 report the bytes stored.
 
-Not in this slice: the device mesh and the placement planner's per-model
-row counts, and with them the JAX bank's shard and generation series.
+With a ``mesh`` (``parallel/mesh.py``, more than one shard) every bucket's
+stacks are split over the mesh's devices in contiguous blocks, padded to a
+multiple of its size by repeating the last member (:class:`_ShardedBucket`),
+and requests are routed: the host puts each chunk in the batch of the shard
+that owns its member, at the member's shard-local index, pads every shard
+to the largest shard's load, and each shard runs its forward and K2 on its
+own device against its own stacks. A shard whose device is missing raises
+when the mesh is built. The results are those of the unsharded bank at the
+same batch composition. ``model_rows`` (member -> routed rows) is the
+placement planner's load signal, :meth:`ModelBank.placement` the live
+member -> shard assignment, and the ``gordo_bank_shard_*`` counters count
+each shard's routed rows, pad rows and chunks (label ``"0"`` unsharded, as
+the JAX bank's).
 """
 
 import contextlib
@@ -122,6 +133,7 @@ from gordo_components_torch.ops.quantize import (
 from gordo_components_torch.ops.score import banked_anomaly_score_packed
 from gordo_components_torch.ops.seq_scan import lstm_time_major_forward
 from gordo_components_torch.ops.windows import sliding_windows
+from gordo_components_torch.parallel.mesh import pad_count_to_mesh, shard_blocks
 from gordo_components_torch.resilience.deadline import Deadline, DeadlineExceeded
 from gordo_components_torch.resilience.faults import faultpoint
 from gordo_components_torch.server.arena import PaddedArena
@@ -224,6 +236,10 @@ class _Bucket:
     def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device,
                  bank_dtype: str = "float32"):
         first = entries[0]
+        self.device = device
+        # the members in stack order; an unsharded bucket is its own one shard
+        self.names = [e.name for e in entries]
+        self.n_shards, self.shard_size = 1, len(entries)
         self.n_features = first.n_features
         self.lookback, self.target_offset = first.lookback, first.target_offset
         self.offset = first.offset
@@ -273,6 +289,14 @@ class _Bucket:
         self.weights = weights
         self.effective_dtype = storage_dtype(list(weights.values()))
         self.weight_bytes = tree_weight_bytes(weights.values())
+
+    @property
+    def shards(self) -> Tuple["_Bucket"]:
+        return (self,)  # a property: an attribute would make a reference cycle
+
+    def input_scaler(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Member ``i``'s composed input affine ``(shift, scale)``."""
+        return self.in_shift[i].cpu().numpy(), self.in_scale[i].cpu().numpy()
 
     def _take(self, name: str, idx: torch.Tensor) -> torch.Tensor:
         """The members ``idx`` of stack ``name`` in the compute dtype."""
@@ -363,17 +387,17 @@ class _ConvBucket(_Bucket):
     def __init__(self, entries: Sequence[_BankEntry], module, device: torch.device,
                  bank_dtype: str = "float32"):
         self.n_encoder, self.activation = len(module.channels), module.activation
-        self.names = list(module.layer_names())
+        self.layer_names = list(module.layer_names())
         super().__init__(entries, module, device, bank_dtype)
 
     def _stacks(self, entries, module):
         return {f"{name}.{p}": (_np_stack([e.params[f"{name}.{p}"] for e in entries]), 1)
-                for name in self.names for p in ("kernel", "bias")}
+                for name in self.layer_names for p in ("kernel", "bias")}
 
     def forward(self, idx, xs):
         W = sliding_windows(xs, self.lookback)  # (B, T - lookback + 1, L, F), a view
         W = W[:, : W.shape[1] - self.target_offset]
-        weights = [tuple(self._take(f"{name}.{p}", idx) for p in ("kernel", "bias")) for name in self.names]
+        weights = [tuple(self._take(f"{name}.{p}", idx) for p in ("kernel", "bias")) for name in self.layer_names]
         return conv_autoencoder_forward(weights, W, self.n_encoder, self.activation, self.dtype)
 
 
@@ -381,12 +405,50 @@ class _ConvBucket(_Bucket):
 _BUCKETS = {"dense": _DenseBucket, "vae": _DenseBucket, "lstm": _LSTMBucket, "conv": _ConvBucket}
 
 
-def _make_bucket(entries: Sequence[_BankEntry], device: torch.device, bank_dtype: str = "float32") -> _Bucket:
+def _make_bucket(entries: Sequence[_BankEntry], device: torch.device, bank_dtype: str = "float32"):
     first = entries[0]
     module = lookup_factory(first.registry_type, first.kind)(
         first.n_features, compute_dtype=first.compute_dtype, **first.factory_kwargs
     )
     return by_family(_BUCKETS, module, "bank bucket")(entries, module, device, bank_dtype)
+
+
+class _ShardedBucket:
+    """A bucket's stacks split over a mesh (JAX ``_Bucket.finalize`` under a
+    mesh): the stack is padded to a multiple of the mesh's D shards by
+    repeating its last member (real parameters no routed slot points at),
+    and shard d is a whole bucket of the ``shard_size`` members
+    ``[d * shard_size, (d + 1) * shard_size)`` on the mesh's device d. Member
+    i lives on shard ``i // shard_size`` at local index ``i % shard_size``;
+    each shard scores its own sub-batch against its own stacks and scalers,
+    launching its own forward and K2. The static numbers are the bucket's:
+    ``members`` the real members, ``weight_bytes`` the stored stacks'
+    bytes with the padding, as the JAX bank counts them."""
+
+    def __init__(self, entries: Sequence[_BankEntry], mesh, bank_dtype: str = "float32"):
+        n_pad = pad_count_to_mesh(len(entries), mesh)
+        padded = list(entries) + [entries[-1]] * (n_pad - len(entries))
+        self.shards = tuple(_make_bucket(padded[a:b], dev, bank_dtype)
+                            for (a, b), dev in zip(shard_blocks(n_pad, mesh), mesh.devices))
+        first = self.shards[0]
+        for attr in ("n_features", "lookback", "target_offset", "offset", "label", "dtype", "bank_dtype",
+                     "registry_type", "kind", "params_per_member", "flops_per_row", "flops_method"):
+            setattr(self, attr, getattr(first, attr))
+        self.device = first.device
+        self.names = [e.name for e in entries]
+        self.members = len(entries)
+        self.n_shards, self.shard_size = mesh.size, n_pad // mesh.size
+        self.weight_bytes = sum(b.weight_bytes for b in self.shards)
+        self.weight_bytes_fp32 = sum(b.weight_bytes_fp32 for b in self.shards)
+        self.quantize_error = next((b.quantize_error for b in self.shards if b.quantize_error), None)
+        self.effective_dtype = storage_dtype([w for b in self.shards for w in b.weights.values()])
+
+    def input_scaler(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        return self.shards[i // self.shard_size].input_scaler(i % self.shard_size)
+
+
+def _is_lstm(bucket) -> bool:
+    return isinstance(bucket.shards[0], _LSTMBucket)
 
 
 @dataclass
@@ -463,34 +525,39 @@ class _GroupRun:
     lets ``score_many`` hold several in flight."""
 
     __slots__ = ("bucket", "req_ids", "req_plans", "group_traces", "n_chunks", "shape", "Xb", "Yb", "idx",
-                 "out", "bufs", "dev_refs", "event", "ev_start", "event_s", "t_group", "t_chunks", "t_pad",
-                 "t_dispatch", "t_ready", "t_device_done", "t_post", "routed_rows", "total_rows", "profile_dir")
+                 "out", "bufs", "dev_refs", "events", "event_s", "t_group", "t_chunks", "t_pad",
+                 "t_dispatch", "t_ready", "t_device_done", "t_post", "routed_rows", "total_rows", "shard_rows",
+                 "profile_dir")
 
     def __init__(self, bucket: _Bucket, req_ids: List[int]):
         self.bucket, self.req_ids = bucket, req_ids
-        # (request index, its rows as float32, its chunks, its output rows)
+        # (request index, its rows as float32, its chunks' slots, its output
+        # rows); slot d * B + j is shard d's j-th row of the batch
         self.req_plans: List[Tuple[int, np.ndarray, List[int], int]] = []
         self.group_traces = None
         self.n_chunks = 0
-        self.shape = (0, 0)  # (B, T)
+        self.shape = (0, 0)  # (B, T) a shard
+        # (D, B, T, F) inputs, (D, B) shard-local indices, (D, B, width) result
         self.Xb = self.Yb = self.idx = self.out = None
         self.bufs: List[np.ndarray] = []  # the arena buffers this group holds
         self.dev_refs = None  # the device tensors its enqueued work uses
-        self.event = self.ev_start = None
+        # on the card: (start, done) CUDA events of each device's run of shards
+        self.events: List[Tuple[Any, Any]] = []
         self.event_s = 0.0
         self.t_group = self.t_chunks = self.t_pad = self.t_dispatch = 0.0
         # t_device_done: the earliest time the result was seen ready, at a
         # host stage boundary; t_ready: when the host stopped waiting
         self.t_ready = self.t_device_done = self.t_post = 0.0
         self.routed_rows = self.total_rows = 0
+        self.shard_rows: Tuple[Tuple[str, int, int], ...] = ()  # (shard, routed, padded)
         self.profile_dir = None  # the capture of this group, under GORDO_PROFILE_DIR
 
     def poll_ready(self, now: float) -> None:
-        """Stamp ``t_device_done`` if the group's event has completed."""
-        if self.t_device_done or self.event is None:
+        """Stamp ``t_device_done`` if the group's events have completed."""
+        if self.t_device_done or not self.events:
             return
         try:
-            if self.event.query():
+            if all(done.query() for _start, done in self.events):
                 self.t_device_done = now
         except Exception:
             # a device error surfaces at the group's wait, in its own handler
@@ -590,8 +657,11 @@ class ModelBank:
 
     def __init__(self, max_rows_per_call: int = 8192, device="cuda", registry=None,
                  inflight: Optional[int] = None, arena_max_mb: Optional[float] = None, ledger=None,
-                 heat=None, bank_dtype: Optional[str] = None):
-        self.device = resolve_device(device)
+                 heat=None, bank_dtype: Optional[str] = None, mesh=None):
+        # a mesh of more than one shard splits every bucket over its devices
+        # (the bank's device is then its first); one shard is no mesh
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = self.mesh.devices[0] if self.mesh is not None else resolve_device(device)
         self.max_rows = int(max_rows_per_call)
         if bank_dtype is None:
             bank_dtype = os.environ.get("GORDO_BANK_DTYPE", "float32")
@@ -634,6 +704,12 @@ class ModelBank:
         # 0 for the bank a server starts with; server/swap.py gives each
         # bank it swaps in the generation after the one it replaces
         self.generation = 0
+        # member -> rows routed to it, the placement planner's load signal
+        # (placement/planner.py); a swap carries it to the next generation.
+        # None turns it off
+        self.model_rows: Optional[Dict[str, int]] = {}
+        # shard -> its forward and K2 dispatches (each a K2 launch on the card)
+        self.shard_launches: Dict[int, int] = {}
         # a reload's build and warm-up seconds (server/swap.build_bank)
         self.build_s = self.warmup_s = 0.0
         # metrics registry: None = the process default, False = none (the
@@ -645,7 +721,17 @@ class ModelBank:
             registry = None
         self.registry = registry
         self._m_bucket_calls = self._m_bucket_reqs = self._m_bucket_batch = self._m_quant_fallback = None
+        self._m_shard_rows = self._m_shard_pad = self._m_shard_reqs = None
         if registry is not None:
+            # per shard, labelled "0" on an unsharded bank as in the JAX bank
+            self._m_shard_rows = registry.counter(
+                "gordo_bank_shard_routed_rows_total", "Input rows routed to each model-axis shard", ("shard",))
+            self._m_shard_pad = registry.counter(
+                "gordo_bank_shard_padded_rows_total",
+                "Pad rows dispatched to each shard (batch padded to the max per-shard load; high on one shard = "
+                "skewed routing)", ("shard",))
+            self._m_shard_reqs = registry.counter(
+                "gordo_bank_shard_requests_total", "Request chunks routed to each shard", ("shard",))
             self._m_bucket_calls = registry.counter(
                 "gordo_bank_bucket_calls_total", "Batched XLA scoring dispatches per bucket", ("bucket",))
             self._m_bucket_reqs = registry.counter(
@@ -724,7 +810,10 @@ class ModelBank:
     def _add_bucket(self, key: str, group: List[_BankEntry]) -> None:
         """Build and add one bucket; a quantization that fell back is
         recorded in ``quantize_fallbacks`` and counted."""
-        bucket = _make_bucket(group, self.device, self.bank_dtype)
+        if self.mesh is not None:
+            bucket = _ShardedBucket(group, self.mesh, self.bank_dtype)
+        else:
+            bucket = _make_bucket(group, self.device, self.bank_dtype)
         self._buckets[key] = bucket
         if bucket.quantize_error is not None:
             self.quantize_fallbacks[bucket.label] = bucket.quantize_error
@@ -762,8 +851,21 @@ class ModelBank:
             "banked": len(self._index),
             "fallback": dict(self.fallback),
             "n_buckets": len(self._buckets),
-            "devices": 1,
+            # the shards the stacks are split over (1 unsharded)
+            "devices": self.mesh.size if self.mesh is not None else 1,
             "device": str(self.device),
+        }
+
+    def placement(self) -> Dict[str, Any]:
+        """The live member -> shard assignment (JAX ``ModelBank.placement``):
+        per bucket, its members in stack order, member i on shard
+        ``i // shard_size``; an unsharded bank is one shard holding all."""
+        return {
+            "bank_generation": int(self.generation),
+            "devices": self.mesh.size if self.mesh is not None else 1,
+            "buckets": [{"bucket": b.label, "key": key, "n_shards": int(b.n_shards),
+                         "shard_size": int(b.shard_size or len(b.names)), "members": list(b.names)}
+                        for key, b in self._buckets.items()],
         }
 
     def capacity_stats(self) -> Dict[str, Any]:
@@ -811,9 +913,8 @@ class ModelBank:
                 "lookback": int(b.lookback),
                 "weight_bytes": int(b.weight_bytes),
                 "effective_dtype": b.effective_dtype,
-                "seq_layout": "time_major" if isinstance(b, _LSTMBucket) else "legacy",
-                "seq_kernel": ("cuda" if self.device.type == "cuda" else "plain")
-                if isinstance(b, _LSTMBucket) else "none",
+                "seq_layout": "time_major" if _is_lstm(b) else "legacy",
+                "seq_kernel": ("cuda" if self.device.type == "cuda" else "plain") if _is_lstm(b) else "none",
             }
         return out
 
@@ -886,18 +987,19 @@ class ModelBank:
         return warmed
 
     def _warm(self, bucket: _Bucket, B: int, T: int) -> None:
-        """One zero batch of shape (B, T) through the pipeline's buffers."""
+        """One zero batch of shape (B, T) a shard through the pipeline's
+        buffers."""
         run = _GroupRun(bucket, [])
         run.shape = (B, T)
         try:
-            F, n = bucket.n_features, T - bucket.offset
-            for attr, shape, dtype in (("Xb", (B, T, F), np.float32), ("Yb", (B, T, F), np.float32),
-                                       ("idx", (B,), np.int32)):
+            D, F, n = bucket.n_shards, bucket.n_features, T - bucket.offset
+            for attr, shape, dtype in (("Xb", (D, B, T, F), np.float32), ("Yb", (D, B, T, F), np.float32),
+                                       ("idx", (D, B), np.int32)):
                 buf, _ = self._acquire(run, shape, dtype)
                 buf[...] = 0
                 setattr(run, attr, buf)
             if self.device.type == "cuda":
-                run.out, _ = self._acquire(run, (B, 3 * n * F + 2 * n), np.float32)
+                run.out, _ = self._acquire(run, (D, B, 3 * n * F + 2 * n), np.float32)
             self._dispatch(run)
         finally:
             self._drain(run)
@@ -1050,13 +1152,15 @@ class ModelBank:
     def _drain(self, run: "_GroupRun") -> None:
         """Wait for whatever the card may still do with ``run``'s buffers,
         then give them back to the arena."""
-        if run.event is not None:
-            with contextlib.suppress(Exception):
-                run.event.synchronize()
+        if run.events:
+            for _start, done in run.events:
+                with contextlib.suppress(Exception):
+                    done.synchronize()
         elif run.dev_refs is not None and self.device.type == "cuda":
-            # a dispatch that failed before its event: its copies may be queued
-            with contextlib.suppress(Exception):
-                torch.cuda.current_stream(self.device).synchronize()
+            # a dispatch that failed before its events: its copies may be queued
+            for dev in {shard.device for shard in run.bucket.shards}:
+                with contextlib.suppress(Exception):
+                    torch.cuda.current_stream(dev).synchronize()
         run.dev_refs = None
         run.release(self.arena)
 
@@ -1075,9 +1179,10 @@ class ModelBank:
         run.t_group = time.monotonic() if timed else 0.0
         F, off = bucket.n_features, bucket.offset
         rows = [np.asarray(requests[ri][1], np.float32) for ri in req_ids]
-        # heat's mailbox: one dict get and set a request; the decay runs on
-        # the accountant's cadence
+        # heat's mailbox and the planner's rows: one dict get and set each a
+        # request; the decay runs on the accountant's cadence
         pend = self.heat.pending if self.heat is not None else None
+        mrows = self.model_rows
         for ri, X in zip(req_ids, rows):
             name = requests[ri][0]
             if X.ndim != 2 or X.shape[1] != F:
@@ -1087,6 +1192,8 @@ class ModelBank:
             if X.shape[0] <= off:
                 raise ValueError(f"Request for {name!r}: need more than {off} rows (sequence warm-up), "
                                  f"got {X.shape[0]}")
+            if mrows is not None:
+                mrows[name] = mrows.get(name, 0) + X.shape[0]
             if pend is not None:
                 pend[name] = pend.get(name, 0.0) + X.shape[0]
         # rows per call: a power of two, at most max_rows but always at
@@ -1095,64 +1202,85 @@ class ModelBank:
         T = min(_next_pow2(max(x.shape[0] for x in rows)), _prev_pow2(self.max_rows))
         T = max(T, _next_pow2(off + 1))
         step = T - off
-        chunks: List[Tuple[int, np.ndarray, np.ndarray]] = []  # (member, x, y)
+        # the router (JAX bank.py:1640-1688): each chunk goes to the shard
+        # owning its member, at the member's shard-local index
+        D, size = bucket.n_shards, bucket.shard_size
+        per_shard: List[List[Tuple[int, np.ndarray, np.ndarray]]] = [[] for _ in range(D)]
+        chunk_at: List[Tuple[int, int]] = []  # chunk -> (shard, its place there)
         for ri, X in zip(req_ids, rows):
             name, _X, yv = requests[ri]
             Y = X if yv is None else np.asarray(yv, np.float32)
             if Y.shape != X.shape:
                 raise ValueError(f"Request for {name!r}: y shape {Y.shape} must match X shape {X.shape}")
-            member = self._index[name][1]
+            d, local = divmod(self._index[name][1], size)
             cis = []
             for start in range(0, X.shape[0] - off, step):
-                cis.append(len(chunks))
-                chunks.append((member, X[start:start + T], Y[start:start + T]))
+                cis.append(len(chunk_at))
+                chunk_at.append((d, len(per_shard[d])))
+                per_shard[d].append((local, X[start:start + T], Y[start:start + T]))
             run.req_plans.append((ri, X, cis, X.shape[0] - off))
-        run.n_chunks = len(chunks)
+        run.n_chunks = len(chunk_at)
         run.t_chunks = time.monotonic() if timed else 0.0
         if self._m_bucket_calls is not None:
             self._m_bucket_calls.labels(bucket.label).inc()
             self._m_bucket_reqs.labels(bucket.label).inc(len(req_ids))
-            self._m_bucket_batch.labels(bucket.label).record(float(len(chunks)))
-        B = _next_pow2(len(chunks))
+            self._m_bucket_batch.labels(bucket.label).record(float(run.n_chunks))
+        # every shard is padded to the largest shard's load
+        B = _next_pow2(max(1, max(len(c) for c in per_shard)))
         run.shape = (B, T)
+        run.req_plans = [(ri, X, [chunk_at[ci][0] * B + chunk_at[ci][1] for ci in cis], n_out)
+                         for ri, X, cis, n_out in run.req_plans]
         try:
-            run.Xb, x_clean = self._acquire(run, (B, T, F), np.float32)
-            run.Yb, y_clean = self._acquire(run, (B, T, F), np.float32)
-            run.idx, idx_clean = self._acquire(run, (B,), np.int32)
+            run.Xb, x_clean = self._acquire(run, (D, B, T, F), np.float32)
+            run.Yb, y_clean = self._acquire(run, (D, B, T, F), np.float32)
+            run.idx, idx_clean = self._acquire(run, (D, B), np.int32)
             if self.device.type == "cuda":
-                # the page-locked buffer K2's packed result is copied into
+                # the page-locked buffer K2's packed results are copied into
                 n = T - off
-                run.out, _ = self._acquire(run, (B, 3 * n * F + 2 * n), np.float32)
-            Xb, Yb, idx = run.Xb, run.Yb, run.idx
-            routed = 0
-            for ci, (member, xc, yc) in enumerate(chunks):
-                n_rows = xc.shape[0]
-                Xb[ci, :n_rows] = xc
-                Yb[ci, :n_rows] = yc
-                if n_rows < T:
-                    if not x_clean:
-                        Xb[ci, n_rows:] = 0.0
-                    if not y_clean:
-                        Yb[ci, n_rows:] = 0.0
-                idx[ci] = member
-                routed += n_rows
-            if not x_clean:
-                Xb[len(chunks):] = 0.0
-            if not y_clean:
-                Yb[len(chunks):] = 0.0
-            if not idx_clean:
-                idx[len(chunks):] = 0
+                run.out, _ = self._acquire(run, (D, B, 3 * n * F + 2 * n), np.float32)
+            shard_rows = []
+            for d, chunks in enumerate(per_shard):
+                Xb, Yb, idx = run.Xb[d], run.Yb[d], run.idx[d]
+                routed = 0
+                for j, (local, xc, yc) in enumerate(chunks):
+                    n_rows = xc.shape[0]
+                    Xb[j, :n_rows] = xc
+                    Yb[j, :n_rows] = yc
+                    if n_rows < T:
+                        if not x_clean:
+                            Xb[j, n_rows:] = 0.0
+                        if not y_clean:
+                            Yb[j, n_rows:] = 0.0
+                    idx[j] = local
+                    routed += n_rows
+                if not x_clean:
+                    Xb[len(chunks):] = 0.0
+                if not y_clean:
+                    Yb[len(chunks):] = 0.0
+                if not idx_clean:
+                    idx[len(chunks):] = 0
+                if self._m_shard_rows is not None:
+                    # every shard runs B * T rows whatever its load: the
+                    # routed/padded split is the skew the planner reads
+                    label = str(d)
+                    self._m_shard_rows.labels(label).inc(routed)
+                    self._m_shard_pad.labels(label).inc(B * T - routed)
+                    self._m_shard_reqs.labels(label).inc(len(chunks))
+                shard_rows.append((str(d), routed, B * T - routed))
         except BaseException:
             run.release(self.arena)
             raise
-        run.routed_rows, run.total_rows = routed, B * T
+        run.shard_rows = tuple(shard_rows)
+        run.routed_rows, run.total_rows = sum(r for _s, r, _p in shard_rows), D * B * T
         run.t_pad = time.monotonic() if timed else 0.0
         return run
 
     def _acquire(self, run: "_GroupRun", shape, dtype):
-        buf, clean = self.arena.acquire(shape, dtype)
+        """An arena buffer of ``shape`` (D, B, ...), pooled under the shape
+        (D * B, ...): an unsharded bank's buffers are the (B, ...) ones."""
+        buf, clean = self.arena.acquire((shape[0] * shape[1],) + tuple(shape[2:]), dtype)
         run.bufs.append(buf)  # attached at once: a later failure releases it
-        return buf, clean
+        return buf.reshape(shape), clean
 
     def _dispatch(self, run: "_GroupRun") -> None:
         """Stage 2: on the card, the copies in, the forward and K2, and the
@@ -1172,33 +1300,52 @@ class ModelBank:
             run.profile_dir = profile_path(prof_name, prof_root)
             with maybe_profile(prof_name, prof_root):
                 self._enqueue(run)
-                if run.event is not None:
-                    run.event.synchronize()
+                for _start, done in run.events:
+                    done.synchronize()
             run.t_ready = run.t_device_done = time.monotonic()
         else:
             self._enqueue(run)
 
     def _enqueue(self, run: "_GroupRun") -> None:
-        bucket = run.bucket
-        dev = self.device
-        if dev.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-            idx = torch.from_numpy(run.idx).to(dev, non_blocking=True)
-            X = torch.from_numpy(run.Xb).to(dev, non_blocking=True)
-            Y = torch.from_numpy(run.Yb).to(dev, non_blocking=True)
-            run.dev_refs = (idx, X, Y)
-            flat = bucket.score_batch(idx, X, Y)
-            run.dev_refs = (idx, X, Y, flat)
-            torch.from_numpy(run.out).copy_(flat, non_blocking=True)
-            done = torch.cuda.Event(enable_timing=True)
-            done.record()
-            run.ev_start, run.event = start, done
+        """Each shard's copies in, forward, K2 and copy back, on its own
+        device (its current stream); on the card one event pair brackets
+        each device's run of consecutive shards."""
+        shards = run.bucket.shards
+        if self.device.type == "cuda":
+            refs: List[Any] = []
+            run.dev_refs = refs
+            start = None
+            for d, shard in enumerate(shards):
+                dev = shard.device
+                with torch.cuda.device(dev):
+                    if start is None:
+                        start = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                    idx = torch.from_numpy(run.idx[d]).to(dev, non_blocking=True)
+                    X = torch.from_numpy(run.Xb[d]).to(dev, non_blocking=True)
+                    Y = torch.from_numpy(run.Yb[d]).to(dev, non_blocking=True)
+                    refs.append((idx, X, Y))
+                    flat = shard.score_batch(idx, X, Y)
+                    refs.append(flat)
+                    torch.from_numpy(run.out[d]).copy_(flat, non_blocking=True)
+                    if d + 1 == len(shards) or shards[d + 1].device != dev:
+                        done = torch.cuda.Event(enable_timing=True)
+                        done.record()
+                        run.events.append((start, done))
+                        start = None
+                self._count_launch(d)
         else:
-            flat = bucket.score_batch(torch.from_numpy(run.idx), torch.from_numpy(run.Xb),
-                                      torch.from_numpy(run.Yb))
-            run.out = flat.numpy()
+            outs = []
+            for d, shard in enumerate(shards):
+                outs.append(shard.score_batch(torch.from_numpy(run.idx[d]), torch.from_numpy(run.Xb[d]),
+                                              torch.from_numpy(run.Yb[d])).numpy())
+                self._count_launch(d)
+            run.out = outs[0][None] if len(outs) == 1 else np.stack(outs)
             run.t_ready = run.t_device_done = time.monotonic()
+
+    def _count_launch(self, d: int) -> None:
+        with self._pipe_lock:
+            self.shard_launches[d] = self.shard_launches.get(d, 0) + 1
 
     def _postprocess(self, run: "_GroupRun", requests: Sequence[Request], results: List[Any],
                      traces: Optional[Sequence[Any]]) -> None:
@@ -1208,16 +1355,18 @@ class ModelBank:
             if not run.t_ready:
                 try:
                     # the group's window ends here when the host waited
-                    run.event.synchronize()
+                    for _start, done in run.events:
+                        done.synchronize()
                 finally:
                     run.t_ready = time.monotonic()
-            if run.ev_start is not None:
-                run.event_s = run.ev_start.elapsed_time(run.event) / 1e3
+            if run.events:
+                run.event_s = max(start.elapsed_time(done) for start, done in run.events) / 1e3
             bucket = run.bucket
             F, off = bucket.n_features, bucket.offset
             B, T = run.shape
             n = T - off  # output rows a chunk
-            flat = run.out
+            B = bucket.n_shards * B  # the shards' slots back to back
+            flat = run.out.reshape(B, -1)
             shapes = [(B, n, F)] * 3 + [(B, n)] * 2
             widths = np.cumsum([0] + [int(np.prod(sh[1:])) for sh in shapes])
             outs = [flat[:, a:b].reshape(sh) for a, b, sh in zip(widths[:-1], widths[1:], shapes)]
@@ -1266,7 +1415,7 @@ class ModelBank:
             coalesce_s=max(0.0, run.t_chunks - run.t_group) if run.t_group else 0.0,
             pad_s=max(0.0, run.t_pad - run.t_chunks) if run.t_chunks else 0.0,
             postprocess_s=max(0.0, run.t_post - run.t_ready) if run.t_post else 0.0,
-            shard_rows=(("0", run.routed_rows, total - run.routed_rows),),
+            shard_rows=run.shard_rows,
         )
         if ok and useful_s > 0.0:
             req_rows = sum(plan[1].shape[0] for plan in run.req_plans)

@@ -19,12 +19,19 @@ The streaming plane's adaptations replace models in memory
 (:meth:`ModelCollection.publish`) and roll back
 (:meth:`ModelCollection.restore`), as the JAX collection does.
 
-Not in this slice: the mesh's ownership set (``acquire``/``release``).
+A collection of the serving mesh owns a set of members (``owned``): it
+loads only those of the artifacts under its root (a shared directory holds
+the whole fleet), :meth:`ModelCollection.acquire` and
+:meth:`ModelCollection.release` move a member in and out, and
+:func:`pack_artifact_dir` / :func:`unpack_artifact_dir` ship an artifact
+between replicas as a gzipped tar (JAX ``model_io.py:139-172, 207-330``).
 """
 
+import io
 import json
 import logging
 import os
+import tarfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -103,6 +110,31 @@ def encode_anomaly_response(tags, arrays: Dict[str, np.ndarray], offset: int) ->
     return pack_frames([meta] + [(name, arrays[name]) for name in ANOMALY_FRAME_NAMES])
 
 
+def pack_artifact_dir(path: str) -> bytes:
+    """One member's artifact directory as a gzipped tar, its paths relative
+    to the directory (the receiver lands them under its own root)."""
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz") as tar:
+        for entry in sorted(os.listdir(path)):
+            tar.add(os.path.join(path, entry), arcname=entry)
+    return buf.getvalue()
+
+
+def unpack_artifact_dir(raw: bytes, dest: str) -> None:
+    """Extract a shipped artifact archive under ``dest``. Every member name
+    is checked first: an absolute path, a ``..`` component, a link or a
+    device refuses the whole archive (it crossed a network)."""
+    os.makedirs(dest, exist_ok=True)
+    with tarfile.open(fileobj=io.BytesIO(raw), mode="r:gz") as tar:
+        members = tar.getmembers()
+        for member in members:
+            name = member.name
+            if os.path.isabs(name) or ".." in name.split("/") or not (member.isfile() or member.isdir()):
+                raise ValueError(f"refusing artifact archive member {name!r} (unsafe path or non-file entry)")
+        for member in members:
+            tar.extract(member, dest, set_attrs=False)
+
+
 def scan_artifacts(root: str, target_name: Optional[str] = None) -> Dict[str, str]:
     """name -> artifact dir under ``root``: ``root`` itself when it is an
     artifact (named ``target_name`` or its basename), else each artifact
@@ -134,12 +166,19 @@ class ModelCollection:
     artifact, or one caught in the middle of a rewrite (its data files do
     not match the descriptor's digests), is reported under ``failed`` and in
     ``load_failures``, and skipped: a previous good version keeps serving,
-    and the next refresh tries it again."""
+    and the next refresh tries it again.
 
-    def __init__(self, root: str, target_name: Optional[str] = None, device="cuda"):
+    ``owned`` (the serving mesh): the member names this collection loads
+    and serves, whatever else the root holds; None (the default) owns
+    everything on disk. An owned set may be empty (a small fleet over many
+    replicas), so it does not raise when nothing loads, as an unowned
+    collection does."""
+
+    def __init__(self, root: str, target_name: Optional[str] = None, device="cuda", owned=None):
         self.root = root
         self.target_name = target_name
         self.device = device
+        self.owned = None if owned is None else set(owned)
         self._state: Tuple[Dict[str, Any], Dict[str, Dict]] = ({}, {})
         self._versions: Dict[str, Any] = {}
         self.load_failures: Dict[str, str] = {}  # the latest scan's failed loads
@@ -147,7 +186,7 @@ class ModelCollection:
         # above 0 says an artifact still fails (gordo_models_load_failed_total)
         self.load_failed_total = 0
         changes = self.refresh()
-        if not self.models:
+        if not self.models and self.owned is None:
             detail = f"; all artifact loads failed: {changes['failed']}" if changes["failed"] else ""
             raise FileNotFoundError(f"No model artifacts found under {root!r}{detail}")
         if changes["failed"]:
@@ -204,13 +243,46 @@ class ModelCollection:
         so it is published as it is."""
         self._state = state
 
+    def _scan(self) -> Dict[str, str]:
+        """The artifacts under ``root`` this collection owns."""
+        on_disk = scan_artifacts(self.root, self.target_name)
+        if self.owned is None:
+            return on_disk
+        return {n: p for n, p in on_disk.items() if n in self.owned}
+
+    def acquire(self, name: str) -> Dict[str, Any]:
+        """Own ``name`` (its artifact already under ``root``) and load it;
+        idempotent, a refresh on an unowned collection. Raises
+        ``FileNotFoundError`` when it does not load: owning nothing would
+        swallow the member's traffic."""
+        if self.owned is not None:
+            self.owned.add(name)
+        changes = self.refresh()
+        if name not in self.models:
+            if self.owned is not None:
+                self.owned.discard(name)
+            reason = changes["failed"].get(name, "artifact not found on disk")
+            raise FileNotFoundError(f"cannot acquire {name!r} under {self.root!r}: {reason}")
+        return changes
+
+    def release(self, name: str) -> Dict[str, Any]:
+        """Stop owning ``name``: it stops serving here, its artifact stays
+        on disk. An unowned collection first owns what it serves. KeyError
+        for a member it does not serve."""
+        if name not in self.models:
+            raise KeyError(f"cannot release unknown member {name!r}")
+        if self.owned is None:
+            self.owned = set(self.models)
+        self.owned.discard(name)
+        return self.refresh()
+
     def refresh(self) -> Dict[str, Any]:
         """Rescan ``root``: ``{"added": [...], "updated": [...], "removed":
         [...], "failed": {name: error}}``. A failed load keeps the name's
         earlier model (if any) and leaves its version unrecorded, so the
         next refresh retries it. So does an artifact whose version changed
         while it was read."""
-        on_disk = scan_artifacts(self.root, self.target_name)
+        on_disk = self._scan()
         models, metadata = dict(self.models), dict(self.metadata)
         versions = dict(self._versions)
         added, updated, removed = [], [], []

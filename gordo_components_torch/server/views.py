@@ -20,6 +20,12 @@ Counterpart of these routes of ``gordo_components_tpu/server/views.py``:
 - ``GET  /gordo/v0/<project>/drift`` (``?refresh=1``)
 - ``POST /gordo/v0/<project>/quarantine/clear``
 - ``POST /gordo/v0/<project>/reload``
+- ``GET  /gordo/v0/<project>/placement`` (``?dry_run=1``)
+- ``POST /gordo/v0/<project>/rebalance`` (``?dry_run=1``, body ``{"force": true}``)
+- ``GET  /gordo/v0/<project>/mesh``
+- ``GET  /gordo/v0/<project>/mesh/member/<target>/artifact``
+- ``POST /gordo/v0/<project>/mesh/acquire`` (body ``{"member", "source"}``)
+- ``POST /gordo/v0/<project>/mesh/release`` (body ``{"member"}``)
 - ``POST /gordo/v0/<project>/adapt``
 - ``GET  /gordo/v0/<project>/<target>/healthcheck``
 - ``GET  /gordo/v0/<project>/<target>/metadata``
@@ -93,8 +99,20 @@ alone. An admitted banked request enters the engine's fair queue under
 its class, and the goodput ledger books it under admission's bounded
 tenant label.
 
-Events: a quarantine's enter and clear and a ``/reload`` go to the app's
-event log (``observability/events.py``), stamped with the bank's
+The placement routes answer as the JAX server's: ``/placement`` is
+``{"enabled": false}`` with the bank off, ``/rebalance`` 404 then, and a
+rebalance whose swap fails answers 500 with ``rolled_back`` (the old
+generation serving). The mesh routes move members between replicas of the
+serving mesh through the swap ``/reload`` uses: an acquire (with
+``source``, the artifact shipped from that replica's ``.../artifact``
+first) runs before the source's release, is idempotent, and rolls its
+ownership back when its swap fails; a release of a member not served here
+answers 404 with the reason. A mesh body's member must be a plain
+directory name.
+
+Events: a quarantine's enter and clear, a ``/reload``, a rebalance
+(``rebalance.plan`` or ``rebalance.applied``) and a mesh acquire or release
+go to the app's event log (``observability/events.py``), stamped with the bank's
 generation; the swap itself emits ``bank.swap`` (``swap.py``).
 
 The quarantine breaker (``resilience/quarantine.py``) reads every scoring
@@ -140,9 +158,14 @@ from gordo_components_torch.observability.tracing import chrome_trace, format_tr
 from gordo_components_torch.qos.classify import classify_headers, classify_meta
 from gordo_components_torch.resilience.deadline import DEADLINE_HEADER, Deadline, parse_deadline_ms
 from gordo_components_torch.resilience.faults import faultpoint
-from gordo_components_torch.server.model_io import encode_prediction_response
+from gordo_components_torch.server.model_io import (
+    encode_prediction_response,
+    pack_artifact_dir,
+    scan_artifacts,
+    unpack_artifact_dir,
+)
 from gordo_components_torch.server.stats import LatencyHistogram
-from gordo_components_torch.server.swap import build_bank, swap_bank
+from gordo_components_torch.server.swap import swap_collection_bank
 from gordo_components_torch.server.transport import (
     HTTPError,
     decode_tensor,
@@ -197,6 +220,12 @@ _ROUTES = [
     ("POST", re.compile(_P + r"/quarantine/clear$"), "quarantine_clear"),
     ("POST", re.compile(_P + r"/reload$"), "reload"),
     ("POST", re.compile(_P + r"/adapt$"), "adapt"),
+    ("GET", re.compile(_P + r"/placement$"), "placement_view"),
+    ("POST", re.compile(_P + r"/rebalance$"), "rebalance"),
+    ("GET", re.compile(_P + r"/mesh$"), "mesh_view"),
+    ("GET", re.compile(_P + r"/mesh/member/(?P<target>[^/]+)/artifact$"), "mesh_member_artifact"),
+    ("POST", re.compile(_P + r"/mesh/acquire$"), "mesh_acquire"),
+    ("POST", re.compile(_P + r"/mesh/release$"), "mesh_release"),
     ("GET", re.compile(_T + r"/healthcheck$"), "healthcheck"),
     ("GET", re.compile(_T + r"/metadata$"), "metadata"),
     ("GET", re.compile(_T + r"/download-model$"), "download_model"),
@@ -753,22 +782,189 @@ class GordoHandler(BaseHTTPRequestHandler):
             changes = app.collection.refresh()
             for name in changes["updated"] + changes["removed"]:
                 app.quarantine.drop(name)
-            bank_models, swap = None, None
-            if app.bank is not None:
-                try:
-                    result = swap_bank(app, build_bank(app))
-                except Exception as exc:
-                    logger.exception("bank rebuild failed; the old bank keeps serving")
-                    raise HTTPError(500, f"bank rebuild failed: {type(exc).__name__}: {exc}",
-                                    changes=changes, generation=app.bank.generation) from None
-                bank_models = result.bank_models
-                swap = {"generation": result.generation, "pause_ms": round(result.pause_s * 1e3, 3)}
+            try:
+                bank_models, swap = swap_collection_bank(app)
+            except Exception as exc:
+                logger.exception("bank rebuild failed; the old bank keeps serving")
+                raise HTTPError(500, f"bank rebuild failed: {type(exc).__name__}: {exc}",
+                                changes=changes, generation=app.bank.generation) from None
         self._emit("models.reload", added=len(changes.get("added", ())), updated=len(changes.get("updated", ())),
                    removed=len(changes.get("removed", ())))
         body = {"changes": changes, "models": app.collection.names(), "bank_models": bank_models}
         if swap is not None:
             body["swap"] = swap
         return 200, body
+
+    # ------------------------- the placement plane ------------------------- #
+
+    def _json_object_body(self) -> Optional[dict]:
+        """The body as a JSON object; None when empty (or JSON ``null``,
+        ``{}``...); 400 when it does not parse or is another value."""
+        raw = self._read_body()
+        if not raw:
+            return None
+        try:
+            body = json.loads(raw)
+        except ValueError:
+            raise HTTPError(400, "expected a JSON body") from None
+        if isinstance(body, dict):
+            return body
+        if body:
+            raise HTTPError(400, "expected a JSON object body")
+        return None
+
+    def placement_view(self, project: str):
+        """The live member -> shard placement with each shard's window load,
+        the generation, the controller's knobs and counters, and with
+        ``?dry_run=1`` the plan ``POST /rebalance`` would apply now."""
+        controller = self.app.placement
+        if controller is None:
+            return 200, {"enabled": False}
+        dry_run = self.query.get("dry_run", [""])[-1].lower() in _TRUE
+        return 200, controller.placement_view(dry_run=dry_run)
+
+    def rebalance(self, project: str):
+        """Plan a rebalance and apply it through the swap (``?dry_run=1``
+        only plans; body ``{"force": true}`` applies a plan below the
+        threshold). A failed swap has rolled back: 500 with ``rolled_back``."""
+        controller = self.app.placement
+        if controller is None:
+            raise HTTPError(404, "placement control plane not enabled")
+        body = self._json_object_body()
+        force = bool(body.get("force", False)) if body else False
+        dry_run = self.query.get("dry_run", [""])[-1].lower() in _TRUE
+        try:
+            result = controller.rebalance(force=force, dry_run=dry_run)
+        except Exception as exc:
+            logger.exception("rebalance failed (rolled back)")
+            return 500, {"error": f"{type(exc).__name__}: {exc}", "rolled_back": True,
+                         "generation": int(self.app.generation() or 0), "request_id": self.request_id}
+        if not dry_run:
+            self._emit("rebalance.applied" if result.get("applied") else "rebalance.plan",
+                       moves=len((result.get("plan") or {}).get("moves") or ()), applied=bool(result.get("applied")))
+        return 200, result
+
+    # ----------------------------- the mesh ------------------------------ #
+
+    def mesh_view(self, project: str):
+        """This replica's mesh identity and the members it owns now."""
+        identity = self.app.mesh
+        body: Dict[str, Any] = {"enabled": identity is not None, "owned": self.app.collection.names(),
+                                "generation": int(self.app.generation() or 0)}
+        if identity is not None:
+            body.update({"replica_id": identity.replica_id, "replica_count": identity.replica_count,
+                         "distributed": identity.distributed, "coordinator": identity.coordinator})
+        return 200, body
+
+    def mesh_member_artifact(self, project: str, target: str):
+        """An owned member's artifact directory as a gzipped tar (what an
+        acquiring replica pulls); 404 with the reason otherwise."""
+        collection = self.app.collection
+        if target not in collection.models:
+            raise HTTPError(404, f"member {target!r} is not owned by this replica", owned=len(collection.models))
+        path = scan_artifacts(collection.root, collection.target_name).get(target)
+        if path is None:
+            raise HTTPError(404, f"member {target!r} has no artifact dir on disk")
+        return 200, Raw(pack_artifact_dir(path), "application/gzip", {"X-Gordo-Member": target})
+
+    def _mesh_body(self) -> dict:
+        """A mesh mutation's JSON object body, its ``member`` a plain
+        directory name (it is joined into the artifact root); 400 otherwise."""
+        raw = self._read_body()
+        try:
+            body = json.loads(raw)
+        except ValueError:
+            body = None
+        member = body.get("member") if isinstance(body, dict) else None
+        if (not isinstance(member, str) or not member or member != os.path.basename(member)
+                or member in (".", "..") or os.path.isabs(member)):
+            raise HTTPError(400, 'expected a JSON body {"member": "<name>", ...} with a plain member name '
+                                 "(no path separators)")
+        return body
+
+    def _fetch_artifact(self, project: str, source: str, member: str) -> bytes:
+        """The member's artifact tar from the replica at ``source``, within
+        120 s (a hung source must not hold the reload lock)."""
+        import urllib.error
+        import urllib.request
+
+        url = f"{source.rstrip('/')}/gordo/v0/{project}/mesh/member/{member}/artifact"
+        try:
+            with urllib.request.urlopen(url, timeout=120.0) as resp:
+                return resp.read()
+        except urllib.error.HTTPError as exc:
+            raise ValueError(f"source replied {exc.code}: {exc.read().decode(errors='replace')[:300]}") from None
+
+    def mesh_acquire(self, project: str):
+        """Own a member: ``{"member": name}`` (its artifact on this
+        replica's disk) or ``{"member": name, "source": url}`` (shipped
+        from that replica first). Idempotent; the new bank lands through the
+        ``/reload`` swap, and a failed swap gives the ownership back (500,
+        ``rolled_back``)."""
+        app = self.app
+        body = self._mesh_body()
+        member, source = body["member"], body.get("source")
+        if source is not None and not isinstance(source, str):
+            raise HTTPError(400, "source must be a URL string")
+        collection = app.collection
+        with app.reload_lock:
+            if member in collection.models:
+                return 200, {"acquired": False, "already_owned": True, "member": member,
+                             "generation": int(app.generation() or 0)}
+            if source:
+                try:
+                    unpack_artifact_dir(self._fetch_artifact(project, source, member),
+                                        os.path.join(collection.root, member))
+                except Exception as exc:
+                    return 502, {"acquired": False, "member": member,
+                                 "error": f"artifact fetch from {source} failed: {type(exc).__name__}: {exc}"}
+            try:
+                changes = collection.acquire(member)
+            except FileNotFoundError as exc:
+                raise HTTPError(404, str(exc), hint='pass {"source": "<replica base url>"} to ship the artifact '
+                                                    "first") from None
+            app.quarantine.drop(member)  # fresh bytes get a clean breaker slate
+            try:
+                bank_models, swap_info = swap_collection_bank(app)
+            except Exception as exc:
+                collection.release(member)
+                logger.exception("mesh acquire of %r failed at bank swap", member)
+                return 500, {"acquired": False, "member": member, "rolled_back": True,
+                             "error": f"{type(exc).__name__}: {exc}", "generation": int(app.generation() or 0)}
+        self._emit("mesh.acquire", member=member, shipped=bool(source))
+        return 200, {"acquired": True, "member": member, "shipped": bool(source), "changes": changes,
+                     "bank_models": bank_models, "swap": swap_info, "owned": collection.names()}
+
+    def mesh_release(self, project: str):
+        """Stop owning a member (after the destination acquired it and the
+        routing moved); its artifact stays on disk. 404 with the reason for
+        a member not served here; a failed swap re-acquires it (500)."""
+        app = self.app
+        member = self._mesh_body()["member"]
+        collection = app.collection
+        with app.reload_lock:
+            try:
+                changes = collection.release(member)
+            except KeyError as exc:
+                raise HTTPError(404, str(exc.args[0])) from None
+            app.quarantine.drop(member)
+            try:
+                bank_models, swap_info = swap_collection_bank(app)
+            except Exception as exc:
+                reacquired = True
+                try:
+                    collection.acquire(member)
+                except Exception:
+                    reacquired = False
+                    logger.exception("mesh release rollback could not re-acquire %r; the member is NOT served "
+                                     "by this replica", member)
+                logger.exception("mesh release of %r failed at bank swap", member)
+                return 500, {"released": False, "member": member, "rolled_back": reacquired,
+                             "reacquire_failed": not reacquired, "error": f"{type(exc).__name__}: {exc}",
+                             "generation": int(app.generation() or 0)}
+        self._emit("mesh.release", member=member)
+        return 200, {"released": True, "member": member, "changes": changes, "bank_models": bank_models,
+                     "swap": swap_info, "owned": collection.names()}
 
     # ------------------------- the streaming plane ------------------------- #
 

@@ -240,9 +240,7 @@ class DriftDetector:
         bucket = bank._buckets.get(entry[0])
         if bucket is None:
             return None
-        i = entry[1]
-        in_shift = bucket.in_shift[i].cpu().numpy()
-        in_scale = bucket.in_scale[i].cpu().numpy()
+        in_shift, in_scale = bucket.input_scaler(entry[1])
         return (np.asarray(X, np.float32) - in_shift) * in_scale
 
     def reset_members(self, names) -> None:

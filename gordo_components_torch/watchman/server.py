@@ -30,9 +30,18 @@ Routes (the JAX ones): ``GET /``, ``/healthcheck``, ``/metrics``,
 ``since``, ``until``, ``step``), ``/events`` (``?type=``, ``since_wall``,
 ``limit``), ``/incidents`` (``?threshold=``, ``?margin=``) and ``/routing``
 (``?refresh=1``; an ``If-None-Match`` equal to its ``ETag`` answers 304).
-The write side, ``POST /rebalance``, ``/migrate`` and ``/fleet-rebalance``
-(cross-replica moves over the serving mesh), is not ported: they answer 501
-naming what is missing.
+The write side (JAX ``server.py:937-1535, 2079-2168``): ``POST /rebalance``
+fans a rebalance out to every replica's ``/rebalance`` (``?dry_run=1``, body
+``{"force": true}``) and reports each verdict; ``POST /migrate`` (body
+``{"member": name, "to": replica, "from": replica}``) moves one member
+between replicas of the serving mesh (acquire on the destination with the
+source as its artifact's source, the routing table pinned to the
+destination, then release on the source; serialized, 409 when it did not
+move); ``POST /fleet-rebalance`` (``?dry_run=1``, ``{"force": true}``)
+plans moves over the replicas' ``/placement`` loads with
+``placement/planner.plan_fleet`` and applies them one by one. A move
+counts in ``gordo_fleet_migrations_total``, a failed acquire in
+``gordo_fleet_migrations_failed_total``.
 """
 
 import asyncio
@@ -52,6 +61,7 @@ from gordo_components_torch.observability.cost import merge_cost_snapshots
 from gordo_components_torch.observability.events import EventLog
 from gordo_components_torch.observability.heat import merge_heat_snapshots
 from gordo_components_torch.observability.metrics import parse_prometheus_text, render_samples
+from gordo_components_torch.placement.planner import plan_fleet
 from gordo_components_torch.observability.slo import merge_slo_snapshots
 from gordo_components_torch.replay.clock import SYSTEM_CLOCK
 from gordo_components_torch.resilience.deadline import Deadline
@@ -79,12 +89,8 @@ _FP_PROBE = faultpoint("watchman.probe")
 SCRAPE_DEADLINE_S = 10.0  # one replica fetch or probe
 REQUEST_TIMEOUT_S = 30.0  # one request whole (the JAX ClientTimeout(total=30))
 METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
-# the write side: cross-replica moves over the serving mesh
-NOT_PORTED = {
-    "/rebalance": "fleet rebalance fan-out",
-    "/migrate": "cross-replica migration",
-    "/fleet-rebalance": "fleet placement (planned cross-replica moves)",
-}
+MOVE_DEADLINE_S = 240.0  # one acquire, release or rebalance: a bank build and warm-up
+MOVE_TIMEOUT_S = 300.0  # its request whole (the JAX ClientTimeout(total=300))
 _TRUE = ("1", "true", "yes")
 
 
@@ -260,8 +266,7 @@ async def _bounded_get(session: Session, url: str, params=None, what: str = "fet
 
 class WatchmanState:
     """The watchman's caches and its coroutines over the replicas (JAX
-    ``WatchmanState`` less the migration fields, which the write side
-    needs). Runs on one event loop."""
+    ``WatchmanState``). Runs on one event loop."""
 
     def __init__(
         self,
@@ -324,10 +329,16 @@ class WatchmanState:
         # each replica's last observed reachability: a True -> False step
         # bumps the version and emits mesh.replica_unreachable
         self._replica_reachable: Dict[int, bool] = {}
-        # the write side's counters, rendered beside the routing version;
-        # nothing here moves a member, so they stay 0
+        # member -> the replica a move pinned it to, until the migration
+        # converges there; each replica's observed member list
+        self._routing_overrides: Dict[str, int] = {}
+        self._routing_member_lists: Dict[int, List[str]] = {}
+        # the write side: one move at a time, its counters rendered beside
+        # the routing version, and the fleet planner's load floor
+        self._migration_lock = asyncio.Lock()
         self._migrations_total = 0
         self._migrations_failed = 0
+        self.mesh_min_rows = int(env_num("GORDO_MESH_MIN_ROWS", 1024.0, float))
         # the watchman's own slice of the fleet timeline
         self.events = EventLog(clock=self.clock, replica="watchman")
 
@@ -694,8 +705,9 @@ class WatchmanState:
         replica's ``/models`` and ``/healthz``, with each replica's health.
         The version bumps when the content (ownership, reachability,
         status, quarantine sets, the overlap) changes, and when a replica
-        goes dark. A member several replicas serve resolves by a hash of
-        its name over its owners and is listed under ``migrating``.
+        goes dark. A member several replicas serve resolves to the replica a
+        move pinned it to while that replica serves it, else by a hash of
+        its name over its owners, and is listed under ``migrating``.
         ``wait=False`` serves the cache and refreshes in the background."""
         if not wait:
             if (self._routing_cache is None
@@ -728,6 +740,7 @@ class WatchmanState:
                 results = await asyncio.gather(*(probe(i, p) for i, p in enumerate(prefixes)))
             replicas: List[Dict[str, Any]] = []
             observed: Dict[str, List[int]] = {}
+            member_lists: Dict[int, List[str]] = {}
             for i, models_body, health_body in results:
                 names: List[str] = []
                 reachable = False
@@ -741,6 +754,7 @@ class WatchmanState:
                     quarantined = sorted(health_body.get("quarantined") or {})
                 elif reachable:
                     status = "ok"  # /models answered, /healthz did not: servable, health unknown
+                member_lists[i] = names
                 for name in names:
                     observed.setdefault(name, []).append(i)
                 replicas.append({"replica": i, "url": bases[i], "reachable": reachable, "status": status,
@@ -748,12 +762,24 @@ class WatchmanState:
             members: Dict[str, int] = {}
             migrating: Dict[str, List[int]] = {}
             for name, owners in observed.items():
-                # a member several replicas serve: primaries spread by a hash
-                # of the name, so a replicated fleet does not idle all but one
-                owners_sorted = sorted(owners)
-                members[name] = owners_sorted[zlib.crc32(name.encode()) % len(owners_sorted)]
+                override = self._routing_overrides.get(name)
+                if override is not None and override in owners:
+                    members[name] = override
+                    if len(owners) == 1:  # the migration converged at its destination
+                        del self._routing_overrides[name]
+                else:
+                    if override is not None:  # the destination lost it: observation wins
+                        del self._routing_overrides[name]
+                    # a member several replicas serve: primaries spread by a
+                    # hash of the name, so a replicated fleet does not idle
+                    # all but one
+                    owners_sorted = sorted(owners)
+                    members[name] = owners_sorted[zlib.crc32(name.encode()) % len(owners_sorted)]
                 if len(owners) > 1:
-                    migrating[name] = owners_sorted
+                    migrating[name] = sorted(owners)
+            for name in list(self._routing_overrides):
+                if name not in observed:
+                    del self._routing_overrides[name]
             went_dark: List[Dict[str, Any]] = []
             came_back: List[Dict[str, Any]] = []
             for rep in replicas:
@@ -775,6 +801,7 @@ class WatchmanState:
             for rep in came_back:
                 self.events.emit("mesh.replica_recovered", severity="info", replica_index=rep["replica"],
                                  url=rep["url"], routing_version=self._routing_version)
+            self._routing_member_lists = member_lists
             self._routing_cache = {
                 "project": self.project,
                 "version": self._routing_version,
@@ -805,6 +832,192 @@ class WatchmanState:
         body["age_s"] = round(age, 3)
         body["stale"] = age >= 2 * self.refresh_interval
         return body
+
+    # ----------------------------- the write side ----------------------------- #
+
+    async def _post(self, session: Session, url: str, body: Any, params=None) -> tuple:
+        """(status, JSON body) of one write POST under the move deadline; a
+        body that is not JSON reads as ``{}``."""
+
+        async def go():
+            resp = await session.request("POST", url, json=body, params=params)
+            try:
+                doc = resp.json()
+            except Exception:
+                doc = {}
+            return resp.status, doc
+
+        return await Deadline(MOVE_DEADLINE_S).wait_for(go())
+
+    async def fleet_rebalance(self, dry_run: bool = False, force: bool = False) -> Dict[str, Any]:
+        """POST every replica's ``/rebalance`` (``dry_run`` previews) and
+        report each verdict; one replica's failure (its swap rolled back)
+        does not stop the others'."""
+        urls = [u + "/rebalance" for u in self._replica_prefixes()]
+        params = {"dry_run": "1"} if dry_run else None
+        payload = {"force": True} if force else {}
+        async with Session(timeout=MOVE_TIMEOUT_S) as session:
+
+            async def post(url):
+                try:
+                    return await self._post(session, url, payload, params=params)
+                except asyncio.CancelledError:
+                    raise
+                except Exception as exc:
+                    logger.warning("rebalance failed for %s: %s", url, exc)
+                    return None, {"error": f"{type(exc).__name__}: {exc}"}
+
+            results = list(await asyncio.gather(*(post(u) for u in urls)))
+        replicas = []
+        for i, (status, body) in enumerate(results):
+            body = body if isinstance(body, dict) else {}
+            replicas.append({
+                "replica": i,
+                "reached": status is not None,
+                "status": status,
+                "applied": bool(body.get("applied")),
+                "rolled_back": bool(body.get("rolled_back")),
+                "generation": (body.get("swap") or {}).get("generation", body.get("generation")),
+                "reason": (body.get("plan") or {}).get("reason") or body.get("error"),
+            })
+        return {"dry_run": dry_run, "force": force, "applied": sum(1 for r in replicas if r["applied"]),
+                "replicas": replicas}
+
+    def _bump_routing_owner(self, member: str, dst: int) -> None:
+        """Pin ``member`` to ``dst`` in the live table, between a move's
+        acquire and release, and step the version: the table routes to the
+        destination before the source stops answering. The content key is
+        the pinned table's, so a clean move steps the version once."""
+        self._routing_overrides[member] = dst
+        if self._routing_cache is not None:
+            members = dict(self._routing_cache["members"])
+            if members.get(member) != dst:
+                members[member] = dst
+                self._routing_version += 1
+                self._routing_core = self._routing_content_key(
+                    members, self._routing_cache["replicas"], self._routing_cache["migrating"])
+                self._routing_cache = {**self._routing_cache, "members": members, "version": self._routing_version}
+
+    async def _replica_health_for_moves(self) -> Dict[int, str]:
+        """Each replica's status as a move destination: the routing table's
+        (``unreachable`` when dark), ``burning`` when its SLO rollup shows a
+        fast burn."""
+        table = await self.routing()
+        health: Dict[int, str] = {}
+        for rep in (table or {}).get("replicas", []):
+            health[rep["replica"]] = rep["status"] if rep["reachable"] else "unreachable"
+        try:
+            slo = await self.fleet_slo()
+        except Exception:
+            return health
+        for entry in slo.get("replicas", []):
+            worst = entry.get("worst") or {}
+            if isinstance(worst, dict) and worst.get("fast_burn"):
+                health[entry["replica"]] = "burning"
+        return health
+
+    async def fleet_loads(self) -> Dict[str, float]:
+        """Each member's routed rows over its replicas' decision windows:
+        every replica's ``/placement`` ``member_rows``, summed by member."""
+        urls = [p + "/placement" for p in self._replica_prefixes()]
+        loads: Dict[str, float] = {}
+        async with Session(timeout=REQUEST_TIMEOUT_S) as session:
+            bodies = await asyncio.gather(*(self._get_json(session, u) for u in urls))
+        for body in bodies:
+            if not isinstance(body, dict):
+                continue
+            for name, rows in (body.get("member_rows") or {}).items():
+                try:
+                    loads[name] = loads.get(name, 0.0) + float(rows)
+                except (TypeError, ValueError):
+                    continue
+        return loads
+
+    async def apply_move(self, member: str, dst: int, src: Optional[int] = None) -> Dict[str, Any]:
+        """One migration, with no window in which a routed request can get a
+        404: acquire on ``dst`` (shipping the artifact from ``src`` when it
+        is reachable), pin the routing to ``dst``, then release on ``src``
+        (skipped when unreachable). Serialized with other moves."""
+        async with self._migration_lock:
+            table = await self.routing(refresh=True)
+            if table is None:
+                return {"moved": False, "member": member, "error": "no routing table (no replicas observed)"}
+            replicas = table["replicas"]
+            if not 0 <= dst < len(replicas):
+                return {"moved": False, "member": member, "error": f"unknown destination replica {dst}"}
+            if src is None:
+                src = table["members"].get(member)
+            if src == dst:
+                return {"moved": False, "member": member, "src": src, "dst": dst,
+                        "error": "member already at destination"}
+            prefixes = self._replica_prefixes()
+            src_rep = replicas[src] if src is not None and 0 <= src < len(replicas) else None
+            src_reachable = bool(src_rep and src_rep["reachable"])
+            payload: Dict[str, Any] = {"member": member}
+            if src_reachable:
+                payload["source"] = src_rep["url"]
+            verdict: Dict[str, Any] = {"member": member, "src": src, "dst": dst}
+            async with Session(timeout=MOVE_TIMEOUT_S) as session:
+
+                def failed(error: str) -> Dict[str, Any]:
+                    self._migrations_failed += 1
+                    verdict.update(moved=False, error=error)
+                    self.events.emit("mesh.migrate_failed", severity="error", member=member, dst=dst, error=error)
+                    return verdict
+
+                try:
+                    status, body = await self._post(session, prefixes[dst] + "/mesh/acquire", payload)
+                except Exception as exc:
+                    return failed(f"acquire failed: {type(exc).__name__}: {exc}")
+                verdict["acquire"] = {"status": status, "swap": body.get("swap"),
+                                      "already_owned": bool(body.get("already_owned"))}
+                if status != 200:
+                    return failed(f"acquire answered {status}: {body.get('error')}")
+                # the destination owns it: the routing flips before the release
+                self._bump_routing_owner(member, dst)
+                if src is not None and src_reachable:
+                    try:
+                        status, body = await self._post(session, prefixes[src] + "/mesh/release", {"member": member})
+                        verdict["release"] = {"status": status, "swap": body.get("swap")}
+                        if status != 200:
+                            verdict["warning"] = (f"release answered {status}: {body.get('error')} "
+                                                  "(member dual-owned until retried)")
+                    except Exception as exc:
+                        verdict["warning"] = (f"release failed: {type(exc).__name__}: {exc} "
+                                              "(member dual-owned until retried)")
+                else:
+                    verdict["release"] = {"skipped": "source unreachable"}
+            self._migrations_total += 1
+            await self.routing(refresh=True)
+            verdict.update(moved=True, routing_version=self._routing_version)
+            self.events.emit("mesh.migrate", member=member, src=src, dst=dst, dual_owned="warning" in verdict)
+            return verdict
+
+    async def fleet_rebalance_cross(self, dry_run: bool = False, force: bool = False) -> Dict[str, Any]:
+        """The fleet tier: observe ownership and loads, plan moves with
+        ``plan_fleet`` (never onto a degraded, dark or burning replica) and
+        apply them one by one through :meth:`apply_move`; a move that fails
+        stops the rest. ``force`` overrides the threshold and the min-rows
+        floor, never the health gates."""
+        await self.routing(refresh=True)
+        members_by_replica = dict(self._routing_member_lists)
+        loads, health = await asyncio.gather(self.fleet_loads(), self._replica_health_for_moves())
+        plan = plan_fleet(members_by_replica, loads, replica_health=health,
+                          min_rows=0 if force else self.mesh_min_rows)
+        applicable = plan.should_apply or (force and bool(plan.moves))
+        if dry_run or not applicable:
+            return {"applied": 0, "dry_run": dry_run, "plan": plan.summary(),
+                    "routing_version": self._routing_version}
+        verdicts = []
+        applied = 0
+        for move in plan.moves:
+            verdict = await self.apply_move(move.member, move.dst, src=move.src)
+            verdicts.append(verdict)
+            if not verdict.get("moved"):
+                break
+            applied += 1
+        return {"applied": applied, "dry_run": False, "forced": force and not plan.should_apply,
+                "plan": plan.summary(), "moves": verdicts, "routing_version": self._routing_version}
 
     async def fleet_slow_traces(self, per_replica: int = 5) -> Dict[str, Any]:
         """Each replica's slowest recent traces (its ``/traces/slow``) and
@@ -957,6 +1170,15 @@ def _flag(query: Dict[str, str], name: str) -> bool:
     return query.get(name, "").lower() in _TRUE
 
 
+def _force(raw: bytes) -> bool:
+    """A write body's ``force``: False unless it is a JSON object saying so."""
+    try:
+        body = json.loads(raw) if raw else None
+    except ValueError:
+        return False
+    return bool(body.get("force", False)) if isinstance(body, dict) else False
+
+
 def _q_float(query: Dict[str, str], name: str) -> Optional[float]:
     raw = query.get(name)
     if raw is None or raw == "":
@@ -982,20 +1204,25 @@ class WatchmanApp:
             "/history": self.history, "/events": self.events, "/incidents": self.incidents,
             "/routing": self.routing_view,
         }
+        self._write_routes = {"/rebalance": self.rebalance, "/migrate": self.migrate,
+                              "/fleet-rebalance": self.fleet_rebalance_cross}
 
     def run(self, coro):
         """Run ``coro`` on the app's loop and wait for its result."""
         return asyncio.run_coroutine_threadsafe(coro, self.loop).result()
 
-    def handle(self, method: str, path: str, query: Dict[str, str], headers) -> tuple:
-        """(status, body, content type, extra headers) of one request; the
-        body is bytes (None for a 304)."""
-        if path in NOT_PORTED:
+    def handle(self, method: str, path: str, query: Dict[str, str], headers, body: bytes = b"") -> tuple:
+        """(status, body, content type, extra headers) of one request (its
+        body, ``body``, read by the handler); the answer's body is bytes
+        (None for a 304)."""
+        write = self._write_routes.get(path)
+        if write is not None:
             if method != "POST":
                 return _json_answer(405, {"error": f"{method} not allowed on {path}"})
-            return _json_answer(501, {
-                "error": f"POST {path} ({NOT_PORTED[path]}) is not ported: the serving mesh is not ported "
-                         "(ROADMAP.md A12)"})
+            try:
+                return self.run(write(query, body))
+            except HTTPError as exc:
+                return _json_answer(exc.status, exc.body)
         route = self._routes.get(path)
         if route is None:
             return _json_answer(404, {"error": f"No route for {path}"})
@@ -1140,6 +1367,34 @@ class WatchmanApp:
         return _json_answer(200, await self.state.fleet_incidents(
             threshold=_q_float(query, "threshold"), margin_s=_q_float(query, "margin")))
 
+    async def rebalance(self, query, raw: bytes):
+        """Fan ``POST /rebalance`` out to every replica (``?dry_run=1``,
+        body ``{"force": true}``) and report each verdict."""
+        return _json_answer(200, await self.state.fleet_rebalance(dry_run=_flag(query, "dry_run"),
+                                                                  force=_force(raw)))
+
+    async def migrate(self, query, raw: bytes):
+        """One member's move: body ``{"member": name, "to": replica}`` (and
+        ``"from"``); 200 when it moved, 409 when it did not."""
+        try:
+            body = json.loads(raw) if raw else None
+        except ValueError:
+            body = None
+        if not isinstance(body, dict) or not isinstance(body.get("member"), str) or not isinstance(body.get("to"), int):
+            raise HTTPError(400, 'expected {"member": "<name>", "to": <replica index>}')
+        src = body.get("from")
+        if src is not None and not isinstance(src, int):
+            raise HTTPError(400, "from must be a replica index")
+        verdict = await self.state.apply_move(body["member"], body["to"], src=src)
+        return _json_answer(200 if verdict.get("moved") else 409, verdict)
+
+    async def fleet_rebalance_cross(self, query, raw: bytes):
+        """Plan cross-replica moves from the replicas' loads (``?dry_run=1``
+        previews, ``{"force": true}`` overrides the threshold and min-rows
+        gates, never the health ones) and apply them."""
+        return _json_answer(200, await self.state.fleet_rebalance_cross(dry_run=_flag(query, "dry_run"),
+                                                                        force=_force(raw)))
+
     async def routing_view(self, query, headers):
         """The routing table under its ``ETag``; ``If-None-Match`` equal to
         it answers 304 without a body. No replica observed yet is an empty
@@ -1178,10 +1433,10 @@ class _WatchmanHandler(BaseHTTPRequestHandler):
         for key, value in parse_qsl(raw_query, keep_blank_values=True):
             query.setdefault(key, value)  # a repeated key reads its first value, as aiohttp's query
         length = int(self.headers.get("Content-Length") or 0)
-        if length > 0:
-            self.rfile.read(length)  # an unread body would turn the close into a reset
+        # read whole: an unread body would turn the close into a reset
+        raw = self.rfile.read(length) if length > 0 else b""
         try:
-            status, body, ctype, extra = self.server.app.handle(method, path, query, self.headers)
+            status, body, ctype, extra = self.server.app.handle(method, path, query, self.headers, raw)
         except Exception:
             logger.exception("unhandled error serving %s %s", method, path)
             status, body, ctype, extra = _json_answer(500, {"error": "internal server error"})

@@ -243,10 +243,41 @@ def test_unported_global_options_exit_2_with_a_message(name, tmp_path, capsys, m
     assert exit_info.value.code == 2 and ("not ported" in err or "no counterpart" in err)
 
 
-def test_run_server_on_several_cards_is_not_ported(tmp_path, capsys):
-    with pytest.raises(SystemExit) as exit_info:
-        main(["--device", "cpu", "run-server", "--model-dir", str(tmp_path), "--devices", "2"])
-    assert exit_info.value.code == 2 and "not ported" in capsys.readouterr().err
+def _dump_detector(path):
+    """A two-tag dense detector artifact of random weights at ``path``."""
+    from gordo_components_torch.convert import entry_from_numpy, params_to_flax
+    from gordo_components_torch.models import lookup_factory
+
+    rng = np.random.default_rng(0)
+    kw = {"encoding_dim": (4,), "decoding_dim": (4,)}
+    state = {k: rng.standard_normal(tuple(v.shape)).astype("f4")
+             for k, v in lookup_factory("AutoEncoder", "feedforward_model")(2, **kw).state_dict().items()}
+    ones, zeros = np.ones(2, np.float32), np.zeros(2, np.float32)
+    entry = entry_from_numpy("m", "AutoEncoder", "feedforward_model", kw, 2, params_to_flax(state), zeros, ones,
+                             zeros, ones)
+    serializer.dump(entry, str(path))
+
+
+def test_run_server_on_several_cards_is_not_ported(tmp_path, monkeypatch, caplog):
+    """Once refused; ``--devices 2`` now reaches ``build_app``, which clamps
+    it to the devices present (one CPU here) with the JAX warning."""
+    seen = {}
+
+    def fake_run_server(model_dir, **kwargs):
+        from gordo_components_torch.server import build_app
+
+        seen["devices"] = kwargs["devices"]
+        seen["app"] = build_app(model_dir, device=kwargs["device"], devices=kwargs["devices"])
+        seen["app"].close()
+
+    import gordo_components_torch.server as port_server
+
+    _dump_detector(tmp_path / "m")
+    monkeypatch.setattr(port_server, "run_server", fake_run_server)
+    with caplog.at_level("WARNING", logger="gordo_components_torch.server"):
+        assert main(["--device", "cpu", "run-server", "--model-dir", str(tmp_path), "--devices", "2"]) == 0
+    assert seen["devices"] == 2 and seen["app"].bank.mesh is None and seen["app"].bank.coverage()["devices"] == 1
+    assert "GORDO_SERVER_DEVICES=2 but only 1 device(s) present; sharding the bank over 1" in caplog.text
 
 
 @pytest.mark.parametrize("command", ["build", "build-fleet", "run-server", "run-watchman"])

@@ -112,14 +112,9 @@ STEPS = [
 ]
 
 # families the JAX server renders and the port does not yet, by the item of
-# ROADMAP.md's queue A that brings them (each is named there)
-NOT_RENDERED = {
-    # A7, multi-device: the sharded bank and the placement controller
-    "gordo_bank_shard_routed_rows_total", "gordo_bank_shard_padded_rows_total",
-    "gordo_bank_shard_requests_total", "gordo_bank_generation",
-    "gordo_rebalance_total", "gordo_rebalance_noop_total", "gordo_rebalance_failed_total",
-    "gordo_rebalance_last_improvement", "gordo_rebalance_swap_pause_seconds",
-}
+# ROADMAP.md's queue A that brings them (each is named there): none since
+# the sharded bank and the placement controller came
+NOT_RENDERED = set()
 
 
 def _nan_detector(fitted: DiffBasedAnomalyDetector) -> DiffBasedAnomalyDetector:

@@ -404,14 +404,27 @@ def test_event_time_is_pandas_nanoseconds():
             == float((start + pd.Timedelta(seconds=t) + pd.Timedelta(seconds=engine.batch_span_s)).value) / 1e9)
 
 
-def test_entry_points_default_to_the_card_and_refuse_several(tmp_path):
+def test_entry_points_default_to_the_card_and_refuse_several(tmp_path, monkeypatch):
     if not __import__("torch").cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_engine.ReplayEngine(str(tmp_path), {})
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_engine.train_fleet(str(tmp_path), {"m": ["a"]})
-    with pytest.raises(NotImplementedError, match="A12"):
-        port_engine.ReplayEngine(str(tmp_path), {}, devices=2, device="cpu")
+    # once refused; devices now goes to the server's build_app, as the JAX
+    # engine passes it
+    import gordo_components_torch.server as port_server
+
+    seen = {}
+
+    def fake_run_server(root, **kwargs):
+        seen.update(kwargs)
+        raise RuntimeError("stop here")
+
+    monkeypatch.setattr(port_server, "run_server", fake_run_server)
+    engine = port_engine.ReplayEngine(str(tmp_path), {}, devices=2, device="cpu")
+    with pytest.raises(RuntimeError, match="stop here"):
+        engine.run(port_replay.standard_scenarios()[0])
+    assert seen["devices"] == 2 and str(seen["device"]) == "cpu"
 
 
 def test_the_package_exports_lazily():

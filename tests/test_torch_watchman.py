@@ -2,8 +2,8 @@
 the JAX package's, on the CPU.
 
 - **Pure functions.** ``aggregate_fleet_metrics`` and ``render_fleet_metrics``
-  bitwise JAX's on the same texts: the JAX server's ``/metrics`` (with the
-  shard series the port's replicas never render), the port replicas', NaN
+  bitwise JAX's on the same texts: the JAX server's ``/metrics`` (a meshed
+  bank's shard series), the port replicas' (one shard, ``"0"``, each), NaN
   samples, the first scrape, a counter reset, a frozen replica
   (``tests/test_watchman.py:133-240``).
 - **Two watchmen over the same replicas.** Three port replicas
@@ -20,7 +20,9 @@ the JAX package's, on the CPU.
   explicit unknown targets, unreachable, caching, one request a snapshot,
   the per-target fallback, the version bumping on a change only, the
   unreachable and recovered events.
-- **The rest.** The write routes answer 501 naming what is missing;
+- **The rest.** The write routes answer 405 to another method and each
+  POST a first answer (the fan-out's verdicts, a migration's 409 or 400);
+  their behaviour is held in tests/test_torch_mesh.py;
   ``Client(routing_url=...)`` against the port's watchman answers as the
   replicas do directly; ``run-watchman``'s options and environment
   variables are the JAX CLI's.
@@ -333,7 +335,7 @@ async def test_faults_degrade_both_watchmen_alike(fleet):
 def scraped_texts(fleet):
     """``/metrics`` bodies: two of a JAX server over a meshed bank (it
     renders the shard series), before and after traffic, and one of each
-    port replica."""
+    port replica (an unsharded bank: shard ``"0"`` alone)."""
     from gordo_components_tpu import serializer as jax_serializer
     from gordo_components_tpu.models import AutoEncoder, DiffBasedAnomalyDetector
     from gordo_components_tpu.server import build_app as jax_build_app
@@ -367,7 +369,9 @@ def scraped_texts(fleet):
     jax_first, jax_second = asyncio.run(scrape_twice())
     assert 'gordo_bank_shard_routed_rows_total{shard="0"} 16' in jax_first
     port = [_get(u)[2].decode() for u in fleet.metrics_urls()]
-    assert not any("gordo_bank_shard_routed_rows_total" in t for t in port)
+    for text in port:
+        shards = [line for line in text.splitlines() if line.startswith("gordo_bank_shard_routed_rows_total{")]
+        assert [line.split("}")[0] for line in shards] == ['gordo_bank_shard_routed_rows_total{shard="0"']
     return {"jax_first": jax_first, "jax_second": jax_second, "port": port}
 
 
@@ -674,12 +678,26 @@ def test_an_empty_fleet_is_a_version_0_table():
         server.close()
 
 
+# the write side's first answer over one dark replica: no replica reached, a
+# destination the table does not have, fewer than two replicas to plan over
+WRITE_FIRST = {
+    "/rebalance": (200, lambda b: b["applied"] == 0 and [(r["replica"], r["reached"]) for r in b["replicas"]]
+                   == [(0, False)]),
+    "/migrate": (409, lambda b: b == {"moved": False, "member": "m-0", "error": "unknown destination replica 1"}),
+    "/fleet-rebalance": (200, lambda b: b["applied"] == 0 and b["plan"]["reason"]
+                         == "fewer than two replicas (nothing to move between)"),
+}
+
+
 @pytest.mark.parametrize("path", ["/rebalance", "/migrate", "/fleet-rebalance"])
 def test_the_write_side_answers_501_naming_what_is_missing(path):
+    """Once answered 501; each write route now answers a POST (its first
+    answer over a dark replica), 405 to a GET, and an unknown path 404."""
     server = run_watchman(PROJECT, "http://127.0.0.1:1", host="127.0.0.1", port=0, background=True)
     try:
         status, _, raw = _get(server.url + path, method="POST", data=b'{"member": "m-0", "to": 1}')
-        assert status == 501 and "serving mesh is not ported" in json.loads(raw)["error"]
+        want_status, check = WRITE_FIRST[path]
+        assert status == want_status and check(json.loads(raw)), (status, raw)
         assert _get(server.url + path)[0] == 405
         assert _get(server.url + "/nowhere")[0] == 404
     finally:
