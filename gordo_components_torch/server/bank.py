@@ -642,7 +642,11 @@ _PIPELINE_KEYS = {"gordo_bank_arena_hits_total": "hits", "gordo_bank_arena_misse
 
 
 class ModelBank:
-    """Stacked scoring bank over a collection of detectors, on one device.
+    """Stacked scoring bank over a collection of detectors.
+
+    It lives on one device, or with ``mesh=`` (``parallel/mesh.py``, more
+    than one shard) every bucket is split over the mesh's devices, each
+    shard scored on its own device and the bank's device the mesh's first.
 
     ``device`` defaults to ``"cuda"`` and raises without CUDA unless
     ``"cpu"`` is passed. On the card, float32 matrix products run in full

@@ -258,7 +258,7 @@ def _dump_detector(path):
     serializer.dump(entry, str(path))
 
 
-def test_run_server_on_several_cards_is_not_ported(tmp_path, monkeypatch, caplog):
+def test_run_server_devices_2_clamps_to_the_devices_present_with_the_jax_warning(tmp_path, monkeypatch, caplog):
     """Once refused; ``--devices 2`` now reaches ``build_app``, which clamps
     it to the devices present (one CPU here) with the JAX warning."""
     seen = {}

@@ -395,8 +395,12 @@ def test_routes_answer_as_jax_and_the_rebalance_cuts_skew(roots, cpu_shards, mon
         events = _call(base + P + "/events?type=rebalance.applied,rebalance.plan,bank.swap")[1]["events"]
         assert [e["type"] for e in events] == ["bank.swap", "rebalance.applied", "rebalance.plan"]
         traces = _call(base + P + "/traces?n=50")[1]["traces"]
-        spans = [t for t in traces if t["name"] == "rebalance"]
-        assert spans and [c["name"] for c in spans[0]["spans"]["children"]] == ["plan", "build", "swap", "drain"]
+        # the controller's forced trace: the one ``rebalance`` trace without
+        # a request id (a POST /rebalance request's own trace shares the
+        # name and is kept at the head-sampling rate)
+        spans = [t for t in traces if t["name"] == "rebalance" and t["request_id"] is None]
+        assert len(spans) == 1, [(t["name"], t["request_id"]) for t in traces]
+        assert [c["name"] for c in spans[0]["spans"]["children"]] == ["plan", "build", "swap", "drain"]
     finally:
         server.close()
 

@@ -404,7 +404,7 @@ def test_event_time_is_pandas_nanoseconds():
             == float((start + pd.Timedelta(seconds=t) + pd.Timedelta(seconds=engine.batch_span_s)).value) / 1e9)
 
 
-def test_entry_points_default_to_the_card_and_refuse_several(tmp_path, monkeypatch):
+def test_entry_points_default_to_the_card_and_pass_devices_to_run_server(tmp_path, monkeypatch):
     if not __import__("torch").cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_engine.ReplayEngine(str(tmp_path), {})

@@ -690,7 +690,7 @@ WRITE_FIRST = {
 
 
 @pytest.mark.parametrize("path", ["/rebalance", "/migrate", "/fleet-rebalance"])
-def test_the_write_side_answers_501_naming_what_is_missing(path):
+def test_write_routes_answer_a_post_405_to_a_get_and_404_elsewhere(path):
     """Once answered 501; each write route now answers a POST (its first
     answer over a dark replica), 405 to a GET, and an unknown path 404."""
     server = run_watchman(PROJECT, "http://127.0.0.1:1", host="127.0.0.1", port=0, background=True)
