@@ -164,7 +164,7 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             its bf16 twin: four buckets, every bf16 twin's scores equal to
             its ``anomaly()`` on the card within TRAIN_RTOL/TRAIN_ATOL and
             apart from its fp32 twin's;
-9. build    ``build_fleet`` on the card: 32 RandomDataset machines with the
+9. build    ``build_fleet`` on the card: 16 RandomDataset machines with the
             default model config (10 tags, 7 days at 10 min), one bespoke
             machine (a bare AutoEncoder: the single-build path), the
             ``turbine-lstm`` machine of examples/fleet.yaml (2 tags, lookback
@@ -197,7 +197,7 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             counts are theirs, summed (build-fleet's LSTM error passes launch
             K3; run-server's buckets launch K2 for every POST, and K3), not
             this process's ``anomaly()`` checks;
-11. cv      ``build_fleet`` of 32 dense machines (the default model config)
+11. cv      ``build_fleet`` of 16 dense machines (the default model config)
             and 4 ``LSTMAutoEncoder`` machines (``lstm_hourglass``, lookback
             32), each 10 tags x 1,008 rows with 3 cross-validation folds, and
             one ``cross_val_only`` machine: every gang machine carries 3 finite
@@ -429,7 +429,7 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             one, bitwise where two uninterrupted fits are, else each array
             within TRAIN_RTOL/TRAIN_ATOL; (b) steady epoch seconds with
             ``checkpoint_every=1`` against none (order none, every, every,
-            none) at 512 dense and 128 LSTM members, the ``checkpoint``
+            none) at 256 dense and 64 LSTM members, the ``checkpoint``
             spans' seconds, each piece of a span (generator states, the
             wait for the writer, the commit, the copy to the host, the
             histories' copy) and the writer's, and a save's bytes; (c) ``build-fleet
@@ -476,7 +476,7 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             rows/s, the sweeps' seconds, the adaptations' walls and
             ``pause_ms``, launches;
     gang    gang worker threads, the member-width cap, the staging engines
-            and the profiler: six 4-machine gangs (10 tags, 1,008 rows, 3
+            and the profiler: six 4-machine gangs (10 tags, 1,008 rows, 2
             epochs: dense, variational, conv, lstm_hourglass at lookbacks
             10, 12, 16; two dense machines at 7 min with the median) built
             at ``GORDO_GANG_WIDTH`` 1, 4, 1, 4 and at 4 with
@@ -502,8 +502,7 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             detection latency, adaptation and refit seconds, the swap's
             pause, FP rates before and after, K2 launches and the
             ``gordo_replay_*`` series. The cli phase also runs ``workflow
-            compile`` twice (byte-equal DAGs), ``workflow generate`` and
-            ``workflow run`` (exit 2: not ported);
+            compile`` twice (byte-equal DAGs) and ``workflow generate``;
     watchman  the watchman's read side over three one-card replicas:
             ``run-server`` subprocesses (``GORDO_STREAM=1``) over 6 dense and
             2 ``lstm_hourglass`` detectors each (10 tags, lookback 32; 24
@@ -523,11 +522,33 @@ Phases, one line each (any failure raises and the exit code is non-zero):
             frozen and stamped stale); ``run-watchman`` of the CLI. The
             snapshot's, the scrapes', the routing build's and the drift
             sweep's walls and the routed rows/s; the replicas' launches;
+    workflow  the rollout's run side: ``workflow run`` of the CLI (the
+            fleet executor) over two counted ``run-server`` replicas on the
+            card, each over a collection of its own seeded with the
+            incumbent (a plan-only run of the same spec), the spec
+            examples/fleet.yaml plus a game-day gate
+            (``replica_crash_restart``, ``gray_failure_slow_replica``) and
+            a ``rev`` a machine; a thread scores every member through the
+            tensor wire throughout. Promote (every step executed, the gate
+            passed, the served ``rev`` the new one on each replica's
+            members), an edit of one machine (only its build, its bucket
+            and the rollout tail executed), and a ``workflow.canary`` fault
+            in the executor's process (``fleet.rollback``, the incumbent
+            served again, bitwise its answers before the run); no answer
+            but 200 in any run. Each run's wall, the verdicts, the gate's
+            drill walls, every landing's ``pause_ms``, the launches;
+    gameday  ``run_gameday`` over the whole catalog: seven scenarios on
+            five mesh shapes, every replica a counted
+            ``gameday/replica.py`` child on the card and the watchman in
+            this process; each scenario passed by its own judge, the
+            document of ``GAMEDAY_SCHEMA``. Each scenario's wall, detection
+            seconds, answers other than 200 and the replicas' start times;
 13. counts  the main-path wrappers' launch counters of every path (train,
             seq_train, seq_fleet, zoo_train, zoo_fleet, bf16_train, http,
             bank, lstm, zoo_bank, bf16_bank, build, cli, cv, collection, lake,
             definitions, observe, pipeline, qos, wire, client, resilience,
-            quantized, stream, gang, replay, watchman), each reset just
+            quantized, stream, gang, replay, watchman, placement, mesh,
+            workflow, gameday), each reset just
             before its path and read just after; each kernel's total must be
             above 0 (K3's bf16 instance counted as its own kernel), K1 and K2
             above 0 on the config-4 paths, K3-bf16 on bf16_train and
@@ -543,9 +564,19 @@ runs only the named paths and checks (after the kernels' build), each
 path's launch counts from 0 and held to its kernels as in the whole run,
 then its counts and walls; the kernels' parity and numbers are the whole
 run's.
+
+The whole run drives the paths in three processes of this script at once:
+after the kernels' checks it starts two more (``--lane``), each over the
+paths of one of LANES, which it runs one after another while this process
+runs the rest; it joins them before the ``workflow`` step, whose canary and
+game-day judges read latency, and prints their lines then. Each path still
+counts its launches from 0 in the process that drives it, and every kernel
+shape the lanes' paths gave joins this process's for ``path_parity``. The
+paths' walls and rates are read beside the other lanes' work.
 """
 
 import asyncio
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -624,7 +655,7 @@ CLI_TIMEOUT_S = 600  # the deadline of each CLI subprocess
 CLI_DEVICE = "cuda"
 # the cv phase: dense and LSTM machines of the reference's widths, each
 # cross-validated over 3 folds in its gang
-CV_MEMBERS = dict(dense=32, lstm=4)  # cut from 64 and 8 (the smoke's wall)
+CV_MEMBERS = dict(dense=16, lstm=4)  # cut from 64 and 8, then 32 dense (the smoke's wall)
 CV_LSTM_EPOCHS = 3  # the LSTM machines' epochs, cut from the estimator's 10 (the smoke's wall)
 CV_EVALUATION = {"cross_validation": True, "n_splits": 3}
 # the reference bench's fleet (bench.py bench_fleet; BASELINE.json config 3)
@@ -658,7 +689,7 @@ LOOKBACK = 32
 SEQ_CONFIG = dict(kind="lstm_hourglass", lookback_window=LOOKBACK, batch_size=128)
 SEQ_EPOCHS = 5
 SEQ_CHECK_EPOCHS = 2  # seq_train's detector and validated fits (their K3 checks), cut from 5
-SEQ_FLEET_MEMBERS = 512  # cut from 1,024 (the smoke's wall)
+SEQ_FLEET_MEMBERS = 256  # cut from 1,024, then 512 (the smoke's wall)
 QUANTILE_BINS = 8192  # the sequence error pass's histogram bins
 # (S, B, M, H) of the LSTM bank's full batch: 32 steps, 97 windows of a
 # 128-row request, 64 slots, the widest hourglass layer; then ragged shapes
@@ -2744,7 +2775,7 @@ def dataset(name, tags=10):
             "tag_list": [f"{name}-tag-{j}" for j in range(tags)]}
 
 
-BUILD_MACHINES = 32  # RandomDataset machines of the build phase, cut from 64 (the smoke's wall)
+BUILD_MACHINES = 16  # RandomDataset machines of the build phase, cut from 64, then 32 (the smoke's wall)
 
 
 def build_phase():
@@ -2970,15 +3001,22 @@ def cli_client(url: str, out_dir: str, fleet: dict, runs: dict) -> dict:
     against the detector's ``anomaly()`` here, a chunk at a time) and
     ``download-model`` (the route's archive)."""
     common = ["--project", "smoke", "--base-url", url]
-    proc = cli("client_metadata", ["client", "metadata", *common])
+    predictions = os.path.join(CLI_DIR, "predictions")
+    dest = os.path.join(CLI_DIR, "compressor-a.model")
+    # the three commands at once: each reads the server only
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        metadata = pool.submit(cli, "client_metadata", ["client", "metadata", *common])
+        predict = pool.submit(cli, "client_predict", ["client", "predict", *CLI_CLIENT_RANGE, *common,
+                                                      "--parquet-dir", predictions,
+                                                      "--batch-size", str(CLI_CLIENT_BATCH)])
+        download = pool.submit(cli, "client_download", ["client", "download-model", "compressor-a", dest, *common])
+    proc = metadata.result()
     meta = json.loads(proc.stdout) if proc.returncode == 0 else {}
     if sorted(meta) != sorted(fleet) or any(
             meta[n] != http_json(f"{url}/gordo/v0/smoke/{n}/metadata")[1]["endpoint-metadata"] for n in fleet):
         raise AssertionError(f"cli client metadata exited {proc.returncode}: {proc.stdout[:500]} {proc.stderr[-1000:]}")
     runs["client_metadata"] = cli_counts("client_metadata")
-    predictions = os.path.join(CLI_DIR, "predictions")
-    proc = cli("client_predict", ["client", "predict", *CLI_CLIENT_RANGE, *common, "--parquet-dir", predictions,
-                                  "--batch-size", str(CLI_CLIENT_BATCH)])
+    proc = predict.result()
     if proc.returncode != 0 or proc.stdout.strip() != f"{len(fleet)}/{len(fleet)} machines scored successfully":
         raise AssertionError(f"cli client predict exited {proc.returncode}: {proc.stdout} {proc.stderr[-2000:]}")
     runs["client_predict"] = cli_counts("client_predict")
@@ -2995,8 +3033,7 @@ def cli_client(url: str, out_dir: str, fleet: dict, runs: dict) -> dict:
             raise AssertionError(f"cli client predict: {name}'s parquet file: columns {columns[:3]}..., "
                                  f"{None if got is None else got.shape} against {want.shape}")
         rows[name] = len(index)
-    dest = os.path.join(CLI_DIR, "compressor-a.model")
-    proc = cli("client_download", ["client", "download-model", "compressor-a", dest, *common])
+    proc = download.result()
     route = get_bytes(f"{url}/gordo/v0/smoke/compressor-a/download-model")
     with open(dest, "rb") as f:
         got = f.read()
@@ -3015,8 +3052,8 @@ def workflow_cli(args):
 
 def cli_workflow() -> dict:
     """examples/fleet.yaml through ``workflow compile`` twice and ``workflow
-    generate`` once: each exits 0, the two DAGs are byte-equal, and
-    ``workflow run`` (not ported) exits 2. Returns the readings."""
+    generate`` once: each exits 0 and the two DAGs are byte-equal (``workflow
+    run`` is the ``workflow`` step's). Returns the readings."""
     out, seconds = {}, {}
     for run in ("compile_1", "compile_2", "generate"):
         command = "generate" if run == "generate" else "compile"
@@ -3038,18 +3075,15 @@ def cli_workflow() -> dict:
     jobs = manifest.count("\nkind: Job\n")
     if jobs != counts["bucket"] or "GORDO_SLO_OBJECTIVES" not in manifest:
         raise AssertionError(f"cli workflow generate: {jobs} Jobs for {counts['bucket']} buckets")
-    proc = workflow_cli(["run", "-f", FLEET_YAML, "-p", "smoke"])
-    if proc.returncode != 2 or "A13" not in proc.stderr:
-        raise AssertionError(f"cli workflow run exited {proc.returncode}, not 2: {proc.stderr[-2000:]}")
     return {"dag_bytes": len(dag), "dag_sha256": hashlib.sha256(dag).hexdigest()[:16], "jobs": jobs,
-            "manifest_bytes": len(manifest.encode()), "exit_run": 2, "seconds": seconds}
+            "manifest_bytes": len(manifest.encode()), "seconds": seconds}
 
 
 def cli_phase():
     """examples/fleet.yaml through ``build-fleet`` and ``run-server``, one
     anomaly POST a machine held against its detector's ``anomaly()`` here;
     ``build`` with cross-validation; the exit codes 81 and 84;
-    ``workflow compile`` twice, ``workflow generate`` and ``workflow run``
+    ``workflow compile`` twice and ``workflow generate``
     (``cli_workflow``). Returns the
     launch counts of the CLI runs, summed: this process's launches (the
     ``anomaly()`` checks) are not the CLI's."""
@@ -3059,6 +3093,64 @@ def cli_phase():
     with open(FLEET_YAML) as f:
         fleet = {m["name"]: m for m in safe_load(f)["machines"]}
     runs = {}
+    data_config = json.dumps(fleet["compressor-a"]["dataset"])
+    env = {"MACHINE_NAME": "compressor-a", "MODEL_CONFIG": json.dumps(DEFAULT_MODEL_CONFIG),
+           "DATA_CONFIG": data_config, "OUTPUT_DIR": os.path.join(CLI_DIR, "single"),
+           "EVALUATION_CONFIG": '{"cross_validation": true, "n_splits": 3}'}
+    payload = os.path.join(CLI_DIR, "partial.json")
+    with open(payload, "w") as f:
+        json.dump({"machines": [fleet["compressor-a"],
+                                {"name": "ghost", "dataset": fleet["compressor-a"]["dataset"],
+                                 "model": {"no.such.Model": {}}}]}, f)
+    # the runs that need no server go beside build-fleet and run-server
+    side = concurrent.futures.ThreadPoolExecutor(4)
+    build_cv = side.submit(cli, "build_cv", ["build", "--print-cv-scores"], env=env)
+    build_unparsable = side.submit(cli, "build_unparsable", ["build"], env=dict(env, MODEL_CONFIG="{unclosed: [1, 2"))
+    build_partial = side.submit(cli, "build_partial", ["build-fleet", "--machines-file", payload,
+                                                       "--output-dir", os.path.join(CLI_DIR, "partial")])
+    workflow = side.submit(cli_workflow)
+    try:
+        client, build_s, serve_s, server = cli_serve(fleet, out_dir, runs)
+    finally:
+        side.shutdown()
+    proc = build_cv.result()
+    if proc.returncode != 0:
+        raise AssertionError(f"cli build exited {proc.returncode}: {proc.stderr[-2000:]}")
+    folds = json.loads(proc.stdout.splitlines()[0])["per-fold"]
+    if len(folds) != 3 or not np.all(np.isfinite(folds)):
+        raise AssertionError(f"cli build --print-cv-scores printed {folds}")
+    runs["build_cv"] = cli_counts("build_cv")
+    proc = build_unparsable.result()
+    if proc.returncode != 81:
+        raise AssertionError(f"cli build of a config that does not parse exited {proc.returncode}, not 81")
+    runs["build_unparsable"] = cli_counts("build_unparsable")
+    proc = build_partial.result()
+    partial = json.loads(proc.stdout) if proc.stdout.strip() else {}
+    if proc.returncode != 84 or sorted(partial.get("failed", {})) != ["ghost"]:
+        raise AssertionError(f"cli build-fleet of a partial payload exited {proc.returncode}: {partial}")
+    runs["build_partial"] = cli_counts("build_partial")
+    workflow = workflow.result()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    # turbine-lstm's error passes in build-fleet, and every POST scored by
+    # its bucket behind run-server (the LSTM bucket's layers too)
+    if runs["build_fleet"]["lstm_layer"] <= 0 or runs["run_server"]["lstm_layer"] <= 0:
+        raise AssertionError(f"cli: an LSTM path launched no lstm_layer: {runs}")
+    if runs["run_server"]["banked_anomaly_score"] < len(fleet):
+        raise AssertionError(f"cli run-server: {len(fleet)} POSTs, banked launches {runs}")
+    phase("cli", built=json.dumps(sorted(fleet)), build_fleet_s=round(build_s, 3),
+          server_ready_s=round(serve_s, 3), posts=len(fleet), checked="all six arrays vs anomaly() here",
+          server_exit_on_sigterm=server.returncode, cv_folds=json.dumps(folds), exit_unparsable=81,
+          exit_partial=84, partial_failed=json.dumps(sorted(partial["failed"])),
+          client=json.dumps(client), workflow=json.dumps(workflow), launches_by_run=json.dumps(runs))
+    return {k: sum(c[k] for c in runs.values()) for k in runs["build_fleet"]}
+
+
+def cli_serve(fleet: dict, out_dir: str, runs: dict) -> tuple:
+    """``build-fleet`` of examples/fleet.yaml into ``out_dir``, then
+    ``run-server`` over it: one anomaly POST a machine held against its
+    detector's ``anomaly()`` here, and the ``client`` commands
+    (``cli_client``); (client readings, build s, server-ready s, the
+    stopped server)."""
     t0 = time.perf_counter()
     proc = cli("build_fleet", ["build-fleet", "--machines-file", FLEET_YAML, "--output-dir", out_dir])
     build_s = time.perf_counter() - t0
@@ -3098,47 +3190,7 @@ def cli_phase():
     if server.returncode != 0:
         raise AssertionError(f"cli run-server exited {server.returncode} on SIGTERM")
     runs["run_server"] = cli_counts("run_server")
-
-    data_config = json.dumps(fleet["compressor-a"]["dataset"])
-    env = {"MACHINE_NAME": "compressor-a", "MODEL_CONFIG": json.dumps(DEFAULT_MODEL_CONFIG),
-           "DATA_CONFIG": data_config, "OUTPUT_DIR": os.path.join(CLI_DIR, "single"),
-           "EVALUATION_CONFIG": '{"cross_validation": true, "n_splits": 3}'}
-    proc = cli("build_cv", ["build", "--print-cv-scores"], env=env)
-    if proc.returncode != 0:
-        raise AssertionError(f"cli build exited {proc.returncode}: {proc.stderr[-2000:]}")
-    folds = json.loads(proc.stdout.splitlines()[0])["per-fold"]
-    if len(folds) != 3 or not np.all(np.isfinite(folds)):
-        raise AssertionError(f"cli build --print-cv-scores printed {folds}")
-    runs["build_cv"] = cli_counts("build_cv")
-    proc = cli("build_unparsable", ["build"], env=dict(env, MODEL_CONFIG="{unclosed: [1, 2"))
-    if proc.returncode != 81:
-        raise AssertionError(f"cli build of a config that does not parse exited {proc.returncode}, not 81")
-    runs["build_unparsable"] = cli_counts("build_unparsable")
-    payload = os.path.join(CLI_DIR, "partial.json")
-    with open(payload, "w") as f:
-        json.dump({"machines": [fleet["compressor-a"],
-                                {"name": "ghost", "dataset": fleet["compressor-a"]["dataset"],
-                                 "model": {"no.such.Model": {}}}]}, f)
-    proc = cli("build_partial", ["build-fleet", "--machines-file", payload,
-                                 "--output-dir", os.path.join(CLI_DIR, "partial")])
-    partial = json.loads(proc.stdout) if proc.stdout.strip() else {}
-    if proc.returncode != 84 or sorted(partial.get("failed", {})) != ["ghost"]:
-        raise AssertionError(f"cli build-fleet of a partial payload exited {proc.returncode}: {partial}")
-    runs["build_partial"] = cli_counts("build_partial")
-    workflow = cli_workflow()
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
-    # turbine-lstm's error passes in build-fleet, and every POST scored by
-    # its bucket behind run-server (the LSTM bucket's layers too)
-    if runs["build_fleet"]["lstm_layer"] <= 0 or runs["run_server"]["lstm_layer"] <= 0:
-        raise AssertionError(f"cli: an LSTM path launched no lstm_layer: {runs}")
-    if runs["run_server"]["banked_anomaly_score"] < len(fleet):
-        raise AssertionError(f"cli run-server: {len(fleet)} POSTs, banked launches {runs}")
-    phase("cli", built=json.dumps(sorted(manifest["built"])), build_fleet_s=round(build_s, 3),
-          server_ready_s=round(serve_s, 3), posts=len(fleet), checked="all six arrays vs anomaly() here",
-          server_exit_on_sigterm=server.returncode, cv_folds=json.dumps(folds), exit_unparsable=81,
-          exit_partial=84, partial_failed=json.dumps(sorted(partial["failed"])),
-          client=json.dumps(client), workflow=json.dumps(workflow), launches_by_run=json.dumps(runs))
-    return {k: sum(c[k] for c in runs.values()) for k in runs["build_fleet"]}
+    return client, build_s, serve_s, server
 
 
 # ------------------------------------------------------------------ #
@@ -3158,7 +3210,7 @@ def cv_machines():
 
 
 def cv_phase(card: str):
-    """``build_fleet`` of 32 dense and 4 LSTM machines, each cross-validated
+    """``build_fleet`` of 16 dense and 4 LSTM machines, each cross-validated
     in its gang, and one ``cross_val_only`` machine; then the first machine
     of each family single-built, its folds against the gang's."""
     shutil.rmtree(CV_DIR, ignore_errors=True)
@@ -4277,7 +4329,7 @@ PIPELINE_BATCHES = 200  # back-to-back mixed batches at each window
 PIPELINE_REQUESTS = 64  # a batch
 PIPELINE_ROWS = (40, 400)  # a request's rows, drawn from a seed
 PIPELINE_WINDOWS = (1, 2, 4)  # GORDO_BANK_INFLIGHT
-PIPELINE_ROUNDS = 3  # rounds of (a, b, b, a): medians of 6 runs a side; cut from 5
+PIPELINE_ROUNDS = 2  # rounds of (a, b, b, a): medians of 4 runs a side; cut from 5, then 3 (the smoke's wall)
 PIPELINE_LOOP = dict(clients=64, requests=4, rows=128)  # the window-1/2 loop
 PLANES_LOOP = dict(clients=16, requests=4, rows=64)  # the planes' loop, over HTTP
 PLANES_OFF = {"GORDO_TRACE_SAMPLE": "0", "GORDO_SLO": "0", "GORDO_COST": "0"}
@@ -4614,8 +4666,8 @@ QOS_FLOOD_FAMILIES = ("dense", "lstm", "conv", "dense_bf16")
 QOS_FLOOD_MEMBERS = 1_000  # a family
 QOS_FLOOD = {"interactive": 64, "batch": 64, "best_effort": 512}  # requests a class, all at once
 QOS_FLOOD_ROWS = 64
-QOS_RUNS = 3  # flood and no flood, in turns after one untimed run each; cut from 5
-QOS_RELOADS = 5  # warm and cold reloads, in turns
+QOS_RUNS = 2  # flood and no flood, in turns after one untimed run each; cut from 5, then 3 (the smoke's wall)
+QOS_RELOADS = 3  # warm and cold reloads, in turns; cut from 5 (the smoke's wall)
 QOS_TENANT = "smoke-tenant"
 QOS_ENV = {"GORDO_QOS_TENANTS": json.dumps({QOS_TENANT: {"rate": 5.0, "burst": 5}}),
            "GORDO_HISTORY": "1", "GORDO_HISTORY_INTERVAL_S": "1", "GORDO_HISTORY_TIERS": "1s@5m,1m@6h"}
@@ -5459,7 +5511,7 @@ CLIENT_DATASET = {"type": "RandomDataset", "tag_list": CLIENT_TAGS, "resolution"
 CLIENT_RANGE = ("2020-01-01T00:00:00Z", "2020-01-05T00:00:00Z")
 CLIENT_ROWS = 576  # CLIENT_RANGE's rows at 10 min
 CLIENT_BATCH = 100  # rows a chunk: 6 chunks a target, each past the LSTM's 31-row warm-up
-CLIENT_ROUNDS = 3  # timed bulk runs a rung
+CLIENT_ROUNDS = 2  # timed bulk runs a rung, cut from 3 (the smoke's wall)
 CLIENT_RUNGS = {  # the bulk run's transport and encoding
     "tcp_json": dict(transport="tcp", use_tensor=False, use_parquet=False),
     "tcp_tensor": dict(transport="tcp", use_tensor=True),
@@ -5700,11 +5752,11 @@ RES_DIR = os.path.join(ROOT, "build", "chip_smoke_resilience")
 RES_DENSE = dict(kind="feedforward_hourglass", epochs=6, batch_size=128, validation_split=0.1,
                  early_stopping_patience=2)
 RES_DENSE_MEMBERS = 256
-RES_LSTM = dict(model_type="LSTMAutoEncoder", epochs=4, **SEQ_CONFIG)
+RES_LSTM = dict(model_type="LSTMAutoEncoder", epochs=3, **SEQ_CONFIG)  # epochs cut from 4 (the smoke's wall)
 RES_LSTM_MEMBERS = 16
-RES_COST_DENSE_MEMBERS = 512  # the save legs' dense fleet, cut from 1,024
-RES_COST_LSTM_MEMBERS = 128  # cut from 256
-RES_COST_LSTM_EPOCHS = 3
+RES_COST_DENSE_MEMBERS = 256  # the save legs' dense fleet, cut from 1,024, then 512 (the smoke's wall)
+RES_COST_LSTM_MEMBERS = 64  # cut from 256, then 128 (the smoke's wall)
+RES_COST_LSTM_EPOCHS = 2  # cut from 3 (the smoke's wall)
 RES_KILL_EPOCH = 2  # the CLI build is SIGKILLed once its heartbeat is training at this epoch or later
 RES_GANG = dict(lstm=4, dense=8, lstm_epochs=4, dense_epochs=4)  # lstm_epochs cut from 5
 RES_COST_ROUNDS = 3  # interleaved score_many rounds (real, stub, stub, real); cut from 5
@@ -6544,11 +6596,11 @@ def stream_phase(card: str):
 
 GANG_DIR = os.path.join(ROOT, "build", "chip_smoke_gang")
 GANG_MEMBERS = 4  # machines a gang
-GANG_EPOCHS = 3
+GANG_EPOCHS = 2  # cut from 3 (the smoke's wall)
 GANG_LOOKBACKS = (10, 12, 16)  # the lstm_hourglass gangs
 GANG_WIDTHS = (1, 4, 1, 4)  # GORDO_GANG_WIDTH of the four builds; the second and third are the fair pair
 GANG_CAP = 256  # the member-width cap the train phase's fleet is fitted at, beside no cap
-GANG_CAP_EPOCHS = 3
+GANG_CAP_EPOCHS = 2  # cut from 3 (the smoke's wall)
 GANG_TRACE_ID = "0af7651916cd43dd8448eb211c80319c"
 GANG_CAPTURES = 16  # traced POSTs of the bank group, each captured and each held to K2 and K3
 GANG_PROCESS_WORKERS = 2  # the process engine's workers a group
@@ -7622,6 +7674,314 @@ def mesh_phase(card: str):
     return total
 
 
+WORKFLOW_DIR = os.path.join(ROOT, "build", "chip_smoke_workflow")
+WORKFLOW_REPLICAS = 2  # at the spec's canary slice of 0.25: one canary replica, one promoted
+WORKFLOW_GATE = ["replica_crash_restart", "gray_failure_slow_replica"]
+WORKFLOW_ROWS = 64  # rows a scoring request (past turbine-lstm's lookback of 12)
+WORKFLOW_EDITED = "compressor-a"  # the machine the second and third runs edit
+WORKFLOW_FAULT = "workflow.canary=error,times=1"
+
+
+def workflow_spec(revs: dict) -> str:
+    """examples/fleet.yaml plus the game-day gate and a ``rev`` in each
+    machine's metadata (``revs``, else 1), written as JSON (a YAML flow
+    document) under build/; its path."""
+    with open(FLEET_YAML) as f:
+        spec = safe_load(f)
+    spec["fleet"]["gameday"] = {"gate": list(WORKFLOW_GATE)}
+    for machine in spec["machines"]:
+        machine["metadata"] = dict(machine.get("metadata") or {}, rev=revs.get(machine["name"], 1))
+    path = os.path.join(WORKFLOW_DIR, "fleet.json")
+    with open(path, "w") as f:
+        json.dump(spec, f, indent=1)
+    return path
+
+
+def served_rev(base: str, name: str):
+    status, body = http_json(f"{base}/gordo/v0/smoke/{name}/metadata")
+    return body["endpoint-metadata"]["user-defined"].get("rev") if status == 200 else status
+
+
+class WorkflowTraffic:
+    """A thread that scores every member on every replica through the tensor
+    wire, in turns, until stopped; every status it got."""
+
+    def __init__(self, bases, names, rng):
+        self.targets = [(b, n) for n in names for b in bases]
+        self.X = rng.standard_normal((WORKFLOW_ROWS, 3)).astype(np.float32)
+        self.X2 = rng.standard_normal((WORKFLOW_ROWS, 2)).astype(np.float32)
+        self.statuses, self._stop = [], threading.Event()
+        self._thread = threading.Thread(target=self._run)
+
+    def _run(self):
+        i = 0
+        while not self._stop.is_set():
+            base, name = self.targets[i % len(self.targets)]
+            X = self.X2 if name == "turbine-lstm" else self.X
+            self.statuses.append(mesh_score(base, name, X)[0])
+            i += 1
+            time.sleep(0.02)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def workflow_events(bases, since: dict) -> dict:
+    """Each replica's ``bank.swap`` pauses (ms) after ``since``'s sequence
+    numbers, which move on to the newest."""
+    out = {}
+    for r, base in enumerate(bases):
+        events = http_json(f"{base}/gordo/v0/smoke/events?type=bank.swap")[1]["events"]
+        fresh = [e for e in events if e["seq"] > since.get(r, 0)]
+        if fresh:
+            since[r] = fresh[-1]["seq"]
+        out[r] = [e["attrs"]["pause_ms"] for e in fresh]
+    return out
+
+
+def workflow_placement(state: str) -> dict:
+    """The executor's member -> replica assignment (replica index as a
+    string -> names), as its last place step recorded it."""
+    with open(os.path.join(state, "fleet_state.json")) as f:
+        return json.load(f)["placement"]
+
+
+def workflow_run(run: str, spec: str, bases, collections, state: str, traffic, env=None) -> tuple:
+    """One counted ``workflow run`` of the CLI over the replicas under the
+    traffic; (exit code, report, wall s)."""
+    args = ["workflow", "run", "-f", spec, "-p", "smoke", "--state-dir", state]
+    for base, cdir in zip(bases, collections):
+        args += ["--server-url", base, "--collection-dir", cdir]
+    t = time.perf_counter()
+    proc = cli(run, args, env=env, counts_dir=WORKFLOW_DIR)
+    wall = round(time.perf_counter() - t, 3)
+    try:
+        report = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        raise AssertionError(f"workflow {run} exited {proc.returncode}: {proc.stdout[-1000:]} "
+                             f"{proc.stderr[-3000:]}") from None
+    return proc.returncode, report, wall
+
+
+def workflow_phase(card: str):
+    """The rollout's run side on the card: ``workflow run`` (the fleet
+    executor, one counted CLI process a run) over two counted ``run-server``
+    replicas, each over a collection of its own seeded with the incumbent,
+    a plan-only run of the same spec at ``rev`` 0. Run 1 (``rev`` 1):
+    every step executed, the gate passed, the served ``rev`` 1 on each
+    replica's assigned members; run 2 edits one machine: its build, its
+    bucket and the rollout tail executed, the rest cached; run 3 edits it
+    again with ``workflow.canary`` armed in the executor's process: exit 84,
+    a ``fleet.rollback``, the incumbent (run 2's) served again with answers
+    bitwise those before the run. A thread scores every member on both
+    replicas through the tensor wire in every run: no answer but 200.
+    Returns the launch counts of the replicas and the CLI runs, summed."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(WORKFLOW_DIR, ignore_errors=True)
+    os.makedirs(WORKFLOW_DIR)
+    state = os.path.join(WORKFLOW_DIR, "state")
+    rng = np.random.default_rng(26)
+    readings, runs, servers, logs = {}, {}, [], []
+    with open(FLEET_YAML) as f:
+        names = sorted(m["name"] for m in safe_load(f)["machines"])
+
+    # the incumbent: a plan-only run (no replica) of the spec at rev 0
+    spec = workflow_spec({n: 0 for n in names})
+    rc, report, wall = workflow_run("workflow_plan", spec, [], [], state, None)
+    if rc != 0 or report["failed"] or report["steps"]["promote/fleet"]["status"] != "planned":
+        raise AssertionError(f"workflow plan-only run exited {rc}: {json.dumps(report)[:2000]}")
+    runs["workflow_plan"] = cli_counts("workflow_plan", counts_dir=WORKFLOW_DIR)
+    readings["plan_wall_s"] = wall
+    artifacts = os.path.join(state, "artifacts")
+    collections = [os.path.join(WORKFLOW_DIR, f"collection-{r}") for r in range(WORKFLOW_REPLICAS)]
+    for cdir in collections:
+        for name in names:
+            shutil.copytree(os.path.join(artifacts, name), os.path.join(cdir, name))
+    try:
+        t0 = time.perf_counter()
+        bases = []
+        for r, cdir in enumerate(collections):
+            port = free_port()
+            log = open(os.path.join(WORKFLOW_DIR, f"replica-{r}.log"), "w")
+            servers.append(subprocess.Popen(
+                cli_command(f"workflow_replica_{r}", ["run-server", "--model-dir", cdir, "--host", "127.0.0.1",
+                                                      "--port", str(port)], counts_dir=WORKFLOW_DIR),
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+            bases.append(f"http://127.0.0.1:{port}")
+            logs.append(log)
+        for base, server in zip(bases, servers):
+            wait_for_models(f"{base}/gordo/v0/smoke", server, t0)
+        readings["replicas_ready_s"] = round(time.perf_counter() - t0, 3)
+        since = {}
+        workflow_events(bases, since)
+
+        # run 1: promote
+        spec = workflow_spec({})
+        with WorkflowTraffic(bases, names, rng) as traffic:
+            rc, report, wall = workflow_run("workflow_promote", spec, bases, collections, state, traffic)
+        gate = report.get("gameday_gate") or {}
+        placement = workflow_placement(state)
+        revs = {r: {n: served_rev(bases[r], n) for n in placement[str(r)]} for r in range(WORKFLOW_REPLICAS)}
+        if (rc != 0 or report["failed"] or report["cached"] or not report["promoted"]
+                or sorted(report["executed"]) != sorted(report["steps"]) or not gate.get("passed")
+                or sorted(gate["scenarios"]) != sorted(WORKFLOW_GATE) or set(traffic.statuses) != {200}
+                or any(v != 1 for rv in revs.values() for v in rv.values())
+                or sorted(n for part in placement.values() for n in part) != names):
+            raise AssertionError(f"workflow promote: exit {rc}, statuses {sorted(set(traffic.statuses))}, revs "
+                                 f"{revs}: {json.dumps(report, default=str)[:3000]}")
+        readings["promote"] = {
+            "wall_s": wall, "executed": len(report["executed"]), "verdict": report["canary"]["decision"],
+            "reason": report["canary"]["reason"], "window": report.get("canary_window"),
+            "gate_walls_s": {n: v["wall_seconds"] for n, v in gate["scenarios"].items()},
+            "gate_non_200": {n: v["non_200"] for n, v in gate["scenarios"].items()},
+            "posts": len(traffic.statuses), "non_200": 0, "placement": placement,
+            "pause_ms": workflow_events(bases, since)}
+        runs["workflow_promote"] = cli_counts("workflow_promote", counts_dir=WORKFLOW_DIR)
+
+        # run 2: one machine edited
+        spec = workflow_spec({WORKFLOW_EDITED: 2})
+        with WorkflowTraffic(bases, names, rng) as traffic:
+            rc, report, wall = workflow_run("workflow_edit", spec, bases, collections, state, traffic)
+        with open(os.path.join(state, "fleet_dag.json")) as f:
+            dag_steps = json.load(f)["steps"]
+        bucket = next(st["id"] for st in dag_steps if f"build/{WORKFLOW_EDITED}" in st.get("deps", ()))
+        tail = [st["id"] for st in dag_steps if st["kind"] in ("place", "canary", "gameday", "promote")]
+        placement = workflow_placement(state)
+        # the edited machine sits on the canary replica (the first), so the
+        # fault run's rollback has its bytes to restore
+        owner_base = bases[next(int(r) for r, part in placement.items() if WORKFLOW_EDITED in part)]
+        if (rc != 0 or report["failed"] or not report["promoted"] or owner_base != bases[0]
+                or sorted(report["executed"]) != sorted([f"build/{WORKFLOW_EDITED}", bucket, *tail])
+                or sorted(report["cached"]) != sorted(set(report["steps"]) - set(report["executed"]))
+                or set(traffic.statuses) != {200} or served_rev(owner_base, WORKFLOW_EDITED) != 2):
+            raise AssertionError(f"workflow edit: exit {rc}, statuses {sorted(set(traffic.statuses))}: "
+                                 f"{json.dumps(report, default=str)[:3000]}")
+        readings["edit"] = {"wall_s": wall, "executed": report["executed"], "cached": report["cached"],
+                            "verdict": report["canary"]["decision"], "reason": report["canary"]["reason"],
+                            "posts": len(traffic.statuses), "non_200": 0,
+                            "pause_ms": workflow_events(bases, since)}
+        runs["workflow_edit"] = cli_counts("workflow_edit", counts_dir=WORKFLOW_DIR)
+
+        # run 3: edited again, the canary's fault point armed in the executor
+        X = rng.standard_normal((WORKFLOW_ROWS, 3)).astype(np.float32)
+        before = mesh_score(owner_base, WORKFLOW_EDITED, X)
+        spec = workflow_spec({WORKFLOW_EDITED: 3})
+        with WorkflowTraffic(bases, names, rng) as traffic:
+            rc, report, wall = workflow_run("workflow_fault", spec, bases, collections, state, traffic,
+                                            env={"GORDO_FAULTS": WORKFLOW_FAULT})
+        after = mesh_score(owner_base, WORKFLOW_EDITED, X)
+        if (rc != 84 or workflow_placement(state) != placement or report["steps"]["canary/fleet"]["status"] != "failed" or not report["rolled_back"]
+                or report["promoted"] or report["canary"]["decision"] != "rollback"
+                or "FaultInjected" not in report["canary"]["reason"] or set(traffic.statuses) != {200}
+                or before[0] != 200 or after != before or served_rev(owner_base, WORKFLOW_EDITED) != 2):
+            raise AssertionError(f"workflow fault: exit {rc}, statuses {sorted(set(traffic.statuses))}, bitwise "
+                                 f"{after == before}: {json.dumps(report, default=str)[:3000]}")
+        readings["fault"] = {"wall_s": wall, "exit": rc, "reason": report["canary"]["reason"],
+                             "rolled_back": True, "bitwise": True, "posts": len(traffic.statuses), "non_200": 0,
+                             "pause_ms": workflow_events(bases, since)}
+        runs["workflow_fault"] = cli_counts("workflow_fault", counts_dir=WORKFLOW_DIR)
+    finally:
+        for server in servers:
+            stop_server(server)
+        for log in logs:
+            log.close()
+    for r, server in enumerate(servers):
+        if server.returncode != 0:
+            raise AssertionError(f"workflow replica {r} exited {server.returncode} on SIGTERM")
+        runs[f"replica_{r}"] = cli_counts(f"workflow_replica_{r}", counts_dir=WORKFLOW_DIR)
+    shutil.rmtree(WORKFLOW_DIR, ignore_errors=True)
+    total = {k: sum(c[k] for c in runs.values()) for k in runs["replica_0"]}
+    readings["wall_s"] = round(time.perf_counter() - t_phase, 3)
+    phase("workflow", machines=len(names), replicas=WORKFLOW_REPLICAS, gate=json.dumps(WORKFLOW_GATE),
+          launches_by_run=json.dumps(runs),
+          **{k: json.dumps(v) if isinstance(v, (list, dict)) else v for k, v in readings.items()},
+          card=json.dumps(card))
+    return total
+
+
+GAMEDAY_DIR = os.path.join(ROOT, "build", "chip_smoke_gameday")
+GAMEDAY_ENV = {"GORDO_SERVER_WARMUP": "1"}  # the replicas' warm-up at start: the server's default
+# the latency-judged drills' evidence, printed beside each scenario's wall
+GAMEDAY_EVIDENCE = ("burn_peak", "hedge_wins", "interactive_p99_baseline_s", "interactive_p99_flood_s",
+                    "interactive_p99_ratio", "shed_precision", "class_burn_peak", "flood_requests")
+# the replica child under COUNTED_CLI's counting: its launch counts and
+# kernel shapes written as it exits (SIGTERM); a SIGKILLed child writes none
+COUNTED_REPLICA = COUNTED_CLI.replace('runpy.run_module("gordo_components_torch.cli"',
+                                      'runpy.run_module("gordo_components_torch.gameday.replica"')
+
+
+def gameday_phase(card: str):
+    """``run_gameday`` over the whole catalog on the card: seven scenarios
+    on five mesh shapes, every replica a ``gameday/replica.py`` child under
+    ``COUNTED_REPLICA`` (the harness's ``_spawn`` swapped for that command
+    here), the watchman in this process. Each scenario must pass by its own
+    judge and the document be of ``GAMEDAY_SCHEMA``. Returns the
+    replicas' launch counts, summed (a SIGKILLed child's are lost)."""
+    from gordo_components_torch.gameday import harness
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(GAMEDAY_DIR, ignore_errors=True)
+    root = os.path.join(GAMEDAY_DIR, "fleet")
+    os.makedirs(root)
+    spawned, ready = [], []
+
+    def counted_spawn(mesh, index):
+        run = f"replica_{len(spawned)}"
+        spawned.append(run)
+        log = open(os.path.join(GAMEDAY_DIR, f"{run}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", COUNTED_REPLICA, os.path.join(GAMEDAY_DIR, f"{run}.counts.json"),
+             "--root", mesh.root, "--port", str(mesh.ports[index]), "--device", mesh.device],
+            cwd=ROOT, env=mesh._child_env(index), stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+        return proc
+
+    real_spawn, real_wait = harness.GamedayMesh._spawn, harness.GamedayMesh.wait_ready
+
+    async def timed_wait(mesh, index, timeout=240.0):
+        t = time.perf_counter()
+        await real_wait(mesh, index, timeout)
+        ready.append(round(time.perf_counter() - t, 3))
+
+    harness.GamedayMesh._spawn, harness.GamedayMesh.wait_ready = counted_spawn, timed_wait
+    try:
+        # the replicas warm their banks at start, the server's default (the
+        # harness turns warm-up off only where the caller left it unset)
+        with env_set(GAMEDAY_ENV):
+            doc = asyncio.run(harness.run_gameday(root, device=CLI_DEVICE, progress=lambda msg: None))
+    finally:
+        harness.GamedayMesh._spawn, harness.GamedayMesh.wait_ready = real_spawn, real_wait
+    with open(os.path.join(GAMEDAY_DIR, "gameday.json"), "w") as f:
+        json.dump(doc, f, indent=1, default=str)
+    want = [n for shape in harness.SHAPE_ORDER for n in harness.SCENARIOS if harness.SCENARIOS[n].mesh == shape]
+    failed = {n: v["failures"] for n, v in doc["scenarios"].items() if not v["passed"]}
+    scenarios = {n: {"wall_s": v["wall_seconds"], "detection_s": v.get("detection_latency_s"),
+                     "non_200": v.get("non_200"), "recovery_s": v.get("recovery_s"),
+                     "single_core": v.get("single_core"),
+                     **{k: v[k] for k in GAMEDAY_EVIDENCE if k in v}} for n, v in doc["scenarios"].items()}
+    if doc["schema"] != harness.GAMEDAY_SCHEMA or list(doc["scenarios"]) != want or failed or not doc["passed"]:
+        print(harness.render_verdict_table(doc), file=sys.stderr)
+        raise AssertionError(f"gameday: {json.dumps(failed, default=str)[:3000]} "
+                             f"{json.dumps(scenarios, default=str)[:2000]}")
+    runs = {run: cli_counts(run, counts_dir=GAMEDAY_DIR) for run in spawned
+            if os.path.exists(os.path.join(GAMEDAY_DIR, f"{run}.counts.json"))}
+    shutil.rmtree(GAMEDAY_DIR, ignore_errors=True)
+    total = {k: sum(c[k] for c in runs.values()) for k in next(iter(runs.values()))}
+    if total["banked_anomaly_score"] <= 0:
+        raise AssertionError(f"gameday: the replicas launched {runs}")
+    phase("gameday", scenarios=len(doc["scenarios"]), passed=True, schema=doc["schema"], env=json.dumps(GAMEDAY_ENV),
+          cpu_count=doc["cpu_count"], single_core=doc["single_core"], by_scenario=json.dumps(scenarios),
+          replicas_spawned=len(spawned), replicas_counted=len(runs), replicas_ready_s=json.dumps(ready),
+          launches_by_run=json.dumps(runs), wall_s=round(time.perf_counter() - t_phase, 3),
+          card=json.dumps(card))
+    return total
+
+
 # (path, kernel): the kernels each path must launch in its own run
 PATH_KERNELS = (
     ("seq_train", "lstm_layer"), ("seq_fleet", "lstm_layer"),
@@ -7654,6 +8014,8 @@ PATH_KERNELS = (
     ("watchman", "banked_anomaly_score"), ("watchman", "lstm_layer"),
     ("placement", "banked_anomaly_score"), ("placement", "lstm_layer"),
     ("mesh", "banked_anomaly_score"), ("mesh", "lstm_layer"),
+    ("workflow", "banked_anomaly_score"), ("workflow", "lstm_layer"),
+    ("gameday", "banked_anomaly_score"),
     ("bf16_train", "lstm_layer_bf16"),
     ("bf16_train", "fused_anomaly_score"), ("bf16_bank", "lstm_layer_bf16"),
     ("bf16_bank", "banked_anomaly_score"), ("bf16_bank", "fused_anomaly_score"),
@@ -7700,10 +8062,101 @@ def steps(card: str) -> list:
         ("watchman", "sub", watchman_phase, (card,)),
         ("placement", "path", placement_phase, (card,)),
         ("mesh", "sub", mesh_phase, (card,)),
+        ("workflow", "sub", workflow_phase, (card,)),
+        ("gameday", "sub", gameday_phase, (card,)),
     ]
 
 
+# the paths that two more processes of a whole run drive (main), each lane
+# its paths one after another beside the first process's: paths that judge
+# no latency, about a third of the run's wall each (PERF.md §6). The lanes
+# are joined before LANE_JOIN.
+LANES = (
+    ("cli", "cv", "cv_parity", "collection", "lake", "definitions", "resilience", "watchman"),
+    ("observe", "pipeline", "qos", "wire", "client", "quantized", "stream", "gang", "replay", "placement", "mesh"),
+)
+LANE_JOIN = "workflow"
+LANE_TIMEOUT_S = 900  # a lane's whole wall at most
+LANE_DIR = os.path.join(ROOT, "build", "chip_smoke_lane")
+LANE_COMMAND = [sys.executable, os.path.abspath(__file__)]
+
+
+def start_lane(index: int, names) -> tuple:
+    """A process of this script driving the paths ``names`` in a session of
+    its own (its output to files under LANE_DIR); (process, result path,
+    its directory)."""
+    root = os.path.join(LANE_DIR, str(index))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = os.path.join(root, "lane.json")
+    with open(os.path.join(root, "stdout.log"), "w") as so, open(os.path.join(root, "stderr.log"), "w") as se:
+        proc = subprocess.Popen([*LANE_COMMAND, "--lane", out, *names], cwd=ROOT, stdout=so, stderr=se,
+                                start_new_session=True, preexec_fn=_end_with_parent)
+    return proc, out, root
+
+
+def _end_with_parent() -> None:
+    """In a lane before it starts: SIGTERM it if this process dies
+    (PR_SET_PDEATHSIG), so that it stops what it started."""
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGTERM)
+
+
+def stop_lane(proc) -> None:
+    """SIGTERM a lane (its phases stop their servers as they unwind); kill
+    its session if it has not ended in a minute."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def join_lane(proc, out: str, root: str, deadline: float) -> dict:
+    """Wait for a lane until ``deadline`` (perf_counter); print its phase
+    lines (and its log to stderr); its result: each path's counts, each
+    step's wall, its kernel shapes (joined to PATH_SHAPES here)."""
+    try:
+        rc = proc.wait(max(deadline - time.perf_counter(), 1.0))
+    except subprocess.TimeoutExpired:
+        stop_lane(proc)
+        rc = None
+    with open(os.path.join(root, "stdout.log")) as f:
+        sys.stdout.write(f.read())
+    with open(os.path.join(root, "stderr.log")) as f:
+        sys.stderr.write(f.read())
+    sys.stdout.flush()
+    sys.stderr.flush()
+    if rc != 0:
+        raise AssertionError(f"the lane {' '.join(proc.args[4:])} " +
+                             (f"ran past {LANE_TIMEOUT_S} s" if rc is None else f"exited {rc}"))
+    with open(out) as f:
+        result = json.load(f)
+    for name, shapes in result["shapes"].items():
+        PATH_SHAPES[name].update(tuple(shape) for shape in shapes)
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+def run_step(name, kind, fn, args, paths: dict, walls: dict) -> None:
+    """One step: the launch counters from 0 just before it, read just after
+    (a path run in subprocesses returns theirs, each from 0 at its start)."""
+    score.reset_launch_counts()
+    seq_scan.reset_launch_counts()
+    t = time.perf_counter()
+    result = fn(*args)
+    walls[name] = round(time.perf_counter() - t, 1)
+    if kind != "check":
+        paths[name] = result if kind == "sub" else dict(score.launch_counts, **seq_scan.launch_counts)
+
+
 def main(names=()) -> int:
+    names = list(names)
+    lane_out = None
+    if names[:1] == ["--lane"]:  # the second process of a whole run
+        lane_out, names = names[1], names[2:]
+        signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card", file=sys.stderr)
         return 2
@@ -7713,14 +8166,16 @@ def main(names=()) -> int:
         print(f"chip_smoke: unknown phases {sorted(set(names) - set(known))}; known: {' '.join(known)}",
               file=sys.stderr)
         return 2
-    phase("card", torch=torch.__version__, cuda=torch.version.cuda,
-          device=json.dumps(torch.cuda.get_device_name(0)), nvidia_smi=json.dumps(card))
-
     t0 = time.perf_counter()
-    libs = _cuda.build_all()
-    phase("build", seconds=round(time.perf_counter() - t0, 3),
-          libraries=",".join(sorted(libs)), flags=json.dumps(" ".join(_cuda.NVCC_FLAGS)),
-          kernels_max_regs_max_local_bytes=json.dumps(resource_usage(libs)))
+    if lane_out is None:
+        phase("card", torch=torch.__version__, cuda=torch.version.cuda,
+              device=json.dumps(torch.cuda.get_device_name(0)), nvidia_smi=json.dumps(card))
+        libs = _cuda.build_all()
+        phase("build", seconds=round(time.perf_counter() - t0, 3),
+              libraries=",".join(sorted(libs)), flags=json.dumps(" ".join(_cuda.NVCC_FLAGS)),
+              kernels_max_regs_max_local_bytes=json.dumps(resource_usage(libs)))
+    else:
+        _cuda.build_all()  # built by the first process: loads only
 
     kernels = {}
     if not names:
@@ -7728,21 +8183,42 @@ def main(names=()) -> int:
         kernels.update(lstm_kernel_phase())
         kernels.update(bf16_kernel_phase())
 
-    # every path: the launch counters from 0 just before it, read just after
-    # (a path run in subprocesses returns theirs, each from 0 at its start)
     paths = {}
-    walls = {"kernels": round(time.perf_counter() - t0, 1)}  # each phase's wall seconds
+    # each phase's wall seconds (the lane's own from its first path on)
+    walls = {"kernels": round(time.perf_counter() - t0, 1)} if lane_out is None else {}
     record_path_shapes()
-    for name, kind, fn, args in steps(card):
-        if names and name not in names:
-            continue
-        score.reset_launch_counts()
-        seq_scan.reset_launch_counts()
+    lanes = [start_lane(i, lane) for i, lane in enumerate(LANES)] if not names else []
+    in_lanes = {name for lane in LANES for name in lane} if lanes else set()
+    deadline = time.perf_counter() + LANE_TIMEOUT_S
+
+    def join():
         t = time.perf_counter()
-        result = fn(*args)
-        walls[name] = round(time.perf_counter() - t, 1)
-        if kind != "check":
-            paths[name] = result if kind == "sub" else dict(score.launch_counts, **seq_scan.launch_counts)
+        while lanes:
+            result = join_lane(*lanes[0], deadline)
+            walls[f"lane{len(LANES) - len(lanes)}_s"] = result["walls"].pop("lane_s")
+            lanes.pop(0)
+            paths.update(result["paths"])
+            walls.update(result["walls"])
+        walls["lane_wait"] = round(time.perf_counter() - t, 1)
+
+    try:
+        for name, kind, fn, args in steps(card):
+            if names and name not in names or name in in_lanes:
+                continue
+            if name == LANE_JOIN and lanes:
+                join()
+            run_step(name, kind, fn, args, paths, walls)
+        if lanes:
+            join()
+    finally:
+        for proc, *_ in lanes:
+            stop_lane(proc)
+    if lane_out is not None:
+        walls["lane_s"] = round(time.perf_counter() - t0, 1)
+        with open(lane_out, "w") as f:
+            json.dump({"paths": paths, "walls": walls,
+                       "shapes": {k: sorted(v) for k, v in PATH_SHAPES.items()}}, f)
+        return 0
     if not names:
         t = time.perf_counter()
         path_parity_phase(kernels)

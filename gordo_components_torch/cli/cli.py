@@ -36,7 +36,17 @@ same options, environment variables and exit codes:
   deterministic JSON (``compile_fleet``), printed or written to
   ``--output-file``; 81 when the spec does not parse or validate;
 - ``workflow generate``: the spec's Kubernetes manifests
-  (``generate_workflow``), the JAX generator's bytes; 81 likewise.
+  (``generate_workflow``), the JAX generator's bytes; 81 likewise;
+- ``workflow run``: a fleet spec compiled and executed by
+  :class:`~gordo_components_torch.workflow.FleetExecutor` (build, bucket,
+  place, canary, the game-day gate, promote) against the live replicas
+  named by ``--server-url`` and ``--collection-dir`` (``SERVER_BASE_URL``,
+  ``MODEL_COLLECTION_DIR``; none: a plan-only run), its state in
+  ``--state-dir`` (``GORDO_FLEET_STATE_DIR``), its report printed as JSON;
+  81 for a spec that does not parse or validate, 84 when some step failed
+  and others executed, 83 when every executed step failed. Each of the two
+  options may be given once a replica, paired in order (the JAX CLI takes
+  one replica); the builds run on ``--device``.
 
 ``--device`` (default ``cuda``) is the counterpart of the JAX ``--platform``:
 the commands run on the card, and without CUDA they fail through
@@ -46,9 +56,9 @@ the commands run on the card, and without CUDA they fail through
 ``GORDO_PROFILE_DIR``, under which builds and traced bank groups write
 profiler captures (``utils/profiling.py``). Refused with exit code 2:
 ``--compile-cache-dir`` (the XLA compile cache has no counterpart in the
-port); ``build-fleet --distributed`` exits 83, and ``workflow run`` (the fleet
-executor, ROADMAP.md A13) exits 2. The client and ``workflow`` commands move
-no tensor and ignore ``--device``; so does ``run-watchman``.
+port); ``build-fleet --distributed`` exits 83. The client commands,
+``workflow compile`` and ``workflow generate`` move no tensor and ignore
+``--device``; so does ``run-watchman``.
 """
 
 import argparse
@@ -184,7 +194,8 @@ def _parser() -> argparse.ArgumentParser:
     wsub = w.add_subparsers(dest="workflow_command", metavar="WORKFLOW_COMMAND")
     wsub.required = True
     wc = wsub.add_parser("compile", help="Compile a fleet spec into the typed build/place/canary/promote DAG.")
-    wr = wsub.add_parser("run", help="Compile and execute a fleet spec: not ported")
+    wr = wsub.add_parser("run", help="Compile AND execute a fleet spec: build -> bucket -> place -> canary -> "
+                                     "promote, goodput-judged with auto-rollback.")
     wg = wsub.add_parser("generate", help="Render gang-scheduled manifests from a fleet config.")
     for q in (wc, wr, wg):
         q.add_argument("--machine-config", "-f", required=True)
@@ -195,9 +206,14 @@ def _parser() -> argparse.ArgumentParser:
     wc.add_argument("--devices-per-bucket", type=int, default=None)
     wg.add_argument("--models-per-gang", type=int, default=None)
     wg.add_argument("--devices-per-gang", type=int, default=None)
-    wr.add_argument("--state-dir", default=_env("GORDO_FLEET_STATE_DIR", ".fleet-state"))
-    wr.add_argument("--server-url", default=_env("SERVER_BASE_URL"))
-    wr.add_argument("--collection-dir", default=_env("MODEL_COLLECTION_DIR"))
+    wr.add_argument("--state-dir", default=_env("GORDO_FLEET_STATE_DIR", ".fleet-state"),
+                    help="Executor state (step keys, artifacts, incumbent backups); re-runs execute only the "
+                         "stale subgraph")
+    wr.add_argument("--server-url", action="append", default=None,
+                    help="A live replica to roll the fleet onto (canary + promote through its zero-downtime "
+                         "/reload swap), once a replica; omitted = plan-only run (build + plan, no landing)")
+    wr.add_argument("--collection-dir", action="append", default=None,
+                    help="Each --server-url's artifact dir, in the same order")
     wr.add_argument("--model-register-dir", default=_env("MODEL_REGISTER_DIR"))
     return p
 
@@ -468,8 +484,38 @@ def _workflow_generate(args) -> int:
     return EXIT_OK
 
 
+def _workflow_run(args) -> int:
+    from gordo_components_torch.workflow import FleetExecutor, compile_fleet
+
+    urls = args.server_url or ([os.environ["SERVER_BASE_URL"]] if os.environ.get("SERVER_BASE_URL") else [])
+    cdirs = args.collection_dir or (
+        [os.environ["MODEL_COLLECTION_DIR"]] if os.environ.get("MODEL_COLLECTION_DIR") else [])
+    try:
+        with open(args.machine_config) as f:
+            dag = compile_fleet(safe_load(f.read()), args.project_name)
+        if len(urls) > 1 or len(cdirs) > 1:
+            if len(urls) != len(cdirs):
+                raise ValueError(f"{len(urls)} --server-url against {len(cdirs)} --collection-dir: give one "
+                                 "artifact dir a replica, in the same order")
+            executor = FleetExecutor(dag, args.state_dir, replicas=list(zip(urls, cdirs)),
+                                     register_dir=args.model_register_dir, device=args.device)
+        else:
+            executor = FleetExecutor(dag, args.state_dir, server_url=urls[0] if urls else None,
+                                     collection_dir=cdirs[0] if cdirs else None,
+                                     register_dir=args.model_register_dir, device=args.device)
+    except (ValueError, YAMLSubsetError) as exc:
+        print(f"Invalid fleet spec: {exc}", file=sys.stderr)
+        return EXIT_CONFIG_ERROR
+    report = executor.run()
+    print(json.dumps(report, indent=2, default=str))
+    if report["failed"]:
+        return EXIT_PARTIAL_BUILD if report["executed"] else EXIT_BUILD_ERROR
+    return EXIT_OK
+
+
 def _workflow(args) -> int:
-    return {"compile": _workflow_compile, "generate": _workflow_generate}[args.workflow_command](args)
+    return {"compile": _workflow_compile, "generate": _workflow_generate,
+            "run": _workflow_run}[args.workflow_command](args)
 
 
 _COMMANDS = {"build": _build, "build-fleet": _build_fleet, "checkpoint-prune": _checkpoint_prune,
@@ -491,9 +537,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         parser.error(f"--body-encoding (GORDO_CLIENT_ENCODING): {args.body_encoding!r} is not one of "
                      f"{', '.join(_BODY_ENCODINGS)}")
     if args.command == "workflow":
-        if args.workflow_command == "run":
-            parser.error("workflow run: the fleet executor (build, place, canary, promote against a live "
-                         "server) is not ported yet (ROADMAP.md A13)")
         if not os.path.exists(args.machine_config):
             parser.error(f"--machine-config / -f: path {args.machine_config!r} does not exist")
     logging.basicConfig(

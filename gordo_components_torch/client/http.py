@@ -256,6 +256,9 @@ class Session:
     async def get(self, url: str, **kwargs) -> Response:
         return await self.request("GET", url, **kwargs)
 
+    async def post(self, url: str, **kwargs) -> Response:
+        return await self.request("POST", url, **kwargs)
+
     async def request(self, method: str, url: str, *, data: Optional[bytes] = None, json: Any = None,
                       headers: Optional[Dict[str, str]] = None,
                       params: Optional[Dict[str, str]] = None) -> Response:

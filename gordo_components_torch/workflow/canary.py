@@ -2,7 +2,8 @@
 
 Counterpart of ``gordo_components_tpu/workflow/canary.py``: the same
 policy, signals and verdicts. The ``workflow.canary`` fault point is
-registered here; the executor that fires it is not ported yet.
+registered here, and the executor (``executor.py``) fires it on every
+judge poll.
 
 "ML Productivity Goodput" (PAPERS.md #5) argues the only honest health
 signal for an ML serving change is the fraction of wall/device time that

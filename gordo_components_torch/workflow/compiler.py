@@ -4,7 +4,7 @@ Counterpart of ``gordo_components_tpu/workflow/compiler.py``: the same
 spec, validation and DAG, byte for byte (a machine that leaves its model
 to the default gets the port's ``DEFAULT_MODEL_CONFIG``, whose paths name
 ``gordo_components_torch``, and so other keys than the JAX package's).
-The executor (``workflow/executor.py``) is not ported yet.
+The executor (``workflow/executor.py``) runs the DAG.
 
 Reference parity, inverted: where the reference's workflow generator
 renders one Argo builder pod per machine from the normalized config

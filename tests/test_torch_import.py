@@ -95,7 +95,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "server.transport", "server.workers", "qos.classify", "client", "client.client",
                 "client.io", "client.http", "client.forwarders", "resilience.retry_budget",
                 "ops.quantize", "streaming", "streaming.ingest", "streaming.drift", "streaming.push",
-                "streaming.adapt", "dataset.data_provider.streaming", "client.subscribe"):
+                "streaming.adapt", "dataset.data_provider.streaming", "client.subscribe",
+                "workflow.executor", "gameday.gate", "gameday.harness", "gameday.replica"):
         assert f"gordo_components_torch.{mod}" in report["modules"]
 
 

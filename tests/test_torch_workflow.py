@@ -20,7 +20,8 @@
   them); its override and knob errors read as JAX's. The port's template
   subset against jinja2 itself on small templates;
 - the CLI's ``workflow compile`` and ``workflow generate`` against the JAX
-  CLI's bytes and exit codes; ``workflow run`` exits 2 naming A13;
+  CLI's bytes and exit codes (``workflow run`` in
+  ``tests/test_torch_executor.py``);
 - the ``workflow.canary`` fault point is registered.
 """
 
@@ -577,13 +578,6 @@ def test_workflow_commands_exit_81_as_jax_does(command, tmp_path, capsys):
         rc, out, err = run_port(args, capsys)
         assert (rc, out, err) == run_jax(args)
         assert rc == 81 and err.startswith("Invalid ")
-
-
-def test_workflow_run_exits_2_naming_a13(capsys):
-    with pytest.raises(SystemExit) as exc:
-        main(["workflow", "run", "-f", FLEET_YAML, "-p", "demo"])
-    assert exc.value.code == 2
-    assert "A13" in capsys.readouterr().err
 
 
 def test_workflow_commands_refuse_a_missing_file_with_2(capsys):
